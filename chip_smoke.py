@@ -2,33 +2,50 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path of end2end text MoRec at the flagship width
-(BERT-small item tower, SASRec user tower, a 100_001-item catalog) with
-random weights drawn from a seeded generator, through the kernels built from
-idvs/morec_tpu_torch/csrc by nvcc on first use. Phases, each fatal on
-failure:
+Drives the port's two main paths of end2end text MoRec at the flagship
+width (BERT-small item tower, SASRec user tower, a 100_001-item catalog)
+with random weights drawn from a seeded generator, through the kernels built
+from idvs/morec_tpu_torch/csrc by nvcc on first use: serving (catalog
+encode, recommend) and training (the bf16 train step with dropout). Phases,
+each fatal on failure:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: build (or load) the kernel library;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, in float32 and bfloat16, with kernel and plain
-   times (CUDA events, median);
-4. main path: Retriever.encode_catalog over the catalog, then recommend for
+3. kernels: each forward kernel against its plain PyTorch version on the
+   card, at the serving path's shapes, in float32 and bfloat16, with kernel
+   and plain times (CUDA events, median);
+4. backward kernels: the training editions, the backward kernels and the
+   scatter-add against autograd of the plain versions at the train step's
+   shapes, in float32 and bfloat16, dropout 0 and 0.1, with times;
+5. serving: Retriever.encode_catalog over the catalog, then recommend for
    request batches of 1, 8 and 64, with every launch counter set to 0
-   first;
-5. checks: every kernel launched in the encode and in recommend, the table
+   first; every kernel launched in the encode and in recommend, the table
    is finite, no result holds the padding id or a history id, and on a
    2048-item sub-catalog the kernel path agrees with the plain path (the
-   same model and wrappers on the CPU);
-6. timings: catalog encode seconds and items/s, recommend p50 per batch.
+   same model and wrappers on the CPU); catalog encode seconds and items/s,
+   recommend p50 per batch;
+6. training: the counters set to 0, 30 steps on one fixed batch (the loss
+   must fall), then 20 timed steps on distinct batches (p50, samples/s);
+   every training-edition and backward kernel launched, every parameter
+   finite;
+7. gradient check: one float32 step without dropout on 8 users, on the card
+   and through the plain path on a CPU copy of the model: the loss and
+   every parameter's gradient agree.
 
 Prints a JSON line of per-kernel results, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when no GPU
 is visible.
+
+    python3 chip_smoke.py --profile
+
+runs only the card and build phases and a torch.profiler split of the
+train step by device kernel (wall and device-busy ms a step, each kernel's
+share), and prints no result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import math
@@ -45,13 +62,23 @@ from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models.model import make_model
 from idvs.morec_tpu_torch.models.text_tower import TextTower
 from idvs.morec_tpu_torch.ops.cuda import lib
-from idvs.morec_tpu_torch.ops.cuda.attention import fused_mha, fused_mha_plain
+from idvs.morec_tpu_torch.ops.cuda.attention import (fused_mha,
+                                                     fused_mha_bwd,
+                                                     fused_mha_plain)
+from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
+    scatter_add_rows, scatter_add_rows_plain)
 from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp_resln,
+                                               fused_mlp_resln_bwd,
                                                fused_mlp_resln_plain,
+                                               fused_mlp_resln_res,
                                                fused_proj_resln,
-                                               fused_proj_resln_plain)
+                                               fused_proj_resln_bwd,
+                                               fused_proj_resln_plain,
+                                               fused_proj_resln_res)
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
 from idvs.morec_tpu_torch.serve import Retriever
+from idvs.morec_tpu_torch.train.state import make_train_state, param_labels
+from idvs.morec_tpu_torch.train.step import dedup_pack, make_train_step
 
 SEED = 0
 # flagship geometry (bench.py:71,149-156,168-172)
@@ -62,6 +89,12 @@ ENCODE_BATCH = 512          # item_emb_batch_size (config.py:112)
 REQUEST_BATCHES = (1, 8, 64)
 TOP_K = 10
 SUB_ITEMS = 2048            # sub-catalog held against the plain path
+# the train step (bench.py text_morec: GEOM, _gen_raw, cfg)
+TRAIN_B, ZIPF_A = 128, 1.2  # users a step, Zipf exponent of the item ids
+LR, FT_LR, DROP = 1e-4, 5e-5, 0.1
+FIXED_STEPS, TIMED_STEPS = 30, 20
+CHECK_USERS = 8             # users of the float32 gradient check
+PROFILE_STEPS, PROFILE_ROWS = 5, 12   # --profile: steps traced, rows shown
 
 # Kernel vs plain tolerances (max abs error). float32: both sides accumulate
 # in float32 in different orders over K <= 2048 terms of O(1) values, about
@@ -73,21 +106,56 @@ SUB_ITEMS = 2048            # sub-catalog held against the plain path
 TOL = {"fused_mha": {torch.float32: 1e-4, torch.bfloat16: 6.25e-2},
        "fused_proj_resln": {torch.float32: 1e-4, torch.bfloat16: 1e-1},
        "fused_mlp_resln": {torch.float32: 1e-4, torch.bfloat16: 1e-1}}
+# Backward editions vs autograd of the plain version: max abs error over
+# max(1, max |plain value|) of each output and gradient. float32: sums of up
+# to titles x 30 terms in other orders, ~1e-6 relative; 1e-4 leaves a
+# margin. bfloat16: the gradients are rounded to bf16 (2^-8 relative), and
+# the plain version rounds d(y_pre) to bf16 before the dropout where the
+# kernel rounds once after it, so one rounding may differ on every
+# element; 3e-2 is a few units of bf16 on the largest value.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# scatter_add_rows: float atomics add a token's rows in no fixed order
+# (float32 reassociation), and bf16 casts the sum once (one unit, 2^-8).
+SCATTER_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # Sub-catalog kernel path vs plain path on the CPU, float32 through four
 # BERT layers, fc, two SASRec blocks and a 512-wide dot product.
 TABLE_TOL = 1e-3
 SCORE_TOL = 1e-3            # relative to max(1, |score|)
+# float32 train step, card vs CPU plain path: the loss (relative) and each
+# parameter's gradient (max abs error over the larger of its max |gradient|
+# and GRAD_FLOOR of the model's largest), summed in other orders through
+# four BERT layers, two SASRec blocks and the CE. The floor is there for
+# gradients that vanish in exact arithmetic and are rounding noise on both
+# sides: the key projection's bias shifts all of a query's scores by one
+# amount, which the softmax ignores.
+STEP_LOSS_TOL = 1e-4
+STEP_GRAD_TOL = 1e-3
+GRAD_FLOOR = 1e-3
 
+CSRC, PALLAS = "idvs/morec_tpu_torch/csrc/", "idvs/morec_tpu/ops/pallas/"
 SOURCES = {
-    "fused_mha": ("idvs/morec_tpu_torch/csrc/fused_mha.cu",
-                  "idvs/morec_tpu/ops/pallas/attention.py:143"),
-    "fused_proj_resln": ("idvs/morec_tpu_torch/csrc/proj_resln.cu",
-                         "idvs/morec_tpu/ops/pallas/mlp.py:715"),
-    "fused_mlp_resln": ("idvs/morec_tpu_torch/csrc/mlp_resln.cu",
-                        "idvs/morec_tpu/ops/pallas/mlp.py:432"),
+    "fused_mha": ("fused_mha.cu", "attention.py:143"),
+    "fused_mha_bwd": ("fused_mha.cu", "attention.py:179"),
+    "fused_proj_resln": ("proj_resln.cu", "mlp.py:715"),
+    "fused_proj_resln_res": ("proj_resln.cu", "mlp.py:709"),
+    "fused_proj_resln_bwd": ("resln_bwd.cu", "mlp.py:723"),
+    "fused_mlp_resln": ("mlp_resln.cu", "mlp.py:432"),
+    "fused_mlp_resln_res": ("mlp_resln.cu", "mlp.py:424"),
+    "fused_mlp_resln_bwd": ("resln_bwd.cu", "mlp.py:444"),
+    "scatter_add_rows": ("embed_scatter.cu", "embed_scatter.py:66"),
 }
-WRAPPERS = {"fused_mha": fused_mha, "fused_proj_resln": fused_proj_resln,
-            "fused_mlp_resln": fused_mlp_resln}
+WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
+            "fused_proj_resln": fused_proj_resln,
+            "fused_proj_resln_res": fused_proj_resln_res,
+            "fused_proj_resln_bwd": fused_proj_resln_bwd,
+            "fused_mlp_resln": fused_mlp_resln,
+            "fused_mlp_resln_res": fused_mlp_resln_res,
+            "fused_mlp_resln_bwd": fused_mlp_resln_bwd,
+            "scatter_add_rows": scatter_add_rows}
+SERVE_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln")
+TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
+                 "fused_proj_resln_bwd", "fused_mlp_resln_res",
+                 "fused_mlp_resln_bwd", "scatter_add_rows")
 
 
 class PhaseError(RuntimeError):
@@ -204,11 +272,156 @@ def kernel_phase(dev, card: str) -> dict:
               f"[{card}]", flush=True)
         require(math.isfinite(err) and err <= tol,
                 f"{name} {label}: max abs error {err} above {tol}")
-        r = results.setdefault(name, {"max_abs_err": 0.0, "ms": None,
-                                      "plain_ms": None})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if r["ms"] is None:     # the first case is the headline shape
-            r["ms"], r["plain_ms"] = ms, plain_ms
+        _record(results, name, err, ms, plain_ms)
+    return results
+
+
+def _leaves(tensors):
+    return [t.detach().clone().requires_grad_(True) for t in tensors]
+
+
+def _rel_err(got, want) -> tuple:
+    """(max abs error, max(1, max |want|)) of two tensors."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, max(1.0, want.float().abs().max().item())
+
+
+def backward_cases(rng, dev, titles: int):
+    """(res entry or None, bwd entry, label, dtype, inputs, cotangent,
+    kernel fn, plain fn) at the train step's shapes: BERT over `titles`
+    deduplicated titles of 30 tokens, SASRec over TRAIN_B users of L."""
+    g = lambda *s, scale=1.0, dt=torch.float32: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32) * scale).to(dev, dt)
+    M_bert, M_user = titles * TITLE_LEN, TRAIN_B * L
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for p in (0.0, DROP):
+            tag = f"{'f32' if dt == torch.float32 else 'bf16'} drop={p}"
+            seed = int(rng.integers(1, 2 ** 31 - 1))
+            mask = torch.from_numpy(ragged_mask(rng, titles, TITLE_LEN)
+                                    ).to(dev)
+            cases.append((
+                None, "fused_mha_bwd",
+                f"mask B={titles} T={TITLE_LEN} nh={HEADS} {tag}", dt,
+                [g(titles, TITLE_LEN, 3 * HIDDEN, dt=dt)],
+                g(titles, TITLE_LEN, HIDDEN, dt=dt),
+                lambda q, m=mask, p=p, s=seed: fused_mha(
+                    q, m, n_heads=HEADS, drop_rate=p, seed=s),
+                lambda q, m=mask, p=p, s=seed: fused_mha_plain(
+                    q, m, n_heads=HEADS, drop_rate=p, seed=s)))
+            bias = causal_additive_mask(torch.from_numpy(
+                bench_log_mask(rng, TRAIN_B)).to(dev))
+            cases.append((
+                None, "fused_mha_bwd",
+                f"bias B={TRAIN_B} T={L} nh={USER_HEADS} {tag}", dt,
+                [g(TRAIN_B, L, 3 * D, dt=dt)], g(TRAIN_B, L, D, dt=dt),
+                lambda q, b=bias, p=p, s=seed: fused_mha(
+                    q, bias=b, n_heads=USER_HEADS, drop_rate=p, seed=s),
+                lambda q, b=bias, p=p, s=seed: fused_mha_plain(
+                    q, bias=b, n_heads=USER_HEADS, drop_rate=p, seed=s)))
+            for M, eps, act, who in ((M_bert, 1e-12, "gelu", "BERT"),
+                                     (M_user, 1e-6, "relu", "SASRec")):
+                C = HIDDEN
+                ln = [1.0 + g(C, scale=0.1), g(C, scale=0.1)]
+                bias_c = (g(C, scale=0.1) if who == "BERT"
+                          else torch.zeros(C, device=dev))
+                kw = dict(eps=eps, drop_rate=p, seed=seed)
+                cases.append((
+                    "fused_proj_resln_res", "fused_proj_resln_bwd",
+                    f"{who} M={M} C={C} {tag}", dt,
+                    [g(M, C, dt=dt), g(M, C, dt=dt),
+                     g(C, C, scale=C ** -0.5), bias_c] + ln,
+                    g(M, C, dt=dt),
+                    lambda *a, kw=kw: fused_proj_resln(*a[:4], ln=a[4:],
+                                                       **kw),
+                    lambda *a, kw=kw: fused_proj_resln_plain(
+                        *a[:4], ln=a[4:], **kw)))
+                cases.append((
+                    "fused_mlp_resln_res", "fused_mlp_resln_bwd",
+                    f"{who} M={M} C={C} F={FFN} {act} {tag}", dt,
+                    [g(M, C, dt=dt), g(C, FFN, scale=C ** -0.5),
+                     g(FFN, scale=0.1), g(FFN, C, scale=FFN ** -0.5),
+                     g(C, scale=0.1)] + ln,
+                    g(M, C, dt=dt),
+                    lambda *a, kw=kw, act=act: fused_mlp_resln(
+                        *a[:5], ln=a[5:], act=act, **kw),
+                    lambda *a, kw=kw, act=act: fused_mlp_resln_plain(
+                        *a[:5], ln=a[5:], act=act, **kw)))
+    return cases
+
+
+def _record(results, name, err, ms, plain_ms):
+    r = results.setdefault(name, {"max_abs_err": 0.0, "ms": None,
+                                  "plain_ms": None})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if r["ms"] is None:     # the first case is the headline shape
+        r["ms"], r["plain_ms"] = ms, plain_ms
+
+
+def backward_phase(dev, card: str, titles: int) -> dict:
+    """Training editions and backward kernels against autograd of the plain
+    versions; times are the forward with a graph (training editions) and
+    the backward alone (CUDA events)."""
+    rng = np.random.default_rng(SEED + 2)
+    results = {}
+    for res_name, bwd_name, label, dt, inputs, dout, kern, plain in \
+            backward_cases(rng, dev, titles):
+        lk, lp = _leaves(inputs), _leaves(inputs)
+        out_k, out_p = kern(*lk), plain(*lp)
+        got = torch.autograd.grad(out_k, lk, dout, retain_graph=True)
+        want = torch.autograd.grad(out_p, lp, dout, retain_graph=True)
+        torch.cuda.synchronize()
+        worst = (0.0, 0.0, 1.0)     # (err / scale, err, scale)
+        for a, b in zip((out_k, *got), (out_p, *want)):
+            require(a.shape == b.shape and a.dtype == b.dtype,
+                    f"{bwd_name} {label}: {a.shape}/{a.dtype} vs "
+                    f"{b.shape}/{b.dtype}")
+            err, scale = _rel_err(a, b)
+            require(math.isfinite(err), f"{bwd_name} {label}: not finite")
+            worst = max(worst, (err / scale, err, scale))
+        tol = GRAD_TOL[dt]
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out_k, lk, dout, retain_graph=True), reps=10)
+        bwd_plain = cuda_ms(lambda: torch.autograd.grad(
+            out_p, lp, dout, retain_graph=True), reps=10)
+        line = (f"backward {bwd_name} [{label}]: max_abs_err {worst[1]:.3e} "
+                f"on a scale of {worst[2]:.3g} (tol {tol:g} of the scale), "
+                f"backward {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms")
+        _record(results, bwd_name, worst[1], bwd_ms, bwd_plain)
+        if res_name is not None:
+            fwd_ms = cuda_ms(lambda: kern(*lk), reps=10)
+            fwd_plain = cuda_ms(lambda: plain(*lp), reps=10)
+            line += (f"; training forward {res_name} {fwd_ms:.4f} ms, plain "
+                     f"{fwd_plain:.4f} ms")
+            _record(results, res_name, _rel_err(out_k, out_p)[0], fwd_ms,
+                    fwd_plain)
+        print(f"{line} [{card}]", flush=True)
+        require(worst[0] <= tol, f"{bwd_name} {label}: error {worst[1]} "
+                f"above {tol} x {worst[2]}")
+    for dt in (torch.float32, torch.bfloat16):
+        # BERT's word-table gradient: the titles' token ids, duplicates
+        # included, into the 30522-row table
+        M = titles * TITLE_LEN
+        ids = torch.from_numpy(rng.integers(1, VOCAB, size=M)).to(dev)
+        dx = torch.from_numpy(rng.standard_normal((M, HIDDEN)).astype(
+            np.float32)).to(dev, dt)
+        got = scatter_add_rows(ids, dx, VOCAB)
+        want = scatter_add_rows_plain(ids, dx, VOCAB)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype == dt,
+                f"scatter_add_rows: {got.shape}/{got.dtype}")
+        err, scale = _rel_err(got, want)
+        ms = cuda_ms(lambda: scatter_add_rows(ids, dx, VOCAB))
+        plain_ms = cuda_ms(lambda: scatter_add_rows_plain(ids, dx, VOCAB))
+        tol = SCATTER_TOL[dt]
+        print(f"kernel scatter_add_rows [M={M} V={VOCAB} D={HIDDEN} "
+              f"{'f32' if dt == torch.float32 else 'bf16'}]: max_abs_err "
+              f"{err:.3e} on a scale of {scale:.3g} (tol {tol:g} of the "
+              f"scale), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"[{card}]", flush=True)
+        require(math.isfinite(err) and err <= tol * scale,
+                f"scatter_add_rows: error {err} above {tol} x {scale}")
+        _record(results, "scatter_add_rows", err, ms, plain_ms)
     return results
 
 
@@ -229,23 +442,36 @@ def histories(rng, B: int, item_num: int):
             for _ in range(B)]
 
 
-def build_model(dev):
-    cfg = SimpleNamespace(item_tower="modal", user_tower="sasrec",
-                          stage="end2end", embedding_dim=D,
-                          num_attention_heads=USER_HEADS,
-                          transformer_block=BLOCKS, max_seq_len=L)
+def model_config(**train) -> SimpleNamespace:
+    """The flagship configuration with the JAX Config's field names; the
+    train step's fields as keyword arguments."""
+    return SimpleNamespace(item_tower="modal", user_tower="sasrec",
+                           stage="end2end", embedding_dim=D,
+                           num_attention_heads=USER_HEADS,
+                           transformer_block=BLOCKS, max_seq_len=L,
+                           drop_rate=DROP, **train)
+
+
+def build_model(dev, cfg, seed: int = SEED):
     bcfg = BertConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
                       num_hidden_layers=LAYERS, num_attention_heads=HEADS,
-                      intermediate_size=FFN, max_position_embeddings=512)
+                      intermediate_size=FFN, max_position_embeddings=512,
+                      hidden_dropout_prob=cfg.drop_rate,
+                      attention_probs_dropout_prob=cfg.drop_rate)
     encoder = TextTower(BertModel(bcfg, device=dev), embedding_dim=D,
                         word_embedding_dim=HIDDEN, pooling="cls",
                         attr_lengths=(TITLE_LEN,), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     return make_model(cfg, ITEM_NUM, encoder, device=dev, generator=gen)
 
 
 def counts() -> dict:
     return {n: w.launches for n, w in WRAPPERS.items()}
+
+
+def reset_counts() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
 
 
 def check_results(ids: np.ndarray, hist) -> None:
@@ -255,14 +481,12 @@ def check_results(ids: np.ndarray, hist) -> None:
         require(not (seen & set(row.tolist())), "history id recommended")
 
 
-def main_path(dev, card: str) -> dict:
+def serve_path(dev, card: str, content) -> dict:
     rng = np.random.default_rng(SEED + 1)
-    model = build_model(dev)
-    content = torch.from_numpy(catalog(rng, ITEM_NUM)).to(dev)
+    model = build_model(dev, model_config())
     requests = {B: histories(rng, B, ITEM_NUM) for B in REQUEST_BATCHES}
 
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     table = Retriever.encode_catalog(model, ITEM_NUM, content, D,
@@ -276,9 +500,9 @@ def main_path(dev, card: str) -> dict:
                for B, h in requests.items()}
     final = counts()
 
-    print(f"launches after encode {after_encode}, after recommend {final}",
-          flush=True)
-    for n in WRAPPERS:
+    print(f"serving launches after encode {after_encode}, after recommend "
+          f"{final}", flush=True)
+    for n in SERVE_KERNELS:
         require(after_encode[n] > 0, f"{n} never launched in the encode")
         require(final[n] > after_encode[n],
                 f"{n} never launched in recommend")
@@ -346,7 +570,193 @@ def sub_catalog_check(model, content, rng) -> None:
     check_results(ids_k, hist)
 
 
+def bench_log_mask(rng, B: int) -> np.ndarray:
+    """(B, L) log masks as bench.py _gen_raw draws them: each transition
+    valid with probability 0.9, the last always."""
+    lm = (rng.uniform(size=(B, L)) < 0.9).astype(np.float32)
+    lm[:, -1] = 1.0
+    return lm
+
+
+def train_batches(rng, n: int) -> list:
+    """n host batches as bench.py _gen_raw("text_morec") draws them
+    (bench.py:94-101): a Zipf(1.2) item id capped at ITEM_NUM in every one
+    of the L + 1 slots of every user, then the log mask of
+    bench_log_mask."""
+    return [(np.minimum(rng.zipf(ZIPF_A, size=(TRAIN_B, L + 1)),
+                        ITEM_NUM).astype(np.int64),
+             bench_log_mask(rng, TRAIN_B)) for _ in range(n)]
+
+
+def dedup_cap(batches) -> int:
+    """bench.py's static dedup capacity: the most unique ids of any batch,
+    rounded up to 256."""
+    most = max(len(np.unique(ids)) for ids, _ in batches)
+    return -(-most // 256) * 256
+
+
+def device_batch(ids, lm, cap: int, dev) -> dict:
+    """A host batch deduplicated (np.unique, padded to cap) and moved to
+    the device."""
+    packed = dedup_pack(ids, cap)
+    require(packed is not None, f"a batch holds more than {cap} items")
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return {"ids": t(ids), "log_mask": t(lm), "uniq_ids": t(packed[0]),
+            "inverse": t(packed[1])}
+
+
+def log_popularity(dev) -> torch.Tensor:
+    """bench.py's uniform popularity; the padding item 0 at 1."""
+    pop = np.full(ITEM_NUM + 1, 1.0 / ITEM_NUM)
+    pop[0] = 1.0
+    return torch.from_numpy(np.log(pop).astype(np.float32)).to(dev)
+
+
+def train_config(cap: int, compute_dtype: str = "bfloat16"):
+    return model_config(loss="inbatch_ce", compute_dtype=compute_dtype,
+                        lr=LR, l2_weight=0.0, fine_tune_lr=FT_LR,
+                        fine_tune_l2_weight=0.0, dedup_cap=cap)
+
+
+def train_setup(dev, content, cap: int):
+    """(model, train state, step) of the flagship bf16 train step."""
+    cfg = train_config(cap)
+    model = build_model(dev, cfg, seed=SEED + 3)
+    state = make_train_state(model, cfg, param_labels(model), seed=SEED)
+    step = make_train_step(cfg, item_content=content,
+                           log_pop=log_popularity(dev))
+    return model, state, step
+
+
+def train_path(dev, card: str, content, batches, cap: int):
+    """The bf16 train step with dropout: FIXED_STEPS on batches[0], then
+    TIMED_STEPS on the next batches, each deduplicated and copied to the
+    device inside its timed step."""
+    model, state, step = train_setup(dev, content, cap)
+    fixed = device_batch(*batches[0], cap, dev)
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    losses = [step(state, fixed).item() for _ in range(FIXED_STEPS)]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"train: {FIXED_STEPS} steps on one batch of {TRAIN_B} users "
+          f"({len(np.unique(batches[0][0]))} unique items, cap {cap}): "
+          f"loss mean of the first 5 {first:.5f}, of the last 5 {last:.5f}",
+          flush=True)
+    require(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    require(last < first, "the loss did not fall on a fixed batch")
+    walls = []
+    for ids, lm in batches[1:TIMED_STEPS + 1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(state, device_batch(ids, lm, cap, dev)).item()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        require(math.isfinite(loss), "a loss is not finite")
+    launched = counts()
+    p50 = statistics.median(walls)
+    print(f"train step B={TRAIN_B} L={L} bf16, dropout {DROP}, dedup cap "
+          f"{cap}: p50 {p50:.3f} ms over {len(walls)} distinct batches "
+          f"(min {min(walls):.3f}, max {max(walls):.3f}), "
+          f"{TRAIN_B / p50 * 1e3:.1f} samples/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
+          flush=True)
+    print(f"training launches {launched}", flush=True)
+    for n in TRAIN_KERNELS:
+        require(launched[n] > 0, f"{n} never launched in training")
+    require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            "a parameter is not finite after training")
+    return model, launched
+
+
+def grad_check(dev, model, content, batch) -> None:
+    """One float32 step without dropout (eval mode) on CHECK_USERS users:
+    on the card through the kernels, and on a CPU copy of the model
+    through the plain versions. The loss and every gradient agree."""
+    ids, lm = batch[0][:CHECK_USERS], batch[1][:CHECK_USERS]
+    cap = -(-len(np.unique(ids)) // 8) * 8
+    cfg = train_config(cap, "float32")
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        m = copy.deepcopy(model).to(where)
+        state = make_train_state(m, cfg, param_labels(m))
+        m.eval()
+        step = make_train_step(cfg, item_content=content.to(where),
+                               log_pop=log_popularity(where))
+        t0 = time.perf_counter()
+        loss = step(state, device_batch(ids, lm, cap, where)).item()
+        runs.append((loss, time.perf_counter() - t0, {
+            n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
+    (lk, sk, gk), (lp, sp, gp) = runs
+    loss_err = abs(lk - lp) / abs(lp)
+    top = max(want.abs().max().item() for want in gp.values())
+    worst, worst_name = (-1.0, 0.0, 0.0), None
+    for n, want in gp.items():
+        scale = max(want.abs().max().item(), GRAD_FLOOR * top)
+        err = (gk[n] - want).abs().max().item()
+        if err / scale >= worst[0]:
+            worst, worst_name = (err / scale, err, scale), n
+    print(f"gradient check: f32 step on {CHECK_USERS} users ({cap} titles), "
+          f"card {sk:.2f} s vs CPU plain path {sp:.2f} s: loss {lk:.6f} vs "
+          f"{lp:.6f}, rel err {loss_err:.3e} (tol {STEP_LOSS_TOL:g}); "
+          f"largest gradient error {worst[1]:.3e} on a scale of "
+          f"{worst[2]:.3e} in {worst_name} (tol {STEP_GRAD_TOL:g} of the "
+          f"scale; largest gradient {top:.3e}) over {len(gp)} parameters",
+          flush=True)
+    require(math.isfinite(loss_err) and loss_err <= STEP_LOSS_TOL,
+            "train-step loss disagrees with the plain path")
+    require(worst[0] <= STEP_GRAD_TOL,
+            f"gradient of {worst_name} disagrees with the plain path")
+
+
+def profile_train(dev, card: str, content, batches, cap: int) -> None:
+    """torch.profiler split of the train step by device kernel:
+    PROFILE_STEPS steps on distinct batches after as many warm-up steps.
+    Prints the wall and device-busy time a step and each kernel's share of
+    the busy time (user annotations left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, state, step = train_setup(dev, content, cap)
+    run = lambda part: [step(state, device_batch(ids, lm, cap, dev)).item()
+                        for ids, lm in part]
+    run(batches[:PROFILE_STEPS])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(batches[PROFILE_STEPS:2 * PROFILE_STEPS])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    rows = sorted(((e.self_device_time_total / 1e3 / PROFILE_STEPS,
+                    e.count / PROFILE_STEPS, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    require(busy > 0, "the profiler recorded no device time")
+    print(f"profile: train step B={TRAIN_B} bf16, dropout {DROP}, dedup cap "
+          f"{cap}, {PROFILE_STEPS} steps: wall {wall:.3f} ms a step, device "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f} %), "
+          f"{sum(r[1] for r in rows):.0f} kernels a step [{card}]",
+          flush=True)
+    for ms, n, name in rows[:PROFILE_ROWS]:
+        print(f"  {100 * ms / busy:6.2f} % {ms:8.3f} ms/step x{n:<5g} "
+              f"{name[:100]}", flush=True)
+    rest = rows[PROFILE_ROWS:]
+    ms = sum(r[0] for r in rest)
+    print(f"  {100 * ms / busy:6.2f} % {ms:8.3f} ms/step "
+          f"x{sum(r[1] for r in rest):<5g} the other {len(rest)} kernels",
+          flush=True)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="only profile the train step by device kernel "
+                             "(torch.profiler), after the card and build "
+                             "phases")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
               "GPU only", file=sys.stderr)
@@ -365,12 +775,25 @@ def main() -> int:
     print(f"build: {path.name} ready in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    content = torch.from_numpy(
+        catalog(np.random.default_rng(SEED + 1), ITEM_NUM)).to(dev)
+    batches = train_batches(np.random.default_rng(SEED + 4),
+                            TIMED_STEPS + 1)
+    cap = dedup_cap(batches)
+    if args.profile:
+        profile_train(dev, card, content, batches, cap)
+        return 0
+
     kernels = kernel_phase(dev, card)
-    launches = main_path(dev, card)
+    kernels.update(backward_phase(dev, card, cap))
+    served = serve_path(dev, card, content)
+    model, trained = train_path(dev, card, content, batches, cap)
+    grad_check(dev, model, content, batches[0])
 
     line = {"kernels": [
-        {"name": n, "route": "cuda", "source": SOURCES[n][0],
-         "replaces": SOURCES[n][1], "launches": launches[n],
+        {"name": n, "route": "cuda", "source": CSRC + SOURCES[n][0],
+         "replaces": PALLAS + SOURCES[n][1],
+         "launches": served[n] + trained[n],
          "max_abs_err": kernels[n]["max_abs_err"], "ms": kernels[n]["ms"],
          "plain_ms": kernels[n]["plain_ms"]} for n in WRAPPERS]}
     print(json.dumps(line))

@@ -1,11 +1,14 @@
-// out = LN(x + act(x @ W1 + b1) @ W2 + b2), forward only: the post-LN FFN
-// tail of BERT (intermediate/output/output_ln, exact GELU) and of SASRec
+// out = LN(x + dropout(act(x @ W1 + b1) @ W2 + b2)), forward: the post-LN
+// FFN tail of BERT (intermediate/output/output_ln, exact GELU) and of SASRec
 // (w_1/w_2/ln_ffn, ReLU).
 //
 // Replaces idvs/morec_tpu/ops/pallas/mlp.py _fwd_post_only_kernel (the
-// custom-VJP primal of fused_mlp_resln, body _fwd_post_body) at
-// drop_rate == 0. GELU uses CUDA's erff; the Pallas kernel's
-// Abramowitz-Stegun erf was a Mosaic workaround.
+// custom-VJP primal of fused_mlp_resln, when ypre and h are null) and
+// _fwd_post_kernel (the training edition, which also stores the cast pre-LN
+// sum y_pre and the cast pre-activation h = x @ W1 + b1 for the backward,
+// mlp.py:403-419), body _fwd_post_body, with the in-kernel dropout of
+// dropout.cuh. GELU uses CUDA's erff; the Pallas kernel's Abramowitz-Stegun
+// erf was a Mosaic workaround.
 //
 // Bound on the H100: 4*C*F flops per row at C = 512, F = 2048; in f32 (no
 // TF32, for parity) it is bound by the float FMA rate. The (M, F)
@@ -15,9 +18,11 @@
 // shared memory and walks F in chunks (256 wide at C = 512): h = act(x @
 // W1[:, chunk] + b1) is cast to the compute dtype (mlp.py:406) and parked
 // in shared memory, then folded into the block's (32, C) dense2
-// accumulator in registers (an 8 x 8 tile per thread). The intermediate
-// never reaches device memory; the residual add, the cast and the LN run
-// on the accumulator (rowtile.cuh). Weight slices are double-buffered with
+// accumulator in registers (an 8 x 8 tile per thread). The forward-only
+// edition never writes the intermediate to device memory (the training
+// edition stores the cast pre-activation once, for the backward); the
+// residual add, the dropout, the cast and the LN run on the accumulator
+// (rowtile.cuh). Weight slices are double-buffered with
 // the next slice's loads in flight during the FMAs.
 #include "rowtile.cuh"
 
@@ -51,7 +56,8 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ b2,
                      const float* __restrict__ gamma,
                      const float* __restrict__ beta, T* __restrict__ out,
-                     int M, int F, float eps) {
+                     T* __restrict__ ypre, T* __restrict__ hsave, int M,
+                     int F, float eps, Drop drop) {
   using Lay = Layout<C>;
   constexpr int TR = Lay::TR, FC = f_chunk<C>();
   constexpr int kSlices1 = C / kBK, kSlices2 = FC / kBK;
@@ -96,6 +102,16 @@ __global__ void __launch_bounds__(kThreads)
     // of Ht ended before the first barrier of the loop above
     const float4 bv = load4(b1 + f0 + col1 + 4 * l);
     const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+    if (hsave != nullptr) {
+#pragma unroll
+      for (int r = 0; r < TR; ++r) {
+        const int row = row0 + row_off + r;
+        if (row < M)
+          store4(hsave + static_cast<size_t>(row) * F + f0 + col1 + 4 * l,
+                 make_float4(h[r][0] + bb[0], h[r][1] + bb[1],
+                             h[r][2] + bb[2], h[r][3] + bb[3]));
+      }
+    }
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
@@ -113,14 +129,15 @@ __global__ void __launch_bounds__(kThreads)
       fma_slice<TR, Lay::NG, C>(acc, Ht + t * kBK * kLdA, ws, row_off, col2);
     }
   }
-  ln_epilogue<T, C>(acc, b2, x, gamma, beta, out, row0, M, eps, red);
+  ln_epilogue<T, C>(acc, b2, x, gamma, beta, out, row0, M, eps, red, drop,
+                    ypre);
 }
 
 template <typename T, int C, int ACT>
 cudaError_t launch(const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, const float* gamma,
-                   const float* beta, void* out, int M, int F, float eps,
-                   cudaStream_t stream) {
+                   const float* beta, void* out, void* ypre, void* hsave,
+                   int M, int F, float eps, Drop drop, cudaStream_t stream) {
   if (F % f_chunk<C>() != 0) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * mlp_smem_floats<C>();
   auto kernel = mlp_resln_kernel<T, C, ACT>;
@@ -129,23 +146,26 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
   kernel<<<(M + kBM - 1) / kBM, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), gamma, beta, static_cast<T*>(out), M, F,
-      eps);
+      static_cast<const T*>(b2), gamma, beta, static_cast<T*>(out),
+      static_cast<T*>(ypre), static_cast<T*>(hsave), M, F, eps, drop);
   return cudaGetLastError();
 }
 
 template <typename T, int ACT>
 cudaError_t dispatch_c(const void* x, const void* w1, const void* b1,
                        const void* w2, const void* b2, const float* g,
-                       const float* bt, void* out, int M, int C, int F,
-                       float eps, cudaStream_t s) {
+                       const float* bt, void* out, void* yp, void* hs, int M,
+                       int C, int F, float eps, Drop d, cudaStream_t s) {
   switch (C) {
     case 128:
-      return launch<T, 128, ACT>(x, w1, b1, w2, b2, g, bt, out, M, F, eps, s);
+      return launch<T, 128, ACT>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M, F,
+                                 eps, d, s);
     case 256:
-      return launch<T, 256, ACT>(x, w1, b1, w2, b2, g, bt, out, M, F, eps, s);
+      return launch<T, 256, ACT>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M, F,
+                                 eps, d, s);
     case 512:
-      return launch<T, 512, ACT>(x, w1, b1, w2, b2, g, bt, out, M, F, eps, s);
+      return launch<T, 512, ACT>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M, F,
+                                 eps, d, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -154,14 +174,15 @@ cudaError_t dispatch_c(const void* x, const void* w1, const void* b1,
 template <typename T>
 cudaError_t dispatch(const void* x, const void* w1, const void* b1,
                      const void* w2, const void* b2, const float* g,
-                     const float* bt, void* out, int M, int C, int F,
-                     float eps, int activation, cudaStream_t s) {
+                     const float* bt, void* out, void* yp, void* hs, int M,
+                     int C, int F, float eps, int activation, Drop d,
+                     cudaStream_t s) {
   if (activation == kGelu)
-    return dispatch_c<T, kGelu>(x, w1, b1, w2, b2, g, bt, out, M, C, F, eps,
-                                s);
+    return dispatch_c<T, kGelu>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M, C,
+                                F, eps, d, s);
   if (activation == kRelu)
-    return dispatch_c<T, kRelu>(x, w1, b1, w2, b2, g, bt, out, M, C, F, eps,
-                                s);
+    return dispatch_c<T, kRelu>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M, C,
+                                F, eps, d, s);
   return cudaErrorInvalidValue;
 }
 
@@ -171,24 +192,31 @@ cudaError_t dispatch(const void* x, const void* w1, const void* b1,
 // x, out: (M, C); w1: (C, F) and w2: (F, C) in (in, out) layout; b1: (F,),
 // b2: (C,) in the compute dtype; gamma, beta: (C,) float. C must be 128,
 // 256 or 512 and F a multiple of 128 (of 256 at C = 512). activation:
-// 0 = exact GELU, 1 = ReLU.
+// 0 = exact GELU, 1 = ReLU. ypre (M, C) and h (M, F), in the compute
+// dtype, are both given (training edition) or both null. Dropout:
+// drop_key = mix32(seed), drop_thresh = 0 for none (dropout.cuh).
 extern "C" int idvs_mlp_resln_fwd(const void* x, const void* w1,
                                   const void* b1, const void* w2,
                                   const void* b2, const void* gamma,
-                                  const void* beta, void* out, int M, int C,
-                                  int F, float eps, int activation, int dtype,
-                                  void* stream) {
+                                  const void* beta, void* out, void* ypre,
+                                  void* h, int M, int C, int F, float eps,
+                                  int activation, unsigned drop_key,
+                                  unsigned drop_thresh, float drop_scale,
+                                  int dtype, void* stream) {
   using namespace idvs;
+  const Drop d{drop_key, drop_thresh, drop_scale};
   if (M < 1 || F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
   const float* bt = static_cast<const float*>(beta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return static_cast<int>(dispatch<float>(x, w1, b1, w2, b2, g, bt, out, M,
-                                            C, F, eps, activation, s));
+    return static_cast<int>(dispatch<float>(x, w1, b1, w2, b2, g, bt, out,
+                                            ypre, h, M, C, F, eps, activation,
+                                            d, s));
   if (dtype == kBF16)
     return static_cast<int>(dispatch<__nv_bfloat16>(
-        x, w1, b1, w2, b2, g, bt, out, M, C, F, eps, activation, s));
+        x, w1, b1, w2, b2, g, bt, out, ypre, h, M, C, F, eps, activation, d,
+        s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

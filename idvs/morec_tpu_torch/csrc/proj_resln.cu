@@ -1,10 +1,12 @@
-// out = LN(res + x @ W + b), forward only: the post-LN attention tail of
-// BERT (attention_output + attention_ln) and of SASRec (fc + ln_attn, with a
-// zero bias).
+// out = LN(res + dropout(x @ W + b)), forward: the post-LN attention tail
+// of BERT (attention_output + attention_ln) and of SASRec (fc + ln_attn,
+// with a zero bias).
 //
 // Replaces idvs/morec_tpu/ops/pallas/mlp.py _fwd_proj_only_kernel (the
-// custom-VJP primal of fused_proj_resln, body _fwd_proj_body) at
-// drop_rate == 0.
+// custom-VJP primal of fused_proj_resln, when ypre is null) and
+// _fwd_proj_kernel (the training edition, which also stores the cast pre-LN
+// sum y_pre for the backward, resln_bwd.cu), body _fwd_proj_body, with the
+// in-kernel dropout of dropout.cuh.
 //
 // Bound on the H100: a (M, C) x (C, C) product at C = 512 does 2*C = 1024
 // flops per byte of W and M*C*2 bytes of x/res/out traffic; at M = 15360 it
@@ -12,9 +14,9 @@
 // cores), while the LN epilogue is pure bandwidth.
 // Design: one 256-thread block per 32-row tile owns all C output columns
 // (an 8 x 8 register tile per thread at C = 512, rowtile.cuh), so the
-// residual add, the cast and the LN run on the accumulator before the
-// single (M, C) store: device memory sees x and res in and out out, never
-// the pre-LN sum. K is walked in 16-deep slices, double-buffered through
+// dropout, the residual add, the cast and the LN run on the accumulator
+// before the single (M, C) store: device memory sees x and res in and out
+// out, plus y_pre in the training edition. K is walked in 16-deep slices, double-buffered through
 // shared memory with the next slice's loads in flight during the FMAs.
 #include "rowtile.cuh"
 
@@ -29,7 +31,7 @@ __global__ void __launch_bounds__(kThreads)
                       const T* __restrict__ w, const T* __restrict__ b,
                       const float* __restrict__ gamma,
                       const float* __restrict__ beta, T* __restrict__ out,
-                      int M, float eps) {
+                      T* __restrict__ ypre, int M, float eps, Drop drop) {
   using Lay = Layout<C>;
   constexpr int kSlices = C / kBK;
   extern __shared__ float4 smem4[];
@@ -58,13 +60,15 @@ __global__ void __launch_bounds__(kThreads)
     }
     fma_slice<Lay::TR, Lay::NG, C>(acc, at, bs, row_off, col_off);
   }
-  ln_epilogue<T, C>(acc, b, res, gamma, beta, out, row0, M, eps, red);
+  ln_epilogue<T, C>(acc, b, res, gamma, beta, out, row0, M, eps, red, drop,
+                    ypre);
 }
 
 template <typename T, int C>
 cudaError_t launch(const void* x, const void* res, const void* w,
                    const void* b, const float* gamma, const float* beta,
-                   void* out, int M, float eps, cudaStream_t stream) {
+                   void* out, void* ypre, int M, float eps, Drop drop,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * kBK * kLdA + 2 * kBK * C + kRedFloats);
   auto kernel = proj_resln_kernel<T, C>;
@@ -73,18 +77,22 @@ cudaError_t launch(const void* x, const void* res, const void* w,
   kernel<<<(M + kBM - 1) / kBM, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(res),
       static_cast<const T*>(w), static_cast<const T*>(b), gamma, beta,
-      static_cast<T*>(out), M, eps);
+      static_cast<T*>(out), static_cast<T*>(ypre), M, eps, drop);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* x, const void* res, const void* w,
                      const void* b, const float* gamma, const float* beta,
-                     void* out, int M, int C, float eps, cudaStream_t s) {
+                     void* out, void* ypre, int M, int C, float eps, Drop d,
+                     cudaStream_t s) {
   switch (C) {
-    case 128: return launch<T, 128>(x, res, w, b, gamma, beta, out, M, eps, s);
-    case 256: return launch<T, 256>(x, res, w, b, gamma, beta, out, M, eps, s);
-    case 512: return launch<T, 512>(x, res, w, b, gamma, beta, out, M, eps, s);
+    case 128:
+      return launch<T, 128>(x, res, w, b, gamma, beta, out, ypre, M, eps, d, s);
+    case 256:
+      return launch<T, 256>(x, res, w, b, gamma, beta, out, ypre, M, eps, d, s);
+    case 512:
+      return launch<T, 512>(x, res, w, b, gamma, beta, out, ypre, M, eps, d, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -93,22 +101,28 @@ cudaError_t dispatch(const void* x, const void* res, const void* w,
 }  // namespace idvs
 
 // x, res, out: (M, C); w: (C, C) in (in, out) layout; b: (C,) in the compute
-// dtype; gamma, beta: (C,) float. C must be 128, 256 or 512.
+// dtype; gamma, beta: (C,) float. C must be 128, 256 or 512. ypre: (M, C)
+// in the compute dtype, or null for the forward-only edition. Dropout:
+// drop_key = mix32(seed), drop_thresh = 0 for none (dropout.cuh).
 extern "C" int idvs_proj_resln_fwd(const void* x, const void* res,
                                    const void* w, const void* b,
                                    const void* gamma, const void* beta,
-                                   void* out, int M, int C, float eps,
+                                   void* out, void* ypre, int M, int C,
+                                   float eps, unsigned drop_key,
+                                   unsigned drop_thresh, float drop_scale,
                                    int dtype, void* stream) {
   using namespace idvs;
+  const Drop d{drop_key, drop_thresh, drop_scale};
   if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
   const float* bt = static_cast<const float*>(beta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return static_cast<int>(
-        dispatch<float>(x, res, w, b, g, bt, out, M, C, eps, s));
+        dispatch<float>(x, res, w, b, g, bt, out, ypre, M, C, eps, d, s));
   if (dtype == kBF16)
     return static_cast<int>(
-        dispatch<__nv_bfloat16>(x, res, w, b, g, bt, out, M, C, eps, s));
+        dispatch<__nv_bfloat16>(x, res, w, b, g, bt, out, ypre, M, C, eps, d,
+                                s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

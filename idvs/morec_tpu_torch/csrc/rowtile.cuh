@@ -18,6 +18,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "dropout.cuh"
 
 namespace idvs {
 namespace rowtile {
@@ -157,17 +158,20 @@ __device__ __forceinline__ void fma_slice(float (&acc)[TR][4 * NG],
 // Shared-memory floats ln_epilogue needs for its cross-warp sums.
 constexpr int kRedFloats = 2 * 2 * kBM;
 
-// out = LN(cast(acc + bias + resid)) over each row of C columns: the
-// pre-LN sum is rounded to the compute dtype BEFORE the float stats
+// out = LN(cast(dropout(acc + bias) + resid)) over each row of C columns:
+// the pre-LN sum is rounded to the compute dtype BEFORE the float stats
 // (mlp.py _fwd_post_body / _fwd_proj_body), the variance is the fast
 // E[x^2] - E[x]^2 clamped at 0 (flax nn.LayerNorm), gamma/beta are float.
-// A row's sums come from its WC warps through `red` (kRedFloats floats).
+// The dropout index of element (row, col) is row * C + col. The cast pre-LN
+// sum is also stored to ypre when it is given (the training edition's
+// residual). A row's sums come from its WC warps through `red` (kRedFloats
+// floats).
 template <typename T, int C>
 __device__ __forceinline__ void ln_epilogue(
     float (&acc)[Layout<C>::TR][4 * Layout<C>::NG], const T* __restrict__ bias,
     const T* __restrict__ resid, const float* __restrict__ gamma,
     const float* __restrict__ beta, T* __restrict__ out, int row0, int M,
-    float eps, float* red) {
+    float eps, float* red, Drop drop, T* __restrict__ ypre) {
   using Lay = Layout<C>;
   constexpr int TR = Lay::TR, NG = Lay::NG, WC = Lay::WC;
   const int l = threadIdx.x & 31, wr = Lay::wr(), wc = Lay::wc();
@@ -186,14 +190,19 @@ __device__ __forceinline__ void ln_epilogue(
                                     col)
                             : make_float4(0.f, 0.f, 0.f, 0.f);
       const float bb[4] = {b.x, b.y, b.z, b.w}, xx[4] = {x.x, x.y, x.z, x.w};
+      const uint32_t index = static_cast<uint32_t>(row) * C + col;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        float y = acc[r][4 * j + c] + bb[c];
+        float y = drop.apply(acc[r][4 * j + c] + bb[c], index + c);
         y = round_to<T>(y + xx[c]);
         acc[r][4 * j + c] = y;
         sum[r] += y;
         sq[r] += y * y;
       }
+      if (ypre != nullptr && live)
+        store4(ypre + static_cast<size_t>(row) * C + col,
+               make_float4(acc[r][4 * j + 0], acc[r][4 * j + 1],
+                           acc[r][4 * j + 2], acc[r][4 * j + 3]));
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {

@@ -1,12 +1,15 @@
-"""BERT / RoBERTa encoder, forward only (JAX twin: models/bert.py).
+"""BERT / RoBERTa encoder (JAX twin: models/bert.py).
 
 Parameter names follow the Flax tree (``query``/``key``/``value``,
 ``attention_output``, ``attention_ln``, ``intermediate``, ``output``,
 ``output_ln``), so ``convert.from_flax`` loads a JAX ``BertModel`` as it is.
 The attention runs through the ``fused_mha`` kernel with BERT's key mask,
 and the two post-LN tails through the ``fused_proj_resln`` and
-``fused_mlp_resln`` kernels (exact GELU). Dropout is a training concern and
-is not applied.
+``fused_mlp_resln`` kernels (exact GELU); the word table's gradient through
+the ``scatter_add_rows`` kernel (``ScatterEmbed``). In training mode
+(``module.train()``) the embeddings, the attention probabilities and both
+tails drop at the config's rates, each site with its own seed from the
+generator passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ import torch
 from torch import nn
 
 from ..ops.cuda.attention import fused_mha
+from ..ops.cuda.embed_scatter import embed_gather
 from ..ops.cuda.mlp import fused_mlp_resln, fused_proj_resln
-from .layers import Dense, Embed, LayerNorm
+from .layers import Dense, Dropout, Embed, LayerNorm, drop_call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,20 +47,22 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         H = cfg.hidden_size
         self.n_heads = cfg.num_attention_heads
+        self.drop_rate = cfg.attention_probs_dropout_prob
         self.query = Dense(H, H, device=device)
         self.key = Dense(H, H, device=device)
         self.value = Dense(H, H, device=device)
 
-    def forward(self, hidden: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
+                generator=None) -> torch.Tensor:
         # one fused QKV matmul, as the JAX package runs it outside any kernel
         dt = hidden.dtype
         w = torch.cat([self.query.weight, self.key.weight,
                        self.value.weight], dim=1).to(dt)
         b = torch.cat([self.query.bias, self.key.bias,
                        self.value.bias]).to(dt)
+        rate, seed = drop_call(self.training, self.drop_rate, generator)
         return fused_mha(hidden @ w + b, attention_mask,
-                         n_heads=self.n_heads)
+                         n_heads=self.n_heads, drop_rate=rate, seed=seed)
 
 
 class BertLayer(nn.Module):
@@ -64,6 +70,7 @@ class BertLayer(nn.Module):
         super().__init__()
         H, I = cfg.hidden_size, cfg.intermediate_size
         self.eps = cfg.layer_norm_eps
+        self.drop_rate = cfg.hidden_dropout_prob
         self.attention_self = BertSelfAttention(cfg, device=device)
         self.attention_output = Dense(H, H, device=device)
         self.attention_ln = LayerNorm(H, self.eps, device=device)
@@ -71,19 +78,30 @@ class BertLayer(nn.Module):
         self.output = Dense(I, H, device=device)
         self.output_ln = LayerNorm(H, self.eps, device=device)
 
-    def forward(self, hidden: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
-        ctx = self.attention_self(hidden, attention_mask)
+    def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
+                generator=None) -> torch.Tensor:
+        ctx = self.attention_self(hidden, attention_mask, generator)
+        rate, seed = drop_call(self.training, self.drop_rate, generator)
         hidden = fused_proj_resln(
             ctx, hidden, self.attention_output.weight,
             self.attention_output.bias,
             ln=(self.attention_ln.weight, self.attention_ln.bias),
-            eps=self.eps)
+            eps=self.eps, drop_rate=rate, seed=seed)
+        rate, seed = drop_call(self.training, self.drop_rate, generator)
         return fused_mlp_resln(
             hidden, self.intermediate.weight, self.intermediate.bias,
             self.output.weight, self.output.bias,
             ln=(self.output_ln.weight, self.output_ln.bias), eps=self.eps,
-            act="gelu")
+            act="gelu", drop_rate=rate, seed=seed)
+
+
+class ScatterEmbed(Embed):
+    """Embed whose table gradient runs as the scatter-add kernel
+    (``embed_gather``; JAX models/bert.py _ScatterEmbed). Forward and
+    parameters are Embed's."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return embed_gather(self.weight, ids)
 
 
 class BertModel(nn.Module):
@@ -93,18 +111,19 @@ class BertModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         H = cfg.hidden_size
-        self.word_embeddings = Embed(cfg.vocab_size, H, device=device)
+        self.word_embeddings = ScatterEmbed(cfg.vocab_size, H, device=device)
         self.position_embeddings = Embed(cfg.max_position_embeddings, H,
                                          device=device)
         self.token_type_embeddings = (
             Embed(cfg.type_vocab_size, H, device=device)
             if cfg.type_vocab_size else None)
         self.embeddings_ln = LayerNorm(H, cfg.layer_norm_eps, device=device)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layer_{i}", BertLayer(cfg, device=device))
 
-    def forward(self, input_ids: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                generator=None) -> torch.Tensor:
         c = self.cfg
         T = input_ids.shape[1]
         if c.is_roberta:
@@ -119,7 +138,7 @@ class BertModel(nn.Module):
         if self.token_type_embeddings is not None:
             # single segment: token type 0 for every position
             h = h + self.token_type_embeddings.weight[0]
-        h = self.embeddings_ln(h)
+        h = self.dropout(self.embeddings_ln(h), generator)
         for i in range(c.num_hidden_layers):
-            h = getattr(self, f"layer_{i}")(h, attention_mask)
+            h = getattr(self, f"layer_{i}")(h, attention_mask, generator)
         return h

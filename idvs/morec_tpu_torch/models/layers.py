@@ -1,4 +1,5 @@
-"""Shared building blocks: flax-semantics LayerNorm, parameter leaves, init.
+"""Shared building blocks: flax-semantics LayerNorm, dropout, parameter
+leaves, init.
 
 The leaves keep the Flax layouts so weights cross between the packages by
 one renaming rule (``convert.py``): a ``Dense`` stores its weight as the
@@ -11,6 +12,12 @@ Initialisation draws from an explicit ``torch.Generator``
 normal for the reference's Linear/Embedding weights, LeCun truncated normal
 for the Flax ``Dense`` default, N(0, 1/D) for the Flax ``Embed`` default,
 zero biases and unit scales.
+
+Dropout runs in training mode only (``module.train()``). Every dropout
+site draws its seed from a host ``torch.Generator`` passed down the forward
+calls (``drop_call``), and the mask is the kernels' (``ops/dropout.py``), so
+a site that runs inside a kernel and one that runs here use the same mask
+function.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import dropout
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -34,6 +43,34 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def drop_call(training: bool, rate: float,
+              generator: Optional[torch.Generator]) -> tuple:
+    """(drop_rate, seed) of one dropout site: (0.0, None) in eval mode or
+    at rate 0, else the rate and a fresh seed from ``generator``."""
+    if not training or rate == 0.0:
+        return 0.0, None
+    if generator is None:
+        raise ValueError("dropout in training mode needs a generator")
+    return rate, dropout.draw_seed(generator)
+
+
+class Dropout(nn.Module):
+    """Dropout outside the kernels (flax ``nn.Dropout``'s place), with the
+    kernels' mask; the result keeps x's dtype."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        dropout.check_rate(rate)
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate, seed = drop_call(self.training, self.rate, generator)
+        if rate == 0.0:
+            return x
+        return dropout.apply(x, rate, seed).to(x.dtype)
 
 
 # -- initialisers: fn(tensor, generator) fills the tensor in place ----------

@@ -1,10 +1,13 @@
-"""RecModel: the two-tower recommender, forward only (JAX twin:
-models/model.py).
+"""RecModel: the two-tower recommender (JAX twin: models/model.py).
 
 This slice covers the SASRec user tower, the end2end stage and the item
 towers ``id`` (an ID table whose padding row 0 is zero) and ``modal`` (an
 injected content encoder such as ``TextTower``). DSSM, ID+modality fusion
 and the two-stage towers are still to be ported.
+
+The train/eval mode is torch's (``model.train()`` / ``model.eval()``);
+``item_embs`` and ``user_states`` take the host generator that seeds the
+dropout in training mode (``models/layers.py`` ``drop_call``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from .sasrec import SASRecEncoder
 class RecModel(nn.Module):
     def __init__(self, *, item_num: int, embedding_dim: int,
                  num_attention_heads: int, transformer_block: int,
-                 max_seq_len: int, item_tower: str = "id",
+                 max_seq_len: int, drop_rate: float = 0.0,
+                 item_tower: str = "id",
                  user_tower: str = "sasrec", stage: str = "end2end",
                  encoder: Optional[nn.Module] = None, device=None):
         super().__init__()
@@ -39,7 +43,7 @@ class RecModel(nn.Module):
         self.embedding_dim = embedding_dim
         self.user_encoder = SASRecEncoder(
             embedding_dim, num_attention_heads, transformer_block,
-            max_seq_len, device=device)
+            max_seq_len, drop_rate, device=device)
         if item_tower == "id":
             self.id_embedding = Embed(item_num + 1, embedding_dim,
                                       init=padded_xavier_normal_,
@@ -48,16 +52,19 @@ class RecModel(nn.Module):
             self.encoder = encoder
 
     def item_embs(self, item_ids: torch.Tensor,
-                  content: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  content: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
         """Item tower: ids (N,) (+ content rows (N, W)) -> (N, D)."""
         if self.item_tower == "id":
             return self.id_embedding(item_ids)
-        return self.encoder(content)
+        return self.encoder(content, generator)
 
-    def user_states(self, input_embs: torch.Tensor,
-                    log_mask: torch.Tensor) -> torch.Tensor:
+    def user_states(self, input_embs: torch.Tensor, log_mask: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
         """SASRec tower: (B, L, D) embeddings + (B, L) mask -> (B, L, D)."""
-        return self.user_encoder(input_embs, log_mask)
+        return self.user_encoder(input_embs, log_mask, generator)
 
 
 def make_model(cfg, item_num: int, encoder: Optional[nn.Module] = None, *,
@@ -65,7 +72,9 @@ def make_model(cfg, item_num: int, encoder: Optional[nn.Module] = None, *,
                generator: Optional[torch.Generator] = None) -> RecModel:
     """RecModel from a config with the JAX package's ``Config`` fields
     (``item_tower``, ``user_tower``, ``stage``, ``embedding_dim``,
-    ``num_attention_heads``, ``transformer_block``, ``max_seq_len``).
+    ``num_attention_heads``, ``transformer_block``, ``max_seq_len``, and
+    ``drop_rate``, 0.1 when absent as in the JAX ``Config``). The model
+    comes back in eval mode, for serving; ``train.state`` switches it.
 
     Every parameter, the encoder's included, is drawn from ``generator``
     (a ``torch.Generator`` on ``device``; None draws from torch's default
@@ -74,7 +83,9 @@ def make_model(cfg, item_num: int, encoder: Optional[nn.Module] = None, *,
     model = RecModel(item_num=item_num, embedding_dim=cfg.embedding_dim,
                      num_attention_heads=cfg.num_attention_heads,
                      transformer_block=cfg.transformer_block,
-                     max_seq_len=cfg.max_seq_len, item_tower=cfg.item_tower,
+                     max_seq_len=cfg.max_seq_len,
+                     drop_rate=getattr(cfg, "drop_rate", 0.1),
+                     item_tower=cfg.item_tower,
                      user_tower=cfg.user_tower, stage=cfg.stage,
                      encoder=encoder, device=device)
     init_parameters(model, generator)

@@ -3,7 +3,8 @@
 A catalog row concatenates attributes, each packed ``[ids || attmask]``
 side by side. Each attribute runs through the shared language model, is
 pooled (CLS, or the masked mean), projected by ``fc`` and passed through an
-exact GELU; several attributes are averaged.
+exact GELU; several attributes are averaged. The generator passed to
+``forward`` feeds the language model's dropout in training mode.
 """
 
 from __future__ import annotations
@@ -38,17 +39,20 @@ class TextTower(nn.Module):
         m = attmask[:, :, None].to(hidden.dtype)
         return (hidden * m).sum(dim=1) / m.sum(dim=1).clamp_min(1e-9)
 
-    def _encode_attr(self, packed: torch.Tensor) -> torch.Tensor:
+    def _encode_attr(self, packed: torch.Tensor,
+                     generator) -> torch.Tensor:
         num_words = packed.shape[1] // 2
         ids, attmask = packed[:, :num_words], packed[:, num_words:]
-        pooled = self._pool(self.net(ids, attmask), attmask)
+        pooled = self._pool(self.net(ids, attmask, generator), attmask)
         return F.gelu(self.fc(pooled), approximate="none")
 
-    def forward(self, content: torch.Tensor) -> torch.Tensor:
+    def forward(self, content: torch.Tensor,
+                generator=None) -> torch.Tensor:
         """(N, sum(2 * attr_lengths)) token rows -> (N, embedding_dim)."""
         vecs, start = [], 0
         for n in self.attr_lengths:
-            vecs.append(self._encode_attr(content[:, start:start + 2 * n]))
+            vecs.append(self._encode_attr(content[:, start:start + 2 * n],
+                                          generator))
             start += 2 * n
         if len(vecs) == 1:
             return vecs[0]

@@ -1,16 +1,22 @@
-"""Fused forward multi-head self-attention over packed QKV.
+"""Fused multi-head self-attention over packed QKV, forward and backward.
 
-Kernel: ``csrc/fused_mha.cu``. It replaces the TPU kernel
-``idvs/morec_tpu/ops/pallas/attention.py`` ``fused_mha`` (``_fwd_kernel``),
-forward only, ``drop_rate == 0``. On the H100 it is latency- and
+Kernels: ``csrc/fused_mha.cu``. They replace the TPU kernel
+``idvs/morec_tpu/ops/pallas/attention.py`` ``fused_mha`` (``_fwd_kernel``
+and ``_bwd_kernel``), with the in-kernel dropout of the attention
+probabilities (``ops/dropout.py``). On the H100 both are latency- and
 bandwidth-bound: at T = 20..30 a head is a few thousand float FMAs, so one
-block holds one (row, head) tile of q, k, v and the (T, T) scores in shared
-memory and reads and writes the natural (B, T, 3H) / (B, T, H) layouts with
-no head transpose. The header of the .cu file has the details.
+block holds one (row, head) tile of q, k, v (and dout) and the (T, T)
+scores in shared memory and reads and writes the natural (B, T, 3H) /
+(B, T, H) layouts with no head transpose. The backward recomputes the
+probabilities and returns the packed dqkv; the mask or bias gets no
+gradient. The header of the .cu file has the details.
 
-``fused_mha`` runs the plain PyTorch version ``fused_mha_plain`` for tensors
-on the CPU and launches the kernel for tensors on the card; it raises for
-anything the kernel does not take. ``fused_mha.launches`` counts launches.
+``fused_mha`` runs the plain PyTorch version ``fused_mha_plain`` (autograd
+gives its gradient) for tensors on the CPU. For tensors on the card it
+launches the forward kernel, through a ``torch.autograd.Function`` whose
+backward is ``fused_mha_bwd`` when a gradient is wanted; it raises for
+anything the kernels do not take. ``fused_mha.launches`` and
+``fused_mha_bwd.launches`` count launches.
 """
 
 from __future__ import annotations
@@ -19,10 +25,12 @@ import math
 
 import torch
 
+from .. import dropout
 from . import lib
 
 NEG = -1e9
 MAX_T = 128
+SMEM = 232448
 
 
 def _geometry(qkv, mask, bias, n_heads):
@@ -45,11 +53,15 @@ def _geometry(qkv, mask, bias, n_heads):
         if B % bias.shape[0]:
             raise ValueError(f"bias period {bias.shape[0]} must divide "
                              f"B={B}")
+        if bias.requires_grad:
+            raise NotImplementedError(
+                "a trainable attention bias (Swin's dbias) is not ported")
     return B, T, H, H // n_heads
 
 
 def fused_mha_plain(qkv: torch.Tensor, mask: torch.Tensor = None, *,
-                    n_heads: int, bias: torch.Tensor = None) -> torch.Tensor:
+                    n_heads: int, bias: torch.Tensor = None,
+                    drop_rate: float = 0.0, seed: int = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch (same casts, float32 math)."""
     B, T, H, dh = _geometry(qkv, mask, bias, n_heads)
     q, k, v = (t.float().reshape(B, T, n_heads, dh).transpose(1, 2)
@@ -62,41 +74,87 @@ def fused_mha_plain(qkv: torch.Tensor, mask: torch.Tensor = None, *,
         # row r takes bias[r % P]: tiling the period P up to B rows
         b = bias.to(qkv.dtype).float()
         scores = scores + b.repeat(B // b.shape[0], 1, 1, 1)
-    probs = torch.softmax(scores, dim=-1).to(qkv.dtype).float()
+    probs = torch.softmax(scores, dim=-1).to(qkv.dtype)
+    # dropout on the cast (B, nh, T, T) probabilities (attention.py:166-170)
+    probs = dropout.apply(probs, drop_rate, seed).to(qkv.dtype).float()
     out = (probs @ v).transpose(1, 2).reshape(B, T, H)
     return out.to(qkv.dtype)
 
 
-def _launch(qkv, mask, bias, n_heads, B, T, H, dh):
+def _operands(qkv, mask, bias, n_heads, B, T, dh):
+    """(qkv, float mask/bias table, int args) of a launch; raises for what
+    the kernels do not take."""
     if T > MAX_T:
         raise ValueError(f"fused_mha kernel takes T <= {MAX_T}, got {T}")
-    smem = 4 * (3 * T * (dh + 1) + T * (T + 1))
-    if smem > 232448:
-        raise ValueError(f"fused_mha kernel: T={T}, dh={dh} needs {smem} B "
-                         f"of shared memory, above the 227 KB a block has")
     code = lib.dtype_code(qkv)
     qkv = qkv.contiguous()
     if mask is not None:
-        table = mask.to(qkv.dtype).float().contiguous()
+        table = mask.detach().to(qkv.dtype).float().contiguous()
         mode, period, sp, sh = 0, B, 0, 0
     else:
-        table = bias.to(qkv.dtype).float().contiguous()
+        table = bias.detach().to(qkv.dtype).float().contiguous()
         mode, period, sp = 1, table.shape[0], table.stride(0)
         sh = table.stride(1) if table.shape[1] == n_heads else 0
     lib.check_device(qkv, table)
-    out = torch.empty((B, T, H), dtype=qkv.dtype, device=qkv.device)
+    args = (B, T, n_heads, dh, mode, period, sp, sh, 1.0 / math.sqrt(dh))
+    return qkv, table, args, code
+
+
+def _smem(T, dh, tiles_d, tiles_t):
+    return 4 * (tiles_d * T * (dh + 1) + tiles_t * T * (T + 1))
+
+
+def _launch_fwd(qkv, table, args, code, drop):
+    B, T, nh, dh = args[:4]
+    smem = _smem(T, dh, 3, 1)
+    if smem > SMEM:
+        raise ValueError(f"fused_mha kernel: T={T}, dh={dh} needs {smem} B "
+                         f"of shared memory, above the 227 KB a block has")
+    out = torch.empty((B, T, nh * dh), dtype=qkv.dtype, device=qkv.device)
     err = lib.library().idvs_fused_mha_fwd(
-        qkv.data_ptr(), table.data_ptr(), out.data_ptr(), B, T, n_heads, dh,
-        mode, period, sp, sh, 1.0 / math.sqrt(dh), code,
+        qkv.data_ptr(), table.data_ptr(), out.data_ptr(), *args, *drop, code,
         lib.stream_handle(qkv))
     lib.check(err, "fused_mha")
     fused_mha.launches += 1
     return out
 
 
+def fused_mha_bwd(qkv, table, dout, args, code, drop) -> torch.Tensor:
+    """Packed (B, T, 3H) dqkv of the forward launched with the same table,
+    geometry ``args`` and dropout ``drop`` (key, thresh, scale)."""
+    B, T, nh, dh = args[:4]
+    smem = _smem(T, dh, 4, 2)
+    if smem > SMEM:
+        raise ValueError(f"fused_mha backward kernel: T={T}, dh={dh} needs "
+                         f"{smem} B of shared memory, above 227 KB")
+    dout = dout.to(qkv.dtype).contiguous()
+    lib.check_device(dout)
+    dqkv = torch.empty_like(qkv)
+    err = lib.library().idvs_fused_mha_bwd(
+        qkv.data_ptr(), table.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+        *args, *drop, code, lib.stream_handle(qkv))
+    lib.check(err, "fused_mha_bwd")
+    fused_mha_bwd.launches += 1
+    return dqkv
+
+
+class _FusedMHA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, table, args, code, drop):
+        ctx.save_for_backward(qkv, table)
+        ctx.meta = (args, code, drop)
+        return _launch_fwd(qkv, table, args, code, drop)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, table = ctx.saved_tensors
+        return (fused_mha_bwd(qkv, table, dout, *ctx.meta),
+                None, None, None, None)
+
+
 def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
-              bias: torch.Tensor = None,
-              drop_rate: float = 0.0) -> torch.Tensor:
+              bias: torch.Tensor = None, drop_rate: float = 0.0,
+              seed: int = None) -> torch.Tensor:
     """(B, T, 3H) packed QKV -> (B, T, H) context.
 
     Exactly one of
@@ -104,16 +162,20 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
       bias -- (P, nh or 1, T, T) additive score bias; P divides B and row r
               takes bias[r % P]; a head dim of 1 is shared by all heads
               (SASRec's (B, 1, L, L) causal mask, never broadcast in memory).
-    Both are cast to qkv's dtype first, as in the JAX kernel.
+    Both are cast to qkv's dtype first, as in the JAX kernel, and get no
+    gradient. drop_rate > 0 drops the cast probabilities with the mask of
+    ``seed`` (``ops/dropout.py``).
     """
-    if drop_rate > 0.0:
-        raise NotImplementedError(
-            "attention-probability dropout belongs to training, which this "
-            "forward-only port does not run yet")
     B, T, H, dh = _geometry(qkv, mask, bias, n_heads)
+    drop = dropout.kernel_args(drop_rate, seed)
     if qkv.device.type == "cpu":
-        return fused_mha_plain(qkv, mask, n_heads=n_heads, bias=bias)
-    return _launch(qkv, mask, bias, n_heads, B, T, H, dh)
+        return fused_mha_plain(qkv, mask, n_heads=n_heads, bias=bias,
+                               drop_rate=drop_rate, seed=seed)
+    qkv_c, table, args, code = _operands(qkv, mask, bias, n_heads, B, T, dh)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FusedMHA.apply(qkv_c, table, args, code, drop)
+    return _launch_fwd(qkv_c, table, args, code, drop)
 
 
 fused_mha.launches = 0
+fused_mha_bwd.launches = 0

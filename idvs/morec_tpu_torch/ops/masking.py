@@ -22,3 +22,10 @@ def causal_additive_mask(log_mask: torch.Tensor) -> torch.Tensor:
     keep = key_valid & tri
     zero = torch.zeros((), dtype=torch.float32, device=log_mask.device)
     return torch.where(keep, zero, torch.full_like(zero, NEG_INF))
+
+
+def label_columns(B: int, L: int, device=None) -> torch.Tensor:
+    """(B, L) in-batch CE label column of row (i, j): i * (L + 1) + j + 1,
+    the next item of user i in the flattened (B * (L + 1)) candidates."""
+    rows = torch.arange(B, device=device)[:, None] * (L + 1)
+    return rows + torch.arange(1, L + 1, device=device)[None, :]

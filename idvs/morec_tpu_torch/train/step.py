@@ -1,0 +1,127 @@
+"""The single-device train step of the in-batch CE models (JAX twin:
+idvs/morec_tpu/train/step.py ``make_train_step`` on a one-device mesh).
+
+One step, as the JAX ``single_step`` (:155-245, :264-272):
+
+1. the f32 master parameters are cast to the compute dtype (bf16 or f32,
+   ``cfg.compute_dtype``) and the towers run on the cast copies through
+   ``torch.func.functional_call``, so the gradients land on the masters;
+2. the item tower encodes the batch's item slots: the catalog rows
+   (device-resident, gathered by id) of every slot, or, with host-side
+   dedup (``dedup_pack``: ``uniq_ids`` + ``inverse`` in the batch), of each
+   unique item once, gathered back by ``inverse``;
+3. the SASRec tower runs on ``embs[:, :-1]``, the in-batch debiased CE
+   scores every position against the batch's items;
+4. backward, then the AdamW update of ``state.optimizer``.
+
+Dropout runs in the model's training mode with seeds drawn from
+``state.generator``. BCE, DSSM, gathered negatives, several steps per
+dispatch, encoder chunking and rematerialisation raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from ..ops.losses import inbatch_debiased_ce
+from .state import TrainState
+
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def dedup_pack(ids: np.ndarray, cap: int = 0
+               ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Host-side unique-item packing of one batch on one device (JAX
+    train/runner.py ``_dedup_pack``): (uniq_ids (cap,) padded with id 0,
+    inverse (ids.size,)) so that ``uniq_ids[inverse] == ids.ravel()``, or
+    None when the batch holds more than ``cap`` unique items (the step then
+    encodes every slot). cap 0 (``cfg.dedup_cap``'s default) is 3/4 of the
+    batch's item slots rounded up to 256, at least 256."""
+    flat = np.asarray(ids).reshape(-1)
+    cap = cap or max(256, int(0.75 * flat.size + 255) // 256 * 256)
+    uniq, inv = np.unique(flat, return_inverse=True)
+    if len(uniq) > cap:
+        return None
+    padded = np.zeros(cap, dtype=np.int64)
+    padded[:len(uniq)] = uniq
+    return padded, inv.reshape(-1).astype(np.int64)
+
+
+def _check(cfg, n_steps: int) -> None:
+    unported = {
+        "loss": cfg.loss != "inbatch_ce",
+        "user_tower": cfg.user_tower != "sasrec",
+        "gather_negatives": getattr(cfg, "gather_negatives", False),
+        "n_steps": n_steps != 1,
+        "encoder_chunk": getattr(cfg, "encoder_chunk", 0),
+        "remat_encoder": getattr(cfg, "remat_encoder", False),
+        "use_pallas": getattr(cfg, "use_pallas", False),
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"the port's train step runs the single-device in-batch CE "
+            f"step only; not ported: {', '.join(bad)}")
+
+
+def _prefixed(params: Dict[str, torch.Tensor], prefix: str):
+    n = len(prefix)
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
+                    log_pop: Optional[torch.Tensor] = None,
+                    n_steps: int = 1
+                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                  torch.Tensor]:
+    """step(state, batch) -> the loss (a detached 0-d tensor; reading it
+    waits for the card), updating ``state`` in place.
+
+    item_content: the device-resident (item_num + 1, W) catalog rows of a
+    modal item tower (None for IDRec). log_pop: (item_num + 1,) log
+    popularity on the device. batch: ``ids`` (B, L + 1) and ``log_mask``
+    (B, L) on the device, plus ``uniq_ids`` and ``inverse`` from
+    ``dedup_pack`` when dedup is on.
+    """
+    _check(cfg, n_steps)
+    dt = COMPUTE_DTYPES[cfg.compute_dtype]
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model, gen = state.model, state.generator
+        # bf16 compute on cast copies, f32 masters (JAX step.py:74-85)
+        params = {k: p.to(dt) if p.dtype == torch.float32 else p
+                  for k, p in model.named_parameters()}
+
+        def item_embs(item_ids):
+            if model.item_tower == "id":
+                return functional_call(model.id_embedding,
+                                       _prefixed(params, "id_embedding."),
+                                       (item_ids,))
+            return functional_call(model.encoder,
+                                   _prefixed(params, "encoder."),
+                                   (item_content[item_ids],),
+                                   {"generator": gen})
+
+        ids, lm = batch["ids"], batch["log_mask"]
+        B, S = ids.shape
+        if "uniq_ids" in batch:
+            embs = item_embs(batch["uniq_ids"])[batch["inverse"]]
+        else:
+            embs = item_embs(ids.reshape(-1))
+        embs = embs.reshape(B, S, -1)
+        uv = functional_call(model.user_encoder,
+                             _prefixed(params, "user_encoder."),
+                             (embs[:, :-1].to(dt), lm), {"generator": gen})
+        loss = inbatch_debiased_ce(uv, embs, ids, lm, log_pop[ids])
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    return step

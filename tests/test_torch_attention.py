@@ -1,11 +1,13 @@
 """Port's fused_mha (plain PyTorch version, the CPU dispatch) vs the JAX
 Pallas kernel run in interpret mode, as tests/test_fused_attention.py runs
-it. Same numpy inputs on both sides; float32 tolerance 2e-5 as there."""
+it. Same numpy inputs on both sides; float32 tolerance 2e-5 as there, and
+rtol 2e-4 / atol 2e-5 for gradients (test_fused_attention.py:192)."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from idvs.morec_tpu.ops.masking import causal_additive_mask as jax_causal
@@ -116,7 +118,10 @@ def test_bf16_casts_like_pallas():
     (dict(mask=np.ones((4, 9))), ValueError),
     (dict(bias=np.zeros((3, 2, 10, 10))), ValueError),   # 3 does not divide 4
     (dict(bias=np.zeros((4, 3, 10, 10))), ValueError),   # head dim 3 != 2
-    (dict(mask=np.ones((4, 10)), drop_rate=0.1), NotImplementedError),
+    (dict(bias=torch.zeros(4, 2, 10, 10, requires_grad=True)),
+     NotImplementedError),                    # no dbias (Swin-only)
+    (dict(mask=np.ones((4, 10)), drop_rate=0.1), ValueError),   # no seed
+    (dict(mask=np.ones((4, 10)), drop_rate=1.0, seed=3), ValueError),
 ])
 def test_rejects_bad_arguments(kwargs, exc):
     qkv = torch.zeros(4, 10, 3 * 32)
@@ -124,3 +129,68 @@ def test_rejects_bad_arguments(kwargs, exc):
               if isinstance(v, np.ndarray) else v) for k, v in kwargs.items()}
     with pytest.raises(exc):
         fused_mha(qkv, n_heads=2, **kw)
+
+
+def _grads(B, T, H, nh, bias, seed):
+    """(port dqkv, JAX dqkv) of sum(sin(fused_mha(qkv))): BERT's key mask
+    with fully masked rows (bias None), SASRec's causal bias shared by all
+    heads ("causal"), or a per-head bias of period 2 that cycles over the
+    rows ("cyclic")."""
+    rng = np.random.default_rng(seed)
+    qkv = _qkv(rng, B, T, H)
+    if bias == "causal":
+        lens = rng.integers(1, T + 1, size=B)
+        log_mask = (np.arange(T)[None] >= T - lens[:, None]).astype(
+            np.float32)
+        bias_j = jax_causal(jnp.asarray(log_mask))
+        kw_t = dict(bias=causal_additive_mask(torch.from_numpy(log_mask)))
+        kw_j = dict(bias=jnp.broadcast_to(bias_j, (B, nh, T, T)))
+    elif bias == "cyclic":
+        table = (2.0 * rng.standard_normal((2, nh, T, T))).astype(np.float32)
+        kw_t, kw_j = dict(bias=torch.from_numpy(table)), dict(
+            bias=jnp.asarray(table))
+    else:
+        lens = rng.integers(0, T + 1, size=B)          # 0: every key masked
+        mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+        kw_t = dict(mask=torch.from_numpy(mask))
+        kw_j = dict(mask=jnp.asarray(mask))
+    want = jax.grad(lambda q: jnp.sum(jnp.sin(jax_fused_mha(
+        q, n_heads=nh, interpret=True, **kw_j))))(jnp.asarray(qkv))
+    q = torch.from_numpy(qkv).requires_grad_()
+    torch.sin(fused_mha(q, n_heads=nh, **kw_t)).sum().backward()
+    return q.grad.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("B,T,H,nh,bias", [(8, 30, 64, 4, None),
+                                          (6, 20, 64, 2, "causal"),
+                                          (6, 10, 32, 2, "cyclic")])
+def test_gradients_match_pallas(B, T, H, nh, bias):
+    """dqkv of BERT's key-mask mode and of the bias mode (SASRec's causal
+    bias, a cyclic per-head bias) against jax.grad through the Pallas
+    backward kernel (interpret mode)."""
+    got, want = _grads(B, T, H, nh, bias, seed=B)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_dropout_drops_the_cast_probabilities():
+    """drop_rate > 0: the plain version equals a by-hand attention whose
+    (B, nh, T, T) probabilities carry the mask of ops/dropout.py; the same
+    seed repeats the output, another seed changes it."""
+    from idvs.morec_tpu_torch.ops import dropout
+    B, T, H, nh, p = 3, 7, 16, 2, 0.3
+    rng = np.random.default_rng(4)
+    qkv = torch.from_numpy(_qkv(rng, B, T, H))
+    mask = torch.ones(B, T)
+    got = fused_mha(qkv, mask, n_heads=nh, drop_rate=p, seed=11)
+    q, k, v = (t.reshape(B, T, nh, H // nh).transpose(1, 2)
+               for t in qkv.split(H, dim=-1))
+    probs = torch.softmax(q @ k.transpose(-1, -2) / np.sqrt(H // nh), -1)
+    keep = dropout.keep_mask(11, probs.shape, p)
+    probs = torch.where(keep, probs * dropout.scale(p), 0.0)
+    want = (probs @ v).transpose(1, 2).reshape(B, T, H)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, fused_mha(qkv, mask, n_heads=nh, drop_rate=p,
+                                      seed=11))
+    assert not torch.equal(got, fused_mha(qkv, mask, n_heads=nh,
+                                          drop_rate=p, seed=12))

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-and the launches they refuse. Every test needs an NVIDIA GPU and skips
+forward and backward (autograd of the plain version), with dropout off and
+on, and the launches they refuse. Every test needs an NVIDIA GPU and skips
 without one. On the card (no jax there, so without the repo's conftest):
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -9,17 +10,28 @@ import numpy as np
 import pytest
 import torch
 
-from idvs.morec_tpu_torch.ops.cuda.attention import fused_mha, fused_mha_plain
+from idvs.morec_tpu_torch.ops.cuda.attention import (fused_mha,
+                                                     fused_mha_bwd,
+                                                     fused_mha_plain)
+from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
+    embed_gather, scatter_add_rows, scatter_add_rows_plain)
 from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp_resln,
+                                               fused_mlp_resln_bwd,
                                                fused_mlp_resln_plain,
+                                               fused_mlp_resln_res,
                                                fused_proj_resln,
-                                               fused_proj_resln_plain)
+                                               fused_proj_resln_bwd,
+                                               fused_proj_resln_plain,
+                                               fused_proj_resln_res)
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
 
 pytestmark = pytest.mark.cuda
 
 # max abs error, kernel vs plain; the reasons are in chip_smoke.py (TOL)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-1}
+# gradients: max abs error over max(1, max |plain gradient|); the reasons
+# are in chip_smoke.py (GRAD_TOL)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
 @pytest.fixture(autouse=True)
@@ -111,31 +123,202 @@ def test_mlp_resln(M, C, F, act, dtype):
                                              eps=1e-6, act=act))
 
 
+def _grads(fn, inputs, dout):
+    """(output, gradients of <output, dout> w.r.t. every input)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+
+def _assert_grads_close(got, want, dtype):
+    """Gradients of a run in the compute dtype ``dtype`` (a float32 master
+    weight's gradient carries that dtype's roundings too)."""
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = max(1.0, w.float().abs().max().item())
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * scale, (err, scale)
+
+
+def _uncontiguous(rng, rows, cols, dtype):
+    """A (rows, cols) cotangent laid out column-major, as autograd may hand
+    one over."""
+    return _rand(rng, cols, rows, dtype=dtype).t()
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["mask", "bias"])
+def test_mha_backward(mode, dtype, drop):
+    """dqkv of the backward kernel against autograd of the plain version,
+    BERT's key mask and SASRec's shared causal bias, the forward's mask of
+    dropped probabilities reused."""
+    rng = np.random.default_rng(4)
+    if mode == "mask":
+        B, T, nh, dh = 64, 30, 8, 64
+        lens = rng.integers(0, T + 1, size=B)
+        kw = dict(mask=torch.from_numpy(
+            (np.arange(T)[None] < lens[:, None]).astype(np.float32)).cuda())
+    else:
+        B, T, nh, dh = 32, 20, 2, 256
+        lens = rng.integers(1, T + 1, size=B)
+        kw = dict(bias=causal_additive_mask(torch.from_numpy(
+            (np.arange(T)[None] >= T - lens[:, None]).astype(
+                np.float32)).cuda()))
+    qkv = _rand(rng, B, T, 3 * nh * dh, dtype=dtype)
+    dout = _rand(rng, B, nh * dh, T, dtype=dtype).transpose(1, 2)
+    before = fused_mha_bwd.launches
+    out_k, got = _grads(lambda q: fused_mha(q, n_heads=nh, drop_rate=drop,
+                                            seed=11, **kw), [qkv], dout)
+    assert fused_mha_bwd.launches == before + 1
+    out_p, want = _grads(lambda q: fused_mha_plain(
+        q, n_heads=nh, drop_rate=drop, seed=11, **kw), [qkv], dout)
+    _assert_close(out_k, out_p)
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C,eps", [(3000, 512, 1e-12), (45, 256, 1e-6),
+                                     (7, 128, 1e-12)])
+def test_proj_resln_backward(M, C, eps, dtype, drop):
+    """The training edition and the backward kernels against autograd of
+    the plain version: dx, dres, dw, db, dgamma, dbeta."""
+    rng = np.random.default_rng(5)
+    x, res = _rand(rng, M, C, dtype=dtype), _rand(rng, M, C, dtype=dtype)
+    w, b = _rand(rng, C, C, scale=C ** -0.5), _rand(rng, C, scale=0.1)
+    g, bt = 1.0 + _rand(rng, C, scale=0.1), _rand(rng, C, scale=0.1)
+    dout = _uncontiguous(rng, M, C, dtype)
+    before = (fused_proj_resln_res.launches, fused_proj_resln_bwd.launches)
+    out_k, got = _grads(
+        lambda *a: fused_proj_resln(*a[:4], ln=a[4:], eps=eps,
+                                    drop_rate=drop, seed=3),
+        [x, res, w, b, g, bt], dout)
+    assert (fused_proj_resln_res.launches, fused_proj_resln_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    out_p, want = _grads(
+        lambda *a: fused_proj_resln_plain(*a[:4], ln=a[4:], eps=eps,
+                                          drop_rate=drop, seed=3),
+        [x, res, w, b, g, bt], dout)
+    _assert_close(out_k, out_p)
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C,F,act", [(3000, 512, 2048, "gelu"),
+                                       (20, 512, 2048, "relu"),
+                                       (45, 256, 384, "relu"),
+                                       (7, 128, 128, "gelu")])
+def test_mlp_resln_backward(M, C, F, act, dtype, drop):
+    """The training edition (y_pre and h saved) and the backward kernels
+    against autograd of the plain version: dx, dw1, db1, dw2, db2, dgamma,
+    dbeta."""
+    rng = np.random.default_rng(6)
+    x = _rand(rng, M, C, dtype=dtype)
+    w1, b1 = _rand(rng, C, F, scale=C ** -0.5), _rand(rng, F, scale=0.1)
+    w2, b2 = _rand(rng, F, C, scale=F ** -0.5), _rand(rng, C, scale=0.1)
+    g, bt = 1.0 + _rand(rng, C, scale=0.1), _rand(rng, C, scale=0.1)
+    dout = _uncontiguous(rng, M, C, dtype)
+    before = (fused_mlp_resln_res.launches, fused_mlp_resln_bwd.launches)
+    out_k, got = _grads(
+        lambda *a: fused_mlp_resln(*a[:5], ln=a[5:], eps=1e-12, act=act,
+                                   drop_rate=drop, seed=9),
+        [x, w1, b1, w2, b2, g, bt], dout)
+    assert (fused_mlp_resln_res.launches, fused_mlp_resln_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    out_p, want = _grads(
+        lambda *a: fused_mlp_resln_plain(*a[:5], ln=a[5:], eps=1e-12,
+                                         act=act, drop_rate=drop, seed=9),
+        [x, w1, b1, w2, b2, g, bt], dout)
+    _assert_close(out_k, out_p)
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_only_editions_drop_like_the_plain_versions(dtype, drop):
+    """Without a gradient the tails launch their forward-only editions,
+    with the same dropout mask as the plain versions."""
+    rng = np.random.default_rng(7)
+    M, C, F = 100, 512, 2048
+    x, res = _rand(rng, M, C, dtype=dtype), _rand(rng, M, C, dtype=dtype)
+    w, b = _rand(rng, C, C, scale=C ** -0.5), _rand(rng, C, scale=0.1)
+    w1, b1 = _rand(rng, C, F, scale=C ** -0.5), _rand(rng, F, scale=0.1)
+    w2 = _rand(rng, F, C, scale=F ** -0.5)
+    ln = (1.0 + _rand(rng, C, scale=0.1), _rand(rng, C, scale=0.1))
+    kw = dict(ln=ln, eps=1e-6, drop_rate=drop, seed=21)
+    before = (fused_proj_resln.launches, fused_mlp_resln.launches,
+              fused_proj_resln_res.launches, fused_mlp_resln_res.launches)
+    _assert_close(fused_proj_resln(x, res, w, b, **kw),
+                  fused_proj_resln_plain(x, res, w, b, **kw))
+    _assert_close(fused_mlp_resln(x, w1, b1, w2, b, **kw),
+                  fused_mlp_resln_plain(x, w1, b1, w2, b, **kw))
+    assert (fused_proj_resln.launches, fused_mlp_resln.launches,
+            fused_proj_resln_res.launches, fused_mlp_resln_res.launches) \
+        == (before[0] + 1, before[1] + 1, before[2], before[3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_add_rows(dtype):
+    """Zipf ids, so rows repeat hundreds of times: float atomics sum them in
+    no fixed order, within float32 reassociation (float32: 1e-4 of the
+    largest sum) or one bf16 rounding of the cast result (bfloat16: 1e-2);
+    the kernel is also embed_gather's backward."""
+    rng = np.random.default_rng(8)
+    V, D, M = 30522, 512, 256 * 30
+    ids = torch.from_numpy(np.minimum(rng.zipf(1.2, M), V) - 1).cuda()
+    dx = _rand(rng, M, D, dtype=dtype)
+    before = scatter_add_rows.launches
+    got = scatter_add_rows(ids, dx, V)
+    want = scatter_add_rows_plain(ids, dx, V)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    scale = max(1.0, want.float().abs().max().item())
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    table = _rand(rng, V, D).requires_grad_(True)
+    embed_gather(table.to(dtype), ids.view(256, 30)).backward(
+        dx.view(256, 30, D))
+    assert scatter_add_rows.launches == before + 2
+    got = table.grad
+    assert (got - want.float()).abs().max().item() <= tol * scale
+
+
 def _mlp_args(C=128, F=256, dtype=torch.float32):
     z = lambda *s: torch.zeros(*s, device="cuda")
     return (z(4, C).to(dtype), z(C, F), z(F), z(F, C), z(C)), \
         dict(ln=(z(C) + 1, z(C)), eps=1e-6)
 
 
+def _counts():
+    return (fused_mha.launches, fused_mha_bwd.launches,
+            fused_proj_resln.launches, fused_proj_resln_res.launches,
+            fused_mlp_resln.launches, fused_mlp_resln_res.launches,
+            scatter_add_rows.launches)
+
+
 @pytest.mark.parametrize("case", [
     "mha_dropout", "proj_dropout", "mlp_dropout",
     "mha_long_t", "mha_smem", "mha_fp16",
     "proj_width", "mlp_width", "mlp_f_chunk", "mlp_fp16", "mlp_misaligned",
+    "mha_bias_grad", "scatter_fp16", "scatter_shape",
 ])
 def test_refuses_what_the_kernels_do_not_take(case):
     """No plain fallback on the card: a launch the kernel cannot make
-    raises, and the launch counters do not move."""
-    counts = (fused_mha.launches, fused_proj_resln.launches,
-              fused_mlp_resln.launches)
+    raises, and the launch counters do not move. Dropout runs in the
+    kernels; a rate outside [0, 1) or a missing seed is refused."""
+    counts = _counts()
     z = lambda *s: torch.zeros(*s, device="cuda")
     (x, w1, b1, w2, b2), kw = _mlp_args()
     calls = {
-        "mha_dropout": (NotImplementedError, lambda: fused_mha(
-            z(2, 8, 96), z(2, 8) + 1, n_heads=2, drop_rate=0.1)),
-        "proj_dropout": (NotImplementedError, lambda: fused_proj_resln(
+        "mha_dropout": (ValueError, lambda: fused_mha(
+            z(2, 8, 96), z(2, 8) + 1, n_heads=2, drop_rate=1.0, seed=1)),
+        "proj_dropout": (ValueError, lambda: fused_proj_resln(
             x, x, z(128, 128), b2, drop_rate=0.1, **kw)),
-        "mlp_dropout": (NotImplementedError, lambda: fused_mlp_resln(
-            x, w1, b1, w2, b2, drop_rate=0.1, **kw)),
+        "mlp_dropout": (ValueError, lambda: fused_mlp_resln(
+            x, w1, b1, w2, b2, drop_rate=-0.1, seed=1, **kw)),
         "mha_long_t": (ValueError, lambda: fused_mha(
             z(1, 129, 96), z(1, 129) + 1, n_heads=2)),
         "mha_smem": (ValueError, lambda: fused_mha(
@@ -153,9 +336,15 @@ def test_refuses_what_the_kernels_do_not_take(case):
             *_mlp_args(dtype=torch.float16)[0], **kw)),
         "mlp_misaligned": (ValueError, lambda: fused_mlp_resln(
             z(4 * 128 + 1)[1:].view(4, 128), w1, b1, w2, b2, **kw)),
+        "mha_bias_grad": (NotImplementedError, lambda: fused_mha(
+            z(2, 8, 96), bias=z(1, 2, 8, 8).requires_grad_(True),
+            n_heads=2)),
+        "scatter_fp16": (TypeError, lambda: scatter_add_rows(
+            z(4).long(), z(4, 8).half(), 10)),
+        "scatter_shape": (ValueError, lambda: scatter_add_rows(
+            z(5).long(), z(4, 8), 10)),
     }
     exc, call = calls[case]
     with pytest.raises(exc):
         call()
-    assert counts == (fused_mha.launches, fused_proj_resln.launches,
-                      fused_mlp_resln.launches)
+    assert counts == _counts()

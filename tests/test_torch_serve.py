@@ -124,9 +124,10 @@ def test_pad_histories_matches_jax():
 
 
 def test_port_runs_the_slice_without_jax():
-    """A fresh interpreter imports the port, encodes a catalog and serves a
-    request on the CPU, and never imports jax (the test process itself has
-    jax loaded by conftest, hence the subprocess)."""
+    """A fresh interpreter imports the port, encodes a catalog, serves a
+    request and takes one train step on the CPU, and never imports jax (the
+    test process itself has jax loaded by conftest, hence the
+    subprocess)."""
     code = textwrap.dedent("""
         import sys
         from types import SimpleNamespace
@@ -157,6 +158,26 @@ def test_port_runs_the_slice_without_jax():
             [[1, 2, 3]], top_k=5)
         assert ids.shape == (1, 5) and np.isfinite(scores).all()
         assert not {1, 2, 3} & set(ids[0].tolist()) and 0 not in ids
+        # one train step, dropout on, host-side dedup
+        from idvs.morec_tpu_torch.train.state import (make_train_state,
+                                                      param_labels)
+        from idvs.morec_tpu_torch.train.step import (dedup_pack,
+                                                     make_train_step)
+        cfg.__dict__.update(loss="inbatch_ce", compute_dtype="float32",
+                            lr=1e-3, l2_weight=0.0, fine_tune_lr=5e-4,
+                            fine_tune_l2_weight=0.0)
+        state = make_train_state(model, cfg, param_labels(model))
+        step = make_train_step(cfg, item_content=content,
+                               log_pop=torch.zeros(41))
+        ids = rng.integers(1, 41, size=(4, 7))
+        uniq, inv = dedup_pack(ids, 32)
+        before = model.user_encoder.ln_in.weight.detach().clone()
+        loss = step(state, {"ids": torch.from_numpy(ids),
+                            "log_mask": torch.ones(4, 6),
+                            "uniq_ids": torch.from_numpy(uniq),
+                            "inverse": torch.from_numpy(inv)})
+        assert torch.isfinite(loss) and state.step == 1
+        assert not torch.equal(before, model.user_encoder.ln_in.weight)
         mods = [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
         assert not mods, mods
