@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths of end2end text MoRec at the flagship
-width (BERT-small item tower, SASRec user tower, a 100_001-item catalog)
-with random weights drawn from a seeded generator, through the kernels built
-from idvs/morec_tpu_torch/csrc by nvcc on first use: serving (catalog
-encode, recommend) and training (the bf16 train step with dropout). Phases,
-each fatal on failure:
+Drives the port's main paths at the flagship widths with random weights
+drawn from a seeded generator, through the kernels built from
+idvs/morec_tpu_torch/csrc by nvcc on first use: end2end text MoRec
+(BERT-small item tower, SASRec user tower, a 100_001-item catalog), serving
+(catalog encode, recommend) and training (the bf16 train step with
+dropout); and end2end vision MoRec (Swin-T item tower at full width and
+depth, SASRec at D = 2048), serving. Phases, each fatal on failure:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: build (or load) the kernel library;
@@ -24,28 +25,51 @@ each fatal on failure:
    2048-item sub-catalog the kernel path agrees with the plain path (the
    same model and wrappers on the CPU); catalog encode seconds and items/s,
    recommend p50 per batch;
-6. training: the counters set to 0, 30 steps on one fixed batch (the loss
-   must fall), then 20 timed steps on distinct batches (p50, samples/s);
+6. training: the counters set to 0, 20 steps on one fixed batch (the loss
+   must fall), then 10 timed steps on distinct batches (p50, samples/s);
    every training-edition and backward kernel launched, every parameter
    finite;
 7. gradient check: one float32 step without dropout on 8 users, on the card
    and through the plain path on a CPU copy of the model: the loss and
-   every parameter's gradient agree.
+   every parameter's gradient agree;
+8. vision kernels: the windowed attention (band layout with one bias and
+   with a bias per window, window layout) and the pre-LN MLP (with and
+   without its LayerNorm, with the residual, unit and scaled) against their
+   plain versions at each Swin-T stage's shapes for one encode chunk, and
+   the post-LN tails and the attention at SASRec's D = 2048 for request
+   batches of 64 and of 1, in bfloat16 and float32, with times;
+9. vision serving: the counters set to 0, Retriever.encode_catalog through
+   the bf16 Swin-T tower over images drawn from a pool on the card (100_001
+   items if a probe says that takes 30 s or less, else 16_385), recommend
+   for batches of 1, 8 and 64, and an encode of a 256-item sub-catalog
+   with the "windows" kernel selection; every kernel of the path launched,
+   the table is finite, row 0 is the tower's output for a zero image, no
+   result holds the padding id or a history id, and in float32 the
+   sub-catalog's table and scores agree between the two kernel selections
+   and with the plain path on a CPU copy of the model; images/s, encode
+   seconds, recommend p50 per batch.
 
-Prints a JSON line of per-kernel results, the nvidia-smi line, and last
+Prints each phase's seconds and a JSON line of per-kernel results (launches
+on the main paths, in all and by path: text serving, training, vision
+serving, the "windows" sub-catalog; error
+and time against the plain version, the least time the card could take for
+the same work, and the time of the one PyTorch call that computes the same
+function where there is one), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when no GPU
 is visible.
 
     python3 chip_smoke.py --profile
 
-runs only the card and build phases and a torch.profiler split of the
-train step by device kernel (wall and device-busy ms a step, each kernel's
+runs only the card and build phases and a torch.profiler split by device
+kernel of the train step, of the vision catalog encode and of the vision
+recommend at batches of 1 and 64 (wall and device-busy ms, each kernel's
 share), and prints no result line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -57,17 +81,25 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models.model import make_model
+from idvs.morec_tpu_torch.models.swin import (SwinConfig, SwinModel,
+                                              _shift_mask)
 from idvs.morec_tpu_torch.models.text_tower import TextTower
+from idvs.morec_tpu_torch.models.vision_tower import VisionTower
 from idvs.morec_tpu_torch.ops.cuda import lib
-from idvs.morec_tpu_torch.ops.cuda.attention import (fused_mha,
-                                                     fused_mha_bwd,
-                                                     fused_mha_plain)
+from idvs.morec_tpu_torch.ops.cuda.attention import (
+    fused_mha, fused_mha_bwd, fused_mha_plain, fused_mha_proj,
+    fused_mha_proj_band, fused_mha_proj_band_plain, fused_mha_proj_plain,
+    window_partition)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     scatter_add_rows, scatter_add_rows_plain)
-from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp_resln,
+from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_plain,
+                                               fused_mlp_res,
+                                               fused_mlp_res_plain,
+                                               fused_mlp_resln,
                                                fused_mlp_resln_bwd,
                                                fused_mlp_resln_plain,
                                                fused_mlp_resln_res,
@@ -92,9 +124,28 @@ SUB_ITEMS = 2048            # sub-catalog held against the plain path
 # the train step (bench.py text_morec: GEOM, _gen_raw, cfg)
 TRAIN_B, ZIPF_A = 128, 1.2  # users a step, Zipf exponent of the item ids
 LR, FT_LR, DROP = 1e-4, 5e-5, 0.1
-FIXED_STEPS, TIMED_STEPS = 30, 20
+FIXED_STEPS, TIMED_STEPS = 20, 10
 CHECK_USERS = 8             # users of the float32 gradient check
 PROFILE_STEPS, PROFILE_ROWS = 5, 12   # --profile: steps traced, rows shown
+# timed calls behind a median: the text forward kernels (tenths of a
+# millisecond each), and the backward and vision cases (milliseconds each)
+KERNEL_REPS, FEW_REPS = 10, 5
+# the vision flagship (bench.py:31-40,78,137-139,143-144: Swin-T tower in
+# bf16, SASRec D 2048, L 10, a pool of 1024 uint8 images)
+V_D, V_L, IMAGE, POOL = 2048, 10, 224, 1024
+V_CHUNK = ENCODE_BATCH      # images an encode chunk: item_emb_batch_size too
+V_ITEMS_FULL, V_ITEMS_CUT = 100_000, 16_384
+V_ENCODE_LIMIT_S = 30.0     # the full catalog only if it encodes this fast
+V_PROBE_CHUNKS = 2
+V_SUB_ITEMS = 256           # sub-catalog held against the plain path
+V_PROFILE_REQUESTS = 10     # --profile: recommend calls traced per batch size
+# Swin-T stages: (C, heads, side of the token map)
+SWIN_STAGES = ((96, 3, 56), (192, 6, 28), (384, 12, 14), (768, 24, 7))
+WINDOW = 7
+# the card's published peaks (H100 SXM data sheet): dense tensor-core bf16,
+# float32 outside the tensor cores, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
 
 # Kernel vs plain tolerances (max abs error). float32: both sides accumulate
 # in float32 in different orders over K <= 2048 terms of O(1) values, about
@@ -103,9 +154,18 @@ PROFILE_STEPS, PROFILE_ROWS = 5, 12   # --profile: steps traced, rows shown
 # [2, 4)); a different float32 sum can flip a rounding of the probabilities
 # or of the pre-LN sum and then of the output, so attention may differ by
 # a few units and the LN tails (outputs up to ~5) by up to ~0.1.
+# The Swin kernels: the windowed attention's output is a projection of O(1)
+# values (one or two bf16 units of 2^-7 relative after three casts in a
+# row), the pre-LN MLP adds its result to a residual of up to ~5 (a unit
+# is 2^-6 = 1.6e-2 there, and one flipped rounding of the activation moves
+# the sum by as much again).
 TOL = {"fused_mha": {torch.float32: 1e-4, torch.bfloat16: 6.25e-2},
        "fused_proj_resln": {torch.float32: 1e-4, torch.bfloat16: 1e-1},
-       "fused_mlp_resln": {torch.float32: 1e-4, torch.bfloat16: 1e-1}}
+       "fused_mlp_resln": {torch.float32: 1e-4, torch.bfloat16: 1e-1},
+       "fused_mha_proj": {torch.float32: 1e-4, torch.bfloat16: 6.25e-2},
+       "fused_mha_proj_band": {torch.float32: 1e-4, torch.bfloat16: 6.25e-2},
+       "fused_mlp": {torch.float32: 1e-4, torch.bfloat16: 6.25e-2},
+       "fused_mlp_res": {torch.float32: 1e-4, torch.bfloat16: 1e-1}}
 # Backward editions vs autograd of the plain version: max abs error over
 # max(1, max |plain value|) of each output and gradient. float32: sums of up
 # to titles x 30 terms in other orders, ~1e-6 relative; 1e-4 leaves a
@@ -131,6 +191,20 @@ SCORE_TOL = 1e-3            # relative to max(1, |score|)
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
 GRAD_FLOOR = 1e-3
+# Vision sub-catalog, float32: the card's table against the plain path on
+# the CPU through twelve Swin blocks (sums up to 3072 terms in other orders,
+# CUDA's erff against the CPU's erf), the classifier and a GELU; scores
+# through two SASRec blocks at D = 2048 and a 2048-wide dot product of
+# O(1) values, relative to max(1, |score|). The two kernel selections share
+# every sum's order except the residual add: 1e-5.
+V_TABLE_TOL = 2e-3
+V_SCORE_TOL = 2e-3
+V_SELECTION_TOL = 1e-5
+# Row 0 of the bf16 table against the tower's output for one zero image:
+# the same kernels on the same row, but the library matmuls around them
+# (patch projection, patch merging, classifier) may sum in another order
+# at another batch size; a few bf16 units of values up to ~2.
+V_PAD_TOL = 3e-2
 
 CSRC, PALLAS = "idvs/morec_tpu_torch/csrc/", "idvs/morec_tpu/ops/pallas/"
 SOURCES = {
@@ -143,6 +217,10 @@ SOURCES = {
     "fused_mlp_resln_res": ("mlp_resln.cu", "mlp.py:424"),
     "fused_mlp_resln_bwd": ("resln_bwd.cu", "mlp.py:444"),
     "scatter_add_rows": ("embed_scatter.cu", "embed_scatter.py:66"),
+    "fused_mha_proj_band": ("win_attn.cu", "attention.py:860"),
+    "fused_mha_proj": ("win_attn.cu", "attention.py:530"),
+    "fused_mlp_res": ("premlp.cu", "mlp.py:105"),
+    "fused_mlp": ("premlp.cu", "mlp.py:105"),
 }
 WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "fused_proj_resln": fused_proj_resln,
@@ -151,11 +229,18 @@ WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "fused_mlp_resln": fused_mlp_resln,
             "fused_mlp_resln_res": fused_mlp_resln_res,
             "fused_mlp_resln_bwd": fused_mlp_resln_bwd,
-            "scatter_add_rows": scatter_add_rows}
+            "scatter_add_rows": scatter_add_rows,
+            "fused_mha_proj_band": fused_mha_proj_band,
+            "fused_mha_proj": fused_mha_proj,
+            "fused_mlp_res": fused_mlp_res, "fused_mlp": fused_mlp}
 SERVE_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln")
 TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
                  "fused_proj_resln_bwd", "fused_mlp_resln_res",
                  "fused_mlp_resln_bwd", "scatter_add_rows")
+VISION_ENCODE_KERNELS = ("fused_mha_proj_band", "fused_mlp_res")
+VISION_RECOMMEND_KERNELS = ("fused_mha", "fused_proj_resln",
+                            "fused_mlp_resln")
+VISION_WINDOWS_KERNELS = ("fused_mha_proj", "fused_mlp")
 
 
 class PhaseError(RuntimeError):
@@ -176,7 +261,18 @@ def card_info() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+@contextlib.contextmanager
+def phase(name: str):
+    """Prints the seconds a phase took on the host clock, the card drained
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def cuda_ms(fn, reps: int = KERNEL_REPS, warmup: int = 3) -> float:
     """Median milliseconds of one call, CUDA events around each call."""
     for _ in range(warmup):
         fn()
@@ -204,75 +300,170 @@ def left_padded_mask(rng, B: int, T: int) -> np.ndarray:
     return (np.arange(T)[None, :] >= T - lens[:, None]).astype(np.float32)
 
 
+def tag_of(dt) -> str:
+    return "f32" if dt == torch.float32 else "bf16"
+
+
+def size_of(dt) -> int:
+    return 4 if dt == torch.float32 else 2
+
+
+# The work of one call, (float operations, bytes), from its shapes: every
+# input read once and every output written once in the compute dtype `it`
+# bytes wide (mask, bias table, LayerNorm vectors and scales are float32),
+# 2 operations a multiply-add.
+
+def mha_work(B, T, nh, dh, it, table_elems):
+    H = nh * dh
+    return 4 * B * nh * T * T * dh, 4 * B * T * H * it + 4 * table_elems
+
+
+def mha_bwd_work(B, T, nh, dh, it, table_elems):
+    # scores again, dp, dv, dq, dk: five (T, T, dh) products a head
+    H = nh * dh
+    return 10 * B * nh * T * T * dh, 7 * B * T * H * it + 4 * table_elems
+
+
+def proj_work(M, C, it, saved=0):
+    """saved: the training edition's y_pre, in (M, C) tensors."""
+    return 2 * M * C * C, ((3 + saved) * M * C + C * C + C) * it + 8 * C
+
+
+def proj_bwd_work(M, C, it):
+    # dw and dx; reads x, y_pre, dout, w; writes dx, dres, dw, three vectors
+    return 4 * M * C * C, (5 * M * C + 2 * C * C) * it + 16 * C
+
+
+def mlp_work(M, C, F, it, saved=False, scale=False):
+    """saved: the training edition's y_pre (M, C) and h (M, F)."""
+    extra = (M * C + M * F) * it if saved else 0
+    return 4 * M * C * F, ((2 * M * C + 2 * C * F + F + C) * it + 8 * C
+                           + extra + (4 * M if scale else 0))
+
+
+def mlp_bwd_work(M, C, F, it):
+    # dw2, dh, dw1, dx; reads x, y_pre, h, dout, w1, w2; writes dx, dw1, dw2
+    return 8 * M * C * F, (4 * M * C + M * F + 4 * C * F) * it + 16 * C
+
+
+def scatter_work(M, D, V, it):
+    return M * D, M * D * it + 8 * M + V * D * it
+
+
+def win_attn_work(windows, T, C, nh, P, it):
+    rows = windows * T
+    return (rows * (8 * C * C + 4 * T * C),
+            (2 * rows * C + 4 * C * C + 4 * C) * it + 4 * P * nh * T * T)
+
+
+def bound_of(work, dt) -> tuple:
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of the operations over the peak rate of their type and the
+    bytes over the memory rate."""
+    ops_ms = work[0] / PEAK_FLOPS[dt] * 1e3
+    bytes_ms = work[1] / PEAK_BYTES * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def sdpa_call(qkv, n_heads, bias):
+    """F.scaled_dot_product_attention on views of the packed qkv with the
+    additive bias (P, 1 or nh, T or 1, T) already in qkv's dtype: the one
+    library call that computes fused_mha's function. A yardstick only."""
+    B, T, H3 = qkv.shape
+    q, k, v = (t.reshape(B, T, n_heads, -1).transpose(1, 2)
+               for t in qkv.split(H3 // 3, dim=-1))
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+
 def kernel_cases(rng, dev):
-    """(kernel, label, kernel call, plain call) at the main path's shapes."""
-    g = lambda *s, scale=1.0: torch.from_numpy(
-        rng.standard_normal(s).astype(np.float32) * scale).to(dev)
+    """(kernel, label, dtype, kernel call, plain call, work, library call or
+    None) at the text serving path's shapes. Operands are drawn on the
+    card from a seeded generator, the masks' lengths from rng."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
+                                          device=dev) * scale
     cases = []
     for dt in (torch.float32, torch.bfloat16):
-        tag = "f32" if dt == torch.float32 else "bf16"
+        tag, it = tag_of(dt), size_of(dt)
         # BERT: B = 512 titles of T = 30 tokens, 8 heads of 64
         qkv = g(512, TITLE_LEN, 3 * HIDDEN).to(dt)
         mask = torch.from_numpy(ragged_mask(rng, 512, TITLE_LEN)).to(dev)
-        cases.append(("fused_mha", f"mask B=512 T=30 nh=8 {tag}",
+        key_bias = ((1.0 - mask) * -1e9).to(dt)[:, None, None, :]
+        cases.append(("fused_mha", f"mask B=512 T=30 nh=8 {tag}", dt,
                       lambda q=qkv, m=mask: fused_mha(q, m, n_heads=HEADS),
                       lambda q=qkv, m=mask: fused_mha_plain(
-                          q, m, n_heads=HEADS)))
+                          q, m, n_heads=HEADS),
+                      mha_work(512, TITLE_LEN, HEADS, HIDDEN // HEADS, it,
+                               mask.numel()),
+                      sdpa_call(qkv, HEADS, key_bias)))
         # SASRec: B = 64 histories of L = 20, 2 heads of 256, causal mask
         qkv = g(64, L, 3 * D).to(dt)
         bias = causal_additive_mask(
             torch.from_numpy(left_padded_mask(rng, 64, L)).to(dev))
-        cases.append(("fused_mha", f"bias B=64 T=20 nh=2 {tag}",
+        cases.append(("fused_mha", f"bias B=64 T=20 nh=2 {tag}", dt,
                       lambda q=qkv, b=bias: fused_mha(q, bias=b,
                                                       n_heads=USER_HEADS),
                       lambda q=qkv, b=bias: fused_mha_plain(
-                          q, bias=b, n_heads=USER_HEADS)))
+                          q, bias=b, n_heads=USER_HEADS),
+                      mha_work(64, L, USER_HEADS, D // USER_HEADS, it,
+                               bias.numel()),
+                      sdpa_call(qkv, USER_HEADS, bias.to(dt))))
         for M, eps, act, who in ((512 * TITLE_LEN, 1e-12, "gelu", "BERT"),
                                  (64 * L, 1e-6, "relu", "SASRec")):
-            C = HIDDEN
-            x, res = g(M, C).to(dt), g(M, C).to(dt)
-            w = g(C, C, scale=C ** -0.5)
-            b = g(C, scale=0.1) if who == "BERT" else torch.zeros(C,
-                                                                  device=dev)
-            ln = (1.0 + g(C, scale=0.1), g(C, scale=0.1))
-            cases.append((
-                "fused_proj_resln", f"{who} M={M} C={C} {tag}",
-                lambda x=x, r=res, w=w, b=b, ln=ln, e=eps: fused_proj_resln(
-                    x, r, w, b, ln=ln, eps=e),
-                lambda x=x, r=res, w=w, b=b, ln=ln, e=eps:
-                    fused_proj_resln_plain(x, r, w, b, ln=ln, eps=e)))
-            w1, b1 = g(C, FFN, scale=C ** -0.5), g(FFN, scale=0.1)
-            w2, b2 = g(FFN, C, scale=FFN ** -0.5), g(C, scale=0.1)
-            cases.append((
-                "fused_mlp_resln", f"{who} M={M} C={C} F={FFN} {act} {tag}",
-                lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2, ln=ln, e=eps, a=act:
-                    fused_mlp_resln(x, w1, b1, w2, b2, ln=ln, eps=e, act=a),
-                lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2, ln=ln, e=eps, a=act:
-                    fused_mlp_resln_plain(x, w1, b1, w2, b2, ln=ln, eps=e,
-                                          act=a)))
+            cases += tail_cases(g, dev, dt, M, HIDDEN, FFN, eps, act, who)
     return cases
 
 
-def kernel_phase(dev, card: str) -> dict:
-    rng = np.random.default_rng(SEED)
+def tail_cases(g, dev, dt, M, C, Fw, eps, act, who):
+    """The two post-LN tails (no single library call computes either)."""
+    tag, it = tag_of(dt), size_of(dt)
+    x, res = g(M, C).to(dt), g(M, C).to(dt)
+    w = g(C, C, scale=C ** -0.5)
+    b = g(C, scale=0.1) if who == "BERT" else torch.zeros(C, device=dev)
+    ln = (1.0 + g(C, scale=0.1), g(C, scale=0.1))
+    w1, b1 = g(C, Fw, scale=C ** -0.5), g(Fw, scale=0.1)
+    w2, b2 = g(Fw, C, scale=Fw ** -0.5), g(C, scale=0.1)
+    return [
+        ("fused_proj_resln", f"{who} M={M} C={C} {tag}", dt,
+         lambda: fused_proj_resln(x, res, w, b, ln=ln, eps=eps),
+         lambda: fused_proj_resln_plain(x, res, w, b, ln=ln, eps=eps),
+         proj_work(M, C, it), None),
+        ("fused_mlp_resln", f"{who} M={M} C={C} F={Fw} {act} {tag}", dt,
+         lambda: fused_mlp_resln(x, w1, b1, w2, b2, ln=ln, eps=eps, act=act),
+         lambda: fused_mlp_resln_plain(x, w1, b1, w2, b2, ln=ln, eps=eps,
+                                       act=act),
+         mlp_work(M, C, Fw, it), None)]
+
+
+def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
+    """Holds each case's kernel against its plain version and times both
+    (and the library call, where there is one)."""
     results = {}
-    for name, label, run_kernel, run_plain in kernel_cases(rng, dev):
+    for name, label, dt, run_kernel, run_plain, work, library in cases:
         got = run_kernel()
         want = run_plain()
         torch.cuda.synchronize()
-        require(got.shape == want.shape and got.dtype == want.dtype,
+        require(got.shape == want.shape and got.dtype == want.dtype == dt,
                 f"{name} {label}: {got.shape}/{got.dtype} vs "
                 f"{want.shape}/{want.dtype}")
         err = (got.float() - want.float()).abs().max().item()
-        tol = TOL[name][got.dtype]
-        ms = cuda_ms(run_kernel)
-        plain_ms = cuda_ms(run_plain)
+        del got, want
+        tol = TOL[name][dt]
+        ms = cuda_ms(run_kernel, reps)
+        plain_ms = cuda_ms(run_plain, reps)
+        library_ms = None if library is None else cuda_ms(library, reps)
+        bound_ms, bound_by = bound_of(work, dt)
+        lib_text = ("" if library is None
+                    else f", library call {library_ms:.4f} ms")
         print(f"kernel {name} [{label}]: max_abs_err {err:.3e} "
-              f"(tol {tol:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"[{card}]", flush=True)
+              f"(tol {tol:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              f"{lib_text}, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({100 * bound_ms / ms:.1f} % of it reached) [{card}]",
+              flush=True)
         require(math.isfinite(err) and err <= tol,
                 f"{name} {label}: max abs error {err} above {tol}")
-        _record(results, name, err, ms, plain_ms)
+        _record(results, name, err, ms, plain_ms, work, dt, library_ms)
     return results
 
 
@@ -288,15 +479,19 @@ def _rel_err(got, want) -> tuple:
 
 def backward_cases(rng, dev, titles: int):
     """(res entry or None, bwd entry, label, dtype, inputs, cotangent,
-    kernel fn, plain fn) at the train step's shapes: BERT over `titles`
-    deduplicated titles of 30 tokens, SASRec over TRAIN_B users of L."""
-    g = lambda *s, scale=1.0, dt=torch.float32: torch.from_numpy(
-        rng.standard_normal(s).astype(np.float32) * scale).to(dev, dt)
+    kernel fn, plain fn, the backward's work, the training forward's work
+    or None) at the train step's shapes: BERT over `titles` deduplicated
+    titles of 30 tokens, SASRec over TRAIN_B users of L. Operands are
+    drawn on the card from a seeded generator, the masks and dropout seeds
+    from rng."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    g = lambda *s, scale=1.0, dt=torch.float32: (torch.randn(
+        *s, generator=gen, device=dev) * scale).to(dt)
     M_bert, M_user = titles * TITLE_LEN, TRAIN_B * L
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         for p in (0.0, DROP):
-            tag = f"{'f32' if dt == torch.float32 else 'bf16'} drop={p}"
+            tag, it = f"{tag_of(dt)} drop={p}", size_of(dt)
             seed = int(rng.integers(1, 2 ** 31 - 1))
             mask = torch.from_numpy(ragged_mask(rng, titles, TITLE_LEN)
                                     ).to(dev)
@@ -308,7 +503,9 @@ def backward_cases(rng, dev, titles: int):
                 lambda q, m=mask, p=p, s=seed: fused_mha(
                     q, m, n_heads=HEADS, drop_rate=p, seed=s),
                 lambda q, m=mask, p=p, s=seed: fused_mha_plain(
-                    q, m, n_heads=HEADS, drop_rate=p, seed=s)))
+                    q, m, n_heads=HEADS, drop_rate=p, seed=s),
+                mha_bwd_work(titles, TITLE_LEN, HEADS, HIDDEN // HEADS, it,
+                             mask.numel()), None))
             bias = causal_additive_mask(torch.from_numpy(
                 bench_log_mask(rng, TRAIN_B)).to(dev))
             cases.append((
@@ -318,7 +515,9 @@ def backward_cases(rng, dev, titles: int):
                 lambda q, b=bias, p=p, s=seed: fused_mha(
                     q, bias=b, n_heads=USER_HEADS, drop_rate=p, seed=s),
                 lambda q, b=bias, p=p, s=seed: fused_mha_plain(
-                    q, bias=b, n_heads=USER_HEADS, drop_rate=p, seed=s)))
+                    q, bias=b, n_heads=USER_HEADS, drop_rate=p, seed=s),
+                mha_bwd_work(TRAIN_B, L, USER_HEADS, D // USER_HEADS, it,
+                             bias.numel()), None))
             for M, eps, act, who in ((M_bert, 1e-12, "gelu", "BERT"),
                                      (M_user, 1e-6, "relu", "SASRec")):
                 C = HIDDEN
@@ -335,7 +534,8 @@ def backward_cases(rng, dev, titles: int):
                     lambda *a, kw=kw: fused_proj_resln(*a[:4], ln=a[4:],
                                                        **kw),
                     lambda *a, kw=kw: fused_proj_resln_plain(
-                        *a[:4], ln=a[4:], **kw)))
+                        *a[:4], ln=a[4:], **kw),
+                    proj_bwd_work(M, C, it), proj_work(M, C, it, saved=1)))
                 cases.append((
                     "fused_mlp_resln_res", "fused_mlp_resln_bwd",
                     f"{who} M={M} C={C} F={FFN} {act} {tag}", dt,
@@ -346,16 +546,19 @@ def backward_cases(rng, dev, titles: int):
                     lambda *a, kw=kw, act=act: fused_mlp_resln(
                         *a[:5], ln=a[5:], act=act, **kw),
                     lambda *a, kw=kw, act=act: fused_mlp_resln_plain(
-                        *a[:5], ln=a[5:], act=act, **kw)))
+                        *a[:5], ln=a[5:], act=act, **kw),
+                    mlp_bwd_work(M, C, FFN, it),
+                    mlp_work(M, C, FFN, it, saved=True)))
     return cases
 
 
-def _record(results, name, err, ms, plain_ms):
-    r = results.setdefault(name, {"max_abs_err": 0.0, "ms": None,
-                                  "plain_ms": None})
+def _record(results, name, err, ms, plain_ms, work, dt, library_ms=None):
+    r = results.setdefault(name, {"max_abs_err": 0.0, "ms": None})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     if r["ms"] is None:     # the first case is the headline shape
-        r["ms"], r["plain_ms"] = ms, plain_ms
+        bound_ms, bound_by = bound_of(work, dt)
+        r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library_ms)
 
 
 def backward_phase(dev, card: str, titles: int) -> dict:
@@ -364,8 +567,8 @@ def backward_phase(dev, card: str, titles: int) -> dict:
     the backward alone (CUDA events)."""
     rng = np.random.default_rng(SEED + 2)
     results = {}
-    for res_name, bwd_name, label, dt, inputs, dout, kern, plain in \
-            backward_cases(rng, dev, titles):
+    for (res_name, bwd_name, label, dt, inputs, dout, kern, plain, work_bwd,
+         work_fwd) in backward_cases(rng, dev, titles):
         lk, lp = _leaves(inputs), _leaves(inputs)
         out_k, out_p = kern(*lk), plain(*lp)
         got = torch.autograd.grad(out_k, lk, dout, retain_graph=True)
@@ -381,20 +584,23 @@ def backward_phase(dev, card: str, titles: int) -> dict:
             worst = max(worst, (err / scale, err, scale))
         tol = GRAD_TOL[dt]
         bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-            out_k, lk, dout, retain_graph=True), reps=10)
+            out_k, lk, dout, retain_graph=True), reps=FEW_REPS)
         bwd_plain = cuda_ms(lambda: torch.autograd.grad(
-            out_p, lp, dout, retain_graph=True), reps=10)
+            out_p, lp, dout, retain_graph=True), reps=FEW_REPS)
         line = (f"backward {bwd_name} [{label}]: max_abs_err {worst[1]:.3e} "
                 f"on a scale of {worst[2]:.3g} (tol {tol:g} of the scale), "
-                f"backward {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms")
-        _record(results, bwd_name, worst[1], bwd_ms, bwd_plain)
+                f"backward {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound "
+                f"{bound_of(work_bwd, dt)[0]:.4f} ms by "
+                f"{bound_of(work_bwd, dt)[1]}")
+        _record(results, bwd_name, worst[1], bwd_ms, bwd_plain, work_bwd, dt)
         if res_name is not None:
-            fwd_ms = cuda_ms(lambda: kern(*lk), reps=10)
-            fwd_plain = cuda_ms(lambda: plain(*lp), reps=10)
+            fwd_ms = cuda_ms(lambda: kern(*lk), reps=FEW_REPS)
+            fwd_plain = cuda_ms(lambda: plain(*lp), reps=FEW_REPS)
             line += (f"; training forward {res_name} {fwd_ms:.4f} ms, plain "
-                     f"{fwd_plain:.4f} ms")
+                     f"{fwd_plain:.4f} ms, bound "
+                     f"{bound_of(work_fwd, dt)[0]:.4f} ms")
             _record(results, res_name, _rel_err(out_k, out_p)[0], fwd_ms,
-                    fwd_plain)
+                    fwd_plain, work_fwd, dt)
         print(f"{line} [{card}]", flush=True)
         require(worst[0] <= tol, f"{bwd_name} {label}: error {worst[1]} "
                 f"above {tol} x {worst[2]}")
@@ -413,15 +619,23 @@ def backward_phase(dev, card: str, titles: int) -> dict:
         err, scale = _rel_err(got, want)
         ms = cuda_ms(lambda: scatter_add_rows(ids, dx, VOCAB))
         plain_ms = cuda_ms(lambda: scatter_add_rows_plain(ids, dx, VOCAB))
+        # the one library call of the same function: index_add_ of the rows
+        # in their own dtype into a table that already exists
+        table = torch.zeros(VOCAB, HIDDEN, dtype=dt, device=dev)
+        library_ms = cuda_ms(lambda: table.index_add_(0, ids, dx))
+        work = scatter_work(M, HIDDEN, VOCAB, size_of(dt))
+        bound_ms, bound_by = bound_of(work, dt)
         tol = SCATTER_TOL[dt]
         print(f"kernel scatter_add_rows [M={M} V={VOCAB} D={HIDDEN} "
-              f"{'f32' if dt == torch.float32 else 'bf16'}]: max_abs_err "
+              f"{tag_of(dt)}]: max_abs_err "
               f"{err:.3e} on a scale of {scale:.3g} (tol {tol:g} of the "
-              f"scale), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"[{card}]", flush=True)
+              f"scale), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library call index_add_ {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} [{card}]", flush=True)
         require(math.isfinite(err) and err <= tol * scale,
                 f"scatter_add_rows: error {err} above {tol} x {scale}")
-        _record(results, "scatter_add_rows", err, ms, plain_ms)
+        _record(results, "scatter_add_rows", err, ms, plain_ms, work, dt,
+                library_ms)
     return results
 
 
@@ -474,11 +688,23 @@ def reset_counts() -> None:
         w.launches = 0
 
 
-def check_results(ids: np.ndarray, hist) -> None:
+def check_results(ids: np.ndarray, hist, max_len: int = L) -> None:
     require((ids != 0).all(), "padding id 0 recommended")
     for row, h in zip(ids, hist):
-        seen = set(h[-L:])
+        seen = set(h[-max_len:])
         require(not (seen & set(row.tolist())), "history id recommended")
+
+
+def check_ties(mismatch, vals_p, scale, tol) -> None:
+    """An id may differ from the plain ranking's only where that ranking
+    has a tie within tolerance next to it, or at the cut after the last
+    place."""
+    for r, j in mismatch:
+        near = [k for k in (j - 1, j + 1) if 0 <= k < TOP_K]
+        tie = any(abs(vals_p[r, j] - vals_p[r, k]) <= 2 * tol * scale[r, j]
+                  for k in near)
+        require(tie or j == TOP_K - 1,
+                f"sub-catalog ids differ outside a tie at row {r}, place {j}")
 
 
 def serve_path(dev, card: str, content) -> dict:
@@ -559,14 +785,7 @@ def sub_catalog_check(model, content, rng) -> None:
           flush=True)
     require(table_err <= TABLE_TOL, "sub-catalog table disagrees")
     require(score_err <= SCORE_TOL, "sub-catalog scores disagree")
-    # an id may differ only where the plain ranking has a tie within
-    # tolerance next to it, or at the cut after the last place
-    for r, j in mismatch:
-        near = [k for k in (j - 1, j + 1) if 0 <= k < TOP_K]
-        tie = any(abs(vals_p[r, j] - vals_p[r, k]) <= 2 * SCORE_TOL
-                  * scale[r, j] for k in near)
-        require(tie or j == TOP_K - 1,
-                f"sub-catalog ids differ outside a tie at row {r}, place {j}")
+    check_ties(mismatch, vals_p, scale, SCORE_TOL)
     check_results(ids_k, hist)
 
 
@@ -708,52 +927,353 @@ def grad_check(dev, model, content, batch) -> None:
             f"gradient of {worst_name} disagrees with the plain path")
 
 
-def profile_train(dev, card: str, content, batches, cap: int) -> None:
-    """torch.profiler split of the train step by device kernel:
-    PROFILE_STEPS steps on distinct batches after as many warm-up steps.
-    Prints the wall and device-busy time a step and each kernel's share of
-    the busy time (user annotations left out)."""
+def profiled(run, n: int, what: str, unit: str, card: str) -> None:
+    """torch.profiler split of ``run()`` by device kernel, reported per
+    ``unit`` (``run`` covers n of them): the wall and device-busy time and
+    each kernel's share of the busy time (user annotations left out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, state, step = train_setup(dev, content, cap)
-    run = lambda part: [step(state, device_batch(ids, lm, cap, dev)).item()
-                        for ids, lm in part]
-    run(batches[:PROFILE_STEPS])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(batches[PROFILE_STEPS:2 * PROFILE_STEPS])
+        run()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    rows = sorted(((e.self_device_time_total / 1e3 / PROFILE_STEPS,
-                    e.count / PROFILE_STEPS, e.key)
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    rows = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and not e.is_user_annotation
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     require(busy > 0, "the profiler recorded no device time")
-    print(f"profile: train step B={TRAIN_B} bf16, dropout {DROP}, dedup cap "
-          f"{cap}, {PROFILE_STEPS} steps: wall {wall:.3f} ms a step, device "
+    print(f"profile: {what}: wall {wall:.3f} ms a {unit}, device "
           f"busy {busy:.3f} ms ({100 * busy / wall:.1f} %), "
-          f"{sum(r[1] for r in rows):.0f} kernels a step [{card}]",
+          f"{sum(r[1] for r in rows):.0f} kernels a {unit} [{card}]",
           flush=True)
-    for ms, n, name in rows[:PROFILE_ROWS]:
-        print(f"  {100 * ms / busy:6.2f} % {ms:8.3f} ms/step x{n:<5g} "
+    for ms, count, name in rows[:PROFILE_ROWS]:
+        print(f"  {100 * ms / busy:6.2f} % {ms:8.3f} ms/{unit} x{count:<5g} "
               f"{name[:100]}", flush=True)
     rest = rows[PROFILE_ROWS:]
     ms = sum(r[0] for r in rest)
-    print(f"  {100 * ms / busy:6.2f} % {ms:8.3f} ms/step "
+    print(f"  {100 * ms / busy:6.2f} % {ms:8.3f} ms/{unit} "
           f"x{sum(r[1] for r in rest):<5g} the other {len(rest)} kernels",
           flush=True)
+
+
+def profile_train(dev, card: str, content, batches, cap: int) -> None:
+    """The train step by device kernel: PROFILE_STEPS steps on distinct
+    batches after as many warm-up steps."""
+    _, state, step = train_setup(dev, content, cap)
+    run = lambda part: [step(state, device_batch(ids, lm, cap, dev)).item()
+                        for ids, lm in part]
+    run(batches[:PROFILE_STEPS])
+    profiled(lambda: run(batches[PROFILE_STEPS:2 * PROFILE_STEPS]),
+             PROFILE_STEPS, f"train step B={TRAIN_B} bf16, dropout {DROP}, "
+             f"dedup cap {cap}, {PROFILE_STEPS} steps", "step", card)
+
+
+def profile_vision_encode(dev, card: str) -> None:
+    """The vision catalog encode by device kernel: PROFILE_STEPS chunks of
+    V_CHUNK images after one warm-up chunk."""
+    model = build_vision_model(dev, V_ITEMS_FULL)
+    content_fn = pool_content(image_pool(dev))
+    timed_encode(model, V_CHUNK - 1, content_fn)
+    profiled(lambda: timed_encode(model, PROFILE_STEPS * V_CHUNK - 1,
+                                  content_fn),
+             PROFILE_STEPS, f"vision catalog encode, Swin-T bf16, "
+             f"{PROFILE_STEPS} chunks of {V_CHUNK} images", "chunk", card)
+
+
+def profile_vision_recommend(dev, card: str) -> None:
+    """The vision recommend by device kernel, for the smallest and the
+    largest request batch: V_PROFILE_REQUESTS calls after as many warm-up
+    calls, against a table of V_ITEMS_CUT + 1 random rows (the table's
+    values do not change the work)."""
+    rng = np.random.default_rng(SEED + 8)
+    model = build_vision_model(dev, V_ITEMS_CUT)
+    table = torch.randn(V_ITEMS_CUT + 1, V_D, device=dev)
+    retriever = Retriever(model, table, max_seq_len=V_L,
+                          batch_sizes=REQUEST_BATCHES)
+    for B in (REQUEST_BATCHES[0], REQUEST_BATCHES[-1]):
+        hist = vision_histories(rng, B, V_ITEMS_CUT)
+        run = lambda: [retriever.recommend(hist, top_k=TOP_K)
+                       for _ in range(V_PROFILE_REQUESTS)]
+        run()
+        profiled(run, V_PROFILE_REQUESTS, f"vision recommend B={B} "
+                 f"top_k={TOP_K} L={V_L} D={V_D}, {V_ITEMS_CUT + 1} rows, "
+                 f"{V_PROFILE_REQUESTS} requests", "request", card)
+
+
+def vision_histories(rng, B: int, item_num: int) -> list:
+    return [rng.integers(1, item_num + 1, size=int(
+        rng.integers(1, V_L + 6))).tolist() for _ in range(B)]
+
+
+def vision_kernel_cases(dev):
+    """The Swin kernels at each Swin-T stage's shapes for one encode chunk
+    of V_CHUNK images, and the user tower's kernels at D = V_D for the
+    largest and the smallest request batch; bfloat16 first (the serving
+    path's dtype), then float32. Inputs come from a seeded generator on
+    the card (a stage's map is 154 M elements)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
+                                          device=dev) * scale
+    T = WINDOW * WINDOW
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        tag, it = tag_of(dt), size_of(dt)
+        for C, nh, side in SWIN_STAGES:
+            nW = (side // WINDOW) ** 2
+            windows = V_CHUNK * nW
+            x = g(V_CHUNK, side, side, C).to(dt)
+            ws = (g(C, 3 * C, scale=C ** -0.5), g(3 * C, scale=0.1),
+                  g(C, C, scale=C ** -0.5), g(C, scale=0.1))
+            rel = g(1, nh, T, T, scale=0.5)
+            biases = [("P=1", rel)]
+            if nW > 1:      # a shifted block: the mask of -100, per window
+                mask = torch.from_numpy(_shift_mask(
+                    side, side, WINDOW, WINDOW // 2)).to(dev)
+                biases.append((f"P={nW}", rel + mask[:, None]))
+            where = f"N={V_CHUNK} {side}x{side} C={C} nh={nh} {tag}"
+            for ptag, bias in biases:
+                cases.append((
+                    "fused_mha_proj_band", f"{ptag} {where}", dt,
+                    lambda x=x, b=bias, ws=ws, nh=nh: fused_mha_proj_band(
+                        x, b, *ws, n_heads=nh, window=WINDOW),
+                    lambda x=x, b=bias, ws=ws, nh=nh:
+                        fused_mha_proj_band_plain(x, b, *ws, n_heads=nh,
+                                                  window=WINDOW),
+                    win_attn_work(windows, T, C, nh, bias.shape[0], it),
+                    None))
+            wins, bias = window_partition(x, WINDOW), biases[-1][1]
+            cases.append((
+                "fused_mha_proj",
+                f"{biases[-1][0]} B={windows} T={T} C={C} nh={nh} {tag}", dt,
+                lambda x=wins, b=bias, ws=ws, nh=nh: fused_mha_proj(
+                    x, b, *ws, n_heads=nh),
+                lambda x=wins, b=bias, ws=ws, nh=nh: fused_mha_proj_plain(
+                    x, b, *ws, n_heads=nh),
+                win_attn_work(windows, T, C, nh, bias.shape[0], it), None))
+            M, Fw = V_CHUNK * side * side, 4 * C
+            x2 = x.reshape(M, C)
+            mlp = (g(C, Fw, scale=C ** -0.5), g(Fw, scale=0.1),
+                   g(Fw, C, scale=Fw ** -0.5), g(C, scale=0.1))
+            ln = (1.0 + g(C, scale=0.1), g(C, scale=0.1))
+            # DropPath's factor: an image kept (1 / 0.9) or dropped (0)
+            keep = (torch.rand(V_CHUNK, generator=gen, device=dev) < 0.9)
+            scale = (keep.float() / 0.9).repeat_interleave(side * side)
+            shape = f"M={M} C={C} F={Fw} gelu {tag}"
+            for stag, sc in (("unit", None), ("scaled", scale)):
+                cases.append((
+                    "fused_mlp_res", f"{stag} {shape}", dt,
+                    lambda x=x2, sc=sc, mlp=mlp, ln=ln: fused_mlp_res(
+                        x, sc, *mlp, ln=ln, eps=1e-5),
+                    lambda x=x2, sc=sc, mlp=mlp, ln=ln: fused_mlp_res_plain(
+                        x, sc, *mlp, ln=ln, eps=1e-5),
+                    mlp_work(M, C, Fw, it, scale=sc is not None), None))
+            for ltag, lnp in (("LN", ln), ("no LN", None)):
+                cases.append((
+                    "fused_mlp", f"{ltag} {shape}", dt,
+                    lambda x=x2, mlp=mlp, lnp=lnp: fused_mlp(
+                        x, *mlp, ln=lnp, eps=1e-5),
+                    lambda x=x2, mlp=mlp, lnp=lnp: fused_mlp_plain(
+                        x, *mlp, ln=lnp, eps=1e-5),
+                    mlp_work(M, C, Fw, it), None))
+    rng = np.random.default_rng(SEED + 6)
+    for dt in (torch.bfloat16, torch.float32):
+        tag, it = tag_of(dt), size_of(dt)
+        # SASRec at the vision flagship: B histories of L = 10, 2 heads of
+        # 1024, and its tails at C = 2048, F = 8192
+        nh = USER_HEADS
+        for B in (REQUEST_BATCHES[-1], REQUEST_BATCHES[0]):
+            qkv = g(B, V_L, 3 * V_D).to(dt)
+            bias = causal_additive_mask(
+                torch.from_numpy(left_padded_mask(rng, B, V_L)).to(dev))
+            cases.append((
+                "fused_mha", f"bias B={B} T={V_L} nh={nh} dh={V_D // nh} "
+                f"{tag}", dt,
+                lambda q=qkv, b=bias: fused_mha(q, bias=b, n_heads=nh),
+                lambda q=qkv, b=bias: fused_mha_plain(q, bias=b, n_heads=nh),
+                mha_work(B, V_L, nh, V_D // nh, it, bias.numel()),
+                sdpa_call(qkv, nh, bias.to(dt))))
+            cases += tail_cases(g, dev, dt, B * V_L, V_D, 4 * V_D, 1e-6,
+                                "relu", "SASRec")
+    return cases
+
+
+def vision_config() -> SimpleNamespace:
+    """The vision flagship with the JAX Config's field names."""
+    return SimpleNamespace(item_tower="modal", user_tower="sasrec",
+                           stage="end2end", embedding_dim=V_D,
+                           num_attention_heads=USER_HEADS,
+                           transformer_block=BLOCKS, max_seq_len=V_L,
+                           drop_rate=DROP)
+
+
+def build_vision_model(dev, item_num: int, kernels: str = "band",
+                       compute_dtype=torch.bfloat16):
+    """Swin-T at full width and depth under the classifier to V_D, and
+    SASRec at V_D; weights from the seed."""
+    scfg = SwinConfig()
+    tower = VisionTower(SwinModel(scfg, kernels=kernels, device=dev), "swin",
+                        V_D, scfg.num_features, compute_dtype=compute_dtype,
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    return make_model(vision_config(), item_num, tower, device=dev,
+                      generator=gen)
+
+
+def image_pool(dev) -> torch.Tensor:
+    """POOL uint8 images on the card, as bench.py draws its pool."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return torch.randint(0, 256, (POOL, IMAGE, IMAGE, 3), generator=gen,
+                         device=dev, dtype=torch.uint8)
+
+
+def pool_content(pool):
+    """content_fn of the catalog: item i shows image i % POOL."""
+    return lambda ids: pool[torch.from_numpy(ids % POOL).to(pool.device)]
+
+
+def timed_encode(model, item_num, content_fn, chunk=None) -> tuple:
+    """(table, seconds) of a catalog encode in chunks of V_CHUNK images."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = Retriever.encode_catalog(model, item_num, None, V_D,
+                                     batch_size=chunk or V_CHUNK,
+                                     content_fn=content_fn)
+    torch.cuda.synchronize()
+    return table, time.perf_counter() - t0
+
+
+def vision_serve_path(dev, card: str) -> tuple:
+    """Launch counts of the vision main path (encode and recommend) and of
+    the 'windows' sub-catalog encode after it."""
+    rng = np.random.default_rng(SEED + 8)
+    pool = image_pool(dev)
+    content_fn = pool_content(pool)
+    model = build_vision_model(dev, V_ITEMS_FULL)
+
+    # a probe decides the catalog: one warm-up chunk, then V_PROBE_CHUNKS
+    n_probe = V_PROBE_CHUNKS * V_CHUNK
+    timed_encode(model, V_CHUNK - 1, content_fn)
+    _, probe_s = timed_encode(model, n_probe - 1, content_fn)
+    full_s = probe_s / n_probe * (V_ITEMS_FULL + 1)
+    item_num = (V_ITEMS_FULL if full_s <= V_ENCODE_LIMIT_S else V_ITEMS_CUT)
+    print(f"vision probe: {n_probe} images in {probe_s:.3f} s, so "
+          f"{V_ITEMS_FULL + 1} items would take {full_s:.1f} s against the "
+          f"{V_ENCODE_LIMIT_S:.0f} s allowed: encoding {item_num + 1} items, "
+          f"every row through the tower", flush=True)
+    requests = {B: vision_histories(rng, B, item_num)
+                for B in REQUEST_BATCHES}
+    sub_hist = vision_histories(rng, 64, V_SUB_ITEMS - 1)
+
+    reset_counts()
+    table, encode_s = timed_encode(model, item_num, content_fn)
+    after_encode = counts()
+    retriever = Retriever(model, table, max_seq_len=V_L,
+                          batch_sizes=REQUEST_BATCHES)
+    results = {B: retriever.recommend(h, top_k=TOP_K)
+               for B, h in requests.items()}
+    after_recommend = counts()
+    # the other kernel selection, float32, through the same entry point
+    windows = build_vision_model(dev, V_SUB_ITEMS - 1, "windows", None)
+    windows.load_state_dict(model.state_dict())
+    table_w, _ = timed_encode(windows, V_SUB_ITEMS - 1, content_fn,
+                              V_SUB_ITEMS)
+    final = counts()
+
+    print(f"vision launches after encode {after_encode}, after recommend "
+          f"{after_recommend}, after the 'windows' sub-catalog {final}",
+          flush=True)
+    for n in VISION_ENCODE_KERNELS:
+        require(after_encode[n] > 0, f"{n} never launched in the encode")
+    for n in VISION_RECOMMEND_KERNELS:
+        require(after_recommend[n] > after_encode[n],
+                f"{n} never launched in recommend")
+    for n in VISION_WINDOWS_KERNELS:
+        require(final[n] > 0, f"{n} never launched by the 'windows' "
+                f"selection")
+    require(tuple(table.shape) == (item_num + 1, V_D), f"table {table.shape}")
+    require(bool(torch.isfinite(table).all()), "table not finite")
+    with torch.no_grad():
+        zero = model.encoder(torch.zeros(1, IMAGE, IMAGE, 3, device=dev))
+    pad_err = (table[0] - zero[0].float()).abs().max().item()
+    shown_err = (table[0] - table[POOL]).abs().max().item()
+    print(f"row 0 against the tower's output for a zero image: max_abs_err "
+          f"{pad_err:.3e} (tol {V_PAD_TOL:g}); against item {POOL}, which "
+          f"shows the same pool image: {shown_err:.3e}", flush=True)
+    require(pad_err <= V_PAD_TOL, "row 0 is not the zero image's embedding")
+    require(shown_err > V_PAD_TOL, "row 0 went through as its pool image")
+    for B, (ids, vals) in results.items():
+        require(ids.shape == (B, TOP_K), f"B={B}: ids {ids.shape}")
+        require(np.isfinite(vals).all(), f"B={B}: scores not finite")
+        require((np.diff(vals, axis=1) <= 0).all(), f"B={B}: not sorted")
+        check_results(ids, requests[B], V_L)
+
+    p50 = {}
+    for B, h in requests.items():
+        walls = []
+        for _ in range(25):
+            t0 = time.perf_counter()
+            retriever.recommend(h, top_k=TOP_K)   # returns host arrays
+            walls.append((time.perf_counter() - t0) * 1e3)
+        p50[B] = statistics.median(walls[5:])
+    print(f"vision catalog encode: {item_num + 1} images (Swin-T, bf16, "
+          f"chunks of {V_CHUNK}) in {encode_s:.3f} s, "
+          f"{(item_num + 1) / encode_s:.1f} images/s [{card}]", flush=True)
+    for B, ms in p50.items():
+        print(f"vision recommend B={B} top_k={TOP_K} L={V_L} D={V_D}: p50 "
+              f"{ms:.3f} ms over 20 requests [{card}]", flush=True)
+
+    vision_sub_catalog_check(dev, model, content_fn, table_w, sub_hist)
+    return after_recommend, {n: final[n] - after_recommend[n] for n in final}
+
+
+def vision_sub_catalog_check(dev, model, content_fn, table_w, hist) -> None:
+    """The first V_SUB_ITEMS items in float32: the band selection on the
+    card against the 'windows' selection's table and against the plain
+    path (the same model and wrappers on the CPU)."""
+    n = V_SUB_ITEMS - 1
+    f32 = copy.deepcopy(model)
+    f32.encoder.compute_dtype = None
+    table_k, _ = timed_encode(f32, n, content_fn, V_SUB_ITEMS)
+    sel_err = (table_k - table_w).abs().max().item()
+    serve = lambda m, t: Retriever(m, t, max_seq_len=V_L,
+                                   batch_sizes=(64,)).recommend(hist, TOP_K)
+    ids_k, vals_k = serve(f32, table_k)
+    cpu_model = f32.cpu()
+    t0 = time.perf_counter()
+    table_p = Retriever.encode_catalog(
+        cpu_model, n, None, V_D, batch_size=64,
+        content_fn=lambda ids: content_fn(ids).cpu())
+    ids_p, vals_p = serve(cpu_model, table_p)
+    cpu_s = time.perf_counter() - t0
+    table_err = (table_k.cpu() - table_p).abs().max().item()
+    scale = np.maximum(1.0, np.abs(vals_p))
+    score_err = float((np.abs(vals_k - vals_p) / scale).max())
+    mismatch = np.argwhere(ids_k != ids_p)
+    print(f"vision sub-catalog {V_SUB_ITEMS} items, f32: 'band' against "
+          f"'windows' table max_abs_err {sel_err:.3e} (tol "
+          f"{V_SELECTION_TOL:g}); against the CPU plain path table "
+          f"max_abs_err {table_err:.3e} (tol {V_TABLE_TOL:g}), score rel "
+          f"err {score_err:.3e} (tol {V_SCORE_TOL:g}), {len(mismatch)} of "
+          f"{ids_k.size} ids differ; the plain path took {cpu_s:.1f} s",
+          flush=True)
+    require(sel_err <= V_SELECTION_TOL, "the kernel selections disagree")
+    require(table_err <= V_TABLE_TOL, "vision sub-catalog table disagrees")
+    require(score_err <= V_SCORE_TOL, "vision sub-catalog scores disagree")
+    check_ties(mismatch, vals_p, scale, V_SCORE_TOL)
+    check_results(ids_k, hist, V_L)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="only profile the train step by device kernel "
+                        help="only profile the train step and the vision "
+                             "catalog encode by device kernel "
                              "(torch.profiler), after the card and build "
                              "phases")
     args = parser.parse_args()
@@ -772,8 +1292,8 @@ def main() -> int:
     t0 = time.perf_counter()
     path = lib.library_path()
     lib.library()
-    print(f"build: {path.name} ready in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"phase build: {path.name} ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     content = torch.from_numpy(
         catalog(np.random.default_rng(SEED + 1), ITEM_NUM)).to(dev)
@@ -782,20 +1302,45 @@ def main() -> int:
     cap = dedup_cap(batches)
     if args.profile:
         profile_train(dev, card, content, batches, cap)
+        profile_vision_encode(dev, card)
+        profile_vision_recommend(dev, card)
         return 0
 
-    kernels = kernel_phase(dev, card)
-    kernels.update(backward_phase(dev, card, cap))
-    served = serve_path(dev, card, content)
-    model, trained = train_path(dev, card, content, batches, cap)
-    grad_check(dev, model, content, batches[0])
+    with phase("kernels"):
+        kernels = kernel_phase(dev, card, kernel_cases(
+            np.random.default_rng(SEED), dev))
+    with phase("backward kernels"):
+        kernels.update(backward_phase(dev, card, cap))
+    with phase("serving"):
+        served = serve_path(dev, card, content)
+    with phase("training"):
+        model, trained = train_path(dev, card, content, batches, cap)
+    with phase("gradient check"):
+        grad_check(dev, model, content, batches[0])
+    del model, content
+    torch.cuda.empty_cache()
+    with phase("vision kernels"):
+        vision = kernel_phase(dev, card, vision_kernel_cases(dev),
+                              reps=FEW_REPS)
+    for name, r in vision.items():
+        if name in kernels:     # a kernel of both paths: the worse error
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                               r["max_abs_err"])
+        else:
+            kernels[name] = r
+    torch.cuda.empty_cache()
+    with phase("vision serving"):
+        seen, windows = vision_serve_path(dev, card)
 
+    # launches: every main path's count, each taken from 0; the four keys
+    # after it say which path launched how many
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": CSRC + SOURCES[n][0],
          "replaces": PALLAS + SOURCES[n][1],
-         "launches": served[n] + trained[n],
-         "max_abs_err": kernels[n]["max_abs_err"], "ms": kernels[n]["ms"],
-         "plain_ms": kernels[n]["plain_ms"]} for n in WRAPPERS]}
+         "launches": served[n] + trained[n] + seen[n] + windows[n],
+         "launches_serve": served[n], "launches_train": trained[n],
+         "launches_vision": seen[n], "launches_windows": windows[n],
+         **kernels[n]} for n in WRAPPERS]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ Flax tree and keeps the Flax layouts (``models/layers.py``):
 - the Flax path's ``/`` becomes ``.``;
 - the leaf ``kernel`` (a Dense, (in, out)), ``scale`` (a LayerNorm) or
   ``embedding`` (an Embed) becomes ``weight``, array unchanged; ``bias``
-  stays ``bias``.
+  stays ``bias``, and so does any other leaf (a bare parameter such as
+  Swin's ``relative_position_bias_table``). The patch projection's
+  (p, p, C, D) ``kernel`` is a ``weight`` like a Dense's.
 
 So any Flax ``RecModel.init`` tree of the ported towers loads with
 ``model.load_state_dict(from_flax(variables))``. The inverse needs the
@@ -23,9 +25,11 @@ import torch
 from torch import nn
 
 from .models.layers import Dense, Embed, LayerNorm
+from .models.swin import PatchProject
 
 _TO_TORCH = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
-_WEIGHT_LEAF = {Dense: "kernel", LayerNorm: "scale", Embed: "embedding"}
+_WEIGHT_LEAF = {Dense: "kernel", LayerNorm: "scale", Embed: "embedding",
+                PatchProject: "kernel"}
 
 
 def _flatten(tree: Mapping, prefix=()):

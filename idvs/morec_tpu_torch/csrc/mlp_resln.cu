@@ -46,7 +46,9 @@ __host__ __device__ constexpr int f_chunk() { return 128 * Layout<C>::WC; }
 
 template <int C>
 constexpr size_t mlp_smem_floats() {
-  return C * kLdA + f_chunk<C>() * kLdA + 2 * kBK * C + kRedFloats;
+  using Lay = Layout<C>;
+  return C * Lay::LDA + f_chunk<C>() * Lay::LDA + 2 * Lay::BK * C +
+         Lay::kRedFloats;
 }
 
 template <typename T, int C, int ACT>
@@ -60,13 +62,14 @@ __global__ void __launch_bounds__(kThreads)
                      int F, float eps, Drop drop) {
   using Lay = Layout<C>;
   constexpr int TR = Lay::TR, FC = f_chunk<C>();
+  constexpr int kBM = Lay::BM, kBK = Lay::BK, kLdA = Lay::LDA;
   constexpr int kSlices1 = C / kBK, kSlices2 = FC / kBK;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Xt = smem;                // [C][kLdA]      x tile, transposed
   float* Ht = Xt + C * kLdA;       // [FC][kLdA]     act(h) chunk, transposed
   float* Ws = Ht + FC * kLdA;      // 2 x [kBK][C]   W1 or W2 slices
-  float* red = Ws + 2 * kBK * C;   // [kRedFloats]
+  float* red = Ws + 2 * kBK * C;   // [Lay::kRedFloats]
   const int row0 = blockIdx.x * kBM;
   const int l = threadIdx.x & 31;
   const int row_off = Lay::wr() * TR;
@@ -89,14 +92,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int f0 = 0; f0 < F; f0 += FC) {
     // dense1: h = x @ W1[:, f0:f0+FC], double-buffered over K = C
     float h[TR][4] = {};
-    BSlice<T, FC> s1;
+    BSlice<T, FC, kBK> s1;
     s1.load(w1, F, 0, f0);
     for (int t = 0; t < kSlices1; ++t) {
       float* ws = Ws + (t & 1) * kBK * C;
       s1.store(ws);
       __syncthreads();
       if (t + 1 < kSlices1) s1.load(w1, F, (t + 1) * kBK, f0);
-      fma_slice<TR, 1, FC>(h, Xt + t * kBK * kLdA, ws, row_off, col1);
+      fma_slice<TR, 1, FC, kBK, kLdA>(h, Xt + t * kBK * kLdA, ws, row_off,
+                                      col1);
     }
     // cast(act(h + b1)) into the chunk buffer; the previous chunk's reads
     // of Ht ended before the first barrier of the loop above
@@ -119,14 +123,15 @@ __global__ void __launch_bounds__(kThreads)
         Ht[(col1 + 4 * l + c) * kLdA + row_off + r] =
             round_to<T>(act<ACT>(h[r][c] + bb[c]));
     // dense2: acc += h @ W2[f0:f0+FC, :], double-buffered over K = FC
-    BSlice<T, C> s2;
+    BSlice<T, C, kBK> s2;
     s2.load(w2, C, f0, 0);
     for (int t = 0; t < kSlices2; ++t) {
       float* ws = Ws + (t & 1) * kBK * C;
       s2.store(ws);
       __syncthreads();
       if (t + 1 < kSlices2) s2.load(w2, C, f0 + (t + 1) * kBK, 0);
-      fma_slice<TR, Lay::NG, C>(acc, Ht + t * kBK * kLdA, ws, row_off, col2);
+      fma_slice<TR, Lay::NG, C, kBK, kLdA>(acc, Ht + t * kBK * kLdA, ws,
+                                           row_off, col2);
     }
   }
   ln_epilogue<T, C>(acc, b2, x, gamma, beta, out, row0, M, eps, red, drop,
@@ -139,6 +144,7 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
                    const float* beta, void* out, void* ypre, void* hsave,
                    int M, int F, float eps, Drop drop, cudaStream_t stream) {
   if (F % f_chunk<C>() != 0) return cudaErrorInvalidValue;
+  constexpr int kBM = Layout<C>::BM;
   const size_t smem = sizeof(float) * mlp_smem_floats<C>();
   auto kernel = mlp_resln_kernel<T, C, ACT>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -166,6 +172,10 @@ cudaError_t dispatch_c(const void* x, const void* w1, const void* b1,
     case 512:
       return launch<T, 512, ACT>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M, F,
                                  eps, d, s);
+    case 2048:   // the forward-only edition alone (8-row tiles)
+      if (yp != nullptr || hs != nullptr) return cudaErrorInvalidValue;
+      return launch<T, 2048, ACT>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M, F,
+                                  eps, d, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -191,7 +201,8 @@ cudaError_t dispatch(const void* x, const void* w1, const void* b1,
 
 // x, out: (M, C); w1: (C, F) and w2: (F, C) in (in, out) layout; b1: (F,),
 // b2: (C,) in the compute dtype; gamma, beta: (C,) float. C must be 128,
-// 256 or 512 and F a multiple of 128 (of 256 at C = 512). activation:
+// 256 or 512 and F a multiple of 128 (of 256 at C = 512), or, for the
+// forward-only edition, 2048 with F a multiple of 1024. activation:
 // 0 = exact GELU, 1 = ReLU. ypre (M, C) and h (M, F), in the compute
 // dtype, are both given (training edition) or both null. Dropout:
 // drop_key = mix32(seed), drop_thresh = 0 for none (dropout.cuh).

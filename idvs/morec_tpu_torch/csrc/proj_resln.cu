@@ -33,19 +33,20 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ beta, T* __restrict__ out,
                       T* __restrict__ ypre, int M, float eps, Drop drop) {
   using Lay = Layout<C>;
+  constexpr int kBM = Lay::BM, kBK = Lay::BK, kLdA = Lay::LDA;
   constexpr int kSlices = C / kBK;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* At = smem;                        // 2 x [kBK][kLdA]  x slices
   float* Bs = At + 2 * kBK * kLdA;         // 2 x [kBK][C]     W slices
-  float* red = Bs + 2 * kBK * C;           // [kRedFloats]
+  float* red = Bs + 2 * kBK * C;           // [Lay::kRedFloats]
   const int row0 = blockIdx.x * kBM;
   const int row_off = Lay::wr() * Lay::TR;
   const int col_off = Lay::wc() * 128 * Lay::NG;
 
   float acc[Lay::TR][4 * Lay::NG] = {};
-  ASlice<T> a;
-  BSlice<T, C> bw;
+  ASlice<T, kBM, kBK> a;
+  BSlice<T, C, kBK> bw;
   a.load(x, C, row0, M, 0);
   bw.load(w, C, 0, 0);
   for (int t = 0; t < kSlices; ++t) {
@@ -58,7 +59,8 @@ __global__ void __launch_bounds__(kThreads)
       a.load(x, C, row0, M, (t + 1) * kBK);
       bw.load(w, C, (t + 1) * kBK, 0);
     }
-    fma_slice<Lay::TR, Lay::NG, C>(acc, at, bs, row_off, col_off);
+    fma_slice<Lay::TR, Lay::NG, C, kBK, kLdA>(acc, at, bs, row_off,
+                                               col_off);
   }
   ln_epilogue<T, C>(acc, b, res, gamma, beta, out, row0, M, eps, red, drop,
                     ypre);
@@ -69,8 +71,10 @@ cudaError_t launch(const void* x, const void* res, const void* w,
                    const void* b, const float* gamma, const float* beta,
                    void* out, void* ypre, int M, float eps, Drop drop,
                    cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * kBK * kLdA + 2 * kBK * C + kRedFloats);
+  using Lay = Layout<C>;
+  constexpr int kBM = Lay::BM;
+  const size_t smem = sizeof(float) * (2 * Lay::BK * Lay::LDA +
+                                       2 * Lay::BK * C + Lay::kRedFloats);
   auto kernel = proj_resln_kernel<T, C>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -93,6 +97,10 @@ cudaError_t dispatch(const void* x, const void* res, const void* w,
       return launch<T, 256>(x, res, w, b, gamma, beta, out, ypre, M, eps, d, s);
     case 512:
       return launch<T, 512>(x, res, w, b, gamma, beta, out, ypre, M, eps, d, s);
+    case 2048:   // the forward-only edition alone (8-row tiles)
+      if (ypre != nullptr) return cudaErrorInvalidValue;
+      return launch<T, 2048>(x, res, w, b, gamma, beta, out, ypre, M, eps, d,
+                             s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -101,8 +109,9 @@ cudaError_t dispatch(const void* x, const void* res, const void* w,
 }  // namespace idvs
 
 // x, res, out: (M, C); w: (C, C) in (in, out) layout; b: (C,) in the compute
-// dtype; gamma, beta: (C,) float. C must be 128, 256 or 512. ypre: (M, C)
-// in the compute dtype, or null for the forward-only edition. Dropout:
+// dtype; gamma, beta: (C,) float. C must be 128, 256 or 512, or 2048 for
+// the forward-only edition. ypre: (M, C) in the compute dtype, or null for
+// the forward-only edition. Dropout:
 // drop_key = mix32(seed), drop_thresh = 0 for none (dropout.cuh).
 extern "C" int idvs_proj_resln_fwd(const void* x, const void* res,
                                    const void* w, const void* b,

@@ -1,20 +1,23 @@
 // Row-tile building blocks of the two post-LN epilogue kernels
 // (proj_resln.cu, mlp_resln.cu).
 //
-// A block of kThreads = 256 threads (8 warps) owns kBM = 32 rows and ALL C
-// output columns, so the LayerNorm over a row runs in the epilogue with no
-// second pass. The warps form a WR x WC grid (Grid<C>): warp (wr, wc) owns
-// rows wr*TR .. wr*TR+TR-1 and the column span wc*128*NG .. +128*NG, in which
-// lane l owns the 4-column groups 4l + 128j (j < NG). A thread therefore
-// holds a TR x 4NG register tile (8 x 8 at C = 512); neighbouring lanes read
-// neighbouring 16-byte words of the B tile, and the A values are broadcast.
+// A block of kThreads = 256 threads (8 warps) owns BM rows (32, or 8 at
+// C = 2048) and ALL C output columns, so the LayerNorm over a row runs in the
+// epilogue with no second pass. The warps form a WR x WC grid (Grid<C>): warp
+// (wr, wc) owns rows wr*TR .. wr*TR+TR-1 and the column span wc*128*NG ..
+// +128*NG, in which lane l owns the 4-column groups 4l + 128j (j < NG). A
+// thread therefore holds a TR x 4NG register tile (8 x 8 at C = 512 and at
+// C = 2048, where the 8 warps sit side by side over 8 rows); neighbouring
+// lanes read neighbouring 16-byte words of the B tile, and the A values are
+// broadcast.
 //
 // Operand A sits in shared memory transposed, At[k][row] with a row stride
-// of kLdA floats (32 rows + 4 of padding against bank conflicts on the
-// transposing store); operand B sits row-major, Bs[k][col]. Both hold
-// floats widened from the compute dtype. K is walked in kBK = 16 deep
-// slices, double-buffered: the next slice is loaded into registers while
-// the current one is multiplied, so one barrier per slice suffices.
+// of LDA = BM + 4 floats (padding against bank conflicts on the transposing
+// store); operand B sits row-major, Bs[k][col]. Both hold floats widened
+// from the compute dtype. K is walked in BK deep slices (16, or 4 at
+// C = 2048 where a slice is 2048 wide), double-buffered: the next slice is
+// loaded into registers while the current one is multiplied, so one barrier
+// per slice suffices.
 #pragma once
 
 #include "common.cuh"
@@ -25,27 +28,31 @@ namespace rowtile {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBM = 32;
-constexpr int kBK = 16;
-constexpr int kLdA = kBM + 4;
 
 // Warp grid for C output columns: WC column warps, NG 4-column groups per
-// lane (C = WC * 128 * NG).
+// lane (C = WC * 128 * NG), BM rows a block, BK the depth of a K slice.
 template <int C>
 struct Grid;
 template <>
-struct Grid<128> { static constexpr int WC = 1, NG = 1; };
+struct Grid<128> { static constexpr int WC = 1, NG = 1, BM = 32, BK = 16; };
 template <>
-struct Grid<256> { static constexpr int WC = 1, NG = 2; };
+struct Grid<256> { static constexpr int WC = 1, NG = 2, BM = 32, BK = 16; };
 template <>
-struct Grid<512> { static constexpr int WC = 2, NG = 2; };
+struct Grid<512> { static constexpr int WC = 2, NG = 2, BM = 32, BK = 16; };
+template <>
+struct Grid<2048> { static constexpr int WC = 8, NG = 2, BM = 8, BK = 4; };
 
 template <int C>
 struct Layout {
   static constexpr int WC = Grid<C>::WC;
   static constexpr int NG = Grid<C>::NG;
+  static constexpr int BM = Grid<C>::BM;
+  static constexpr int BK = Grid<C>::BK;
+  static constexpr int LDA = BM + 4;    // row stride of a transposed A tile
   static constexpr int WR = kWarps / WC;
-  static constexpr int TR = kBM / WR;   // rows per thread
+  static constexpr int TR = BM / WR;    // rows per thread
+  // shared-memory floats ln_epilogue needs for its cross-warp sums
+  static constexpr int kRedFloats = 2 * WC * BM;
   static_assert(WC * 128 * NG == C, "grid must cover C");
   static_assert(TR % 4 == 0, "rows per thread come in float4s");
   __device__ static int wr() { return (threadIdx.x >> 5) % WR; }
@@ -70,38 +77,40 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   q[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
-// A slice [kBM rows][kBK] of a row-major (M, lda) matrix, staged in
-// registers: threads 0..127 each carry one row's 4 consecutive k values.
-template <typename T>
+// A slice [BM rows][BK] of a row-major (M, lda) matrix, staged in
+// registers: threads 0..BM*BK/4-1 each carry one row's 4 consecutive k
+// values.
+template <typename T, int BM, int BK>
 struct ASlice {
+  static constexpr int kQuads = BK / 4;   // 4-element groups of a row
   float4 v;
   __device__ void load(const T* __restrict__ A, int lda, int row0, int M,
                        int k0) {
-    if (threadIdx.x < kBM * kBK / 4) {
-      const int row = row0 + (threadIdx.x >> 2);
+    if (threadIdx.x < BM * kQuads) {
+      const int row = row0 + threadIdx.x / kQuads;
       v = row < M ? load4(A + static_cast<size_t>(row) * lda + k0 +
-                          4 * (threadIdx.x & 3))
+                          4 * (threadIdx.x % kQuads))
                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
   __device__ void store(float* At) const {
-    if (threadIdx.x < kBM * kBK / 4) {
-      const int r = threadIdx.x >> 2, k = 4 * (threadIdx.x & 3);
-      At[(k + 0) * kLdA + r] = v.x;
-      At[(k + 1) * kLdA + r] = v.y;
-      At[(k + 2) * kLdA + r] = v.z;
-      At[(k + 3) * kLdA + r] = v.w;
+    if (threadIdx.x < BM * kQuads) {
+      const int r = threadIdx.x / kQuads, k = 4 * (threadIdx.x % kQuads);
+      At[(k + 0) * (BM + 4) + r] = v.x;
+      At[(k + 1) * (BM + 4) + r] = v.y;
+      At[(k + 2) * (BM + 4) + r] = v.z;
+      At[(k + 3) * (BM + 4) + r] = v.w;
     }
   }
 };
 
-// A slice [kBK][NC] of a row-major (K, ldb) matrix from column c0, staged
+// A slice [BK][NC] of a row-major (K, ldb) matrix from column c0, staged
 // in registers: kPer float4s per thread.
-template <typename T, int NC>
+template <typename T, int NC, int BK>
 struct BSlice {
   static constexpr int kQuads = NC / 4;
-  static constexpr int kPer = kBK * kQuads / kThreads;
-  static_assert(kPer * kThreads == kBK * kQuads, "slice must split evenly");
+  static constexpr int kPer = BK * kQuads / kThreads;
+  static_assert(kPer * kThreads == BK * kQuads, "slice must split evenly");
   float4 v[kPer];
   __device__ void load(const T* __restrict__ B, int ldb, int k0, int c0) {
 #pragma unroll
@@ -121,20 +130,21 @@ struct BSlice {
   }
 };
 
-// acc[r][4j + c] += sum_{k < kBK} At[k][row_off + r] *
-//                                 Bs[k][col_off + 4l + 128j + c]
-template <int TR, int NG, int LDB>
+// acc[r][4j + c] += sum_{k < BK} At[k][row_off + r] *
+//                                Bs[k][col_off + 4l + 128j + c]
+// with At rows LDA floats apart and Bs rows LDB floats apart.
+template <int TR, int NG, int LDB, int BK, int LDA>
 __device__ __forceinline__ void fma_slice(float (&acc)[TR][4 * NG],
                                           const float* At, const float* Bs,
                                           int row_off, int col_off) {
   const int l = threadIdx.x & 31;
 #pragma unroll
-  for (int k = 0; k < kBK; ++k) {
+  for (int k = 0; k < BK; ++k) {
     float a[TR];
 #pragma unroll
     for (int q = 0; q < TR / 4; ++q) {
       const float4 t =
-          *reinterpret_cast<const float4*>(At + k * kLdA + row_off + 4 * q);
+          *reinterpret_cast<const float4*>(At + k * LDA + row_off + 4 * q);
       a[4 * q + 0] = t.x;
       a[4 * q + 1] = t.y;
       a[4 * q + 2] = t.z;
@@ -155,17 +165,14 @@ __device__ __forceinline__ void fma_slice(float (&acc)[TR][4 * NG],
   }
 }
 
-// Shared-memory floats ln_epilogue needs for its cross-warp sums.
-constexpr int kRedFloats = 2 * 2 * kBM;
-
 // out = LN(cast(dropout(acc + bias) + resid)) over each row of C columns:
 // the pre-LN sum is rounded to the compute dtype BEFORE the float stats
 // (mlp.py _fwd_post_body / _fwd_proj_body), the variance is the fast
 // E[x^2] - E[x]^2 clamped at 0 (flax nn.LayerNorm), gamma/beta are float.
 // The dropout index of element (row, col) is row * C + col. The cast pre-LN
 // sum is also stored to ypre when it is given (the training edition's
-// residual). A row's sums come from its WC warps through `red` (kRedFloats
-// floats).
+// residual). A row's sums come from its WC warps through `red`
+// (Layout<C>::kRedFloats floats).
 template <typename T, int C>
 __device__ __forceinline__ void ln_epilogue(
     float (&acc)[Layout<C>::TR][4 * Layout<C>::NG], const T* __restrict__ bias,
@@ -173,7 +180,7 @@ __device__ __forceinline__ void ln_epilogue(
     const float* __restrict__ beta, T* __restrict__ out, int row0, int M,
     float eps, float* red, Drop drop, T* __restrict__ ypre) {
   using Lay = Layout<C>;
-  constexpr int TR = Lay::TR, NG = Lay::NG, WC = Lay::WC;
+  constexpr int TR = Lay::TR, NG = Lay::NG, WC = Lay::WC, kBM = Lay::BM;
   const int l = threadIdx.x & 31, wr = Lay::wr(), wc = Lay::wc();
   const int col0 = wc * 128 * NG + 4 * l;
   float sum[TR], sq[TR];

@@ -5,7 +5,10 @@ The leaves keep the Flax layouts so weights cross between the packages by
 one renaming rule (``convert.py``): a ``Dense`` stores its weight as the
 Flax ``kernel`` in (in, out) layout, which is also what the fused kernels
 read; ``LayerNorm.weight`` is the Flax ``scale``; ``Embed.weight`` is the
-Flax ``embedding``.
+Flax ``embedding``. A module may also own a bare parameter, the twin of a
+Flax ``self.param`` (Swin's ``relative_position_bias_table``): it keeps the
+Flax name and layout and the module draws it in its own
+``reset_parameters``.
 
 Initialisation draws from an explicit ``torch.Generator``
 (``init_parameters``) with the distributions the JAX package uses: Xavier
@@ -109,12 +112,26 @@ def embed_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 Init = Callable[[torch.Tensor, torch.Generator], None]
 
 
+def on_device(device=None) -> torch.device:
+    """The device a module is built on: the one the caller names, else the
+    GPU. Nothing moves to the CPU on its own: with no GPU visible and no
+    device named this raises, and a caller that wants the CPU says so."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible and no device was named: pass "
+            "device='cpu' to build on the CPU")
+    return torch.device("cuda")
+
+
 class Dense(nn.Module):
     """y = x @ weight + bias with weight in the Flax (in, out) layout."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  init: Init = lecun_normal_, device=None):
         super().__init__()
+        device = on_device(device)
         self.weight = nn.Parameter(
             torch.empty(in_features, out_features, device=device))
         self.bias = (nn.Parameter(torch.empty(out_features, device=device))
@@ -137,6 +154,7 @@ class LayerNorm(nn.Module):
 
     def __init__(self, features: int, eps: float, device=None):
         super().__init__()
+        device = on_device(device)
         self.weight = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.eps = eps
@@ -156,6 +174,7 @@ class Embed(nn.Module):
     def __init__(self, num_embeddings: int, features: int,
                  init: Init = embed_normal_, device=None):
         super().__init__()
+        device = on_device(device)
         self.weight = nn.Parameter(
             torch.empty(num_embeddings, features, device=device))
         self._init = init
@@ -167,13 +186,39 @@ class Embed(nn.Module):
         return F.embedding(ids, self.weight)
 
 
-LEAVES = (Dense, LayerNorm, Embed)
+class DropPath(nn.Module):
+    """Stochastic depth: identity in eval mode and at rate 0. The training
+    draw (one Bernoulli an image) is not ported yet and raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        dropout.check_rate(rate)
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError(
+                "DropPath's training draw is not ported: it comes with the "
+                "vision-training slice")
+        return x
+
+
+def normal_(std: float) -> "Init":
+    """N(0, std^2) (flax ``nn.initializers.normal``)."""
+    def init(w: torch.Tensor, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            w.normal_(0.0, std, generator=generator)
+    return init
 
 
 def init_parameters(module: nn.Module,
                     generator: Optional[torch.Generator] = None) -> None:
-    """Draws every leaf's parameters, in ``module.modules()`` order, from
-    ``generator`` (which must live on the parameters' device)."""
+    """Draws every parameter, in ``module.modules()`` order, from
+    ``generator`` (which must live on the parameters' device): each module
+    that owns parameters (a leaf above, or a module with a bare parameter)
+    fills them in its ``reset_parameters(generator)``."""
     for m in module.modules():
-        if isinstance(m, LEAVES):
-            m.reset_parameters(generator)
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)

@@ -2,8 +2,8 @@
 
 This slice covers the SASRec user tower, the end2end stage and the item
 towers ``id`` (an ID table whose padding row 0 is zero) and ``modal`` (an
-injected content encoder such as ``TextTower``). DSSM, ID+modality fusion
-and the two-stage towers are still to be ported.
+injected content encoder such as ``TextTower`` or ``VisionTower``). DSSM,
+ID+modality fusion and the two-stage towers are still to be ported.
 
 The train/eval mode is torch's (``model.train()`` / ``model.eval()``);
 ``item_embs`` and ``user_states`` take the host generator that seeds the
@@ -17,7 +17,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .layers import Embed, init_parameters, padded_xavier_normal_
+from .layers import (Embed, init_parameters, on_device,
+                     padded_xavier_normal_)
 from .sasrec import SASRecEncoder
 
 
@@ -55,9 +56,14 @@ class RecModel(nn.Module):
                   content: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None
                   ) -> torch.Tensor:
-        """Item tower: ids (N,) (+ content rows (N, W)) -> (N, D)."""
+        """Item tower: ids (N,) (+ content: token rows (N, W) or images
+        (N, H, W, 3)) -> (N, D)."""
         if self.item_tower == "id":
             return self.id_embedding(item_ids)
+        if content.dim() == 4:
+            # images: id 0 is the padding item, whose image is zero in
+            # normalised space, which uint8 content cannot say
+            return self.encoder(content, generator, pad_mask=(item_ids == 0))
         return self.encoder(content, generator)
 
     def user_states(self, input_embs: torch.Tensor, log_mask: torch.Tensor,
@@ -76,10 +82,15 @@ def make_model(cfg, item_num: int, encoder: Optional[nn.Module] = None, *,
     ``drop_rate``, 0.1 when absent as in the JAX ``Config``). The model
     comes back in eval mode, for serving; ``train.state`` switches it.
 
+    The model is built on ``device``, the GPU when None (``on_device``: it
+    raises when none is visible; name ``"cpu"`` to build there). The
+    encoder must have been built on the same device.
+
     Every parameter, the encoder's included, is drawn from ``generator``
     (a ``torch.Generator`` on ``device``; None draws from torch's default
     generator).
     """
+    device = on_device(device)
     model = RecModel(item_num=item_num, embedding_dim=cfg.embedding_dim,
                      num_attention_heads=cfg.num_attention_heads,
                      transformer_block=cfg.transformer_block,

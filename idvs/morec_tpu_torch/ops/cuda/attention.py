@@ -1,6 +1,8 @@
-"""Fused multi-head self-attention over packed QKV, forward and backward.
+"""Fused multi-head self-attention: over packed QKV (forward and backward),
+and Swin's windowed attention with its projections (forward).
 
-Kernels: ``csrc/fused_mha.cu``. They replace the TPU kernel
+``fused_mha_proj`` and ``fused_mha_proj_band`` are at the end of the module;
+first ``fused_mha``. Kernels: ``csrc/fused_mha.cu``. They replace the TPU kernel
 ``idvs/morec_tpu/ops/pallas/attention.py`` ``fused_mha`` (``_fwd_kernel``
 and ``_bwd_kernel``), with the in-kernel dropout of the attention
 probabilities (``ops/dropout.py``). On the H100 both are latency- and
@@ -177,5 +179,188 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
     return _launch_fwd(qkv_c, table, args, code, drop)
 
 
+# -- windowed attention with its projections (Swin) ---------------------------
+#
+# Kernels: ``csrc/win_attn.cu``. They replace the TPU kernels
+# ``idvs/morec_tpu/ops/pallas/attention.py`` ``fused_mha_proj``
+# (``_pfwd_kernel``) and ``fused_mha_proj_band`` (``_bfwd_kernel``): QKV
+# projection, biased windowed attention and output projection, the (T, T)
+# scores and the packed qkv never in device memory. One device body serves
+# both; the window layout reads window r from (B, T, C), the band layout
+# reads a window's tokens from the (N, Hp, Wp, C) map and writes them back
+# there, so the window partition and its reverse never exist. The work is
+# 95 % projections, bound by the card's float FMA rate; the .cu header has
+# the design. The backward is not ported: on the card a wrapper raises when
+# a gradient is wanted.
+
+LINEAR_WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
+CUDA_INVALID_VALUE = 1     # cudaErrorInvalidValue
+
+
+def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N * nW, w * w, C), windows of an image in raster
+    order."""
+    N, H, W, C = x.shape
+    x = x.reshape(N, H // w, w, W // w, w, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, w * w, C)
+
+
+def window_reverse(wins: torch.Tensor, w: int, H: int, W: int
+                   ) -> torch.Tensor:
+    """The inverse of ``window_partition``: (N * nW, w * w, C) ->
+    (N, H, W, C)."""
+    N = wins.shape[0] // ((H // w) * (W // w))
+    x = wins.reshape(N, H // w, W // w, w, w, -1)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(N, H, W, -1)
+
+
+def _proj_geometry(x, bias, wqkv, bqkv, wo, bo, n_heads, windows, T):
+    C = x.shape[-1]
+    if C % n_heads:
+        raise ValueError(f"C={C} is not a multiple of n_heads={n_heads}")
+    if (tuple(wqkv.shape) != (C, 3 * C) or tuple(bqkv.shape) != (3 * C,)
+            or tuple(wo.shape) != (C, C) or tuple(bo.shape) != (C,)):
+        raise ValueError("windowed attention: weight shapes disagree with "
+                         f"C={C}")
+    if bias.dim() != 4 or tuple(bias.shape[1:]) != (n_heads, T, T):
+        raise ValueError(f"bias must be (P, {n_heads}, {T}, {T}), got "
+                         f"{tuple(bias.shape)}")
+    if windows % bias.shape[0]:
+        raise ValueError(f"bias period {bias.shape[0]} must divide the "
+                         f"{windows} windows")
+
+
+def fused_mha_proj_plain(x: torch.Tensor, bias: torch.Tensor,
+                         wqkv: torch.Tensor, bqkv: torch.Tensor,
+                         wo: torch.Tensor, bo: torch.Tensor, *,
+                         n_heads: int) -> torch.Tensor:
+    """The window-layout kernel's function in plain PyTorch: float32
+    products, qkv, the probabilities, the context and the output each cast
+    to x's dtype, the bias cast to x's dtype before it is added."""
+    B, T, C = x.shape
+    _proj_geometry(x, bias, wqkv, bqkv, wo, bo, n_heads, B, T)
+    dt, dh = x.dtype, C // n_heads
+    qkv = (x.float() @ wqkv.to(dt).float() + bqkv.to(dt).float()).to(dt)
+    q, k, v = (t.float().reshape(B, T, n_heads, dh).transpose(1, 2)
+               for t in qkv.split(C, dim=-1))
+    scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+    b = bias.to(dt).float()
+    scores = scores + b.repeat(B // b.shape[0], 1, 1, 1)  # row r: bias[r % P]
+    probs = torch.softmax(scores, dim=-1).to(dt).float()
+    ctx = (probs @ v).transpose(1, 2).reshape(B, T, C).to(dt)
+    return (ctx.float() @ wo.to(dt).float() + bo.to(dt).float()).to(dt)
+
+
+def fused_mha_proj_band_plain(x: torch.Tensor, bias: torch.Tensor,
+                              wqkv: torch.Tensor, bqkv: torch.Tensor,
+                              wo: torch.Tensor, bo: torch.Tensor, *,
+                              n_heads: int, window: int) -> torch.Tensor:
+    """The band kernel's function in plain PyTorch: partition, the window
+    layout's plain version, reverse."""
+    N, Hp, Wp, C = x.shape
+    wins = window_partition(x, window)
+    out = fused_mha_proj_plain(wins, bias, wqkv, bqkv, wo, bo,
+                               n_heads=n_heads)
+    return window_reverse(out, window, Hp, Wp)
+
+
+def _launch_windowed(name, x, bias, wqkv, bqkv, wo, bo, n_heads, windows, T,
+                     band):
+    """Launches the kernel pair of csrc/win_attn.cu on x in the window
+    layout (band None) or the band layout (band = (w, nwc, nwr))."""
+    C = x.shape[-1]
+    if C not in LINEAR_WIDTHS:
+        raise ValueError(f"{name} kernel takes C in {LINEAR_WIDTHS}, got "
+                         f"{C}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, bias, wqkv, bqkv, wo, bo)):
+        raise NotImplementedError(
+            f"the backward of {name} is not ported: it comes with the "
+            f"vision-training slice")
+    code = lib.dtype_code(x)
+    dt = x.dtype
+    x = x.contiguous()
+    table = bias.detach().to(dt).float().contiguous()
+    ops = [t.detach().to(dt).contiguous() for t in (wqkv, bqkv, wo, bo)]
+    lib.check_device(x, table, *ops)
+    lib.check_aligned(x, *ops)
+    ctx, out = torch.empty_like(x), torch.empty_like(x)
+    w, nwc, nwr = band if band is not None else (0, 0, 0)
+    err = lib.library().idvs_win_attn_fwd(
+        x.data_ptr(), table.data_ptr(), *(t.data_ptr() for t in ops),
+        ctx.data_ptr(), out.data_ptr(), windows, T, C, n_heads,
+        table.shape[0], table.stride(0), table.stride(1),
+        int(band is not None), w, nwc, nwr,
+        1.0 / math.sqrt(C // n_heads), code, lib.stream_handle(x))
+    if err == CUDA_INVALID_VALUE:
+        # the kernel chooses its own blocking (choose_blocking in the .cu)
+        raise ValueError(
+            f"{name} kernel: no blocking for T={T}, C={C}, "
+            f"n_heads={n_heads}: it takes heads of a multiple of 4 columns "
+            f"and a head group of 32 or more columns that fits a block's "
+            f"threads and shared memory")
+    lib.check(err, name)
+    return out
+
+
+def fused_mha_proj(x: torch.Tensor, bias: torch.Tensor, wqkv: torch.Tensor,
+                   bqkv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                   *, n_heads: int) -> torch.Tensor:
+    """(B, T, C) windows -> (B, T, C): QKV projection, biased multi-head
+    attention and output projection in one call.
+
+    bias: (P, nh, T, T) additive score bias, cast to x's dtype first; P
+    divides B and window r takes bias[r % P]. wqkv (C, 3C), bqkv (3C,), wo
+    (C, C), bo (C,) in (in, out) layout, cast to x's dtype.
+    """
+    B, T, C = x.shape
+    _proj_geometry(x, bias, wqkv, bqkv, wo, bo, n_heads, B, T)
+    if x.device.type == "cpu":
+        return fused_mha_proj_plain(x, bias, wqkv, bqkv, wo, bo,
+                                    n_heads=n_heads)
+    if not B:
+        return torch.empty_like(x)
+    out = _launch_windowed("fused_mha_proj", x, bias, wqkv, bqkv, wo, bo,
+                           n_heads, B, T, None)
+    fused_mha_proj.launches += 1
+    return out
+
+
+def fused_mha_proj_band(x: torch.Tensor, bias: torch.Tensor,
+                        wqkv: torch.Tensor, bqkv: torch.Tensor,
+                        wo: torch.Tensor, bo: torch.Tensor, *, n_heads: int,
+                        window: int) -> torch.Tensor:
+    """(N, Hp, Wp, C) feature map -> (N, Hp, Wp, C): the same function over
+    the map's window x window tiles, windows formed inside the kernel.
+
+    bias: (P, nh, w*w, w*w) with P = 1 (every window) or P = nW, the
+    windows of an image in raster order (the shifted blocks' mask). Hp and
+    Wp are multiples of ``window``; the caller rolls the map for shifted
+    blocks.
+    """
+    N, Hp, Wp, C = x.shape
+    w = window
+    if Hp % w or Wp % w:
+        raise ValueError(f"the map {Hp}x{Wp} is not a multiple of the "
+                         f"window {w}")
+    nwr, nwc = Hp // w, Wp // w
+    if bias.shape[0] not in (1, nwr * nwc):
+        raise ValueError(f"bias period must be 1 or {nwr * nwc}, got "
+                         f"{bias.shape[0]}")
+    _proj_geometry(x, bias, wqkv, bqkv, wo, bo, n_heads, N * nwr * nwc,
+                   w * w)
+    if x.device.type == "cpu":
+        return fused_mha_proj_band_plain(x, bias, wqkv, bqkv, wo, bo,
+                                         n_heads=n_heads, window=w)
+    if not N:
+        return torch.empty_like(x)
+    out = _launch_windowed("fused_mha_proj_band", x, bias, wqkv, bqkv, wo,
+                           bo, n_heads, N * nwr * nwc, w * w, (w, nwc, nwr))
+    fused_mha_proj_band.launches += 1
+    return out
+
+
 fused_mha.launches = 0
 fused_mha_bwd.launches = 0
+fused_mha_proj.launches = 0
+fused_mha_proj_band.launches = 0

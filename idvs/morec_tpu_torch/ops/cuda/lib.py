@@ -56,6 +56,13 @@ _SIGNATURES = {
     "idvs_gemm": [_P] * 6 + [_I] * 3 + [_LL] * 4 + [_I] * 5 + [_P],
     # ids, dx, table, out, M, D, V, dtype, stream
     "idvs_scatter_add_rows": [_P] * 4 + [_I] * 4 + [_P],
+    # x, bias, wqkv, bqkv, wo, bo, ctx, out, windows, T, C, nh, P, bias_sp,
+    # bias_sh, band, w, nwc, nwr, scale, dtype, stream
+    "idvs_win_attn_fwd": [_P] * 8 + [_I] * 5 + [_LL, _LL] + [_I] * 4
+                         + [_F, _I, _P],
+    # x, w1, b1, w2, b2, gamma, beta, scale, out, M, C, F, eps, act, res,
+    # dtype, stream
+    "idvs_premlp_fwd": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -93,8 +100,7 @@ def library_path() -> Path:
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cu]
     try:
         # one nvcc per source, all at once, then one link: the build takes
-        # the slowest source's time, not the sum (12-17 s against 36 s
-        # serially for the five sources, H100 host with 8 cores)
+        # the slowest source's time, not the sum
         procs = [subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj),
              str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

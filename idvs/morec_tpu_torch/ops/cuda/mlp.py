@@ -1,5 +1,6 @@
 """Post-LN epilogue kernels: the projection tail and the FFN tail, forward
-and backward.
+and backward; and the pre-LN MLP sub-block (``fused_mlp``,
+``fused_mlp_res``, forward), at the end of the module.
 
 Kernels: ``csrc/proj_resln.cu`` and ``csrc/mlp_resln.cu`` (forward),
 ``csrc/resln_bwd.cu`` and ``csrc/gemm.cu`` (backward). They replace the TPU
@@ -8,7 +9,8 @@ kernels ``idvs/morec_tpu/ops/pallas/mlp.py`` ``fused_proj_resln``
 ``fused_mlp_resln`` (``_fwd_post_only_kernel``, ``_fwd_post_kernel``,
 ``_bwd_post_kernel``), with the in-kernel dropout of ``ops/dropout.py``.
 In float32 (no TF32, for parity) all are bound by the card's float FMA
-rate. Forward: each block owns 32 rows and all C columns, so the dropout,
+rate. Forward: each block owns 32 rows (8 at C = 2048, where only the
+forward-only editions exist) and all C columns, so the dropout,
 the residual add, the cast to the compute dtype and the LayerNorm run on the
 accumulator, and the FFN's (M, F) intermediate never leaves the block
 unless the training edition saves it. Backward: a row pass recomputes the
@@ -36,8 +38,9 @@ from .. import dropout
 from . import lib
 from ...models.layers import layer_norm
 
-KERNEL_WIDTHS = (128, 256, 512)   # C the kernels are instantiated for
-F_CHUNK = {128: 128, 256: 128, 512: 256}   # F must be a multiple of this
+KERNEL_WIDTHS = (128, 256, 512, 2048)   # C the kernels are instantiated for
+FORWARD_ONLY_WIDTHS = (2048,)   # no training edition yet (8-row tiles)
+F_CHUNK = {128: 128, 256: 128, 512: 256, 2048: 1024}   # F: a multiple of
 ACTS = {"gelu": 0, "relu": 1}
 GEMM_ACTS = {"gelu": 1, "relu": 2}   # csrc/gemm.cu Act
 
@@ -102,6 +105,13 @@ def _kernel_args(x, C, *vectors_and_weights):
 
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _check_trainable(C, name):
+    if C in FORWARD_ONLY_WIDTHS:
+        raise NotImplementedError(
+            f"{name}: the training edition at C={C} is not ported; it comes "
+            f"with the vision-training slice")
 
 
 def _ptr(t):
@@ -225,6 +235,7 @@ def fused_proj_resln(x: torch.Tensor, res: torch.Tensor, w: torch.Tensor,
     if not x2.shape[0]:
         return torch.empty_like(x)
     if _needs_grad(x, res, w, b, ln[0], ln[1]):
+        _check_trainable(C, "fused_proj_resln")
         out = _ProjResLN.apply(x2, r2, w_, b_, g_, bt_, float(eps), drop,
                                code)
     else:
@@ -336,6 +347,7 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if not x2.shape[0]:
         return torch.empty_like(x)
     if _needs_grad(x, w1, b1, w2, b2, ln[0], ln[1]):
+        _check_trainable(C, "fused_mlp_resln")
         out = _MLPResLN.apply(x2, w1_, b1_, w2_, b2_, g_, bt_, float(eps),
                               act, drop, code)
     else:
@@ -345,6 +357,139 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return out.reshape(x.shape)
 
 
+# -- the pre-LN MLP sub-block (Swin) ------------------------------------------
+#
+# Kernel: ``csrc/premlp.cu``. It replaces the TPU kernels
+# ``idvs/morec_tpu/ops/pallas/mlp.py`` ``fused_mlp`` and ``fused_mlp_res``
+# (``_fwd_kernel``): the LayerNorm as a prologue, dense1, the activation and
+# dense2 with the (M, F) intermediate never in device memory, and for
+# ``fused_mlp_res`` the residual (and DropPath's per-row scale) on the
+# accumulator. Bound by the card's float FMA rate; the .cu header has the
+# design. The backward and the ``save_h`` residual are not ported: on the
+# card a wrapper raises when a gradient is wanted.
+
+PRE_ACTS = {"gelu": 0, "relu": 1, "quick_gelu": 2}
+# C the kernel is instantiated for -> the chunk F must be a multiple of
+PRE_F_CHUNK = {32: 32, 64: 64, 96: 96, 128: 128, 192: 192, 256: 256,
+               384: 384, 512: 256, 768: 384, 1024: 256}
+
+
+def _pre_mlp(x2, w1, b1, w2, b2, ln, eps, act):
+    """float32 dense2(cast(act(dense1(cast(LN(x)))))) of (M, C) rows."""
+    dt = x2.dtype
+    xn = x2 if ln is None else layer_norm(x2, ln[0], ln[1], eps)
+    h = xn.float() @ w1.to(dt).float() + b1.to(dt).float()
+    if act == "quick_gelu":
+        g = h * torch.sigmoid(1.702 * h)
+    else:
+        g = _act(h, act)
+    return g.to(dt).float() @ w2.to(dt).float() + b2.to(dt).float()
+
+
+def fused_mlp_plain(x, w1, b1, w2, b2, *, ln=None, eps=1e-5, act="gelu"):
+    """The kernel's function in plain PyTorch, same rounding points."""
+    y = _pre_mlp(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, ln, eps, act)
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def fused_mlp_res_plain(x, scale, w1, b1, w2, b2, *, ln, eps=1e-5,
+                        act="gelu"):
+    """x + scale * mlp(LN(x)) in plain PyTorch; scale None is the unit
+    edition."""
+    x2 = x.reshape(-1, x.shape[-1])
+    y = _pre_mlp(x2, w1, b1, w2, b2, ln, eps, act)
+    if scale is not None:
+        y = scale.float().reshape(-1, 1) * y
+    return (x2.float() + y).to(x.dtype).reshape(x.shape)
+
+
+def _launch_premlp(name, x, scale, w1, b1, w2, b2, ln, eps, act, res):
+    C, F = w1.shape
+    if C not in PRE_F_CHUNK:
+        raise ValueError(f"{name} kernel takes C in {sorted(PRE_F_CHUNK)}, "
+                         f"got {C}")
+    if F % PRE_F_CHUNK[C]:
+        raise ValueError(f"{name} kernel takes F a multiple of "
+                         f"{PRE_F_CHUNK[C]} at C={C}, got {F}")
+    tensors = (x, w1, b1, w2, b2) + (tuple(ln) if ln is not None else ())
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"the backward of {name} is not ported: it comes with the "
+            f"vision-training slice")
+    dt = x.dtype
+    code = lib.dtype_code(x)
+    x2 = x.reshape(-1, C).contiguous()
+    ops = [t.detach().to(dt).contiguous() for t in (w1, b1, w2, b2)]
+    lnf = ([t.detach().float().contiguous() for t in ln] if ln is not None
+           else [None, None])
+    s = None
+    if scale is not None:
+        s = scale.detach().float().reshape(-1).contiguous()
+        if s.shape[0] != x2.shape[0]:
+            raise ValueError(f"{name}: scale has {s.shape[0]} rows, x has "
+                             f"{x2.shape[0]}")
+    live = [t for t in (*lnf, s) if t is not None]
+    lib.check_device(x2, *ops, *live)
+    lib.check_aligned(x2, *ops)
+    out = torch.empty_like(x2)
+    if not x2.shape[0]:
+        return out.reshape(x.shape)
+    err = lib.library().idvs_premlp_fwd(
+        x2.data_ptr(), *(t.data_ptr() for t in ops), _ptr(lnf[0]),
+        _ptr(lnf[1]), _ptr(s), out.data_ptr(), x2.shape[0], C, F, float(eps),
+        PRE_ACTS[act], res, code, lib.stream_handle(x2))
+    lib.check(err, name)
+    return out.reshape(x.shape)
+
+
+def _check_premlp(name, x, w1, b1, w2, b2, ln, act):
+    C, F = w1.shape
+    _check_width(x, C)
+    if act not in PRE_ACTS:
+        raise ValueError(f"act must be one of {sorted(PRE_ACTS)}, got "
+                         f"{act!r}")
+    if (w2.shape != (F, C) or b1.shape != (F,) or b2.shape != (C,)
+            or (ln is not None and (ln[0].shape != (C,)
+                                    or ln[1].shape != (C,)))):
+        raise ValueError(f"{name}: shapes disagree")
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor, *, ln=None,
+              eps: float = 1e-5, act: str = "gelu") -> torch.Tensor:
+    """(..., C) -> (..., C): dense2(act(dense1(maybe_LN(x)))); ln is None
+    or the LayerNorm's (scale, bias), applied first; act is exact "gelu",
+    "relu" or "quick_gelu" (x * sigmoid(1.702 x)). The residual add stays
+    with the caller."""
+    _check_premlp("fused_mlp", x, w1, b1, w2, b2, ln, act)
+    if x.device.type == "cpu":
+        return fused_mlp_plain(x, w1, b1, w2, b2, ln=ln, eps=eps, act=act)
+    out = _launch_premlp("fused_mlp", x, None, w1, b1, w2, b2, ln, eps, act,
+                         0)
+    fused_mlp.launches += 1
+    return out
+
+
+def fused_mlp_res(x: torch.Tensor, scale, w1: torch.Tensor,
+                  b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, *,
+                  ln, eps: float = 1e-5, act: str = "gelu") -> torch.Tensor:
+    """(..., C) -> (..., C): x + scale * dense2(act(dense1(LN(x)))), the
+    pre-LN residual tail. scale is a float factor per row (DropPath's keep
+    mask over the keep probability), or None for x + mlp(LN(x))."""
+    _check_premlp("fused_mlp_res", x, w1, b1, w2, b2, ln, act)
+    if ln is None:
+        raise ValueError("fused_mlp_res needs the LayerNorm's (scale, bias)")
+    if x.device.type == "cpu":
+        return fused_mlp_res_plain(x, scale, w1, b1, w2, b2, ln=ln, eps=eps,
+                                   act=act)
+    out = _launch_premlp("fused_mlp_res", x, scale, w1, b1, w2, b2, ln, eps,
+                         act, 1 if scale is None else 2)
+    fused_mlp_res.launches += 1
+    return out
+
+
+fused_mlp.launches = 0
+fused_mlp_res.launches = 0
 fused_proj_resln.launches = 0
 fused_proj_resln_res.launches = 0
 fused_proj_resln_bwd.launches = 0

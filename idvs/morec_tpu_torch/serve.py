@@ -60,10 +60,14 @@ class Retriever:
     def encode_catalog(model, item_num: int,
                        item_content: Optional[torch.Tensor],
                        embedding_dim: int,
-                       batch_size: int = 512) -> torch.Tensor:
-        """(item_num + 1, D) catalog table through the item tower."""
+                       batch_size: int = 512,
+                       content_fn=None) -> torch.Tensor:
+        """(item_num + 1, D) catalog table through the item tower;
+        ``content_fn`` maps a chunk's ids to its content (images) where the
+        catalog is no matrix on the device."""
         return compute_item_embeddings(model, item_num, item_content,
-                                       embedding_dim, batch_size=batch_size)
+                                       embedding_dim, batch_size=batch_size,
+                                       content_fn=content_fn)
 
     def _bucket(self, n: int) -> int:
         for b in self.batch_sizes:
@@ -102,12 +106,14 @@ class Retriever:
                      content: Optional[torch.Tensor] = None,
                      embeddings: Optional[torch.Tensor] = None) -> None:
         """Splices new or updated items into the live table, from
-        precomputed ``embeddings`` or from raw ``content`` run through the
-        item tower. The table is updated in place."""
+        precomputed ``embeddings`` or from raw ``content`` (token rows or
+        images) run through the item tower. The table is updated in
+        place."""
         device = self.item_table.device
         ids = torch.as_tensor(list(item_ids), dtype=torch.long, device=device)
         if embeddings is None:
             if content is None:
                 raise ValueError("update_items needs content or embeddings")
-            embeddings = self.model.item_embs(ids, content.to(device))
+            embeddings = self.model.item_embs(
+                ids, torch.as_tensor(content).to(device))
         self.item_table[ids] = embeddings.to(device, self.item_table.dtype)

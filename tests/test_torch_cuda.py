@@ -10,12 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from idvs.morec_tpu_torch.ops.cuda.attention import (fused_mha,
-                                                     fused_mha_bwd,
-                                                     fused_mha_plain)
+from idvs.morec_tpu_torch.ops.cuda.attention import (
+    fused_mha, fused_mha_bwd, fused_mha_plain, fused_mha_proj,
+    fused_mha_proj_band, fused_mha_proj_band_plain, fused_mha_proj_plain)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     embed_gather, scatter_add_rows, scatter_add_rows_plain)
-from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp_resln,
+from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_plain,
+                                               fused_mlp_res,
+                                               fused_mlp_res_plain,
+                                               fused_mlp_resln,
                                                fused_mlp_resln_bwd,
                                                fused_mlp_resln_plain,
                                                fused_mlp_resln_res,
@@ -348,3 +351,161 @@ def test_refuses_what_the_kernels_do_not_take(case):
     with pytest.raises(exc):
         call()
     assert counts == _counts()
+
+
+def _attn_weights(rng, C, dtype):
+    return (_rand(rng, C, 3 * C, scale=C ** -0.5), _rand(rng, 3 * C, scale=0.1),
+            _rand(rng, C, C, scale=C ** -0.5), _rand(rng, C, scale=0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hp,Wp,C,nh,w,shifted", [
+    (2, 56, 56, 96, 3, 7, False),      # Swin-T stage 0
+    (2, 56, 56, 96, 3, 7, True),
+    (3, 28, 28, 192, 6, 7, True),
+    (3, 14, 14, 384, 12, 7, True),
+    (5, 7, 7, 768, 24, 7, False),      # one window an image
+    (8, 28, 14, 64, 2, 7, True),
+    (3, 8, 12, 32, 2, 4, True),        # three 16-token windows a block
+    (2, 16, 16, 128, 4, 8, False),
+])
+def test_windowed_attention_band(N, Hp, Wp, C, nh, w, shifted, dtype):
+    """The band kernel against its plain version, P = 1 and P = nW (with
+    the -100 of a shift mask in the bias)."""
+    rng = np.random.default_rng(10)
+    x = _rand(rng, N, Hp, Wp, C, dtype=dtype)
+    nW, T = (Hp // w) * (Wp // w), w * w
+    bias = _rand(rng, nW if shifted else 1, nh, T, T, scale=0.5)
+    if shifted:
+        bias = bias - 100.0 * torch.from_numpy(
+            (rng.uniform(size=(nW, 1, T, T)) < 0.3).astype(np.float32)).cuda()
+    ws = _attn_weights(rng, C, dtype)
+    before = fused_mha_proj_band.launches
+    got = fused_mha_proj_band(x, bias, *ws, n_heads=nh, window=w)
+    assert fused_mha_proj_band.launches == before + 1
+    _assert_close(got, fused_mha_proj_band_plain(x, bias, *ws, n_heads=nh,
+                                                 window=w))
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,P,T,C,nh", [(128, 64, 49, 96, 3),
+                                        (7, 1, 49, 768, 24),
+                                        (20, 4, 49, 192, 6),
+                                        (10, 5, 16, 64, 4)])
+def test_windowed_attention_windows(B, P, T, C, nh, dtype):
+    """The window-layout kernel against its plain version, bias cyclic
+    with period P."""
+    rng = np.random.default_rng(11)
+    x = _rand(rng, B, T, C, dtype=dtype)
+    bias = _rand(rng, P, nh, T, T, scale=0.5)
+    ws = _attn_weights(rng, C, dtype)
+    before = fused_mha_proj.launches
+    got = fused_mha_proj(x, bias, *ws, n_heads=nh)
+    assert fused_mha_proj.launches == before + 1
+    _assert_close(got, fused_mha_proj_plain(x, bias, *ws, n_heads=nh))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C,F,act,ln", [
+    (3136 * 2, 96, 384, "gelu", True), (1000, 192, 768, "gelu", True),
+    (196 * 3, 384, 1536, "gelu", False), (49 * 5, 768, 3072, "gelu", True),
+    (33, 128, 512, "relu", True), (70, 256, 256, "quick_gelu", False),
+    (5, 512, 512, "quick_gelu", True), (40, 1024, 1024, "gelu", True),
+    (9, 32, 64, "relu", True), (130, 64, 128, "gelu", True)])
+def test_pre_ln_mlp(M, C, F, act, ln, dtype):
+    """fused_mlp (LN or none) and fused_mlp_res (unit and scaled) against
+    their plain versions."""
+    rng = np.random.default_rng(12)
+    x = _rand(rng, M, C, dtype=dtype)
+    w1, b1 = _rand(rng, C, F, scale=C ** -0.5), _rand(rng, F, scale=0.1)
+    w2, b2 = _rand(rng, F, C, scale=F ** -0.5), _rand(rng, C, scale=0.1)
+    lnp = (1.0 + _rand(rng, C, scale=0.1), _rand(rng, C, scale=0.1))
+    kw = dict(ln=lnp if ln else None, eps=1e-5, act=act)
+    before = (fused_mlp.launches, fused_mlp_res.launches)
+    _assert_close(fused_mlp(x, w1, b1, w2, b2, **kw),
+                  fused_mlp_plain(x, w1, b1, w2, b2, **kw))
+    kw["ln"] = lnp
+    scale = torch.from_numpy(
+        (rng.uniform(size=M) < 0.8).astype(np.float32) / 0.8).cuda()
+    for s in (None, scale):
+        _assert_close(fused_mlp_res(x, s, w1, b1, w2, b2, **kw),
+                      fused_mlp_res_plain(x, s, w1, b1, w2, b2, **kw))
+    assert (fused_mlp.launches, fused_mlp_res.launches) \
+        == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [640, 10, 3])
+def test_post_ln_tails_at_2048(M, dtype):
+    """The forward-only editions at the vision flagship's SASRec width."""
+    rng = np.random.default_rng(13)
+    C, F = 2048, 8192
+    x, res = _rand(rng, M, C, dtype=dtype), _rand(rng, M, C, dtype=dtype)
+    w = _rand(rng, C, C, scale=C ** -0.5)
+    w1, b1 = _rand(rng, C, F, scale=C ** -0.5), _rand(rng, F, scale=0.1)
+    w2, b2 = _rand(rng, F, C, scale=F ** -0.5), _rand(rng, C, scale=0.1)
+    ln = (1.0 + _rand(rng, C, scale=0.1), _rand(rng, C, scale=0.1))
+    _assert_close(fused_proj_resln(x, res, w, b2, ln=ln, eps=1e-6),
+                  fused_proj_resln_plain(x, res, w, b2, ln=ln, eps=1e-6))
+    _assert_close(
+        fused_mlp_resln(x, w1, b1, w2, b2, ln=ln, eps=1e-6, act="relu"),
+        fused_mlp_resln_plain(x, w1, b1, w2, b2, ln=ln, eps=1e-6,
+                              act="relu"))
+
+
+@pytest.mark.parametrize("case", [
+    "band_grad", "windows_grad", "mlp_grad", "mlp_res_grad", "tail_2048_grad",
+    "band_width", "band_heads", "band_window", "band_period", "mlp_width",
+    "mlp_f_chunk", "mlp_res_no_ln", "mlp_scale_rows",
+])
+def test_refuses_what_the_vision_kernels_do_not_take(case):
+    """The forward-only kernels raise when a gradient is wanted, and for
+    geometries they are not built for; the counters do not move."""
+    z = lambda *s: torch.zeros(*s, device="cuda")
+    grad = lambda *s: z(*s).requires_grad_(True)
+    attn = lambda C: (z(C, 3 * C), z(3 * C), z(C, C), z(C))
+    mlp = lambda C, F: (z(C, F), z(F), z(F, C), z(C))
+    ln = lambda C: dict(ln=(z(C) + 1, z(C)))
+    counts = lambda: (fused_mha_proj.launches, fused_mha_proj_band.launches,
+                      fused_mlp.launches, fused_mlp_res.launches,
+                      fused_proj_resln.launches, fused_mlp_resln.launches)
+    before = counts()
+    calls = {
+        "band_grad": (NotImplementedError, lambda: fused_mha_proj_band(
+            grad(1, 7, 7, 96), z(1, 3, 49, 49), *attn(96), n_heads=3,
+            window=7)),
+        "windows_grad": (NotImplementedError, lambda: fused_mha_proj(
+            z(2, 49, 96), grad(1, 3, 49, 49), *attn(96), n_heads=3)),
+        "mlp_grad": (NotImplementedError, lambda: fused_mlp(
+            grad(4, 96), *mlp(96, 384))),
+        "mlp_res_grad": (NotImplementedError, lambda: fused_mlp_res(
+            z(4, 96), None, grad(96, 384), *mlp(96, 384)[1:], **ln(96))),
+        "tail_2048_grad": (NotImplementedError, lambda: fused_proj_resln(
+            grad(4, 2048), z(4, 2048), z(2048, 2048), z(2048), eps=1e-6,
+            **ln(2048))),
+        "band_width": (ValueError, lambda: fused_mha_proj_band(
+            z(1, 7, 7, 160), z(1, 5, 49, 49), *attn(160), n_heads=5,
+            window=7)),
+        "band_heads": (ValueError, lambda: fused_mha_proj_band(
+            z(1, 7, 7, 32), z(1, 8, 49, 49), *attn(32), n_heads=8,
+            window=7)),                    # 4 heads of 4: under 32 columns
+        "band_window": (ValueError, lambda: fused_mha_proj_band(
+            z(1, 10, 7, 96), z(1, 3, 49, 49), *attn(96), n_heads=3,
+            window=7)),
+        "band_period": (ValueError, lambda: fused_mha_proj_band(
+            z(1, 14, 14, 96), z(2, 3, 49, 49), *attn(96), n_heads=3,
+            window=7)),
+        "mlp_width": (ValueError, lambda: fused_mlp(
+            z(4, 160), *mlp(160, 640))),
+        "mlp_f_chunk": (ValueError, lambda: fused_mlp(
+            z(4, 768), *mlp(768, 1024))),
+        "mlp_res_no_ln": (ValueError, lambda: fused_mlp_res(
+            z(4, 96), None, *mlp(96, 384), ln=None)),
+        "mlp_scale_rows": (ValueError, lambda: fused_mlp_res(
+            z(4, 96), z(3), *mlp(96, 384), **ln(96))),
+    }
+    exc, call = calls[case]
+    with pytest.raises(exc):
+        call()
+    assert counts() == before

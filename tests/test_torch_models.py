@@ -59,7 +59,7 @@ def test_sasrec_encoder_matches_flax():
     v = jm.init(jax.random.PRNGKey(0), jnp.asarray(embs),
                 jnp.asarray(log_mask))
     want = jm.apply(v, jnp.asarray(embs), jnp.asarray(log_mask))
-    tm = _load(SASRecEncoder(D, 2, 2, L), v)
+    tm = _load(SASRecEncoder(D, 2, 2, L, device="cpu"), v)
     _close(tm(torch.from_numpy(embs), torch.from_numpy(log_mask)), want)
 
 
@@ -74,7 +74,7 @@ def test_bert_model_matches_flax(roberta):
     jm = jbert.BertModel(jbert.BertConfig(**BERT, **extra))
     v = jm.init(jax.random.PRNGKey(0), jnp.asarray(ids), jnp.asarray(att))
     want = jm.apply(v, jnp.asarray(ids), jnp.asarray(att))
-    tm = _load(BertModel(BertConfig(**BERT, **extra)), v)
+    tm = _load(BertModel(BertConfig(**BERT, **extra), device="cpu"), v)
     _close(tm(torch.from_numpy(ids), torch.from_numpy(att)), want)
 
 
@@ -93,8 +93,9 @@ def test_text_tower_matches_flax(pooling, attrs):
                       pooling=pooling, attr_lengths=attrs)
     v = jm.init(jax.random.PRNGKey(0), jnp.asarray(content))
     want = jm.apply(v, jnp.asarray(content))
-    tm = _load(TextTower(BertModel(BertConfig(**BERT)), 24, 32,
-                         pooling=pooling, attr_lengths=attrs), v)
+    tm = _load(TextTower(BertModel(BertConfig(**BERT), device="cpu"), 24, 32,
+                         pooling=pooling, attr_lengths=attrs,
+                         device="cpu"), v)
     _close(tm(torch.from_numpy(content)), want)
 
 
@@ -112,14 +113,15 @@ def _rec_models(item_tower):
     if item_tower == "modal":
         jenc = JaxTextTower(net=jbert.BertModel(jbert.BertConfig(**BERT)),
                             embedding_dim=D, word_embedding_dim=32)
-        tenc = TextTower(BertModel(BertConfig(**BERT)), D, 32)
+        tenc = TextTower(BertModel(BertConfig(**BERT), device="cpu"), D, 32,
+                         device="cpu")
     jm = jax_make_model(cfg, item_num=item_num, encoder=jenc)
     item_ids = rng.integers(1, item_num + 1, size=(2, L + 1))
     v = jm.init(jax.random.PRNGKey(0), jnp.asarray(item_ids),
                 jnp.asarray(content[item_ids.reshape(-1)])
                 if jenc is not None else None,
                 jnp.ones((2, L), jnp.float32))
-    tm = _load(make_model(cfg, item_num, tenc), v)
+    tm = _load(make_model(cfg, item_num, tenc, device="cpu"), v)
     return jm, v, tm, content, rng, (item_num, L, D)
 
 
@@ -159,8 +161,10 @@ def test_from_flax_then_to_flax_is_identity():
 def test_port_init_is_seeded_and_pads_row_zero():
     cfg = Config(item_tower="id", max_seq_len=6, embedding_dim=16,
                  num_attention_heads=2, transformer_block=1)
-    a = make_model(cfg, 20, generator=torch.Generator().manual_seed(7))
-    b = make_model(cfg, 20, generator=torch.Generator().manual_seed(7))
+    a = make_model(cfg, 20, device="cpu",
+                   generator=torch.Generator().manual_seed(7))
+    b = make_model(cfg, 20, device="cpu",
+                   generator=torch.Generator().manual_seed(7))
     for (ka, ta), (kb, tb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(ta, tb)

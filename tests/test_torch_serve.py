@@ -51,8 +51,9 @@ def engines():
                 jnp.asarray(content[:2 * (L + 1)]), jnp.ones((2, L)))
     jtable = JaxRetriever.encode_catalog(jm, v, ITEMS, jnp.asarray(content),
                                          D, batch_size=CHUNK)
-    tm = make_model(cfg, ITEMS, TextTower(BertModel(BertConfig(**BERT)),
-                                          D, 32))
+    tm = make_model(cfg, ITEMS, TextTower(
+        BertModel(BertConfig(**BERT), device="cpu"), D, 32, device="cpu"),
+        device="cpu")
     tm.load_state_dict(convert.from_flax(jax.tree.map(np.asarray, v)))
     ttable = Retriever.encode_catalog(tm, ITEMS, torch.from_numpy(content),
                                       D, batch_size=CHUNK)
@@ -125,9 +126,10 @@ def test_pad_histories_matches_jax():
 
 def test_port_runs_the_slice_without_jax():
     """A fresh interpreter imports the port, encodes a catalog, serves a
-    request and takes one train step on the CPU, and never imports jax (the
-    test process itself has jax loaded by conftest, hence the
-    subprocess)."""
+    request and takes one train step on the CPU (text MoRec), then encodes
+    an image catalog through a Swin tower and serves a request (vision
+    MoRec), and never imports jax (the test process itself has jax loaded
+    by conftest, hence the subprocess)."""
     code = textwrap.dedent("""
         import sys
         from types import SimpleNamespace
@@ -145,8 +147,9 @@ def test_port_runs_the_slice_without_jax():
         enc = TextTower(BertModel(BertConfig(
             vocab_size=97, hidden_size=32, num_hidden_layers=2,
             num_attention_heads=2, intermediate_size=64,
-            max_position_embeddings=16)), 32, 32, attr_lengths=(8,))
-        model = make_model(cfg, 40, enc,
+            max_position_embeddings=16), device="cpu"), 32, 32,
+            attr_lengths=(8,), device="cpu")
+        model = make_model(cfg, 40, enc, device="cpu",
                            generator=torch.Generator().manual_seed(0))
         rng = np.random.default_rng(0)
         tok = rng.integers(1, 97, size=(41, 8))
@@ -178,6 +181,26 @@ def test_port_runs_the_slice_without_jax():
                             "inverse": torch.from_numpy(inv)})
         assert torch.isfinite(loss) and state.step == 1
         assert not torch.equal(before, model.user_encoder.ln_in.weight)
+        # vision MoRec: a Swin tower over uint8 images drawn from a pool
+        from idvs.morec_tpu_torch.models.swin import SwinConfig, SwinModel
+        from idvs.morec_tpu_torch.models.vision_tower import VisionTower
+        import idvs.morec_tpu_torch.convert
+        scfg = SwinConfig(image_size=32, embed_dim=32, depths=(2, 2),
+                          num_heads=(2, 4), window_size=4)
+        tower = VisionTower(SwinModel(scfg, device="cpu"), "swin", 32,
+                            scfg.num_features, device="cpu")
+        vmodel = make_model(cfg, 40, tower, device="cpu",
+                            generator=torch.Generator().manual_seed(1))
+        pool = rng.integers(0, 256, size=(8, 32, 32, 3), dtype=np.uint8)
+        vtable = Retriever.encode_catalog(
+            vmodel, 40, None, 32, batch_size=16,
+            content_fn=lambda ids: pool[ids % 8])
+        assert vtable.shape == (41, 32) and torch.isfinite(vtable).all()
+        engine = Retriever(vmodel, vtable, max_seq_len=6)
+        ids, scores = engine.recommend([[1, 2, 3]], top_k=5)
+        assert ids.shape == (1, 5) and np.isfinite(scores).all()
+        assert not {1, 2, 3} & set(ids[0].tolist()) and 0 not in ids
+        engine.update_items([7], content=pool[[2]])
         mods = [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
         assert not mods, mods

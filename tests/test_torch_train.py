@@ -102,11 +102,11 @@ def _setup(item_tower, dedup):
     if modal:
         jenc = JaxTextTower(net=jbert.BertModel(jbert.BertConfig(**BERT)),
                             embedding_dim=D, word_embedding_dim=64)
-        tenc = TextTower(BertModel(BertConfig(**BERT)), D, 64,
-                         attr_lengths=(T,))
+        tenc = TextTower(BertModel(BertConfig(**BERT), device="cpu"), D, 64,
+                         attr_lengths=(T,), device="cpu")
     jm = jax_make_model(cfg, item_num=ITEMS, encoder=jenc)
     params = _init_params(item_tower, jm, content, batches[0])
-    tm = make_model(cfg, ITEMS, tenc)
+    tm = make_model(cfg, ITEMS, tenc, device="cpu")
     tm.load_state_dict(convert.from_flax(params))
     return cfg, content, log_pop, batches, jm, params, tm
 
