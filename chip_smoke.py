@@ -8,7 +8,8 @@ idvs/morec_tpu_torch/csrc by nvcc on first use: end2end text MoRec
 (BERT-small item tower, SASRec user tower, a 100_001-item catalog), serving
 (catalog encode, recommend) and training (the bf16 train step with
 dropout); and end2end vision MoRec (Swin-T item tower at full width and
-depth, SASRec at D = 2048), serving. Phases, each fatal on failure:
+depth, SASRec at D = 2048), serving and training. Phases, each fatal on
+failure:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: build (or load) the kernel library;
@@ -47,11 +48,35 @@ depth, SASRec at D = 2048), serving. Phases, each fatal on failure:
    result holds the padding id or a history id, and in float32 the
    sub-catalog's table and scores agree between the two kernel selections
    and with the plain path on a CPU copy of the model; images/s, encode
-   seconds, recommend p50 per batch.
+   seconds, recommend p50 per batch;
+10. vision backward kernels: the backward of the windowed attention (band
+    with one bias and with a bias per window, window layout: dx, dbias and
+    the four weights' gradients) and of the pre-LN MLP (residual unit and
+    scaled, bare with and without its LayerNorm) at each Swin-T stage's
+    shapes for 288 images, and SASRec's attention backward (64 users, 2
+    heads of 1024) and the training editions and backward of the post-LN
+    tails at C = 2048 (dropout 0 and 0.1), against autograd of the plain
+    versions, in bfloat16 and float32, with times;
+11. vision training: the counters set to 0, the bf16 train step (DropPath
+    0.1, dropout 0.1, lr 1e-4) on batches drawn as bench.py draws them,
+    images shipped with the batch from a pool of 1024: Zipf ids with dedup
+    at encoder_chunk 0, 6 steps on one batch (the loss must fall) then 10
+    timed steps on distinct batches; the same at encoder_chunk cap // 3;
+    then two steps of uniform ids without dedup (704 images, 8 chunks);
+    then, the counters set to 0 again, two Zipf steps under the "windows"
+    kernel selection; step p50, samples/s, images/s, losses, peak device
+    memory; every training-edition and backward kernel of each selection's
+    path launched;
+12. vision gradient check: one float32 step in training mode on 2 users,
+    on the card under both kernel selections and through the plain path on
+    a CPU copy of the model, DropPath and dropout drawn from the same seed:
+    the loss and every parameter's gradient agree, the relative position
+    bias tables' on a line of their own.
 
 Prints each phase's seconds and a JSON line of per-kernel results (launches
 on the main paths, in all and by path: text serving, training, vision
-serving, the "windows" sub-catalog; error
+serving, the "windows" sub-catalog, vision training, the "windows" train
+step; error
 and time against the plain version, the least time the card could take for
 the same work, and the time of the one PyTorch call that computes the same
 function where there is one), the nvidia-smi line, and last
@@ -61,9 +86,9 @@ is visible.
     python3 chip_smoke.py --profile
 
 runs only the card and build phases and a torch.profiler split by device
-kernel of the train step, of the vision catalog encode and of the vision
-recommend at batches of 1 and 64 (wall and device-busy ms, each kernel's
-share), and prints no result line.
+kernel of the train step, of the vision catalog encode, of the vision
+recommend at batches of 1 and 64 and of the vision train step (wall and
+device-busy ms, each kernel's share), and prints no result line.
 """
 
 from __future__ import annotations
@@ -92,12 +117,14 @@ from idvs.morec_tpu_torch.models.vision_tower import VisionTower
 from idvs.morec_tpu_torch.ops.cuda import lib
 from idvs.morec_tpu_torch.ops.cuda.attention import (
     fused_mha, fused_mha_bwd, fused_mha_plain, fused_mha_proj,
-    fused_mha_proj_band, fused_mha_proj_band_plain, fused_mha_proj_plain,
-    window_partition)
+    fused_mha_proj_band, fused_mha_proj_band_bwd, fused_mha_proj_band_plain,
+    fused_mha_proj_bwd, fused_mha_proj_plain, window_partition)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     scatter_add_rows, scatter_add_rows_plain)
-from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_plain,
+from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
+                                               fused_mlp_plain,
                                                fused_mlp_res,
+                                               fused_mlp_res_bwd,
                                                fused_mlp_res_plain,
                                                fused_mlp_resln,
                                                fused_mlp_resln_bwd,
@@ -139,6 +166,16 @@ V_ENCODE_LIMIT_S = 30.0     # the full catalog only if it encodes this fast
 V_PROBE_CHUNKS = 2
 V_SUB_ITEMS = 256           # sub-catalog held against the plain path
 V_PROFILE_REQUESTS = 10     # --profile: recommend calls traced per batch size
+# the vision train step (bench.py:78-82, :89-98, :162-186: B 64, L 10,
+# Zipf(1.2) ids with dedup or uniform ids without, lr and fine_tune_lr 1e-4,
+# SwinConfig's DropPath 0.1, the Config's dropout 0.1)
+V_TRAIN_B, V_LR, V_FT_LR = 64, 1e-4, 1e-4
+V_CAP_QUANTUM = 96          # the dedup cap's rounding (bench.py:166)
+V_NODEDUP_CHUNKS = 8        # encoder chunks without dedup (bench.py:183)
+V_FIXED_STEPS, V_TIMED_STEPS = 6, 10
+V_CHECK_USERS = 2           # users of the float32 vision gradient check
+VB_REPS = 3                 # timed calls of a vision backward case
+V_BWD_IMAGES = 288          # images of a vision backward case
 # Swin-T stages: (C, heads, side of the token map)
 SWIN_STAGES = ((96, 3, 56), (192, 6, 28), (384, 12, 14), (768, 24, 7))
 WINDOW = 7
@@ -200,6 +237,11 @@ GRAD_FLOOR = 1e-3
 V_TABLE_TOL = 2e-3
 V_SCORE_TOL = 2e-3
 V_SELECTION_TOL = 1e-5
+# float32 vision train step, card vs CPU plain path: as STEP_GRAD_TOL, but
+# through twelve Swin blocks (sums up to 3072 terms in other orders, CUDA's
+# erff against the CPU's erf) under the classifier and SASRec at D = 2048.
+V_STEP_LOSS_TOL = 1e-4
+V_STEP_GRAD_TOL = 2e-3
 # Row 0 of the bf16 table against the tower's output for one zero image:
 # the same kernels on the same row, but the library matmuls around them
 # (patch projection, patch merging, classifier) may sum in another order
@@ -221,6 +263,10 @@ SOURCES = {
     "fused_mha_proj": ("win_attn.cu", "attention.py:530"),
     "fused_mlp_res": ("premlp.cu", "mlp.py:105"),
     "fused_mlp": ("premlp.cu", "mlp.py:105"),
+    "fused_mha_proj_band_bwd": ("win_attn_bwd.cu", "attention.py:873"),
+    "fused_mha_proj_bwd": ("win_attn_bwd.cu", "attention.py:597"),
+    "fused_mlp_res_bwd": ("premlp_bwd.cu", "mlp.py:134"),
+    "fused_mlp_bwd": ("premlp_bwd.cu", "mlp.py:134"),
 }
 WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "fused_proj_resln": fused_proj_resln,
@@ -232,7 +278,11 @@ WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "scatter_add_rows": scatter_add_rows,
             "fused_mha_proj_band": fused_mha_proj_band,
             "fused_mha_proj": fused_mha_proj,
-            "fused_mlp_res": fused_mlp_res, "fused_mlp": fused_mlp}
+            "fused_mlp_res": fused_mlp_res, "fused_mlp": fused_mlp,
+            "fused_mha_proj_band_bwd": fused_mha_proj_band_bwd,
+            "fused_mha_proj_bwd": fused_mha_proj_bwd,
+            "fused_mlp_res_bwd": fused_mlp_res_bwd,
+            "fused_mlp_bwd": fused_mlp_bwd}
 SERVE_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln")
 TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
                  "fused_proj_resln_bwd", "fused_mlp_resln_res",
@@ -241,6 +291,13 @@ VISION_ENCODE_KERNELS = ("fused_mha_proj_band", "fused_mlp_res")
 VISION_RECOMMEND_KERNELS = ("fused_mha", "fused_proj_resln",
                             "fused_mlp_resln")
 VISION_WINDOWS_KERNELS = ("fused_mha_proj", "fused_mlp")
+VISION_TRAIN_KERNELS = ("fused_mha_proj_band", "fused_mha_proj_band_bwd",
+                        "fused_mlp_res", "fused_mlp_res_bwd", "fused_mha",
+                        "fused_mha_bwd", "fused_proj_resln_res",
+                        "fused_proj_resln_bwd", "fused_mlp_resln_res",
+                        "fused_mlp_resln_bwd")
+VISION_WINDOWS_TRAIN_KERNELS = ("fused_mha_proj", "fused_mha_proj_bwd",
+                                "fused_mlp", "fused_mlp_bwd")
 
 
 class PhaseError(RuntimeError):
@@ -354,6 +411,22 @@ def win_attn_work(windows, T, C, nh, P, it):
     rows = windows * T
     return (rows * (8 * C * C + 4 * T * C),
             (2 * rows * C + 4 * C * C + 4 * C) * it + 4 * P * nh * T * T)
+
+
+def win_attn_bwd_work(windows, T, C, nh, P, it):
+    # qkv again, dctx, dwo, dwqkv, dx: 22 C^2 a row; scores and the context
+    # again, dp, dv, dq, dk: six (T, T, dh) products a head. Reads x, dout,
+    # the weights and the bias; writes dx, the weights' and the bias's
+    # gradients.
+    rows = windows * T
+    return (rows * (22 * C * C + 12 * T * C),
+            (3 * rows * C + 8 * C * C + 8 * C) * it + 8 * P * nh * T * T)
+
+
+def premlp_bwd_work(M, C, F, it, scale=False):
+    # h again, dw2, dh, dw1, dxn; reads x, dout, w1, w2; writes dx, dw1, dw2
+    return 10 * M * C * F, ((3 * M * C + 4 * C * F + 2 * F + 2 * C) * it
+                            + 16 * C + (4 * M if scale else 0))
 
 
 def bound_of(work, dt) -> tuple:
@@ -561,14 +634,14 @@ def _record(results, name, err, ms, plain_ms, work, dt, library_ms=None):
                  bound_by=bound_by, library_ms=library_ms)
 
 
-def backward_phase(dev, card: str, titles: int) -> dict:
-    """Training editions and backward kernels against autograd of the plain
-    versions; times are the forward with a graph (training editions) and
-    the backward alone (CUDA events)."""
-    rng = np.random.default_rng(SEED + 2)
+def gradient_cases(cases, card: str, reps: int = FEW_REPS) -> dict:
+    """Holds each case's outputs and gradients against autograd of the plain
+    version and times both; times are the forward with a graph (training
+    editions) and the backward alone (CUDA events). Only floating-point
+    inputs that ask for it get a gradient."""
     results = {}
     for (res_name, bwd_name, label, dt, inputs, dout, kern, plain, work_bwd,
-         work_fwd) in backward_cases(rng, dev, titles):
+         work_fwd) in cases:
         lk, lp = _leaves(inputs), _leaves(inputs)
         out_k, out_p = kern(*lk), plain(*lp)
         got = torch.autograd.grad(out_k, lk, dout, retain_graph=True)
@@ -584,9 +657,9 @@ def backward_phase(dev, card: str, titles: int) -> dict:
             worst = max(worst, (err / scale, err, scale))
         tol = GRAD_TOL[dt]
         bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-            out_k, lk, dout, retain_graph=True), reps=FEW_REPS)
+            out_k, lk, dout, retain_graph=True), reps=reps)
         bwd_plain = cuda_ms(lambda: torch.autograd.grad(
-            out_p, lp, dout, retain_graph=True), reps=FEW_REPS)
+            out_p, lp, dout, retain_graph=True), reps=reps)
         line = (f"backward {bwd_name} [{label}]: max_abs_err {worst[1]:.3e} "
                 f"on a scale of {worst[2]:.3g} (tol {tol:g} of the scale), "
                 f"backward {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound "
@@ -594,8 +667,8 @@ def backward_phase(dev, card: str, titles: int) -> dict:
                 f"{bound_of(work_bwd, dt)[1]}")
         _record(results, bwd_name, worst[1], bwd_ms, bwd_plain, work_bwd, dt)
         if res_name is not None:
-            fwd_ms = cuda_ms(lambda: kern(*lk), reps=FEW_REPS)
-            fwd_plain = cuda_ms(lambda: plain(*lp), reps=FEW_REPS)
+            fwd_ms = cuda_ms(lambda: kern(*lk), reps=reps)
+            fwd_plain = cuda_ms(lambda: plain(*lp), reps=reps)
             line += (f"; training forward {res_name} {fwd_ms:.4f} ms, plain "
                      f"{fwd_plain:.4f} ms, bound "
                      f"{bound_of(work_fwd, dt)[0]:.4f} ms")
@@ -604,6 +677,15 @@ def backward_phase(dev, card: str, titles: int) -> dict:
         print(f"{line} [{card}]", flush=True)
         require(worst[0] <= tol, f"{bwd_name} {label}: error {worst[1]} "
                 f"above {tol} x {worst[2]}")
+        del lk, lp, out_k, out_p, got, want
+    return results
+
+
+def backward_phase(dev, card: str, titles: int) -> dict:
+    """Training editions and backward kernels at the text train step's
+    shapes (gradient_cases), then the embedding scatter-add."""
+    rng = np.random.default_rng(SEED + 2)
+    results = gradient_cases(backward_cases(rng, dev, titles), card)
     for dt in (torch.float32, torch.bfloat16):
         # BERT's word-table gradient: the titles' token ids, duplicates
         # included, into the 30522-row table
@@ -789,10 +871,10 @@ def sub_catalog_check(model, content, rng) -> None:
     check_results(ids_k, hist)
 
 
-def bench_log_mask(rng, B: int) -> np.ndarray:
-    """(B, L) log masks as bench.py _gen_raw draws them: each transition
-    valid with probability 0.9, the last always."""
-    lm = (rng.uniform(size=(B, L)) < 0.9).astype(np.float32)
+def bench_log_mask(rng, B: int, length: int = L) -> np.ndarray:
+    """(B, length) log masks as bench.py _gen_raw draws them: each
+    transition valid with probability 0.9, the last always."""
+    lm = (rng.uniform(size=(B, length)) < 0.9).astype(np.float32)
     lm[:, -1] = 1.0
     return lm
 
@@ -1103,6 +1185,335 @@ def vision_kernel_cases(dev):
     return cases
 
 
+def vision_backward_cases(dev, images: int):
+    """gradient_cases tuples for the vision train step's kernels: the four
+    backward kernels at each Swin-T stage's shapes for `images` images
+    (band with one bias and with a bias per window, window layout; the
+    residual MLP unit and scaled, the bare MLP with and without its
+    LayerNorm), and SASRec's attention backward (heads of V_D / 2) and
+    post-LN tails at C = V_D for V_TRAIN_B users, dropout 0 and DROP; bfloat16 first (the train step's dtype),
+    then float32. Operands come from a seeded generator on the card."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    g = lambda *s, scale=1.0, dt=torch.float32: (torch.randn(
+        *s, generator=gen, device=dev) * scale).to(dt)
+    T = WINDOW * WINDOW
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        tag, it = tag_of(dt), size_of(dt)
+        for C, nh, side in SWIN_STAGES:
+            nW = (side // WINDOW) ** 2
+            windows = images * nW
+            ws = [g(C, 3 * C, scale=C ** -0.5), g(3 * C, scale=0.1),
+                  g(C, C, scale=C ** -0.5), g(C, scale=0.1)]
+            rel = g(1, nh, T, T, scale=0.5)
+            biases = [("P=1", rel)]
+            if nW > 1:      # a shifted block: the mask of -100, per window
+                mask = torch.from_numpy(_shift_mask(
+                    side, side, WINDOW, WINDOW // 2)).to(dev)
+                biases.append((f"P={nW}", rel + mask[:, None]))
+            where = f"N={images} {side}x{side} C={C} nh={nh} {tag}"
+            for ptag, bias in biases:
+                cases.append((
+                    None, "fused_mha_proj_band_bwd", f"{ptag} {where}", dt,
+                    [g(images, side, side, C, dt=dt), bias] + ws,
+                    g(images, side, side, C, dt=dt),
+                    lambda *a, nh=nh: fused_mha_proj_band(
+                        *a, n_heads=nh, window=WINDOW),
+                    lambda *a, nh=nh: fused_mha_proj_band_plain(
+                        *a, n_heads=nh, window=WINDOW),
+                    win_attn_bwd_work(windows, T, C, nh, bias.shape[0], it),
+                    None))
+            ptag, bias = biases[-1]
+            cases.append((
+                None, "fused_mha_proj_bwd",
+                f"{ptag} B={windows} T={T} C={C} nh={nh} {tag}", dt,
+                [g(windows, T, C, dt=dt), bias] + ws, g(windows, T, C, dt=dt),
+                lambda *a, nh=nh: fused_mha_proj(*a, n_heads=nh),
+                lambda *a, nh=nh: fused_mha_proj_plain(*a, n_heads=nh),
+                win_attn_bwd_work(windows, T, C, nh, bias.shape[0], it),
+                None))
+            M, Fw = images * side * side, 4 * C
+            mlp = [g(C, Fw, scale=C ** -0.5), g(Fw, scale=0.1),
+                   g(Fw, C, scale=Fw ** -0.5), g(C, scale=0.1)]
+            ln = [1.0 + g(C, scale=0.1), g(C, scale=0.1)]
+            # DropPath's factor: an image kept (1 / 0.9) or dropped (0)
+            keep = (torch.rand(images, generator=gen, device=dev) < 0.9)
+            scale = (keep.float() / 0.9).repeat_interleave(side * side)
+            shape = f"M={M} C={C} F={Fw} gelu {tag}"
+            for stag, sc in (("unit", None), ("scaled", scale)):
+                cases.append((
+                    None, "fused_mlp_res_bwd", f"{stag} {shape}", dt,
+                    [g(M, C, dt=dt)] + mlp + ln, g(M, C, dt=dt),
+                    lambda *a, sc=sc: fused_mlp_res(
+                        a[0], sc, *a[1:5], ln=a[5:], eps=1e-5),
+                    lambda *a, sc=sc: fused_mlp_res_plain(
+                        a[0], sc, *a[1:5], ln=a[5:], eps=1e-5),
+                    premlp_bwd_work(M, C, Fw, it, scale=sc is not None),
+                    None))
+            for ltag, lnp in (("LN", ln), ("no LN", [])):
+                cases.append((
+                    None, "fused_mlp_bwd", f"{ltag} {shape}", dt,
+                    [g(M, C, dt=dt)] + mlp + lnp, g(M, C, dt=dt),
+                    lambda *a: fused_mlp(*a[:5], ln=a[5:] or None, eps=1e-5),
+                    lambda *a: fused_mlp_plain(*a[:5], ln=a[5:] or None,
+                                               eps=1e-5),
+                    premlp_bwd_work(M, C, Fw, it), None))
+    rng = np.random.default_rng(SEED + 9)
+    M, C, Fw = V_TRAIN_B * V_L, V_D, 4 * V_D
+    for dt in (torch.bfloat16, torch.float32):
+        for p in (0.0, DROP):
+            tag, it = f"{tag_of(dt)} drop={p}", size_of(dt)
+            kw = dict(eps=1e-6, drop_rate=p,
+                      seed=int(rng.integers(1, 2 ** 31 - 1)))
+            ln = [1.0 + g(C, scale=0.1), g(C, scale=0.1)]
+            # SASRec's attention at the vision flagship: 2 heads of 1024
+            bias = causal_additive_mask(torch.from_numpy(
+                bench_log_mask(rng, V_TRAIN_B, V_L)).to(dev))
+            cases.append((
+                None, "fused_mha_bwd",
+                f"bias B={V_TRAIN_B} T={V_L} nh={USER_HEADS} "
+                f"dh={C // USER_HEADS} {tag}", dt,
+                [g(V_TRAIN_B, V_L, 3 * C, dt=dt)], g(V_TRAIN_B, V_L, C, dt=dt),
+                lambda q, b=bias, kw=kw: fused_mha(
+                    q, bias=b, n_heads=USER_HEADS, drop_rate=kw["drop_rate"],
+                    seed=kw["seed"]),
+                lambda q, b=bias, kw=kw: fused_mha_plain(
+                    q, bias=b, n_heads=USER_HEADS, drop_rate=kw["drop_rate"],
+                    seed=kw["seed"]),
+                mha_bwd_work(V_TRAIN_B, V_L, USER_HEADS, C // USER_HEADS, it,
+                             bias.numel()), None))
+            cases.append((
+                "fused_proj_resln_res", "fused_proj_resln_bwd",
+                f"SASRec M={M} C={C} {tag}", dt,
+                [g(M, C, dt=dt), g(M, C, dt=dt), g(C, C, scale=C ** -0.5),
+                 torch.zeros(C, device=dev)] + ln, g(M, C, dt=dt),
+                lambda *a, kw=kw: fused_proj_resln(*a[:4], ln=a[4:], **kw),
+                lambda *a, kw=kw: fused_proj_resln_plain(*a[:4], ln=a[4:],
+                                                         **kw),
+                proj_bwd_work(M, C, it), proj_work(M, C, it, saved=1)))
+            cases.append((
+                "fused_mlp_resln_res", "fused_mlp_resln_bwd",
+                f"SASRec M={M} C={C} F={Fw} relu {tag}", dt,
+                [g(M, C, dt=dt), g(C, Fw, scale=C ** -0.5), g(Fw, scale=0.1),
+                 g(Fw, C, scale=Fw ** -0.5), g(C, scale=0.1)] + ln,
+                g(M, C, dt=dt),
+                lambda *a, kw=kw: fused_mlp_resln(*a[:5], ln=a[5:],
+                                                  act="relu", **kw),
+                lambda *a, kw=kw: fused_mlp_resln_plain(
+                    *a[:5], ln=a[5:], act="relu", **kw),
+                mlp_bwd_work(M, C, Fw, it),
+                mlp_work(M, C, Fw, it, saved=True)))
+    return cases
+
+
+def vision_train_config(cap: int, chunk: int,
+                        compute_dtype: str = "bfloat16") -> SimpleNamespace:
+    cfg = vision_config()
+    cfg.__dict__.update(loss="inbatch_ce", compute_dtype=compute_dtype,
+                        lr=V_LR, l2_weight=0.0, fine_tune_lr=V_FT_LR,
+                        fine_tune_l2_weight=0.0, dedup_cap=cap,
+                        encoder_chunk=chunk)
+    return cfg
+
+
+def vision_batches(rng, n: int, zipf: bool) -> list:
+    """n host batches as bench.py _gen_raw draws them for the vision
+    flagship (bench.py:89-98): Zipf(1.2) ids capped at the catalog's size
+    ("vision_morec_zipf") or uniform ids ("vision_morec") in all
+    V_TRAIN_B x (V_L + 1) slots, then the log mask."""
+    out = []
+    for _ in range(n):
+        shape = (V_TRAIN_B, V_L + 1)
+        ids = (np.minimum(rng.zipf(ZIPF_A, size=shape), V_ITEMS_FULL) if zipf
+               else rng.integers(1, V_ITEMS_FULL + 1, size=shape))
+        out.append((ids.astype(np.int64),
+                    bench_log_mask(rng, V_TRAIN_B, V_L)))
+    return out
+
+
+def vision_device_batch(ids, lm, cap: int, pool: np.ndarray, dev) -> dict:
+    """A host batch with its images, moved to the device: with a dedup cap
+    the unique ids (np.unique, padded to cap) and their images
+    (bench.py:229-230, pool[uniq % POOL]); with cap 0 an image for every
+    slot."""
+    t = lambda a: torch.from_numpy(a).to(dev)
+    batch = {"ids": t(ids), "log_mask": t(lm)}
+    if not cap:
+        batch["content"] = t(pool[ids.reshape(-1) % len(pool)])
+        return batch
+    packed = dedup_pack(ids, cap)
+    require(packed is not None, f"a batch holds more than {cap} items")
+    batch.update(uniq_ids=t(packed[0]), inverse=t(packed[1]),
+                 uniq_content=t(pool[packed[0] % len(pool)]))
+    return batch
+
+
+def vision_train_setup(dev, cfg, kernels: str = "band"):
+    dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+    model = build_vision_model(dev, V_ITEMS_FULL, kernels, dt)
+    state = make_train_state(model, cfg, param_labels(model), seed=SEED)
+    step = make_train_step(cfg, log_pop=log_popularity(dev))
+    return model, state, step
+
+
+def vision_train_run(dev, card: str, pool, batches, cap: int, chunk: int,
+                     fixed: int, timed: int, what: str,
+                     kernels: str = "band") -> dict:
+    """`fixed` steps on batches[0] (the loss must fall), then `timed` steps
+    on the next batches, each packed and copied to the device inside its
+    timed step. Returns the launch counts of the whole run."""
+    cfg = vision_train_config(cap, chunk)
+    model, state, step = vision_train_setup(dev, cfg, kernels)
+    images = cap or V_TRAIN_B * (V_L + 1)
+    first = vision_device_batch(*batches[0], cap, pool, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = [step(state, first).item() for _ in range(fixed)]
+    walls = []
+    for ids, lm in batches[1:timed + 1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(state, vision_device_batch(ids, lm, cap, pool,
+                                               dev)).item()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    launched = counts()
+    require(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    if fixed > 2:
+        require(losses[fixed - 1] < losses[0],
+                f"{what}: the loss did not fall on a fixed batch: "
+                f"{losses[:fixed]}")
+    p50 = statistics.median(walls)
+    print(f"vision train step [{what}] B={V_TRAIN_B} L={V_L} D={V_D} Swin-T "
+          f"bf16, DropPath 0.1, dropout {DROP}, {images} images a step, "
+          f"encoder_chunk {chunk}: {fixed} steps on one batch, loss "
+          f"{losses[0]:.5f} -> {losses[fixed - 1]:.5f}; then {len(walls)} "
+          f"distinct batches: p50 {p50:.3f} ms (min {min(walls):.3f}, max "
+          f"{max(walls):.3f}), {V_TRAIN_B / p50 * 1e3:.2f} samples/s, "
+          f"{images / p50 * 1e3:.1f} images/s through the tower, last loss "
+          f"{losses[-1]:.5f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
+          flush=True)
+    require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            "a parameter is not finite after training")
+    return launched
+
+
+def vision_train_path(dev, card: str, pool: np.ndarray) -> dict:
+    """The bf16 vision train step at bench.py's two traffics: Zipf ids with
+    dedup at encoder_chunk 0 and at cap // 3, then uniform ids without
+    dedup (an image in every slot) in V_NODEDUP_CHUNKS chunks; last, two
+    Zipf steps under the "windows" kernel selection. Returns the launch
+    counts of the first run and of the last."""
+    rng = np.random.default_rng(SEED + 10)
+    zipf = vision_batches(rng, V_TIMED_STEPS + 1, True)
+    most = max(len(np.unique(ids)) for ids, _ in zipf)
+    cap = -(-most // V_CAP_QUANTUM) * V_CAP_QUANTUM
+    print(f"vision train: {len(zipf)} Zipf({ZIPF_A}) batches, at most {most} "
+          f"unique items, dedup cap {cap}", flush=True)
+    launched = vision_train_run(dev, card, pool, zipf, cap, 0, V_FIXED_STEPS,
+                                V_TIMED_STEPS, "zipf, dedup")
+    print(f"vision training launches {launched}", flush=True)
+    for n in VISION_TRAIN_KERNELS:
+        require(launched[n] > 0, f"{n} never launched in vision training")
+    torch.cuda.empty_cache()
+    vision_train_run(dev, card, pool, zipf, cap, cap // 3, V_FIXED_STEPS,
+                     V_TIMED_STEPS, "zipf, dedup, chunked")
+    torch.cuda.empty_cache()
+    slots = V_TRAIN_B * (V_L + 1)
+    vision_train_run(dev, card, pool, vision_batches(rng, 2, False), 0,
+                     slots // V_NODEDUP_CHUNKS, 1, 1, "uniform, no dedup")
+    torch.cuda.empty_cache()
+    windows = vision_train_run(dev, card, pool, zipf, cap, 0, 1, 1,
+                               "zipf, dedup, 'windows' kernels", "windows")
+    print(f"vision training launches under 'windows' {windows}", flush=True)
+    for n in VISION_WINDOWS_TRAIN_KERNELS:
+        require(windows[n] > 0, f"{n} never launched by the 'windows' "
+                f"train step")
+    torch.cuda.empty_cache()
+    return launched, windows
+
+
+def vision_grad_check(dev, card: str, pool: np.ndarray) -> None:
+    """One float32 step in training mode (DropPath 0.1 and dropout drawn
+    from the same seed on both sides) on V_CHECK_USERS users: on the card
+    under both kernel selections, and on a CPU copy of the model through the
+    plain versions. The loss and every gradient agree, and the "windows"
+    step went through its kernels."""
+    rng = np.random.default_rng(SEED + 11)
+    ids, lm = vision_batches(rng, 1, True)[0]
+    ids, lm = ids[:V_CHECK_USERS], lm[:V_CHECK_USERS]
+    cap = -(-len(np.unique(ids)) // 4) * 4
+    cfg = vision_train_config(cap, 0, "float32")
+    runs, launched = {}, None
+    for run, where, kernels in (("band", dev, "band"),
+                                ("windows", dev, "windows"),
+                                ("plain", torch.device("cpu"), "band")):
+        model = build_vision_model(dev, V_ITEMS_FULL, kernels,
+                                   None).to(where)
+        state = make_train_state(model, cfg, param_labels(model), seed=SEED)
+        step = make_train_step(cfg, log_pop=log_popularity(where))
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = step(state, vision_device_batch(ids, lm, cap, pool,
+                                               where)).item()
+        runs[run] = (loss, time.perf_counter() - t0, {
+            n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+        if run == "windows":
+            launched = counts()
+    lp, sp, gp = runs["plain"]
+    top = max(want.abs().max().item() for want in gp.values())
+    for kernels in ("band", "windows"):
+        lk, sk, gk = runs[kernels]
+        loss_err = abs(lk - lp) / abs(lp)
+        worst, table, worst_name = (-1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), None
+        for n, want in gp.items():
+            scale = max(want.abs().max().item(), GRAD_FLOOR * top)
+            err = (gk[n] - want).abs().max().item()
+            if err / scale >= worst[0]:
+                worst, worst_name = (err / scale, err, scale), n
+            if n.endswith("relative_position_bias_table"):
+                table = max(table, (err / scale, err, scale))
+        print(f"vision gradient check ['{kernels}']: f32 step on "
+              f"{V_CHECK_USERS} users ({cap} images), card {sk:.2f} s vs CPU "
+              f"plain path {sp:.2f} s: loss {lk:.6f} vs {lp:.6f}, rel err "
+              f"{loss_err:.3e} (tol {V_STEP_LOSS_TOL:g}); largest gradient "
+              f"error {worst[1]:.3e} on a scale of {worst[2]:.3e} in "
+              f"{worst_name} (tol {V_STEP_GRAD_TOL:g} of the scale; largest "
+              f"gradient {top:.3e}) over {len(gp)} parameters [{card}]",
+              flush=True)
+        print(f"vision gradient check ['{kernels}']: "
+              f"relative_position_bias_table gradients (12 tables): largest "
+              f"error {table[1]:.3e} on a scale of {table[2]:.3e}",
+              flush=True)
+        require(math.isfinite(loss_err) and loss_err <= V_STEP_LOSS_TOL,
+                "vision train-step loss disagrees with the plain path")
+        require(worst[0] <= V_STEP_GRAD_TOL,
+                f"gradient of {worst_name} disagrees with the plain path")
+    for n in VISION_WINDOWS_TRAIN_KERNELS:
+        require(launched[n] > 0, f"{n} never launched by the 'windows' "
+                f"float32 train step")
+
+
+def profile_vision_train(dev, card: str) -> None:
+    """The vision train step (Zipf ids, dedup, encoder_chunk 0) by device
+    kernel: PROFILE_STEPS steps on distinct batches after as many warm-up
+    steps."""
+    rng = np.random.default_rng(SEED + 10)
+    pool = image_pool(dev).cpu().numpy()
+    batches = vision_batches(rng, 2 * PROFILE_STEPS, True)
+    most = max(len(np.unique(ids)) for ids, _ in batches)
+    cap = -(-most // V_CAP_QUANTUM) * V_CAP_QUANTUM
+    _, state, step = vision_train_setup(dev, vision_train_config(cap, 0))
+    run = lambda part: [step(state, vision_device_batch(
+        ids, lm, cap, pool, dev)).item() for ids, lm in part]
+    run(batches[:PROFILE_STEPS])
+    profiled(lambda: run(batches[PROFILE_STEPS:]), PROFILE_STEPS,
+             f"vision train step B={V_TRAIN_B} Swin-T bf16, DropPath 0.1, "
+             f"dropout {DROP}, dedup cap {cap}, encoder_chunk 0, "
+             f"{PROFILE_STEPS} steps", "step", card)
+
+
 def vision_config() -> SimpleNamespace:
     """The vision flagship with the JAX Config's field names."""
     return SimpleNamespace(item_tower="modal", user_tower="sasrec",
@@ -1269,13 +1680,24 @@ def vision_sub_catalog_check(dev, model, content_fn, table_w, hist) -> None:
     check_results(ids_k, hist, V_L)
 
 
+def merge(kernels: dict, more: dict) -> None:
+    """Adds a phase's per-kernel results: a kernel seen before keeps its
+    headline times and takes the worse error."""
+    for name, r in more.items():
+        if name in kernels:
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                               r["max_abs_err"])
+        else:
+            kernels[name] = r
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="only profile the train step and the vision "
-                             "catalog encode by device kernel "
-                             "(torch.profiler), after the card and build "
-                             "phases")
+                        help="only profile the train step, the vision "
+                             "catalog encode and recommend and the vision "
+                             "train step by device kernel (torch.profiler), "
+                             "after the card and build phases")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
@@ -1304,6 +1726,7 @@ def main() -> int:
         profile_train(dev, card, content, batches, cap)
         profile_vision_encode(dev, card)
         profile_vision_recommend(dev, card)
+        profile_vision_train(dev, card)
         return 0
 
     with phase("kernels"):
@@ -1322,24 +1745,38 @@ def main() -> int:
     with phase("vision kernels"):
         vision = kernel_phase(dev, card, vision_kernel_cases(dev),
                               reps=FEW_REPS)
-    for name, r in vision.items():
-        if name in kernels:     # a kernel of both paths: the worse error
-            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
-                                               r["max_abs_err"])
-        else:
-            kernels[name] = r
+    merge(kernels, vision)
     torch.cuda.empty_cache()
     with phase("vision serving"):
         seen, windows = vision_serve_path(dev, card)
+    torch.cuda.empty_cache()
+    pool = image_pool(dev).cpu().numpy()
+    with phase("vision backward kernels"):
+        torch.cuda.reset_peak_memory_stats()
+        merge(kernels, gradient_cases(
+            vision_backward_cases(dev, V_BWD_IMAGES), card, reps=VB_REPS))
+        print(f"vision backward kernels: {V_BWD_IMAGES} images a case (a "
+              f"Zipf batch's dedup capacity), peak device memory with the "
+              f"plain versions' autograd "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+    torch.cuda.empty_cache()
+    with phase("vision training"):
+        vtrained, vwindows = vision_train_path(dev, card, pool)
+    with phase("vision gradient check"):
+        vision_grad_check(dev, card, pool)
 
-    # launches: every main path's count, each taken from 0; the four keys
+    # launches: every main path's count, each taken from 0; the six keys
     # after it say which path launched how many
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": CSRC + SOURCES[n][0],
          "replaces": PALLAS + SOURCES[n][1],
-         "launches": served[n] + trained[n] + seen[n] + windows[n],
+         "launches": (served[n] + trained[n] + seen[n] + windows[n]
+                      + vtrained[n] + vwindows[n]),
          "launches_serve": served[n], "launches_train": trained[n],
          "launches_vision": seen[n], "launches_windows": windows[n],
+         "launches_vision_train": vtrained[n],
+         "launches_windows_train": vwindows[n],
          **kernels[n]} for n in WRAPPERS]}
     print(json.dumps(line))
     print(card)

@@ -7,6 +7,7 @@ the TPU is a CUDA C++ kernel for Hopper (sm_90a) under csrc/, built by nvcc
 on first use (ops/cuda/lib.py); its wrapper runs a plain PyTorch version of
 the same function for tensors on the CPU.
 
-Ported so far: the serving path of end2end text MoRec -- BERT item tower,
-SASRec user tower, catalog encode and top-k retrieval -- forward only.
+Ported so far: end2end text MoRec (BERT item tower) and end2end vision
+MoRec (Swin item tower) under the SASRec user tower, served (catalog encode,
+top-k retrieval) and trained (the single-device in-batch CE step).
 """

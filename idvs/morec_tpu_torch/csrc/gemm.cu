@@ -14,9 +14,13 @@
 //   out[m][n] = epi( sum_k pro(A(m, k)) * B(k, n) )
 //   A(m, k) = A[m * sam + k * sak],  B(k, n) = B[k * sbk + n * sbn]
 // so a transposed operand is only a pair of strides. pro() is the identity
-// or cast(act(.)) (the recomputed activation of the FFN's saved h);
-// epi() adds a float addend and/or multiplies by act'(gate), then casts to
-// the compute dtype or stores float.
+// or cast(act(.)) (the recomputed activation of the FFN's saved h, which is
+// in the compute dtype or, where the backward recomputed it, float);
+// epi() adds a bias row, a float addend and/or multiplies by act'(gate),
+// then casts to the compute dtype or stores float. The same kernel carries
+// the products of the Swin kernels' backward (premlp_bwd.cu,
+// win_attn_bwd.cu): the recomputed qkv and h (bias epilogue), dctx, and the
+// weight and input gradients.
 //
 // Bound on the H100: at the train shapes (M = titles x 30 rows, C = 512,
 // F = 2048) every product is 2-60 GFLOP, compute-bound on the float FMA
@@ -33,15 +37,20 @@ namespace {
 
 constexpr int kBM = 128, kBN = 128, kBK = 8, kThreads = 256;
 
-enum Act { kNone = 0, kGelu = 1, kRelu = 2 };
+enum Act { kNone = 0, kGelu = 1, kRelu = 2, kQuickGelu = 3 };
 
 __device__ __forceinline__ float act(float h, int a) {
   if (a == kRelu) return fmaxf(h, 0.f);
+  if (a == kQuickGelu) return h / (1.f + expf(-1.702f * h));
   return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
 }
 
 __device__ __forceinline__ float dact(float h, int a) {
   if (a == kRelu) return h > 0.f ? 1.f : 0.f;
+  if (a == kQuickGelu) {
+    const float s = 1.f / (1.f + expf(-1.702f * h));
+    return s + h * 1.702f * s * (1.f - s);
+  }
   const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
   return cdf + h * 0.39894228040143268f * expf(-0.5f * h * h);
 }
@@ -52,14 +61,17 @@ struct Operands {
   long long sam, sak, sbk, sbn;
   int M, N, K;
   int pro_act;        // Act applied (then cast) to A on load
+  int a_f32;          // A holds floats, not the compute dtype
 };
 
 struct Epilogue {
   void* out;          // (M, N) row-major, compute dtype or float
   int out_f32;
   const float* add;   // (M, N) float addend, or null
-  const void* gate;   // (M, N) compute dtype: multiply by act'(gate)
+  const void* gate;   // (M, N): multiply by act'(gate)
   int gate_act;
+  int gate_f32;       // gate holds floats, not the compute dtype
+  const void* bias;   // (N,) compute dtype, added to every row, or null
 };
 
 template <typename T>
@@ -67,9 +79,12 @@ __device__ __forceinline__ void store_out(const Epilogue& e, int M, int N,
                                           int m, int n, float v) {
   if (m >= M || n >= N) return;
   const size_t i = static_cast<size_t>(m) * N + n;
+  if (e.bias != nullptr) v += to_f32(static_cast<const T*>(e.bias)[n]);
   if (e.add != nullptr) v += e.add[i];
   if (e.gate != nullptr)
-    v *= dact(to_f32(static_cast<const T*>(e.gate)[i]), e.gate_act);
+    v *= dact(e.gate_f32 ? static_cast<const float*>(e.gate)[i]
+                         : to_f32(static_cast<const T*>(e.gate)[i]),
+              e.gate_act);
   if (e.out_f32)
     static_cast<float*>(e.out)[i] = v;
   else
@@ -84,6 +99,7 @@ struct Stage {
 
   __device__ void load(const Operands& o, int m0, int n0, int k0, int k_end) {
     const T* A = static_cast<const T*>(o.A);
+    const float* Af = static_cast<const float*>(o.A);
     const T* B = static_cast<const T*>(o.B);
     const int t = threadIdx.x;
 #pragma unroll
@@ -94,7 +110,8 @@ struct Stage {
       const int ak = o.sak == 1 ? k0 + 4 * (t % 2) + c : k0 + t / 32;
       float va = 0.f;
       if (am < o.M && ak < k_end) {
-        va = to_f32(A[am * o.sam + ak * o.sak]);
+        const long long ia = am * o.sam + ak * o.sak;
+        va = o.a_f32 ? Af[ia] : to_f32(A[ia]);
         if (o.pro_act != kNone) va = round_to<T>(act(va, o.pro_act));
       }
       a[c] = va;
@@ -213,25 +230,27 @@ cudaError_t launch(const Operands& o, const Epilogue& e, float* ws,
 }  // namespace idvs
 
 // out (M, N) = epi(pro(A) @ B) with A(m, k) = A[m*sam + k*sak] and
-// B(k, n) = B[k*sbk + n*sbn], both in the compute dtype; one of sam/sak is
-// 1 and one of sbk/sbn is 1. pro_act: 0 none, 1 GELU, 2 ReLU (applied to A
-// then cast). add: float (M, N) addend or null; gate: compute-dtype (M, N)
-// whose act'(gate_act) multiplies the sum, or null. out_f32: store float,
-// else the compute dtype. splits > 1 needs ws of splits * M * N floats.
+// B(k, n) = B[k*sbk + n*sbn], both in the compute dtype (A in float when
+// a_f32); one of sam/sak is 1 and one of sbk/sbn is 1. pro_act: 0 none,
+// 1 GELU, 2 ReLU, 3 x*sigmoid(1.702x) (applied to A then cast). bias:
+// compute-dtype (N,) row or null; add: float (M, N) addend or null; gate:
+// (M, N), compute dtype or float (gate_f32), whose act'(gate_act)
+// multiplies the sum, or null. out_f32: store float, else the compute
+// dtype. splits > 1 needs ws of splits * M * N floats.
 extern "C" int idvs_gemm(const void* A, const void* B, void* out,
-                         const void* add, const void* gate, void* ws, int M,
-                         int N, int K, long long sam, long long sak,
-                         long long sbk, long long sbn, int splits,
-                         int pro_act, int gate_act, int out_f32, int dtype,
-                         void* stream) {
+                         const void* add, const void* gate, const void* bias,
+                         void* ws, int M, int N, int K, long long sam,
+                         long long sak, long long sbk, long long sbn,
+                         int splits, int pro_act, int gate_act, int out_f32,
+                         int a_f32, int gate_f32, int dtype, void* stream) {
   using namespace idvs;
   if (M < 1 || N < 1 || K < 1 || splits < 1 || (splits > 1 && !ws) ||
       (sam != 1 && sak != 1) || (sbk != 1 && sbn != 1) || pro_act < 0 ||
-      pro_act > 2 || gate_act < 1 || gate_act > 2)
+      pro_act > 3 || gate_act < 1 || gate_act > 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Operands o{A, B, sam, sak, sbk, sbn, M, N, K, pro_act};
+  const Operands o{A, B, sam, sak, sbk, sbn, M, N, K, pro_act, a_f32};
   const Epilogue e{out, out_f32, static_cast<const float*>(add), gate,
-                   gate_act};
+                   gate_act, gate_f32, bias};
   float* w = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return static_cast<int>(launch<float>(o, e, w, splits, s));

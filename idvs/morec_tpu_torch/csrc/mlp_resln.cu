@@ -172,8 +172,7 @@ cudaError_t dispatch_c(const void* x, const void* w1, const void* b1,
     case 512:
       return launch<T, 512, ACT>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M, F,
                                  eps, d, s);
-    case 2048:   // the forward-only edition alone (8-row tiles)
-      if (yp != nullptr || hs != nullptr) return cudaErrorInvalidValue;
+    case 2048:   // 8-row tiles
       return launch<T, 2048, ACT>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M, F,
                                   eps, d, s);
     default:
@@ -201,8 +200,8 @@ cudaError_t dispatch(const void* x, const void* w1, const void* b1,
 
 // x, out: (M, C); w1: (C, F) and w2: (F, C) in (in, out) layout; b1: (F,),
 // b2: (C,) in the compute dtype; gamma, beta: (C,) float. C must be 128,
-// 256 or 512 and F a multiple of 128 (of 256 at C = 512), or, for the
-// forward-only edition, 2048 with F a multiple of 1024. activation:
+// 256 or 512 and F a multiple of 128 (of 256 at C = 512), or 2048 with F a
+// multiple of 1024. activation:
 // 0 = exact GELU, 1 = ReLU. ypre (M, C) and h (M, F), in the compute
 // dtype, are both given (training edition) or both null. Dropout:
 // drop_key = mix32(seed), drop_thresh = 0 for none (dropout.cuh).

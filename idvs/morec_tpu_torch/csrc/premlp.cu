@@ -9,9 +9,10 @@
 //       | cast(x + s[row] * y)      fused_mlp_res with a per-row float scale
 //
 // Replaces idvs/morec_tpu/ops/pallas/mlp.py _fwd_kernel (reached through
-// fused_mlp and, with res=True, fused_mlp_res); the save_h residual of the
-// training edition is not written here. GELU uses CUDA's erff; the Pallas
-// kernel's polynomial erf was a Mosaic workaround.
+// fused_mlp and, with res=True, fused_mlp_res), its save_h edition included:
+// given a buffer, the kernel also stores cast(h) for the backward
+// (premlp_bwd.cu), which otherwise recomputes it. GELU uses CUDA's erff; the
+// Pallas kernel's polynomial erf was a Mosaic workaround.
 //
 // Bound on the H100: 4*C*F flops a row against 2*C elements of traffic, so
 // at F = 4C it is bound by operations at every Swin width; in float32 (no
@@ -46,6 +47,7 @@ struct MlpArgs {
   const float *gamma, *beta;   // null: no LayerNorm
   const float* scale;          // (M,) for kScaled
   void* out;
+  void* hsave;                 // (M, F) compute dtype, or null
   int M, F;
   float eps;
   int act, res;
@@ -75,6 +77,7 @@ __global__ void __launch_bounds__(256) premlp_kernel(MlpArgs p) {
   const T* w2 = static_cast<const T*>(p.w2);
   const T* b2 = static_cast<const T*>(p.b2);
   T* out = static_cast<T*>(p.out);
+  T* hsave = static_cast<T*>(p.hsave);
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * BM, F = p.F;
@@ -135,6 +138,18 @@ __global__ void __launch_bounds__(256) premlp_kernel(MlpArgs p) {
       const int col = 4 * tx + 4 * TX * j;
       const float4 bv = tile::load4(b1 + f0 + col);
       const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+      if (hsave != nullptr) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = row0 + 4 * ty + r;
+          if (row < p.M)
+            tile::store4(hsave + static_cast<size_t>(row) * F + f0 + col,
+                         make_float4(h[r][4 * j + 0] + bb[0],
+                                     h[r][4 * j + 1] + bb[1],
+                                     h[r][4 * j + 2] + bb[2],
+                                     h[r][4 * j + 3] + bb[3]));
+        }
+      }
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         *reinterpret_cast<float4*>(Ht + (col + c) * lda + 4 * ty) =
@@ -217,13 +232,14 @@ cudaError_t dispatch(const MlpArgs& p, int C, cudaStream_t s) {
 // b2: (C,) in the compute dtype. gamma, beta: (C,) float, or both null for
 // no LayerNorm. activation: 0 = exact GELU, 1 = ReLU, 2 = x*sigmoid(1.702x).
 // res: 0 = out is the MLP alone, 1 = x + mlp, 2 = x + scale[row] * mlp with
-// scale (M,) float. C must be 32, 64, 96, 128, 192, 256, 384, 512, 768 or
+// scale (M,) float. h: (M, F) in the compute dtype, which receives
+// cast(xn @ w1 + b1) for the backward, or null. C must be 32, 64, 96, 128, 192, 256, 384, 512, 768 or
 // 1024, F a multiple of min(C, 384) (of 256 at C = 512 and 1024).
 extern "C" int idvs_premlp_fwd(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2,
                                const void* gamma, const void* beta,
-                               const void* scale, void* out, int M, int C,
-                               int F, float eps, int activation, int res,
+                               const void* scale, void* out, void* h, int M,
+                               int C, int F, float eps, int activation, int res,
                                int dtype, void* stream) {
   using namespace idvs;
   if (M < 1 || F < 1 || activation < 0 || activation > 2 || res < 0 ||
@@ -232,7 +248,7 @@ extern "C" int idvs_premlp_fwd(const void* x, const void* w1, const void* b1,
     return static_cast<int>(cudaErrorInvalidValue);
   const MlpArgs p{x, w1, b1, w2, b2, static_cast<const float*>(gamma),
                   static_cast<const float*>(beta),
-                  static_cast<const float*>(scale), out, M, F, eps,
+                  static_cast<const float*>(scale), out, h, M, F, eps,
                   activation, res};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return static_cast<int>(dispatch<float>(p, C, s));

@@ -97,8 +97,7 @@ cudaError_t dispatch(const void* x, const void* res, const void* w,
       return launch<T, 256>(x, res, w, b, gamma, beta, out, ypre, M, eps, d, s);
     case 512:
       return launch<T, 512>(x, res, w, b, gamma, beta, out, ypre, M, eps, d, s);
-    case 2048:   // the forward-only edition alone (8-row tiles)
-      if (ypre != nullptr) return cudaErrorInvalidValue;
+    case 2048:   // 8-row tiles
       return launch<T, 2048>(x, res, w, b, gamma, beta, out, ypre, M, eps, d,
                              s);
     default: return cudaErrorInvalidValue;
@@ -109,9 +108,9 @@ cudaError_t dispatch(const void* x, const void* res, const void* w,
 }  // namespace idvs
 
 // x, res, out: (M, C); w: (C, C) in (in, out) layout; b: (C,) in the compute
-// dtype; gamma, beta: (C,) float. C must be 128, 256 or 512, or 2048 for
-// the forward-only edition. ypre: (M, C) in the compute dtype, or null for
-// the forward-only edition. Dropout:
+// dtype; gamma, beta: (C,) float. C must be 128, 256, 512 or 2048. ypre:
+// (M, C) in the compute dtype, or null for the forward-only edition.
+// Dropout:
 // drop_key = mix32(seed), drop_thresh = 0 for none (dropout.cuh).
 extern "C" int idvs_proj_resln_fwd(const void* x, const void* res,
                                    const void* w, const void* b,

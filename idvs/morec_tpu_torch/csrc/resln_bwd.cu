@@ -21,6 +21,7 @@
 // blocks' partials in a fixed order, so the sums are deterministic.
 #include "common.cuh"
 #include "dropout.cuh"
+#include "reduce.cuh"
 #include "rowtile.cuh"
 
 namespace idvs {
@@ -123,14 +124,106 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out[e] = sum over b < nb, in order, of part[b * E + e]
-__global__ void sum_partials_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out, int nb, int E) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float s = 0.f;
-  for (int b = 0; b < nb; ++b) s += part[static_cast<size_t>(b) * E + e];
-  out[e] = s;
+// The same pass at C = 2048 (SASRec under the vision towers), where a
+// warp's 64 columns a lane would not fit the registers: the block's 256
+// threads share one row, thread t owning columns 4t + 1024j, so the row
+// sums cross the warps through shared memory and each thread's column sums
+// are the block's own (no shared reduction at the end).
+__device__ __forceinline__ void block_sum2(float& a, float& b,
+                                           float (*red)[kWarps]) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  __syncthreads();   // the last read of red is over
+  if ((threadIdx.x & 31) == 0) {
+    red[0][threadIdx.x >> 5] = a;
+    red[1][threadIdx.x >> 5] = b;
+  }
+  __syncthreads();
+  a = b = 0.f;
+  for (int w = 0; w < kWarps; ++w) {
+    a += red[0][w];
+    b += red[1][w];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ln_bwd_rows_wide_kernel(const T* __restrict__ ypre,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ gamma,
+                            T* __restrict__ dres, float* __restrict__ dyp_out,
+                            T* __restrict__ dz, float* __restrict__ partials,
+                            int M, float eps, Drop drop) {
+  constexpr int C = 2048, NG = C / (4 * kThreads), V = 4 * NG;
+  __shared__ float red[2][kWarps];
+  float g[V], pg[V] = {}, pb[V] = {}, pd[V] = {};
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    const float4 t = load4(gamma + 4 * threadIdx.x + 4 * kThreads * j);
+    g[4 * j] = t.x, g[4 * j + 1] = t.y, g[4 * j + 2] = t.z,
+          g[4 * j + 3] = t.w;
+  }
+  for (int row = blockIdx.x; row < M; row += gridDim.x) {
+    const size_t base = static_cast<size_t>(row) * C;
+    float y[V], d[V];
+    float sum = 0.f, sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int col = 4 * threadIdx.x + 4 * kThreads * j;
+      const float4 a = load4(ypre + base + col), b = load4(dout + base + col);
+      y[4 * j] = a.x, y[4 * j + 1] = a.y, y[4 * j + 2] = a.z,
+            y[4 * j + 3] = a.w;
+      d[4 * j] = b.x, d[4 * j + 1] = b.y, d[4 * j + 2] = b.z,
+            d[4 * j + 3] = b.w;
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      sum += y[v];
+      sq += y[v] * y[v];
+    }
+    block_sum2(sum, sq, red);
+    const float mu = sum / C;
+    const float var = fmaxf(sq / C - mu * mu, 0.f);
+    const float rstd = 1.f / sqrtf(var + eps);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      y[v] = (y[v] - mu) * rstd;        // xhat
+      const float dx = d[v] * g[v];
+      s1 += dx;
+      s2 += dx * y[v];
+      pg[v] += d[v] * y[v];
+      pb[v] += d[v];
+    }
+    block_sum2(s1, s2, red);
+    const float m1 = s1 / C, m2 = s2 / C;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int col = 4 * threadIdx.x + 4 * kThreads * j;
+      float o[4], z[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int v = 4 * j + c;
+        o[c] = rstd * (d[v] * g[v] - m1 - y[v] * m2);
+        z[c] = drop.apply(o[c], static_cast<uint32_t>(base + col + c));
+        pd[v] += z[c];
+      }
+      const float4 o4 = make_float4(o[0], o[1], o[2], o[3]);
+      if (dres != nullptr) store4(dres + base + col, o4);
+      if (dyp_out != nullptr) store4(dyp_out + base + col, o4);
+      store4(dz + base + col, make_float4(z[0], z[1], z[2], z[3]));
+    }
+  }
+  float* part = partials + static_cast<size_t>(blockIdx.x) * 3 * C;
+#pragma unroll
+  for (int j = 0; j < NG; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int v = 4 * j + c, col = 4 * threadIdx.x + 4 * kThreads * j + c;
+      part[0 * C + col] = pg[v];
+      part[1 * C + col] = pb[v];
+      part[2 * C + col] = pd[v];
+    }
 }
 
 // part[by][n] = sum over rows r = by, by + gridDim.y, ... of x[r][n]
@@ -143,12 +236,6 @@ __global__ void colsum_kernel(const T* __restrict__ x,
   for (int r = blockIdx.y; r < M; r += gridDim.y)
     s += to_f32(x[static_cast<size_t>(r) * N + n]);
   part[static_cast<size_t>(blockIdx.y) * N + n] = s;
-}
-
-cudaError_t finish(const float* part, float* out, int nb, int E,
-                   cudaStream_t s) {
-  sum_partials_kernel<<<(E + 255) / 256, 256, 0, s>>>(part, out, nb, E);
-  return cudaGetLastError();
 }
 
 template <typename T, int NG>
@@ -166,7 +253,20 @@ cudaError_t launch_rows(const void* ypre, const void* dout,
       static_cast<T*>(dres), dyp, static_cast<T*>(dz), part, M, eps, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return finish(part, sums, nb, 3 * C, s);
+  return sum_partials(part, sums, nb, 3 * C, s);
+}
+
+template <typename T>
+cudaError_t launch_rows_wide(const void* ypre, const void* dout,
+                             const float* gamma, void* dres, float* dyp,
+                             void* dz, float* part, float* sums, int nb,
+                             int M, float eps, Drop drop, cudaStream_t s) {
+  ln_bwd_rows_wide_kernel<T><<<nb, kThreads, 0, s>>>(
+      static_cast<const T*>(ypre), static_cast<const T*>(dout), gamma,
+      static_cast<T*>(dres), dyp, static_cast<T*>(dz), part, M, eps, drop);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_partials(part, sums, nb, 3 * 2048, s);
 }
 
 template <typename T>
@@ -184,6 +284,9 @@ cudaError_t dispatch_rows(const void* ypre, const void* dout,
     case 512:
       return launch_rows<T, 4>(ypre, dout, gamma, dres, dyp, dz, part, sums,
                                nb, M, eps, d, s);
+    case 2048:
+      return launch_rows_wide<T>(ypre, dout, gamma, dres, dyp, dz, part, sums,
+                                 nb, M, eps, d, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -196,7 +299,7 @@ cudaError_t dispatch_rows(const void* ypre, const void* dout,
 // dz (M, C) in the compute dtype, dres (M, C, compute dtype) and dyp
 // (M, C, float) when they are not null, and sums (3, C) float = dgamma,
 // dbeta, db. part: nb * 3 * C floats of scratch; nb blocks. C must be 128,
-// 256 or 512. Dropout as the forward (dropout.cuh).
+// 256, 512 or 2048. Dropout as the forward (dropout.cuh).
 extern "C" int idvs_resln_bwd_rows(const void* ypre, const void* dout,
                                    const void* gamma, void* dres, void* dyp,
                                    void* dz, void* part, void* sums, int nb,
@@ -240,5 +343,6 @@ extern "C" int idvs_colsum(const void* x, void* part, void* out, int nb,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(finish(pt, static_cast<float*>(out), nb, N, s));
+  return static_cast<int>(
+      sum_partials(pt, static_cast<float*>(out), nb, N, s));
 }

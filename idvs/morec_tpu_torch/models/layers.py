@@ -186,22 +186,44 @@ class Embed(nn.Module):
         return F.embedding(ids, self.weight)
 
 
+def drop_path_scale(seed: int, n: int, rate: float, device=None
+                    ) -> torch.Tensor:
+    """(n,) float32 DropPath factors of one call: row i is kept with
+    probability 1 - rate and then scaled by 1 / (1 - rate), else 0. A pure
+    function of (seed, i), the dropout mask's hash (``ops/dropout.py``), so
+    a recomputation that is handed the seed finds the same rows."""
+    keep = dropout.keep_mask(seed, (n,), rate, device)
+    return keep.float() / (1.0 - rate)
+
+
 class DropPath(nn.Module):
-    """Stochastic depth: identity in eval mode and at rate 0. The training
-    draw (one Bernoulli an image) is not ported yet and raises."""
+    """Stochastic depth (JAX models/swin.py DropPath): identity in eval mode
+    and at rate 0; in training mode one Bernoulli(1 - rate) per leading row
+    (per image), kept rows scaled by 1 / (1 - rate). The seed of a call
+    comes from the host generator, like every dropout site's."""
 
     def __init__(self, rate: float):
         super().__init__()
         dropout.check_rate(rate)
         self.rate = rate
 
+    def scale(self, n: int, generator: Optional[torch.Generator],
+              device=None) -> Optional[torch.Tensor]:
+        """The (n,) float32 factors of one training call (a fresh seed from
+        ``generator``), or None where DropPath is the identity."""
+        rate, seed = drop_call(self.training, self.rate, generator)
+        if rate == 0.0:
+            return None
+        return drop_path_scale(seed, n, rate, device)
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                "DropPath's training draw is not ported: it comes with the "
-                "vision-training slice")
-        return x
+        s = self.scale(x.shape[0], generator, x.device)
+        if s is None:
+            return x
+        # x times the float32 factor, cast once: the product the scaled
+        # fused_mlp_res forms
+        return (x * s.reshape((-1,) + (1,) * (x.dim() - 1))).to(x.dtype)
 
 
 def normal_(std: float) -> "Init":

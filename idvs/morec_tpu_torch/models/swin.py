@@ -23,9 +23,14 @@ JAX package. ``kernels`` selects the pair a block takes:
   a TPU kernel declines a geometry; here it is the caller's choice, with the
   same results.
 
-Only inference is ported: DropPath is the identity in eval mode and raises
-in training mode, as hidden dropout does, and the kernels raise when a
-gradient is wanted on the card. A LayerNorm here returns its input's dtype
+In training mode DropPath draws one Bernoulli an image from the generator
+handed down the forward calls: the "band" pair takes the attention's through
+the ``DropPath`` module and the MLP's as the per-row scale of
+``fused_mlp_res`` (the unit edition when DropPath is off), the "windows" pair
+takes both through the module, as the JAX block. Hidden dropout and dropout
+of the attention probabilities raise in training mode: Swin's published
+configs set both to 0, and the JAX block leaves its fused kernels there. A
+LayerNorm here returns its input's dtype
 (`models/layers.py`), so a bf16 image stays bf16 through the tower; the
 Flax tower's `nn.LayerNorm` promotes a bf16 input to its float32
 parameters' dtype.
@@ -115,8 +120,8 @@ def _check_kernels(kernels: str) -> None:
 def _refuse_hidden_dropout(module: nn.Module, cfg: SwinConfig) -> None:
     if module.training and cfg.hidden_dropout_prob:
         raise NotImplementedError(
-            "Swin's hidden dropout in training mode is not ported: it comes "
-            "with the vision-training slice")
+            "Swin's hidden dropout in training mode is not ported (its "
+            "published configs set it to 0)")
 
 
 class SwinBlock(nn.Module):
@@ -210,9 +215,13 @@ class SwinBlock(nn.Module):
         mlp = (self.intermediate.weight.to(dt), self.intermediate.bias.to(dt),
                self.output.weight.to(dt), self.output.bias.to(dt))
         if self.kernels == "band":
-            # DropPath is the identity here (it raised above otherwise):
-            # the kernel's unit edition, no per-row scale
-            return fused_mlp_res(x, None, *mlp, ln=ln,
+            # DropPath inside the kernel: its factor per image, broadcast
+            # over the image's rows; the unit edition (no scale operand)
+            # where DropPath is the identity
+            sc = self.drop_path.scale(B, generator, x.device)
+            if sc is not None:
+                sc = sc[:, None].expand(B, L).reshape(-1)
+            return fused_mlp_res(x, sc, *mlp, ln=ln,
                                  eps=self.cfg.layer_norm_eps)
         return x + self.drop_path(
             fused_mlp(x, *mlp, ln=ln, eps=self.cfg.layer_norm_eps), generator)

@@ -1,5 +1,5 @@
 """Fused multi-head self-attention: over packed QKV (forward and backward),
-and Swin's windowed attention with its projections (forward).
+and Swin's windowed attention with its projections (forward and backward).
 
 ``fused_mha_proj`` and ``fused_mha_proj_band`` are at the end of the module;
 first ``fused_mha``. Kernels: ``csrc/fused_mha.cu``. They replace the TPU kernel
@@ -29,6 +29,7 @@ import torch
 
 from .. import dropout
 from . import lib
+from .gemm import colsum, gemm, sm_count
 
 NEG = -1e9
 MAX_T = 128
@@ -190,8 +191,14 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
 # reads a window's tokens from the (N, Hp, Wp, C) map and writes them back
 # there, so the window partition and its reverse never exist. The work is
 # 95 % projections, bound by the card's float FMA rate; the .cu header has
-# the design. The backward is not ported: on the card a wrapper raises when
-# a gradient is wanted.
+# the design. The backward (``csrc/win_attn_bwd.cu`` and the products of
+# ``csrc/gemm.cu``) saves nothing but x, the bias and the weights: it
+# recomputes qkv and the probabilities and returns the gradients of x, of
+# the four weights and of the bias, the latter summed over the windows that
+# share a bias row, in a fixed order. The band layout's backward partitions
+# x and dout into windows and reverses dx here, with PyTorch copies.
+# ``fused_mha_proj_bwd.launches`` and ``fused_mha_proj_band_bwd.launches``
+# count the backward's launches.
 
 LINEAR_WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 CUDA_INVALID_VALUE = 1     # cudaErrorInvalidValue
@@ -264,26 +271,17 @@ def fused_mha_proj_band_plain(x: torch.Tensor, bias: torch.Tensor,
     return window_reverse(out, window, Hp, Wp)
 
 
-def _launch_windowed(name, x, bias, wqkv, bqkv, wo, bo, n_heads, windows, T,
-                     band):
-    """Launches the kernel pair of csrc/win_attn.cu on x in the window
-    layout (band None) or the band layout (band = (w, nwc, nwr))."""
+def _no_blocking(name, T, C, n_heads):
+    return ValueError(
+        f"{name} kernel: no blocking for T={T}, C={C}, n_heads={n_heads}: "
+        f"it takes heads of a multiple of 4 columns and a head group of 32 "
+        f"or more columns that fits a block's threads and shared memory")
+
+
+def _windowed_fwd(name, x, table, ops, n_heads, windows, T, band, code):
+    """Launches the kernel pair of csrc/win_attn.cu on contiguous x in the
+    window layout (band None) or the band layout (band = (w, nwc, nwr))."""
     C = x.shape[-1]
-    if C not in LINEAR_WIDTHS:
-        raise ValueError(f"{name} kernel takes C in {LINEAR_WIDTHS}, got "
-                         f"{C}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, bias, wqkv, bqkv, wo, bo)):
-        raise NotImplementedError(
-            f"the backward of {name} is not ported: it comes with the "
-            f"vision-training slice")
-    code = lib.dtype_code(x)
-    dt = x.dtype
-    x = x.contiguous()
-    table = bias.detach().to(dt).float().contiguous()
-    ops = [t.detach().to(dt).contiguous() for t in (wqkv, bqkv, wo, bo)]
-    lib.check_device(x, table, *ops)
-    lib.check_aligned(x, *ops)
     ctx, out = torch.empty_like(x), torch.empty_like(x)
     w, nwc, nwr = band if band is not None else (0, 0, 0)
     err = lib.library().idvs_win_attn_fwd(
@@ -294,13 +292,121 @@ def _launch_windowed(name, x, bias, wqkv, bqkv, wo, bo, n_heads, windows, T,
         1.0 / math.sqrt(C // n_heads), code, lib.stream_handle(x))
     if err == CUDA_INVALID_VALUE:
         # the kernel chooses its own blocking (choose_blocking in the .cu)
-        raise ValueError(
-            f"{name} kernel: no blocking for T={T}, C={C}, "
-            f"n_heads={n_heads}: it takes heads of a multiple of 4 columns "
-            f"and a head group of 32 or more columns that fits a block's "
-            f"threads and shared memory")
+        raise _no_blocking(name, T, C, n_heads)
     lib.check(err, name)
     return out
+
+
+def _windowed_bwd(xw, table, dw, wqkv, bqkv, wo, n_heads, code):
+    """Backward on windows: xw and dw (the output's cotangent) are
+    (windows, T, C), contiguous, in the compute dtype. Returns (dx windows,
+    dbias (P, nh, T, T) float32, dwqkv, dbqkv, dwo, dbo), the weights' in
+    the compute dtype."""
+    W, T, C = xw.shape
+    M, dh, P = W * T, C // n_heads, table.shape[0]
+    dt, dev = xw.dtype, xw.device
+    x2, d2 = xw.reshape(M, C), dw.reshape(M, C)
+    qkv = gemm(x2, wqkv, M, 3 * C, C, (C, 1), (3 * C, 1), code, bias=bqkv)
+    dctx = gemm(d2, wo, M, C, C, (C, 1), (1, C), code)          # dout woᵀ
+    # blocks walk `chunks` shares of the windows that share a bias row:
+    # about eight waves of the four blocks a multiprocessor holds, so that
+    # the last, partly filled wave is a small part of the kernel's time
+    blocks = 32 * sm_count(dev.index or 0)
+    chunks = max(1, min(W // P, -(-blocks // (P * n_heads))))
+    part = torch.empty(chunks * P * n_heads * T * T, device=dev)
+    dbias = torch.empty(P, n_heads, T, T, device=dev)
+    dqkv, ctx = torch.empty_like(qkv), torch.empty_like(x2)
+    err = lib.library().idvs_win_attn_bwd(
+        qkv.data_ptr(), table.data_ptr(), dctx.data_ptr(), dqkv.data_ptr(),
+        ctx.data_ptr(), part.data_ptr(), dbias.data_ptr(), W, T, n_heads, dh,
+        P, chunks, table.stride(0), table.stride(1), 1.0 / math.sqrt(dh),
+        code, lib.stream_handle(xw))
+    if err == CUDA_INVALID_VALUE:
+        raise ValueError(
+            f"windowed attention backward: a head's tiles at T={T}, "
+            f"dh={dh} do not fit a block's shared memory")
+    lib.check(err, "win_attn_bwd")
+    del qkv, dctx
+    dwo = gemm(ctx, d2, C, C, M, (1, C), (C, 1), code)          # ctxᵀ dout
+    dbo = colsum(d2, code)
+    dwqkv = gemm(x2, dqkv, C, 3 * C, M, (1, C), (3 * C, 1), code)
+    dbqkv = colsum(dqkv, code)
+    dx = gemm(dqkv, wqkv, M, C, 3 * C, (3 * C, 1), (1, 3 * C), code)
+    return (dx.reshape(W, T, C), dbias, dwqkv, dbqkv.to(dt), dwo, dbo.to(dt))
+
+
+def fused_mha_proj_bwd(xw, table, dout, wqkv, bqkv, wo, *, n_heads, code):
+    """Backward of ``fused_mha_proj`` on the card (``_windowed_bwd``)."""
+    grads = _windowed_bwd(xw, table, dout.to(xw.dtype).contiguous(), wqkv,
+                          bqkv, wo, n_heads, code)
+    fused_mha_proj_bwd.launches += 1
+    return grads
+
+
+def fused_mha_proj_band_bwd(x, table, dout, wqkv, bqkv, wo, *, n_heads,
+                            window, code):
+    """Backward of ``fused_mha_proj_band`` on the card: x and dout are
+    (N, Hp, Wp, C) maps; dx comes back as a map."""
+    N, Hp, Wp, C = x.shape
+    dx, *rest = _windowed_bwd(
+        window_partition(x, window), table,
+        window_partition(dout.to(x.dtype), window), wqkv, bqkv, wo, n_heads,
+        code)
+    fused_mha_proj_band_bwd.launches += 1
+    return (window_reverse(dx, window, Hp, Wp), *rest)
+
+
+class _WindowedMHA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bias, wqkv, bqkv, wo, bo, meta):
+        name, n_heads, windows, T, band, code = meta
+        # bias arrives in the compute dtype; the kernels read it as floats
+        table = bias.float().contiguous()
+        ctx.save_for_backward(x, table, wqkv, bqkv, wo)
+        ctx.meta = meta
+        return _windowed_fwd(name, x, table, (wqkv, bqkv, wo, bo), n_heads,
+                             windows, T, band, code)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, table, wqkv, bqkv, wo = ctx.saved_tensors
+        _, n_heads, _, _, band, code = ctx.meta
+        if band is None:
+            g = fused_mha_proj_bwd(x, table, dout, wqkv, bqkv, wo,
+                                   n_heads=n_heads, code=code)
+        else:
+            g = fused_mha_proj_band_bwd(x, table, dout, wqkv, bqkv, wo,
+                                        n_heads=n_heads, window=band[0],
+                                        code=code)
+        dx, dbias, dwqkv, dbqkv, dwo, dbo = g
+        # in the dtype of the bias the kernel saw, as the TPU kernel's VJP
+        return dx, dbias.to(x.dtype), dwqkv, dbqkv, dwo, dbo, None
+
+
+def _launch_windowed(name, x, bias, wqkv, bqkv, wo, bo, n_heads, windows, T,
+                     band):
+    """Validates the operands and runs the forward, through the autograd
+    function when a gradient is wanted."""
+    C = x.shape[-1]
+    if C not in LINEAR_WIDTHS:
+        raise ValueError(f"{name} kernel takes C in {LINEAR_WIDTHS}, got "
+                         f"{C}")
+    code = lib.dtype_code(x)
+    dt = x.dtype
+    x = x.contiguous()
+    ops = [t.to(dt).contiguous() for t in (wqkv, bqkv, wo, bo)]
+    # the bias is cast first, as in the JAX wrapper, so its gradient is
+    # rounded through the compute dtype on the way back
+    bias = bias.to(dt)
+    lib.check_device(x, bias, *ops)
+    lib.check_aligned(x, *ops)
+    meta = (name, n_heads, windows, T, band, code)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, bias, *ops)):
+        return _WindowedMHA.apply(x, bias, *ops, meta)
+    with torch.no_grad():
+        return _windowed_fwd(name, x, bias.float().contiguous(), ops,
+                             n_heads, windows, T, band, code)
 
 
 def fused_mha_proj(x: torch.Tensor, bias: torch.Tensor, wqkv: torch.Tensor,
@@ -363,4 +469,6 @@ def fused_mha_proj_band(x: torch.Tensor, bias: torch.Tensor,
 fused_mha.launches = 0
 fused_mha_bwd.launches = 0
 fused_mha_proj.launches = 0
+fused_mha_proj_bwd.launches = 0
 fused_mha_proj_band.launches = 0
+fused_mha_proj_band_bwd.launches = 0

@@ -51,18 +51,27 @@ _SIGNATURES = {
     "idvs_resln_bwd_rows": [_P] * 8 + [_I, _I, _I, _F] + _DROP + [_I, _P],
     # x, part, out, nb, M, N, dtype, stream
     "idvs_colsum": [_P] * 3 + [_I] * 4 + [_P],
-    # A, B, out, add, gate, ws, M, N, K, sam, sak, sbk, sbn, splits,
-    # pro_act, gate_act, out_f32, dtype, stream
-    "idvs_gemm": [_P] * 6 + [_I] * 3 + [_LL] * 4 + [_I] * 5 + [_P],
+    # A, B, out, add, gate, bias, ws, M, N, K, sam, sak, sbk, sbn, splits,
+    # pro_act, gate_act, out_f32, a_f32, gate_f32, dtype, stream
+    "idvs_gemm": [_P] * 7 + [_I] * 3 + [_LL] * 4 + [_I] * 7 + [_P],
     # ids, dx, table, out, M, D, V, dtype, stream
     "idvs_scatter_add_rows": [_P] * 4 + [_I] * 4 + [_P],
     # x, bias, wqkv, bqkv, wo, bo, ctx, out, windows, T, C, nh, P, bias_sp,
     # bias_sh, band, w, nwc, nwr, scale, dtype, stream
     "idvs_win_attn_fwd": [_P] * 8 + [_I] * 5 + [_LL, _LL] + [_I] * 4
                          + [_F, _I, _P],
-    # x, w1, b1, w2, b2, gamma, beta, scale, out, M, C, F, eps, act, res,
-    # dtype, stream
-    "idvs_premlp_fwd": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, gamma, beta, scale, out, h, M, C, F, eps, act,
+    # res, dtype, stream
+    "idvs_premlp_fwd": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # x, gamma, beta, xn, stats, M, C, eps, dtype, stream
+    "idvs_premlp_ln_rows": [_P] * 5 + [_I, _I, _F, _I, _P],
+    # dout, scale, dy, M, C, dtype, stream
+    "idvs_scale_rows": [_P] * 3 + [_I] * 3 + [_P],
+    # x, dxn, gamma, stats, dout, dx, part, sums, nb, M, C, dtype, stream
+    "idvs_premlp_ln_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    # qkv, bias, dctx, dqkv, ctx, part, dbias, windows, T, nh, dh, P,
+    # chunks, bias_sp, bias_sh, scale, dtype, stream
+    "idvs_win_attn_bwd": [_P] * 7 + [_I] * 6 + [_LL, _LL, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 """Post-LN epilogue kernels: the projection tail and the FFN tail, forward
 and backward; and the pre-LN MLP sub-block (``fused_mlp``,
-``fused_mlp_res``, forward), at the end of the module.
+``fused_mlp_res``, forward and backward), at the end of the module.
 
 Kernels: ``csrc/proj_resln.cu`` and ``csrc/mlp_resln.cu`` (forward),
 ``csrc/resln_bwd.cu`` and ``csrc/gemm.cu`` (backward). They replace the TPU
@@ -9,8 +9,8 @@ kernels ``idvs/morec_tpu/ops/pallas/mlp.py`` ``fused_proj_resln``
 ``fused_mlp_resln`` (``_fwd_post_only_kernel``, ``_fwd_post_kernel``,
 ``_bwd_post_kernel``), with the in-kernel dropout of ``ops/dropout.py``.
 In float32 (no TF32, for parity) all are bound by the card's float FMA
-rate. Forward: each block owns 32 rows (8 at C = 2048, where only the
-forward-only editions exist) and all C columns, so the dropout,
+rate. Forward: each block owns 32 rows (8 at C = 2048) and all C columns,
+so the dropout,
 the residual add, the cast to the compute dtype and the LayerNorm run on the
 accumulator, and the FFN's (M, F) intermediate never leaves the block
 unless the training edition saves it. Backward: a row pass recomputes the
@@ -30,31 +30,23 @@ kernels do not take. ``<function>.launches`` counts launches of
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from .. import dropout
 from . import lib
+from .gemm import colsum, gemm, ptr, row_groups, sm_count
 from ...models.layers import layer_norm
 
 KERNEL_WIDTHS = (128, 256, 512, 2048)   # C the kernels are instantiated for
-FORWARD_ONLY_WIDTHS = (2048,)   # no training edition yet (8-row tiles)
 F_CHUNK = {128: 128, 256: 128, 512: 256, 2048: 1024}   # F: a multiple of
 ACTS = {"gelu": 0, "relu": 1}
-GEMM_ACTS = {"gelu": 1, "relu": 2}   # csrc/gemm.cu Act
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    """The card's streaming multiprocessors: they size the row pass's
-    partial sums and the split over K of a product."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _act(h: torch.Tensor, act: str) -> torch.Tensor:
     if act == "relu":
         return torch.relu(h)
+    if act == "quick_gelu":
+        return h * torch.sigmoid(1.702 * h)
     return torch.nn.functional.gelu(h, approximate="none")
 
 
@@ -107,17 +99,6 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _check_trainable(C, name):
-    if C in FORWARD_ONLY_WIDTHS:
-        raise NotImplementedError(
-            f"{name}: the training edition at C={C} is not ported; it comes "
-            f"with the vision-training slice")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 # -- the projection tail ------------------------------------------------------
 
 def _launch_proj(x2, r2, w, b, g, bt, ypre, eps, drop, code):
@@ -125,7 +106,7 @@ def _launch_proj(x2, r2, w, b, g, bt, ypre, eps, drop, code):
     out = torch.empty_like(x2)
     err = lib.library().idvs_proj_resln_fwd(
         x2.data_ptr(), r2.data_ptr(), w.data_ptr(), b.data_ptr(),
-        g.data_ptr(), bt.data_ptr(), out.data_ptr(), _ptr(ypre), M, C,
+        g.data_ptr(), bt.data_ptr(), out.data_ptr(), ptr(ypre), M, C,
         float(eps), *drop, code, lib.stream_handle(x2))
     lib.check(err, "fused_proj_resln")
     return out
@@ -146,41 +127,15 @@ def _rows_bwd(ypre, dout, gamma, eps, drop, code, *, dres: bool):
     dz = torch.empty_like(ypre)
     dres_t = torch.empty_like(ypre) if dres else None
     dyp = None if dres else torch.empty(M, C, device=ypre.device)
-    nb = max(1, min((M + 7) // 8, 4 * _sm_count(ypre.device.index or 0)))
+    nb = max(1, min((M + 7) // 8, 4 * sm_count(ypre.device.index or 0)))
     part = torch.empty(nb * 3 * C, device=ypre.device)
     sums = torch.empty(3, C, device=ypre.device)
     err = lib.library().idvs_resln_bwd_rows(
-        ypre.data_ptr(), dout.data_ptr(), gamma.data_ptr(), _ptr(dres_t),
-        _ptr(dyp), dz.data_ptr(), part.data_ptr(), sums.data_ptr(), nb, M, C,
+        ypre.data_ptr(), dout.data_ptr(), gamma.data_ptr(), ptr(dres_t),
+        ptr(dyp), dz.data_ptr(), part.data_ptr(), sums.data_ptr(), nb, M, C,
         float(eps), *drop, code, lib.stream_handle(ypre))
     lib.check(err, "resln_bwd_rows")
     return dz, dres_t, dyp, sums
-
-
-def _splits(M, N, K, sms):
-    """K slices of a product: enough blocks for two waves on the sms
-    multiprocessors of the card, each slice at least 1024 deep."""
-    tiles = -(-M // 128) * -(-N // 128)
-    if tiles >= 2 * sms:
-        return 1
-    return max(1, min(-(-2 * sms // tiles), K // 1024))
-
-
-def _gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
-          pro_act=False):
-    """(M, N) = epi(pro(A) @ B) in A's dtype (csrc/gemm.cu); sa = (sam,
-    sak) and sb = (sbk, sbn) are the element strides of A(m, k), B(k, n)."""
-    out = torch.empty(M, N, dtype=A.dtype, device=A.device)
-    splits = _splits(M, N, K, _sm_count(A.device.index or 0))
-    ws = (torch.empty(splits * M * N, device=A.device) if splits > 1
-          else None)
-    err = lib.library().idvs_gemm(
-        A.data_ptr(), B.data_ptr(), out.data_ptr(), _ptr(add), _ptr(gate),
-        _ptr(ws), M, N, K, *sa, *sb, splits,
-        GEMM_ACTS[act] if pro_act else 0, GEMM_ACTS[act], 0, code,
-        lib.stream_handle(A))
-    lib.check(err, "gemm")
-    return out
 
 
 def fused_proj_resln_bwd(x2, w, g, ypre, dout, *, eps, drop, code):
@@ -191,8 +146,8 @@ def fused_proj_resln_bwd(x2, w, g, ypre, dout, *, eps, drop, code):
     lib.check_device(dout)
     lib.check_aligned(dout)
     dz, dres, _, sums = _rows_bwd(ypre, dout, g, eps, drop, code, dres=True)
-    dw = _gemm(x2, dz, C, C, M, (1, C), (C, 1), code)           # xᵀ dz
-    dx = _gemm(dz, w, M, C, C, (C, 1), (1, C), code)            # dz wᵀ
+    dw = gemm(x2, dz, C, C, M, (1, C), (C, 1), code)           # xᵀ dz
+    dx = gemm(dz, w, M, C, C, (C, 1), (1, C), code)            # dz wᵀ
     fused_proj_resln_bwd.launches += 1
     return dx, dres, dw, sums[2].to(x2.dtype), sums[0], sums[1]
 
@@ -235,7 +190,6 @@ def fused_proj_resln(x: torch.Tensor, res: torch.Tensor, w: torch.Tensor,
     if not x2.shape[0]:
         return torch.empty_like(x)
     if _needs_grad(x, res, w, b, ln[0], ln[1]):
-        _check_trainable(C, "fused_proj_resln")
         out = _ProjResLN.apply(x2, r2, w_, b_, g_, bt_, float(eps), drop,
                                code)
     else:
@@ -253,7 +207,7 @@ def _launch_mlp(x2, w1, b1, w2, b2, g, bt, ypre, h, eps, act, drop, code):
     err = lib.library().idvs_mlp_resln_fwd(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), g.data_ptr(), bt.data_ptr(), out.data_ptr(),
-        _ptr(ypre), _ptr(h), M, C, F, float(eps), ACTS[act], *drop, code,
+        ptr(ypre), ptr(h), M, C, F, float(eps), ACTS[act], *drop, code,
         lib.stream_handle(x2))
     lib.check(err, "fused_mlp_resln")
     return out
@@ -284,19 +238,13 @@ def fused_mlp_resln_bwd(x2, w1, w2, g, ypre, h, dout, *, eps, act, drop,
     lib.check_aligned(dout)
     dz, _, dyp, sums = _rows_bwd(ypre, dout, g, eps, drop, code, dres=False)
     # dw2 = cast(act(h))ᵀ dz
-    dw2 = _gemm(h, dz, F, C, M, (1, F), (C, 1), code, act=act, pro_act=True)
+    dw2 = gemm(h, dz, F, C, M, (1, F), (C, 1), code, act=act, pro_act=True)
     # dh = cast((dz w2ᵀ) * act'(h))
-    dh = _gemm(dz, w2, M, F, C, (C, 1), (1, C), code, gate=h, act=act)
+    dh = gemm(dz, w2, M, F, C, (C, 1), (1, C), code, gate=h, act=act)
     # dw1 = xᵀ dh;  dx = dh w1ᵀ + dyp
-    dw1 = _gemm(x2, dh, C, F, M, (1, C), (F, 1), code)
-    dx = _gemm(dh, w1, M, C, F, (F, 1), (1, F), code, add=dyp)
-    nb = max(1, min(M, 256))
-    part = torch.empty(nb * F, device=x2.device)
-    db1 = torch.empty(F, device=x2.device)
-    err = lib.library().idvs_colsum(dh.data_ptr(), part.data_ptr(),
-                                    db1.data_ptr(), nb, M, F, code,
-                                    lib.stream_handle(x2))
-    lib.check(err, "colsum")
+    dw1 = gemm(x2, dh, C, F, M, (1, C), (F, 1), code)
+    dx = gemm(dh, w1, M, C, F, (F, 1), (1, F), code, add=dyp)
+    db1 = colsum(dh, code)
     fused_mlp_resln_bwd.launches += 1
     dt = x2.dtype
     return dx, dw1, db1.to(dt), dw2, sums[2].to(dt), sums[0], sums[1]
@@ -347,7 +295,6 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if not x2.shape[0]:
         return torch.empty_like(x)
     if _needs_grad(x, w1, b1, w2, b2, ln[0], ln[1]):
-        _check_trainable(C, "fused_mlp_resln")
         out = _MLPResLN.apply(x2, w1_, b1_, w2_, b2_, g_, bt_, float(eps),
                               act, drop, code)
     else:
@@ -359,14 +306,19 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 # -- the pre-LN MLP sub-block (Swin) ------------------------------------------
 #
-# Kernel: ``csrc/premlp.cu``. It replaces the TPU kernels
+# Kernels: ``csrc/premlp.cu`` (forward), ``csrc/premlp_bwd.cu`` and
+# ``csrc/gemm.cu`` (backward). They replace the TPU kernels
 # ``idvs/morec_tpu/ops/pallas/mlp.py`` ``fused_mlp`` and ``fused_mlp_res``
-# (``_fwd_kernel``): the LayerNorm as a prologue, dense1, the activation and
-# dense2 with the (M, F) intermediate never in device memory, and for
-# ``fused_mlp_res`` the residual (and DropPath's per-row scale) on the
-# accumulator. Bound by the card's float FMA rate; the .cu header has the
-# design. The backward and the ``save_h`` residual are not ported: on the
-# card a wrapper raises when a gradient is wanted.
+# (``_fwd_kernel``, ``_bwd_kernel``): the LayerNorm as a prologue, dense1,
+# the activation and dense2 with the (M, F) intermediate never in device
+# memory, and for ``fused_mlp_res`` the residual (and DropPath's per-row
+# scale) on the accumulator. The backward recomputes the LayerNorm and h
+# from x (or reads the h that ``save_h`` stored), runs its four products
+# through the tiled kernel of gemm.cu with the activation on load and its
+# derivative as an epilogue, and the LayerNorm's backward as a row pass;
+# every sum over rows is added in a fixed order. Bound by the card's float
+# FMA rate; the .cu headers have the design. ``fused_mlp_bwd.launches`` and
+# ``fused_mlp_res_bwd.launches`` count the backward's launches.
 
 PRE_ACTS = {"gelu": 0, "relu": 1, "quick_gelu": 2}
 # C the kernel is instantiated for -> the chunk F must be a multiple of
@@ -374,21 +326,46 @@ PRE_F_CHUNK = {32: 32, 64: 64, 96: 96, 128: 128, 192: 192, 256: 256,
                384: 384, 512: 256, 768: 384, 1024: 256}
 
 
-def _pre_mlp(x2, w1, b1, w2, b2, ln, eps, act):
-    """float32 dense2(cast(act(dense1(cast(LN(x)))))) of (M, C) rows."""
+def _pre_mlp(x2, w1, b1, w2, b2, ln, eps, act, save_h=False):
+    """float32 dense2(cast(act(dense1(cast(LN(x)))))) of (M, C) rows. With
+    save_h the value is the same (the forward's activation reads the float32
+    h) and the gradient is the one of the edition that stores cast(h): its
+    backward takes act and act' at the stored h (JAX ops/pallas/mlp.py
+    :124-127, :173-177)."""
     dt = x2.dtype
     xn = x2 if ln is None else layer_norm(x2, ln[0], ln[1], eps)
     h = xn.float() @ w1.to(dt).float() + b1.to(dt).float()
-    if act == "quick_gelu":
-        g = h * torch.sigmoid(1.702 * h)
+    g = _act(h, act).to(dt).float()
+    w2f = w2.to(dt).float()
+    if save_h:
+        y = _Dense2SavedH.apply(g.detach(),
+                                _act(h.to(dt).float(), act).to(dt).float(),
+                                w2f)
     else:
-        g = _act(h, act)
-    return g.to(dt).float() @ w2.to(dt).float() + b2.to(dt).float()
+        y = g @ w2f
+    return y + b2.to(dt).float()
 
 
-def fused_mlp_plain(x, w1, b1, w2, b2, *, ln=None, eps=1e-5, act="gelu"):
+class _Dense2SavedH(torch.autograd.Function):
+    """g_fwd @ w2 whose backward sees g_bwd, the activation recomputed from
+    the stored h: dw2 = g_bwdᵀ dy, and dy w2ᵀ flows on through g_bwd."""
+
+    @staticmethod
+    def forward(ctx, g_fwd, g_bwd, w2f):
+        ctx.save_for_backward(g_bwd, w2f)
+        return g_fwd @ w2f
+
+    @staticmethod
+    def backward(ctx, dy):
+        g_bwd, w2f = ctx.saved_tensors
+        return None, dy @ w2f.t(), g_bwd.t() @ dy
+
+
+def fused_mlp_plain(x, w1, b1, w2, b2, *, ln=None, eps=1e-5, act="gelu",
+                    save_h=False):
     """The kernel's function in plain PyTorch, same rounding points."""
-    y = _pre_mlp(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, ln, eps, act)
+    y = _pre_mlp(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, ln, eps, act,
+                 save_h)
     return y.to(x.dtype).reshape(x.shape)
 
 
@@ -403,7 +380,118 @@ def fused_mlp_res_plain(x, scale, w1, b1, w2, b2, *, ln, eps=1e-5,
     return (x2.float() + y).to(x.dtype).reshape(x.shape)
 
 
-def _launch_premlp(name, x, scale, w1, b1, w2, b2, ln, eps, act, res):
+def _premlp_fwd(name, x2, s, ops, lnf, eps, act, res, code, hsave=None):
+    """Launches csrc/premlp.cu on validated, contiguous operands."""
+    C, F = ops[0].shape
+    out = torch.empty_like(x2)
+    err = lib.library().idvs_premlp_fwd(
+        x2.data_ptr(), *(t.data_ptr() for t in ops), ptr(lnf[0]),
+        ptr(lnf[1]), ptr(s), out.data_ptr(), ptr(hsave), x2.shape[0], C, F,
+        float(eps), PRE_ACTS[act], res, code, lib.stream_handle(x2))
+    lib.check(err, name)
+    return out
+
+
+def _premlp_bwd(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code):
+    """(dx, dw1, db1, dw2, db2, dgamma, dbeta) of the pre-LN MLP
+    (csrc/premlp_bwd.cu has the plan); weights and biases in the compute
+    dtype, dgamma and dbeta float32 (None without a LayerNorm)."""
+    M, C = x2.shape
+    F = w1.shape[1]
+    dt, dev = x2.dtype, x2.device
+    k = lib.library()
+    stream = lib.stream_handle(x2)
+    dout = dout.reshape(M, C).to(dt).contiguous()
+    lib.check_device(dout)
+    ln = lnf[0] is not None
+    xn = x2
+    if ln:
+        xn = torch.empty_like(x2)
+        stats = torch.empty(M, 2, device=dev)
+        lib.check(k.idvs_premlp_ln_rows(
+            x2.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(),
+            xn.data_ptr(), stats.data_ptr(), M, C, float(eps), code, stream),
+            "premlp_ln_rows")
+    if h is None:
+        h = gemm(xn, w1, M, F, C, (C, 1), (F, 1), code, bias=b1,
+                  out_f32=True)
+    dy = dout
+    if s is not None:
+        dy = torch.empty_like(dout)
+        lib.check(k.idvs_scale_rows(dout.data_ptr(), s.data_ptr(),
+                                    dy.data_ptr(), M, C, code, stream),
+                  "scale_rows")
+    # dw2 = cast(act(h))ᵀ dy;  dh = cast((dy w2ᵀ) * act'(h))
+    dw2 = gemm(h, dy, F, C, M, (1, F), (C, 1), code, act=act, pro_act=True,
+                dtype=dt)
+    db2 = colsum(dy, code)
+    dh = gemm(dy, w2, M, F, C, (C, 1), (1, C), code, gate=h, act=act)
+    del h
+    # dw1 = xnᵀ dh;  dxn = dh w1ᵀ
+    dw1 = gemm(xn, dh, C, F, M, (1, C), (F, 1), code)
+    db1 = colsum(dh, code)
+    dxn = gemm(dh, w1, M, C, F, (F, 1), (1, F), code, out_f32=ln)
+    if not ln:      # fused_mlp without its LayerNorm: dxn is dx
+        return dxn, dw1, db1.to(dt), dw2, db2.to(dt), None, None
+    dx = torch.empty_like(x2)
+    nb = row_groups(M)
+    part = torch.empty(nb * 2 * C, device=dev)
+    sums = torch.empty(2, C, device=dev)
+    lib.check(k.idvs_premlp_ln_bwd(
+        x2.data_ptr(), dxn.data_ptr(), lnf[0].data_ptr(), stats.data_ptr(),
+        dout.data_ptr() if res else None, dx.data_ptr(), part.data_ptr(),
+        sums.data_ptr(), nb, M, C, code, stream), "premlp_ln_bwd")
+    return dx, dw1, db1.to(dt), dw2, db2.to(dt), sums[0], sums[1]
+
+
+def fused_mlp_bwd(x2, dout, w1, b1, w2, lnf, h, *, eps, act, code):
+    """Backward of ``fused_mlp`` on the card: x2 (M, C) and dout in the
+    compute dtype, lnf the LayerNorm's float32 (scale, bias) or (None,
+    None), h the (M, F) residual of the save_h edition or None."""
+    grads = _premlp_bwd(x2, dout, None, w1, b1, w2, lnf, h, eps, act, False,
+                        code)
+    fused_mlp_bwd.launches += 1
+    return grads
+
+
+def fused_mlp_res_bwd(x2, dout, s, w1, b1, w2, lnf, *, eps, act, code):
+    """Backward of ``fused_mlp_res``: the MLP chain sees s * dout (dout in
+    the unit edition, s None), the residual adds the raw dout to dx; s gets
+    no gradient."""
+    grads = _premlp_bwd(x2, dout, s, w1, b1, w2, lnf, None, eps, act, True,
+                        code)
+    fused_mlp_res_bwd.launches += 1
+    return grads
+
+
+class _PreMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, s, w1, b1, w2, b2, gamma, beta, meta):
+        name, eps, act, res, save_h, code = meta
+        h = (torch.empty(x2.shape[0], w1.shape[1], dtype=x2.dtype,
+                         device=x2.device) if save_h else None)
+        out = _premlp_fwd(name, x2, s, (w1, b1, w2, b2), (gamma, beta), eps,
+                          act, res, code, h)
+        ctx.save_for_backward(x2, s, w1, b1, w2, gamma, beta, h)
+        ctx.meta = meta
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x2, s, w1, b1, w2, gamma, beta, h = ctx.saved_tensors
+        _, eps, act, res, _, code = ctx.meta
+        if res:
+            g = fused_mlp_res_bwd(x2, dout, s, w1, b1, w2, (gamma, beta),
+                                  eps=eps, act=act, code=code)
+        else:
+            g = fused_mlp_bwd(x2, dout, w1, b1, w2, (gamma, beta), h, eps=eps,
+                              act=act, code=code)
+        dx, dw1, db1, dw2, db2, dgamma, dbeta = g
+        return dx, None, dw1, db1, dw2, db2, dgamma, dbeta, None
+
+
+def _launch_premlp(name, x, scale, w1, b1, w2, b2, ln, eps, act, res,
+                   save_h=False):
     C, F = w1.shape
     if C not in PRE_F_CHUNK:
         raise ValueError(f"{name} kernel takes C in {sorted(PRE_F_CHUNK)}, "
@@ -411,16 +499,11 @@ def _launch_premlp(name, x, scale, w1, b1, w2, b2, ln, eps, act, res):
     if F % PRE_F_CHUNK[C]:
         raise ValueError(f"{name} kernel takes F a multiple of "
                          f"{PRE_F_CHUNK[C]} at C={C}, got {F}")
-    tensors = (x, w1, b1, w2, b2) + (tuple(ln) if ln is not None else ())
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"the backward of {name} is not ported: it comes with the "
-            f"vision-training slice")
     dt = x.dtype
     code = lib.dtype_code(x)
     x2 = x.reshape(-1, C).contiguous()
-    ops = [t.detach().to(dt).contiguous() for t in (w1, b1, w2, b2)]
-    lnf = ([t.detach().float().contiguous() for t in ln] if ln is not None
+    ops = [t.to(dt).contiguous() for t in (w1, b1, w2, b2)]
+    lnf = ([t.float().contiguous() for t in ln] if ln is not None
            else [None, None])
     s = None
     if scale is not None:
@@ -431,14 +514,14 @@ def _launch_premlp(name, x, scale, w1, b1, w2, b2, ln, eps, act, res):
     live = [t for t in (*lnf, s) if t is not None]
     lib.check_device(x2, *ops, *live)
     lib.check_aligned(x2, *ops)
-    out = torch.empty_like(x2)
     if not x2.shape[0]:
-        return out.reshape(x.shape)
-    err = lib.library().idvs_premlp_fwd(
-        x2.data_ptr(), *(t.data_ptr() for t in ops), _ptr(lnf[0]),
-        _ptr(lnf[1]), _ptr(s), out.data_ptr(), x2.shape[0], C, F, float(eps),
-        PRE_ACTS[act], res, code, lib.stream_handle(x2))
-    lib.check(err, name)
+        return torch.empty_like(x)
+    if _needs_grad(x2, *ops, *live):
+        out = _PreMLP.apply(x2, s, *ops, *lnf,
+                            (name, float(eps), act, res, save_h, code))
+    else:
+        with torch.no_grad():
+            out = _premlp_fwd(name, x2, s, ops, lnf, eps, act, res, code)
     return out.reshape(x.shape)
 
 
@@ -456,16 +539,20 @@ def _check_premlp(name, x, w1, b1, w2, b2, ln, act):
 
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor, *, ln=None,
-              eps: float = 1e-5, act: str = "gelu") -> torch.Tensor:
+              eps: float = 1e-5, act: str = "gelu",
+              save_h: bool = False) -> torch.Tensor:
     """(..., C) -> (..., C): dense2(act(dense1(maybe_LN(x)))); ln is None
     or the LayerNorm's (scale, bias), applied first; act is exact "gelu",
     "relu" or "quick_gelu" (x * sigmoid(1.702 x)). The residual add stays
-    with the caller."""
+    with the caller. The backward recomputes h = dense1(...) from x; with
+    ``save_h`` the forward stores it (M x F in x's dtype) when a gradient is
+    wanted and the backward reads it instead."""
     _check_premlp("fused_mlp", x, w1, b1, w2, b2, ln, act)
     if x.device.type == "cpu":
-        return fused_mlp_plain(x, w1, b1, w2, b2, ln=ln, eps=eps, act=act)
+        return fused_mlp_plain(x, w1, b1, w2, b2, ln=ln, eps=eps, act=act,
+                               save_h=save_h)
     out = _launch_premlp("fused_mlp", x, None, w1, b1, w2, b2, ln, eps, act,
-                         0)
+                         0, save_h)
     fused_mlp.launches += 1
     return out
 
@@ -475,7 +562,8 @@ def fused_mlp_res(x: torch.Tensor, scale, w1: torch.Tensor,
                   ln, eps: float = 1e-5, act: str = "gelu") -> torch.Tensor:
     """(..., C) -> (..., C): x + scale * dense2(act(dense1(LN(x)))), the
     pre-LN residual tail. scale is a float factor per row (DropPath's keep
-    mask over the keep probability), or None for x + mlp(LN(x))."""
+    mask over the keep probability; it gets no gradient), or None for
+    x + mlp(LN(x))."""
     _check_premlp("fused_mlp_res", x, w1, b1, w2, b2, ln, act)
     if ln is None:
         raise ValueError("fused_mlp_res needs the LayerNorm's (scale, bias)")
@@ -489,7 +577,9 @@ def fused_mlp_res(x: torch.Tensor, scale, w1: torch.Tensor,
 
 
 fused_mlp.launches = 0
+fused_mlp_bwd.launches = 0
 fused_mlp_res.launches = 0
+fused_mlp_res_bwd.launches = 0
 fused_proj_resln.launches = 0
 fused_proj_resln_res.launches = 0
 fused_proj_resln_bwd.launches = 0

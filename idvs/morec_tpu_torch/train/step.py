@@ -9,14 +9,28 @@ One step, as the JAX ``single_step`` (:155-245, :264-272):
 2. the item tower encodes the batch's item slots: the catalog rows
    (device-resident, gathered by id) of every slot, or, with host-side
    dedup (``dedup_pack``: ``uniq_ids`` + ``inverse`` in the batch), of each
-   unique item once, gathered back by ``inverse``;
+   unique item once, gathered back by ``inverse``. Content shipped with the
+   batch takes the catalog's place: ``content`` (every slot) or
+   ``uniq_content`` (the unique items), e.g. uint8 NHWC images, whose
+   padding slots (id 0) the tower sees as zero images;
 3. the SASRec tower runs on ``embs[:, :-1]``, the in-batch debiased CE
    scores every position against the batch's items;
 4. backward, then the AdamW update of ``state.optimizer``.
 
-Dropout runs in the model's training mode with seeds drawn from
-``state.generator``. BCE, DSSM, gathered negatives, several steps per
-dispatch, encoder chunking and rematerialisation raise
+Dropout and DropPath run in the model's training mode with seeds drawn
+from ``state.generator``.
+
+``cfg.encoder_chunk`` (when it divides the number of encoded items) runs
+the item tower over chunks of that many items, each under
+``torch.utils.checkpoint``: the backward recomputes a chunk's activations,
+so the tower's memory is one chunk's (JAX step.py:99-134; XLA's unrolled
+scan and its saved-attention policy are not carried over).
+``cfg.remat_encoder`` checkpoints the whole encode as one chunk. A chunk's
+dropout and DropPath seeds come from a generator seeded with one value
+drawn from ``state.generator`` before the chunk runs, so the recomputation
+draws the very same masks.
+
+BCE, DSSM, gathered negatives and several steps per dispatch raise
 ``NotImplementedError``.
 """
 
@@ -27,7 +41,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
+from ..ops import dropout
 from ..ops.losses import inbatch_debiased_ce
 from .state import TrainState
 
@@ -58,8 +74,6 @@ def _check(cfg, n_steps: int) -> None:
         "user_tower": cfg.user_tower != "sasrec",
         "gather_negatives": getattr(cfg, "gather_negatives", False),
         "n_steps": n_steps != 1,
-        "encoder_chunk": getattr(cfg, "encoder_chunk", 0),
-        "remat_encoder": getattr(cfg, "remat_encoder", False),
         "use_pallas": getattr(cfg, "use_pallas", False),
     }
     bad = [k for k, v in unported.items() if v]
@@ -86,10 +100,14 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
     modal item tower (None for IDRec). log_pop: (item_num + 1,) log
     popularity on the device. batch: ``ids`` (B, L + 1) and ``log_mask``
     (B, L) on the device, plus ``uniq_ids`` and ``inverse`` from
-    ``dedup_pack`` when dedup is on.
+    ``dedup_pack`` when dedup is on, plus ``content`` (one row or image
+    per slot) or ``uniq_content`` (one per ``uniq_ids`` entry) when the
+    content travels with the batch.
     """
     _check(cfg, n_steps)
     dt = COMPUTE_DTYPES[cfg.compute_dtype]
+    chunk = getattr(cfg, "encoder_chunk", 0)
+    remat = getattr(cfg, "remat_encoder", False)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model, gen = state.model, state.generator
@@ -97,22 +115,46 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
         params = {k: p.to(dt) if p.dtype == torch.float32 else p
                   for k, p in model.named_parameters()}
 
-        def item_embs(item_ids):
+        def encode(item_ids, content, generator):
+            kw = {"generator": generator}
+            if content.dim() == 4:      # images: id 0 is the zero image
+                kw["pad_mask"] = item_ids == 0
+            return functional_call(model.encoder,
+                                   _prefixed(params, "encoder."),
+                                   (content,), kw)
+
+        def encode_remat(item_ids, content):
+            # the chunk's own generator, seeded before the chunk runs: the
+            # backward's recomputation draws the same seeds again
+            seed = dropout.draw_seed(gen)
+            return checkpoint(
+                lambda i, c: encode(i, c, torch.Generator().manual_seed(seed)),
+                item_ids, content, use_reentrant=False,
+                preserve_rng_state=False)
+
+        def item_embs(item_ids, content):
             if model.item_tower == "id":
                 return functional_call(model.id_embedding,
                                        _prefixed(params, "id_embedding."),
                                        (item_ids,))
-            return functional_call(model.encoder,
-                                   _prefixed(params, "encoder."),
-                                   (item_content[item_ids],),
-                                   {"generator": gen})
+            if content is None:
+                content = item_content[item_ids]
+            n = item_ids.shape[0]
+            if chunk and n % chunk == 0:
+                return torch.cat([
+                    encode_remat(item_ids[i:i + chunk], content[i:i + chunk])
+                    for i in range(0, n, chunk)])
+            if remat:
+                return encode_remat(item_ids, content)
+            return encode(item_ids, content, gen)
 
         ids, lm = batch["ids"], batch["log_mask"]
         B, S = ids.shape
         if "uniq_ids" in batch:
-            embs = item_embs(batch["uniq_ids"])[batch["inverse"]]
+            embs = item_embs(batch["uniq_ids"],
+                             batch.get("uniq_content"))[batch["inverse"]]
         else:
-            embs = item_embs(ids.reshape(-1))
+            embs = item_embs(ids.reshape(-1), batch.get("content"))
         embs = embs.reshape(B, S, -1)
         uv = functional_call(model.user_encoder,
                              _prefixed(params, "user_encoder."),

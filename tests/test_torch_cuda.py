@@ -12,11 +12,14 @@ import torch
 
 from idvs.morec_tpu_torch.ops.cuda.attention import (
     fused_mha, fused_mha_bwd, fused_mha_plain, fused_mha_proj,
-    fused_mha_proj_band, fused_mha_proj_band_plain, fused_mha_proj_plain)
+    fused_mha_proj_band, fused_mha_proj_band_bwd, fused_mha_proj_band_plain,
+    fused_mha_proj_bwd, fused_mha_proj_plain)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     embed_gather, scatter_add_rows, scatter_add_rows_plain)
-from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_plain,
+from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
+                                               fused_mlp_plain,
                                                fused_mlp_res,
+                                               fused_mlp_res_bwd,
                                                fused_mlp_res_plain,
                                                fused_mlp_resln,
                                                fused_mlp_resln_bwd,
@@ -152,11 +155,12 @@ def _uncontiguous(rng, rows, cols, dtype):
 
 @pytest.mark.parametrize("drop", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["mask", "bias"])
+@pytest.mark.parametrize("mode", ["mask", "bias", "bias_1024"])
 def test_mha_backward(mode, dtype, drop):
     """dqkv of the backward kernel against autograd of the plain version,
-    BERT's key mask and SASRec's shared causal bias, the forward's mask of
-    dropped probabilities reused."""
+    BERT's key mask and SASRec's shared causal bias (heads of 256, and the
+    vision flagship's heads of 1024), the forward's mask of dropped
+    probabilities reused."""
     rng = np.random.default_rng(4)
     if mode == "mask":
         B, T, nh, dh = 64, 30, 8, 64
@@ -164,7 +168,8 @@ def test_mha_backward(mode, dtype, drop):
         kw = dict(mask=torch.from_numpy(
             (np.arange(T)[None] < lens[:, None]).astype(np.float32)).cuda())
     else:
-        B, T, nh, dh = 32, 20, 2, 256
+        B, T, nh, dh = (32, 20, 2, 256) if mode == "bias" else (64, 10, 2,
+                                                                 1024)
         lens = rng.integers(1, T + 1, size=B)
         kw = dict(bias=causal_additive_mask(torch.from_numpy(
             (np.arange(T)[None] >= T - lens[:, None]).astype(
@@ -438,7 +443,8 @@ def test_pre_ln_mlp(M, C, F, act, ln, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M", [640, 10, 3])
 def test_post_ln_tails_at_2048(M, dtype):
-    """The forward-only editions at the vision flagship's SASRec width."""
+    """The forward-only editions at the vision flagship's SASRec width (the
+    training editions: test_post_ln_tails_train_at_2048)."""
     rng = np.random.default_rng(13)
     C, F = 2048, 8192
     x, res = _rand(rng, M, C, dtype=dtype), _rand(rng, M, C, dtype=dtype)
@@ -457,33 +463,45 @@ def test_post_ln_tails_at_2048(M, dtype):
 @pytest.mark.parametrize("case", [
     "band_grad", "windows_grad", "mlp_grad", "mlp_res_grad", "tail_2048_grad",
     "band_width", "band_heads", "band_window", "band_period", "mlp_width",
-    "mlp_f_chunk", "mlp_res_no_ln", "mlp_scale_rows",
+    "mlp_f_chunk", "mlp_res_no_ln", "mlp_scale_rows", "windows_bwd_tiles",
 ])
 def test_refuses_what_the_vision_kernels_do_not_take(case):
-    """The forward-only kernels raise when a gradient is wanted, and for
-    geometries they are not built for; the counters do not move."""
+    """The kernels give a gradient where one is wanted (the backward's
+    counter moves), and raise for geometries they are not built for (no
+    counter moves)."""
     z = lambda *s: torch.zeros(*s, device="cuda")
     grad = lambda *s: z(*s).requires_grad_(True)
     attn = lambda C: (z(C, 3 * C), z(3 * C), z(C, C), z(C))
     mlp = lambda C, F: (z(C, F), z(F), z(F, C), z(C))
     ln = lambda C: dict(ln=(z(C) + 1, z(C)))
-    counts = lambda: (fused_mha_proj.launches, fused_mha_proj_band.launches,
-                      fused_mlp.launches, fused_mlp_res.launches,
-                      fused_proj_resln.launches, fused_mlp_resln.launches)
+    counted = (fused_mha_proj, fused_mha_proj_band, fused_mlp, fused_mlp_res,
+               fused_proj_resln, fused_mlp_resln, fused_mha_proj_bwd,
+               fused_mha_proj_band_bwd, fused_mlp_bwd, fused_mlp_res_bwd,
+               fused_proj_resln_bwd)
+    counts = lambda: tuple(f.launches for f in counted)
     before = counts()
-    calls = {
-        "band_grad": (NotImplementedError, lambda: fused_mha_proj_band(
+    gradients = {
+        "band_grad": (fused_mha_proj_band_bwd, lambda: fused_mha_proj_band(
             grad(1, 7, 7, 96), z(1, 3, 49, 49), *attn(96), n_heads=3,
             window=7)),
-        "windows_grad": (NotImplementedError, lambda: fused_mha_proj(
+        "windows_grad": (fused_mha_proj_bwd, lambda: fused_mha_proj(
             z(2, 49, 96), grad(1, 3, 49, 49), *attn(96), n_heads=3)),
-        "mlp_grad": (NotImplementedError, lambda: fused_mlp(
+        "mlp_grad": (fused_mlp_bwd, lambda: fused_mlp(
             grad(4, 96), *mlp(96, 384))),
-        "mlp_res_grad": (NotImplementedError, lambda: fused_mlp_res(
+        "mlp_res_grad": (fused_mlp_res_bwd, lambda: fused_mlp_res(
             z(4, 96), None, grad(96, 384), *mlp(96, 384)[1:], **ln(96))),
-        "tail_2048_grad": (NotImplementedError, lambda: fused_proj_resln(
+        "tail_2048_grad": (fused_proj_resln_bwd, lambda: fused_proj_resln(
             grad(4, 2048), z(4, 2048), z(2048, 2048), z(2048), eps=1e-6,
             **ln(2048))),
+    }
+    if case in gradients:
+        bwd, call = gradients[case]
+        n = bwd.launches
+        call().sum().backward()
+        torch.cuda.synchronize()
+        assert bwd.launches == n + 1
+        return
+    calls = {
         "band_width": (ValueError, lambda: fused_mha_proj_band(
             z(1, 7, 7, 160), z(1, 5, 49, 49), *attn(160), n_heads=5,
             window=7)),
@@ -504,8 +522,149 @@ def test_refuses_what_the_vision_kernels_do_not_take(case):
             z(4, 96), None, *mlp(96, 384), ln=None)),
         "mlp_scale_rows": (ValueError, lambda: fused_mlp_res(
             z(4, 96), z(3), *mlp(96, 384), **ln(96))),
+        # 121-token windows of one 32-column head: the forward places them,
+        # the backward's six tiles (237 KB) do not fit a block's shared
+        # memory, so the backward raises and counts nothing
+        "windows_bwd_tiles": (ValueError, lambda: fused_mha_proj(
+            grad(2, 121, 32), z(1, 1, 121, 121), *attn(32), n_heads=1
+        ).sum().backward()),
     }
     exc, call = calls[case]
     with pytest.raises(exc):
         call()
+    if case == "windows_bwd_tiles":     # its forward launched, once
+        before = (before[0] + 1,) + before[1:]
     assert counts() == before
+
+
+def _assert_same_bits(a, b):
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C,F,act,edition", [
+    (3136 * 2, 96, 384, "gelu", "res_scaled"),
+    (3136 + 7, 96, 384, "gelu", "res_unit"),
+    (1001, 192, 768, "gelu", "ln"), (196 * 3, 384, 1536, "gelu", "no_ln"),
+    (49 * 5, 768, 3072, "gelu", "res_scaled"),
+    (49 * 5, 768, 3072, "gelu", "save_h"),
+    (33, 128, 512, "relu", "save_h"), (70, 256, 256, "quick_gelu", "no_ln"),
+    (5, 512, 512, "quick_gelu", "res_unit"), (130, 64, 128, "relu", "ln")])
+def test_pre_ln_mlp_backward(M, C, F, act, edition, dtype):
+    """The backward of fused_mlp (LN, no LN, save_h) and fused_mlp_res (unit,
+    scaled) against autograd of the plain version: dx, dw1, db1, dw2, db2,
+    dgamma, dbeta; odd row counts; the same bits on a second run (every sum
+    over rows is added in a fixed order)."""
+    rng = np.random.default_rng(14)
+    x = _rand(rng, M, C, dtype=dtype)
+    w1, b1 = _rand(rng, C, F, scale=C ** -0.5), _rand(rng, F, scale=0.1)
+    w2, b2 = _rand(rng, F, C, scale=F ** -0.5), _rand(rng, C, scale=0.1)
+    g, bt = 1.0 + _rand(rng, C, scale=0.1), _rand(rng, C, scale=0.1)
+    dout = _uncontiguous(rng, M, C, dtype)
+    inputs = [x, w1, b1, w2, b2] + ([] if edition == "no_ln" else [g, bt])
+    kw = dict(eps=1e-5, act=act)
+    if edition.startswith("res"):
+        scale = None
+        if edition == "res_scaled":
+            scale = torch.from_numpy(
+                (rng.uniform(size=M) < 0.8).astype(np.float32) / 0.8).cuda()
+        kern = lambda *a: fused_mlp_res(a[0], scale, *a[1:5], ln=a[5:], **kw)
+        plain = lambda *a: fused_mlp_res_plain(a[0], scale, *a[1:5],
+                                               ln=a[5:], **kw)
+        fwd, bwd = fused_mlp_res, fused_mlp_res_bwd
+    else:
+        sh = edition == "save_h"
+        kern = lambda *a: fused_mlp(*a[:5], ln=a[5:] or None, save_h=sh, **kw)
+        plain = lambda *a: fused_mlp_plain(*a[:5], ln=a[5:] or None,
+                                           save_h=sh, **kw)
+        fwd, bwd = fused_mlp, fused_mlp_bwd
+    before = (fwd.launches, bwd.launches)
+    out_k, got = _grads(kern, inputs, dout)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    out_p, want = _grads(plain, inputs, dout)
+    _assert_close(out_k, out_p)
+    _assert_grads_close(got, want, dtype)
+    _assert_same_bits(got, _grads(kern, inputs, dout)[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hp,Wp,C,nh,w,shifted", [
+    (3, 56, 56, 96, 3, 7, False),      # Swin-T stage 0
+    (3, 56, 56, 96, 3, 7, True),
+    (3, 28, 28, 192, 6, 7, True),
+    (5, 14, 14, 384, 12, 7, True),
+    (7, 7, 7, 768, 24, 7, False),      # one window an image
+    (3, 8, 12, 32, 2, 4, True),
+])
+@pytest.mark.parametrize("layout", ["band", "windows"])
+def test_windowed_attention_backward(layout, N, Hp, Wp, C, nh, w, shifted,
+                                     dtype):
+    """The backward of both layouts against autograd of the plain version:
+    dx, dbias (P = 1 sums every window, P = nW folds window r into row
+    r % nW), dwqkv, dbqkv, dwo, dbo; the same bits on a second run."""
+    rng = np.random.default_rng(15)
+    nW, T = (Hp // w) * (Wp // w), w * w
+    bias = _rand(rng, nW if shifted else 1, nh, T, T, scale=0.5)
+    if shifted:
+        bias = bias - 100.0 * torch.from_numpy(
+            (rng.uniform(size=(nW, 1, T, T)) < 0.3).astype(np.float32)).cuda()
+    ws = _attn_weights(rng, C, dtype)
+    if layout == "band":
+        x = _rand(rng, N, Hp, Wp, C, dtype=dtype)
+        dout = _rand(rng, N, Hp, C, Wp, dtype=dtype).transpose(2, 3)
+        kern = lambda *a: fused_mha_proj_band(*a, n_heads=nh, window=w)
+        plain = lambda *a: fused_mha_proj_band_plain(*a, n_heads=nh, window=w)
+        fwd, bwd = fused_mha_proj_band, fused_mha_proj_band_bwd
+    else:
+        x = _rand(rng, N * nW, T, C, dtype=dtype)
+        dout = _rand(rng, N * nW, C, T, dtype=dtype).transpose(1, 2)
+        kern = lambda *a: fused_mha_proj(*a, n_heads=nh)
+        plain = lambda *a: fused_mha_proj_plain(*a, n_heads=nh)
+        fwd, bwd = fused_mha_proj, fused_mha_proj_bwd
+    inputs = [x, bias, *ws]
+    before = (fwd.launches, bwd.launches)
+    out_k, got = _grads(kern, inputs, dout)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    out_p, want = _grads(plain, inputs, dout)
+    _assert_close(out_k, out_p)
+    assert got[1].shape == bias.shape and got[1].dtype == torch.float32
+    assert got[3].shape == (3 * C,) and got[5].shape == (C,)
+    _assert_grads_close(got, want, dtype)
+    _assert_same_bits(got, _grads(kern, inputs, dout)[1])
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [640, 10, 3])
+def test_post_ln_tails_train_at_2048(M, dtype, drop):
+    """The training editions and the backward at the vision flagship's
+    SASRec width against autograd of the plain versions."""
+    rng = np.random.default_rng(16)
+    C, F = 2048, 8192
+    x, res = _rand(rng, M, C, dtype=dtype), _rand(rng, M, C, dtype=dtype)
+    w, b = _rand(rng, C, C, scale=C ** -0.5), _rand(rng, C, scale=0.1)
+    w1, b1 = _rand(rng, C, F, scale=C ** -0.5), _rand(rng, F, scale=0.1)
+    w2, b2 = _rand(rng, F, C, scale=F ** -0.5), _rand(rng, C, scale=0.1)
+    g, bt = 1.0 + _rand(rng, C, scale=0.1), _rand(rng, C, scale=0.1)
+    dout = _uncontiguous(rng, M, C, dtype)
+    kw = dict(eps=1e-6, drop_rate=drop, seed=21)
+    for kern, plain, inputs, counted in (
+            (lambda *a: fused_proj_resln(*a[:4], ln=a[4:], **kw),
+             lambda *a: fused_proj_resln_plain(*a[:4], ln=a[4:], **kw),
+             [x, res, w, b, g, bt],
+             (fused_proj_resln_res, fused_proj_resln_bwd)),
+            (lambda *a: fused_mlp_resln(*a[:5], ln=a[5:], act="relu", **kw),
+             lambda *a: fused_mlp_resln_plain(*a[:5], ln=a[5:], act="relu",
+                                              **kw),
+             [x, w1, b1, w2, b2, g, bt],
+             (fused_mlp_resln_res, fused_mlp_resln_bwd))):
+        before = tuple(f.launches for f in counted)
+        out_k, got = _grads(kern, inputs, dout)
+        assert tuple(f.launches for f in counted) == (before[0] + 1,
+                                                      before[1] + 1)
+        out_p, want = _grads(plain, inputs, dout)
+        _assert_close(out_k, out_p)
+        _assert_grads_close(got, want, dtype)
+        _assert_same_bits(got, _grads(kern, inputs, dout)[1])

@@ -127,8 +127,9 @@ def test_pad_histories_matches_jax():
 def test_port_runs_the_slice_without_jax():
     """A fresh interpreter imports the port, encodes a catalog, serves a
     request and takes one train step on the CPU (text MoRec), then encodes
-    an image catalog through a Swin tower and serves a request (vision
-    MoRec), and never imports jax (the test process itself has jax loaded
+    an image catalog through a Swin tower, serves a request and takes one
+    train step over images shipped with the batch (vision MoRec), and never
+    imports jax (the test process itself has jax loaded
     by conftest, hence the subprocess)."""
     code = textwrap.dedent("""
         import sys
@@ -201,6 +202,23 @@ def test_port_runs_the_slice_without_jax():
         assert ids.shape == (1, 5) and np.isfinite(scores).all()
         assert not {1, 2, 3} & set(ids[0].tolist()) and 0 not in ids
         engine.update_items([7], content=pool[[2]])
+        # one vision train step: images shipped with the batch, DropPath and
+        # dropout drawn, the tower chunked and rematerialised
+        cfg.__dict__.update(encoder_chunk=8, drop_rate=0.1)
+        vstate = make_train_state(vmodel, cfg, param_labels(vmodel))
+        vstep = make_train_step(cfg, log_pop=torch.zeros(41))
+        uniq, inv = dedup_pack(ids_train := rng.integers(1, 41, size=(4, 7)),
+                               32)
+        table0 = vmodel.encoder.net.stage_0_block_1.\
+            relative_position_bias_table.detach().clone()
+        loss = vstep(vstate, {
+            "ids": torch.from_numpy(ids_train), "log_mask": torch.ones(4, 6),
+            "uniq_ids": torch.from_numpy(uniq),
+            "inverse": torch.from_numpy(inv),
+            "uniq_content": torch.from_numpy(pool[uniq % 8])})
+        assert torch.isfinite(loss) and vstate.step == 1
+        assert not torch.equal(table0, vmodel.encoder.net.stage_0_block_1.
+                               relative_position_bias_table)
         mods = [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
         assert not mods, mods

@@ -21,6 +21,7 @@ from idvs.morec_tpu.models import swin as jswin
 from idvs.morec_tpu.ops.pallas import attention as jattn
 from idvs.morec_tpu.ops.pallas import mlp as jmlp
 from idvs.morec_tpu_torch import convert
+from idvs.morec_tpu_torch.models.layers import init_parameters
 from idvs.morec_tpu_torch.models.swin import (SwinBlock, SwinConfig,
                                               _rel_pos_index, _shift_mask,
                                               _window_partition,
@@ -212,10 +213,29 @@ def test_swin_block_matches_flax(resolution, shift, kernels):
 
 
 def test_swin_block_refuses_what_is_not_ported():
+    """An unknown kernel selection and the two dropouts that Swin's
+    published configs leave at 0 raise; DropPath's training draw runs and
+    drops whole images."""
     cfg = SwinConfig(embed_dim=32, depths=(2,), num_heads=(2,), window_size=4)
     with pytest.raises(ValueError):
         SwinBlock(cfg, 32, 2, (8, 8), False, 0.0, kernels="auto",
                   device="cpu")
-    blk = SwinBlock(cfg, 32, 2, (8, 8), False, 0.1, device="cpu").train()
-    with pytest.raises(NotImplementedError):      # DropPath's training draw
+    with pytest.raises(NotImplementedError):
+        SwinBlock(SwinConfig(attention_probs_dropout_prob=0.1), 32, 2, (8, 8),
+                  False, 0.0, device="cpu")
+    hidden = SwinBlock(SwinConfig(hidden_dropout_prob=0.1), 32, 2, (8, 8),
+                       False, 0.0, device="cpu")
+    init_parameters(hidden, torch.Generator().manual_seed(0))
+    x = torch.ones(1, 64, 32)
+    assert torch.isfinite(hidden.eval()(x)).all()
+    with pytest.raises(NotImplementedError):
+        hidden.train()(x)
+    blk = SwinBlock(cfg, 32, 2, (8, 8), False, 0.5, device="cpu").train()
+    init_parameters(blk, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError):               # no generator to draw from
         blk(torch.zeros(1, 64, 32))
+    x = torch.randn(16, 64, 32, generator=torch.Generator().manual_seed(1))
+    out = blk(x, torch.Generator().manual_seed(2))
+    # an image whose two branches were both dropped comes through unchanged
+    same = (out == x).reshape(16, -1).all(dim=1)
+    assert 0 < int(same.sum()) < 16
