@@ -7,8 +7,10 @@ drawn from a seeded generator, through the kernels built from
 idvs/morec_tpu_torch/csrc by nvcc on first use: end2end text MoRec
 (BERT-small item tower, SASRec user tower, a 100_001-item catalog), serving
 (catalog encode, recommend) and training (the bf16 train step with
-dropout); and end2end vision MoRec (Swin-T item tower at full width and
-depth, SASRec at D = 2048), serving and training. Phases, each fatal on
+dropout); end2end vision MoRec (Swin-T item tower at full width and
+depth, SASRec at D = 2048), serving and training; the use_pallas train
+step (the in-batch CE kernels) of text MoRec, IDRec and vision MoRec; and
+the data-parallel step with gather_negatives. Phases, each fatal on
 failure:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
@@ -71,12 +73,31 @@ failure:
     on the card under both kernel selections and through the plain path on
     a CPU copy of the model, DropPath and dropout drawn from the same seed:
     the loss and every parameter's gradient agree, the relative position
-    bias tables' on a line of their own.
+    bias tables' on a line of their own;
+13. ce kernels (run right after phase 4): the in-batch CE kernels, forward
+    and backward, against autograd of their plain version on the card at
+    the text (M 2560 x N 2688, D 512), IDRec (5120 x 5376), vision (640 x
+    704, D 2048) and gathered text (W = 4, N 10752, label offset 2 B S)
+    shapes, in float32 and bfloat16, with times; then a wide gathered IDRec
+    case (W = 8, N 43008) with the peak device memory of a forward and
+    backward through the kernels and through the plain version;
+14. pallas training: the counters set to 0, the use_pallas train steps: the
+    text flagship on the training phase's batches and dedup cap (2 steps,
+    then 10 timed; p50 beside the composition's, the first loss against
+    the composition's first), the IDRec step (bench.py GEOM["idrec"]:
+    B 256, L 20, D 512, uniform ids) with use_pallas off and on, two vision
+    Zipf steps; each step launched the CE kernels once forward and once
+    backward; then a float32 use_pallas step against the CPU plain path as
+    in phase 7;
+15. data-parallel: NCCL at world size 1 through a FileStore in a temporary
+    directory, the counters set to 0, two gather_negatives + use_pallas
+    text steps whose losses equal the single-process steps' on the same
+    batches, weights and seeds; the group destroyed.
 
 Prints each phase's seconds and a JSON line of per-kernel results (launches
 on the main paths, in all and by path: text serving, training, vision
 serving, the "windows" sub-catalog, vision training, the "windows" train
-step; error
+step, the use_pallas steps, the data-parallel steps; error
 and time against the plain version, the least time the card could take for
 the same work, and the time of the one PyTorch call that computes the same
 function where there is one), the nvidia-smi line, and last
@@ -98,9 +119,11 @@ import contextlib
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -121,6 +144,9 @@ from idvs.morec_tpu_torch.ops.cuda.attention import (
     fused_mha_proj_bwd, fused_mha_proj_plain, window_partition)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     scatter_add_rows, scatter_add_rows_plain)
+from idvs.morec_tpu_torch.ops.cuda.inbatch_ce import (fused_ce,
+                                                      fused_inbatch_ce,
+                                                      fused_inbatch_ce_bwd)
 from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
                                                fused_mlp_plain,
                                                fused_mlp_res,
@@ -134,7 +160,9 @@ from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
                                                fused_proj_resln_bwd,
                                                fused_proj_resln_plain,
                                                fused_proj_resln_res)
+from idvs.morec_tpu_torch.ops.losses import inbatch_ce_candidates
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
+from idvs.morec_tpu_torch.parallel import mesh
 from idvs.morec_tpu_torch.serve import Retriever
 from idvs.morec_tpu_torch.train.state import make_train_state, param_labels
 from idvs.morec_tpu_torch.train.step import dedup_pack, make_train_step
@@ -176,6 +204,19 @@ V_FIXED_STEPS, V_TIMED_STEPS = 6, 10
 V_CHECK_USERS = 2           # users of the float32 vision gradient check
 VB_REPS = 3                 # timed calls of a vision backward case
 V_BWD_IMAGES = 288          # images of a vision backward case
+# the in-batch CE kernels (row 9): (what, users B, L, D, ranks W, rank,
+# Zipf ids) of the text, IDRec and vision steps and of a gathered text step
+# at W = 4, every rank's candidates concatenated on the card as the
+# gathered edition holds them after its all-gather; then the wide case,
+# IDRec gathered over W = 8 (PARITY.md:750-757, the kernel's capacity)
+IDREC_B = 256               # bench.py GEOM["idrec"]: uniform ids, no dedup
+CE_CASES = (("text", TRAIN_B, L, D, 1, 0, True),
+            ("IDRec", IDREC_B, L, D, 1, 0, False),
+            ("vision", V_TRAIN_B, V_L, V_D, 1, 0, True),
+            ("gathered text", TRAIN_B, L, D, 4, 2, True))
+CE_WIDE = ("gathered IDRec", IDREC_B, L, D, 8, 5, False)
+PALLAS_WARM_STEPS = 2       # use_pallas steps on batches[0] before the timed
+DP_STEPS = 2                # gather_negatives steps at world size 1
 # Swin-T stages: (C, heads, side of the token map)
 SWIN_STAGES = ((96, 3, 56), (192, 6, 28), (384, 12, 14), (768, 24, 7))
 WINDOW = 7
@@ -242,6 +283,20 @@ V_SELECTION_TOL = 1e-5
 # erff against the CPU's erf) under the classifier and SASRec at D = 2048.
 V_STEP_LOSS_TOL = 1e-4
 V_STEP_GRAD_TOL = 2e-3
+# The in-batch CE kernel against autograd of its plain version on the same
+# card and operands: the same float32 logits of the same (widened) inputs,
+# summed in another order over D and over the columns; the loss relative,
+# each gradient's max abs error over its largest magnitude. bfloat16: du
+# and dcand are rounded once to bf16 on both sides, and a float32 sum in
+# another order may flip a rounding (2^-8 relative) of the largest values.
+CE_LOSS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+CE_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The world-1 data-parallel steps against the single-process steps: the
+# same model, batches and dropout masks; the gathered candidates are the
+# local ones and the all-reduce over one rank changes no bit. Only the
+# word table's gradient (scatter_add_rows' float atomics) may differ in the
+# last bits, and the second step's loss sees that through AdamW.
+DP_LOSS_TOL = 1e-6
 # Row 0 of the bf16 table against the tower's output for one zero image:
 # the same kernels on the same row, but the library matmuls around them
 # (patch projection, patch merging, classifier) may sum in another order
@@ -267,6 +322,8 @@ SOURCES = {
     "fused_mha_proj_bwd": ("win_attn_bwd.cu", "attention.py:597"),
     "fused_mlp_res_bwd": ("premlp_bwd.cu", "mlp.py:134"),
     "fused_mlp_bwd": ("premlp_bwd.cu", "mlp.py:134"),
+    "fused_inbatch_ce": ("inbatch_ce.cu", "inbatch_ce.py:61"),
+    "fused_inbatch_ce_bwd": ("inbatch_ce.cu", "inbatch_ce.py:99"),
 }
 WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "fused_proj_resln": fused_proj_resln,
@@ -282,7 +339,9 @@ WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "fused_mha_proj_band_bwd": fused_mha_proj_band_bwd,
             "fused_mha_proj_bwd": fused_mha_proj_bwd,
             "fused_mlp_res_bwd": fused_mlp_res_bwd,
-            "fused_mlp_bwd": fused_mlp_bwd}
+            "fused_mlp_bwd": fused_mlp_bwd,
+            "fused_inbatch_ce": fused_inbatch_ce,
+            "fused_inbatch_ce_bwd": fused_inbatch_ce_bwd}
 SERVE_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln")
 TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
                  "fused_proj_resln_bwd", "fused_mlp_resln_res",
@@ -298,6 +357,7 @@ VISION_TRAIN_KERNELS = ("fused_mha_proj_band", "fused_mha_proj_band_bwd",
                         "fused_mlp_resln_bwd")
 VISION_WINDOWS_TRAIN_KERNELS = ("fused_mha_proj", "fused_mha_proj_bwd",
                                 "fused_mlp", "fused_mlp_bwd")
+PALLAS_KERNELS = ("fused_inbatch_ce", "fused_inbatch_ce_bwd")
 
 
 class PhaseError(RuntimeError):
@@ -427,6 +487,19 @@ def premlp_bwd_work(M, C, F, it, scale=False):
     # h again, dw2, dh, dw1, dxn; reads x, dout, w1, w2; writes dx, dw1, dw2
     return 10 * M * C * F, ((3 * M * C + 4 * C * F + 2 * F + 2 * C) * it
                             + 16 * C + (4 * M if scale else 0))
+
+
+def ce_work(M, N, D, it, id_elems):
+    # the (M, N, D) logit product; reads u, cand, the candidates' ids,
+    # column masks and log popularity and the users' ids; writes ce, m, l
+    return 2 * M * N * D, (M + N) * D * it + 12 * N + 4 * id_elems + 12 * M
+
+
+def ce_bwd_work(M, N, D, it, id_elems):
+    # the logits again, du and dcand; reads as the forward and m, l, ws;
+    # writes du and dcand
+    return (6 * M * N * D,
+            2 * (M + N) * D * it + 12 * N + 4 * id_elems + 12 * M)
 
 
 def bound_of(work, dt) -> tuple:
@@ -966,16 +1039,19 @@ def train_path(dev, card: str, content, batches, cap: int):
         require(launched[n] > 0, f"{n} never launched in training")
     require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
             "a parameter is not finite after training")
-    return model, launched
+    return model, launched, (losses[0], p50)
 
 
-def grad_check(dev, model, content, batch) -> None:
+def grad_check(dev, model, content, batch, pallas: bool = False) -> None:
     """One float32 step without dropout (eval mode) on CHECK_USERS users:
     on the card through the kernels, and on a CPU copy of the model
-    through the plain versions. The loss and every gradient agree."""
+    through the plain versions. The loss and every gradient agree. With
+    `pallas` the step takes the CE kernels (their plain version on the
+    CPU), and the card's step must launch them."""
     ids, lm = batch[0][:CHECK_USERS], batch[1][:CHECK_USERS]
     cap = -(-len(np.unique(ids)) // 8) * 8
     cfg = train_config(cap, "float32")
+    cfg.use_pallas = pallas
     runs = []
     for where in (dev, torch.device("cpu")):
         m = copy.deepcopy(model).to(where)
@@ -983,10 +1059,15 @@ def grad_check(dev, model, content, batch) -> None:
         m.eval()
         step = make_train_step(cfg, item_content=content.to(where),
                                log_pop=log_popularity(where))
+        before = counts()
         t0 = time.perf_counter()
         loss = step(state, device_batch(ids, lm, cap, where)).item()
         runs.append((loss, time.perf_counter() - t0, {
             n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
+        if pallas and where == dev:
+            for n in PALLAS_KERNELS:
+                require(counts()[n] == before[n] + 1,
+                        f"{n} not launched once by the use_pallas step")
     (lk, sk, gk), (lp, sp, gp) = runs
     loss_err = abs(lk - lp) / abs(lp)
     top = max(want.abs().max().item() for want in gp.values())
@@ -996,7 +1077,8 @@ def grad_check(dev, model, content, batch) -> None:
         err = (gk[n] - want).abs().max().item()
         if err / scale >= worst[0]:
             worst, worst_name = (err / scale, err, scale), n
-    print(f"gradient check: f32 step on {CHECK_USERS} users ({cap} titles), "
+    print(f"gradient check{' [use_pallas]' if pallas else ''}: f32 step on "
+          f"{CHECK_USERS} users ({cap} titles), "
           f"card {sk:.2f} s vs CPU plain path {sp:.2f} s: loss {lk:.6f} vs "
           f"{lp:.6f}, rel err {loss_err:.3e} (tol {STEP_LOSS_TOL:g}); "
           f"largest gradient error {worst[1]:.3e} on a scale of "
@@ -1358,11 +1440,13 @@ def vision_train_setup(dev, cfg, kernels: str = "band"):
 
 def vision_train_run(dev, card: str, pool, batches, cap: int, chunk: int,
                      fixed: int, timed: int, what: str,
-                     kernels: str = "band") -> dict:
+                     kernels: str = "band", pallas: bool = False) -> dict:
     """`fixed` steps on batches[0] (the loss must fall), then `timed` steps
     on the next batches, each packed and copied to the device inside its
-    timed step. Returns the launch counts of the whole run."""
+    timed step; `pallas` takes the CE kernels. Returns the launch counts of
+    the whole run."""
     cfg = vision_train_config(cap, chunk)
+    cfg.use_pallas = pallas
     model, state, step = vision_train_setup(dev, cfg, kernels)
     images = cap or V_TRAIN_B * (V_L + 1)
     first = vision_device_batch(*batches[0], cap, pool, dev)
@@ -1680,6 +1764,268 @@ def vision_sub_catalog_check(dev, model, content_fn, table_w, hist) -> None:
     check_results(ids_k, hist, V_L)
 
 
+def ce_inputs(gen, rng, case, dt, dev) -> tuple:
+    """fused_ce's operands for one CE case: W ranks' batches drawn as
+    bench.py draws them (Zipf or uniform ids, the 90 % log mask), random
+    log popularity per item, embeddings from the seeded card generator
+    (logits of a few units); the rows are rank `rank`'s users."""
+    _, B, Lc, Dc, W, rank, zipf = case
+    S = Lc + 1
+    ids = (np.minimum(rng.zipf(ZIPF_A, size=(W * B, S)), ITEM_NUM) if zipf
+           else rng.integers(1, ITEM_NUM + 1, size=(W * B, S)))
+    lm = bench_log_mask(rng, W * B, Lc)
+    pop = rng.uniform(0.01, 1.0, ITEM_NUM + 1)
+    pop[0] = 1.0
+    sd = 2.0 * Dc ** -0.25
+    u = torch.randn(B, Lc, Dc, generator=gen, device=dev) * sd
+    cand = torch.randn(W * B, S, Dc, generator=gen, device=dev) * sd
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    own = slice(rank * B, (rank + 1) * B)
+    colmask = np.concatenate([lm, np.ones((W * B, 1), np.float32)], axis=1)
+    return (u.to(dt), cand.to(dt), t(ids[own]), t(lm[own]), t(ids),
+            t(colmask), t(np.log(pop).astype(np.float32)[ids]),
+            rank * B * S)
+
+
+def peak_gib(fn) -> float:
+    """Device memory ``fn()`` takes at its peak above what was allocated
+    before it, GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def ce_case(results, card, case, dt, args, reps) -> None:
+    """One CE case: loss and gradients of the kernels against autograd of
+    the plain version, then the forward and backward times of both."""
+    what, B, Lc, Dc, W, rank, _ = case
+    u, cand, rest = args[0], args[1], args[2:]
+    M, N = B * Lc, cand.shape[0] * cand.shape[1]
+    lk, lp = _leaves([u, cand]), _leaves([u, cand])
+    out_k, out_p = fused_ce(*lk, *rest), inbatch_ce_candidates(*lp, *rest)
+    got = torch.autograd.grad(out_k, lk, retain_graph=True)
+    want = torch.autograd.grad(out_p, lp, retain_graph=True)
+    torch.cuda.synchronize()
+    loss_abs = abs(out_k.item() - out_p.item())
+    loss_err = loss_abs / abs(out_p.item())
+    worst = (0.0, 0.0, 1.0)
+    for a, b in zip(got, want):
+        require(a.shape == b.shape and a.dtype == b.dtype == dt,
+                f"{what}: gradient {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        require(math.isfinite(err) and scale > 0, f"{what}: gradients")
+        worst = max(worst, (err / scale, err, scale))
+    ms = cuda_ms(lambda: fused_ce(u, cand, *rest), reps)
+    plain_ms = cuda_ms(lambda: inbatch_ce_candidates(u, cand, *rest), reps)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out_k, lk,
+                                                 retain_graph=True), reps)
+    bwd_plain = cuda_ms(lambda: torch.autograd.grad(out_p, lp,
+                                                    retain_graph=True), reps)
+    it, id_elems = size_of(dt), rest[0].numel()
+    work, work_bwd = (ce_work(M, N, Dc, it, id_elems),
+                      ce_bwd_work(M, N, Dc, it, id_elems))
+    label = (f"{what} M={M} N={N} D={Dc} W={W} label_off={rest[-1]} "
+             f"{tag_of(dt)}")
+    print(f"kernel fused_inbatch_ce [{label}]: loss {out_k.item():.6f} vs "
+          f"plain {out_p.item():.6f}, rel err {loss_err:.3e} (tol "
+          f"{CE_LOSS_TOL[dt]:g}); gradients max_abs_err {worst[1]:.3e} on a "
+          f"scale of {worst[2]:.3e} (tol {CE_GRAD_TOL[dt]:g} of the scale); "
+          f"forward {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_of(work, dt)[0]:.4f} ms by {bound_of(work, dt)[1]}; "
+          f"backward {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound "
+          f"{bound_of(work_bwd, dt)[0]:.4f} ms by {bound_of(work_bwd, dt)[1]}"
+          f" [{card}]", flush=True)
+    require(loss_err <= CE_LOSS_TOL[dt], f"{label}: loss disagrees")
+    require(worst[0] <= CE_GRAD_TOL[dt], f"{label}: gradients disagree")
+    _record(results, "fused_inbatch_ce", loss_abs, ms, plain_ms, work, dt)
+    _record(results, "fused_inbatch_ce_bwd", worst[1], bwd_ms, bwd_plain,
+            work_bwd, dt)
+
+
+def ce_grads(fn, args) -> tuple:
+    """du and dcand of the CE ``fn`` on fused_ce's operands ``args``."""
+    leaves = _leaves(args[:2])
+    return torch.autograd.grad(fn(*leaves, *args[2:]), leaves)
+
+
+def ce_kernel_phase(dev, card: str) -> dict:
+    """The in-batch CE kernels at the text, IDRec and vision steps' shapes
+    and the gathered text step's, in float32 and bfloat16; then the wide
+    gathered IDRec case with the peak device memory of a forward and
+    backward through the kernels and through the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    rng = np.random.default_rng(SEED + 12)
+    results = {}
+    for case in CE_CASES + (CE_WIDE,):
+        for dt in (torch.float32, torch.bfloat16):
+            args = ce_inputs(gen, rng, case, dt, dev)
+            ce_case(results, card, case, dt, args,
+                    FEW_REPS if case is CE_WIDE else KERNEL_REPS)
+            if case is CE_WIDE:
+                peaks = [peak_gib(lambda fn=fn: ce_grads(fn, args))
+                         for fn in (fused_ce, inbatch_ce_candidates)]
+                print(f"wide case {CE_WIDE[0]} W={CE_WIDE[4]} "
+                      f"{tag_of(dt)}: peak device memory of a forward and "
+                      f"backward above its inputs: kernels {peaks[0]:.3f} "
+                      f"GiB, plain version {peaks[1]:.3f} GiB [{card}]",
+                      flush=True)
+            del args
+    return results
+
+
+def timed_steps(step, state, first, batches, to_device) -> tuple:
+    """(losses, walls): PALLAS_WARM_STEPS steps on the device batch
+    ``first``, then one timed step on each host batch, packed and copied to
+    the device inside its timed step."""
+    losses = [step(state, first).item() for _ in range(PALLAS_WARM_STEPS)]
+    walls = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, to_device(*b)).item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    require(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    return losses, walls
+
+
+def idrec_config(pallas: bool) -> SimpleNamespace:
+    """bench.py GEOM["idrec"]: the ID table of ITEM_NUM + 1 rows at D under
+    SASRec, lr 1e-4, bf16 compute, dropout 0.1."""
+    return SimpleNamespace(item_tower="id", user_tower="sasrec",
+                           stage="end2end", embedding_dim=D,
+                           num_attention_heads=USER_HEADS,
+                           transformer_block=BLOCKS, max_seq_len=L,
+                           drop_rate=DROP, loss="inbatch_ce",
+                           compute_dtype="bfloat16", lr=LR, l2_weight=0.0,
+                           fine_tune_lr=FT_LR, fine_tune_l2_weight=0.0,
+                           use_pallas=pallas)
+
+
+def idrec_run(dev, card, batches, pallas: bool) -> tuple:
+    """The IDRec step with use_pallas off or on: (first loss, p50 ms)."""
+    cfg = idrec_config(pallas)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    model = make_model(cfg, ITEM_NUM, device=dev, generator=gen)
+    state = make_train_state(model, cfg, seed=SEED)
+    step = make_train_step(cfg, log_pop=log_popularity(dev))
+    t = lambda a: torch.from_numpy(a).to(dev)
+    to_device = lambda ids, lm: {"ids": t(ids), "log_mask": t(lm)}
+    losses, walls = timed_steps(step, state, to_device(*batches[0]),
+                                batches[1:], to_device)
+    p50 = statistics.median(walls)
+    print(f"IDRec train step B={IDREC_B} L={L} D={D} bf16, {ITEM_NUM + 1} "
+          f"rows, use_pallas {pallas}: first loss {losses[0]:.6f}, p50 "
+          f"{p50:.3f} ms over {len(walls)} distinct batches (min "
+          f"{min(walls):.3f}, max {max(walls):.3f}), "
+          f"{IDREC_B / p50 * 1e3:.1f} samples/s [{card}]", flush=True)
+    return losses[0], p50
+
+
+def pallas_train_path(dev, card: str, content, batches, cap: int,
+                      composition: tuple, pool: np.ndarray) -> dict:
+    """The use_pallas train steps: the text flagship on the training
+    phase's batches and dedup cap (its first loss and step p50 beside the
+    composition's, `composition`), the IDRec step with use_pallas off and
+    on, two vision Zipf steps; every step launches the CE kernels once
+    forward and once backward. Returns the launch counts."""
+    reset_counts()
+    cfg = train_config(cap)
+    cfg.use_pallas = True
+    model = build_model(dev, cfg, seed=SEED + 3)
+    state = make_train_state(model, cfg, param_labels(model), seed=SEED)
+    step = make_train_step(cfg, item_content=content,
+                           log_pop=log_popularity(dev))
+    losses, walls = timed_steps(
+        step, state, device_batch(*batches[0], cap, dev),
+        batches[1:TIMED_STEPS + 1], lambda i, m: device_batch(i, m, cap, dev))
+    p50 = statistics.median(walls)
+    first_err = abs(losses[0] - composition[0]) / abs(composition[0])
+    print(f"train step B={TRAIN_B} L={L} bf16, dropout {DROP}, dedup cap "
+          f"{cap}, use_pallas: p50 {p50:.3f} ms over {len(walls)} distinct "
+          f"batches (min {min(walls):.3f}, max {max(walls):.3f}), "
+          f"{TRAIN_B / p50 * 1e3:.1f} samples/s; the composition's p50 "
+          f"{composition[1]:.3f} ms; first loss {losses[0]:.6f} vs the "
+          f"composition's {composition[0]:.6f} (rel err {first_err:.3e}, "
+          f"tol {CE_LOSS_TOL[torch.bfloat16]:g}) [{card}]", flush=True)
+    require(first_err <= CE_LOSS_TOL[torch.bfloat16],
+            "the use_pallas step's first loss disagrees")
+    n_steps = len(losses)
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 13)
+    ids_b = [(rng.integers(1, ITEM_NUM + 1, size=(IDREC_B, L + 1)),
+              bench_log_mask(rng, IDREC_B)) for _ in range(TIMED_STEPS + 1)]
+    off = idrec_run(dev, card, ids_b, False)
+    on = idrec_run(dev, card, ids_b, True)
+    idrec_err = abs(on[0] - off[0]) / abs(off[0])
+    print(f"IDRec use_pallas: p50 {on[1]:.3f} ms against {off[1]:.3f} ms "
+          f"without; first loss rel err {idrec_err:.3e}", flush=True)
+    require(idrec_err <= CE_LOSS_TOL[torch.bfloat16],
+            "the IDRec use_pallas step's first loss disagrees")
+    n_steps += PALLAS_WARM_STEPS + TIMED_STEPS
+    torch.cuda.empty_cache()
+
+    launched = counts()     # vision_train_run counts from 0 again
+    zipf = vision_batches(np.random.default_rng(SEED + 10),
+                          V_TIMED_STEPS + 1, True)
+    most = max(len(np.unique(ids)) for ids, _ in zipf)
+    v_cap = -(-most // V_CAP_QUANTUM) * V_CAP_QUANTUM
+    vision = vision_train_run(dev, card, pool, zipf, v_cap, 0, 1, 1,
+                              "zipf, dedup, use_pallas", pallas=True)
+    n_steps += 2
+    torch.cuda.empty_cache()
+    launched = {n: launched[n] + vision[n] for n in launched}
+    print(f"use_pallas training launches {launched} over {n_steps} steps",
+          flush=True)
+    for n in PALLAS_KERNELS:
+        require(launched[n] == n_steps,
+                f"{n} launched {launched[n]} times in {n_steps} steps")
+    return launched
+
+
+def dp_path(dev, card: str, content, batches, cap: int) -> dict:
+    """The data-parallel step at world size 1: NCCL through a FileStore in
+    a temporary directory; DP_STEPS gather_negatives + use_pallas text
+    steps, whose losses must equal the single-process use_pallas steps' on
+    the same batches, weights and seeds. Returns the launch counts of the
+    data-parallel steps."""
+    cfg = train_config(cap)
+    cfg.use_pallas = cfg.gather_negatives = True
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in ("single", "data-parallel"):
+            if run == "data-parallel":
+                mesh.init_distributed(0, 1, store=torch.distributed.FileStore(
+                    os.path.join(tmp, "store"), 1))
+                reset_counts()
+            model = build_model(dev, cfg, seed=SEED + 3)
+            state = make_train_state(model, cfg, param_labels(model),
+                                     seed=SEED)
+            step = make_train_step(cfg, item_content=content,
+                                   log_pop=log_popularity(dev))
+            runs[run] = [step(state, device_batch(*b, cap, dev)).item()
+                         for b in batches[1:DP_STEPS + 1]]
+            del model, state, step
+        launched = counts()
+        torch.distributed.destroy_process_group()
+    err = max(abs(a - b) / abs(b)
+              for a, b in zip(runs["data-parallel"], runs["single"]))
+    print(f"data-parallel: NCCL at world size 1, {DP_STEPS} gather_negatives "
+          f"+ use_pallas steps: losses {runs['data-parallel']} against the "
+          f"single process's {runs['single']}, rel err {err:.3e} (tol "
+          f"{DP_LOSS_TOL:g}); launches {launched} [{card}]", flush=True)
+    require(err <= DP_LOSS_TOL, "the data-parallel losses disagree")
+    for n in PALLAS_KERNELS:
+        require(launched[n] == DP_STEPS, f"{n} launched {launched[n]} times "
+                f"in {DP_STEPS} data-parallel steps")
+    return launched
+
+
 def merge(kernels: dict, more: dict) -> None:
     """Adds a phase's per-kernel results: a kernel seen before keeps its
     headline times and takes the worse error."""
@@ -1734,13 +2080,17 @@ def main() -> int:
             np.random.default_rng(SEED), dev))
     with phase("backward kernels"):
         kernels.update(backward_phase(dev, card, cap))
+    with phase("ce kernels"):
+        kernels.update(ce_kernel_phase(dev, card))
+    torch.cuda.empty_cache()
     with phase("serving"):
         served = serve_path(dev, card, content)
     with phase("training"):
-        model, trained = train_path(dev, card, content, batches, cap)
+        model, trained, composition = train_path(dev, card, content, batches,
+                                                 cap)
     with phase("gradient check"):
         grad_check(dev, model, content, batches[0])
-    del model, content
+    del model
     torch.cuda.empty_cache()
     with phase("vision kernels"):
         vision = kernel_phase(dev, card, vision_kernel_cases(dev),
@@ -1765,18 +2115,29 @@ def main() -> int:
         vtrained, vwindows = vision_train_path(dev, card, pool)
     with phase("vision gradient check"):
         vision_grad_check(dev, card, pool)
+    torch.cuda.empty_cache()
+    with phase("pallas training"):
+        pallas = pallas_train_path(dev, card, content, batches, cap,
+                                   composition, pool)
+        model = build_model(dev, train_config(cap), seed=SEED + 3)
+        grad_check(dev, model, content, batches[0], pallas=True)
+        del model
+    torch.cuda.empty_cache()
+    with phase("data-parallel"):
+        parallel = dp_path(dev, card, content, batches, cap)
 
-    # launches: every main path's count, each taken from 0; the six keys
+    # launches: every main path's count, each taken from 0; the eight keys
     # after it say which path launched how many
+    paths = {"launches_serve": served, "launches_train": trained,
+             "launches_vision": seen, "launches_windows": windows,
+             "launches_vision_train": vtrained,
+             "launches_windows_train": vwindows,
+             "launches_pallas_train": pallas, "launches_dp": parallel}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": CSRC + SOURCES[n][0],
          "replaces": PALLAS + SOURCES[n][1],
-         "launches": (served[n] + trained[n] + seen[n] + windows[n]
-                      + vtrained[n] + vwindows[n]),
-         "launches_serve": served[n], "launches_train": trained[n],
-         "launches_vision": seen[n], "launches_windows": windows[n],
-         "launches_vision_train": vtrained[n],
-         "launches_windows_train": vwindows[n],
+         "launches": sum(c[n] for c in paths.values()),
+         **{k: c[n] for k, c in paths.items()},
          **kernels[n]} for n in WRAPPERS]}
     print(json.dumps(line))
     print(card)

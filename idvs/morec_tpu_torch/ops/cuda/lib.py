@@ -72,6 +72,12 @@ _SIGNATURES = {
     # qkv, bias, dctx, dqkv, ctx, part, dbias, windows, T, nh, dh, P,
     # chunks, bias_sp, bias_sh, scale, dtype, stream
     "idvs_win_attn_bwd": [_P] * 7 + [_I] * 6 + [_LL, _LL, _F, _I, _P],
+    # u, cand, ids, cand_ids, colmask, logpop, part, ce, m, l, M, N, D, L,
+    # S, label_off, per, splits, dtype, stream
+    "idvs_inbatch_ce_fwd": [_P] * 10 + [_I] * 9 + [_P],
+    # u, cand, ids, cand_ids, colmask, logpop, m, l, ws, du, dcand, M, N,
+    # D, L, S, label_off, dtype, stream
+    "idvs_inbatch_ce_bwd": [_P] * 11 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

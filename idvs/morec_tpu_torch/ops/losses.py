@@ -1,13 +1,20 @@
 """The in-batch debiased cross-entropy (JAX twin: idvs/morec_tpu/ops/
-losses.py), in plain PyTorch: on the main path it is a composition of a
-(B*L, B*S) score matmul and elementwise masks, not a kernel (the JAX
-package's Pallas edition, ``fused_inbatch_ce``, is off by default).
+losses.py), in plain PyTorch: a (B*L, N) score matmul and elementwise
+masks. The kernel edition, ``ops/cuda/inbatch_ce.py`` (the JAX package's
+``fused_inbatch_ce``), runs under ``use_pallas``; on the CPU it runs
+``inbatch_ce_candidates`` below, so this composition is its plain version.
+
+With ``gather_negatives`` the candidates are every rank's items: the
+embeddings, ids, column masks and log popularity are all-gathered over the
+process group (``parallel/mesh.py``), and the labels of rank r's rows sit
+r * B * S columns in.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel import mesh
 from .masking import label_columns
 
 MASK_VAL = -1e4   # the reference masks logits to -1e4, not -inf
@@ -22,10 +29,67 @@ def _log_softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
     return -(tgt * w).sum() / w.sum().clamp_min(1.0)
 
 
+def inbatch_ce_candidates(user_vec: torch.Tensor, cand_embs: torch.Tensor,
+                          item_ids: torch.Tensor, log_mask: torch.Tensor,
+                          cand_ids: torch.Tensor, cand_colmask: torch.Tensor,
+                          cand_logpop: torch.Tensor,
+                          label_off: int = 0) -> torch.Tensor:
+    """The CE of the local rows against explicit candidates (the inputs of
+    the JAX ``_fused_ce``, ops/pallas/inbatch_ce.py:175).
+
+    user_vec (B, L, D); cand_embs (WB, S, D), S = L + 1; item_ids (B, S)
+    the local users' ids; log_mask (B, L); cand_ids, cand_colmask and
+    cand_logpop (WB, S). Row (i, j) scores every candidate column c:
+    u . cand - logpop in float32, -1e4 where the column mask is 0 or where
+    the candidate's id is among user i's ids, except at its label column
+    label_off + i * S + j + 1. Returns the mean CE over the rows whose log
+    mask is not 0.
+    """
+    B, L, D = user_vec.shape
+    N = cand_embs.shape[0] * cand_embs.shape[1]
+    logits = user_vec.reshape(B * L, D).float() @ \
+        cand_embs.reshape(N, D).float().T
+    logits = logits - cand_logpop.reshape(1, -1).float()
+    masked = torch.full_like(logits, MASK_VAL)
+    logits = torch.where(cand_colmask.reshape(1, -1) == 0, masked, logits)
+    # reject[i, c]: candidate c's id is in user i's list; the label of row
+    # (i, j) is exempt
+    reject = (item_ids[:, :, None] == cand_ids.reshape(1, 1, -1)).any(dim=1)
+    lab = label_columns(B, L, device=user_vec.device) + int(label_off)
+    onehot = torch.zeros(B, L, N, dtype=torch.bool, device=user_vec.device)
+    onehot.scatter_(2, lab[..., None], True)
+    reject3 = (reject[:, None, :] & ~onehot).reshape(B * L, N)
+    logits = torch.where(reject3, masked, logits)
+    return _log_softmax_ce(logits, lab.reshape(-1), log_mask.reshape(-1))
+
+
+def candidate_colmask(log_mask: torch.Tensor) -> torch.Tensor:
+    """(B, S) column mask of a batch's items: the log mask of the first L
+    slots, the last slot always on."""
+    return torch.cat([log_mask, log_mask.new_ones(log_mask.shape[0], 1)],
+                     dim=1)
+
+
+def gathered_candidates(item_embs, item_ids, log_mask, log_pop, pg):
+    """(cand_embs, cand_ids, cand_colmask, cand_logpop, label_off) of the
+    global batch: every rank's (B, S) candidates, rank-major, the
+    embeddings' gradient flowing back through the reduce-scatter; label_off
+    = rank * B * S."""
+    if pg is None:
+        raise RuntimeError("gather_negatives needs a process group: call "
+                           "parallel.mesh.init_distributed first")
+    B, S = item_ids.shape
+    label_off = mesh.process_index(pg) * B * S
+    return (mesh.all_gather(item_embs, pg), mesh.all_gather(item_ids, pg),
+            mesh.all_gather(candidate_colmask(log_mask), pg),
+            mesh.all_gather(log_pop, pg), label_off)
+
+
 def inbatch_debiased_ce(user_vec: torch.Tensor, item_embs: torch.Tensor,
                         item_ids: torch.Tensor, log_mask: torch.Tensor,
                         log_pop: torch.Tensor,
-                        gather_negatives: bool = False) -> torch.Tensor:
+                        gather_negatives: bool = False,
+                        pg=None) -> torch.Tensor:
     """In-batch debiased cross-entropy (reference model.py:31-69).
 
     user_vec (B, L, D) user states; item_embs (B, S, D), S = L + 1, the
@@ -33,27 +97,16 @@ def inbatch_debiased_ce(user_vec: torch.Tensor, item_embs: torch.Tensor,
     (0 = padding); log_mask (B, L) 0/1 validity of each transition; log_pop
     (B, S) log popularity of each item. Returns the mean CE over valid rows:
     logits in float32, minus log_pop (the debias); padding columns and the
-    columns of a user's own items, except the label, at -1e4.
+    columns of a user's own items, except the label, at -1e4. With
+    ``gather_negatives`` the candidates are the global batch's, gathered
+    over the process group ``pg`` (the local mean; the train step averages
+    over the ranks).
     """
     if gather_negatives:
-        raise NotImplementedError(
-            "gather_negatives needs the mesh, which is not ported")
-    B, L, D = user_vec.shape
-    S = L + 1
-    logits = user_vec.reshape(B * L, D).float() @ \
-        item_embs.reshape(B * S, D).float().T
-    logits = logits - log_pop.reshape(-1)[None, :].float()
-    colmask = torch.cat([log_mask, log_mask.new_ones(B, 1)], dim=1)
-    masked = torch.full_like(logits, MASK_VAL)
-    logits = torch.where(colmask.reshape(1, -1) == 0, masked, logits)
-    # reject[i, c]: candidate c's id is in user i's list; the label of row
-    # (i, j) is exempt
-    flat_ids = item_ids.reshape(-1)
-    reject = (item_ids[:, :, None] == flat_ids[None, None, :]).any(dim=1)
-    lab = label_columns(B, L, device=user_vec.device)
-    onehot = torch.zeros(B, L, B * S, dtype=torch.bool,
-                         device=user_vec.device)
-    onehot.scatter_(2, lab[..., None], True)
-    reject3 = (reject[:, None, :] & ~onehot).reshape(B * L, B * S)
-    logits = torch.where(reject3, masked, logits)
-    return _log_softmax_ce(logits, lab.reshape(-1), log_mask.reshape(-1))
+        embs, ids, colmask, logpop, off = gathered_candidates(
+            item_embs, item_ids, log_mask, log_pop, pg)
+        return inbatch_ce_candidates(user_vec, embs, item_ids, log_mask, ids,
+                                     colmask, logpop, off)
+    return inbatch_ce_candidates(user_vec, item_embs, item_ids, log_mask,
+                                 item_ids, candidate_colmask(log_mask),
+                                 log_pop)

@@ -17,6 +17,8 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel import mesh
+
 ENCODER_LABEL = "encoder"
 RECSYS_LABEL = "recsys"
 
@@ -71,8 +73,14 @@ def make_train_state(model: nn.Module, cfg,
                      labels: Optional[Dict[str, str]] = None,
                      seed: int = 1) -> TrainState:
     """Switches ``model`` to training mode and builds its TrainState; the
-    dropout generator lives on the host and is seeded with ``seed``."""
+    dropout generator lives on the host and is seeded with ``seed``. Under
+    a process group every rank starts from rank 0's parameters and
+    buffers."""
     model.train()
+    pg = mesh.group()
+    if pg is not None:
+        with torch.no_grad():
+            mesh.broadcast_([*model.parameters(), *model.buffers()], pg)
     return TrainState(model=model,
                       optimizer=make_optimizer(cfg, model, labels),
                       generator=torch.Generator().manual_seed(seed))

@@ -17,8 +17,23 @@ One step, as the JAX ``single_step`` (:155-245, :264-272):
    scores every position against the batch's items;
 4. backward, then the AdamW update of ``state.optimizer``.
 
-Dropout and DropPath run in the model's training mode with seeds drawn
-from ``state.generator``.
+The loss is the composition of ``ops/losses.py`` or, with
+``cfg.use_pallas``, the kernel edition (``ops/cuda/inbatch_ce.py``, JAX
+step.py:219-227).
+
+Under a process group (``parallel/mesh.py`` ``init_distributed``) the step
+is data-parallel (JAX step.py:274-291): each rank runs its local batch,
+the gradients are averaged over the ranks after ``backward`` (``pmean``)
+and the returned loss is the ranks' mean. With ``cfg.gather_negatives``
+the candidates of the CE are every rank's items (the gathered composition,
+or the gathered kernel edition under ``use_pallas``); on one process, as
+on the JAX package's one-device mesh, the flag changes nothing.
+
+Dropout and DropPath run in the model's training mode. Each step draws one
+seed from ``state.generator``, which so advances alike on every rank, and
+seeds the step's own generator with it and the rank (JAX folds the step
+and ``axis_index`` into its key): the masks differ between ranks, and rank
+0's are the single-process step's.
 
 ``cfg.encoder_chunk`` (when it divides the number of encoded items) runs
 the item tower over chunks of that many items, each under
@@ -27,11 +42,10 @@ so the tower's memory is one chunk's (JAX step.py:99-134; XLA's unrolled
 scan and its saved-attention policy are not carried over).
 ``cfg.remat_encoder`` checkpoints the whole encode as one chunk. A chunk's
 dropout and DropPath seeds come from a generator seeded with one value
-drawn from ``state.generator`` before the chunk runs, so the recomputation
-draws the very same masks.
+drawn from the step's generator before the chunk runs, so the
+recomputation draws the very same masks.
 
-BCE, DSSM, gathered negatives and several steps per dispatch raise
-``NotImplementedError``.
+BCE, DSSM and several steps per dispatch raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,7 +58,9 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import dropout
+from ..ops.cuda.inbatch_ce import fused_inbatch_ce, fused_inbatch_ce_gathered
 from ..ops.losses import inbatch_debiased_ce
+from ..parallel import mesh
 from .state import TrainState
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -72,15 +88,21 @@ def _check(cfg, n_steps: int) -> None:
     unported = {
         "loss": cfg.loss != "inbatch_ce",
         "user_tower": cfg.user_tower != "sasrec",
-        "gather_negatives": getattr(cfg, "gather_negatives", False),
         "n_steps": n_steps != 1,
-        "use_pallas": getattr(cfg, "use_pallas", False),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"the port's train step runs the single-device in-batch CE "
-            f"step only; not ported: {', '.join(bad)}")
+            f"the port's train step runs the in-batch CE step of SASRec "
+            f"only; not ported: {', '.join(bad)}")
+
+
+def _step_generator(generator: torch.Generator,
+                    rank: int) -> torch.Generator:
+    """A step's dropout generator: one seed drawn from the state's
+    generator, and the rank."""
+    return torch.Generator().manual_seed(
+        (rank << 32) | dropout.draw_seed(generator))
 
 
 def _prefixed(params: Dict[str, torch.Tensor], prefix: str):
@@ -108,9 +130,22 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
     dt = COMPUTE_DTYPES[cfg.compute_dtype]
     chunk = getattr(cfg, "encoder_chunk", 0)
     remat = getattr(cfg, "remat_encoder", False)
+    pallas = getattr(cfg, "use_pallas", False)
+    pg = mesh.group()
+    rank = mesh.process_index()
+    gather = pg is not None and getattr(cfg, "gather_negatives", False)
+
+    def loss_of(uv, embs, ids, lm, lp):
+        if pallas and gather:
+            return fused_inbatch_ce_gathered(uv, embs, ids, lm, lp, pg)
+        if pallas:
+            return fused_inbatch_ce(uv, embs, ids, lm, lp)
+        return inbatch_debiased_ce(uv, embs, ids, lm, lp,
+                                   gather_negatives=gather, pg=pg)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        model, gen = state.model, state.generator
+        model = state.model
+        gen = _step_generator(state.generator, rank)
         # bf16 compute on cast copies, f32 masters (JAX step.py:74-85)
         params = {k: p.to(dt) if p.dtype == torch.float32 else p
                   for k, p in model.named_parameters()}
@@ -159,11 +194,15 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
         uv = functional_call(model.user_encoder,
                              _prefixed(params, "user_encoder."),
                              (embs[:, :-1].to(dt), lm), {"generator": gen})
-        loss = inbatch_debiased_ce(uv, embs, ids, lm, log_pop[ids])
+        loss = loss_of(uv, embs, ids, lm, log_pop[ids])
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if pg is not None:
+            mesh.mean_([p.grad for p in model.parameters()
+                        if p.grad is not None] + [loss.reshape(1)], pg)
         state.optimizer.step()
         state.step += 1
-        return loss.detach()
+        return loss
 
     return step

@@ -16,6 +16,9 @@ from idvs.morec_tpu_torch.ops.cuda.attention import (
     fused_mha_proj_bwd, fused_mha_proj_plain)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     embed_gather, scatter_add_rows, scatter_add_rows_plain)
+from idvs.morec_tpu_torch.ops.cuda.inbatch_ce import (fused_ce,
+                                                      fused_inbatch_ce,
+                                                      fused_inbatch_ce_bwd)
 from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
                                                fused_mlp_plain,
                                                fused_mlp_res,
@@ -29,6 +32,8 @@ from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
                                                fused_proj_resln_bwd,
                                                fused_proj_resln_plain,
                                                fused_proj_resln_res)
+from idvs.morec_tpu_torch.ops.losses import (candidate_colmask,
+                                             inbatch_ce_candidates)
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
 
 pytestmark = pytest.mark.cuda
@@ -668,3 +673,117 @@ def test_post_ln_tails_train_at_2048(M, dtype, drop):
         _assert_close(out_k, out_p)
         _assert_grads_close(got, want, dtype)
         _assert_same_bits(got, _grads(kern, inputs, dout)[1])
+
+
+# -- the in-batch CE (csrc/inbatch_ce.cu) -------------------------------------
+#
+# Loss relative, gradients' max abs error over each gradient's largest
+# magnitude; the reasons are in chip_smoke.py (CE_LOSS_TOL, CE_GRAD_TOL).
+CE_LOSS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+CE_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _ce_inputs(rng, B, L, D, W=1, rank=0, dtype=torch.float32):
+    """fused_ce's operands: W ranks' left-padded histories with a log mask
+    of 0 inside them too and items repeated across users; rank `rank`'s
+    users are the rows."""
+    S = L + 1
+    lens = rng.integers(1, S + 1, size=W * B)
+    ids = rng.integers(1, 3 * S, size=(W * B, S)) * (
+        np.arange(S)[None] >= S - lens[:, None])
+    lm = ((np.arange(L)[None] >= S - lens[:, None])
+          & (rng.uniform(size=(W * B, L)) < 0.9)).astype(np.float32)
+    pop = rng.uniform(0.01, 1.0, 3 * S)
+    pop[0] = 1.0
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    own = slice(rank * B, (rank + 1) * B)
+    u = _rand(rng, B, L, D, scale=2 * D ** -0.25, dtype=dtype)
+    cand = _rand(rng, W * B, S, D, scale=2 * D ** -0.25, dtype=dtype)
+    lm_t = cuda(lm)
+    return (u, cand, cuda(ids[own]), lm_t[own], cuda(ids),
+            candidate_colmask(lm_t), cuda(np.log(pop).astype(np.float32)[ids]), rank * B * S)
+
+
+def _ce_grads(fn, args):
+    leaves = [a.detach().clone().requires_grad_() for a in args[:2]]
+    loss = fn(*leaves, *args[2:])
+    return loss, torch.autograd.grad(loss, leaves)
+
+
+def _assert_ce_close(args, dtype):
+    before = (fused_inbatch_ce.launches, fused_inbatch_ce_bwd.launches)
+    loss_k, got = _ce_grads(fused_ce, args)
+    torch.cuda.synchronize()
+    assert (fused_inbatch_ce.launches,
+            fused_inbatch_ce_bwd.launches) == (before[0] + 1, before[1] + 1)
+    loss_p, want = _ce_grads(inbatch_ce_candidates, args)
+    assert loss_k.dtype == torch.float32
+    err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    assert err <= CE_LOSS_TOL[dtype], err
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype == dtype
+        scale = b.float().abs().max().item()
+        gerr = (a.float() - b.float()).abs().max().item()
+        assert gerr <= CE_GRAD_TOL[dtype] * scale, (gerr, scale)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,D", [(3, 5, 16),      # N 18
+                                   (8, 15, 32),     # N 128, one tile
+                                   (16, 8, 48),     # N 144, M 128
+                                   (7, 20, 512),    # the flagship's D
+                                   (4, 10, 2048)])  # 4 gradient chunks
+def test_inbatch_ce_kernels(B, L, D, dtype):
+    args = _ce_inputs(np.random.default_rng(B * L + D), B, L, D,
+                      dtype=dtype)
+    got = _assert_ce_close(args, dtype)
+    _assert_same_bits(got, _ce_grads(fused_ce, args)[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W,rank", [(3, 1), (4, 3)])
+def test_inbatch_ce_gathered_candidates(W, rank, dtype):
+    """Every rank's candidates on one card, the label offset rank * B * S
+    > 0, as the gathered edition calls the kernels after its all-gather."""
+    args = _ce_inputs(np.random.default_rng(W + rank), 6, 9, 64, W, rank,
+                      dtype)
+    assert args[-1] > 0
+    _assert_ce_close(args, dtype)
+
+
+def test_inbatch_ce_entry_point_on_the_card():
+    u, cand, ids, lm, _, _, lp, _ = _ce_inputs(np.random.default_rng(3), 5,
+                                               6, 32)
+    want = inbatch_ce_candidates(u, cand, ids, lm, ids,
+                                 candidate_colmask(lm), lp)
+    before = fused_inbatch_ce.launches
+    with torch.no_grad():
+        got = fused_inbatch_ce(u, cand, ids, lm, lp)
+    assert fused_inbatch_ce.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def test_inbatch_ce_refusals():
+    """Raises, and launches nothing, for what the kernels do not take."""
+    rng = np.random.default_rng(4)
+    args = _ce_inputs(rng, 4, 5, 32)
+    u, cand, rest = args[0], args[1], args[2:]
+    odd_d = _ce_inputs(rng, 4, 5, 24)
+    shifted = torch.empty(u.numel() + 1, device="cuda")[1:].view(u.shape)
+    shifted.copy_(u)
+    cases = [
+        ((u.half(), cand.half()), TypeError),                 # float16
+        ((u, cand.bfloat16()), TypeError),                    # mixed dtypes
+        ((shifted, cand), ValueError),                        # misaligned
+        ((u.transpose(0, 1).contiguous().transpose(0, 1), cand),
+         ValueError),                                         # strided
+        (odd_d[:2], ValueError),                              # D = 24
+    ]
+    before = (fused_inbatch_ce.launches, fused_inbatch_ce_bwd.launches)
+    for (uu, cc), err in cases:
+        r = odd_d[2:] if uu.shape[-1] == 24 else rest
+        with pytest.raises(err):
+            fused_ce(uu, cc, *r)
+    assert (fused_inbatch_ce.launches,
+            fused_inbatch_ce_bwd.launches) == before

@@ -50,8 +50,10 @@ def test_inbatch_ce_value_and_gradients_match_jax(seed):
 
 
 def test_label_columns_and_unported_options():
+    """The gathered composition without a process group says what it
+    needs (tests/test_torch_dp.py runs it under one)."""
     np.testing.assert_array_equal(label_columns(3, 4).numpy(),
                                   np.asarray(jax_label_columns(3, 4)))
     uv, embs, ids, lm, lp = map(torch.from_numpy, _batch(2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="needs a process group"):
         inbatch_debiased_ce(uv, embs, ids, lm, lp, gather_negatives=True)
