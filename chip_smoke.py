@@ -17,10 +17,12 @@ failure:
 2. build: build (or load) the kernel library;
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the serving path's shapes, in float32 and bfloat16, with kernel
-   and plain times (CUDA events, median);
+   and plain times (CUDA events, median); and the FFN tail with quick_gelu,
+   which no main path takes, at C = 512 and 2048;
 4. backward kernels: the training editions, the backward kernels and the
    scatter-add against autograd of the plain versions at the train step's
-   shapes, in float32 and bfloat16, dropout 0 and 0.1, with times;
+   shapes, and the quick_gelu FFN tail at C = 512 and 2048, in float32 and
+   bfloat16, dropout 0 and 0.1, with times;
 5. serving: Retriever.encode_catalog over the catalog, then recommend for
    request batches of 1, 8 and 64, with every launch counter set to 0
    first; every kernel launched in the encode and in recommend, the table
@@ -44,7 +46,7 @@ failure:
 9. vision serving: the counters set to 0, Retriever.encode_catalog through
    the bf16 Swin-T tower over images drawn from a pool on the card (100_001
    items if a probe says that takes 30 s or less, else 16_385), recommend
-   for batches of 1, 8 and 64, and an encode of a 256-item sub-catalog
+   for batches of 1, 8 and 64, and an encode of a 128-item sub-catalog
    with the "windows" kernel selection; every kernel of the path launched,
    the table is finite, row 0 is the tower's output for a zero image, no
    result holds the padding id or a history id, and in float32 the
@@ -63,7 +65,7 @@ failure:
     0.1, dropout 0.1, lr 1e-4) on batches drawn as bench.py draws them,
     images shipped with the batch from a pool of 1024: Zipf ids with dedup
     at encoder_chunk 0, 6 steps on one batch (the loss must fall) then 10
-    timed steps on distinct batches; the same at encoder_chunk cap // 3;
+    timed steps on distinct batches; 3 and 4 at encoder_chunk cap // 3;
     then two steps of uniform ids without dedup (704 images, 8 chunks);
     then, the counters set to 0 again, two Zipf steps under the "windows"
     kernel selection; step p50, samples/s, images/s, losses, peak device
@@ -92,12 +94,29 @@ failure:
 15. data-parallel: NCCL at world size 1 through a FileStore in a temporary
     directory, the counters set to 0, two gather_negatives + use_pallas
     text steps whose losses equal the single-process steps' on the same
-    batches, weights and seeds; the group destroyed.
+    batches, weights and seeds; the group destroyed;
+16. dbias kernels (run after phase 10): fused_mha's backward with the
+    gradient of its trainable bias at the window attention of every Swin-T
+    stage for 288 images, one bias for all rows and (shifted blocks) one
+    per window, in bfloat16 and float32, dropout 0 and 0.1: dqkv and dbias
+    against autograd of the plain version, the same bits on a second run;
+    backward, plain and fixed-order-sum times, and at dropout 0
+    F.scaled_dot_product_attention's with the bias as a trainable mask;
+17. vision dropout training (run after phase 12): the counters set to 0,
+    the bf16 train step of phase 11 with Swin's hidden and attention-
+    probability dropout at 0.1: 4 steps on one batch (the loss must fall),
+    6 timed steps, then 2 steps at encoder_chunk 96; every step at
+    encoder_chunk 0 launched fused_mha 14 times forward and backward (12
+    Swin blocks through the dbias edition), fused_mlp in every Swin block,
+    and no kernel of the two selections' pairs;
+18. vision dropout gradient check: phase 12's float32 step with Swin's
+    dropouts at 0.1, on the card and on the CPU plain path.
 
 Prints each phase's seconds and a JSON line of per-kernel results (launches
 on the main paths, in all and by path: text serving, training, vision
 serving, the "windows" sub-catalog, vision training, the "windows" train
-step, the use_pallas steps, the data-parallel steps; error
+step, the vision dropout step, the use_pallas steps, the data-parallel
+steps; error
 and time against the plain version, the least time the card could take for
 the same work, and the time of the one PyTorch call that computes the same
 function where there is one), the nvidia-smi line, and last
@@ -108,8 +127,9 @@ is visible.
 
 runs only the card and build phases and a torch.profiler split by device
 kernel of the train step, of the vision catalog encode, of the vision
-recommend at batches of 1 and 64 and of the vision train step (wall and
-device-busy ms, each kernel's share), and prints no result line.
+recommend at batches of 1 and 64 and of the vision train step without and
+with Swin's dropouts (wall and device-busy ms, each kernel's share), and
+prints no result line.
 """
 
 from __future__ import annotations
@@ -132,6 +152,7 @@ import torch
 import torch.nn.functional as F
 
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
+from idvs.morec_tpu_torch.models import sasrec
 from idvs.morec_tpu_torch.models.model import make_model
 from idvs.morec_tpu_torch.models.swin import (SwinConfig, SwinModel,
                                               _shift_mask)
@@ -139,9 +160,10 @@ from idvs.morec_tpu_torch.models.text_tower import TextTower
 from idvs.morec_tpu_torch.models.vision_tower import VisionTower
 from idvs.morec_tpu_torch.ops.cuda import lib
 from idvs.morec_tpu_torch.ops.cuda.attention import (
-    fused_mha, fused_mha_bwd, fused_mha_plain, fused_mha_proj,
-    fused_mha_proj_band, fused_mha_proj_band_bwd, fused_mha_proj_band_plain,
-    fused_mha_proj_bwd, fused_mha_proj_plain, window_partition)
+    dbias_chunks, fused_mha, fused_mha_bwd, fused_mha_bwd_dbias,
+    fused_mha_plain, fused_mha_proj, fused_mha_proj_band,
+    fused_mha_proj_band_bwd, fused_mha_proj_band_plain, fused_mha_proj_bwd,
+    fused_mha_proj_plain, sum_partials, window_partition)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     scatter_add_rows, scatter_add_rows_plain)
 from idvs.morec_tpu_torch.ops.cuda.inbatch_ce import (fused_ce,
@@ -192,7 +214,7 @@ V_CHUNK = ENCODE_BATCH      # images an encode chunk: item_emb_batch_size too
 V_ITEMS_FULL, V_ITEMS_CUT = 100_000, 16_384
 V_ENCODE_LIMIT_S = 30.0     # the full catalog only if it encodes this fast
 V_PROBE_CHUNKS = 2
-V_SUB_ITEMS = 256           # sub-catalog held against the plain path
+V_SUB_ITEMS = 128           # sub-catalog held against the plain path
 V_PROFILE_REQUESTS = 10     # --profile: recommend calls traced per batch size
 # the vision train step (bench.py:78-82, :89-98, :162-186: B 64, L 10,
 # Zipf(1.2) ids with dedup or uniform ids without, lr and fine_tune_lr 1e-4,
@@ -201,7 +223,14 @@ V_TRAIN_B, V_LR, V_FT_LR = 64, 1e-4, 1e-4
 V_CAP_QUANTUM = 96          # the dedup cap's rounding (bench.py:166)
 V_NODEDUP_CHUNKS = 8        # encoder chunks without dedup (bench.py:183)
 V_FIXED_STEPS, V_TIMED_STEPS = 6, 10
+V_CHUNKED_FIXED, V_CHUNKED_TIMED = 3, 4   # the encoder_chunk cap // 3 run
 V_CHECK_USERS = 2           # users of the float32 vision gradient check
+# Swin's hidden and attention-probability dropout in training (the HF
+# SwinConfig's hidden_dropout_prob and attention_probs_dropout_prob; BERT's
+# published 0.1): steps on one batch, timed steps, steps at encoder_chunk
+# cap // 3
+V_SWIN_DROP = 0.1
+V_DROP_FIXED, V_DROP_TIMED, V_DROP_CHUNKED = 4, 6, 2
 VB_REPS = 3                 # timed calls of a vision backward case
 V_BWD_IMAGES = 288          # images of a vision backward case
 # the in-batch CE kernels (row 9): (what, users B, L, D, ranks W, rank,
@@ -215,6 +244,9 @@ CE_CASES = (("text", TRAIN_B, L, D, 1, 0, True),
             ("vision", V_TRAIN_B, V_L, V_D, 1, 0, True),
             ("gathered text", TRAIN_B, L, D, 4, 2, True))
 CE_WIDE = ("gathered IDRec", IDREC_B, L, D, 8, 5, False)
+# fused_mlp_resln's quick_gelu, which no main path takes (CLIP's MLP is
+# pre-LN): (M, C, F) of the text and the vision user tower's train steps
+QUICK_GELU_SHAPES = ((TRAIN_B * L, D, FFN), (V_TRAIN_B * V_L, V_D, 4 * V_D))
 PALLAS_WARM_STEPS = 2       # use_pallas steps on batches[0] before the timed
 DP_STEPS = 2                # gather_negatives steps at world size 1
 # Swin-T stages: (C, heads, side of the token map)
@@ -283,6 +315,14 @@ V_SELECTION_TOL = 1e-5
 # erff against the CPU's erf) under the classifier and SASRec at D = 2048.
 V_STEP_LOSS_TOL = 1e-4
 V_STEP_GRAD_TOL = 2e-3
+# SASRec's FFN is a ReLU: where a pre-activation lies within the two paths'
+# rounding distance of 0, each path may take a different branch, and that
+# unit's w_1 column and b_1 entry then differ by one row's contribution (a
+# step, not a rounding). The check leaves out the units with a
+# pre-activation within V_KINK times the largest difference of the two
+# paths' pre-activations, and requires them to be at most V_KINK_SHARE of
+# the units.
+V_KINK, V_KINK_SHARE = 10.0, 1e-2
 # The in-batch CE kernel against autograd of its plain version on the same
 # card and operands: the same float32 logits of the same (widened) inputs,
 # summed in another order over D and over the columns; the loss relative,
@@ -307,6 +347,7 @@ CSRC, PALLAS = "idvs/morec_tpu_torch/csrc/", "idvs/morec_tpu/ops/pallas/"
 SOURCES = {
     "fused_mha": ("fused_mha.cu", "attention.py:143"),
     "fused_mha_bwd": ("fused_mha.cu", "attention.py:179"),
+    "fused_mha_bwd_dbias": ("fused_mha.cu", "attention.py:179"),
     "fused_proj_resln": ("proj_resln.cu", "mlp.py:715"),
     "fused_proj_resln_res": ("proj_resln.cu", "mlp.py:709"),
     "fused_proj_resln_bwd": ("resln_bwd.cu", "mlp.py:723"),
@@ -326,6 +367,7 @@ SOURCES = {
     "fused_inbatch_ce_bwd": ("inbatch_ce.cu", "inbatch_ce.py:99"),
 }
 WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
+            "fused_mha_bwd_dbias": fused_mha_bwd_dbias,
             "fused_proj_resln": fused_proj_resln,
             "fused_proj_resln_res": fused_proj_resln_res,
             "fused_proj_resln_bwd": fused_proj_resln_bwd,
@@ -358,6 +400,17 @@ VISION_TRAIN_KERNELS = ("fused_mha_proj_band", "fused_mha_proj_band_bwd",
 VISION_WINDOWS_TRAIN_KERNELS = ("fused_mha_proj", "fused_mha_proj_bwd",
                                 "fused_mlp", "fused_mlp_bwd")
 PALLAS_KERNELS = ("fused_inbatch_ce", "fused_inbatch_ce_bwd")
+# a vision train step with Swin's dropouts: a step's launches of each
+# kernel (12 Swin blocks on the window path, SASRec's 2 blocks), and the
+# kernel pairs of the two selections, which it never takes
+VISION_DROPOUT_STEP = {"fused_mha": 14, "fused_mha_bwd": 2,
+                       "fused_mha_bwd_dbias": 12, "fused_mlp": 12,
+                       "fused_mlp_bwd": 12, "fused_proj_resln_res": 2,
+                       "fused_proj_resln_bwd": 2, "fused_mlp_resln_res": 2,
+                       "fused_mlp_resln_bwd": 2}
+VISION_DROPOUT_SKIPS = ("fused_mha_proj_band", "fused_mha_proj_band_bwd",
+                        "fused_mha_proj", "fused_mha_proj_bwd",
+                        "fused_mlp_res", "fused_mlp_res_bwd")
 
 
 class PhaseError(RuntimeError):
@@ -439,6 +492,13 @@ def mha_bwd_work(B, T, nh, dh, it, table_elems):
     # scores again, dp, dv, dq, dk: five (T, T, dh) products a head
     H = nh * dh
     return 10 * B * nh * T * T * dh, 7 * B * T * H * it + 4 * table_elems
+
+
+def mha_dbias_work(B, T, nh, dh, it, P):
+    # as mha_bwd_work with the (P, nh, T, T) float32 bias read and its
+    # gradient written
+    flops, nbytes = mha_bwd_work(B, T, nh, dh, it, P * nh * T * T)
+    return flops, nbytes + 4 * P * nh * T * T
 
 
 def proj_work(M, C, it, saved=0):
@@ -558,6 +618,9 @@ def kernel_cases(rng, dev):
         for M, eps, act, who in ((512 * TITLE_LEN, 1e-12, "gelu", "BERT"),
                                  (64 * L, 1e-6, "relu", "SASRec")):
             cases += tail_cases(g, dev, dt, M, HIDDEN, FFN, eps, act, who)
+        for M, C, Fw in QUICK_GELU_SHAPES:     # the FFN tail's case only
+            cases += tail_cases(g, dev, dt, M, C, Fw, 1e-5, "quick_gelu",
+                                "FFN")[1:]
     return cases
 
 
@@ -621,6 +684,19 @@ def _rel_err(got, want) -> tuple:
     """(max abs error, max(1, max |want|)) of two tensors."""
     err = (got.float() - want.float()).abs().max().item()
     return err, max(1.0, want.float().abs().max().item())
+
+
+def _worst_err(got, want, what: str) -> tuple:
+    """(error / scale, error, scale) of the worst pair of tensors, each
+    error by _rel_err; raises on a shape, dtype or finiteness mismatch."""
+    worst = (0.0, 0.0, 1.0)
+    for a, b in zip(got, want):
+        require(a.shape == b.shape and a.dtype == b.dtype,
+                f"{what}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        err, scale = _rel_err(a, b)
+        require(math.isfinite(err), f"{what}: not finite")
+        worst = max(worst, (err / scale, err, scale))
+    return worst
 
 
 def backward_cases(rng, dev, titles: int):
@@ -695,6 +771,20 @@ def backward_cases(rng, dev, titles: int):
                         *a[:5], ln=a[5:], act=act, **kw),
                     mlp_bwd_work(M, C, FFN, it),
                     mlp_work(M, C, FFN, it, saved=True)))
+            for M, C, Fw in QUICK_GELU_SHAPES:
+                kw = dict(eps=1e-5, drop_rate=p, seed=seed, act="quick_gelu")
+                cases.append((
+                    "fused_mlp_resln_res", "fused_mlp_resln_bwd",
+                    f"quick_gelu M={M} C={C} F={Fw} {tag}", dt,
+                    [g(M, C, dt=dt), g(C, Fw, scale=C ** -0.5),
+                     g(Fw, scale=0.1), g(Fw, C, scale=Fw ** -0.5),
+                     g(C, scale=0.1), 1.0 + g(C, scale=0.1), g(C, scale=0.1)],
+                    g(M, C, dt=dt),
+                    lambda *a, kw=kw: fused_mlp_resln(*a[:5], ln=a[5:], **kw),
+                    lambda *a, kw=kw: fused_mlp_resln_plain(*a[:5], ln=a[5:],
+                                                            **kw),
+                    mlp_bwd_work(M, C, Fw, it),
+                    mlp_work(M, C, Fw, it, saved=True)))
     return cases
 
 
@@ -720,14 +810,8 @@ def gradient_cases(cases, card: str, reps: int = FEW_REPS) -> dict:
         got = torch.autograd.grad(out_k, lk, dout, retain_graph=True)
         want = torch.autograd.grad(out_p, lp, dout, retain_graph=True)
         torch.cuda.synchronize()
-        worst = (0.0, 0.0, 1.0)     # (err / scale, err, scale)
-        for a, b in zip((out_k, *got), (out_p, *want)):
-            require(a.shape == b.shape and a.dtype == b.dtype,
-                    f"{bwd_name} {label}: {a.shape}/{a.dtype} vs "
-                    f"{b.shape}/{b.dtype}")
-            err, scale = _rel_err(a, b)
-            require(math.isfinite(err), f"{bwd_name} {label}: not finite")
-            worst = max(worst, (err / scale, err, scale))
+        worst = _worst_err((out_k, *got), (out_p, *want),
+                           f"{bwd_name} {label}")
         tol = GRAD_TOL[dt]
         bwd_ms = cuda_ms(lambda: torch.autograd.grad(
             out_k, lk, dout, retain_graph=True), reps=reps)
@@ -1388,6 +1472,137 @@ def vision_backward_cases(dev, images: int):
     return cases
 
 
+def sdpa_grad_calls(qkv, n_heads, bias, dout):
+    """F.scaled_dot_product_attention with the (P, nh, T, T) bias expanded to
+    (B, nh, T, T) in qkv's dtype as an attn_mask that requires a gradient:
+    (its forward, its backward alone on a kept graph, its forward and
+    backward), the library calls that compute fused_mha's output, dqkv and
+    per-row dbias. A yardstick only."""
+    B, T, H3 = qkv.shape
+    leaf = qkv.detach().requires_grad_(True)
+    mask = bias.detach().to(qkv.dtype).repeat(B // bias.shape[0], 1, 1, 1)
+    mask.requires_grad_(True)
+    heads = lambda t: t.reshape(B, T, n_heads, -1).transpose(1, 2)
+    d = heads(dout)
+
+    def forward():
+        return F.scaled_dot_product_attention(
+            *(heads(t) for t in leaf.split(H3 // 3, dim=-1)), attn_mask=mask)
+
+    out = forward()
+    return (forward,
+            lambda: torch.autograd.grad(out, (leaf, mask), d,
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(forward(), (leaf, mask), d))
+
+
+def dbias_phase(dev, card: str, images: int) -> dict:
+    """fused_mha's dbias edition at the window attention of every Swin-T
+    stage for `images` images (B = images x nW rows of T = 49, heads of
+    32): one bias for every row (P = 1) and, for the shifted blocks of
+    stages 0-2, a bias per window (P = nW, the shift mask's -100 on some
+    pairs); bfloat16 first (the train step's dtype), then float32; dropout
+    0 and DROP. dqkv and dbias against autograd of the plain version, and a
+    second run to the bit; the backward's time (autograd, dbias cast
+    included), the plain version's, the fixed-order sum's alone and, at
+    dropout 0, F.scaled_dot_product_attention's backward (the library
+    column) and both sides' forward and backward."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    g = lambda *s, scale=1.0, dt=torch.float32: (torch.randn(
+        *s, generator=gen, device=dev) * scale).to(dt)
+    rng = np.random.default_rng(SEED + 14)
+    T = WINDOW * WINDOW
+    results = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tag, it = tag_of(dt), size_of(dt)
+        for C, nh, side in SWIN_STAGES:
+            nW, dh = (side // WINDOW) ** 2, C // nh
+            B = images * nW
+            rel = g(1, nh, T, T, scale=0.5)
+            biases = [rel]
+            if nW > 1:
+                mask = torch.from_numpy(_shift_mask(
+                    side, side, WINDOW, WINDOW // 2)).to(dev)
+                biases.append(rel + mask[:, None])
+            for bias in biases:
+                P = bias.shape[0]
+                for p in (0.0, DROP):
+                    label = (f"P={P} B={B} T={T} nh={nh} dh={dh} {tag} "
+                             f"drop={p}")
+                    seed = int(rng.integers(1, 2 ** 31 - 1))
+                    qkv, dout = g(B, T, 3 * C, dt=dt), g(B, T, C, dt=dt)
+                    kern, plain = (lambda q, b, fn=fn, p=p, s=seed: fn(
+                        q, bias=b, n_heads=nh, drop_rate=p, seed=s)
+                        for fn in (fused_mha, fused_mha_plain))
+                    lk, lp = _leaves([qkv, bias]), _leaves([qkv, bias])
+                    out_k, out_p = kern(*lk), plain(*lp)
+                    before = fused_mha_bwd_dbias.launches
+                    grad_k = lambda: torch.autograd.grad(out_k, lk, dout,
+                                                         retain_graph=True)
+                    got, again = grad_k(), grad_k()
+                    want = torch.autograd.grad(out_p, lp, dout,
+                                               retain_graph=True)
+                    torch.cuda.synchronize()
+                    require(fused_mha_bwd_dbias.launches == before + 2,
+                            f"fused_mha_bwd_dbias {label}: not launched")
+                    require(all(torch.equal(a, b) for a, b in
+                                zip(got, again)),
+                            f"fused_mha_bwd_dbias {label}: two runs differ")
+                    worst = _worst_err((out_k, *got), (out_p, *want),
+                                       f"fused_mha_bwd_dbias {label}")
+                    del again, want
+                    ms = cuda_ms(grad_k, reps=VB_REPS)
+                    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                        out_p, lp, dout, retain_graph=True), reps=VB_REPS)
+                    chunks = dbias_chunks(B, P, nh, dev)
+                    part = torch.zeros(chunks * nh * P * T * T, device=dev)
+                    summed = torch.empty(P, nh, T, T, device=dev)
+                    sum_ms = cuda_ms(lambda: sum_partials(part, summed,
+                                                          chunks),
+                                     reps=VB_REPS)
+                    del part, summed
+                    work = mha_dbias_work(B, T, nh, dh, it, P)
+                    bound_ms, bound_by = bound_of(work, dt)
+                    line = (f"backward fused_mha_bwd_dbias [{label}]: "
+                            f"max_abs_err {worst[1]:.3e} on a scale of "
+                            f"{worst[2]:.3g} (tol {GRAD_TOL[dt]:g} of the "
+                            f"scale), the same bits on a second run; "
+                            f"backward {ms:.4f} ms ({chunks} chunks, the "
+                            f"fixed-order sum {sum_ms:.4f} ms of it), plain "
+                            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                            f"{bound_by}")
+                    library_ms = None
+                    if p == 0.0:
+                        sdpa = sdpa_grad_calls(qkv, nh, bias, dout)
+                        library_ms = cuda_ms(sdpa[1], reps=VB_REPS)
+                        fwd = [cuda_ms(f, reps=VB_REPS) for f in (
+                            lambda: kern(qkv, bias), lambda: plain(qkv, bias),
+                            sdpa[0])]
+                        fwd_bound = bound_of(mha_work(B, T, nh, dh, it,
+                                                      P * nh * T * T), dt)
+                        both = [cuda_ms(f, reps=VB_REPS) for f in (
+                            lambda: torch.autograd.grad(kern(*lk), lk, dout),
+                            sdpa[2])]
+                        del sdpa
+                        line += (f"; library call F.scaled_dot_product_"
+                                 f"attention backward {library_ms:.4f} ms; "
+                                 f"forward (fused_mha, no graph): kernel "
+                                 f"{fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms, "
+                                 f"library {fwd[2]:.4f} ms, bound "
+                                 f"{fwd_bound[0]:.4f} ms by {fwd_bound[1]}; "
+                                 f"forward and backward: kernels "
+                                 f"{both[0]:.4f} ms, library {both[1]:.4f} "
+                                 f"ms")
+                    print(f"{line} [{card}]", flush=True)
+                    require(worst[0] <= GRAD_TOL[dt],
+                            f"fused_mha_bwd_dbias {label}: error {worst[1]} "
+                            f"above {GRAD_TOL[dt]} x {worst[2]}")
+                    _record(results, "fused_mha_bwd_dbias", worst[1], ms,
+                            plain_ms, work, dt, library_ms)
+                    del lk, lp, out_k, out_p, got
+    return results
+
+
 def vision_train_config(cap: int, chunk: int,
                         compute_dtype: str = "bfloat16") -> SimpleNamespace:
     cfg = vision_config()
@@ -1430,9 +1645,10 @@ def vision_device_batch(ids, lm, cap: int, pool: np.ndarray, dev) -> dict:
     return batch
 
 
-def vision_train_setup(dev, cfg, kernels: str = "band"):
+def vision_train_setup(dev, cfg, kernels: str = "band",
+                       swin_drop: float = 0.0):
     dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
-    model = build_vision_model(dev, V_ITEMS_FULL, kernels, dt)
+    model = build_vision_model(dev, V_ITEMS_FULL, kernels, dt, swin_drop)
     state = make_train_state(model, cfg, param_labels(model), seed=SEED)
     step = make_train_step(cfg, log_pop=log_popularity(dev))
     return model, state, step
@@ -1440,14 +1656,16 @@ def vision_train_setup(dev, cfg, kernels: str = "band"):
 
 def vision_train_run(dev, card: str, pool, batches, cap: int, chunk: int,
                      fixed: int, timed: int, what: str,
-                     kernels: str = "band", pallas: bool = False) -> dict:
+                     kernels: str = "band", pallas: bool = False,
+                     swin_drop: float = 0.0) -> dict:
     """`fixed` steps on batches[0] (the loss must fall), then `timed` steps
     on the next batches, each packed and copied to the device inside its
-    timed step; `pallas` takes the CE kernels. Returns the launch counts of
-    the whole run."""
+    timed step; `pallas` takes the CE kernels, `swin_drop` is Swin's hidden
+    and attention-probability dropout. Returns the launch counts of the
+    whole run."""
     cfg = vision_train_config(cap, chunk)
     cfg.use_pallas = pallas
-    model, state, step = vision_train_setup(dev, cfg, kernels)
+    model, state, step = vision_train_setup(dev, cfg, kernels, swin_drop)
     images = cap or V_TRAIN_B * (V_L + 1)
     first = vision_device_batch(*batches[0], cap, pool, dev)
     torch.cuda.reset_peak_memory_stats()
@@ -1468,8 +1686,9 @@ def vision_train_run(dev, card: str, pool, batches, cap: int, chunk: int,
                 f"{what}: the loss did not fall on a fixed batch: "
                 f"{losses[:fixed]}")
     p50 = statistics.median(walls)
+    swin = f", Swin dropouts {swin_drop}" if swin_drop else ""
     print(f"vision train step [{what}] B={V_TRAIN_B} L={V_L} D={V_D} Swin-T "
-          f"bf16, DropPath 0.1, dropout {DROP}, {images} images a step, "
+          f"bf16, DropPath 0.1, dropout {DROP}{swin}, {images} images a step, "
           f"encoder_chunk {chunk}: {fixed} steps on one batch, loss "
           f"{losses[0]:.5f} -> {losses[fixed - 1]:.5f}; then {len(walls)} "
           f"distinct batches: p50 {p50:.3f} ms (min {min(walls):.3f}, max "
@@ -1501,8 +1720,8 @@ def vision_train_path(dev, card: str, pool: np.ndarray) -> dict:
     for n in VISION_TRAIN_KERNELS:
         require(launched[n] > 0, f"{n} never launched in vision training")
     torch.cuda.empty_cache()
-    vision_train_run(dev, card, pool, zipf, cap, cap // 3, V_FIXED_STEPS,
-                     V_TIMED_STEPS, "zipf, dedup, chunked")
+    vision_train_run(dev, card, pool, zipf, cap, cap // 3, V_CHUNKED_FIXED,
+                     V_CHUNKED_TIMED, "zipf, dedup, chunked")
     torch.cuda.empty_cache()
     slots = V_TRAIN_B * (V_L + 1)
     vision_train_run(dev, card, pool, vision_batches(rng, 2, False), 0,
@@ -1518,47 +1737,61 @@ def vision_train_path(dev, card: str, pool: np.ndarray) -> dict:
     return launched, windows
 
 
-def vision_grad_check(dev, card: str, pool: np.ndarray) -> None:
+def vision_grad_check(dev, card: str, pool: np.ndarray,
+                      swin_drop: float = 0.0) -> None:
     """One float32 step in training mode (DropPath 0.1 and dropout drawn
     from the same seed on both sides) on V_CHECK_USERS users: on the card
     under both kernel selections, and on a CPU copy of the model through the
     plain versions. The loss and every gradient agree, and the "windows"
-    step went through its kernels."""
+    step went through its kernels. With `swin_drop` (Swin's hidden and
+    attention-probability dropout) both selections take the same kernels,
+    so the card runs once, and that step must have taken the dropout
+    path's kernels and none of the kernel pairs."""
     rng = np.random.default_rng(SEED + 11)
     ids, lm = vision_batches(rng, 1, True)[0]
     ids, lm = ids[:V_CHECK_USERS], lm[:V_CHECK_USERS]
     cap = -(-len(np.unique(ids)) // 4) * 4
     cfg = vision_train_config(cap, 0, "float32")
+    selections = ("band",) if swin_drop else ("band", "windows")
     runs, launched = {}, None
-    for run, where, kernels in (("band", dev, "band"),
-                                ("windows", dev, "windows"),
-                                ("plain", torch.device("cpu"), "band")):
-        model = build_vision_model(dev, V_ITEMS_FULL, kernels,
-                                   None).to(where)
+    for run, where, kernels in ([(k, dev, k) for k in selections]
+                                + [("plain", torch.device("cpu"), "band")]):
+        model = build_vision_model(dev, V_ITEMS_FULL, kernels, None,
+                                   swin_drop).to(where)
         state = make_train_state(model, cfg, param_labels(model), seed=SEED)
         step = make_train_step(cfg, log_pop=log_popularity(where))
         reset_counts()
+        relu_in = []
         t0 = time.perf_counter()
-        loss = step(state, vision_device_batch(ids, lm, cap, pool,
-                                               where)).item()
+        with relu_inputs(relu_in):
+            loss = step(state, vision_device_batch(ids, lm, cap, pool,
+                                                   where)).item()
         runs[run] = (loss, time.perf_counter() - t0, {
-            n: p.grad.detach().cpu() for n, p in model.named_parameters()})
-        if run == "windows":
+            n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            relu_in)
+        if run == selections[-1]:
             launched = counts()
-    lp, sp, gp = runs["plain"]
+    lp, sp, gp, hp = runs["plain"]
     top = max(want.abs().max().item() for want in gp.values())
-    for kernels in ("band", "windows"):
-        lk, sk, gk = runs[kernels]
+    what = f", Swin dropouts {swin_drop}" if swin_drop else ""
+    for kernels in selections:
+        lk, sk, gk, hk = runs[kernels]
         loss_err = abs(lk - lp) / abs(lp)
+        kinks, kink_note = kink_units(hk, hp)
         worst, table, worst_name = (-1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), None
+        raw = (-1.0, None)
         for n, want in gp.items():
             scale = max(want.abs().max().item(), GRAD_FLOOR * top)
-            err = (gk[n] - want).abs().max().item()
+            diff = (gk[n] - want).abs()
+            raw = max(raw, (diff.max().item() / scale, n))
+            if n in kinks:
+                diff = diff[..., ~kinks[n]]
+            err = diff.max().item()
             if err / scale >= worst[0]:
                 worst, worst_name = (err / scale, err, scale), n
             if n.endswith("relative_position_bias_table"):
                 table = max(table, (err / scale, err, scale))
-        print(f"vision gradient check ['{kernels}']: f32 step on "
+        print(f"vision gradient check ['{kernels}'{what}]: f32 step on "
               f"{V_CHECK_USERS} users ({cap} images), card {sk:.2f} s vs CPU "
               f"plain path {sp:.2f} s: loss {lk:.6f} vs {lp:.6f}, rel err "
               f"{loss_err:.3e} (tol {V_STEP_LOSS_TOL:g}); largest gradient "
@@ -1566,7 +1799,10 @@ def vision_grad_check(dev, card: str, pool: np.ndarray) -> None:
               f"{worst_name} (tol {V_STEP_GRAD_TOL:g} of the scale; largest "
               f"gradient {top:.3e}) over {len(gp)} parameters [{card}]",
               flush=True)
-        print(f"vision gradient check ['{kernels}']: "
+        print(f"vision gradient check ['{kernels}'{what}]: {kink_note}; with "
+              f"their columns the largest error is {raw[0]:.3e} of the scale "
+              f"in {raw[1]}", flush=True)
+        print(f"vision gradient check ['{kernels}'{what}]: "
               f"relative_position_bias_table gradients (12 tables): largest "
               f"error {table[1]:.3e} on a scale of {table[2]:.3e}",
               flush=True)
@@ -1574,28 +1810,119 @@ def vision_grad_check(dev, card: str, pool: np.ndarray) -> None:
                 "vision train-step loss disagrees with the plain path")
         require(worst[0] <= V_STEP_GRAD_TOL,
                 f"gradient of {worst_name} disagrees with the plain path")
+    if swin_drop:
+        check_dropout_launches(launched, 1, "the float32 train step")
+        return
     for n in VISION_WINDOWS_TRAIN_KERNELS:
         require(launched[n] > 0, f"{n} never launched by the 'windows' "
                 f"float32 train step")
 
 
+@contextlib.contextmanager
+def relu_inputs(record: list):
+    """Appends to `record`, in block order, the float32 input of every
+    SASRec FFN's ReLU (x @ w1 + b1, on the host) that runs inside."""
+    inner = sasrec.fused_mlp_resln
+
+    def spy(x, w1, b1, *args, **kwargs):
+        with torch.no_grad():
+            h = x.float().reshape(-1, w1.shape[0]) @ w1.float() + b1.float()
+        record.append(h.cpu())
+        return inner(x, w1, b1, *args, **kwargs)
+
+    sasrec.fused_mlp_resln = spy
+    try:
+        yield
+    finally:
+        sasrec.fused_mlp_resln = inner
+
+
+def kink_units(card: list, plain: list) -> tuple:
+    """The SASRec ReLU units at the kink (see V_KINK): {name of a w_1 weight
+    or bias: bool mask over its output units}, and a line that says how
+    many there are."""
+    require(len(card) == len(plain) == BLOCKS,
+            f"{len(card)} and {len(plain)} SASRec FFNs recorded, not {BLOCKS}")
+    kinks, notes = {}, []
+    for i, (hk, hp) in enumerate(zip(card, plain)):
+        margin = V_KINK * (hk - hp).abs().max().item()
+        units = (hp.abs() <= margin).any(0)
+        flips = ((hk > 0) != (hp > 0)).sum().item()
+        require(units.float().mean().item() <= V_KINK_SHARE,
+                f"SASRec block {i}: {int(units.sum())} of {units.numel()} "
+                f"ReLU units within {margin:.2e} of the kink")
+        for p in ("weight", "bias"):
+            kinks[f"user_encoder.block_{i}.w_1.{p}"] = units
+        notes.append(f"block {i}: {int(units.sum())} of {units.numel()} "
+                     f"within {margin:.2e} ({flips} pre-activations of "
+                     f"opposite signs)")
+    return kinks, ("SASRec ReLU units left out at the kink: "
+                   + "; ".join(notes))
+
+
+def check_dropout_launches(launched: dict, steps: int, what: str) -> None:
+    """`steps` vision train steps with Swin's dropouts launched each kernel
+    of VISION_DROPOUT_STEP that many times a step, and no kernel of the
+    two selections' pairs."""
+    for n, per_step in VISION_DROPOUT_STEP.items():
+        require(launched[n] == per_step * steps,
+                f"{what}: {n} launched {launched[n]} times in {steps} "
+                f"steps, not {per_step} a step")
+    for n in VISION_DROPOUT_SKIPS:
+        require(launched[n] == 0, f"{what}: {n} launched {launched[n]} "
+                f"times")
+
+
+def vision_dropout_train_path(dev, card: str, pool: np.ndarray) -> dict:
+    """The bf16 vision train step with Swin's hidden and attention-
+    probability dropout at V_SWIN_DROP (and DropPath, dropout as phase 11)
+    on the Zipf batches with dedup: at encoder_chunk 0, V_DROP_FIXED steps
+    on one batch (the loss must fall) then V_DROP_TIMED timed steps; then
+    V_DROP_CHUNKED steps at encoder_chunk cap // 3. Every step at
+    encoder_chunk 0 launches fused_mha 14 times forward and 14 backward (12
+    Swin blocks through the dbias edition, SASRec's 2 through the plain
+    backward) and no kernel of the two selections' pairs. Returns the launch
+    counts of the encoder_chunk 0 run."""
+    rng = np.random.default_rng(SEED + 10)
+    zipf = vision_batches(rng, V_TIMED_STEPS + 1, True)
+    most = max(len(np.unique(ids)) for ids, _ in zipf)
+    cap = -(-most // V_CAP_QUANTUM) * V_CAP_QUANTUM
+    launched = vision_train_run(dev, card, pool, zipf, cap, 0, V_DROP_FIXED,
+                                V_DROP_TIMED, "zipf, dedup, Swin dropouts",
+                                swin_drop=V_SWIN_DROP)
+    print(f"vision dropout training launches {launched}", flush=True)
+    check_dropout_launches(launched, V_DROP_FIXED + V_DROP_TIMED,
+                           "the vision dropout train step")
+    torch.cuda.empty_cache()
+    vision_train_run(dev, card, pool, zipf, cap, cap // 3, 1,
+                     V_DROP_CHUNKED - 1, "zipf, dedup, chunked, Swin dropouts",
+                     swin_drop=V_SWIN_DROP)
+    torch.cuda.empty_cache()
+    return launched
+
+
 def profile_vision_train(dev, card: str) -> None:
     """The vision train step (Zipf ids, dedup, encoder_chunk 0) by device
-    kernel: PROFILE_STEPS steps on distinct batches after as many warm-up
-    steps."""
+    kernel, without and with Swin's dropouts: PROFILE_STEPS steps on
+    distinct batches after as many warm-up steps."""
     rng = np.random.default_rng(SEED + 10)
     pool = image_pool(dev).cpu().numpy()
     batches = vision_batches(rng, 2 * PROFILE_STEPS, True)
     most = max(len(np.unique(ids)) for ids, _ in batches)
     cap = -(-most // V_CAP_QUANTUM) * V_CAP_QUANTUM
-    _, state, step = vision_train_setup(dev, vision_train_config(cap, 0))
-    run = lambda part: [step(state, vision_device_batch(
-        ids, lm, cap, pool, dev)).item() for ids, lm in part]
-    run(batches[:PROFILE_STEPS])
-    profiled(lambda: run(batches[PROFILE_STEPS:]), PROFILE_STEPS,
-             f"vision train step B={V_TRAIN_B} Swin-T bf16, DropPath 0.1, "
-             f"dropout {DROP}, dedup cap {cap}, encoder_chunk 0, "
-             f"{PROFILE_STEPS} steps", "step", card)
+    for swin_drop in (0.0, V_SWIN_DROP):
+        _, state, step = vision_train_setup(dev, vision_train_config(cap, 0),
+                                            swin_drop=swin_drop)
+        run = lambda part: [step(state, vision_device_batch(
+            ids, lm, cap, pool, dev)).item() for ids, lm in part]
+        run(batches[:PROFILE_STEPS])
+        profiled(lambda: run(batches[PROFILE_STEPS:]), PROFILE_STEPS,
+                 f"vision train step B={V_TRAIN_B} Swin-T bf16, DropPath "
+                 f"0.1, dropout {DROP}, Swin dropouts {swin_drop}, dedup cap "
+                 f"{cap}, encoder_chunk 0, {PROFILE_STEPS} steps", "step",
+                 card)
+        del state, step
+        torch.cuda.empty_cache()
 
 
 def vision_config() -> SimpleNamespace:
@@ -1608,10 +1935,12 @@ def vision_config() -> SimpleNamespace:
 
 
 def build_vision_model(dev, item_num: int, kernels: str = "band",
-                       compute_dtype=torch.bfloat16):
+                       compute_dtype=torch.bfloat16, swin_drop: float = 0.0):
     """Swin-T at full width and depth under the classifier to V_D, and
-    SASRec at V_D; weights from the seed."""
-    scfg = SwinConfig()
+    SASRec at V_D; weights from the seed. `swin_drop` sets Swin's hidden
+    and attention-probability dropout."""
+    scfg = SwinConfig(hidden_dropout_prob=swin_drop,
+                      attention_probs_dropout_prob=swin_drop)
     tower = VisionTower(SwinModel(scfg, kernels=kernels, device=dev), "swin",
                         V_D, scfg.num_features, compute_dtype=compute_dtype,
                         device=dev)
@@ -2111,10 +2440,18 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
               flush=True)
     torch.cuda.empty_cache()
+    with phase("dbias kernels"):
+        merge(kernels, dbias_phase(dev, card, V_BWD_IMAGES))
+    torch.cuda.empty_cache()
     with phase("vision training"):
         vtrained, vwindows = vision_train_path(dev, card, pool)
     with phase("vision gradient check"):
         vision_grad_check(dev, card, pool)
+    torch.cuda.empty_cache()
+    with phase("vision dropout training"):
+        vdropped = vision_dropout_train_path(dev, card, pool)
+    with phase("vision dropout gradient check"):
+        vision_grad_check(dev, card, pool, V_SWIN_DROP)
     torch.cuda.empty_cache()
     with phase("pallas training"):
         pallas = pallas_train_path(dev, card, content, batches, cap,
@@ -2126,12 +2463,13 @@ def main() -> int:
     with phase("data-parallel"):
         parallel = dp_path(dev, card, content, batches, cap)
 
-    # launches: every main path's count, each taken from 0; the eight keys
+    # launches: every main path's count, each taken from 0; the nine keys
     # after it say which path launched how many
     paths = {"launches_serve": served, "launches_train": trained,
              "launches_vision": seen, "launches_windows": windows,
              "launches_vision_train": vtrained,
              "launches_windows_train": vwindows,
+             "launches_vision_dropout": vdropped,
              "launches_pallas_train": pallas, "launches_dp": parallel}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": CSRC + SOURCES[n][0],

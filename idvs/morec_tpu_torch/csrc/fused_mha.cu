@@ -1,10 +1,11 @@
 // Multi-head self-attention over packed (B, T, 3H) QKV for short sequences
-// (T <= 128), one block per (row, head): the forward and its backward.
+// (T <= 128), one block per (row, head): the forward and its backward, and
+// the backward's dbias edition for a trainable additive bias.
 //
 // Replaces idvs/morec_tpu/ops/pallas/attention.py _fwd_kernel and
 // _bwd_kernel (reached through fused_mha), with the in-kernel dropout of the
-// attention probabilities. The mask or bias gets no gradient (the Pallas
-// dbias output serves Swin's trainable bias only).
+// attention probabilities and, for Swin's relative-position table
+// (bias_grad), the bias gradient.
 //
 // Forward, as the Pallas kernel:
 //   s    = f32(q . k) * (1/sqrt(dh))
@@ -19,21 +20,30 @@
 //   ds   = p_f32 * (dp - rowsum(dp * p_f32)), then * 1/sqrt(dh), cast to
 //          the compute dtype (:253)
 //   dq   = ds . k,  dk = dsᵀ . q          -> packed (B, T, 3H) dqkv
+//   dbias[p, h] = sum over rows r with r % P = p of the unscaled f32 ds
+//          (:241-252), in the dbias edition only
 // A row whose keys are all masked sees every score at -1e9 and comes out
 // uniform and finite, in both directions, as in the Pallas kernel.
 //
-// Bound on the H100: at T = 20..30 a head's tile is tiny (q, k, v of 30 x 64
-// floats), so the work is the qkv read plus a few thousand float FMAs per
-// head; the kernels are latency- and bandwidth-bound, not tensor-core-bound.
-// Design: one block holds one head's tiles in shared memory (rows padded by
-// one float to keep the column walks conflict-free), reads qkv and dout in
-// their natural layouts with no head transpose, and writes the context or
-// the packed dqkv directly. SASRec's dh = 256 at T = 20 needs ~82 KB in
-// backward (q, k, v, dout and two (T, T) tiles), so both kernels opt into
-// dynamic shared memory above 48 KB.
+// Bound on the H100: at T = 20..49 a head's tile is tiny (q, k, v of 49 x 32
+// floats for Swin), so the work is the qkv read plus a few thousand float
+// FMAs per head; the kernels are latency- and bandwidth-bound, not
+// tensor-core-bound. Design: one block holds one head's tiles in shared
+// memory (rows padded by one float to keep the column walks conflict-free),
+// reads qkv and dout in their natural layouts with no head transpose, and
+// writes the context or the packed dqkv directly. SASRec's dh = 256 at
+// T = 20 needs ~82 KB in backward (q, k, v, dout and two (T, T) tiles), so
+// both kernels opt into dynamic shared memory above 48 KB.
+// dbias: the TPU kernel adds every block's ds into a resident buffer over
+// its sequential grid. Here blocks run in no order, so the dbias edition
+// gives block (chunk, p, head) a share of the rows r with r % P = p, walks
+// them in order with the sum in a (T, T) shared plane, and writes one
+// partial plane; idvs_sum_partials adds the chunks in a fixed order. No
+// atomics: two runs give the same bits.
 #include "common.cuh"
 #include "dropout.cuh"
 #include "mha_tile.cuh"
+#include "reduce.cuh"
 
 namespace idvs {
 namespace {
@@ -111,12 +121,18 @@ __global__ void __launch_bounds__(kMhaThreads)
   }
 }
 
+// One (row b, head h) tile of the backward: dqkv of the tile and, when da
+// is not null, the unscaled f32 ds added into the (T, T) plane da (each
+// element of da always owned by the same thread). The caller has made sure
+// the previous tile's reads of shared memory are over.
 template <typename T>
-__global__ void __launch_bounds__(kMhaThreads)
-    mha_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                   const T* __restrict__ dout, T* __restrict__ dqkv,
-                   Geometry g, Drop drop) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void bwd_tile(const T* __restrict__ qkv,
+                                         const float* __restrict__ bias,
+                                         const T* __restrict__ dout,
+                                         T* __restrict__ dqkv,
+                                         const Geometry& g, const Drop& drop,
+                                         int b, int h, float* smem,
+                                         float* da) {
   const int T_ = g.T, dh = g.dh, ld = dh + 1, lds = T_ + 1;
   float* qs = smem;             // [T][dh + 1]
   float* ks = qs + T_ * ld;
@@ -125,7 +141,6 @@ __global__ void __launch_bounds__(kMhaThreads)
   float* ps = os + T_ * ld;     // [T][T + 1]   p (f32), then dropped pd
   float* ds = ps + T_ * lds;    // [T][T + 1]   dp, then ds
 
-  const int b = blockIdx.x / g.nh, h = blockIdx.x % g.nh;
   const int H = g.nh * dh;
   const size_t row_stride = 3 * static_cast<size_t>(H);
   const T* base = qkv + static_cast<size_t>(b) * T_ * row_stride + h * dh;
@@ -140,7 +155,8 @@ __global__ void __launch_bounds__(kMhaThreads)
   softmax_rows(ps, T_);
 
   // dp = dout . vᵀ, dropped with the forward's mask
-  const uint32_t plane = static_cast<uint32_t>(blockIdx.x) * T_ * T_;
+  const uint32_t plane =
+      static_cast<uint32_t>(b * g.nh + h) * static_cast<uint32_t>(T_ * T_);
   for (int idx = threadIdx.x; idx < T_ * T_; idx += blockDim.x) {
     const int i = idx / T_, j = idx % T_;
     const float* oi = os + i * ld;
@@ -162,7 +178,9 @@ __global__ void __launch_bounds__(kMhaThreads)
     for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(~0u, dot, o);
     for (int j = lane; j < T_; j += 32) {
       const float p = pi[j];
-      di[j] = round_to<T>(p * (di[j] - dot) * g.scale);
+      const float dsf = p * (di[j] - dot);
+      if (da != nullptr) da[i * T_ + j] += dsf;
+      di[j] = round_to<T>(dsf * g.scale);
       pi[j] = round_to<T>(drop.apply(round_to<T>(p), plane + i * T_ + j));
     }
   }
@@ -185,6 +203,52 @@ __global__ void __launch_bounds__(kMhaThreads)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kMhaThreads)
+    mha_bwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
+                   const T* __restrict__ dout, T* __restrict__ dqkv,
+                   Geometry g, Drop drop) {
+  extern __shared__ float smem[];
+  bwd_tile(qkv, bias, dout, dqkv, g, drop, blockIdx.x / g.nh,
+           blockIdx.x % g.nh, smem, nullptr);
+}
+
+// The dbias edition (mode 1 only): block (chunk, p, h) walks, in order, its
+// share of the rows r with r % P = p, sums their ds in a shared (T, T)
+// plane and writes it as one partial plane: at ((chunk * P + p) * nh + h)
+// for a bias per head, at ((chunk * nh + h) * P + p) for a bias shared by
+// the heads, so that sum_partials over the leading index gives (P, nh, T,
+// T) or (P, 1, T, T).
+template <typename T>
+__global__ void __launch_bounds__(kMhaThreads)
+    mha_bwd_dbias_kernel(const T* __restrict__ qkv,
+                         const float* __restrict__ bias,
+                         const T* __restrict__ dout, T* __restrict__ dqkv,
+                         float* __restrict__ part, int B, int chunks,
+                         Geometry g, Drop drop) {
+  extern __shared__ float smem[];
+  const int T_ = g.T;
+  float* da = smem + 4 * T_ * (g.dh + 1) + 2 * T_ * (T_ + 1);   // [T][T]
+  const int h = blockIdx.x % g.nh;
+  const int p = (blockIdx.x / g.nh) % g.P;
+  const int chunk = blockIdx.x / (g.nh * g.P);
+  const int per_slot = B / g.P;                    // rows of slot p
+  const int per = (per_slot + chunks - 1) / chunks;
+  const int i_end = min(per_slot, (chunk + 1) * per);
+  for (int idx = threadIdx.x; idx < T_ * T_; idx += blockDim.x) da[idx] = 0.f;
+  for (int i = chunk * per; i < i_end; ++i) {
+    __syncthreads();   // the last tile's reads of shared memory are over
+    bwd_tile(qkv, bias, dout, dqkv, g, drop, i * g.P + p, h, smem, da);
+  }
+  __syncthreads();     // da's elements were written by their owners
+  const size_t slot = g.bias_sh == 0
+                          ? (static_cast<size_t>(chunk) * g.nh + h) * g.P + p
+                          : (static_cast<size_t>(chunk) * g.P + p) * g.nh + h;
+  float* out = part + slot * T_ * T_;
+  for (int idx = threadIdx.x; idx < T_ * T_; idx += blockDim.x)
+    out[idx] = da[idx];
+}
+
 size_t fwd_smem_bytes(int T_, int dh) {
   return sizeof(float) * (3 * static_cast<size_t>(T_) * (dh + 1) +
                           static_cast<size_t>(T_) * (T_ + 1));
@@ -193,6 +257,10 @@ size_t fwd_smem_bytes(int T_, int dh) {
 size_t bwd_smem_bytes(int T_, int dh) {
   return sizeof(float) * (4 * static_cast<size_t>(T_) * (dh + 1) +
                           2 * static_cast<size_t>(T_) * (T_ + 1));
+}
+
+size_t dbias_smem_bytes(int T_, int dh) {
+  return bwd_smem_bytes(T_, dh) + sizeof(float) * T_ * T_;
 }
 
 bool valid(int B, const Geometry& g, size_t smem) {
@@ -222,6 +290,20 @@ cudaError_t launch_bwd(const void* qkv, const float* bias, const void* dout,
   kernel<<<B * g.nh, kMhaThreads, smem, stream>>>(
       static_cast<const T*>(qkv), bias, static_cast<const T*>(dout),
       static_cast<T*>(dqkv), g, drop);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_dbias(const void* qkv, const float* bias,
+                             const void* dout, void* dqkv, float* part, int B,
+                             int chunks, const Geometry& g, Drop drop,
+                             size_t smem, cudaStream_t stream) {
+  auto kernel = mha_bwd_dbias_kernel<T>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<chunks * g.P * g.nh, kMhaThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), bias, static_cast<const T*>(dout),
+      static_cast<T*>(dqkv), part, B, chunks, g, drop);
   return cudaGetLastError();
 }
 
@@ -280,4 +362,46 @@ extern "C" int idvs_fused_mha_bwd(const void* qkv, const void* bias,
     return static_cast<int>(launch_bwd<__nv_bfloat16>(qkv, b, dout, dqkv, B,
                                                       g, drop, smem, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dbias edition of idvs_fused_mha_bwd, additive bias (mode 1) only: also
+// writes the partial planes of the unscaled f32 softmax backward summed over
+// the rows r with r % P = p, chunks * nh * P * T * T floats into part (see
+// mha_bwd_dbias_kernel for their order); idvs_sum_partials then adds the
+// chunks in a fixed order. P divides B and 1 <= chunks <= B / P.
+extern "C" int idvs_fused_mha_bwd_dbias(const void* qkv, const void* bias,
+                                        const void* dout, void* dqkv,
+                                        void* part, int B, int T_, int nh,
+                                        int dh, int P, int chunks,
+                                        long long bias_sp, long long bias_sh,
+                                        float scale, unsigned drop_key,
+                                        unsigned drop_thresh, float drop_scale,
+                                        int dtype, void* stream) {
+  using namespace idvs;
+  const Geometry g{T_, nh, dh, 1, P, bias_sp, bias_sh, scale};
+  const Drop drop{drop_key, drop_thresh, drop_scale};
+  const size_t smem = dbias_smem_bytes(T_, dh);
+  if (!valid(B, g, smem) || B % P || chunks < 1 || chunks > B / P)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* b = static_cast<const float*>(bias);
+  float* pt = static_cast<float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return static_cast<int>(launch_bwd_dbias<float>(qkv, b, dout, dqkv, pt, B,
+                                                    chunks, g, drop, smem, s));
+  if (dtype == kBF16)
+    return static_cast<int>(launch_bwd_dbias<__nv_bfloat16>(
+        qkv, b, dout, dqkv, pt, B, chunks, g, drop, smem, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out[e] = sum over k < nb, in order, of part[k * E + e] (reduce.cuh): the
+// second pass of the dbias edition.
+extern "C" int idvs_sum_partials(const void* part, void* out, int nb, int E,
+                                 void* stream) {
+  using namespace idvs;
+  if (nb < 1 || E < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(sum_partials(static_cast<const float*>(part),
+                                       static_cast<float*>(out), nb, E,
+                                       static_cast<cudaStream_t>(stream)));
 }

@@ -1,6 +1,7 @@
 // out = LN(x + dropout(act(x @ W1 + b1) @ W2 + b2)), forward: the post-LN
 // FFN tail of BERT (intermediate/output/output_ln, exact GELU) and of SASRec
-// (w_1/w_2/ln_ffn, ReLU).
+// (w_1/w_2/ln_ffn, ReLU), and the entry point's third activation,
+// quick_gelu h * sigmoid(1.702 h) (mlp.py _act_f32 :83-96).
 //
 // Replaces idvs/morec_tpu/ops/pallas/mlp.py _fwd_post_only_kernel (the
 // custom-VJP primal of fused_mlp_resln, when ypre and h are null) and
@@ -31,11 +32,13 @@ namespace {
 
 using namespace rowtile;
 
-enum Act { kGelu = 0, kRelu = 1 };
+// the numbering of ops/cuda/mlp.py ACTS; gemm.cu numbers its own
+enum Act { kGelu = 0, kRelu = 1, kQuickGelu = 2 };
 
 template <int ACT>
 __device__ __forceinline__ float act(float h) {
   if (ACT == kRelu) return fmaxf(h, 0.f);
+  if (ACT == kQuickGelu) return h / (1.f + expf(-1.702f * h));
   return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
 }
 
@@ -192,6 +195,9 @@ cudaError_t dispatch(const void* x, const void* w1, const void* b1,
   if (activation == kRelu)
     return dispatch_c<T, kRelu>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M, C,
                                 F, eps, d, s);
+  if (activation == kQuickGelu)
+    return dispatch_c<T, kQuickGelu>(x, w1, b1, w2, b2, g, bt, out, yp, hs, M,
+                                     C, F, eps, d, s);
   return cudaErrorInvalidValue;
 }
 
@@ -201,10 +207,10 @@ cudaError_t dispatch(const void* x, const void* w1, const void* b1,
 // x, out: (M, C); w1: (C, F) and w2: (F, C) in (in, out) layout; b1: (F,),
 // b2: (C,) in the compute dtype; gamma, beta: (C,) float. C must be 128,
 // 256 or 512 and F a multiple of 128 (of 256 at C = 512), or 2048 with F a
-// multiple of 1024. activation:
-// 0 = exact GELU, 1 = ReLU. ypre (M, C) and h (M, F), in the compute
-// dtype, are both given (training edition) or both null. Dropout:
-// drop_key = mix32(seed), drop_thresh = 0 for none (dropout.cuh).
+// multiple of 1024. activation: 0 = exact GELU, 1 = ReLU, 2 = quick_gelu.
+// ypre (M, C) and h (M, F), in the compute dtype, are both given (training
+// edition) or both null. Dropout: drop_key = mix32(seed), drop_thresh = 0
+// for none (dropout.cuh).
 extern "C" int idvs_mlp_resln_fwd(const void* x, const void* w1,
                                   const void* b1, const void* w2,
                                   const void* b2, const void* gamma,

@@ -27,9 +27,20 @@ In training mode DropPath draws one Bernoulli an image from the generator
 handed down the forward calls: the "band" pair takes the attention's through
 the ``DropPath`` module and the MLP's as the per-row scale of
 ``fused_mlp_res`` (the unit edition when DropPath is off), the "windows" pair
-takes both through the module, as the JAX block. Hidden dropout and dropout
-of the attention probabilities raise in training mode: Swin's published
-configs set both to 0, and the JAX block leaves its fused kernels there. A
+takes both through the module, as the JAX block. Two more paths run in
+training mode only, as in the JAX block, where the config asks for them:
+
+- dropout of the attention probabilities takes the window path whatever
+  ``kernels`` says: the QKV product on the partitioned windows,
+  ``fused_mha`` with the score bias (its relative-position table trains
+  through the kernel's dbias) and the dropout inside, the output product
+  (JAX swin.py:220-227);
+- hidden dropout (``layers.Dropout``) drops the patch embedding after its
+  LayerNorm, the attention's output and the MLP's; the MLP then runs
+  ``fused_mlp`` and the ``DropPath`` module, not ``fused_mlp_res``, as the
+  JAX block leaves its fused tails there.
+
+In eval mode both rates are inert and the block runs its kernel pair. A
 LayerNorm here returns its input's dtype
 (`models/layers.py`), so a bf16 image stays bf16 through the tower; the
 Flax tower's `nn.LayerNorm` promotes a bf16 input to its float32
@@ -45,11 +56,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.cuda.attention import (fused_mha_proj, fused_mha_proj_band,
-                                  window_partition, window_reverse)
+from ..ops.cuda.attention import (fused_mha, fused_mha_proj,
+                                  fused_mha_proj_band, window_partition,
+                                  window_reverse)
 from ..ops.cuda.mlp import fused_mlp, fused_mlp_res
-from .layers import (Dense, DropPath, LayerNorm, lecun_normal_, normal_,
-                     on_device)
+from .layers import (Dense, DropPath, Dropout, LayerNorm, drop_call,
+                     lecun_normal_, normal_, on_device)
 
 KERNELS = ("band", "windows")
 
@@ -117,13 +129,6 @@ def _check_kernels(kernels: str) -> None:
                          f"{kernels!r}")
 
 
-def _refuse_hidden_dropout(module: nn.Module, cfg: SwinConfig) -> None:
-    if module.training and cfg.hidden_dropout_prob:
-        raise NotImplementedError(
-            "Swin's hidden dropout in training mode is not ported (its "
-            "published configs set it to 0)")
-
-
 class SwinBlock(nn.Module):
     def __init__(self, cfg: SwinConfig, dim: int, n_heads: int,
                  resolution: Tuple[int, int], shift: bool, drop_path: float,
@@ -131,9 +136,6 @@ class SwinBlock(nn.Module):
         super().__init__()
         _check_kernels(kernels)
         device = on_device(device)
-        if cfg.attention_probs_dropout_prob:
-            raise NotImplementedError(
-                "dropout of Swin's attention probabilities is not ported")
         self.cfg, self.dim, self.n_heads = cfg, dim, n_heads
         self.resolution, self.kernels = tuple(resolution), kernels
         H, W = self.resolution
@@ -152,6 +154,7 @@ class SwinBlock(nn.Module):
         self.layernorm_after = LayerNorm(dim, eps, device=device)
         self.intermediate, self.output = dense(dim, F), dense(F, dim)
         self.drop_path = DropPath(drop_path)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
         # window bookkeeping, computed once with numpy: the table rows of
         # every (query, key) pair and, for a shifted block, the mask over
         # the padded map's windows
@@ -178,7 +181,11 @@ class SwinBlock(nn.Module):
         return bias
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        _refuse_hidden_dropout(self, self.cfg)
+        return self._forward(x, generator, window_path=self.training and bool(
+            self.cfg.attention_probs_dropout_prob))
+
+    def _forward(self, x: torch.Tensor, generator, window_path: bool
+                 ) -> torch.Tensor:
         H, W = self.resolution
         B, L, C = x.shape
         w, s = self.window, self.shift
@@ -198,7 +205,16 @@ class SwinBlock(nn.Module):
         wo = self.attention_output.weight.to(dt)
         bo = self.attention_output.bias.to(dt)
         bias = self.rel_bias()
-        if self.kernels == "band":
+        if window_path:
+            # the probabilities' dropout inside fused_mha; the products
+            # around it stay plain matmuls, as in the JAX block
+            rate, seed = drop_call(self.training,
+                                   self.cfg.attention_probs_dropout_prob,
+                                   generator)
+            ctx = fused_mha(window_partition(x, w) @ wqkv + bqkv, bias=bias,
+                            n_heads=self.n_heads, drop_rate=rate, seed=seed)
+            x = window_reverse(ctx @ wo + bo, w, Hp, Wp)
+        elif self.kernels == "band":
             x = fused_mha_proj_band(x, bias, wqkv, bqkv, wo, bo,
                                     n_heads=self.n_heads, window=w)
         else:
@@ -209,12 +225,14 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, (s, s), dims=(1, 2))
         if pad_h or pad_w:
             x = x[:, :H, :W]
-        x = shortcut + self.drop_path(x.reshape(B, L, C), generator)
+        x = self.dropout(x.reshape(B, L, C), generator)
+        x = shortcut + self.drop_path(x, generator)
 
         ln = (self.layernorm_after.weight, self.layernorm_after.bias)
         mlp = (self.intermediate.weight.to(dt), self.intermediate.bias.to(dt),
                self.output.weight.to(dt), self.output.bias.to(dt))
-        if self.kernels == "band":
+        hidden_drop = self.training and self.cfg.hidden_dropout_prob > 0
+        if self.kernels == "band" and not hidden_drop:
             # DropPath inside the kernel: its factor per image, broadcast
             # over the image's rows; the unit edition (no scale operand)
             # where DropPath is the identity
@@ -223,8 +241,8 @@ class SwinBlock(nn.Module):
                 sc = sc[:, None].expand(B, L).reshape(-1)
             return fused_mlp_res(x, sc, *mlp, ln=ln,
                                  eps=self.cfg.layer_norm_eps)
-        return x + self.drop_path(
-            fused_mlp(x, *mlp, ln=ln, eps=self.cfg.layer_norm_eps), generator)
+        h = fused_mlp(x, *mlp, ln=ln, eps=self.cfg.layer_norm_eps)
+        return x + self.drop_path(self.dropout(h, generator), generator)
 
 
 class PatchProject(nn.Module):
@@ -295,6 +313,7 @@ class SwinModel(nn.Module):
                                              c.embed_dim, device=device)
         self.patch_norm = LayerNorm(c.embed_dim, c.layer_norm_eps,
                                     device=device)
+        self.dropout = Dropout(c.hidden_dropout_prob)
         dpr = np.linspace(0, c.drop_path_rate, sum(c.depths))
         H = W = c.image_size // c.patch_size
         dim, bi = c.embed_dim, 0
@@ -319,8 +338,8 @@ class SwinModel(nn.Module):
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         x = self.patch_projection(x)
-        _refuse_hidden_dropout(self, self.cfg)
         x = self.patch_norm(x.reshape(x.shape[0], -1, x.shape[-1]))
+        x = self.dropout(x, generator)
         for name in self.layout:
             layer = getattr(self, name)
             x = (layer(x, generator) if isinstance(layer, SwinBlock)

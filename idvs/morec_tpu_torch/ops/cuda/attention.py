@@ -6,19 +6,22 @@ first ``fused_mha``. Kernels: ``csrc/fused_mha.cu``. They replace the TPU kernel
 ``idvs/morec_tpu/ops/pallas/attention.py`` ``fused_mha`` (``_fwd_kernel``
 and ``_bwd_kernel``), with the in-kernel dropout of the attention
 probabilities (``ops/dropout.py``). On the H100 both are latency- and
-bandwidth-bound: at T = 20..30 a head is a few thousand float FMAs, so one
+bandwidth-bound: at T = 20..49 a head is a few thousand float FMAs, so one
 block holds one (row, head) tile of q, k, v (and dout) and the (T, T)
 scores in shared memory and reads and writes the natural (B, T, 3H) /
 (B, T, H) layouts with no head transpose. The backward recomputes the
-probabilities and returns the packed dqkv; the mask or bias gets no
-gradient. The header of the .cu file has the details.
+probabilities and returns the packed dqkv; a bias that requires a gradient
+(Swin's relative-position table under attention dropout) gets one from the
+backward's dbias edition, summed over the rows that share a bias row in a
+fixed order. The header of the .cu file has the details.
 
 ``fused_mha`` runs the plain PyTorch version ``fused_mha_plain`` (autograd
 gives its gradient) for tensors on the CPU. For tensors on the card it
 launches the forward kernel, through a ``torch.autograd.Function`` whose
-backward is ``fused_mha_bwd`` when a gradient is wanted; it raises for
-anything the kernels do not take. ``fused_mha.launches`` and
-``fused_mha_bwd.launches`` count launches.
+backward is ``fused_mha_bwd`` (or ``fused_mha_bwd_dbias`` for a trainable
+bias) when a gradient is wanted; it raises for anything the kernels do not
+take. ``fused_mha.launches``, ``fused_mha_bwd.launches`` and
+``fused_mha_bwd_dbias.launches`` count launches.
 """
 
 from __future__ import annotations
@@ -56,9 +59,6 @@ def _geometry(qkv, mask, bias, n_heads):
         if B % bias.shape[0]:
             raise ValueError(f"bias period {bias.shape[0]} must divide "
                              f"B={B}")
-        if bias.requires_grad:
-            raise NotImplementedError(
-                "a trainable attention bias (Swin's dbias) is not ported")
     return B, T, H, H // n_heads
 
 
@@ -103,8 +103,9 @@ def _operands(qkv, mask, bias, n_heads, B, T, dh):
     return qkv, table, args, code
 
 
-def _smem(T, dh, tiles_d, tiles_t):
-    return 4 * (tiles_d * T * (dh + 1) + tiles_t * T * (T + 1))
+def _smem(T, dh, tiles_d, tiles_t, planes=0):
+    return 4 * (tiles_d * T * (dh + 1) + tiles_t * T * (T + 1)
+                + planes * T * T)
 
 
 def _launch_fwd(qkv, table, args, code, drop):
@@ -141,18 +142,74 @@ def fused_mha_bwd(qkv, table, dout, args, code, drop) -> torch.Tensor:
     return dqkv
 
 
+def dbias_chunks(B, P, nh, device) -> int:
+    """Shares of the B / P rows that take one bias row, one block each per
+    (row of the bias, head): about eight waves of the four blocks a
+    multiprocessor holds, as the windowed attention's backward, and no
+    share empty."""
+    rows = B // P
+    chunks = max(1, min(rows, -(-32 * sm_count(device.index or 0)
+                                // (P * nh))))
+    per = -(-rows // chunks)
+    return -(-rows // per)
+
+
+def sum_partials(part: torch.Tensor, out: torch.Tensor, nb: int) -> None:
+    """out (E floats) = the sum of part's nb planes of E floats, in order
+    (csrc/reduce.cuh)."""
+    err = lib.library().idvs_sum_partials(part.data_ptr(), out.data_ptr(),
+                                          nb, out.numel(),
+                                          lib.stream_handle(out))
+    lib.check(err, "sum_partials")
+
+
+def fused_mha_bwd_dbias(qkv, table, dout, args, code, drop, heads):
+    """The dbias edition of ``fused_mha_bwd`` (additive bias only): (dqkv,
+    dbias (P, heads, T, T) float32), dbias the unscaled softmax backward
+    summed over the rows r with r % P = p (and over the heads when
+    ``heads`` is 1) in a fixed order."""
+    B, T, nh, dh, _, P, sp, sh, scale = args
+    smem = _smem(T, dh, 4, 2, planes=1)
+    if smem > SMEM:
+        raise ValueError(f"fused_mha dbias backward kernel: T={T}, dh={dh} "
+                         f"needs {smem} B of shared memory, above 227 KB")
+    dout = dout.to(qkv.dtype).contiguous()
+    lib.check_device(dout)
+    chunks = dbias_chunks(B, P, nh, qkv.device)
+    part = torch.empty(chunks * nh * P * T * T, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    err = lib.library().idvs_fused_mha_bwd_dbias(
+        qkv.data_ptr(), table.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+        part.data_ptr(), B, T, nh, dh, P, chunks, sp, sh, scale, *drop, code,
+        lib.stream_handle(qkv))
+    lib.check(err, "fused_mha_bwd_dbias")
+    dbias = torch.empty(P, heads, T, T, device=qkv.device)
+    # a bias shared by the heads sums the heads' planes too (sh == 0)
+    sum_partials(part, dbias, chunks * nh if sh == 0 else chunks)
+    fused_mha_bwd_dbias.launches += 1
+    return dqkv, dbias
+
+
 class _FusedMHA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, table, args, code, drop):
+    def forward(ctx, qkv, bias, table, args, code, drop):
+        # bias: the caller's trainable bias cast to qkv's dtype (the kernels
+        # read ``table``, its float copy), or None
         ctx.save_for_backward(qkv, table)
         ctx.meta = (args, code, drop)
+        ctx.bias_heads = None if bias is None else bias.shape[1]
         return _launch_fwd(qkv, table, args, code, drop)
 
     @staticmethod
     def backward(ctx, dout):
         qkv, table = ctx.saved_tensors
-        return (fused_mha_bwd(qkv, table, dout, *ctx.meta),
-                None, None, None, None)
+        if not ctx.needs_input_grad[1]:
+            return (fused_mha_bwd(qkv, table, dout, *ctx.meta),
+                    None, None, None, None, None)
+        dqkv, dbias = fused_mha_bwd_dbias(qkv, table, dout, *ctx.meta,
+                                          ctx.bias_heads)
+        # in the dtype of the bias the kernel saw, as the TPU kernel's VJP
+        return dqkv, dbias.to(qkv.dtype), None, None, None, None
 
 
 def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
@@ -165,9 +222,11 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
       bias -- (P, nh or 1, T, T) additive score bias; P divides B and row r
               takes bias[r % P]; a head dim of 1 is shared by all heads
               (SASRec's (B, 1, L, L) causal mask, never broadcast in memory).
-    Both are cast to qkv's dtype first, as in the JAX kernel, and get no
-    gradient. drop_rate > 0 drops the cast probabilities with the mask of
-    ``seed`` (``ops/dropout.py``).
+    Both are cast to qkv's dtype first, as in the JAX kernel. The mask
+    gets no gradient; a bias that requires one (Swin's relative-position
+    table) gets it through that cast, so in bf16 it is rounded to bf16 as in
+    the JAX kernel's VJP. drop_rate > 0 drops the cast probabilities with
+    the mask of ``seed`` (``ops/dropout.py``).
     """
     B, T, H, dh = _geometry(qkv, mask, bias, n_heads)
     drop = dropout.kernel_args(drop_rate, seed)
@@ -175,8 +234,10 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
         return fused_mha_plain(qkv, mask, n_heads=n_heads, bias=bias,
                                drop_rate=drop_rate, seed=seed)
     qkv_c, table, args, code = _operands(qkv, mask, bias, n_heads, B, T, dh)
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        return _FusedMHA.apply(qkv_c, table, args, code, drop)
+    trains_bias = bias is not None and bias.requires_grad
+    if torch.is_grad_enabled() and (qkv.requires_grad or trains_bias):
+        return _FusedMHA.apply(qkv_c, bias.to(qkv.dtype) if trains_bias
+                               else None, table, args, code, drop)
     return _launch_fwd(qkv_c, table, args, code, drop)
 
 
@@ -468,6 +529,7 @@ def fused_mha_proj_band(x: torch.Tensor, bias: torch.Tensor,
 
 fused_mha.launches = 0
 fused_mha_bwd.launches = 0
+fused_mha_bwd_dbias.launches = 0
 fused_mha_proj.launches = 0
 fused_mha_proj_bwd.launches = 0
 fused_mha_proj_band.launches = 0

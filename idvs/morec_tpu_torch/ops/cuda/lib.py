@@ -40,6 +40,12 @@ _SIGNATURES = {
     # qkv, bias, dout, dqkv, then as the forward
     "idvs_fused_mha_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL,
                            _F] + _DROP + [_I, _P],
+    # qkv, bias, dout, dqkv, part, B, T, nh, dh, P, chunks, bias_sp, bias_sh,
+    # scale, drop, dtype, stream
+    "idvs_fused_mha_bwd_dbias": [_P] * 5 + [_I] * 6 + [_LL, _LL, _F] + _DROP
+                                + [_I, _P],
+    # part, out, nb, E, stream
+    "idvs_sum_partials": [_P, _P, _I, _I, _P],
     # x, res, w, b, gamma, beta, out, ypre, M, C, eps, drop, dtype, stream
     "idvs_proj_resln_fwd": [_P] * 8 + [_I, _I, _F] + _DROP + [_I, _P],
     # x, w1, b1, w2, b2, gamma, beta, out, ypre, h, M, C, F, eps, act, drop,

@@ -39,7 +39,8 @@ from ...models.layers import layer_norm
 
 KERNEL_WIDTHS = (128, 256, 512, 2048)   # C the kernels are instantiated for
 F_CHUNK = {128: 128, 256: 128, 512: 256, 2048: 1024}   # F: a multiple of
-ACTS = {"gelu": 0, "relu": 1}
+# csrc/mlp_resln.cu Act; the backward's products take gemm.py's numbering
+ACTS = {"gelu": 0, "relu": 1, "quick_gelu": 2}
 
 
 def _act(h: torch.Tensor, act: str) -> torch.Tensor:
@@ -273,8 +274,9 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                     drop_rate: float = 0.0, seed: int = None,
                     act: str = "gelu") -> torch.Tensor:
     """(..., C) -> (..., C): LN(x + dropout(act(x @ w1 + b1) @ w2 + b2));
-    w1 (C, F) and w2 (F, C) in (in, out) layout; act is exact "gelu" or
-    "relu"; drop_rate > 0 drops with the mask of ``seed``."""
+    w1 (C, F) and w2 (F, C) in (in, out) layout; act is exact "gelu",
+    "relu" or "quick_gelu" (h * sigmoid(1.702 h)); drop_rate > 0 drops with
+    the mask of ``seed``."""
     C, F = w1.shape
     _check_width(x, C)
     if act not in ACTS:

@@ -8,7 +8,9 @@
    user's history set to -inf, then the top-k.
 
 Requests pad up to the smallest configured batch bucket, as in the JAX
-engine, so the shapes the kernels see come from a short fixed list.
+engine, so the shapes the kernels see come from a short fixed list. The
+towers run in eval mode whatever mode the model is in (a model fresh from
+``make_train_state`` is in training mode), and the model keeps its mode.
 ``update_items`` splices new or changed items into the live table.
 """
 
@@ -19,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .train.evaluate import compute_item_embeddings
+from .train.evaluate import compute_item_embeddings, eval_mode
 
 
 def pad_histories(histories: Sequence[Sequence[int]], max_seq_len: int
@@ -91,7 +93,8 @@ class Retriever:
         ids = torch.from_numpy(ids).to(device)
         mask = torch.from_numpy(mask).to(device)
         table = self.item_table
-        states = self.model.user_states(table[ids], mask)
+        with eval_mode(self.model):
+            states = self.model.user_states(table[ids], mask)
         uvec = states[:, -1].float()
         scores = uvec @ table.float().T                      # (B, I + 1)
         scores[:, 0] = -torch.inf                            # padding item
@@ -114,6 +117,7 @@ class Retriever:
         if embeddings is None:
             if content is None:
                 raise ValueError("update_items needs content or embeddings")
-            embeddings = self.model.item_embs(
-                ids, torch.as_tensor(content).to(device))
+            with eval_mode(self.model):
+                embeddings = self.model.item_embs(
+                    ids, torch.as_tensor(content).to(device))
         self.item_table[ids] = embeddings.to(device, self.item_table.dtype)

@@ -118,8 +118,8 @@ def test_bf16_casts_like_pallas():
     (dict(mask=np.ones((4, 9))), ValueError),
     (dict(bias=np.zeros((3, 2, 10, 10))), ValueError),   # 3 does not divide 4
     (dict(bias=np.zeros((4, 3, 10, 10))), ValueError),   # head dim 3 != 2
-    (dict(bias=torch.zeros(4, 2, 10, 10, requires_grad=True)),
-     NotImplementedError),                    # no dbias (Swin-only)
+    (dict(bias=torch.zeros(4, 2, 10, 9, requires_grad=True)),
+     ValueError),                             # a trainable bias not (T, T)
     (dict(mask=np.ones((4, 10)), drop_rate=0.1), ValueError),   # no seed
     (dict(mask=np.ones((4, 10)), drop_rate=1.0, seed=3), ValueError),
 ])

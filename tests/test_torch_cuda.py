@@ -6,12 +6,15 @@ without one. On the card (no jax there, so without the repo's conftest):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from idvs.morec_tpu_torch.ops.cuda.attention import (
-    fused_mha, fused_mha_bwd, fused_mha_plain, fused_mha_proj,
+    fused_mha, fused_mha_bwd, fused_mha_bwd_dbias, fused_mha_plain,
+    fused_mha_proj,
     fused_mha_proj_band, fused_mha_proj_band_bwd, fused_mha_proj_band_plain,
     fused_mha_proj_bwd, fused_mha_proj_plain)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
@@ -120,7 +123,9 @@ def test_proj_resln(M, C, eps, dtype):
                                        (20, 512, 2048, "relu"),
                                        (45, 256, 384, "gelu"),
                                        (100, 512, 256, "gelu"),
-                                       (7, 128, 128, "relu")])
+                                       (7, 128, 128, "relu"),
+                                       (33, 512, 2048, "quick_gelu"),
+                                       (640, 2048, 8192, "quick_gelu")])
 def test_mlp_resln(M, C, F, act, dtype):
     rng = np.random.default_rng(3)
     x = _rand(rng, M, C, dtype=dtype)
@@ -193,6 +198,40 @@ def test_mha_backward(mode, dtype, drop):
 
 @pytest.mark.parametrize("drop", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,P,nh,heads", [
+    (288 * 4, 4, 12, 12),     # Swin-T stage 2 on 288 images, shifted: P = nW
+    (64 * 64, 1, 3, 3),       # stage 0, unshifted: one bias for every row
+    (64 * 64, 64, 3, 3),      # stage 0, shifted
+    (30, 6, 24, 24),          # stage 3 geometry, a bias per 5 rows
+    (40, 4, 3, 1)])           # one plane shared by the heads
+def test_mha_backward_dbias(B, P, nh, heads, dtype, drop):
+    """The dbias edition against autograd of the plain version: dqkv and
+    the gradient of a trainable float32 bias (P, heads, T, T) at Swin's
+    T = 49, dh = 32 (the -100 of a shift mask on some pairs), the
+    forward's dropped probabilities reused; the same bits on a second
+    run."""
+    T, dh = 49, 32
+    rng = np.random.default_rng(16)
+    qkv = _rand(rng, B, T, 3 * nh * dh, dtype=dtype)
+    bias = _rand(rng, P, heads, T, T, scale=0.5) - 100.0 * torch.from_numpy(
+        (rng.uniform(size=(P, 1, T, T)) < 0.2).astype(np.float32)).cuda()
+    dout = _rand(rng, B, T, nh * dh, dtype=dtype)
+    before = (fused_mha_bwd.launches, fused_mha_bwd_dbias.launches)
+    kern = lambda q, b: fused_mha(q, bias=b, n_heads=nh, drop_rate=drop,
+                                  seed=13)
+    out_k, got = _grads(kern, [qkv, bias], dout)
+    assert (fused_mha_bwd.launches, fused_mha_bwd_dbias.launches) == (
+        before[0], before[1] + 1)
+    out_p, want = _grads(lambda q, b: fused_mha_plain(
+        q, bias=b, n_heads=nh, drop_rate=drop, seed=13), [qkv, bias], dout)
+    _assert_close(out_k, out_p)
+    assert got[1].shape == bias.shape and got[1].dtype == torch.float32
+    _assert_grads_close(got, want, dtype)
+    _assert_same_bits(got, _grads(kern, [qkv, bias], dout)[1])
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,C,eps", [(3000, 512, 1e-12), (45, 256, 1e-6),
                                      (7, 128, 1e-12)])
 def test_proj_resln_backward(M, C, eps, dtype, drop):
@@ -223,7 +262,9 @@ def test_proj_resln_backward(M, C, eps, dtype, drop):
 @pytest.mark.parametrize("M,C,F,act", [(3000, 512, 2048, "gelu"),
                                        (20, 512, 2048, "relu"),
                                        (45, 256, 384, "relu"),
-                                       (7, 128, 128, "gelu")])
+                                       (7, 128, 128, "gelu"),
+                                       (300, 512, 2048, "quick_gelu"),
+                                       (10, 2048, 8192, "quick_gelu")])
 def test_mlp_resln_backward(M, C, F, act, dtype, drop):
     """The training edition (y_pre and h saved) and the backward kernels
     against autograd of the plain version: dx, dw1, db1, dw2, db2, dgamma,
@@ -349,8 +390,8 @@ def test_refuses_what_the_kernels_do_not_take(case):
             *_mlp_args(dtype=torch.float16)[0], **kw)),
         "mlp_misaligned": (ValueError, lambda: fused_mlp_resln(
             z(4 * 128 + 1)[1:].view(4, 128), w1, b1, w2, b2, **kw)),
-        "mha_bias_grad": (NotImplementedError, lambda: fused_mha(
-            z(2, 8, 96), bias=z(1, 2, 8, 8).requires_grad_(True),
+        "mha_bias_grad": (ValueError, lambda: fused_mha(   # 3 rows, B 2
+            z(2, 8, 96), bias=z(3, 2, 8, 8).requires_grad_(True),
             n_heads=2)),
         "scatter_fp16": (TypeError, lambda: scatter_add_rows(
             z(4).long(), z(4, 8).half(), 10)),
@@ -673,6 +714,48 @@ def test_post_ln_tails_train_at_2048(M, dtype, drop):
         _assert_close(out_k, out_p)
         _assert_grads_close(got, want, dtype)
         _assert_same_bits(got, _grads(kern, inputs, dout)[1])
+
+
+@pytest.mark.parametrize("kernels", ["band", "windows"])
+@pytest.mark.parametrize("resolution,C,nh,shift", [((14, 14), 96, 3, True),
+                                                   ((7, 7), 192, 6, False)])
+def test_dropout_swin_block_matches_its_cpu_twin(resolution, C, nh, shift,
+                                                 kernels):
+    """A SwinBlock with attention-probability and hidden dropout 0.1 and
+    DropPath 0.1 in training mode, float32: on the card (fused_mha and its
+    dbias edition, fused_mlp) and on a CPU copy (the plain versions), the
+    same seeds drawing the same masks; the output, the input's and every
+    parameter's gradient agree (the relative position bias table's
+    included)."""
+    from idvs.morec_tpu_torch.models.layers import init_parameters
+    from idvs.morec_tpu_torch.models.swin import SwinBlock, SwinConfig
+    cfg = SwinConfig(hidden_dropout_prob=0.1,
+                     attention_probs_dropout_prob=0.1)
+    blk = SwinBlock(cfg, C, nh, resolution, shift, 0.1, kernels=kernels,
+                    device="cuda")
+    init_parameters(blk, torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        blk.relative_position_bias_table.normal_(0.0, 0.5)
+    rng = np.random.default_rng(17)
+    N, L = 6, resolution[0] * resolution[1]
+    x, dout = _rand(rng, N, L, C), _rand(rng, N, L, C)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(blk).to(dev).train()
+        xx = x.detach().to(dev).requires_grad_(True)
+        before = (fused_mha.launches, fused_mha_bwd_dbias.launches,
+                  fused_mlp.launches, fused_mlp_bwd.launches)
+        out = m(xx, torch.Generator().manual_seed(5))
+        out.backward(dout.to(dev))
+        if dev == "cuda":
+            assert (fused_mha.launches, fused_mha_bwd_dbias.launches,
+                    fused_mlp.launches, fused_mlp_bwd.launches) == tuple(
+                        n + 1 for n in before)
+        runs.append([out.detach().cpu(), xx.grad.cpu()]
+                    + [p.grad.cpu() for p in m.parameters()])
+    for got, want in zip(*runs):
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
 # -- the in-batch CE (csrc/inbatch_ce.cu) -------------------------------------

@@ -51,10 +51,12 @@ def test_proj_resln_matches_pallas(eps, zero_bias):
 
 
 @pytest.mark.parametrize("act,eps", [("gelu", 1e-12), ("gelu", 1e-6),
-                                     ("relu", 1e-12), ("relu", 1e-6)])
+                                     ("relu", 1e-12), ("relu", 1e-6),
+                                     ("quick_gelu", 1e-5)])
 def test_mlp_resln_matches_pallas(act, eps):
-    """BERT's FFN tail (exact GELU) and SASRec's (ReLU), both epsilons. The
-    Pallas kernel's GELU uses an A&S erf (5e-7 from exact), inside RTOL."""
+    """BERT's FFN tail (exact GELU), SASRec's (ReLU), both epsilons, and the
+    entry point's quick_gelu, which no main path takes. The Pallas kernel's
+    GELU uses an A&S erf (5e-7 from exact), inside RTOL."""
     rng = np.random.default_rng(11)
     C, F, M = 64, 256, 40
     x = rng.standard_normal((M, C)).astype(np.float32)
@@ -113,10 +115,10 @@ def test_epilogues_reject_bad_arguments(call):
         with pytest.raises(ValueError):
             fused_mlp_resln(x, w1, b1, w2, b2, ln=ln, eps=1e-6,
                             drop_rate=1.0, seed=0)
-    elif call == "mlp_act":
+    elif call == "mlp_act":           # an activation no kernel has
         with pytest.raises(ValueError):
             fused_mlp_resln(x, w1, b1, w2, b2, ln=ln, eps=1e-6,
-                            act="quick_gelu")
+                            act="swish")
     else:
         with pytest.raises(ValueError):
             fused_mlp_resln(x, w1, b1, w2[:, :C - 1], b2, ln=ln, eps=1e-6)
@@ -172,7 +174,7 @@ def test_proj_resln_gradients_match_pallas(eps, zero_bias):
         (x, res, w, b, g, bt))
 
 
-@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("act", ["gelu", "relu", "quick_gelu"])
 def test_mlp_resln_gradients_match_pallas(act):
     """dx, dw1, db1, dw2, db2, dgamma, dbeta against jax.grad through the
     Pallas _bwd_post_kernel (interpret mode)."""

@@ -124,6 +124,37 @@ def test_pad_histories_matches_jax():
         np.testing.assert_array_equal(mask_t, mask_j)
 
 
+def test_serving_runs_in_eval_mode_whatever_the_model_mode():
+    """A tiny IDRec model at dropout 0.1, through make_train_state (which
+    leaves it in training mode): encode_catalog, recommend and
+    update_items give their eval-mode results, and the model stays in
+    training mode."""
+    from types import SimpleNamespace
+    from idvs.morec_tpu_torch.train.state import make_train_state
+    cfg = SimpleNamespace(item_tower="id", user_tower="sasrec",
+                          stage="end2end", embedding_dim=D,
+                          num_attention_heads=2, transformer_block=2,
+                          max_seq_len=L, drop_rate=0.1, lr=1e-3,
+                          l2_weight=0.0, fine_tune_lr=1e-3,
+                          fine_tune_l2_weight=0.0)
+    model = make_model(cfg, ITEMS, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    model.eval()
+    want_table = Retriever.encode_catalog(model, ITEMS, None, D,
+                                          batch_size=CHUNK)
+    want = Retriever(model, want_table, max_seq_len=L).recommend(HIST, 5)
+    make_train_state(model, cfg)
+    assert model.training
+    table = Retriever.encode_catalog(model, ITEMS, None, D, batch_size=CHUNK)
+    engine = Retriever(model, table, max_seq_len=L)
+    got = engine.recommend(HIST, 5)
+    engine.update_items([3], content=torch.tensor([3]))
+    assert model.training
+    assert torch.equal(table, want_table)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 def test_port_runs_the_slice_without_jax():
     """A fresh interpreter imports the port, encodes a catalog, serves a
     request and takes one train step on the CPU (text MoRec), then encodes
@@ -187,7 +218,9 @@ def test_port_runs_the_slice_without_jax():
         from idvs.morec_tpu_torch.models.vision_tower import VisionTower
         import idvs.morec_tpu_torch.convert
         scfg = SwinConfig(image_size=32, embed_dim=32, depths=(2, 2),
-                          num_heads=(2, 4), window_size=4)
+                          num_heads=(2, 4), window_size=4,
+                          hidden_dropout_prob=0.1,
+                          attention_probs_dropout_prob=0.1)
         tower = VisionTower(SwinModel(scfg, device="cpu"), "swin", 32,
                             scfg.num_features, device="cpu")
         vmodel = make_model(cfg, 40, tower, device="cpu",
@@ -203,7 +236,9 @@ def test_port_runs_the_slice_without_jax():
         assert not {1, 2, 3} & set(ids[0].tolist()) and 0 not in ids
         engine.update_items([7], content=pool[[2]])
         # one vision train step: images shipped with the batch, DropPath and
-        # dropout drawn, the tower chunked and rematerialised
+        # dropout drawn (Swin's attention and hidden dropout too: the window
+        # path and the bias table's gradient), the tower chunked and
+        # rematerialised; then a request, served in eval mode
         cfg.__dict__.update(encoder_chunk=8, drop_rate=0.1)
         vstate = make_train_state(vmodel, cfg, param_labels(vmodel))
         vstep = make_train_step(cfg, log_pop=torch.zeros(41))
@@ -219,6 +254,10 @@ def test_port_runs_the_slice_without_jax():
         assert torch.isfinite(loss) and vstate.step == 1
         assert not torch.equal(table0, vmodel.encoder.net.stage_0_block_1.
                                relative_position_bias_table)
+        assert vmodel.training
+        first = engine.recommend([[1, 2, 3]], top_k=5)
+        again = engine.recommend([[1, 2, 3]], top_k=5)
+        assert (first[0] == again[0]).all() and vmodel.training
         mods = [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
         assert not mods, mods

@@ -213,23 +213,25 @@ def test_swin_block_matches_flax(resolution, shift, kernels):
 
 
 def test_swin_block_refuses_what_is_not_ported():
-    """An unknown kernel selection and the two dropouts that Swin's
-    published configs leave at 0 raise; DropPath's training draw runs and
+    """An unknown kernel selection raises; a block built with both Swin
+    dropouts serves in eval mode and trains with both in training mode,
+    where they draw from the generator; DropPath's training draw runs and
     drops whole images."""
     cfg = SwinConfig(embed_dim=32, depths=(2,), num_heads=(2,), window_size=4)
     with pytest.raises(ValueError):
         SwinBlock(cfg, 32, 2, (8, 8), False, 0.0, kernels="auto",
                   device="cpu")
-    with pytest.raises(NotImplementedError):
-        SwinBlock(SwinConfig(attention_probs_dropout_prob=0.1), 32, 2, (8, 8),
-                  False, 0.0, device="cpu")
-    hidden = SwinBlock(SwinConfig(hidden_dropout_prob=0.1), 32, 2, (8, 8),
-                       False, 0.0, device="cpu")
-    init_parameters(hidden, torch.Generator().manual_seed(0))
-    x = torch.ones(1, 64, 32)
-    assert torch.isfinite(hidden.eval()(x)).all()
-    with pytest.raises(NotImplementedError):
-        hidden.train()(x)
+    drops = SwinBlock(SwinConfig(hidden_dropout_prob=0.1,
+                                 attention_probs_dropout_prob=0.1), 32, 2,
+                      (8, 8), False, 0.0, device="cpu")
+    init_parameters(drops, torch.Generator().manual_seed(0))
+    x = torch.randn(1, 64, 32, generator=torch.Generator().manual_seed(4))
+    assert torch.isfinite(drops.eval()(x)).all()
+    drops.train()
+    with pytest.raises(ValueError):               # no generator to draw from
+        drops(x)
+    out = drops(x, torch.Generator().manual_seed(3))
+    assert torch.isfinite(out).all() and not torch.equal(out, drops.eval()(x))
     blk = SwinBlock(cfg, 32, 2, (8, 8), False, 0.5, device="cpu").train()
     init_parameters(blk, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError):               # no generator to draw from
