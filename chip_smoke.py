@@ -22,7 +22,9 @@ failure:
 4. backward kernels: the training editions, the backward kernels and the
    scatter-add against autograd of the plain versions at the train step's
    shapes, and the quick_gelu FFN tail at C = 512 and 2048, in float32 and
-   bfloat16, dropout 0 and 0.1, with times;
+   bfloat16, dropout 0 and 0.1, with times; beside fused_mha's backward at
+   dropout 0, F.scaled_dot_product_attention's with a mask that needs no
+   gradient (the library column);
 5. serving: Retriever.encode_catalog over the catalog, then recommend for
    request batches of 1, 8 and 64, with every launch counter set to 0
    first; every kernel launched in the encode and in recommend, the table
@@ -60,7 +62,10 @@ failure:
     shapes for 288 images, and SASRec's attention backward (64 users, 2
     heads of 1024) and the training editions and backward of the post-LN
     tails at C = 2048 (dropout 0 and 0.1), against autograd of the plain
-    versions, in bfloat16 and float32, with times;
+    versions, in bfloat16 and float32, with times (SASRec's attention
+    beside F.scaled_dot_product_attention's backward at dropout 0); then
+    torch.matmul on bf16 operands beside gemm() at the three largest
+    products of the stage-0 band backward (a yardstick, printed);
 11. vision training: the counters set to 0, the bf16 train step (DropPath
     0.1, dropout 0.1, lr 1e-4) on batches drawn as bench.py draws them,
     images shipped with the batch from a pool of 1024: Zipf ids with dedup
@@ -128,8 +133,9 @@ is visible.
 runs only the card and build phases and a torch.profiler split by device
 kernel of the train step, of the vision catalog encode, of the vision
 recommend at batches of 1 and 64 and of the vision train step without and
-with Swin's dropouts (wall and device-busy ms, each kernel's share), and
-prints no result line.
+with Swin's dropouts (wall and device-busy ms, each kernel's share, and
+fused_mha's kernels even outside the top rows), and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -166,6 +172,7 @@ from idvs.morec_tpu_torch.ops.cuda.attention import (
     fused_mha_proj_plain, sum_partials, window_partition)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     scatter_add_rows, scatter_add_rows_plain)
+from idvs.morec_tpu_torch.ops.cuda.gemm import gemm
 from idvs.morec_tpu_torch.ops.cuda.inbatch_ce import (fused_ce,
                                                       fused_inbatch_ce,
                                                       fused_inbatch_ce_bwd)
@@ -204,6 +211,7 @@ LR, FT_LR, DROP = 1e-4, 5e-5, 0.1
 FIXED_STEPS, TIMED_STEPS = 20, 10
 CHECK_USERS = 8             # users of the float32 gradient check
 PROFILE_STEPS, PROFILE_ROWS = 5, 12   # --profile: steps traced, rows shown
+PROFILE_WATCH = "::mha_"    # --profile: fused_mha's kernels, always shown
 # timed calls behind a median: the text forward kernels (tenths of a
 # millisecond each), and the backward and vision cases (milliseconds each)
 KERNEL_REPS, FEW_REPS = 10, 5
@@ -582,6 +590,15 @@ def sdpa_call(qkv, n_heads, bias):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
 
 
+def sdpa_backward(qkv, n_heads, bias, dout, drop):
+    """A factory of sdpa_grad_calls with a mask that needs no gradient (the
+    library column of fused_mha_bwd), or None at dropout above 0, which
+    the library call does not draw as the port does."""
+    if drop:
+        return None
+    return lambda: sdpa_grad_calls(qkv, n_heads, bias, dout, trainable=False)
+
+
 def kernel_cases(rng, dev):
     """(kernel, label, dtype, kernel call, plain call, work, library call or
     None) at the text serving path's shapes. Operands are drawn on the
@@ -717,29 +734,34 @@ def backward_cases(rng, dev, titles: int):
             seed = int(rng.integers(1, 2 ** 31 - 1))
             mask = torch.from_numpy(ragged_mask(rng, titles, TITLE_LEN)
                                     ).to(dev)
+            qkv = g(titles, TITLE_LEN, 3 * HIDDEN, dt=dt)
+            dout = g(titles, TITLE_LEN, HIDDEN, dt=dt)
+            key_bias = ((1.0 - mask) * -1e9)[:, None, None, :]
             cases.append((
                 None, "fused_mha_bwd",
                 f"mask B={titles} T={TITLE_LEN} nh={HEADS} {tag}", dt,
-                [g(titles, TITLE_LEN, 3 * HIDDEN, dt=dt)],
-                g(titles, TITLE_LEN, HIDDEN, dt=dt),
+                [qkv], dout,
                 lambda q, m=mask, p=p, s=seed: fused_mha(
                     q, m, n_heads=HEADS, drop_rate=p, seed=s),
                 lambda q, m=mask, p=p, s=seed: fused_mha_plain(
                     q, m, n_heads=HEADS, drop_rate=p, seed=s),
                 mha_bwd_work(titles, TITLE_LEN, HEADS, HIDDEN // HEADS, it,
-                             mask.numel()), None))
+                             mask.numel()), None,
+                sdpa_backward(qkv, HEADS, key_bias, dout, p)))
             bias = causal_additive_mask(torch.from_numpy(
                 bench_log_mask(rng, TRAIN_B)).to(dev))
+            qkv, dout = g(TRAIN_B, L, 3 * D, dt=dt), g(TRAIN_B, L, D, dt=dt)
             cases.append((
                 None, "fused_mha_bwd",
                 f"bias B={TRAIN_B} T={L} nh={USER_HEADS} {tag}", dt,
-                [g(TRAIN_B, L, 3 * D, dt=dt)], g(TRAIN_B, L, D, dt=dt),
+                [qkv], dout,
                 lambda q, b=bias, p=p, s=seed: fused_mha(
                     q, bias=b, n_heads=USER_HEADS, drop_rate=p, seed=s),
                 lambda q, b=bias, p=p, s=seed: fused_mha_plain(
                     q, bias=b, n_heads=USER_HEADS, drop_rate=p, seed=s),
                 mha_bwd_work(TRAIN_B, L, USER_HEADS, D // USER_HEADS, it,
-                             bias.numel()), None))
+                             bias.numel()), None,
+                sdpa_backward(qkv, USER_HEADS, bias, dout, p)))
             for M, eps, act, who in ((M_bert, 1e-12, "gelu", "BERT"),
                                      (M_user, 1e-6, "relu", "SASRec")):
                 C = HIDDEN
@@ -804,7 +826,7 @@ def gradient_cases(cases, card: str, reps: int = FEW_REPS) -> dict:
     inputs that ask for it get a gradient."""
     results = {}
     for (res_name, bwd_name, label, dt, inputs, dout, kern, plain, work_bwd,
-         work_fwd) in cases:
+         work_fwd, *library) in cases:
         lk, lp = _leaves(inputs), _leaves(inputs)
         out_k, out_p = kern(*lk), plain(*lp)
         got = torch.autograd.grad(out_k, lk, dout, retain_graph=True)
@@ -822,7 +844,14 @@ def gradient_cases(cases, card: str, reps: int = FEW_REPS) -> dict:
                 f"backward {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound "
                 f"{bound_of(work_bwd, dt)[0]:.4f} ms by "
                 f"{bound_of(work_bwd, dt)[1]}")
-        _record(results, bwd_name, worst[1], bwd_ms, bwd_plain, work_bwd, dt)
+        library_ms = None
+        if library and library[0] is not None:
+            # the library call's backward alone, as the kernel's
+            library_ms = cuda_ms(library[0]()[1], reps=reps)
+            line += (f", library call F.scaled_dot_product_attention "
+                     f"backward {library_ms:.4f} ms")
+        _record(results, bwd_name, worst[1], bwd_ms, bwd_plain, work_bwd, dt,
+                library_ms)
         if res_name is not None:
             fwd_ms = cuda_ms(lambda: kern(*lk), reps=reps)
             fwd_plain = cuda_ms(lambda: plain(*lp), reps=reps)
@@ -1178,7 +1207,10 @@ def grad_check(dev, model, content, batch, pallas: bool = False) -> None:
 def profiled(run, n: int, what: str, unit: str, card: str) -> None:
     """torch.profiler split of ``run()`` by device kernel, reported per
     ``unit`` (``run`` covers n of them): the wall and device-busy time and
-    each kernel's share of the busy time (user annotations left out)."""
+    each kernel's share of the busy time (user annotations left out); the
+    top PROFILE_ROWS kernels, the rest in one line, and then each
+    fused_mha kernel (PROFILE_WATCH) among the rest on a line of its
+    own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1208,6 +1240,10 @@ def profiled(run, n: int, what: str, unit: str, card: str) -> None:
     print(f"  {100 * ms / busy:6.2f} % {ms:8.3f} ms/{unit} "
           f"x{sum(r[1] for r in rest):<5g} the other {len(rest)} kernels",
           flush=True)
+    for ms, count, name in rest:
+        if PROFILE_WATCH in name:
+            print(f"    of which {100 * ms / busy:6.2f} % {ms:8.3f} "
+                  f"ms/{unit} x{count:<5g} {name[:100]}", flush=True)
 
 
 def profile_train(dev, card: str, content, batches, cap: int) -> None:
@@ -1435,11 +1471,13 @@ def vision_backward_cases(dev, images: int):
             # SASRec's attention at the vision flagship: 2 heads of 1024
             bias = causal_additive_mask(torch.from_numpy(
                 bench_log_mask(rng, V_TRAIN_B, V_L)).to(dev))
+            qkv = g(V_TRAIN_B, V_L, 3 * C, dt=dt)
+            dout = g(V_TRAIN_B, V_L, C, dt=dt)
             cases.append((
                 None, "fused_mha_bwd",
                 f"bias B={V_TRAIN_B} T={V_L} nh={USER_HEADS} "
                 f"dh={C // USER_HEADS} {tag}", dt,
-                [g(V_TRAIN_B, V_L, 3 * C, dt=dt)], g(V_TRAIN_B, V_L, C, dt=dt),
+                [qkv], dout,
                 lambda q, b=bias, kw=kw: fused_mha(
                     q, bias=b, n_heads=USER_HEADS, drop_rate=kw["drop_rate"],
                     seed=kw["seed"]),
@@ -1447,7 +1485,8 @@ def vision_backward_cases(dev, images: int):
                     q, bias=b, n_heads=USER_HEADS, drop_rate=kw["drop_rate"],
                     seed=kw["seed"]),
                 mha_bwd_work(V_TRAIN_B, V_L, USER_HEADS, C // USER_HEADS, it,
-                             bias.numel()), None))
+                             bias.numel()), None,
+                sdpa_backward(qkv, USER_HEADS, bias, dout, kw["drop_rate"])))
             cases.append((
                 "fused_proj_resln_res", "fused_proj_resln_bwd",
                 f"SASRec M={M} C={C} {tag}", dt,
@@ -1472,16 +1511,62 @@ def vision_backward_cases(dev, images: int):
     return cases
 
 
-def sdpa_grad_calls(qkv, n_heads, bias, dout):
-    """F.scaled_dot_product_attention with the (P, nh, T, T) bias expanded to
-    (B, nh, T, T) in qkv's dtype as an attn_mask that requires a gradient:
-    (its forward, its backward alone on a kept graph, its forward and
-    backward), the library calls that compute fused_mha's output, dqkv and
-    per-row dbias. A yardstick only."""
+def gemm_yardstick(dev, card: str, images: int) -> None:
+    """torch.matmul on bf16 operands beside gemm() (csrc/gemm.cu) at the
+    three largest products of the Swin-T stage-0 band backward for `images`
+    images (M = images x 56 x 56 rows, C = 96): the recomputed qkv = x wqkv
+    + bqkv, dwqkv = xᵀ dqkv and dx = dqkv wqkvᵀ, 2 M C 3C operations each.
+    The yardstick of a tensor-core gemm.cu; the port never calls
+    torch.matmul for these products. Prints times and the largest
+    difference relative to the largest value; checks nothing."""
+    C, _, side = SWIN_STAGES[0]
+    M, dt = images * side * side, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    g = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev)
+                               * scale).to(dt)
+    x2, dqkv = g(M, C), g(M, 3 * C)
+    wqkv, bqkv = g(C, 3 * C, scale=C ** -0.5), g(3 * C, scale=0.1)
+    code = lib.dtype_code(x2)
+    work = (2 * M * C * 3 * C, (M * C + 3 * C * C + 3 * M * C) * 2)
+    bound_ms, bound_by = bound_of(work, dt)
+    for label, kern, library in (
+            ("qkv = x wqkv + bqkv",
+             lambda: gemm(x2, wqkv, M, 3 * C, C, (C, 1), (3 * C, 1), code,
+                          bias=bqkv),
+             lambda: torch.matmul(x2, wqkv)),
+            ("dwqkv = xT dqkv",
+             lambda: gemm(x2, dqkv, C, 3 * C, M, (1, C), (3 * C, 1), code),
+             lambda: torch.matmul(x2.t(), dqkv)),
+            ("dx = dqkv wqkvT",
+             lambda: gemm(dqkv, wqkv, M, C, 3 * C, (3 * C, 1), (1, 3 * C),
+                          code),
+             lambda: torch.matmul(dqkv, wqkv.t()))):
+        got, want = kern().float(), library().float()
+        if label.startswith("qkv"):
+            want = want + bqkv.float()
+        diff = ((got - want).abs().max() / want.abs().max()).item()
+        del got, want
+        ms = cuda_ms(kern, reps=VB_REPS)
+        library_ms = cuda_ms(library, reps=VB_REPS)
+        print(f"gemm yardstick [{label}, M={M} C={C} bf16]: gemm {ms:.4f} "
+              f"ms, library call torch.matmul {library_ms:.4f} ms "
+              f"({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms by "
+              f"{bound_by}, relative difference {diff:.2e} [{card}]",
+              flush=True)
+
+
+def sdpa_grad_calls(qkv, n_heads, bias, dout, trainable=True):
+    """F.scaled_dot_product_attention with the (P, 1 or nh, T or 1, T) bias
+    repeated to B rows in qkv's dtype as an attn_mask, which requires a
+    gradient when `trainable`: (its forward, its backward alone on a kept
+    graph, its forward and backward), the library calls that compute
+    fused_mha's output, dqkv and (trainable) per-row dbias. A yardstick
+    only."""
     B, T, H3 = qkv.shape
     leaf = qkv.detach().requires_grad_(True)
     mask = bias.detach().to(qkv.dtype).repeat(B // bias.shape[0], 1, 1, 1)
-    mask.requires_grad_(True)
+    mask.requires_grad_(trainable)
+    wrt = (leaf, mask) if trainable else (leaf,)
     heads = lambda t: t.reshape(B, T, n_heads, -1).transpose(1, 2)
     d = heads(dout)
 
@@ -1491,9 +1576,8 @@ def sdpa_grad_calls(qkv, n_heads, bias, dout):
 
     out = forward()
     return (forward,
-            lambda: torch.autograd.grad(out, (leaf, mask), d,
-                                        retain_graph=True),
-            lambda: torch.autograd.grad(forward(), (leaf, mask), d))
+            lambda: torch.autograd.grad(out, wrt, d, retain_graph=True),
+            lambda: torch.autograd.grad(forward(), wrt, d))
 
 
 def dbias_phase(dev, card: str, images: int) -> dict:
@@ -1554,7 +1638,7 @@ def dbias_phase(dev, card: str, images: int) -> dict:
                     ms = cuda_ms(grad_k, reps=VB_REPS)
                     plain_ms = cuda_ms(lambda: torch.autograd.grad(
                         out_p, lp, dout, retain_graph=True), reps=VB_REPS)
-                    chunks = dbias_chunks(B, P, nh, dev)
+                    chunks = dbias_chunks(B, T, nh, dh, P, lib.dtype_code(qkv))
                     part = torch.zeros(chunks * nh * P * T * T, device=dev)
                     summed = torch.empty(P, nh, T, T, device=dev)
                     sum_ms = cuda_ms(lambda: sum_partials(part, summed,
@@ -2439,6 +2523,8 @@ def main() -> int:
               f"plain versions' autograd "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
               flush=True)
+        torch.cuda.empty_cache()
+        gemm_yardstick(dev, card, V_BWD_IMAGES)
     torch.cuda.empty_cache()
     with phase("dbias kernels"):
         merge(kernels, dbias_phase(dev, card, V_BWD_IMAGES))

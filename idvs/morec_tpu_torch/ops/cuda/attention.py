@@ -5,15 +5,20 @@ and Swin's windowed attention with its projections (forward and backward).
 first ``fused_mha``. Kernels: ``csrc/fused_mha.cu``. They replace the TPU kernel
 ``idvs/morec_tpu/ops/pallas/attention.py`` ``fused_mha`` (``_fwd_kernel``
 and ``_bwd_kernel``), with the in-kernel dropout of the attention
-probabilities (``ops/dropout.py``). On the H100 both are latency- and
-bandwidth-bound: at T = 20..49 a head is a few thousand float FMAs, so one
-block holds one (row, head) tile of q, k, v (and dout) and the (T, T)
-scores in shared memory and reads and writes the natural (B, T, 3H) /
-(B, T, H) layouts with no head transpose. The backward recomputes the
-probabilities and returns the packed dqkv; a bias that requires a gradient
-(Swin's relative-position table under attention dropout) gets one from the
-backward's dbias edition, summed over the rows that share a bias row in a
-fixed order. The header of the .cu file has the details.
+probabilities (``ops/dropout.py``). On the H100 they are bound by bytes: a
+(row, head) tile of T <= 128 rows does about T operations per byte it
+moves. The bf16 kernels keep q, k, v (and dout) as bf16 tiles in shared
+memory, copied with 16-byte ``cp.async`` from the natural (B, T, 3H) /
+(B, T, H) layouts, run every (T, T, dh) product as ``mma.sync`` bf16 tiles
+with float32 accumulators, and keep the scores, the softmax, the dropout
+and (backward) dp and ds in registers, one warp to 16 query rows; blocks
+are persistent and copy the next tile while they compute the current one.
+The float32 kernels are scalar float FMAs over float tiles in shared
+memory. The backward recomputes the probabilities and returns the packed
+dqkv; a bias that requires a gradient (Swin's relative-position table under
+attention dropout) gets one from the backward's dbias edition, summed over
+the rows that share a bias row in a fixed order. The kernels choose their
+own blocking; the header of the .cu file has the details.
 
 ``fused_mha`` runs the plain PyTorch version ``fused_mha_plain`` (autograd
 gives its gradient) for tensors on the CPU. For tensors on the card it
@@ -103,17 +108,29 @@ def _operands(qkv, mask, bias, n_heads, B, T, dh):
     return qkv, table, args, code
 
 
-def _smem(T, dh, tiles_d, tiles_t, planes=0):
-    return 4 * (tiles_d * T * (dh + 1) + tiles_t * T * (T + 1)
-                + planes * T * T)
+# editions of the kernel library's shared-memory query (csrc/fused_mha.cu)
+FWD, BWD, DBIAS = 0, 1, 2
+
+
+def mha_smem(T, dh, edition, code) -> int:
+    """Bytes of shared memory a block of the edition (FWD, BWD, DBIAS)
+    needs at (T, dh) in the compute dtype ``code``, as the .cu file's
+    blocking lays it out."""
+    return lib.library().idvs_fused_mha_smem(T, dh, edition, code)
+
+
+def _check_smem(name, T, dh, edition, code):
+    """Raises if a block of the edition does not fit a block's shared
+    memory at (T, dh) in the compute dtype."""
+    smem = mha_smem(T, dh, edition, code)
+    if smem > SMEM:
+        raise ValueError(f"{name} kernel: T={T}, dh={dh} needs {smem} B of "
+                         f"shared memory, above the 227 KB a block has")
 
 
 def _launch_fwd(qkv, table, args, code, drop):
     B, T, nh, dh = args[:4]
-    smem = _smem(T, dh, 3, 1)
-    if smem > SMEM:
-        raise ValueError(f"fused_mha kernel: T={T}, dh={dh} needs {smem} B "
-                         f"of shared memory, above the 227 KB a block has")
+    _check_smem("fused_mha", T, dh, FWD, code)
     out = torch.empty((B, T, nh * dh), dtype=qkv.dtype, device=qkv.device)
     err = lib.library().idvs_fused_mha_fwd(
         qkv.data_ptr(), table.data_ptr(), out.data_ptr(), *args, *drop, code,
@@ -127,10 +144,7 @@ def fused_mha_bwd(qkv, table, dout, args, code, drop) -> torch.Tensor:
     """Packed (B, T, 3H) dqkv of the forward launched with the same table,
     geometry ``args`` and dropout ``drop`` (key, thresh, scale)."""
     B, T, nh, dh = args[:4]
-    smem = _smem(T, dh, 4, 2)
-    if smem > SMEM:
-        raise ValueError(f"fused_mha backward kernel: T={T}, dh={dh} needs "
-                         f"{smem} B of shared memory, above 227 KB")
+    _check_smem("fused_mha backward", T, dh, BWD, code)
     dout = dout.to(qkv.dtype).contiguous()
     lib.check_device(dout)
     dqkv = torch.empty_like(qkv)
@@ -142,16 +156,14 @@ def fused_mha_bwd(qkv, table, dout, args, code, drop) -> torch.Tensor:
     return dqkv
 
 
-def dbias_chunks(B, P, nh, device) -> int:
+def dbias_chunks(B, T, nh, dh, P, code) -> int:
     """Shares of the B / P rows that take one bias row, one block each per
-    (row of the bias, head): about eight waves of the four blocks a
-    multiprocessor holds, as the windowed attention's backward, and no
-    share empty."""
-    rows = B // P
-    chunks = max(1, min(rows, -(-32 * sm_count(device.index or 0)
-                                // (P * nh))))
-    per = -(-rows // chunks)
-    return -(-rows // per)
+    (row of the bias, head), as the dbias edition's kernel for the compute
+    dtype ``code`` chooses them (csrc/fused_mha.cu ``dbias_chunks``)."""
+    chunks = lib.library().idvs_fused_mha_dbias_chunks(B, T, nh, dh, P, code)
+    if chunks < 0:
+        lib.check(-chunks, "fused_mha_bwd_dbias chunks")
+    return chunks
 
 
 def sum_partials(part: torch.Tensor, out: torch.Tensor, nb: int) -> None:
@@ -169,13 +181,10 @@ def fused_mha_bwd_dbias(qkv, table, dout, args, code, drop, heads):
     summed over the rows r with r % P = p (and over the heads when
     ``heads`` is 1) in a fixed order."""
     B, T, nh, dh, _, P, sp, sh, scale = args
-    smem = _smem(T, dh, 4, 2, planes=1)
-    if smem > SMEM:
-        raise ValueError(f"fused_mha dbias backward kernel: T={T}, dh={dh} "
-                         f"needs {smem} B of shared memory, above 227 KB")
+    _check_smem("fused_mha dbias backward", T, dh, DBIAS, code)
     dout = dout.to(qkv.dtype).contiguous()
     lib.check_device(dout)
-    chunks = dbias_chunks(B, P, nh, qkv.device)
+    chunks = dbias_chunks(B, T, nh, dh, P, code)
     part = torch.empty(chunks * nh * P * T * T, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     err = lib.library().idvs_fused_mha_bwd_dbias(

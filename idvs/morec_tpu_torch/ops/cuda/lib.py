@@ -44,6 +44,10 @@ _SIGNATURES = {
     # scale, drop, dtype, stream
     "idvs_fused_mha_bwd_dbias": [_P] * 5 + [_I] * 6 + [_LL, _LL, _F] + _DROP
                                 + [_I, _P],
+    # T, dh, edition, dtype -> shared memory bytes of a block
+    "idvs_fused_mha_smem": [_I] * 4,
+    # B, T, nh, dh, P, dtype -> the dbias edition's chunks
+    "idvs_fused_mha_dbias_chunks": [_I] * 6,
     # part, out, nb, E, stream
     "idvs_sum_partials": [_P, _P, _I, _I, _P],
     # x, res, w, b, gamma, beta, out, ypre, M, C, eps, drop, dtype, stream

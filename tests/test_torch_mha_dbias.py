@@ -89,3 +89,72 @@ def test_bf16_dbias_is_rounded_to_bf16():
     assert torch.equal(got, got.bfloat16().float())
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=2e-2 * np.abs(want).max())
+
+
+def _pinned_case(case):
+    """(qkv, bias, g, nh) of a shape where the card's bf16 tiles pad T and
+    where a row's keys all sit at -1e9."""
+    rng = np.random.default_rng(7)
+    if case == "swin_shift":
+        # two 14 x 14 maps in 7 x 7 windows, shifted by 3: P = nW = 4
+        from idvs.morec_tpu_torch.models.swin import _shift_mask
+        B, P, nh, T_, dh = 8, 4, 3, 49, 32
+        bias = (0.5 * rng.standard_normal((1, nh, T_, T_))
+                + _shift_mask(14, 14, 7, 3)[:, None]).astype(np.float32)
+    elif case == "t1":
+        B, P, nh, T_, dh = 6, 3, 2, 1, 16
+        bias = rng.standard_normal((P, nh, T_, T_)).astype(np.float32)
+    else:   # "masked_row": query row 5 of bias row 1 sees every key at -1e9
+        B, P, nh, T_, dh = 4, 2, 2, 17, 16
+        bias = rng.standard_normal((P, nh, T_, T_)).astype(np.float32)
+        bias[1, :, 5, :] = -1e9
+    qkv = rng.standard_normal((B, T_, 3 * nh * dh)).astype(np.float32)
+    g = rng.standard_normal((B, T_, nh * dh)).astype(np.float32)
+    return qkv, bias, g, nh
+
+
+@pytest.mark.parametrize("case", ["swin_shift", "t1", "masked_row"])
+def test_plain_version_at_padded_shapes_matches_pallas(case):
+    """The plain version and its autograd (dqkv and dbias) against the
+    Pallas kernel in interpret mode at the shapes whose T the card's bf16
+    kernels pad to a multiple of 16: Swin's T = 49, dh = 32 under the real
+    shift mask of -100 (P = nW), T = 1, and T = 17 with a query row whose
+    keys are all at -1e9 (uniform over the 17 real keys, finite)."""
+    qkv, bias, g, nh = _pinned_case(case)
+    out = fused_mha(torch.from_numpy(qkv), bias=torch.from_numpy(bias),
+                    n_heads=nh).numpy()
+    want = np.asarray(jax_fused_mha(jnp.asarray(qkv), bias=jnp.asarray(bias),
+                                    n_heads=nh, interpret=True))
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, want, rtol=2e-5, atol=2e-5)
+    got_q, got_b = _port_grads(qkv, bias, g, nh)
+    want_q, want_b = _jax_grads(qkv, bias, g, nh)
+    assert np.isfinite(got_q).all() and torch.isfinite(got_b).all()
+    np.testing.assert_allclose(got_q, want_q, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got_b.numpy(), want_b, rtol=1e-4, atol=1e-5)
+    if case == "masked_row":
+        H = qkv.shape[-1] // 3
+        v = qkv[1, :, 2 * H:]               # row 1 takes bias row 1
+        np.testing.assert_allclose(out[1, 5], v.mean(0), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_plain_version_fully_masked_row_gradient_matches_pallas():
+    """BERT's key mask with a row whose keys are all masked, at T = 30 (the
+    card pads it to 32): dqkv against the Pallas backward in interpret
+    mode, finite."""
+    B, T_, nh, dh = 4, 30, 2, 16
+    rng = np.random.default_rng(8)
+    qkv = rng.standard_normal((B, T_, 3 * nh * dh)).astype(np.float32)
+    mask = (np.arange(T_)[None] < np.array([0, 30, 7, 1])[:, None]).astype(
+        np.float32)
+    g = rng.standard_normal((B, T_, nh * dh)).astype(np.float32)
+    want = jax.grad(lambda q: jnp.sum(jax_fused_mha(
+        q, jnp.asarray(mask), n_heads=nh, interpret=True) * jnp.asarray(g)))(
+            jnp.asarray(qkv))
+    q = torch.from_numpy(qkv).requires_grad_()
+    (fused_mha(q, torch.from_numpy(mask), n_heads=nh)
+     * torch.from_numpy(g)).sum().backward()
+    assert torch.isfinite(q.grad).all()
+    np.testing.assert_allclose(q.grad.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
