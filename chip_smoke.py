@@ -34,8 +34,9 @@ failure:
    recommend p50 per batch;
 6. training: the counters set to 0, 20 steps on one fixed batch (the loss
    must fall), then 10 timed steps on distinct batches (p50, samples/s);
-   every training-edition and backward kernel launched, every parameter
-   finite;
+   every training-edition and backward kernel launched, gemm 36 times a
+   step, every parameter finite (phases 11, 14 and 17 print gemm's
+   launches a step too);
 7. gradient check: one float32 step without dropout on 8 users, on the card
    and through the plain path on a CPU copy of the model: the loss and
    every parameter's gradient agree;
@@ -64,8 +65,11 @@ failure:
     tails at C = 2048 (dropout 0 and 0.1), against autograd of the plain
     versions, in bfloat16 and float32, with times (SASRec's attention
     beside F.scaled_dot_product_attention's backward at dropout 0); then
-    torch.matmul on bf16 operands beside gemm() at the three largest
-    products of the stage-0 band backward (a yardstick, printed);
+    the tensor-core gemm() (every backward's products) at the three
+    largest products of the stage-0 band backward, against torch.matmul
+    on the same bf16 operands, and at the four of the text FFN tail's
+    backward with their epilogues, against its plain version, with times
+    beside torch.matmul's, TFLOP/s and bounds;
 11. vision training: the counters set to 0, the bf16 train step (DropPath
     0.1, dropout 0.1, lr 1e-4) on batches drawn as bench.py draws them,
     images shipped with the batch from a pool of 1024: Zipf ids with dedup
@@ -157,6 +161,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from idvs.morec_tpu_torch.bench_gemm import product_cases
+from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models import sasrec
 from idvs.morec_tpu_torch.models.model import make_model
@@ -172,7 +178,7 @@ from idvs.morec_tpu_torch.ops.cuda.attention import (
     fused_mha_proj_plain, sum_partials, window_partition)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     scatter_add_rows, scatter_add_rows_plain)
-from idvs.morec_tpu_torch.ops.cuda.gemm import gemm
+from idvs.morec_tpu_torch.ops.cuda.gemm import gemm, gemm_plain
 from idvs.morec_tpu_torch.ops.cuda.inbatch_ce import (fused_ce,
                                                       fused_inbatch_ce,
                                                       fused_inbatch_ce_bwd)
@@ -212,6 +218,10 @@ FIXED_STEPS, TIMED_STEPS = 20, 10
 CHECK_USERS = 8             # users of the float32 gradient check
 PROFILE_STEPS, PROFILE_ROWS = 5, 12   # --profile: steps traced, rows shown
 PROFILE_WATCH = "::mha_"    # --profile: fused_mha's kernels, always shown
+# --profile: csrc/gemm.cu's kernels (products, split-K sums, A's
+# prologue), summed on a line of their own
+PROFILE_GEMM = ("::gemm_mma_kernel", "::gemm_kernel<",
+                "::splitk_reduce_kernel", "::act_cast_kernel")
 # timed calls behind a median: the text forward kernels (tenths of a
 # millisecond each), and the backward and vision cases (milliseconds each)
 KERNEL_REPS, FEW_REPS = 10, 5
@@ -260,10 +270,6 @@ DP_STEPS = 2                # gather_negatives steps at world size 1
 # Swin-T stages: (C, heads, side of the token map)
 SWIN_STAGES = ((96, 3, 56), (192, 6, 28), (384, 12, 14), (768, 24, 7))
 WINDOW = 7
-# the card's published peaks (H100 SXM data sheet): dense tensor-core bf16,
-# float32 outside the tensor cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
 
 # Kernel vs plain tolerances (max abs error). float32: both sides accumulate
 # in float32 in different orders over K <= 2048 terms of O(1) values, about
@@ -373,6 +379,7 @@ SOURCES = {
     "fused_mlp_bwd": ("premlp_bwd.cu", "mlp.py:134"),
     "fused_inbatch_ce": ("inbatch_ce.cu", "inbatch_ce.py:61"),
     "fused_inbatch_ce_bwd": ("inbatch_ce.cu", "inbatch_ce.py:99"),
+    "gemm": ("gemm.cu", "mlp.py:444"),
 }
 WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "fused_mha_bwd_dbias": fused_mha_bwd_dbias,
@@ -391,11 +398,11 @@ WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "fused_mlp_res_bwd": fused_mlp_res_bwd,
             "fused_mlp_bwd": fused_mlp_bwd,
             "fused_inbatch_ce": fused_inbatch_ce,
-            "fused_inbatch_ce_bwd": fused_inbatch_ce_bwd}
+            "fused_inbatch_ce_bwd": fused_inbatch_ce_bwd, "gemm": gemm}
 SERVE_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln")
 TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
                  "fused_proj_resln_bwd", "fused_mlp_resln_res",
-                 "fused_mlp_resln_bwd", "scatter_add_rows")
+                 "fused_mlp_resln_bwd", "scatter_add_rows", "gemm")
 VISION_ENCODE_KERNELS = ("fused_mha_proj_band", "fused_mlp_res")
 VISION_RECOMMEND_KERNELS = ("fused_mha", "fused_proj_resln",
                             "fused_mlp_resln")
@@ -404,10 +411,13 @@ VISION_TRAIN_KERNELS = ("fused_mha_proj_band", "fused_mha_proj_band_bwd",
                         "fused_mlp_res", "fused_mlp_res_bwd", "fused_mha",
                         "fused_mha_bwd", "fused_proj_resln_res",
                         "fused_proj_resln_bwd", "fused_mlp_resln_res",
-                        "fused_mlp_resln_bwd")
+                        "fused_mlp_resln_bwd", "gemm")
 VISION_WINDOWS_TRAIN_KERNELS = ("fused_mha_proj", "fused_mha_proj_bwd",
-                                "fused_mlp", "fused_mlp_bwd")
+                                "fused_mlp", "fused_mlp_bwd", "gemm")
 PALLAS_KERNELS = ("fused_inbatch_ce", "fused_inbatch_ce_bwd")
+# gemm launches a text train step: BERT's 4 and SASRec's 2 layers, each a
+# projection tail's backward (2 products) and an FFN tail's (4)
+TEXT_GEMM_STEP = 36
 # a vision train step with Swin's dropouts: a step's launches of each
 # kernel (12 Swin blocks on the window path, SASRec's 2 blocks), and the
 # kernel pairs of the two selections, which it never takes
@@ -448,22 +458,6 @@ def phase(name: str):
     yield
     torch.cuda.synchronize()
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
-
-
-def cuda_ms(fn, reps: int = KERNEL_REPS, warmup: int = 3) -> float:
-    """Median milliseconds of one call, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def ragged_mask(rng, B: int, T: int) -> np.ndarray:
@@ -568,16 +562,6 @@ def ce_bwd_work(M, N, D, it, id_elems):
     # writes du and dcand
     return (6 * M * N * D,
             2 * (M + N) * D * it + 12 * N + 4 * id_elems + 12 * M)
-
-
-def bound_of(work, dt) -> tuple:
-    """(ms, "operations" or "bytes"): the least time the card could take,
-    the larger of the operations over the peak rate of their type and the
-    bytes over the memory rate."""
-    ops_ms = work[0] / PEAK_FLOPS[dt] * 1e3
-    bytes_ms = work[1] / PEAK_BYTES * 1e3
-    return ((ops_ms, "operations") if ops_ms >= bytes_ms
-            else (bytes_ms, "bytes"))
 
 
 def sdpa_call(qkv, n_heads, bias):
@@ -1148,6 +1132,13 @@ def train_path(dev, card: str, content, batches, cap: int):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
           flush=True)
     print(f"training launches {launched}", flush=True)
+    steps = FIXED_STEPS + len(walls)
+    print(f"gemm launches a text train step: {launched['gemm'] / steps:g} "
+          f"(BERT's and SASRec's post-LN tails: 2 a projection tail, 4 an "
+          f"FFN tail)", flush=True)
+    require(launched["gemm"] == TEXT_GEMM_STEP * steps,
+            f"gemm launched {launched['gemm']} times in {steps} text steps, "
+            f"not {TEXT_GEMM_STEP} a step")
     for n in TRAIN_KERNELS:
         require(launched[n] > 0, f"{n} never launched in training")
     require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
@@ -1208,9 +1199,9 @@ def profiled(run, n: int, what: str, unit: str, card: str) -> None:
     """torch.profiler split of ``run()`` by device kernel, reported per
     ``unit`` (``run`` covers n of them): the wall and device-busy time and
     each kernel's share of the busy time (user annotations left out); the
-    top PROFILE_ROWS kernels, the rest in one line, and then each
-    fused_mha kernel (PROFILE_WATCH) among the rest on a line of its
-    own."""
+    top PROFILE_ROWS kernels, the rest in one line, then each fused_mha
+    kernel (PROFILE_WATCH) among the rest on a line of its own, and last
+    the sum of gemm.cu's kernels (PROFILE_GEMM)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1244,6 +1235,10 @@ def profiled(run, n: int, what: str, unit: str, card: str) -> None:
         if PROFILE_WATCH in name:
             print(f"    of which {100 * ms / busy:6.2f} % {ms:8.3f} "
                   f"ms/{unit} x{count:<5g} {name[:100]}", flush=True)
+    gemm = [r for r in rows if any(k in r[2] for k in PROFILE_GEMM)]
+    ms = sum(r[0] for r in gemm)
+    print(f"  gemm.cu's kernels: {100 * ms / busy:.2f} % {ms:.3f} ms/{unit} "
+          f"x{sum(r[1] for r in gemm):g} in {len(gemm)} kernels", flush=True)
 
 
 def profile_train(dev, card: str, content, batches, cap: int) -> None:
@@ -1511,48 +1506,58 @@ def vision_backward_cases(dev, images: int):
     return cases
 
 
-def gemm_yardstick(dev, card: str, images: int) -> None:
-    """torch.matmul on bf16 operands beside gemm() (csrc/gemm.cu) at the
-    three largest products of the Swin-T stage-0 band backward for `images`
-    images (M = images x 56 x 56 rows, C = 96): the recomputed qkv = x wqkv
-    + bqkv, dwqkv = xᵀ dqkv and dx = dqkv wqkvᵀ, 2 M C 3C operations each.
-    The yardstick of a tensor-core gemm.cu; the port never calls
-    torch.matmul for these products. Prints times and the largest
-    difference relative to the largest value; checks nothing."""
-    C, _, side = SWIN_STAGES[0]
-    M, dt = images * side * side, torch.bfloat16
+def gemm_phase(dev, card: str, images: int, titles: int) -> dict:
+    """gemm() (csrc/gemm.cu, bf16) at the main paths' largest products
+    (bench_gemm.product_cases), beside torch.matmul of the same operands
+    (the product alone; the port never calls it for these) and gemm_plain
+    (its plain version): the three largest products of the Swin-T stage-0
+    band backward for `images` images (M = images x 56 x 56 rows, C = 96:
+    the recomputed qkv = x wqkv + bqkv, dwqkv = xᵀ dqkv and dx = dqkv
+    wqkvᵀ), held against the library (torch.addmm, the one call computing
+    x wqkv + bqkv, and torch.matmul), then the four products of the text
+    FFN tail's backward (M = `titles` x 30 rows, C = 512, F = 2048: dw2 =
+    cast(gelu(h))ᵀ dz, dh = (dz w2ᵀ) gelu'(h), dw1 = xᵀ dh, dx = dh w1ᵀ +
+    dyp) with their epilogues, held against gemm_plain (no one PyTorch call
+    computes them); each fatal above GRAD_TOL (bf16) of max(1, the largest
+    value). Times, TFLOP/s and bounds; returns the "gemm" row, the stage-0
+    qkv its headline."""
+    dt, tol = torch.bfloat16, GRAD_TOL[torch.bfloat16]
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
-    g = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=dev)
-                               * scale).to(dt)
-    x2, dqkv = g(M, C), g(M, 3 * C)
-    wqkv, bqkv = g(C, 3 * C, scale=C ** -0.5), g(3 * C, scale=0.1)
-    code = lib.dtype_code(x2)
-    work = (2 * M * C * 3 * C, (M * C + 3 * C * C + 3 * M * C) * 2)
-    bound_ms, bound_by = bound_of(work, dt)
-    for label, kern, library in (
-            ("qkv = x wqkv + bqkv",
-             lambda: gemm(x2, wqkv, M, 3 * C, C, (C, 1), (3 * C, 1), code,
-                          bias=bqkv),
-             lambda: torch.matmul(x2, wqkv)),
-            ("dwqkv = xT dqkv",
-             lambda: gemm(x2, dqkv, C, 3 * C, M, (1, C), (3 * C, 1), code),
-             lambda: torch.matmul(x2.t(), dqkv)),
-            ("dx = dqkv wqkvT",
-             lambda: gemm(dqkv, wqkv, M, C, 3 * C, (3 * C, 1), (1, 3 * C),
-                          code),
-             lambda: torch.matmul(dqkv, wqkv.t()))):
-        got, want = kern().float(), library().float()
-        if label.startswith("qkv"):
-            want = want + bqkv.float()
-        diff = ((got - want).abs().max() / want.abs().max()).item()
+    g = lambda *s, scale=1.0, d=dt: (torch.randn(*s, generator=gen,
+                                                 device=dev) * scale).to(d)
+    code = lib.dtype_code(g(1))
+    results = {}
+    for p in product_cases(g, images, titles, mlp=False):
+        matmul = p.matmul or p.library   # without an epilogue they are one
+        kern = lambda: gemm(*p.args, code, **p.kw)
+        plain = lambda: gemm_plain(*p.args, **p.kw)
+        # the stage-0 products against the library's, the text products
+        # (whose epilogues no library call has) against the plain version
+        got = kern()
+        want = p.library() if p.library else plain()
+        err, scale = _rel_err(got, want)
         del got, want
         ms = cuda_ms(kern, reps=VB_REPS)
-        library_ms = cuda_ms(library, reps=VB_REPS)
-        print(f"gemm yardstick [{label}, M={M} C={C} bf16]: gemm {ms:.4f} "
-              f"ms, library call torch.matmul {library_ms:.4f} ms "
-              f"({ms / library_ms:.2f}x), bound {bound_ms:.4f} ms by "
-              f"{bound_by}, relative difference {diff:.2e} [{card}]",
-              flush=True)
+        plain_ms = cuda_ms(plain, reps=VB_REPS)
+        library_ms = cuda_ms(p.library, reps=VB_REPS) if p.library else None
+        matmul_ms = (cuda_ms(matmul, reps=VB_REPS) if matmul is not p.library
+                     else library_ms)
+        work = (p.flops, p.nbytes)
+        bound_ms, bound_by = bound_of(work, dt)
+        also = ("" if p.library is None or matmul is p.library else
+                f"; library call torch.addmm {library_ms:.4f} ms "
+                f"({ms / library_ms:.2f}x)")
+        print(f"gemm [{p.label} bf16]: {ms:.4f} ms, "
+              f"{p.flops / ms / 1e9:.1f} TFLOP/s; torch.matmul of the same "
+              f"operands {matmul_ms:.4f} ms ({ms / matmul_ms:.2f}x){also}; "
+              f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+              f"{bound_by}; error {err:.3e} on a scale of {scale:.3g} (tol "
+              f"{tol:g} of the scale) [{card}]", flush=True)
+        require(math.isfinite(err) and err <= tol * scale,
+                f"gemm [{p.label}]: error {err} above {tol} x {scale}")
+        _record(results, "gemm", err / scale, ms, plain_ms, work, dt,
+                library_ms)
+    return results
 
 
 def sdpa_grad_calls(qkv, n_heads, bias, dout, trainable=True):
@@ -1764,6 +1769,8 @@ def vision_train_run(dev, card: str, pool, batches, cap: int, chunk: int,
         walls.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
     launched = counts()
+    print(f"gemm launches a vision train step [{what}]: "
+          f"{launched['gemm'] / (fixed + len(walls)):g}", flush=True)
     require(all(math.isfinite(x) for x in losses), "a loss is not finite")
     if fixed > 2:
         require(losses[fixed - 1] < losses[0],
@@ -2367,6 +2374,12 @@ def pallas_train_path(dev, card: str, content, batches, cap: int,
     require(first_err <= CE_LOSS_TOL[torch.bfloat16],
             "the use_pallas step's first loss disagrees")
     n_steps = len(losses)
+    text_gemm = counts()["gemm"]
+    print(f"gemm launches a use_pallas text train step: "
+          f"{text_gemm / n_steps:g}", flush=True)
+    require(text_gemm == TEXT_GEMM_STEP * n_steps,
+            f"gemm launched {text_gemm} times in {n_steps} use_pallas text "
+            f"steps, not {TEXT_GEMM_STEP} a step")
     del model, state, step
     torch.cuda.empty_cache()
 
@@ -2380,6 +2393,9 @@ def pallas_train_path(dev, card: str, content, batches, cap: int,
           f"without; first loss rel err {idrec_err:.3e}", flush=True)
     require(idrec_err <= CE_LOSS_TOL[torch.bfloat16],
             "the IDRec use_pallas step's first loss disagrees")
+    idrec_steps = 2 * (PALLAS_WARM_STEPS + len(ids_b) - 1)
+    print(f"gemm launches an IDRec train step: "
+          f"{(counts()['gemm'] - text_gemm) / idrec_steps:g}", flush=True)
     n_steps += PALLAS_WARM_STEPS + TIMED_STEPS
     torch.cuda.empty_cache()
 
@@ -2524,7 +2540,7 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
               flush=True)
         torch.cuda.empty_cache()
-        gemm_yardstick(dev, card, V_BWD_IMAGES)
+        merge(kernels, gemm_phase(dev, card, V_BWD_IMAGES, cap))
     torch.cuda.empty_cache()
     with phase("dbias kernels"):
         merge(kernels, dbias_phase(dev, card, V_BWD_IMAGES))

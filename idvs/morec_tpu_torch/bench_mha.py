@@ -29,16 +29,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 
 import torch
 import torch.nn.functional as F
 
+from idvs.morec_tpu_torch.measure import PEAK_BYTES, cuda_ms
 from idvs.morec_tpu_torch.ops.cuda.attention import fused_mha
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
 
-PEAK_BYTES = 3.35e12        # HBM3 of an H100 SXM (data sheet)
 IMAGES = 288                # a vision train step's deduplicated images
 SWIN_T = ((3, 56), (6, 28), (12, 14), (24, 7))   # heads, side of the map
 
@@ -60,22 +59,6 @@ def cases():
             out.append((f"Swin-T stage {stage} P={P}", IMAGES * nW, 49, nh,
                         32, "bias", P, 0.1, True))
     return out
-
-
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median milliseconds of one call, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def kernel_ms(fn, reps: int) -> float:

@@ -29,6 +29,15 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
                "l"(src));
 }
 
+// 16 bytes to shared memory of which the first `bytes` (0..16) come from
+// src and the rest are zeros; src is not read when bytes is 0
+__device__ __forceinline__ void cp_async16_zfill(void* smem_dst,
+                                                 const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem_dst)),
+               "l"(src), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -2,12 +2,14 @@
 
 Kernel: ``csrc/embed_scatter.cu``. It replaces the TPU kernel
 ``idvs/morec_tpu/ops/pallas/embed_scatter.py`` ``scatter_add_rows`` (the
-backward of ``embed_gather``): dE[ids[i]] += dX[i] into a zeroed (V, D)
-table, float accumulation whatever dX's dtype, duplicates adding up, the
-result cast to dX's dtype. On the H100 it is bound by bandwidth and atomic
-throughput; one warp per token row adds with float atomics, which resolve
-in the 50 MB L2 (the .cu header has the details). The forward is a plain
-gather, as in the JAX package.
+backward of ``embed_gather``): dE[ids[i]] += dX[i], float accumulation
+whatever dX's dtype, duplicates adding up, the result cast to dX's dtype.
+On the H100 it is bound by bytes: dX read once and the table written once.
+An id that occurs once has its row written as it is; only repeated ids
+accumulate in float (float atomics that resolve in the 50 MB L2, each
+warp's runs of one id summed in registers first); every table row is
+written once, zeros where no id points (the .cu header has the details).
+The forward is a plain gather, as in the JAX package.
 
 ``scatter_add_rows`` runs the plain version ``scatter_add_rows_plain`` for
 tensors on the CPU and launches the kernel for tensors on the card;
@@ -43,19 +45,25 @@ def scatter_add_rows(ids: torch.Tensor, dx: torch.Tensor,
     if dx.device.type == "cpu":
         return scatter_add_rows_plain(ids, dx, num_rows)
     code = lib.dtype_code(dx)
-    ids2 = ids.reshape(-1).to(torch.int64).contiguous()
-    dx2 = dx.reshape(-1, D).contiguous()
+    ids2 = ids.reshape(-1)
+    if ids2.dtype != torch.int64:
+        ids2 = ids2.long()
+    ids2, dx2 = ids2.contiguous(), dx.reshape(-1, D).contiguous()
     lib.check_device(ids2, dx2)
-    table = torch.zeros(num_rows, D, device=dx.device)
-    out = None if dx.dtype == torch.float32 else torch.empty(
-        num_rows, D, dtype=dx.dtype, device=dx.device)
+    # one float scratch: the rows of the ids that repeat (the output itself
+    # in float32), then the (num_rows,) int32 counts
+    rows = num_rows * D
+    scratch = torch.empty(rows + num_rows, device=dx.device)
+    table = scratch.data_ptr()
+    out = (scratch if dx.dtype == torch.float32 else
+           torch.empty(rows, dtype=dx.dtype, device=dx.device))
     err = lib.library().idvs_scatter_add_rows(
-        ids2.data_ptr(), dx2.data_ptr(), table.data_ptr(),
-        None if out is None else out.data_ptr(), ids2.shape[0], D, num_rows,
-        code, lib.stream_handle(dx2))
+        ids2.data_ptr(), dx2.data_ptr(), table + 4 * rows, table,
+        out.data_ptr(), ids2.shape[0], D, num_rows, code,
+        lib.stream_handle(dx2))
     lib.check(err, "scatter_add_rows")
     scatter_add_rows.launches += 1
-    return table if out is None else out
+    return out.as_strided((num_rows, D), (D, 1))
 
 
 class _EmbedGather(torch.autograd.Function):

@@ -1,8 +1,15 @@
 """The tiled product kernel and the column sums the backward kernels share
-(``csrc/gemm.cu``, ``csrc/resln_bwd.cu``): hand-written float-FMA products
-with the epilogues the backward passes need, and sums over rows added in a
-fixed order. ``ops/cuda/mlp.py`` and ``ops/cuda/attention.py`` compose them
-with their own row and attention kernels."""
+(``csrc/gemm.cu``, ``csrc/resln_bwd.cu``): hand-written products with the
+epilogues the backward passes need, bf16 on the tensor cores (``mma.sync``
+with ``cp.async`` stages) and float32 on the FMA units, split over K with a
+fixed-order second pass; and sums over rows added in a fixed order.
+``ops/cuda/mlp.py`` and ``ops/cuda/attention.py`` compose them with their
+own row and attention kernels.
+
+``gemm`` launches the kernel for tensors on the card (``gemm.launches``
+counts launches) and runs ``gemm_plain``, the kernel's contract in PyTorch
+ops, for tensors on the CPU.
+"""
 
 from __future__ import annotations
 
@@ -17,8 +24,8 @@ ACTS = {"gelu": 1, "relu": 2, "quick_gelu": 3}   # csrc/gemm.cu Act
 
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
-    """The card's streaming multiprocessors: they size the row pass's
-    partial sums and the split over K of a product."""
+    """The card's streaming multiprocessors: they size the row passes'
+    partial sums."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -26,13 +33,77 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _splits(M, N, K, sms):
-    """K slices of a product: enough blocks for two waves on the sms
-    multiprocessors of the card, each slice at least 1024 deep."""
-    tiles = -(-M // 128) * -(-N // 128)
-    if tiles >= 2 * sms:
-        return 1
-    return max(1, min(-(-2 * sms // tiles), K // 1024))
+@functools.lru_cache(maxsize=None)
+def splits_of(M: int, N: int, K: int, code: int) -> int:
+    """K slices of an (M, N) product over K, as the kernel chooses them
+    (csrc/gemm.cu choose_splits): the workspace holds one float (M, N)
+    partial a slice."""
+    return lib.library().idvs_gemm_splits(M, N, K, code)
+
+
+def _check_rows(t, strides, what):
+    """The bf16 body copies 16-byte chunks of every operand row: the base
+    16-byte aligned, one stride 1 and the other a multiple of 8."""
+    s0, s1 = strides
+    if t.data_ptr() % 16 or (s0 == 1) == (s1 == 1) or max(s0, s1) % 8:
+        raise ValueError(
+            f"gemm: operand {what} needs a 16-byte aligned base, one stride "
+            f"of 1 and the other a multiple of 8, got strides {strides} at "
+            f"an address {t.data_ptr() % 16} bytes past 16")
+
+
+def act_of(h: torch.Tensor, act: str) -> torch.Tensor:
+    """act(h): exact GELU, ReLU or quick_gelu (h * sigmoid(1.702 h))."""
+    if act == "relu":
+        return torch.relu(h)
+    if act == "quick_gelu":
+        return h * torch.sigmoid(1.702 * h)
+    return torch.nn.functional.gelu(h, approximate="none")
+
+
+def _dact_f32(h, act):
+    if act == "relu":
+        return (h > 0).float()
+    if act == "quick_gelu":
+        s = torch.sigmoid(1.702 * h)
+        return s + h * 1.702 * s * (1.0 - s)
+    cdf = 0.5 * (1.0 + torch.erf(h * 0.7071067811865476))
+    return cdf + h * 0.3989422804014327 * torch.exp(-0.5 * h * h)
+
+
+def _act_cast(A, M, K, sa, act):
+    """cast(act(A)) in bf16 (the cast alone when act is None), in A's own
+    layout: the pre-pass of a bf16 product whose A needs its prologue
+    (csrc/gemm.cu act_cast_kernel), over every element from A's first to
+    its last, row padding included."""
+    inner, outer, ld = (K, M, sa[0]) if sa[1] == 1 else (M, K, sa[1])
+    n = (outer - 1) * ld + inner
+    out = torch.empty(n, dtype=torch.bfloat16, device=A.device)
+    lib.check(lib.library().idvs_gemm_act_cast(
+        A.data_ptr(), out.data_ptr(), n, ACTS[act] if act else 0,
+        int(A.dtype == torch.float32), lib.stream_handle(A)), "gemm act_cast")
+    return out
+
+
+def gemm_plain(A, B, M, N, K, sa, sb, *, add=None, gate=None, act="gelu",
+               pro_act=False, bias=None, out_f32=False, dtype=None):
+    """The kernel's contract in PyTorch ops (csrc/gemm.cu's header): A(m, k)
+    and B(k, n) taken through their strides, pro(A) rounded to the compute
+    dtype, the product in float32, then bias, addend and act'(gate) in the
+    order of the kernel's epilogue, and the cast."""
+    dt = dtype or A.dtype
+    a = A.as_strided((M, K), sa).float()
+    if pro_act:
+        a = act_of(a, act)
+    a = a.to(dt).float()
+    y = a @ B.as_strided((K, N), sb).float()
+    if bias is not None:
+        y = y + bias.float()
+    if add is not None:
+        y = y + add.reshape(M, N).float()
+    if gate is not None:
+        y = y * _dact_f32(gate.reshape(M, N).float(), act)
+    return y if out_f32 else y.to(dt)
 
 
 def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
@@ -40,11 +111,21 @@ def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
     """(M, N) = epi(pro(A) @ B) (csrc/gemm.cu); sa = (sam, sak) and sb =
     (sbk, sbn) are the element strides of A(m, k), B(k, n). B is in the
     compute dtype ``dtype`` (A's when None); A and gate are in it or in
-    float32; the result is in it, or float32 with ``out_f32``."""
+    float32; the result is in it, or float32 with ``out_f32``. A and B need
+    16-byte aligned rows (``_check_rows``); it raises otherwise."""
+    if A.device.type == "cpu":
+        return gemm_plain(A, B, M, N, K, sa, sb, add=add, gate=gate, act=act,
+                          pro_act=pro_act, bias=bias, out_f32=out_f32,
+                          dtype=dtype)
     dt = dtype or A.dtype
+    _check_rows(A, sa, "A")
+    _check_rows(B, sb, "B")
+    if dt == torch.bfloat16 and (pro_act or A.dtype == torch.float32):
+        A = _act_cast(A, M, K, sa, act if pro_act else None)
+        pro_act = False
     out = torch.empty(M, N, dtype=torch.float32 if out_f32 else dt,
                       device=A.device)
-    splits = _splits(M, N, K, sm_count(A.device.index or 0))
+    splits = splits_of(M, N, K, code)
     ws = (torch.empty(splits * M * N, device=A.device) if splits > 1
           else None)
     err = lib.library().idvs_gemm(
@@ -55,6 +136,7 @@ def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
         int(gate is not None and gate.dtype == torch.float32), code,
         lib.stream_handle(A))
     lib.check(err, "gemm")
+    gemm.launches += 1
     return out
 
 
@@ -76,3 +158,6 @@ def colsum(x2, code):
                                     lib.stream_handle(x2))
     lib.check(err, "colsum")
     return out
+
+
+gemm.launches = 0

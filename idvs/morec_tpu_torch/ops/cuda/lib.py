@@ -64,8 +64,12 @@ _SIGNATURES = {
     # A, B, out, add, gate, bias, ws, M, N, K, sam, sak, sbk, sbn, splits,
     # pro_act, gate_act, out_f32, a_f32, gate_f32, dtype, stream
     "idvs_gemm": [_P] * 7 + [_I] * 3 + [_LL] * 4 + [_I] * 7 + [_P],
-    # ids, dx, table, out, M, D, V, dtype, stream
-    "idvs_scatter_add_rows": [_P] * 4 + [_I] * 4 + [_P],
+    # M, N, K, dtype -> the K slices of idvs_gemm
+    "idvs_gemm_splits": [_I] * 4,
+    # src, dst, n, act, src_f32, stream
+    "idvs_gemm_act_cast": [_P, _P, _LL, _I, _I, _P],
+    # ids, dx, counts, table, out, M, D, V, dtype, stream
+    "idvs_scatter_add_rows": [_P] * 5 + [_I] * 4 + [_P],
     # x, bias, wqkv, bqkv, wo, bo, ctx, out, windows, T, C, nh, P, bias_sp,
     # bias_sh, band, w, nwc, nwr, scale, dtype, stream
     "idvs_win_attn_fwd": [_P] * 8 + [_I] * 5 + [_LL, _LL] + [_I] * 4

@@ -34,21 +34,13 @@ import torch
 
 from .. import dropout
 from . import lib
-from .gemm import colsum, gemm, ptr, row_groups, sm_count
+from .gemm import act_of as _act, colsum, gemm, ptr, row_groups, sm_count
 from ...models.layers import layer_norm
 
 KERNEL_WIDTHS = (128, 256, 512, 2048)   # C the kernels are instantiated for
 F_CHUNK = {128: 128, 256: 128, 512: 256, 2048: 1024}   # F: a multiple of
 # csrc/mlp_resln.cu Act; the backward's products take gemm.py's numbering
 ACTS = {"gelu": 0, "relu": 1, "quick_gelu": 2}
-
-
-def _act(h: torch.Tensor, act: str) -> torch.Tensor:
-    if act == "relu":
-        return torch.relu(h)
-    if act == "quick_gelu":
-        return h * torch.sigmoid(1.702 * h)
-    return torch.nn.functional.gelu(h, approximate="none")
 
 
 def _post_ln(ypre: torch.Tensor, dtype, ln, eps: float) -> torch.Tensor:
