@@ -43,9 +43,11 @@ failure:
 8. vision kernels: the windowed attention (band layout with one bias and
    with a bias per window, window layout) and the pre-LN MLP (with and
    without its LayerNorm, with the residual, unit and scaled) against their
-   plain versions at each Swin-T stage's shapes for one encode chunk, and
-   the post-LN tails and the attention at SASRec's D = 2048 for request
-   batches of 64 and of 1, in bfloat16 and float32, with times;
+   plain versions at each Swin-T stage's shapes for one encode chunk (in
+   bfloat16 beside the yardstick: the same products through torch.matmul,
+   bench_swin's), and the post-LN tails and the attention at SASRec's D =
+   2048 for request batches of 64 and of 1, in bfloat16 and float32, with
+   times and the share of each kernel's bound reached;
 9. vision serving: the counters set to 0, Retriever.encode_catalog through
    the bf16 Swin-T tower over images drawn from a pool on the card (100_001
    items if a probe says that takes 30 s or less, else 16_385), recommend
@@ -162,6 +164,7 @@ import torch
 import torch.nn.functional as F
 
 from idvs.morec_tpu_torch.bench_gemm import product_cases
+from idvs.morec_tpu_torch.bench_swin import attention_products, mlp_products
 from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models import sasrec
@@ -648,9 +651,12 @@ def tail_cases(g, dev, dt, M, C, Fw, eps, act, who):
 
 def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
     """Holds each case's kernel against its plain version and times both
-    (and the library call, where there is one)."""
+    (and the library call, where there is one). A case may carry an eighth
+    element, a factory of the yardstick: a function running the same
+    products through torch.matmul, timed and printed beside the kernel
+    (never a library column: no one call computes the function)."""
     results = {}
-    for name, label, dt, run_kernel, run_plain, work, library in cases:
+    for name, label, dt, run_kernel, run_plain, work, library, *more in cases:
         got = run_kernel()
         want = run_plain()
         torch.cuda.synchronize()
@@ -666,6 +672,11 @@ def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
         bound_ms, bound_by = bound_of(work, dt)
         lib_text = ("" if library is None
                     else f", library call {library_ms:.4f} ms")
+        if more:
+            products = more[0]()
+            lib_text += (f", the same products through torch.matmul "
+                         f"{cuda_ms(products, reps):.4f} ms")
+            del products
         print(f"kernel {name} [{label}]: max_abs_err {err:.3e} "
               f"(tol {tol:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
               f"{lib_text}, bound {bound_ms:.4f} ms by {bound_by} "
@@ -1316,6 +1327,10 @@ def vision_kernel_cases(dev):
                     side, side, WINDOW, WINDOW // 2)).to(dev)
                 biases.append((f"P={nW}", rel + mask[:, None]))
             where = f"N={V_CHUNK} {side}x{side} C={C} nh={nh} {tag}"
+            # bf16: the yardstick, the same products through torch.matmul
+            yard = (lambda x=x, ws=ws, nh=nh, dt=dt: attention_products(
+                window_partition(x, WINDOW), ws[0].to(dt), ws[2].to(dt), nh)
+            ) if dt == torch.bfloat16 else None
             for ptag, bias in biases:
                 cases.append((
                     "fused_mha_proj_band", f"{ptag} {where}", dt,
@@ -1325,7 +1340,7 @@ def vision_kernel_cases(dev):
                         fused_mha_proj_band_plain(x, b, *ws, n_heads=nh,
                                                   window=WINDOW),
                     win_attn_work(windows, T, C, nh, bias.shape[0], it),
-                    None))
+                    None, *([yard] if yard and ptag == "P=1" else [])))
             wins, bias = window_partition(x, WINDOW), biases[-1][1]
             cases.append((
                 "fused_mha_proj",
@@ -1344,6 +1359,9 @@ def vision_kernel_cases(dev):
             keep = (torch.rand(V_CHUNK, generator=gen, device=dev) < 0.9)
             scale = (keep.float() / 0.9).repeat_interleave(side * side)
             shape = f"M={M} C={C} F={Fw} gelu {tag}"
+            yard = (lambda x=x2, mlp=mlp, dt=dt: mlp_products(
+                x, mlp[0].to(dt), mlp[2].to(dt))
+            ) if dt == torch.bfloat16 else None
             for stag, sc in (("unit", None), ("scaled", scale)):
                 cases.append((
                     "fused_mlp_res", f"{stag} {shape}", dt,
@@ -1351,7 +1369,8 @@ def vision_kernel_cases(dev):
                         x, sc, *mlp, ln=ln, eps=1e-5),
                     lambda x=x2, sc=sc, mlp=mlp, ln=ln: fused_mlp_res_plain(
                         x, sc, *mlp, ln=ln, eps=1e-5),
-                    mlp_work(M, C, Fw, it, scale=sc is not None), None))
+                    mlp_work(M, C, Fw, it, scale=sc is not None), None,
+                    *([yard] if yard and sc is None else [])))
             for ltag, lnp in (("LN", ln), ("no LN", None)):
                 cases.append((
                     "fused_mlp", f"{ltag} {shape}", dt,

@@ -37,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import subprocess
 import tempfile
 from pathlib import Path
@@ -179,14 +180,18 @@ def run_scatter(reps):
                 "bound_ms": round(bound, 4)}), flush=True)
 
 
-def report():
+def report(sources=("gemm.cu", "embed_scatter.cu")):
     """Registers, spills and shared memory (-Xptxas -v), and HMMA
-    instructions (cuobjdump -sass), of gemm.cu's and embed_scatter.cu's
-    kernels."""
+    instructions (cuobjdump -sass), of the kernels of `sources` (files of
+    csrc/), each kernel by its demangled name where c++filt is there."""
     nvcc = lib._nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    filt = shutil.which("c++filt")
+    name_of = (lambda n: subprocess.run([filt, n], capture_output=True,
+                                        text=True).stdout.strip() or n
+               ) if filt else (lambda n: n)
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("gemm.cu", "embed_scatter.cu"):
+        for src in sources:
             obj = Path(tmp) / f"{src}.o"
             done = subprocess.run(
                 [nvcc, *lib.NVCC_FLAGS, "-c", "-Xptxas", "-v", "-I",
@@ -198,7 +203,7 @@ def report():
             for line in (done.stdout + done.stderr).splitlines():
                 m = re.search(r"Compiling entry function '(\w+)'", line)
                 if m:
-                    kernel = m.group(1)
+                    kernel = name_of(m.group(1))
                 elif kernel and ("registers" in line or "spill" in line):
                     print(json.dumps({"source": src, "kernel": kernel,
                                       "ptxas": line.strip()}))
@@ -207,7 +212,7 @@ def report():
             for name, body in re.findall(
                     r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass,
                     re.S):
-                print(json.dumps({"source": src, "kernel": name,
+                print(json.dumps({"source": src, "kernel": name_of(name),
                                   "hmma": body.count("HMMA")}))
 
 

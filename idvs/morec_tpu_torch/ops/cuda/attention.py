@@ -260,8 +260,10 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
 # both; the window layout reads window r from (B, T, C), the band layout
 # reads a window's tokens from the (N, Hp, Wp, C) map and writes them back
 # there, so the window partition and its reverse never exist. The work is
-# 95 % projections, bound by the card's float FMA rate; the .cu header has
-# the design. The backward (``csrc/win_attn_bwd.cu`` and the products of
+# 95 % projections: bf16 runs them and the attention on the tensor cores
+# with the block plan of ``win_attn_plan``, float32 on the float FMA units;
+# the output projection is gemm.cu's product; the .cu header has the
+# design. The backward (``csrc/win_attn_bwd.cu`` and the products of
 # ``csrc/gemm.cu``) saves nothing but x, the bias and the weights: it
 # recomputes qkv and the probabilities and returns the gradients of x, of
 # the four weights and of the bias, the latter summed over the windows that
@@ -272,6 +274,48 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
 
 LINEAR_WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 CUDA_INVALID_VALUE = 1     # cudaErrorInvalidValue
+# csrc/win_attn.cu's bf16 body: a warp's projection tile (rows, columns),
+# the K slice's depth and the ring's stages; at most 8 warps are planned
+_WARP_ROWS, _WARP_COLS, _SLICE_K, _STAGES, _WARPS = 32, 48, 32, 3, 8
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def win_attn_plan(T: int, C: int, n_heads: int):
+    """The block plan of the bf16 window kernel (csrc/win_attn.cu
+    win_attn_mma_kernel), which the launch passes to it: G windows and a
+    group of HG heads a block, T and dh padded to t_pad and dh_pad
+    (multiples of 16), warps_m x warps_n warps each owning a 32 x 48 tile of
+    the qkv projection (warps_n = 3 HG dh_pad / 48), in ``passes`` of 32
+    warps_m rows over the G t_pad rows, and the shared-memory bytes. Of the
+    plans that fit, the one that reads the fewest bytes from L2 (x's rows
+    once a head group, Wqkv's columns once a pass) for each (window, head),
+    then the one with the fewest padded rows, then the fewest windows a
+    block. None when no head group fits (dh above 128)."""
+    dh = C // n_heads
+    Tp, Dp = _up16(T), _up16(dh)
+    best = None
+    for HG in range(1, n_heads + 1):
+        if n_heads % HG or HG * Dp > 128:
+            continue
+        WN = HG * Dp // 16
+        WM = max(1, _WARPS // WN)
+        PR, Np = _WARP_ROWS * WM, 3 * HG * Dp
+        for G in range(1, 9):
+            R = G * Tp
+            passes = -(-R // PR)
+            smem = (4 * (passes * PR + Np) + 2 * R * (Np + 8)
+                    + 2 * _STAGES * (PR * (_SLICE_K + 8) + _SLICE_K * (Np + 8)))
+            if smem > lib.MAX_SMEM:
+                break
+            key = ((R * C + passes * C * Np) / (G * HG), passes * PR - R, G)
+            if best is None or key < best[0]:
+                best = (key, dict(G=G, HG=HG, t_pad=Tp, dh_pad=Dp,
+                                  warps_m=WM, warps_n=WN, passes=passes,
+                                  smem=smem))
+    return None if best is None else best[1]
 
 
 def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -341,27 +385,68 @@ def fused_mha_proj_band_plain(x: torch.Tensor, bias: torch.Tensor,
     return window_reverse(out, window, Hp, Wp)
 
 
+def fused_mha_proj_padded(x: torch.Tensor, bias: torch.Tensor,
+                          wqkv: torch.Tensor, bqkv: torch.Tensor,
+                          wo: torch.Tensor, bo: torch.Tensor, *,
+                          n_heads: int, t_pad: int,
+                          dh_pad: int) -> torch.Tensor:
+    """``fused_mha_proj_plain`` as the bf16 kernel computes it, at its
+    padding: each window's T tokens followed by t_pad - T zero tokens whose
+    keys get -inf before the softmax and whose queries are dropped, each
+    head's q, k and v followed by dh_pad - dh zero columns (Wqkv's and
+    bqkv's columns zero-filled)."""
+    B, T, C = x.shape
+    _proj_geometry(x, bias, wqkv, bqkv, wo, bo, n_heads, B, T)
+    dt, dh = x.dtype, C // n_heads
+    xp = torch.zeros(B, t_pad, C, dtype=dt)
+    xp[:, :T] = x
+    w = torch.zeros(C, 3, n_heads, dh_pad, dtype=dt)
+    w[..., :dh] = wqkv.to(dt).reshape(C, 3, n_heads, dh)
+    b = torch.zeros(3, n_heads, dh_pad, dtype=dt)
+    b[..., :dh] = bqkv.to(dt).reshape(3, n_heads, dh)
+    qkv = (xp.float() @ w.reshape(C, -1).float()
+           + b.reshape(-1).float()).to(dt)
+    q, k, v = (t.float().reshape(B, t_pad, n_heads, dh_pad).transpose(1, 2)
+               for t in qkv.split(n_heads * dh_pad, dim=-1))
+    scores = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+    bp = torch.full((bias.shape[0], n_heads, t_pad, t_pad), -math.inf)
+    bp[:, :, :T, :T] = bias.to(dt).float()
+    bp[:, :, T:, :T] = bias.to(dt).float()[:, :, T - 1:T]   # dropped rows
+    scores = scores + bp.repeat(B // bias.shape[0], 1, 1, 1)
+    probs = torch.softmax(scores, dim=-1).to(dt).float()
+    ctx = (probs @ v)[:, :, :T, :dh].transpose(1, 2).reshape(B, T, C).to(dt)
+    return (ctx.float() @ wo.to(dt).float() + bo.to(dt).float()).to(dt)
+
+
 def _no_blocking(name, T, C, n_heads):
     return ValueError(
         f"{name} kernel: no blocking for T={T}, C={C}, n_heads={n_heads}: "
-        f"it takes heads of a multiple of 4 columns and a head group of 32 "
-        f"or more columns that fits a block's threads and shared memory")
+        f"it takes heads of a multiple of 4 columns and (float32) a head "
+        f"group of 32 or more columns that fits a block's threads and "
+        f"shared memory, or (bf16) heads of at most 128 columns")
 
 
 def _windowed_fwd(name, x, table, ops, n_heads, windows, T, band, code):
     """Launches the kernel pair of csrc/win_attn.cu on contiguous x in the
     window layout (band None) or the band layout (band = (w, nwc, nwr))."""
     C = x.shape[-1]
+    plan = (win_attn_plan(T, C, n_heads) if x.dtype == torch.bfloat16
+            else None)
+    if x.dtype == torch.bfloat16 and plan is None:
+        raise _no_blocking(name, T, C, n_heads)
     ctx, out = torch.empty_like(x), torch.empty_like(x)
     w, nwc, nwr = band if band is not None else (0, 0, 0)
+    k = [0] * 8 if plan is None else [
+        plan[n] for n in ("G", "HG", "t_pad", "dh_pad", "warps_m", "warps_n",
+                          "passes", "smem")]
     err = lib.library().idvs_win_attn_fwd(
         x.data_ptr(), table.data_ptr(), *(t.data_ptr() for t in ops),
         ctx.data_ptr(), out.data_ptr(), windows, T, C, n_heads,
         table.shape[0], table.stride(0), table.stride(1),
         int(band is not None), w, nwc, nwr,
-        1.0 / math.sqrt(C // n_heads), code, lib.stream_handle(x))
+        1.0 / math.sqrt(C // n_heads), *k, code, lib.stream_handle(x))
     if err == CUDA_INVALID_VALUE:
-        # the kernel chooses its own blocking (choose_blocking in the .cu)
+        # float32 chooses its own blocking (choose_blocking in the .cu)
         raise _no_blocking(name, T, C, n_heads)
     lib.check(err, name)
     return out

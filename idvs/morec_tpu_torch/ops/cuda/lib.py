@@ -28,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # compute-dtype codes of the C entry points (common.cuh DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dynamic shared memory one block may use on sm_90 (common.cuh kMaxSmem)
+MAX_SMEM = 232448
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _U = ctypes.c_float, ctypes.c_uint
@@ -71,12 +73,14 @@ _SIGNATURES = {
     # ids, dx, counts, table, out, M, D, V, dtype, stream
     "idvs_scatter_add_rows": [_P] * 5 + [_I] * 4 + [_P],
     # x, bias, wqkv, bqkv, wo, bo, ctx, out, windows, T, C, nh, P, bias_sp,
-    # bias_sh, band, w, nwc, nwr, scale, dtype, stream
+    # bias_sh, band, w, nwc, nwr, scale, G, HG, t_pad, dh_pad, warps_m,
+    # warps_n, passes, smem, dtype, stream
     "idvs_win_attn_fwd": [_P] * 8 + [_I] * 5 + [_LL, _LL] + [_I] * 4
-                         + [_F, _I, _P],
+                         + [_F] + [_I] * 7 + [_LL, _I, _P],
     # x, w1, b1, w2, b2, gamma, beta, scale, out, h, M, C, F, eps, act,
-    # res, dtype, stream
-    "idvs_premlp_fwd": [_P] * 10 + [_I] * 3 + [_F, _I, _I, _I, _P],
+    # res, rows, f_chunk, threads, smem, dtype, stream
+    "idvs_premlp_fwd": [_P] * 10 + [_I] * 3 + [_F] + [_I] * 5
+                       + [_LL, _I, _P],
     # x, gamma, beta, xn, stats, M, C, eps, dtype, stream
     "idvs_premlp_ln_rows": [_P] * 5 + [_I, _I, _F, _I, _P],
     # dout, scale, dy, M, C, dtype, stream

@@ -310,14 +310,54 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 # from x (or reads the h that ``save_h`` stored), runs its four products
 # through the tiled kernel of gemm.cu with the activation on load and its
 # derivative as an epilogue, and the LayerNorm's backward as a row pass;
-# every sum over rows is added in a fixed order. Bound by the card's float
-# FMA rate; the .cu headers have the design. ``fused_mlp_bwd.launches`` and
-# ``fused_mlp_res_bwd.launches`` count the backward's launches.
+# every sum over rows is added in a fixed order. bf16 runs on the tensor
+# cores, float32 on the float FMA units; the .cu headers have the design.
+# ``fused_mlp_bwd.launches`` and ``fused_mlp_res_bwd.launches`` count the
+# backward's launches.
 
 PRE_ACTS = {"gelu": 0, "relu": 1, "quick_gelu": 2}
-# C the kernel is instantiated for -> the chunk F must be a multiple of
-PRE_F_CHUNK = {32: 32, 64: 64, 96: 96, 128: 128, 192: 192, 256: 256,
-               384: 384, 512: 256, 768: 384, 1024: 256}
+# The bf16 body (premlp_mma_kernel) by C: (F chunk, row warps, column warps,
+# stages of the weight ring). At most 96 float accumulators of the (rows,
+# C) output a thread; one column warp (h packed in registers) and 128 rows
+# up to C = 128, two (h through shared memory) and 64 rows at C = 192 and
+# 256; from C = 384 on 16 warps, which one block an SM holds with the
+# (rows, C + 8) tile of xn and the ring, and chunks as wide as the float32
+# body's, so that each W1 slice gives every warp at least 12 products
+# between two barriers. The layouts measured best of those tried on the
+# H100 (PERF.md).
+_PRE_MMA = {32: (32, 8, 1, 3), 64: (64, 8, 1, 3), 96: (96, 8, 1, 3),
+            128: (64, 8, 1, 3), 192: (96, 4, 2, 3), 256: (128, 4, 2, 3),
+            384: (192, 4, 4, 3), 512: (256, 4, 4, 3), 768: (384, 2, 8, 3),
+            1024: (256, 2, 8, 2)}
+# The float32 body (premlp_kernel) by C: (TX, NG, NG1, KB) of tile.cuh
+_PRE_FMA = {32: (8, 1, 1, 16), 64: (16, 1, 1, 16), 96: (8, 3, 3, 16),
+            128: (32, 1, 1, 16), 192: (16, 3, 3, 16), 256: (32, 2, 2, 16),
+            384: (32, 3, 3, 16), 512: (32, 4, 2, 16), 768: (32, 6, 3, 8),
+            1024: (32, 8, 2, 4)}
+# C the kernel is instantiated for -> the chunk F must be a multiple of: the
+# float32 body's (4 TX NG1), which the bf16 body's divides
+PRE_F_CHUNK = {C: 4 * TX * NG1 for C, (TX, _, NG1, _) in _PRE_FMA.items()}
+
+
+def premlp_plan(C: int, dtype: torch.dtype) -> dict:
+    """The block plan of csrc/premlp.cu at width C, which the launch passes
+    to the kernel (the kernel refuses any other): rows a block, the F chunk,
+    threads and shared-memory bytes; for bf16 also the warps' layout, the
+    ring's stages and the accumulators a thread holds."""
+    if dtype == torch.bfloat16:
+        FC, RW, WN, S = _PRE_MMA[C]
+        rows = 16 * RW
+        slot = 32 * (max(FC, C) + 8)
+        smem = 2 * (rows * (C + 8) + S * slot
+                    + (rows * (FC + 8) if WN > 1 else 0))
+        return dict(rows=rows, f_chunk=FC, threads=32 * RW * WN, smem=smem,
+                    row_warps=RW, col_warps=WN, stages=S,
+                    acc_floats=rows * C // (32 * RW * WN),
+                    h_floats=16 * FC // WN // 32)
+    TX, _, _, KB = _PRE_FMA[C]
+    rows, FC = 4 * (256 // TX), PRE_F_CHUNK[C]
+    return dict(rows=rows, f_chunk=FC, threads=256,
+                smem=4 * ((C + FC) * (rows + 4) + 2 * KB * C))
 
 
 def _pre_mlp(x2, w1, b1, w2, b2, ln, eps, act, save_h=False):
@@ -378,10 +418,12 @@ def _premlp_fwd(name, x2, s, ops, lnf, eps, act, res, code, hsave=None):
     """Launches csrc/premlp.cu on validated, contiguous operands."""
     C, F = ops[0].shape
     out = torch.empty_like(x2)
+    k = premlp_plan(C, x2.dtype)
     err = lib.library().idvs_premlp_fwd(
         x2.data_ptr(), *(t.data_ptr() for t in ops), ptr(lnf[0]),
         ptr(lnf[1]), ptr(s), out.data_ptr(), ptr(hsave), x2.shape[0], C, F,
-        float(eps), PRE_ACTS[act], res, code, lib.stream_handle(x2))
+        float(eps), PRE_ACTS[act], res, k["rows"], k["f_chunk"],
+        k["threads"], k["smem"], code, lib.stream_handle(x2))
     lib.check(err, name)
     return out
 
