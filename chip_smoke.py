@@ -17,14 +17,16 @@ failure:
 2. build: build (or load) the kernel library;
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the serving path's shapes, in float32 and bfloat16, with kernel
-   and plain times (CUDA events, median); and the FFN tail with quick_gelu,
-   which no main path takes, at C = 512 and 2048;
+   and plain times (CUDA events, median), every bf16 FFN tail beside its
+   yardstick, its two products through torch.matmul; and the FFN tail
+   with quick_gelu, which no main path takes, at C = 512 and 2048;
 4. backward kernels: the training editions, the backward kernels and the
    scatter-add against autograd of the plain versions at the train step's
    shapes, and the quick_gelu FFN tail at C = 512 and 2048, in float32 and
-   bfloat16, dropout 0 and 0.1, with times; beside fused_mha's backward at
-   dropout 0, F.scaled_dot_product_attention's with a mask that needs no
-   gradient (the library column);
+   bfloat16, dropout 0 and 0.1, with times (a bf16 FFN tail's training
+   forward beside its two products through torch.matmul); beside
+   fused_mha's backward at dropout 0, F.scaled_dot_product_attention's
+   with a mask that needs no gradient (the library column);
 5. serving: Retriever.encode_catalog over the catalog, then recommend for
    request batches of 1, 8 and 64, with every launch counter set to 0
    first; every kernel launched in the encode and in recommend, the table
@@ -46,8 +48,9 @@ failure:
    plain versions at each Swin-T stage's shapes for one encode chunk (in
    bfloat16 beside the yardstick: the same products through torch.matmul,
    bench_swin's), and the post-LN tails and the attention at SASRec's D =
-   2048 for request batches of 64 and of 1, in bfloat16 and float32, with
-   times and the share of each kernel's bound reached;
+   2048 for request batches of 64 and of 1 (M = 640 and 10), in bfloat16
+   and float32, with times and the share of each kernel's bound reached
+   (the bf16 FFN tails beside their two products through torch.matmul);
 9. vision serving: the counters set to 0, Retriever.encode_catalog through
    the bf16 Swin-T tower over images drawn from a pool on the card (100_001
    items if a probe says that takes 30 s or less, else 16_385), recommend
@@ -66,7 +69,10 @@ failure:
     heads of 1024) and the training editions and backward of the post-LN
     tails at C = 2048 (dropout 0 and 0.1), against autograd of the plain
     versions, in bfloat16 and float32, with times (SASRec's attention
-    beside F.scaled_dot_product_attention's backward at dropout 0); then
+    beside F.scaled_dot_product_attention's backward at dropout 0; each
+    windowed attention backward with its attention core's device time,
+    torch.profiler; the bf16 FFN tail's training forward beside its two
+    products through torch.matmul); then
     the tensor-core gemm() (every backward's products) at the three
     largest products of the stage-0 band backward, against torch.matmul
     on the same bf16 operands, and at the four of the text FFN tail's
@@ -164,7 +170,9 @@ import torch
 import torch.nn.functional as F
 
 from idvs.morec_tpu_torch.bench_gemm import product_cases
-from idvs.morec_tpu_torch.bench_swin import attention_products, mlp_products
+from idvs.morec_tpu_torch.bench_swin import (CORE, attention_products,
+                                             device_ms, mlp_products)
+from idvs.morec_tpu_torch.bench_tail import tail_products
 from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models import sasrec
@@ -418,6 +426,8 @@ VISION_TRAIN_KERNELS = ("fused_mha_proj_band", "fused_mha_proj_band_bwd",
 VISION_WINDOWS_TRAIN_KERNELS = ("fused_mha_proj", "fused_mha_proj_bwd",
                                 "fused_mlp", "fused_mlp_bwd", "gemm")
 PALLAS_KERNELS = ("fused_inbatch_ce", "fused_inbatch_ce_bwd")
+# backward rows whose attention core's device time phase 10 prints
+WINDOW_BWD = ("fused_mha_proj_band_bwd", "fused_mha_proj_bwd")
 # gemm launches a text train step: BERT's 4 and SASRec's 2 layers, each a
 # projection tail's backward (2 products) and an FFN tail's (4)
 TEXT_GEMM_STEP = 36
@@ -629,7 +639,8 @@ def kernel_cases(rng, dev):
 
 
 def tail_cases(g, dev, dt, M, C, Fw, eps, act, who):
-    """The two post-LN tails (no single library call computes either)."""
+    """The two post-LN tails (no single library call computes either); in
+    bf16 the FFN tail's yardstick, its two products through torch.matmul."""
     tag, it = tag_of(dt), size_of(dt)
     x, res = g(M, C).to(dt), g(M, C).to(dt)
     w = g(C, C, scale=C ** -0.5)
@@ -646,7 +657,9 @@ def tail_cases(g, dev, dt, M, C, Fw, eps, act, who):
          lambda: fused_mlp_resln(x, w1, b1, w2, b2, ln=ln, eps=eps, act=act),
          lambda: fused_mlp_resln_plain(x, w1, b1, w2, b2, ln=ln, eps=eps,
                                        act=act),
-         mlp_work(M, C, Fw, it), None)]
+         mlp_work(M, C, Fw, it), None,
+         *([lambda: tail_products(x, w1, w2)] if dt == torch.bfloat16
+           else []))]
 
 
 def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
@@ -709,6 +722,11 @@ def _worst_err(got, want, what: str) -> tuple:
         require(math.isfinite(err), f"{what}: not finite")
         worst = max(worst, (err / scale, err, scale))
     return worst
+
+
+def tail_yardstick(x, w1, b1, w2, *rest):
+    """The FFN tail's yardstick from a gradient case's inputs."""
+    return tail_products(x, w1, w2)
 
 
 def backward_cases(rng, dev, titles: int):
@@ -787,7 +805,8 @@ def backward_cases(rng, dev, titles: int):
                     lambda *a, kw=kw, act=act: fused_mlp_resln_plain(
                         *a[:5], ln=a[5:], act=act, **kw),
                     mlp_bwd_work(M, C, FFN, it),
-                    mlp_work(M, C, FFN, it, saved=True)))
+                    mlp_work(M, C, FFN, it, saved=True), None,
+                    tail_yardstick))
             for M, C, Fw in QUICK_GELU_SHAPES:
                 kw = dict(eps=1e-5, drop_rate=p, seed=seed, act="quick_gelu")
                 cases.append((
@@ -801,7 +820,8 @@ def backward_cases(rng, dev, titles: int):
                     lambda *a, kw=kw: fused_mlp_resln_plain(*a[:5], ln=a[5:],
                                                             **kw),
                     mlp_bwd_work(M, C, Fw, it),
-                    mlp_work(M, C, Fw, it, saved=True)))
+                    mlp_work(M, C, Fw, it, saved=True), None,
+                    tail_yardstick))
     return cases
 
 
@@ -818,7 +838,11 @@ def gradient_cases(cases, card: str, reps: int = FEW_REPS) -> dict:
     """Holds each case's outputs and gradients against autograd of the plain
     version and times both; times are the forward with a graph (training
     editions) and the backward alone (CUDA events). Only floating-point
-    inputs that ask for it get a gradient."""
+    inputs that ask for it get a gradient. A case may carry, after its
+    works, the library call's factory (or None) and, for the FFN tail, a
+    factory of its yardstick from its inputs (timed beside a bf16 training
+    forward); the windowed attention's backward rows also print the
+    device time of the attention core alone (torch.profiler)."""
     results = {}
     for (res_name, bwd_name, label, dt, inputs, dout, kern, plain, work_bwd,
          work_fwd, *library) in cases:
@@ -847,12 +871,26 @@ def gradient_cases(cases, card: str, reps: int = FEW_REPS) -> dict:
                      f"backward {library_ms:.4f} ms")
         _record(results, bwd_name, worst[1], bwd_ms, bwd_plain, work_bwd, dt,
                 library_ms)
+        if bwd_name in WINDOW_BWD:
+            # the attention core alone, device time, among the backward's
+            # products
+            total, split = device_ms(lambda: torch.autograd.grad(
+                out_k, lk, dout, retain_graph=True), reps)
+            core = sum(v for k, v in split.items()
+                       if any(c in k for c in CORE))
+            line += (f", of which win_attn_bwd's core {core:.4f} ms device "
+                     f"({total:.4f} ms device in all)")
         if res_name is not None:
             fwd_ms = cuda_ms(lambda: kern(*lk), reps=reps)
             fwd_plain = cuda_ms(lambda: plain(*lp), reps=reps)
             line += (f"; training forward {res_name} {fwd_ms:.4f} ms, plain "
                      f"{fwd_plain:.4f} ms, bound "
                      f"{bound_of(work_fwd, dt)[0]:.4f} ms")
+            if len(library) > 1 and dt == torch.bfloat16:
+                products = library[1](*inputs)
+                line += (f", the same products through torch.matmul "
+                         f"{cuda_ms(products, reps=reps):.4f} ms")
+                del products
             _record(results, res_name, _rel_err(out_k, out_p)[0], fwd_ms,
                     fwd_plain, work_fwd, dt)
         print(f"{line} [{card}]", flush=True)
@@ -1521,7 +1559,7 @@ def vision_backward_cases(dev, images: int):
                 lambda *a, kw=kw: fused_mlp_resln_plain(
                     *a[:5], ln=a[5:], act="relu", **kw),
                 mlp_bwd_work(M, C, Fw, it),
-                mlp_work(M, C, Fw, it, saved=True)))
+                mlp_work(M, C, Fw, it, saved=True), None, tail_yardstick))
     return cases
 
 

@@ -1,6 +1,7 @@
 """Times the Swin block's forward kernels (csrc/premlp.cu and
-csrc/win_attn.cu) at the four Swin-T stages on one GPU, and reports what
-the compiler made of them.
+csrc/win_attn.cu) and the windowed attention's backward (its attention
+core csrc/win_attn_bwd.cu among gemm.cu's products) at the four Swin-T
+stages on one GPU, and reports what the compiler made of them.
 
     python -m idvs.morec_tpu_torch.bench_swin [--reps N] [--report]
 
@@ -16,10 +17,16 @@ products through torch.matmul on bf16 operands (the MLP's two; the
 attention's qkv projection, the batched scores and P . V, the output
 projection), which the port never calls for these.
 
---report compiles premlp.cu and win_attn.cu with the library's flags and
--Xptxas -v and prints each kernel's registers, spills and static shared
-memory and its HMMA instructions (bench_gemm's report); the bf16 plans'
-dynamic shared memory is in each row (``plan_smem``).
+Backward rows, bf16, 288 images a stage (a Zipf train batch's dedup
+capacity): ``fused_mha_proj_band``'s backward with one bias (P = 1), as
+CUDA-event and device time of autograd's backward of the call, and the
+device time of the attention core alone (the kernels of ``CORE``: the core
+and its fixed-order dbias sum) beside the core's own bound (``core_work``).
+
+--report compiles premlp.cu, win_attn.cu and win_attn_bwd.cu with the
+library's flags and -Xptxas -v and prints each kernel's registers, spills
+and static shared memory and its HMMA instructions (bench_gemm's report);
+the bf16 plans' dynamic shared memory is in each row (``plan_smem``).
 
 Prints one JSON object a line, then the card's name and power limit. The
 package is imported from sys.path, so ``PYTHONPATH=<checkout> python
@@ -43,6 +50,10 @@ from idvs.morec_tpu_torch.ops.cuda.mlp import fused_mlp, fused_mlp_res
 
 BF16 = torch.bfloat16
 IMAGES, WINDOW = 512, 7
+BWD_IMAGES = 288
+# the backward's attention core by kernel name: this tree's (fused_mha.cu's
+# tensor-core backward, shared) or an older tree's, and the dbias sum
+CORE = ("win_attn_bwd", "mha_bwd_mma", "sum_partials")
 SWIN_T = ((96, 3, 56), (192, 6, 28), (384, 12, 14), (768, 24, 7))
 
 
@@ -58,6 +69,14 @@ def win_attn_work(windows, T, C, nh, P, it=2):
     rows = windows * T
     return (rows * (8 * C * C + 4 * T * C),
             (2 * rows * C + 4 * C * C + 4 * C) * it + 4 * P * nh * T * T)
+
+
+def core_work(windows, T, C, nh, P, it=2):
+    """(operations, bytes) of the backward's attention core: qkv and dctx
+    read, dqkv and the recomputed context written once, the float bias read
+    and its gradient written; six (T, T, dh) products a (window, head)."""
+    rows = windows * T
+    return rows * 12 * T * C, 8 * rows * C * it + 8 * P * nh * T * T
 
 
 def mlp_products(x2, w1, w2):
@@ -128,9 +147,32 @@ def swin_rows(g, images=IMAGES):
                                           ws[2].to(BF16), nh))
 
 
+def swin_bwd_rows(g, images=BWD_IMAGES):
+    """(row, stage, label, call, work of the core) for the band backward at
+    each Swin-T stage, bf16: call runs autograd's backward of one kept
+    forward."""
+    T = WINDOW * WINDOW
+    for stage, (C, nh, side) in enumerate(SWIN_T):
+        windows = images * (side // WINDOW) ** 2
+        x = g(images, side, side, C).to(BF16).requires_grad_(True)
+        leaves = [x, g(1, nh, T, T, scale=0.5).requires_grad_(True)] + [
+            w.requires_grad_(True) for w in (
+                g(C, 3 * C, scale=C ** -0.5), g(3 * C, scale=0.1),
+                g(C, C, scale=C ** -0.5), g(C, scale=0.1))]
+        out = fused_mha_proj_band(*leaves, n_heads=nh, window=WINDOW)
+        dout = g(images, side, side, C).to(BF16)
+        yield ("fused_mha_proj_band_bwd", stage,
+               f"P=1 N={images} {side}x{side} C={C} nh={nh}",
+               lambda: torch.autograd.grad(out, leaves, dout,
+                                           retain_graph=True),
+               core_work(windows, T, C, nh, 1))
+
+
 def device_ms(fn, reps):
     """Device time a call (ms) and the kernels it launched, by name, from a
-    torch.profiler trace of `reps` calls."""
+    torch.profiler trace of `reps` calls. A trace can miss kernels (on the
+    H100 one row read 0 ms and one a third of its other runs' time,
+    PERF.md): repeat a row before trusting an outlier."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,7 +199,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.report:
         from idvs.morec_tpu_torch.bench_gemm import report
-        report(("premlp.cu", "win_attn.cu"))
+        report(("premlp.cu", "win_attn.cu", "win_attn_bwd.cu"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
                                           device="cuda") * scale
@@ -168,14 +210,29 @@ def main():
         row = {"kernel": name, "stage": stage, "case": label,
                "ms": round(ms, 4), "device_ms": round(dev_ms, 4),
                "bound_ms": round(bound, 4), "bound_by": by,
-               "bound_share": round(bound / dev_ms, 4),
-               "tflops": round(work[0] / dev_ms / 1e9, 1),
+               "bound_share": dev_ms and round(bound / dev_ms, 4),
+               "tflops": dev_ms and round(work[0] / dev_ms / 1e9, 1),
                "plan_smem": smem,
                "kernels": {k[:80]: round(v, 4) for k, v in kernels.items()}}
         fn = products()
         row["matmul_ms"] = round(cuda_ms(fn, args.reps), 4)
         del fn
         print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    for name, stage, label, call, work in swin_bwd_rows(g):
+        ms = cuda_ms(call, args.reps)
+        dev_ms, kernels = device_ms(call, args.reps)
+        core = sum(v for k, v in kernels.items()
+                   if any(c in k for c in CORE))
+        bound, by = bound_of(work, BF16)
+        print(json.dumps({
+            "kernel": name, "stage": stage, "case": label,
+            "ms": round(ms, 4), "device_ms": round(dev_ms, 4),
+            "core_device_ms": round(core, 4), "core_bound_ms": round(bound, 4),
+            "core_bound_by": by, "core_bound_share": core and round(bound / core, 4),
+            "kernels": {k[:80]: round(v, 4) for k, v in kernels.items()}}),
+            flush=True)
+        del call
         torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

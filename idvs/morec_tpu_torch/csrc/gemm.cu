@@ -634,12 +634,12 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// K slices of an (M, N) product over K: the one place they are chosen.
-// A product whose output tiles (each a block) fill too few of the card's
-// block slots is cut into the fewest slices that fill whole waves of slots
-// to 90 % (the best fill below that), each slice at least kMinDepth deep
-// (1024 for the f32 body, whose rule asks for two waves).
-int choose_splits(int M, int N, int K, int dtype) {
+// K slices of an (M, N) product over K that fill the card: a product whose
+// output tiles (each a block) fill too few of the card's block slots is cut
+// into the fewest slices that fill whole waves of slots to 90 % (the best
+// fill below that), each slice at least kMinDepth deep (1024 for the f32
+// body, whose rule asks for two waves).
+int fill_splits(int M, int N, int K, int dtype) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -667,14 +667,29 @@ int choose_splits(int M, int N, int K, int dtype) {
   return best;
 }
 
+// K slices of an (M, N) product over K: the one place they are chosen.
+// fill_splits', and in bf16 at least enough that no slice is deeper than
+// max_depth (0: no bound). The tensor cores' float accumulation drifts
+// further from an IEEE float sum the deeper a slice runs (about 6x
+// torch.matmul's float32 error at K = 2048, 2x at 1024, PERF.md), and the
+// slices are added in float: a caller whose float output decides a branch,
+// a ReLU's kink, bounds the depth.
+int choose_splits(int M, int N, int K, int dtype, int max_depth) {
+  const int s = fill_splits(M, N, K, dtype);
+  if (dtype != kBF16 || max_depth < 1) return s;
+  return max(s, (K + max_depth - 1) / max_depth);
+}
+
 }  // namespace
 }  // namespace idvs
 
-// The K slices idvs_gemm takes for an (M, N) product over K in `dtype`:
-// the wrapper sizes the workspace from it.
-extern "C" int idvs_gemm_splits(int M, int N, int K, int dtype) {
+// The K slices idvs_gemm takes for an (M, N) product over K in `dtype`,
+// no slice deeper than max_depth in bf16 (0: no bound): the wrapper sizes
+// the workspace from it.
+extern "C" int idvs_gemm_splits(int M, int N, int K, int dtype,
+                                int max_depth) {
   if (M < 1 || N < 1 || K < 1) return 1;
-  return idvs::choose_splits(M, N, K, dtype);
+  return idvs::choose_splits(M, N, K, dtype, max_depth);
 }
 
 // dst (n,) bf16 = cast(act(src)) elementwise, src (n,) bf16 or float

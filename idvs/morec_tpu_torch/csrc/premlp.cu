@@ -20,8 +20,9 @@
 // (M, F) intermediate is 4x the size of x and never leaves the block. Two
 // bodies, chosen by the compute dtype.
 //
-// bf16 (premlp_mma_kernel), on the tensor cores: a block of RW x WN warps
-// owns BM = 16 RW rows. Its rows of x come first, by cp.async, into a bf16
+// bf16 (premlp_mma_kernel), on the tensor cores, its chain in mlp_mma.cuh
+// (shared with mlp_resln.cu's post-LN tail): a block of RW x WN warps owns
+// BM = 16 RW rows. Its rows of x come first, by cp.async, into a bf16
 // [BM][C + 8] tile in shared memory (16 bytes more a row, so ldmatrix rows
 // fall on distinct banks), where the LayerNorm runs in place, eight lanes a
 // row. F is walked in chunks of FC columns; W1's [32][FC] slices and W2's
@@ -61,22 +62,13 @@
 // (all C columns). Weight slices are double-buffered with the next
 // slice's loads in flight during the FMAs; the residual and the per-row
 // scale run on the accumulator before the single (M, C) store.
-#include <type_traits>
-
-#include "mma.cuh"
+#include "mlp_mma.cuh"
 #include "tile.cuh"
 
 namespace idvs {
 namespace {
 
-enum Act { kGelu = 0, kRelu = 1, kQuickGelu = 2 };
 enum Res { kNoRes = 0, kUnit = 1, kScaled = 2 };
-
-__device__ __forceinline__ float act(float h, int a) {
-  if (a == kRelu) return fmaxf(h, 0.f);
-  if (a == kQuickGelu) return h / (1.f + expf(-1.702f * h));
-  return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
-}
 
 struct MlpArgs {
   const void *x, *w1, *b1, *w2, *b2;
@@ -270,94 +262,25 @@ cudaError_t dispatch_f32(const MlpArgs& p, const Plan& k, int C,
   }
 }
 
-// ---- bf16: mma.sync on the tensor cores -----------------------------------
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kSlice = 32;   // rows of a weight slice: two 16-deep k-steps
-
-// C columns, F chunks of FC, RW x WN warps, S stages of the weight ring
-template <int C_, int FC_, int RW_, int WN_, int S_>
-struct MmaCfg {
-  static constexpr int C = C_, FC = FC_, RW = RW_, WN = WN_, S = S_;
-  static constexpr int BM = 16 * RW, threads = 32 * RW * WN;
-  static constexpr int ldx = C + 8, ldh = FC + 8;   // Xs and Hs rows
-  static constexpr int ld1 = FC + 8, ld2 = C + 8;   // W1 and W2 slices
-  static constexpr int slot = kSlice * (ld1 > ld2 ? ld1 : ld2);
-  static constexpr int NJ1 = FC / WN / 8, NJ2 = C / WN / 8;   // n8 tiles
-  static constexpr int n1 = C / kSlice, n2 = FC / kSlice;     // slices
-  static constexpr size_t smem =
-      sizeof(bf16) * (BM * ldx + S * slot + (WN > 1 ? BM * ldh : 0));
-  static_assert(C % kSlice == 0 && FC % kSlice == 0, "whole slices");
-  static_assert(NJ1 % 2 == 0 && NJ2 % 2 == 0, "pairs of n8 tiles");
-  static_assert(smem <= kMaxSmem, "tile does not fit in shared memory");
-};
-
-__device__ __forceinline__ float2 pair_f32(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
+// ---- bf16: mma.sync on the tensor cores (mlp_mma.cuh) -----------------------
 
 template <typename K>
 __global__ void __launch_bounds__(K::threads, K::threads <= 256 ? 2 : 1)
     premlp_mma_kernel(MlpArgs p) {
-  constexpr int C = K::C, FC = K::FC, BM = K::BM, WN = K::WN, S = K::S;
-  constexpr int NJ1 = K::NJ1, NJ2 = K::NJ2, n1 = K::n1, n2 = K::n2;
-  constexpr int per = n1 + n2;   // slices a chunk: W1's, then W2's
+  constexpr int C = K::C, BM = K::BM, WN = K::WN, S = K::S, NJ2 = K::NJ2;
   extern __shared__ __align__(16) unsigned char premlp_smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(premlp_smem);   // [BM][ldx] cast xn
-  bf16* Ws = Xs + BM * K::ldx;                       // S slots of a slice
-  bf16* Hs = Ws + S * K::slot;                       // [BM][ldh], WN > 1
   const bf16* x = static_cast<const bf16*>(p.x);
-  const bf16* w1 = static_cast<const bf16*>(p.w1);
-  const bf16* b1 = static_cast<const bf16*>(p.b1);
-  const bf16* w2 = static_cast<const bf16*>(p.w2);
   const bf16* b2 = static_cast<const bf16*>(p.b2);
   bf16* out = static_cast<bf16*>(p.out);
-  bf16* hsave = static_cast<bf16*>(p.hsave);
+  MlpChain<K> chain(premlp_smem, static_cast<const bf16*>(p.w1),
+                    static_cast<const bf16*>(p.b1),
+                    static_cast<const bf16*>(p.w2),
+                    static_cast<bf16*>(p.hsave), p.M, p.F);
+  bf16* Xs = chain.Xs;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rw = warp / WN, wn = warp % WN, g = lane >> 2, q = lane & 3;
-  const int row0 = blockIdx.x * BM, F = p.F, total = F / FC * per;
-
-  // slice t of the sequence into slot t % S: W1 rows [32 r, 32 r + 32) and
-  // the chunk's FC columns, or W2's 32 rows r - n1 of the chunk, all C
-  auto issue = [&](int t) {
-    if (t >= total) return;
-    const int f0 = t / per * FC, r = t % per;
-    bf16* dst = Ws + (t % S) * K::slot;
-    if (r < n1) {
-      constexpr int cpr = FC / 8;
-      for (int c = threadIdx.x; c < kSlice * cpr; c += K::threads) {
-        const int k = c / cpr, n = c % cpr * 8;
-        cp_async16(dst + k * K::ld1 + n,
-                   w1 + static_cast<size_t>(kSlice * r + k) * F + f0 + n);
-      }
-    } else {
-      constexpr int cpr = C / 8;
-      const int k0 = f0 + kSlice * (r - n1);
-      for (int c = threadIdx.x; c < kSlice * cpr; c += K::threads) {
-        const int k = c / cpr, n = c % cpr * 8;
-        cp_async16(dst + k * K::ld2 + n,
-                   w2 + static_cast<size_t>(k0 + k) * C + n);
-      }
-    }
-  };
-  // the block's rows of x into Xs (zeros past M), then the first slices
-  for (int c = threadIdx.x; c < BM * (C / 8); c += K::threads) {
-    const int r = c / (C / 8), k = c % (C / 8) * 8, row = row0 + r;
-    cp_async16_zfill(Xs + r * K::ldx + k,
-                     row < p.M ? x + static_cast<size_t>(row) * C + k : x,
-                     row < p.M ? 16 : 0);
-  }
-  cp_async_commit();
-#pragma unroll
-  for (int t = 0; t < S - 1; ++t) {
-    issue(t);
-    cp_async_commit();
-  }
+  const int row0 = chain.row0;
+  chain.start(x);
 
   // prologue in place, while the first slices land: eight lanes a row,
   // four rows a warp at a time, float statistics with the fast variance
@@ -393,110 +316,11 @@ __global__ void __launch_bounds__(K::threads, K::threads <= 256 ? 2 : 1)
     }
   }
 
-  // the next slice of the ring: it has landed, every warp is done with
-  // the slot the slice kStages - 1 ahead takes (and with Xs and Hs writes
-  // before this point)
-  int t = 0;
-  auto next = [&]() -> const bf16* {
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    issue(t + S - 1);
-    cp_async_commit();
-    return Ws + (t++ % S) * K::slot;
-  };
-
-  const int hcol = wn * (FC / WN), ocol = wn * (C / WN);
-  const bf16* xa = Xs + (16 * rw + a_row(lane)) * K::ldx + a_col(lane);
   float acc[NJ2][4] = {};
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    // dense1: h = xn @ W1[:, f0 + hcol ...] for the warp's 16 rows
-    float h[NJ1][4] = {};
-    for (int r = 0; r < n1; ++r) {
-      const bf16* ws = next();
-#pragma unroll
-      for (int kk = 0; kk < kSlice; kk += 16) {
-        uint32_t a[4];
-        ldsm_x4(a, smem_u32(xa + kSlice * r + kk));
-#pragma unroll
-        for (int j = 0; j < NJ1; j += 2) {
-          uint32_t b[4];
-          ldsm_x4_t(b, smem_u32(ws + (kk + bk_row(lane)) * K::ld1 + hcol +
-                                8 * j + bk_col(lane)));
-          mma_bf16(h[j], a, b[0], b[1]);
-          mma_bf16(h[j + 1], a, b[2], b[3]);
-        }
-      }
-    }
-    // g = cast(act(h + b1)), once an element: as dense2's A fragments
-    // (k-step kb: n8 tiles 2 kb and 2 kb + 1, rows g and g + 8) or into Hs
-    // (the activation a compile-time constant: a runtime one costs the
-    // per-element code its branches and registers)
-    uint32_t ah[WN == 1 ? FC / 16 : 1][4];
-    auto cast_act = [&](auto a) {
-      constexpr int A = decltype(a)::value;
-#pragma unroll
-      for (int j = 0; j < NJ1; ++j) {
-        const int col = hcol + 8 * j + 2 * q;
-        const float2 bb = pair_f32(b1 + f0 + col);
-        const float v[4] = {h[j][0] + bb.x, h[j][1] + bb.y, h[j][2] + bb.x,
-                            h[j][3] + bb.y};
-        if (hsave != nullptr) {
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int row = row0 + 16 * rw + g + 8 * hh;
-            if (row < p.M)
-              store_pair(hsave + static_cast<size_t>(row) * F + f0 + col,
-                         v[2 * hh], v[2 * hh + 1]);
-          }
-        }
-        const uint32_t lo = pack_bf16(act(v[0], A), act(v[1], A));
-        const uint32_t hi = pack_bf16(act(v[2], A), act(v[3], A));
-        if constexpr (WN == 1) {
-          ah[j / 2][(j & 1) * 2] = lo;
-          ah[j / 2][(j & 1) * 2 + 1] = hi;
-        } else {
-          bf16* hs = Hs + (16 * rw + g) * K::ldh + col;
-          *reinterpret_cast<uint32_t*>(hs) = lo;
-          *reinterpret_cast<uint32_t*>(hs + 8 * K::ldh) = hi;
-        }
-      }
-    };
-    if (p.act == kRelu)
-      cast_act(std::integral_constant<int, kRelu>());
-    else if (p.act == kQuickGelu)
-      cast_act(std::integral_constant<int, kQuickGelu>());
-    else
-      cast_act(std::integral_constant<int, kGelu>());
-    // dense2: acc += g @ W2[f0 ..., ocol ...]; with WN > 1 the first slice's
-    // barrier orders the Hs writes above before the reads below, and the
-    // next chunk's dense1 barriers order these reads before its writes
-#pragma unroll
-    for (int r2 = 0; r2 < n2; ++r2) {
-      const bf16* ws = next();
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t a[4];
-        if constexpr (WN == 1) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = ah[2 * r2 + kk][i];
-        } else {
-          ldsm_x4(a, smem_u32(Hs + (16 * rw + a_row(lane)) * K::ldh +
-                              kSlice * r2 + 16 * kk + a_col(lane)));
-        }
-#pragma unroll
-        for (int j = 0; j < NJ2; j += 2) {
-          uint32_t b[4];
-          ldsm_x4_t(b, smem_u32(ws + (16 * kk + bk_row(lane)) * K::ld2 +
-                                ocol + 8 * j + bk_col(lane)));
-          mma_bf16(acc[j], a, b[0], b[1]);
-          mma_bf16(acc[j + 1], a, b[2], b[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
+  chain.run(p.act, acc);
 
   // y = acc + b2, the residual (and the row's scale) on it, one cast
+  const int ocol = wn * (C / WN);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 16 * rw + g + 8 * hh;

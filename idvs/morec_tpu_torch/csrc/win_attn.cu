@@ -4,10 +4,11 @@
 //   p   = cast(softmax_f32(s))
 //   ctx = cast(f32(p . v))
 //   out = cast(ctx @ Wo + bo)
-// Each body (bf16, float32) takes two index maps: the window layout reads
-// window r from a (B, T, C) tensor; the band layout reads a window's tokens
-// from the (N, Hp, Wp, C) feature map and writes them back there, so the
-// window partition and its reverse never exist in device memory.
+// Each body (bf16, float32) takes the two index maps of win_map.cuh: the
+// window layout reads window r from a (B, T, C) tensor; the band layout
+// reads a window's tokens from the (N, Hp, Wp, C) feature map and writes
+// them back there, so the window partition and its reverse never exist in
+// device memory.
 //
 // Replaces idvs/morec_tpu/ops/pallas/attention.py _pfwd_kernel (reached
 // through fused_mha_proj) and _bfwd_kernel (fused_mha_proj_band), bodies
@@ -66,6 +67,7 @@
 // operations), and writes its heads' context into the scratch.
 #include "mma.cuh"
 #include "tile.cuh"
+#include "win_map.cuh"
 
 namespace idvs {
 namespace {
@@ -86,12 +88,8 @@ struct WinGeom {
 // the row (in units of C elements) of token t of window widx; -1 beyond
 __device__ __forceinline__ int token_row(const WinGeom& g, int widx, int t) {
   if (widx >= g.windows) return -1;
-  if (!g.band) return widx * g.T + t;
-  const int nW = g.nwc * g.nwr;
-  const int img = widx / nW, wi = widx % nW;
-  const int y = (wi / g.nwc) * g.w + t / g.w;
-  const int x = (wi % g.nwc) * g.w + t % g.w;
-  return (img * g.nwr * g.w + y) * (g.nwc * g.w) + x;
+  return static_cast<int>(TokenMap{g.band, g.w, g.nwc, g.nwr}.row(widx, t,
+                                                                   g.T));
 }
 
 __host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }

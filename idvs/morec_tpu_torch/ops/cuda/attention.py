@@ -37,7 +37,7 @@ import torch
 
 from .. import dropout
 from . import lib
-from .gemm import colsum, gemm, sm_count
+from .gemm import colsum, gemm
 
 NEG = -1e9
 MAX_T = 128
@@ -267,10 +267,13 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
 # ``csrc/gemm.cu``) saves nothing but x, the bias and the weights: it
 # recomputes qkv and the probabilities and returns the gradients of x, of
 # the four weights and of the bias, the latter summed over the windows that
-# share a bias row, in a fixed order. The band layout's backward partitions
-# x and dout into windows and reverses dx here, with PyTorch copies.
-# ``fused_mha_proj_bwd.launches`` and ``fused_mha_proj_band_bwd.launches``
-# count the backward's launches.
+# share a bias row, in a fixed order. Its products are row-wise, so they run
+# on x's rows as they lie, and its attention core (bf16: fused_mha.cu's
+# tensor-core backward, shared through ``csrc/mha_mma.cuh``) reads and
+# writes a window's tokens through the forward's row index map
+# (``csrc/win_map.cuh``, twin ``band_token_rows``): the band layout's
+# backward copies nothing into windows. ``fused_mha_proj_bwd.launches`` and
+# ``fused_mha_proj_band_bwd.launches`` count the backward's launches.
 
 LINEAR_WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 CUDA_INVALID_VALUE = 1     # cudaErrorInvalidValue
@@ -324,6 +327,21 @@ def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
     N, H, W, C = x.shape
     x = x.reshape(N, H // w, w, W // w, w, C)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, w * w, C)
+
+
+def band_token_rows(N: int, Hp: int, Wp: int, w: int) -> torch.Tensor:
+    """The rows of an (N, Hp, Wp, C) map, as (N * Hp * Wp, C), that the
+    band layout's windows read, window by window in raster order and token
+    by token within each (csrc/win_map.cuh): x.reshape(-1, C)[rows] is
+    window_partition(x, w).reshape(-1, C)."""
+    nwr, nwc = Hp // w, Wp // w
+    img = torch.arange(N).reshape(N, 1, 1, 1, 1)
+    wy = torch.arange(nwr).reshape(1, nwr, 1, 1, 1)
+    wx = torch.arange(nwc).reshape(1, 1, nwc, 1, 1)
+    ty = torch.arange(w).reshape(1, 1, 1, w, 1)
+    tx = torch.arange(w).reshape(1, 1, 1, 1, w)
+    base = (img * nwr * w + wy * w) * (nwc * w) + wx * w
+    return (base + ty * (nwc * w) + tx).reshape(-1)
 
 
 def window_reverse(wins: torch.Tensor, w: int, H: int, W: int
@@ -452,34 +470,46 @@ def _windowed_fwd(name, x, table, ops, n_heads, windows, T, band, code):
     return out
 
 
-def _windowed_bwd(xw, table, dw, wqkv, bqkv, wo, n_heads, code):
-    """Backward on windows: xw and dw (the output's cotangent) are
-    (windows, T, C), contiguous, in the compute dtype. Returns (dx windows,
-    dbias (P, nh, T, T) float32, dwqkv, dbqkv, dwo, dbo), the weights' in
-    the compute dtype."""
-    W, T, C = xw.shape
-    M, dh, P = W * T, C // n_heads, table.shape[0]
-    dt, dev = xw.dtype, xw.device
-    x2, d2 = xw.reshape(M, C), dw.reshape(M, C)
-    qkv = gemm(x2, wqkv, M, 3 * C, C, (C, 1), (3 * C, 1), code, bias=bqkv)
-    dctx = gemm(d2, wo, M, C, C, (C, 1), (1, C), code)          # dout woᵀ
-    # blocks walk `chunks` shares of the windows that share a bias row:
-    # about eight waves of the four blocks a multiprocessor holds, so that
-    # the last, partly filled wave is a small part of the kernel's time
-    blocks = 32 * sm_count(dev.index or 0)
-    chunks = max(1, min(W // P, -(-blocks // (P * n_heads))))
-    part = torch.empty(chunks * P * n_heads * T * T, device=dev)
-    dbias = torch.empty(P, n_heads, T, T, device=dev)
-    dqkv, ctx = torch.empty_like(qkv), torch.empty_like(x2)
-    err = lib.library().idvs_win_attn_bwd(
-        qkv.data_ptr(), table.data_ptr(), dctx.data_ptr(), dqkv.data_ptr(),
-        ctx.data_ptr(), part.data_ptr(), dbias.data_ptr(), W, T, n_heads, dh,
-        P, chunks, table.stride(0), table.stride(1), 1.0 / math.sqrt(dh),
-        code, lib.stream_handle(xw))
-    if err == CUDA_INVALID_VALUE:
+def win_attn_bwd_chunks(windows, T, n_heads, dh, P, code) -> int:
+    """Shares of the windows / P windows that take one bias row, one block
+    each per (row of the bias, head), as the attention core of the windowed
+    backward cuts them (csrc/mha_mma.cuh ``dbias_chunks``); raises for a
+    geometry whose tiles do not fit a block's shared memory."""
+    chunks = lib.library().idvs_win_attn_bwd_chunks(windows, T, n_heads, dh,
+                                                    P, code)
+    if chunks == -CUDA_INVALID_VALUE:
         raise ValueError(
             f"windowed attention backward: a head's tiles at T={T}, "
             f"dh={dh} do not fit a block's shared memory")
+    if chunks < 0:
+        lib.check(-chunks, "win_attn_bwd chunks")
+    return chunks
+
+
+def _windowed_bwd(x, table, dout, wqkv, bqkv, wo, n_heads, windows, T, band,
+                  code):
+    """Backward on x's rows as they lie: x and dout (the output's
+    cotangent) are contiguous (B, T, C) windows (band None) or an (N, Hp,
+    Wp, C) map (band = (w, nwc, nwr)), in the compute dtype. Returns (dx
+    shaped as x, dbias (P, nh, T, T) float32, dwqkv, dbqkv, dwo, dbo), the
+    weights' in the compute dtype."""
+    C = x.shape[-1]
+    M, dh, P = x.numel() // C, C // n_heads, table.shape[0]
+    dt, dev = x.dtype, x.device
+    chunks = win_attn_bwd_chunks(windows, T, n_heads, dh, P, code)
+    x2, d2 = x.reshape(M, C), dout.reshape(M, C)
+    qkv = gemm(x2, wqkv, M, 3 * C, C, (C, 1), (3 * C, 1), code, bias=bqkv)
+    dctx = gemm(d2, wo, M, C, C, (C, 1), (1, C), code)          # dout woᵀ
+    part = torch.empty(chunks * P * n_heads * T * T, device=dev)
+    dbias = torch.empty(P, n_heads, T, T, device=dev)
+    dqkv, ctx = torch.empty_like(qkv), torch.empty_like(x2)
+    w, nwc, nwr = band if band is not None else (0, 0, 0)
+    err = lib.library().idvs_win_attn_bwd(
+        qkv.data_ptr(), table.data_ptr(), dctx.data_ptr(), dqkv.data_ptr(),
+        ctx.data_ptr(), part.data_ptr(), dbias.data_ptr(), windows, T,
+        n_heads, dh, P, chunks, table.stride(0), table.stride(1),
+        int(band is not None), w, nwc, nwr, 1.0 / math.sqrt(dh), code,
+        lib.stream_handle(x))
     lib.check(err, "win_attn_bwd")
     del qkv, dctx
     dwo = gemm(ctx, d2, C, C, M, (1, C), (C, 1), code)          # ctxᵀ dout
@@ -487,13 +517,14 @@ def _windowed_bwd(xw, table, dw, wqkv, bqkv, wo, n_heads, code):
     dwqkv = gemm(x2, dqkv, C, 3 * C, M, (1, C), (3 * C, 1), code)
     dbqkv = colsum(dqkv, code)
     dx = gemm(dqkv, wqkv, M, C, 3 * C, (3 * C, 1), (1, 3 * C), code)
-    return (dx.reshape(W, T, C), dbias, dwqkv, dbqkv.to(dt), dwo, dbo.to(dt))
+    return (dx.reshape(x.shape), dbias, dwqkv, dbqkv.to(dt), dwo, dbo.to(dt))
 
 
 def fused_mha_proj_bwd(xw, table, dout, wqkv, bqkv, wo, *, n_heads, code):
     """Backward of ``fused_mha_proj`` on the card (``_windowed_bwd``)."""
+    B, T, _ = xw.shape
     grads = _windowed_bwd(xw, table, dout.to(xw.dtype).contiguous(), wqkv,
-                          bqkv, wo, n_heads, code)
+                          bqkv, wo, n_heads, B, T, None, code)
     fused_mha_proj_bwd.launches += 1
     return grads
 
@@ -501,14 +532,15 @@ def fused_mha_proj_bwd(xw, table, dout, wqkv, bqkv, wo, *, n_heads, code):
 def fused_mha_proj_band_bwd(x, table, dout, wqkv, bqkv, wo, *, n_heads,
                             window, code):
     """Backward of ``fused_mha_proj_band`` on the card: x and dout are
-    (N, Hp, Wp, C) maps; dx comes back as a map."""
-    N, Hp, Wp, C = x.shape
-    dx, *rest = _windowed_bwd(
-        window_partition(x, window), table,
-        window_partition(dout.to(x.dtype), window), wqkv, bqkv, wo, n_heads,
-        code)
+    (N, Hp, Wp, C) maps, read in place through the band layout's row map;
+    dx comes back as a map."""
+    N, Hp, Wp, _ = x.shape
+    nwr, nwc = Hp // window, Wp // window
+    grads = _windowed_bwd(x, table, dout.to(x.dtype).contiguous(), wqkv,
+                          bqkv, wo, n_heads, N * nwr * nwc, window * window,
+                          (window, nwc, nwr), code)
     fused_mha_proj_band_bwd.launches += 1
-    return (window_reverse(dx, window, Hp, Wp), *rest)
+    return grads
 
 
 class _WindowedMHA(torch.autograd.Function):

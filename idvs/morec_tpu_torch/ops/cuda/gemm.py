@@ -34,11 +34,11 @@ def ptr(t):
 
 
 @functools.lru_cache(maxsize=None)
-def splits_of(M: int, N: int, K: int, code: int) -> int:
+def splits_of(M: int, N: int, K: int, code: int, max_depth: int = 0) -> int:
     """K slices of an (M, N) product over K, as the kernel chooses them
-    (csrc/gemm.cu choose_splits): the workspace holds one float (M, N)
-    partial a slice."""
-    return lib.library().idvs_gemm_splits(M, N, K, code)
+    (csrc/gemm.cu choose_splits; in bf16 none deeper than max_depth when it
+    is above 0): the workspace holds one float (M, N) partial a slice."""
+    return lib.library().idvs_gemm_splits(M, N, K, code, max_depth)
 
 
 def _check_rows(t, strides, what):
@@ -85,6 +85,17 @@ def _act_cast(A, M, K, sa, act):
     return out
 
 
+def act_cast(A: torch.Tensor, act=None) -> torch.Tensor:
+    """cast(act(A)) in bf16 of a contiguous (M, K) A (the cast alone when
+    act is None): the product's pre-pass on the card, its plain version on
+    the CPU."""
+    if A.device.type == "cpu":
+        a = A.float()
+        return (act_of(a, act) if act else a).to(torch.bfloat16)
+    M, K = A.shape
+    return _act_cast(A, M, K, (K, 1), act).view(M, K)
+
+
 def gemm_plain(A, B, M, N, K, sa, sb, *, add=None, gate=None, act="gelu",
                pro_act=False, bias=None, out_f32=False, dtype=None):
     """The kernel's contract in PyTorch ops (csrc/gemm.cu's header): A(m, k)
@@ -107,12 +118,15 @@ def gemm_plain(A, B, M, N, K, sa, sb, *, add=None, gate=None, act="gelu",
 
 
 def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
-         pro_act=False, bias=None, out_f32=False, dtype=None):
+         pro_act=False, bias=None, out_f32=False, dtype=None, max_depth=0):
     """(M, N) = epi(pro(A) @ B) (csrc/gemm.cu); sa = (sam, sak) and sb =
     (sbk, sbn) are the element strides of A(m, k), B(k, n). B is in the
     compute dtype ``dtype`` (A's when None); A and gate are in it or in
     float32; the result is in it, or float32 with ``out_f32``. A and B need
-    16-byte aligned rows (``_check_rows``); it raises otherwise."""
+    16-byte aligned rows (``_check_rows``); it raises otherwise. max_depth
+    > 0 bounds the K a bf16 slice accumulates on the tensor cores before
+    the slices are added in float (``splits_of``); it changes only the
+    float sum's order, so the plain version ignores it."""
     if A.device.type == "cpu":
         return gemm_plain(A, B, M, N, K, sa, sb, add=add, gate=gate, act=act,
                           pro_act=pro_act, bias=bias, out_f32=out_f32,
@@ -125,7 +139,7 @@ def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
         pro_act = False
     out = torch.empty(M, N, dtype=torch.float32 if out_f32 else dt,
                       device=A.device)
-    splits = splits_of(M, N, K, code)
+    splits = splits_of(M, N, K, code, max_depth)
     ws = (torch.empty(splits * M * N, device=A.device) if splits > 1
           else None)
     err = lib.library().idvs_gemm(

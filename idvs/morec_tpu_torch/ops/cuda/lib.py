@@ -55,9 +55,11 @@ _SIGNATURES = {
     # x, res, w, b, gamma, beta, out, ypre, M, C, eps, drop, dtype, stream
     "idvs_proj_resln_fwd": [_P] * 8 + [_I, _I, _F] + _DROP + [_I, _P],
     # x, w1, b1, w2, b2, gamma, beta, out, ypre, h, M, C, F, eps, act, drop,
-    # dtype, stream
+    # rows, f_chunk, threads, smem, dtype, stream
     "idvs_mlp_resln_fwd": [_P] * 10 + [_I, _I, _I, _F, _I] + _DROP
-                          + [_I, _P],
+                          + [_I, _I, _I, _LL, _I, _P],
+    # y, b2, x, gamma, beta, out, ypre, M, C, eps, drop, dtype, stream
+    "idvs_post_ln_rows": [_P] * 7 + [_I, _I, _F] + _DROP + [_I, _P],
     # ypre, dout, gamma, dres, dyp, dz, part, sums, nb, M, C, eps, drop,
     # dtype, stream
     "idvs_resln_bwd_rows": [_P] * 8 + [_I, _I, _I, _F] + _DROP + [_I, _P],
@@ -66,8 +68,8 @@ _SIGNATURES = {
     # A, B, out, add, gate, bias, ws, M, N, K, sam, sak, sbk, sbn, splits,
     # pro_act, gate_act, out_f32, a_f32, gate_f32, dtype, stream
     "idvs_gemm": [_P] * 7 + [_I] * 3 + [_LL] * 4 + [_I] * 7 + [_P],
-    # M, N, K, dtype -> the K slices of idvs_gemm
-    "idvs_gemm_splits": [_I] * 4,
+    # M, N, K, dtype, max_depth -> the K slices of idvs_gemm
+    "idvs_gemm_splits": [_I] * 5,
     # src, dst, n, act, src_f32, stream
     "idvs_gemm_act_cast": [_P, _P, _LL, _I, _I, _P],
     # ids, dx, counts, table, out, M, D, V, dtype, stream
@@ -88,8 +90,11 @@ _SIGNATURES = {
     # x, dxn, gamma, stats, dout, dx, part, sums, nb, M, C, dtype, stream
     "idvs_premlp_ln_bwd": [_P] * 8 + [_I] * 4 + [_P],
     # qkv, bias, dctx, dqkv, ctx, part, dbias, windows, T, nh, dh, P,
-    # chunks, bias_sp, bias_sh, scale, dtype, stream
-    "idvs_win_attn_bwd": [_P] * 7 + [_I] * 6 + [_LL, _LL, _F, _I, _P],
+    # chunks, bias_sp, bias_sh, band, w, nwc, nwr, scale, dtype, stream
+    "idvs_win_attn_bwd": [_P] * 7 + [_I] * 6 + [_LL, _LL] + [_I] * 4
+                         + [_F, _I, _P],
+    # windows, T, nh, dh, P, dtype -> the attention core's chunks
+    "idvs_win_attn_bwd_chunks": [_I] * 6,
     # u, cand, ids, cand_ids, colmask, logpop, part, ce, m, l, M, N, D, L,
     # S, label_off, per, splits, dtype, stream
     "idvs_inbatch_ce_fwd": [_P] * 10 + [_I] * 9 + [_P],

@@ -13,7 +13,11 @@ rate. Forward: each block owns 32 rows (8 at C = 2048) and all C columns,
 so the dropout,
 the residual add, the cast to the compute dtype and the LayerNorm run on the
 accumulator, and the FFN's (M, F) intermediate never leaves the block
-unless the training edition saves it. Backward: a row pass recomputes the
+unless the training edition saves it. The FFN tail in bf16 runs its
+products on the tensor cores with the block plan of ``mlp_resln_plan``; at
+C = 2048 (SASRec under the vision tower, 10 to 640 rows) its h goes
+through device memory instead, between the two products of gemm.cu and a
+row pass (``mlp_resln_products``). Backward: a row pass recomputes the
 LN statistics from the saved pre-LN sum, and one tiled kernel runs the
 products, split over M with a deterministic second pass for the weight
 gradients. The .cu headers have the details.
@@ -34,11 +38,19 @@ import torch
 
 from .. import dropout
 from . import lib
-from .gemm import act_of as _act, colsum, gemm, ptr, row_groups, sm_count
+from .gemm import (act_cast, act_of as _act, colsum, gemm, ptr, row_groups,
+                   sm_count)
 from ...models.layers import layer_norm
 
 KERNEL_WIDTHS = (128, 256, 512, 2048)   # C the kernels are instantiated for
 F_CHUNK = {128: 128, 256: 128, 512: 256, 2048: 1024}   # F: a multiple of
+PRODUCTS_WIDTH = 2048   # the FFN tail's C whose h goes through memory
+# K a bf16 slice of that tail's dense1 accumulates on the tensor cores, in
+# training, before the slices are added in float: the depth of the C = 512
+# tail's dense1, whose h then sits as close to an IEEE float sum as
+# torch.matmul's float32 product (PERF.md); a forward alone has no branch
+# to decide and takes gemm.cu's fastest split
+DENSE1_DEPTH = 512
 # csrc/mlp_resln.cu Act; the backward's products take gemm.py's numbering
 ACTS = {"gelu": 0, "relu": 1, "quick_gelu": 2}
 
@@ -193,28 +205,105 @@ def fused_proj_resln(x: torch.Tensor, res: torch.Tensor, w: torch.Tensor,
 
 # -- the FFN tail -------------------------------------------------------------
 
-def _launch_mlp(x2, w1, b1, w2, b2, g, bt, ypre, h, eps, act, drop, code):
+def mlp_resln_plan(C: int, dtype: torch.dtype) -> dict:
+    """The block plan of csrc/mlp_resln.cu at width C, which the launch
+    passes to the kernel (the kernel refuses any other): rows a block, the
+    F chunk, threads and shared-memory bytes; for bf16 also the warps'
+    layout, the ring's stages and the accumulators a thread holds, which
+    are premlp_plan's (the two share csrc/mlp_mma.cuh's chain), with the
+    epilogue's row sums after the chain. At C = 2048 no block plan: h goes
+    through device memory between gemm.cu's products
+    (``mlp_resln_products``; their splits are gemm.cu's choose_splits)."""
+    if C == PRODUCTS_WIDTH:
+        return dict(route="products", f_chunk=F_CHUNK[C])
+    if C not in F_CHUNK:
+        raise ValueError(f"kernel takes C in {KERNEL_WIDTHS}, got {C}")
+    if dtype == torch.bfloat16:
+        k = premlp_plan(C, dtype)
+        return dict(k, route="block",
+                    smem=k["smem"] + 4 * 2 * k["col_warps"] * k["rows"])
+    WC = F_CHUNK[C] // 128        # rowtile.cuh Grid<C>: 32 rows, K 16 deep
+    return dict(route="block", rows=32, f_chunk=F_CHUNK[C], threads=256,
+                smem=4 * ((C + F_CHUNK[C]) * 36 + 2 * 16 * C + 2 * WC * 32))
+
+
+def post_ln_rows_plain(y, b2, x2, ln, *, eps, drop):
+    """The C = 2048 row pass in plain PyTorch: (LN(ypre), ypre) with ypre =
+    cast(dropout(y + b2) + x), y the float sum of the two products and
+    ``drop`` the call's kernel arguments (``ops/dropout.py``)."""
+    dt = x2.dtype
+    v = dropout.apply_args(y.float() + b2.to(dt).float(), drop)
+    ypre = (v + x2.float()).to(dt)
+    return _post_ln(ypre, dt, ln, eps), ypre
+
+
+def post_ln_rows(y, b2, x2, ln, *, eps, drop, train):
+    """The row pass (csrc/mlp_resln.cu post_ln_rows_kernel) on the card,
+    its plain version on the CPU: (out, ypre, or None outside training)."""
+    if y.device.type == "cpu":
+        out, ypre = post_ln_rows_plain(y, b2, x2, ln, eps=eps, drop=drop)
+        return out, ypre if train else None
+    M, C = x2.shape
+    out = torch.empty_like(x2)
+    ypre = torch.empty_like(x2) if train else None
+    err = lib.library().idvs_post_ln_rows(
+        y.data_ptr(), b2.data_ptr(), x2.data_ptr(), ln[0].data_ptr(),
+        ln[1].data_ptr(), out.data_ptr(), ptr(ypre), M, C, float(eps), *drop,
+        lib.dtype_code(x2), lib.stream_handle(x2))
+    lib.check(err, "post_ln_rows")
+    return out, ypre
+
+
+def mlp_resln_products(x2, w1, b1, w2, b2, ln, *, eps, act, drop, train):
+    """The FFN tail at C = 2048 (csrc/mlp_resln.cu's header): h = f32(x w1)
+    + b1 and y = f32(cast(act(h)) w2) through gemm.cu, then the row pass.
+    (out, ypre, h) in training, h cast to the compute dtype; (out, None,
+    None) otherwise. On the CPU every piece is its plain version, so this
+    is the composition's order and rounding points in plain PyTorch."""
     M, C = x2.shape
     F = w1.shape[1]
+    dt, code = x2.dtype, lib.dtype_code(x2)
+    # in training, h decides the backward's branch at a ReLU's kink: at
+    # most DENSE1_DEPTH of K a tensor-core slice
+    h = gemm(x2, w1, M, F, C, (C, 1), (F, 1), code, bias=b1, out_f32=True,
+             max_depth=DENSE1_DEPTH if train else 0)
+    y = gemm(h, w2, M, C, F, (F, 1), (C, 1), code, act=act, pro_act=True,
+             out_f32=True, dtype=dt)
+    out, ypre = post_ln_rows(y, b2, x2, ln, eps=eps, drop=drop, train=train)
+    if not train:
+        return out, None, None
+    return out, ypre, h if dt == torch.float32 else act_cast(h)
+
+
+def _launch_mlp(x2, w1, b1, w2, b2, g, bt, eps, act, drop, code, train):
+    """(out, ypre, h) of the tail on the card; ypre and h only in
+    training."""
+    M, C = x2.shape
+    F = w1.shape[1]
+    if C == PRODUCTS_WIDTH:
+        return mlp_resln_products(x2, w1, b1, w2, b2, (g, bt), eps=eps,
+                                  act=act, drop=drop, train=train)
     out = torch.empty_like(x2)
+    ypre = torch.empty_like(x2) if train else None
+    h = (torch.empty(M, F, dtype=x2.dtype, device=x2.device) if train
+         else None)
+    k = mlp_resln_plan(C, x2.dtype)
     err = lib.library().idvs_mlp_resln_fwd(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), g.data_ptr(), bt.data_ptr(), out.data_ptr(),
-        ptr(ypre), ptr(h), M, C, F, float(eps), ACTS[act], *drop, code,
+        ptr(ypre), ptr(h), M, C, F, float(eps), ACTS[act], *drop,
+        k["rows"], k["f_chunk"], k["threads"], k["smem"], code,
         lib.stream_handle(x2))
     lib.check(err, "fused_mlp_resln")
-    return out
+    return out, ypre, h
 
 
 def fused_mlp_resln_res(x2, w1, b1, w2, b2, g, bt, *, eps, act, drop,
                         code):
     """Training edition: (out, y_pre, h), y_pre the cast pre-LN sum and h
     the cast pre-activation x @ w1 + b1."""
-    ypre = torch.empty_like(x2)
-    h = torch.empty(x2.shape[0], w1.shape[1], dtype=x2.dtype,
-                    device=x2.device)
-    out = _launch_mlp(x2, w1, b1, w2, b2, g, bt, ypre, h, eps, act, drop,
-                      code)
+    out, ypre, h = _launch_mlp(x2, w1, b1, w2, b2, g, bt, eps, act, drop,
+                               code, True)
     fused_mlp_resln_res.launches += 1
     return out, ypre, h
 
@@ -292,8 +381,8 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         out = _MLPResLN.apply(x2, w1_, b1_, w2_, b2_, g_, bt_, float(eps),
                               act, drop, code)
     else:
-        out = _launch_mlp(x2, w1_, b1_, w2_, b2_, g_, bt_, None, None, eps,
-                          act, drop, code)
+        out = _launch_mlp(x2, w1_, b1_, w2_, b2_, g_, bt_, eps, act, drop,
+                          code, False)[0]
         fused_mlp_resln.launches += 1
     return out.reshape(x.shape)
 

@@ -75,14 +75,21 @@ def keep_mask(seed: int, shape, p: float, device=None) -> torch.Tensor:
 def apply(x: torch.Tensor, p: float, seed) -> torch.Tensor:
     """Dropout of x in float32: kept elements scaled, dropped ones zero (x
     itself when p == 0). The result is float32; callers cast it."""
-    check_rate(p)
+    return apply_args(x, kernel_args(p, seed))
+
+
+def apply_args(x: torch.Tensor, args: tuple) -> torch.Tensor:
+    """``apply`` given the call's kernel arguments (key, thresh, scale) of
+    ``kernel_args`` in place of (p, seed): the mask of ``keep_mask``."""
+    key, thresh, sc = args
     xf = x.float()
-    if p == 0.0:
+    if thresh == 0:
         return xf
-    if seed is None:
-        raise ValueError("dropout with p > 0 needs a seed")
-    keep = keep_mask(seed, x.shape, p, x.device)
-    return torch.where(keep, xf * scale(p), torch.zeros_like(xf))
+    if xf.numel() > M32:
+        raise ValueError("dropout index must fit 32 bits")
+    idx = torch.arange(xf.numel(), dtype=torch.int64, device=x.device)
+    keep = (mix32(idx ^ key) >= thresh).reshape(x.shape)
+    return torch.where(keep, xf * sc, torch.zeros_like(xf))
 
 
 def draw_seed(generator: torch.Generator) -> int:

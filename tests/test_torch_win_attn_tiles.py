@@ -1,6 +1,7 @@
 """The windowed attention's forward kernel (csrc/win_attn.cu, with the
-output projection through csrc/gemm.cu) at the edges of its block plan,
-against its plain version on the card. Every test needs an NVIDIA GPU and
+output projection through csrc/gemm.cu) at the edges of its block plan, and
+its backward (the attention core csrc/win_attn_bwd.cu, with the products
+of csrc/gemm.cu), against the plain version and its autograd on the card. Every test needs an NVIDIA GPU and
 skips without one. On the card (no jax there, so without the repo's
 conftest):
 
@@ -16,6 +17,16 @@ few of the same shapes. Tolerances: chip_smoke.py's TOL, max abs error
 against the plain version (bf16: one or two units of 2^-7 relative after
 the casts of qkv, the probabilities and the context; float32: sums in
 other orders).
+
+Backward, bf16 (fused_mha.cu's tensor-core backward shared through
+csrc/mha_mma.cuh) and float32: both layouts, one bias (P = 1) and a bias
+per window (P = nW) under the shift mask, at the four Swin-T stages'
+geometries for two images, and heads of 4 to 128 columns; dx, dbias and the
+four weights' gradients against autograd of the plain version at
+chip_smoke.py's GRAD_TOL (max abs error over max(1, the largest plain
+value)); dbias and dx the same bits on two runs; and the band layout's
+backward partitions and reverses nothing (window_partition and
+window_reverse are not called).
 """
 
 import math
@@ -25,15 +36,18 @@ import pytest
 import torch
 
 from idvs.morec_tpu_torch.models.swin import _shift_mask
-from idvs.morec_tpu_torch.ops.cuda import lib
+from idvs.morec_tpu_torch.ops.cuda import attention, lib
 from idvs.morec_tpu_torch.ops.cuda.attention import (
     LINEAR_WIDTHS, fused_mha_proj, fused_mha_proj_band,
-    fused_mha_proj_band_plain, fused_mha_proj_plain, win_attn_plan)
+    fused_mha_proj_band_bwd, fused_mha_proj_band_plain, fused_mha_proj_bwd,
+    fused_mha_proj_plain, win_attn_plan)
 
 pytestmark = pytest.mark.cuda
 
 BF16 = torch.bfloat16
 TOL = {torch.float32: 1e-4, BF16: 6.25e-2}
+GRAD_TOL = {torch.float32: 1e-4, BF16: 3e-2}
+SWIN_T = ((96, 3, 56), (192, 6, 28), (384, 12, 14), (768, 24, 7))
 
 
 @pytest.fixture(autouse=True)
@@ -151,3 +165,98 @@ def test_refuses_what_the_kernel_does_not_take():
                 "G", "HG", "t_pad", "dh_pad", "warps_m", "warps_n", "passes",
                 "smem")), lib.DTYPE_CODES[BF16], lib.stream_handle(x))
         assert err == 1, bad    # cudaErrorInvalidValue
+
+
+def _grads(fn, inputs, dout):
+    """(output, gradient of every input) of fn at fresh leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return (out, *torch.autograd.grad(out, leaves, dout))
+
+
+def _close_grads(got, want, dtype):
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dx", "dbias", "dwqkv", "dbqkv", "dwo",
+                           "dbo"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - b.float()).abs().max().item()
+        scale = max(1.0, b.float().abs().max().item())
+        assert err <= GRAD_TOL[dtype] * scale, (name, err, scale)
+
+
+def _band_inputs(seed, N, side, C, nh, shifted, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(N, side, side, C, generator=gen, device="cuda")
+    bias = 0.5 * torch.randn(1, nh, 49, 49, generator=gen, device="cuda")
+    if shifted:
+        bias = bias + torch.from_numpy(
+            _shift_mask(side, side, 7, 3)).to("cuda")[:, None]
+    dout = torch.randn(N, side, side, C, generator=gen, device="cuda")
+    return [x.to(dtype), bias, *_weights(gen, C)], dout.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("C,nh,side", SWIN_T)
+def test_band_backward_at_the_swin_stages(C, nh, side, shifted, dtype):
+    """Two images of each Swin-T stage's map, P = 1 or (shifted, where a
+    stage has more than one window) P = nW, the map read in place."""
+    shifted = shifted and side > 7
+    inputs, dout = _band_inputs(C + side, 2, side, C, nh, shifted, dtype)
+    kern = lambda *a: fused_mha_proj_band(*a, n_heads=nh, window=7)
+    plain = lambda *a: fused_mha_proj_band_plain(*a, n_heads=nh, window=7)
+    before = fused_mha_proj_band_bwd.launches
+    _close_grads(_grads(kern, inputs, dout), _grads(plain, inputs, dout),
+                 dtype)
+    assert fused_mha_proj_band_bwd.launches == before + 1
+
+
+@pytest.mark.parametrize("C,nh,dtype", [
+    (96, 24, BF16), (96, 8, BF16), (192, 8, BF16), (96, 3, BF16),
+    (384, 8, BF16), (128, 2, BF16), (384, 3, BF16), (96, 8, torch.float32),
+    (96, 3, torch.float32), (384, 3, torch.float32)])
+def test_window_backward_at_every_head_width(C, nh, dtype):
+    """The window layout with a bias per window (P = B / 2 of B = 2P
+    windows), heads of dh = 4, 12, 24, 32, 48, 64 and 128 columns: no
+    whole 16-byte pieces, zero-filled to 16s, one or more 16-column
+    steps; float32 where its forward takes the heads (a head group of 32
+    or more columns)."""
+    gen = torch.Generator(device="cuda").manual_seed(C * nh)
+    B, P = 10, 5
+    x = torch.randn(B, 49, C, generator=gen, device="cuda").to(dtype)
+    bias = 0.5 * torch.randn(P, nh, 49, 49, generator=gen, device="cuda")
+    dout = torch.randn(B, 49, C, generator=gen, device="cuda").to(dtype)
+    inputs = [x, bias, *_weights(gen, C)]
+    kern = lambda *a: fused_mha_proj(*a, n_heads=nh)
+    plain = lambda *a: fused_mha_proj_plain(*a, n_heads=nh)
+    before = fused_mha_proj_bwd.launches
+    _close_grads(_grads(kern, inputs, dout), _grads(plain, inputs, dout),
+                 dtype)
+    assert fused_mha_proj_bwd.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+def test_backward_gives_the_same_bits_on_two_runs(dtype):
+    inputs, dout = _band_inputs(7, 3, 28, 192, 6, True, dtype)
+    kern = lambda *a: fused_mha_proj_band(*a, n_heads=6, window=7)
+    first, second = _grads(kern, inputs, dout), _grads(kern, inputs, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_band_backward_copies_no_windows(monkeypatch):
+    """The band layout's backward reads the map through the row index map:
+    neither window_partition nor window_reverse runs."""
+    inputs, dout = _band_inputs(3, 2, 14, 384, 12, True, BF16)
+    out = fused_mha_proj_band(*[t.detach().requires_grad_(True)
+                                for t in inputs], n_heads=12, window=7)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the band backward copied windows")
+
+    monkeypatch.setattr(attention, "window_partition", refuse)
+    monkeypatch.setattr(attention, "window_reverse", refuse)
+    out.backward(dout)
+    torch.cuda.synchronize()
