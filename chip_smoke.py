@@ -17,19 +17,22 @@ failure:
 2. build: build (or load) the kernel library;
 3. kernels: each forward kernel against its plain PyTorch version on the
    card, at the serving path's shapes, in float32 and bfloat16, with kernel
-   and plain times (CUDA events, median), every bf16 FFN tail beside its
-   yardstick, its two products through torch.matmul; and the FFN tail
-   with quick_gelu, which no main path takes, at C = 512 and 2048;
+   and plain times (CUDA events, median), every post-LN tail beside its
+   yardstick, its products through torch.matmul in its dtype (float32 with
+   TF32 off); and the FFN tail with quick_gelu, which no main path takes,
+   at C = 512 and 2048;
 4. backward kernels: the training editions, the backward kernels and the
    scatter-add against autograd of the plain versions at the train step's
    shapes, and the quick_gelu FFN tail at C = 512 and 2048, in float32 and
    bfloat16, dropout 0 and 0.1, with times (a bf16 FFN tail's training
-   forward beside its two products through torch.matmul); beside
+   forward beside its two products through torch.matmul, in float32
+   too); beside
    fused_mha's backward at dropout 0, F.scaled_dot_product_attention's
    with a mask that needs no gradient (the library column);
 5. serving: Retriever.encode_catalog over the catalog, then recommend for
    request batches of 1, 8 and 64, with every launch counter set to 0
-   first; every kernel launched in the encode and in recommend, the table
+   first; every kernel launched in the encode and in recommend (gemm
+   among them: the float32 projection tails are its products), the table
    is finite, no result holds the padding id or a history id, and on a
    2048-item sub-catalog the kernel path agrees with the plain path (the
    same model and wrappers on the CPU); catalog encode seconds and items/s,
@@ -50,7 +53,7 @@ failure:
    bench_swin's), and the post-LN tails and the attention at SASRec's D =
    2048 for request batches of 64 and of 1 (M = 640 and 10), in bfloat16
    and float32, with times and the share of each kernel's bound reached
-   (the bf16 FFN tails beside their two products through torch.matmul);
+   (each tail beside its products through torch.matmul in its dtype);
 9. vision serving: the counters set to 0, Retriever.encode_catalog through
    the bf16 Swin-T tower over images drawn from a pool on the card (100_001
    items if a probe says that takes 30 s or less, else 16_385), recommend
@@ -68,16 +71,21 @@ failure:
     shapes for 288 images, and SASRec's attention backward (64 users, 2
     heads of 1024) and the training editions and backward of the post-LN
     tails at C = 2048 (dropout 0 and 0.1), against autograd of the plain
-    versions, in bfloat16 and float32, with times (SASRec's attention
+    versions, in bfloat16 and float32 (the float32 ReLU tail's plain
+    version takes the kernel's branch where its own h lies within
+    float32's rounding of 0, relu_at_kink), with times (SASRec's attention
     beside F.scaled_dot_product_attention's backward at dropout 0; each
     windowed attention backward with its attention core's device time,
-    torch.profiler; the bf16 FFN tail's training forward beside its two
-    products through torch.matmul); then
+    torch.profiler; each tail's training forward beside its products
+    through torch.matmul); then
     the tensor-core gemm() (every backward's products) at the three
     largest products of the stage-0 band backward, against torch.matmul
     on the same bf16 operands, and at the four of the text FFN tail's
     backward with their epilogues, against its plain version, with times
-    beside torch.matmul's, TFLOP/s and bounds;
+    beside torch.matmul's, TFLOP/s and bounds; and the float32 body
+    (3xTF32 on the tensor cores) at the float32 recommend tails' products
+    at D = 2048 (B = 64 and 1) and the text encode's projection, against
+    its plain version, beside torch.matmul float32 with TF32 off;
 11. vision training: the counters set to 0, the bf16 train step (DropPath
     0.1, dropout 0.1, lr 1e-4) on batches drawn as bench.py draws them,
     images shipped with the batch from a pool of 1024: Zipf ids with dedup
@@ -135,8 +143,11 @@ serving, the "windows" sub-catalog, vision training, the "windows" train
 step, the vision dropout step, the use_pallas steps, the data-parallel
 steps; error
 and time against the plain version, the least time the card could take for
-the same work, and the time of the one PyTorch call that computes the same
-function where there is one), the nvidia-smi line, and last
+the same work (float32 rows that launched gemm.cu, whose products run as
+3xTF32, at that rate, 165 TFLOP/s), the time of the one PyTorch call that
+computes the same function where there is one, and for the tails and
+gemm the device kernels their launches in this run took, "bodies", as
+their plans name them), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when no GPU
 is visible.
 
@@ -169,10 +180,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from idvs.morec_tpu_torch.bench_gemm import product_cases
+from idvs.morec_tpu_torch.bench_gemm import f32_product_cases, product_cases
 from idvs.morec_tpu_torch.bench_swin import (CORE, attention_products,
                                              device_ms, mlp_products)
-from idvs.morec_tpu_torch.bench_tail import tail_products
+from idvs.morec_tpu_torch.bench_tail import proj_products, tail_products
 from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models import sasrec
@@ -205,7 +216,9 @@ from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
                                                fused_proj_resln,
                                                fused_proj_resln_bwd,
                                                fused_proj_resln_plain,
-                                               fused_proj_resln_res)
+                                               fused_proj_resln_res,
+                                               relu_kink)
+from idvs.morec_tpu_torch.ops import dropout
 from idvs.morec_tpu_torch.ops.losses import inbatch_ce_candidates
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
 from idvs.morec_tpu_torch.parallel import mesh
@@ -231,8 +244,8 @@ PROFILE_STEPS, PROFILE_ROWS = 5, 12   # --profile: steps traced, rows shown
 PROFILE_WATCH = "::mha_"    # --profile: fused_mha's kernels, always shown
 # --profile: csrc/gemm.cu's kernels (products, split-K sums, A's
 # prologue), summed on a line of their own
-PROFILE_GEMM = ("::gemm_mma_kernel", "::gemm_kernel<",
-                "::splitk_reduce_kernel", "::act_cast_kernel")
+PROFILE_GEMM = ("::gemm_mma_kernel", "::splitk_reduce_kernel",
+                "::act_cast_kernel")
 # timed calls behind a median: the text forward kernels (tenths of a
 # millisecond each), and the backward and vision cases (milliseconds each)
 KERNEL_REPS, FEW_REPS = 10, 5
@@ -410,13 +423,14 @@ WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "fused_mlp_bwd": fused_mlp_bwd,
             "fused_inbatch_ce": fused_inbatch_ce,
             "fused_inbatch_ce_bwd": fused_inbatch_ce_bwd, "gemm": gemm}
-SERVE_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln")
+# text serving runs in float32: its projection tails through gemm.cu
+SERVE_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln", "gemm")
 TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
                  "fused_proj_resln_bwd", "fused_mlp_resln_res",
                  "fused_mlp_resln_bwd", "scatter_add_rows", "gemm")
 VISION_ENCODE_KERNELS = ("fused_mha_proj_band", "fused_mlp_res")
 VISION_RECOMMEND_KERNELS = ("fused_mha", "fused_proj_resln",
-                            "fused_mlp_resln")
+                            "fused_mlp_resln", "gemm")
 VISION_WINDOWS_KERNELS = ("fused_mha_proj", "fused_mlp")
 VISION_TRAIN_KERNELS = ("fused_mha_proj_band", "fused_mha_proj_band_bwd",
                         "fused_mlp_res", "fused_mlp_res_bwd", "fused_mha",
@@ -639,8 +653,9 @@ def kernel_cases(rng, dev):
 
 
 def tail_cases(g, dev, dt, M, C, Fw, eps, act, who):
-    """The two post-LN tails (no single library call computes either); in
-    bf16 the FFN tail's yardstick, its two products through torch.matmul."""
+    """The two post-LN tails (no single library call computes either), each
+    beside its yardstick: its products through torch.matmul in its dtype
+    (float32 with TF32 off: bench_tail sets it)."""
     tag, it = tag_of(dt), size_of(dt)
     x, res = g(M, C).to(dt), g(M, C).to(dt)
     w = g(C, C, scale=C ** -0.5)
@@ -652,14 +667,12 @@ def tail_cases(g, dev, dt, M, C, Fw, eps, act, who):
         ("fused_proj_resln", f"{who} M={M} C={C} {tag}", dt,
          lambda: fused_proj_resln(x, res, w, b, ln=ln, eps=eps),
          lambda: fused_proj_resln_plain(x, res, w, b, ln=ln, eps=eps),
-         proj_work(M, C, it), None),
+         proj_work(M, C, it), None, lambda: proj_products(x, w)),
         ("fused_mlp_resln", f"{who} M={M} C={C} F={Fw} {act} {tag}", dt,
          lambda: fused_mlp_resln(x, w1, b1, w2, b2, ln=ln, eps=eps, act=act),
          lambda: fused_mlp_resln_plain(x, w1, b1, w2, b2, ln=ln, eps=eps,
                                        act=act),
-         mlp_work(M, C, Fw, it), None,
-         *([lambda: tail_products(x, w1, w2)] if dt == torch.bfloat16
-           else []))]
+         mlp_work(M, C, Fw, it), None, lambda: tail_products(x, w1, w2))]
 
 
 def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
@@ -670,7 +683,7 @@ def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
     (never a library column: no one call computes the function)."""
     results = {}
     for name, label, dt, run_kernel, run_plain, work, library, *more in cases:
-        got = run_kernel()
+        got, tf32x3 = gemm_ran(run_kernel, dt)
         want = run_plain()
         torch.cuda.synchronize()
         require(got.shape == want.shape and got.dtype == want.dtype == dt,
@@ -682,7 +695,7 @@ def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
         ms = cuda_ms(run_kernel, reps)
         plain_ms = cuda_ms(run_plain, reps)
         library_ms = None if library is None else cuda_ms(library, reps)
-        bound_ms, bound_by = bound_of(work, dt)
+        bound_ms, bound_by = bound_of(work, dt, tf32x3)
         lib_text = ("" if library is None
                     else f", library call {library_ms:.4f} ms")
         if more:
@@ -692,12 +705,13 @@ def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
             del products
         print(f"kernel {name} [{label}]: max_abs_err {err:.3e} "
               f"(tol {tol:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-              f"{lib_text}, bound {bound_ms:.4f} ms by {bound_by} "
+              f"{lib_text}, bound {bound_text(work, dt, tf32x3)} "
               f"({100 * bound_ms / ms:.1f} % of it reached) [{card}]",
               flush=True)
         require(math.isfinite(err) and err <= tol,
                 f"{name} {label}: max abs error {err} above {tol}")
-        _record(results, name, err, ms, plain_ms, work, dt, library_ms)
+        _record(results, name, err, ms, plain_ms, work, dt, library_ms,
+                tf32x3)
     return results
 
 
@@ -727,6 +741,33 @@ def _worst_err(got, want, what: str) -> tuple:
 def tail_yardstick(x, w1, b1, w2, *rest):
     """The FFN tail's yardstick from a gradient case's inputs."""
     return tail_products(x, w1, w2)
+
+
+def proj_yardstick(x, res, w, *rest):
+    """The projection tail's yardstick from a gradient case's inputs."""
+    return proj_products(x, w)
+
+
+def relu_at_kink(x, w1, b1, w2, b2, g, bt, *, eps, drop_rate, seed):
+    """The float32 ReLU tail's plain version that the kernel is held to:
+    fused_mlp_resln_plain with ReLU's branch taken from the kernel's h (its
+    training edition's) where the plain h lies within float32's rounding of
+    0 (relu_kink), and a line that says at how many pre-activations, and
+    at how many of those the two sums took opposite branches."""
+    kw = dict(eps=eps, drop_rate=drop_rate, seed=seed)
+    with torch.no_grad():
+        h_k = fused_mlp_resln_res(
+            x, w1, b1, w2, b2, g, bt, eps=eps, act="relu",
+            drop=dropout.kernel_args(drop_rate, seed),
+            code=lib.dtype_code(x))[2]
+        h_p = x @ w1 + b1
+        at_kink = relu_kink(h_p, x, w1, b1)
+        flips = at_kink & ((h_k > 0) != (h_p > 0))
+    return (lambda *a: fused_mlp_resln_plain(*a[:5], ln=a[5:], act="relu",
+                                             kink_from=h_k, **kw),
+            f"ReLU's branch from the kernel's h at {int(at_kink.sum())} "
+            f"pre-activations within float32's rounding of 0, "
+            f"{int(flips.sum())} of them on the other side")
 
 
 def backward_cases(rng, dev, titles: int):
@@ -825,11 +866,33 @@ def backward_cases(rng, dev, titles: int):
     return cases
 
 
-def _record(results, name, err, ms, plain_ms, work, dt, library_ms=None):
+def gemm_ran(fn, dt) -> tuple:
+    """fn's result, and whether a float32 call's products ran as 3xTF32 on
+    the tensor cores: fn launched csrc/gemm.cu (its counter moved), whose
+    float32 body that is. The bound of such a call takes 3xTF32's rate."""
+    before = gemm.launches
+    out = fn()
+    return out, dt == torch.float32 and gemm.launches > before
+
+
+def bound_text(work, dt, tf32x3: bool) -> str:
+    """The bound as printed: on the tensor cores in float32 beside the
+    FMA units' bound of the same work."""
+    ms, by = bound_of(work, dt, tf32x3)
+    text = f"{ms:.4f} ms by {by}"
+    if tf32x3:
+        fma, fma_by = bound_of(work, dt)
+        text += (f" at 3xTF32's 165 TFLOP/s ({fma:.4f} ms by {fma_by} at "
+                 f"the FMA units' 67)")
+    return text
+
+
+def _record(results, name, err, ms, plain_ms, work, dt, library_ms=None,
+            tf32x3=False):
     r = results.setdefault(name, {"max_abs_err": 0.0, "ms": None})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     if r["ms"] is None:     # the first case is the headline shape
-        bound_ms, bound_by = bound_of(work, dt)
+        bound_ms, bound_by = bound_of(work, dt, tf32x3)
         r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=library_ms)
 
@@ -840,29 +903,43 @@ def gradient_cases(cases, card: str, reps: int = FEW_REPS) -> dict:
     editions) and the backward alone (CUDA events). Only floating-point
     inputs that ask for it get a gradient. A case may carry, after its
     works, the library call's factory (or None) and, for the FFN tail, a
-    factory of its yardstick from its inputs (timed beside a bf16 training
-    forward); the windowed attention's backward rows also print the
-    device time of the attention core alone (torch.profiler)."""
+    factory of its yardstick from its inputs (timed beside the training
+    forward of the tails at C = 2048) and, for the float32 ReLU tail at
+    C = 2048, a factory of the plain version the check holds it to
+    (relu_at_kink: of 5.2M pre-activations there a few lie within float32's
+    rounding of 0, where the kernel's 3xTF32 sum and torch.matmul's may
+    take opposite branches; the plain version takes the kernel's branch
+    there and only there); the windowed attention's backward rows also
+    print the device time of the attention core alone (torch.profiler)."""
     results = {}
     for (res_name, bwd_name, label, dt, inputs, dout, kern, plain, work_bwd,
          work_fwd, *library) in cases:
         lk, lp = _leaves(inputs), _leaves(inputs)
-        out_k, out_p = kern(*lk), plain(*lp)
-        got = torch.autograd.grad(out_k, lk, dout, retain_graph=True)
+        out_k, fwd_tf32x3 = gemm_ran(lambda: kern(*lk), dt)
+        out_p = plain(*lp)
+        got, bwd_tf32x3 = gemm_ran(lambda: torch.autograd.grad(
+            out_k, lk, dout, retain_graph=True), dt)
         want = torch.autograd.grad(out_p, lp, dout, retain_graph=True)
+        checked, kink_note = (out_p, *want), ""
+        if len(library) > 2 and library[2] is not None:
+            at_kink, kink_note = library[2](*inputs)
+            kink_note = f"; {kink_note}"
+            lc = _leaves(inputs)
+            out_c = at_kink(*lc)
+            checked = (out_c, *torch.autograd.grad(out_c, lc, dout))
+            del lc, out_c
         torch.cuda.synchronize()
-        worst = _worst_err((out_k, *got), (out_p, *want),
-                           f"{bwd_name} {label}")
+        worst = _worst_err((out_k, *got), checked, f"{bwd_name} {label}")
         tol = GRAD_TOL[dt]
         bwd_ms = cuda_ms(lambda: torch.autograd.grad(
             out_k, lk, dout, retain_graph=True), reps=reps)
         bwd_plain = cuda_ms(lambda: torch.autograd.grad(
             out_p, lp, dout, retain_graph=True), reps=reps)
         line = (f"backward {bwd_name} [{label}]: max_abs_err {worst[1]:.3e} "
-                f"on a scale of {worst[2]:.3g} (tol {tol:g} of the scale), "
+                f"on a scale of {worst[2]:.3g} (tol {tol:g} of the scale"
+                f"{kink_note}), "
                 f"backward {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound "
-                f"{bound_of(work_bwd, dt)[0]:.4f} ms by "
-                f"{bound_of(work_bwd, dt)[1]}")
+                f"{bound_text(work_bwd, dt, bwd_tf32x3)}")
         library_ms = None
         if library and library[0] is not None:
             # the library call's backward alone, as the kernel's
@@ -870,7 +947,7 @@ def gradient_cases(cases, card: str, reps: int = FEW_REPS) -> dict:
             line += (f", library call F.scaled_dot_product_attention "
                      f"backward {library_ms:.4f} ms")
         _record(results, bwd_name, worst[1], bwd_ms, bwd_plain, work_bwd, dt,
-                library_ms)
+                library_ms, bwd_tf32x3)
         if bwd_name in WINDOW_BWD:
             # the attention core alone, device time, among the backward's
             # products
@@ -885,18 +962,18 @@ def gradient_cases(cases, card: str, reps: int = FEW_REPS) -> dict:
             fwd_plain = cuda_ms(lambda: plain(*lp), reps=reps)
             line += (f"; training forward {res_name} {fwd_ms:.4f} ms, plain "
                      f"{fwd_plain:.4f} ms, bound "
-                     f"{bound_of(work_fwd, dt)[0]:.4f} ms")
-            if len(library) > 1 and dt == torch.bfloat16:
+                     f"{bound_text(work_fwd, dt, fwd_tf32x3)}")
+            if len(library) > 1:
                 products = library[1](*inputs)
                 line += (f", the same products through torch.matmul "
                          f"{cuda_ms(products, reps=reps):.4f} ms")
                 del products
             _record(results, res_name, _rel_err(out_k, out_p)[0], fwd_ms,
-                    fwd_plain, work_fwd, dt)
+                    fwd_plain, work_fwd, dt, None, fwd_tf32x3)
         print(f"{line} [{card}]", flush=True)
         require(worst[0] <= tol, f"{bwd_name} {label}: error {worst[1]} "
                 f"above {tol} x {worst[2]}")
-        del lk, lp, out_k, out_p, got, want
+        del lk, lp, out_k, out_p, got, want, checked
     return results
 
 
@@ -1547,7 +1624,8 @@ def vision_backward_cases(dev, images: int):
                 lambda *a, kw=kw: fused_proj_resln(*a[:4], ln=a[4:], **kw),
                 lambda *a, kw=kw: fused_proj_resln_plain(*a[:4], ln=a[4:],
                                                          **kw),
-                proj_bwd_work(M, C, it), proj_work(M, C, it, saved=1)))
+                proj_bwd_work(M, C, it), proj_work(M, C, it, saved=1), None,
+                proj_yardstick))
             cases.append((
                 "fused_mlp_resln_res", "fused_mlp_resln_bwd",
                 f"SASRec M={M} C={C} F={Fw} relu {tag}", dt,
@@ -1559,7 +1637,9 @@ def vision_backward_cases(dev, images: int):
                 lambda *a, kw=kw: fused_mlp_resln_plain(
                     *a[:5], ln=a[5:], act="relu", **kw),
                 mlp_bwd_work(M, C, Fw, it),
-                mlp_work(M, C, Fw, it, saved=True), None, tail_yardstick))
+                mlp_work(M, C, Fw, it, saved=True), None, tail_yardstick,
+                (lambda *a, kw=kw: relu_at_kink(*a, **kw))
+                if dt == torch.float32 else None))
     return cases
 
 
@@ -1576,8 +1656,12 @@ def gemm_phase(dev, card: str, images: int, titles: int) -> dict:
     cast(gelu(h))ᵀ dz, dh = (dz w2ᵀ) gelu'(h), dw1 = xᵀ dh, dx = dh w1ᵀ +
     dyp) with their epilogues, held against gemm_plain (no one PyTorch call
     computes them); each fatal above GRAD_TOL (bf16) of max(1, the largest
-    value). Times, TFLOP/s and bounds; returns the "gemm" row, the stage-0
-    qkv its headline."""
+    value). Then the float32 body (3xTF32) at the float32 `recommend`
+    tails' products at D = 2048 and the text encode's projection
+    (bench_gemm.f32_product_cases), against gemm_plain, fatal above
+    GRAD_TOL (float32) of the scale, beside torch.matmul float32. Times,
+    TFLOP/s and bounds; returns the "gemm" row, the stage-0 qkv its
+    headline."""
     dt, tol = torch.bfloat16, GRAD_TOL[torch.bfloat16]
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     g = lambda *s, scale=1.0, d=dt: (torch.randn(*s, generator=gen,
@@ -1614,6 +1698,37 @@ def gemm_phase(dev, card: str, images: int, titles: int) -> dict:
                 f"gemm [{p.label}]: error {err} above {tol} x {scale}")
         _record(results, "gemm", err / scale, ms, plain_ms, work, dt,
                 library_ms)
+    # float32 (3xTF32): the products of SASRec's tails at D = 2048 for
+    # `recommend` at B = 64 and 1 and of the text encode's projection,
+    # against their plain version, beside torch.matmul float32 (TF32 off,
+    # set here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt, tol = torch.float32, GRAD_TOL[torch.float32]
+    code = lib.dtype_code(g(1, d=dt))
+    for p in f32_product_cases(lambda *s, scale=1.0: g(*s, scale=scale,
+                                                        d=dt)):
+        kern = lambda: gemm(*p.args, code, **p.kw)
+        plain = lambda: gemm_plain(*p.args, **p.kw)
+        err, scale = _rel_err(kern(), plain())
+        ms = cuda_ms(kern, reps=VB_REPS)
+        plain_ms = cuda_ms(plain, reps=VB_REPS)
+        library_ms = cuda_ms(p.library, reps=VB_REPS) if p.library else None
+        matmul_ms = cuda_ms(p.matmul, reps=VB_REPS)
+        work = (p.flops, p.nbytes)
+        print(f"gemm [{p.label} f32]: {ms:.4f} ms, "
+              f"{p.flops / ms / 1e9:.1f} TFLOP/s; torch.matmul float32 of "
+              f"the same operands {matmul_ms:.4f} ms "
+              f"({p.flops / matmul_ms / 1e9:.1f} TFLOP/s, {ms / matmul_ms:.2f}"
+              f"x)" + ("" if library_ms is None else
+                       f"; library call {library_ms:.4f} ms")
+              + f"; plain {plain_ms:.4f} ms; bound "
+              f"{bound_text(work, dt, True)}; error {err:.3e} on "
+              f"a scale of {scale:.3g} (tol {tol:g} of the scale) [{card}]",
+              flush=True)
+        require(math.isfinite(err) and err <= tol * scale,
+                f"gemm [{p.label} f32]: error {err} above {tol} x {scale}")
+        _record(results, "gemm", err / scale, ms, plain_ms, work, dt,
+                library_ms, True)
     return results
 
 
@@ -2635,7 +2750,9 @@ def main() -> int:
          "replaces": PALLAS + SOURCES[n][1],
          "launches": sum(c[n] for c in paths.values()),
          **{k: c[n] for k, c in paths.items()},
-         **kernels[n]} for n in WRAPPERS]}
+         **kernels[n], **({"bodies": sorted(WRAPPERS[n].bodies)}
+            if hasattr(WRAPPERS[n], "bodies") else {})}
+        for n in WRAPPERS]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,14 @@ Python call (median of --reps), beside the one PyTorch call computing the
 same function where there is one and torch.matmul of the same operands
 (the library yardsticks; the port never calls them for these), with
 TFLOP/s and the least time the card could take (``measure.bound_of``).
-The scatter-add: BERT's 23040 token rows of 512 into the 30522-row table,
-in f32 and bf16, uniform ids and titles that end in padding, beside
+Products, float32 (``f32_product_cases``, 3xTF32 on the tensor cores; the
+smoke checks and times them too): SASRec's tails at D = 2048 for a
+``recommend`` of 64 and of 1 users (M = 640 and 10 rows: the projection y
+= x w, dense1 h = x w1 + b1, dense2 y = relu(h) w2 with F = 8192) and the
+text encode's projection (M = 15360, C = 512), each also as device time
+(torch.profiler), beside torch.matmul float32 with TF32 off. The
+scatter-add: BERT's 23040 token rows of 512 into the 30522-row table, in
+f32 and bf16, uniform ids and titles that end in padding, beside
 ``index_add_``.
 
 --report compiles gemm.cu and embed_scatter.cu with the library's flags
@@ -45,6 +51,7 @@ from typing import NamedTuple
 
 import torch
 
+from idvs.morec_tpu_torch.bench_swin import device_ms
 from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
 from idvs.morec_tpu_torch.ops.cuda import lib
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import scatter_add_rows
@@ -138,6 +145,68 @@ def product_cases(g, images: int = 288, titles: int = 768,
     return out
 
 
+def f32_product_cases(g, d: int = 2048, text: bool = True) -> list:
+    """The float32 products of SASRec's tails at D = d for a recommend of
+    64 and of 1 users (L = 10) and (text) of the text encode's BERT
+    projection; g(*shape, scale=) draws a float32 tensor on the card."""
+    out = []
+    F = 4 * d
+    w, w1 = g(d, d, scale=d ** -0.5), g(d, F, scale=d ** -0.5)
+    b1, w2 = g(F, scale=0.1), g(F, d, scale=F ** -0.5)
+    for M in (640, 10):
+        x, h = g(M, d), g(M, F)
+        out += [
+            Product(f"SASRec y = x w, M={M} C={d}",
+                    (x, w, M, d, d, (d, 1), (d, 1)), dict(out_f32=True),
+                    (2 * M * d + d * d) * 4, lambda x=x: torch.matmul(x, w),
+                    lambda x=x: torch.matmul(x, w)),
+            Product(f"SASRec h = x w1 + b1, M={M} F={F}",
+                    (x, w1, M, F, d, (d, 1), (F, 1)),
+                    dict(bias=b1, out_f32=True),
+                    (M * d + d * F + F + M * F) * 4,
+                    lambda x=x: torch.addmm(b1, x, w1),
+                    lambda x=x: torch.matmul(x, w1)),
+            Product(f"SASRec y = relu(h) w2, M={M} K={F}",
+                    (h, w2, M, d, F, (F, 1), (d, 1)),
+                    dict(act="relu", pro_act=True, out_f32=True),
+                    (M * F + F * d + M * d) * 4, None,
+                    lambda h=h: torch.matmul(h, w2))]
+    if text:
+        M, C = 512 * TITLE_LEN, HIDDEN
+        x, wt = g(M, C), g(C, C, scale=C ** -0.5)
+        out.append(Product(f"BERT y = x w, M={M} C={C}",
+                           (x, wt, M, C, C, (C, 1), (C, 1)),
+                           dict(out_f32=True), (2 * M * C + C * C) * 4,
+                           lambda: torch.matmul(x, wt),
+                           lambda: torch.matmul(x, wt)))
+    return out
+
+
+def run_f32_products(reps):
+    """The float32 products, event and device time, beside torch.matmul
+    float32 (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
+                                          device="cuda") * scale
+    code = lib.DTYPE_CODES[torch.float32]
+    for p in f32_product_cases(g):
+        call = lambda: gemm(*p.args, code, **p.kw)
+        ms = cuda_ms(call, reps)
+        dev_ms, kernels = device_ms(call, reps)
+        bound, by = bound_of((p.flops, p.nbytes), torch.float32, True)
+        fma, _ = bound_of((p.flops, p.nbytes), torch.float32)
+        timed = lambda fn: fn and round(cuda_ms(fn, reps), 4)
+        print(json.dumps({
+            "case": p.label + " f32", "ms": round(ms, 4),
+            "device_ms": round(dev_ms, 4),
+            "tflops": round(p.flops / dev_ms / 1e9, 1) if dev_ms else None,
+            "kernels": {k[:80]: round(v, 4) for k, v in kernels.items()},
+            "library_ms": timed(p.library), "matmul_ms": timed(p.matmul),
+            "bound_ms": round(bound, 4), "bound_by": by,
+            "fma_bound_ms": round(fma, 4)}), flush=True)
+
+
 def run_products(reps):
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -228,6 +297,7 @@ def main():
     if args.report:
         report()
     run_products(args.reps)
+    run_f32_products(args.reps)
     run_scatter(args.reps)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

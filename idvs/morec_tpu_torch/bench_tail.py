@@ -1,6 +1,8 @@
-"""Times the post-LN FFN tail's forward (csrc/mlp_resln.cu, and at C =
-2048 the products of csrc/gemm.cu around its row pass) at the port's
-main-path shapes on one GPU, and reports what the compiler made of it.
+"""Times the post-LN tails' forward, the FFN tail (csrc/mlp_resln.cu, and
+at C = 2048 the products of csrc/gemm.cu around its row pass) and the
+projection tail (csrc/proj_resln.cu in bf16 at C <= 512, else gemm.cu's
+product and the row pass), at the port's main-path shapes on one GPU, and
+reports what the compiler made of them.
 
     python -m idvs.morec_tpu_torch.bench_tail [--reps N] [--report]
 
@@ -18,9 +20,25 @@ the call launched), beside the least time the card could take
 tail's two products on the same operands (x w1, then g w2 with g an (M, F)
 tensor in the compute dtype), which the port never calls for this.
 
---report compiles mlp_resln.cu and mlp_mma.cuh's other user premlp.cu with
-the library's flags and -Xptxas -v and prints each kernel's registers,
-spills and shared memory and its HMMA instructions (bench_gemm's report).
+Projection rows (``PROJS``), LN(res + dropout(x w + b)): T, the text train
+step's BERT (M = 23040) and SASRec (M = 2560) tails at C = 512, bf16,
+training edition at dropout 0.1; IT, IDRec's SASRec (M = 5120); E, the
+text encode's BERT tail (M = 15360, float32, forward only); VT, the vision
+train step's SASRec at D = 2048 (M = 640, bf16, training); R, a vision
+``recommend``'s at B = 64 and 1 (M = 640 and 10) in float32 and bf16; TR,
+a text ``recommend``'s SASRec at B = 64 and 1 (M = 1280 and 20, C = 512,
+float32). The same columns, the yardstick torch.matmul of x w.
+
+Every row also gives the host's time a call (``measure.host_ms``, the card
+idle before it): where it exceeds the device time, the host holds the
+call. A float32 row whose call launched gemm.cu (its launch counter moved)
+ran its products as 3xTF32 on the tensor cores: its bound takes that rate
+(165 TFLOP/s), the FMA units' bound beside it.
+
+--report compiles mlp_resln.cu, proj_resln.cu and mlp_mma.cuh's other
+user premlp.cu with the library's flags and -Xptxas -v and prints each
+kernel's registers, spills and shared memory and its HMMA instructions
+(bench_gemm's report).
 
 Prints one JSON object a line, then the card's name and power limit. The
 package is imported from sys.path, so ``PYTHONPATH=<checkout> python
@@ -38,11 +56,14 @@ from typing import NamedTuple
 import torch
 
 from idvs.morec_tpu_torch.bench_swin import device_ms
-from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
+from idvs.morec_tpu_torch.measure import bound_of, cuda_ms, host_ms
 from idvs.morec_tpu_torch.ops import dropout
 from idvs.morec_tpu_torch.ops.cuda import lib
+from idvs.morec_tpu_torch.ops.cuda.gemm import gemm
 from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp_resln,
-                                               fused_mlp_resln_res)
+                                               fused_mlp_resln_res,
+                                               fused_proj_resln,
+                                               fused_proj_resln_res)
 
 BF16, F32 = torch.bfloat16, torch.float32
 DROP = 0.1
@@ -68,6 +89,52 @@ TAILS = (Tail("T", 768 * 30, 512, 2048, "gelu", BF16, True),
          Tail("R", 10, 2048, 8192, "relu", BF16, False))
 
 
+class Proj(NamedTuple):
+    path: str     # T, IT, E, VT, R or TR
+    M: int
+    C: int
+    dtype: torch.dtype
+    train: bool   # the training edition (y_pre saved), dropout 0.1
+
+
+PROJS = (Proj("T", 768 * 30, 512, BF16, True),
+         Proj("T", 128 * 20, 512, BF16, True),
+         Proj("IT", 256 * 20, 512, BF16, True),
+         Proj("E", 512 * 30, 512, F32, False),
+         Proj("VT", 64 * 10, 2048, BF16, True),
+         Proj("R", 64 * 10, 2048, F32, False),
+         Proj("R", 10, 2048, F32, False),
+         Proj("R", 64 * 10, 2048, BF16, False),
+         Proj("R", 10, 2048, BF16, False),
+         Proj("TR", 64 * 20, 512, F32, False),
+         Proj("TR", 20, 512, F32, False))
+
+
+def proj_work(t: Proj):
+    """(operations, bytes) of a projection call: x, res, w and b read
+    once, the output (and y_pre in training) written once, the LN's float
+    vectors."""
+    it = 2 if t.dtype == BF16 else 4
+    return (2 * t.M * t.C * t.C,
+            (3 * t.M * t.C + t.C * t.C + t.C) * it + 8 * t.C
+            + (t.M * t.C * it if t.train else 0))
+
+
+def proj_call(t: Proj, g):
+    """(call, yardstick factory) of a projection tail."""
+    x, res = g(t.M, t.C).to(t.dtype), g(t.M, t.C).to(t.dtype)
+    w, b = g(t.C, t.C, scale=t.C ** -0.5), g(t.C, scale=0.1)
+    ln = (1.0 + g(t.C, scale=0.1), g(t.C, scale=0.1))
+    ops = [w.to(t.dtype).contiguous(), b.to(t.dtype)]
+    if t.train:
+        drop = dropout.kernel_args(DROP, 7)
+        call = lambda: fused_proj_resln_res(
+            x, res, *ops, *ln, eps=1e-6, drop=drop, code=lib.dtype_code(x))
+    else:
+        call = lambda: fused_proj_resln(x, res, *ops, ln=ln, eps=1e-6)
+    return call, lambda: proj_products(x, ops[0])
+
+
 def tail_work(t: Tail):
     """(operations, bytes) of a call: x, the weights and biases read once,
     the output (and y_pre and h in training) written once, the LN's float
@@ -82,10 +149,20 @@ def tail_work(t: Tail):
 def tail_products(x, w1, w2):
     """A function that runs the tail's two products through torch.matmul
     on operands in x's dtype (x w1, then g w2 with g an (M, F) tensor):
-    the yardstick of a tail, never called by the port."""
+    the yardstick of a tail, never called by the port. float32 products
+    in full float32 (TF32 off, set here)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     g = torch.matmul(x, w1)
     return lambda: (torch.matmul(x, w1), torch.matmul(g, w2))
+
+
+def proj_products(x, w):
+    """The projection tail's yardstick: x w through torch.matmul in x's
+    dtype (TF32 off, set here), never called by the port."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w = w.to(x.dtype)
+    return lambda: torch.matmul(x, w)
 
 
 def tail_call(t: Tail, g):
@@ -116,24 +193,31 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.report:
         from idvs.morec_tpu_torch.bench_gemm import report
-        report(("mlp_resln.cu", "premlp.cu"))
+        report(("mlp_resln.cu", "proj_resln.cu", "premlp.cu"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
                                           device="cuda") * scale
-    for t in TAILS:
-        call, products = tail_call(t, g)
+    rows = [(t, f"M={t.M} C={t.C} F={t.F} {t.act}", *tail_call(t, g),
+             tail_work(t)) for t in TAILS]
+    rows += [(t, f"proj M={t.M} C={t.C}", *proj_call(t, g), proj_work(t))
+             for t in PROJS]
+    for t, case, call, products, work in rows:
+        before = gemm.launches
+        call()
+        tc = t.dtype == F32 and gemm.launches > before
         ms = cuda_ms(call, args.reps)
         dev_ms, kernels = device_ms(call, args.reps)
-        work = tail_work(t)
-        bound, by = bound_of(work, t.dtype)
-        row = {"path": t.path, "case": f"M={t.M} C={t.C} F={t.F} {t.act} "
-               f"{str(t.dtype)[6:]}" + (" training drop=0.1" if t.train
-                                        else ""),
+        bound, by = bound_of(work, t.dtype, tc)
+        row = {"path": t.path, "case": f"{case} {str(t.dtype)[6:]}"
+               + (" training drop=0.1" if t.train else ""),
                "ms": round(ms, 4), "device_ms": round(dev_ms, 4),
+               "host_ms": round(host_ms(call, args.reps), 4),
                "bound_ms": round(bound, 4), "bound_by": by,
                "bound_share": dev_ms and round(bound / dev_ms, 4),
                "tflops": dev_ms and round(work[0] / dev_ms / 1e9, 1),
                "kernels": {k[:80]: round(v, 4) for k, v in kernels.items()}}
+        if tc:
+            row["fma_bound_ms"] = round(bound_of(work, t.dtype)[0], 4)
         fn = products()
         row["matmul_ms"] = round(cuda_ms(fn, args.reps), 4)
         del fn

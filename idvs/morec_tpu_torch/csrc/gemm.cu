@@ -1,5 +1,8 @@
-// The matrix products of every backward in the port, as one tiled kernel
-// with float accumulation and the epilogues those products need.
+// The matrix products of every backward in the port, of the post-LN
+// tails' forward where a block cannot hold a row (C = 2048) or the dtype is
+// float32 (ops/cuda/mlp.py proj_resln_products, mlp_resln_products) and of
+// the window attention's output projection, as one tiled kernel with float
+// accumulation and the epilogues those products need.
 //
 // Replaces the products inside idvs/morec_tpu/ops/pallas/mlp.py
 // _bwd_proj_kernel (:759-762: dW = xᵀ dz, dx = dz Wᵀ), _bwd_post_kernel
@@ -19,7 +22,8 @@
 // so a transposed operand is only a pair of strides. pro() is the identity
 // or cast(act(.)) (the recomputed activation of the FFN's saved h, which is
 // in the compute dtype or, where the backward recomputed it, float; a float
-// A is cast to the compute dtype); epi() adds a bias row, a float addend
+// A is cast to the compute dtype, and the forward's float h of the C = 2048
+// tail takes act on load too); epi() adds a bias row, a float addend
 // and/or multiplies by act'(gate), then casts to the compute dtype or
 // stores float.
 //
@@ -59,13 +63,32 @@
 // products (wgmma) fed by TMA on larger tiles are the way to the rest,
 // later work.
 //
-// float32: f32 parity rules out TF32, so the products run on the float FMA
-// units (67 TFLOP/s): the classic 128 x 128 x 8 register-tiled SGEMM
-// (gemm_kernel): 256 threads, each owning an 8 x 8 tile in two 4-row and
-// two 4-column groups 64 apart (conflict-free float4 reads of both shared
-// tiles), the next K slice loaded into registers during the FMAs and
-// double-buffered through shared memory. No main path trains in float32.
+// float32 (the same kernel, gemm_mma_kernel<float>): plain TF32 keeps 10
+// mantissa bits, too few for the float32 parity the port holds, and the
+// float FMA units (67 TFLOP/s) held the old register-tiled SGEMM to 20
+// TFLOP/s on SASRec's products at D = 2048 (PERF.md). So the products run
+// on the tensor cores as 3xTF32 (mma.sync m16n8k8 tf32, 495 TFLOP/s, 165
+// for three products): each operand value is split into big =
+// tf32_rna(a) and small = tf32_rna(a - big), and small.big + big.small +
+// big.big is accumulated in float, the small terms first, about float32's
+// accuracy (the dropped small.small is 2^-22 of the product). The tensor
+// cores' accumulation is no IEEE float sum (it drops the bits of each
+// addend below the running sum's; over K = 8192 that left 1.3e-5 of the
+// largest output against the plain version, above the 1e-5 its tests
+// allow), so each 16-deep stage's products go into zeroed sums that are
+// then added to the running sums by float adds, as float32 FMAs would:
+// at K = 2048 the mean error against the float64 sum is a quarter of
+// torch.matmul float32's (PERF.md). One block an SM (blocks_per_sm).
+// Operands
+// are copied as they are, floats, by the same cp.async ring (a stage 16
+// floats deep, the same bytes as bf16's 32), and split in registers as
+// each warp loads its fragments: B's once for the warp's four n8 tiles,
+// A's one m16 tile at a time, after act() where A takes its prologue (the
+// float C = 2048 tail's second product, cast(act(h)) w2, takes it here).
+// Every operand row starts 16-byte aligned, as in bf16. The split over K
+// is chosen as in bf16, max_depth included.
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -98,8 +121,7 @@ struct Operands {
   const void* B;
   long long sam, sak, sbk, sbn;
   int M, N, K;
-  int pro_act;        // Act applied (then cast) to A on load
-  int a_f32;          // A holds floats, not the compute dtype
+  int pro_act;        // Act applied to a float A in the body (3xTF32)
 };
 
 struct Epilogue {
@@ -139,128 +161,20 @@ __device__ __forceinline__ void store_out(const Epilogue& e, int M, int N,
     static_cast<T*>(e.out)[i] = from_f32<T>(v);
 }
 
-// ---- float32: the register-tiled SGEMM on the FMA units -------------------
+// ---- the tensor-core body: bf16, and float32 as 3xTF32 --------------------
 
-constexpr int kBM = 128, kBN = 128, kBK = 8, kThreads = 256;
-
-// One K slice of the A tile (kBM x kBK) and of the B tile (kBK x kBN) in
-// registers: 4 elements per thread each.
-template <typename T>
-struct Stage {
-  float a[4], b[4];
-
-  __device__ void load(const Operands& o, int m0, int n0, int k0, int k_end) {
-    const T* A = static_cast<const T*>(o.A);
-    const float* Af = static_cast<const float*>(o.A);
-    const T* B = static_cast<const T*>(o.B);
-    const int t = threadIdx.x;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      // A: k-contiguous -> thread (m = t/2, k = 4(t%2)+c); else
-      // m-contiguous -> (k = t/32, m = 4(t%32)+c)
-      const int am = o.sak == 1 ? m0 + t / 2 : m0 + 4 * (t % 32) + c;
-      const int ak = o.sak == 1 ? k0 + 4 * (t % 2) + c : k0 + t / 32;
-      float va = 0.f;
-      if (am < o.M && ak < k_end) {
-        const long long ia = am * o.sam + ak * o.sak;
-        va = o.a_f32 ? Af[ia] : to_f32(A[ia]);
-        if (o.pro_act != kNone) va = round_to<T>(act(va, o.pro_act));
-      }
-      a[c] = va;
-      // B: n-contiguous -> (k = t/32, n = 4(t%32)+c); else k-contiguous ->
-      // (n = t/2, k = 4(t%2)+c)
-      const int bk = o.sbn == 1 ? k0 + t / 32 : k0 + 4 * (t % 2) + c;
-      const int bn = o.sbn == 1 ? n0 + 4 * (t % 32) + c : n0 + t / 2;
-      b[c] = (bk < k_end && bn < o.N) ? to_f32(B[bk * o.sbk + bn * o.sbn])
-                                      : 0.f;
-    }
-  }
-
-  __device__ void store(const Operands& o, float* As, float* Bs) const {
-    const int t = threadIdx.x;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (o.sak == 1)
-        As[(4 * (t % 2) + c) * kBM + t / 2] = a[c];
-      else
-        As[(t / 32) * kBM + 4 * (t % 32) + c] = a[c];
-      if (o.sbn == 1)
-        Bs[(t / 32) * kBN + 4 * (t % 32) + c] = b[c];
-      else
-        Bs[(4 * (t % 2) + c) * kBN + t / 2] = b[c];
-    }
-  }
-};
-
-// grid (N tiles, M tiles, splits). With one split the epilogue runs here;
-// otherwise slice z writes its raw float tile to ws[z] (M x N).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gemm_kernel(Operands o, Epilogue e, float* __restrict__ ws) {
-  __shared__ __align__(16) float As[2][kBK * kBM];
-  __shared__ __align__(16) float Bs[2][kBK * kBN];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int per = (o.K + gridDim.z - 1) / gridDim.z;
-  const int k_chunk = (per + kBK - 1) / kBK * kBK;
-  const int k_begin = blockIdx.z * k_chunk;
-  const int k_end = min(o.K, k_begin + k_chunk);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  float acc[8][8] = {};
-  Stage<T> st;
-  if (k_begin < k_end) {
-    st.load(o, m0, n0, k_begin, k_end);
-    st.store(o, As[0], Bs[0]);
-  }
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    const bool more = k0 + kBK < k_end;
-    if (more) st.load(o, m0, n0, k0 + kBK, k_end);
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float* as = As[buf] + k * kBM + 4 * ty;
-      const float* bs = Bs[buf] + k * kBN + 4 * tx;
-      const float4 a0 = *reinterpret_cast<const float4*>(as);
-      const float4 a1 = *reinterpret_cast<const float4*>(as + 64);
-      const float4 b0 = *reinterpret_cast<const float4*>(bs);
-      const float4 b1 = *reinterpret_cast<const float4*>(bs + 64);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) st.store(o, As[buf ^ 1], Bs[buf ^ 1]);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + 4 * ty + (i & 3) + 64 * (i >> 2);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + 4 * tx + (j & 3) + 64 * (j >> 2);
-      if (gridDim.z == 1) {
-        store_out<T>(e, o.M, o.N, m, n, acc[i][j]);
-      } else if (m < o.M && n < o.N) {
-        ws[(static_cast<size_t>(blockIdx.z) * o.M + m) * o.N + n] =
-            acc[i][j];
-      }
-    }
-  }
-}
-
-// ---- bf16: mma.sync on the tensor cores -----------------------------------
-
-constexpr int kTM = 128, kTN = 128, kTK = 32, kStages = 4;
+constexpr int kTM = 128, kTN = 128, kStages = 4;
 constexpr int kMmaThreads = 256, kWarpsN = 4;   // 2 x 4 warps
 constexpr int kWM = 64, kWN = 32;               // a warp's tile
 constexpr int kMT = kWM / 16, kNT = kWN / 8;    // its m16 and n8 tiles
-constexpr int kPad = 8;                         // bf16 padding a shared row
-constexpr int kBlocksPerSm = 2;
+// blocks an SM: two in bf16 (128 registers a thread); one in float32,
+// whose 3xTF32 body holds the running sums, a stage's sums and the split
+// fragments in up to 223 registers (at two blocks an SM it spilled 100 to
+// 130 bytes and ran at 22-30 TFLOP/s against 37-41 without, PERF.md)
+template <typename E>
+constexpr int blocks_per_sm() {
+  return std::is_same_v<E, bf16> ? 2 : 1;
+}
 // the float tile the epilogue reads back, [kTM][kLdC]: 16 threads a row,
 // 8 columns each
 constexpr int kLdC = kTN + 8;
@@ -269,25 +183,31 @@ constexpr int kRowThreads = kTN / 8, kRowsAPass = kMmaThreads / kRowThreads;
 // product is split over K only while its tiles fill few block slots.
 constexpr int kMinDepth = 256;
 
-// One operand's tile of a stage in shared memory: [rows][kTK] when k is
-// its contiguous dimension in device memory (KMaj), else [kTK][rows];
-// each row padded by kPad elements (16 bytes).
-template <bool KMaj, int Rows>
+// One operand's tile of a stage in shared memory, elements E (bf16, or
+// float in the 3xTF32 body): [rows][kTK] when k is its contiguous
+// dimension in device memory (KMaj), else [kTK][rows]. A stage is 64
+// bytes of k deep (32 bf16 or 16 floats); a [rows][k] row is padded by 16
+// bytes and a [k][rows] row by 8 elements, so that each warp's fragment
+// reads (ldmatrix, or 4-byte loads of a [k][rows] float tile) touch every
+// bank once.
+template <typename E, bool KMaj, int Rows>
 struct Smem {
-  static constexpr int kLd = KMaj ? kTK + kPad : Rows + kPad;
+  static constexpr int kVec = 16 / sizeof(E);   // elements of a 16-byte chunk
+  static constexpr int kTK = 64 / sizeof(E);
+  static constexpr int kLd = KMaj ? kTK + kVec : Rows + 8;
   static constexpr int kSize = KMaj ? Rows * kLd : kTK * kLd;   // elements
-  // 16-byte chunks (8 elements) a thread copies of a stage
-  static constexpr int kChunks = Rows * kTK / 8 / kMmaThreads;
-  static_assert(kChunks * kMmaThreads * 8 == Rows * kTK, "whole chunks");
+  // 16-byte chunks a thread copies of a stage
+  static constexpr int kChunks = Rows * kTK / kVec / kMmaThreads;
+  static_assert(kChunks * kMmaThreads * kVec == Rows * kTK, "whole chunks");
 
   // (row, k) within the tile of chunk c's first element
   __device__ static void chunk(int c, int& r, int& k) {
     if (KMaj) {
-      r = c / (kTK / 8);
-      k = c % (kTK / 8) * 8;
+      r = c / (kTK / kVec);
+      k = c % (kTK / kVec) * kVec;
     } else {
-      k = c / (Rows / 8);
-      r = c % (Rows / 8) * 8;
+      k = c / (Rows / kVec);
+      r = c % (Rows / kVec) * kVec;
     }
   }
   __device__ static int offset(int r, int k) {
@@ -296,32 +216,35 @@ struct Smem {
 };
 
 // shared memory of a block: the stages' ring, which the epilogue's float
-// tile reuses
-template <bool AK, bool BK>
+// tile reuses (the same bytes for both element types)
+template <typename E, bool AK, bool BK>
 constexpr size_t mma_smem() {
-  return std::max(kStages * (Smem<AK, kTM>::kSize + Smem<BK, kTN>::kSize) *
-                      sizeof(bf16),
+  return std::max(kStages *
+                      (Smem<E, AK, kTM>::kSize + Smem<E, BK, kTN>::kSize) *
+                      sizeof(E),
                   sizeof(float) * kTM * kLdC);
 }
 
-// cp.async of one operand's stage: its chunks a thread, the bytes past
-// `rows` x k_end zero-filled (and not read)
-template <bool KMaj, int Rows>
-__device__ __forceinline__ void copy_stage(bf16* dst, const bf16* base,
+// cp.async of one operand's stage: its 16-byte chunks a thread (every row
+// starts 16-byte aligned, idvs_gemm refuses others), the elements past
+// `rows` x k_end zero-filled (and not read).
+template <typename E, bool KMaj, int Rows>
+__device__ __forceinline__ void copy_stage(E* dst, const E* base,
                                            long long sr, long long sk,
                                            int r0, int k0, int rows,
                                            int k_end) {
+  using S = Smem<E, KMaj, Rows>;
 #pragma unroll
-  for (int i = 0; i < Smem<KMaj, Rows>::kChunks; ++i) {
+  for (int i = 0; i < S::kChunks; ++i) {
     int r, k;
-    Smem<KMaj, Rows>::chunk(threadIdx.x + i * kMmaThreads, r, k);
+    S::chunk(threadIdx.x + i * kMmaThreads, r, k);
     r += r0, k += k0;
     // the chunk runs along k (KMaj) or along r
     int n = KMaj ? (r < rows ? k_end - k : 0) : (k < k_end ? rows - r : 0);
-    n = max(0, min(8, n));
-    const bf16* src = n > 0 ? base + r * sr + k * sk : base;
-    cp_async16_zfill(dst + Smem<KMaj, Rows>::offset(r - r0, k - k0), src,
-                     2 * n);
+    n = max(0, min(S::kVec, n));
+    const E* src = n > 0 ? base + r * sr + k * sk : base;
+    cp_async16_zfill(dst + S::offset(r - r0, k - k0), src,
+                     static_cast<int>(sizeof(E)) * n);
   }
 }
 
@@ -347,20 +270,28 @@ __device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
-// 8 neighbouring sums at (m, n..n+7) through the epilogue to the output:
-// 16- and 32-byte loads and stores where e.vec says every (M, N) operand
-// and N allow them and the 8 columns lie inside N, else element by element
+__device__ __forceinline__ void store8(bf16* p, const float (&f)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                 pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+}
+
+// 8 neighbouring sums at (m, n..n+7) through the epilogue to the output,
+// T the compute dtype: 16- and 32-byte loads and stores where e.vec says
+// every (M, N) operand and N allow them and the 8 columns lie inside N,
+// else element by element
+template <typename T>
 __device__ __forceinline__ void store_row8(const Epilogue& e, int M, int N,
                                            int m, int n, float (&v)[8]) {
   if (!(e.vec && n + 8 <= N)) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) store_out<bf16>(e, M, N, m, n + c, v[c]);
+    for (int c = 0; c < 8; ++c) store_out<T>(e, M, N, m, n + c, v[c]);
     return;
   }
   const size_t i = static_cast<size_t>(m) * N + n;
   float f[8];
   if (e.bias != nullptr) {
-    load8(static_cast<const bf16*>(e.bias) + n, f);
+    load8(static_cast<const T*>(e.bias) + n, f);
 #pragma unroll
     for (int c = 0; c < 8; ++c) v[c] += f[c];
   }
@@ -373,67 +304,150 @@ __device__ __forceinline__ void store_row8(const Epilogue& e, int M, int N,
     if (e.gate_f32)
       load8(static_cast<const float*>(e.gate) + i, f);
     else
-      load8(static_cast<const bf16*>(e.gate) + i, f);
+      load8(static_cast<const T*>(e.gate) + i, f);
 #pragma unroll
     for (int c = 0; c < 8; ++c) v[c] *= dact(f[c], e.gate_act);
   }
-  if (e.out_f32) {
+  if (e.out_f32)
     store8(static_cast<float*>(e.out) + i, v);
-  } else {
-    *reinterpret_cast<uint4*>(static_cast<bf16*>(e.out) + i) =
-        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  else
+    store8(static_cast<T*>(e.out) + i, v);
+}
+
+// Lane l's ldmatrix column offset, in elements E, for an A fragment from an
+// [m][k] tile and for B from an [n][k] tile (mma.cuh's a_col and bn_col,
+// which count bf16): 16 bytes is 8 bf16 or 4 floats
+template <typename E>
+__device__ __forceinline__ int a_col_of(int l) {
+  return (l >> 4) * (16 / static_cast<int>(sizeof(E)));
+}
+template <typename E>
+__device__ __forceinline__ int bn_col_of(int l) {
+  return ((l >> 3) & 1) * (16 / static_cast<int>(sizeof(E)));
+}
+
+// One 16-deep slice of a bf16 stage: the warp's fragments (A for its kMT
+// m16 tiles, B for its kNT n8 tiles), then its kMT x kNT products
+template <bool AK, bool BK>
+__device__ __forceinline__ void bf16_step(const bf16* as, const bf16* bs,
+                                          int kk, int wm, int wn, int lane,
+                                          float (&acc)[kMT][kNT][4]) {
+  using SA = Smem<bf16, AK, kTM>;
+  using SB = Smem<bf16, BK, kTN>;
+  uint32_t a[kMT][4], b[kNT][2];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+    const int m = wm * kWM + i * 16;
+    if constexpr (AK)
+      ldsm_x4(a[i], smem_u32(as + (m + a_row(lane)) * SA::kLd + kk +
+                             a_col(lane)));
+    else
+      ldsm_x4_t(a[i], smem_u32(as + (kk + bn_row(lane)) * SA::kLd + m +
+                               bn_col(lane)));
+  }
+#pragma unroll
+  for (int j = 0; j < kNT; j += 2) {
+    const int n = wn * kWN + j * 8;
+    uint32_t r[4];
+    if constexpr (BK)
+      ldsm_x4(r, smem_u32(bs + (n + bn_row(lane)) * SB::kLd + kk +
+                          bn_col(lane)));
+    else
+      ldsm_x4_t(r, smem_u32(bs + (kk + bk_row(lane)) * SB::kLd + n +
+                            bk_col(lane)));
+    b[j][0] = r[0], b[j][1] = r[1];
+    b[j + 1][0] = r[2], b[j + 1][1] = r[3];
+  }
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+}
+
+// One 8-deep slice of a float stage as 3xTF32: every operand value split
+// into big + small tf32 terms (mma.cuh split_tf32), and each product
+// accumulated as small.big + big.small + big.big, the small terms first
+// (small.small, 2^-22 of the product, is dropped), into `acc`, the stage's
+// sums (the kernel adds them to its running sums in float). B's
+// fragments are split
+// once for the warp's kNT n8 tiles; A's one m16 tile at a time, after
+// act() when A takes its prologue (on the float, before the split), so
+// that few registers hold fragments beside the 64 accumulators. [rows][k]
+// tiles load by ldmatrix (a float is two b16 halves), [k][rows] tiles by
+// 4-byte loads, which the padding keeps free of bank conflicts.
+template <bool AK, bool BK>
+__device__ __forceinline__ void tf32_step(const float* as, const float* bs,
+                                          int kk, int wm, int wn, int lane,
+                                          int pro_act,
+                                          float (&acc)[kMT][kNT][4]) {
+  using SA = Smem<float, AK, kTM>;
+  using SB = Smem<float, BK, kTN>;
+  const int g = lane >> 2, q = lane & 3;
+  uint32_t bb[kNT][2], bsm[kNT][2];
+#pragma unroll
+  for (int j = 0; j < kNT; j += 2) {
+    const int n = wn * kWN + j * 8;
+    uint32_t r[4];
+    if constexpr (BK) {
+      ldsm_x4(r, smem_u32(bs + (n + bn_row(lane)) * SB::kLd + kk +
+                          bn_col_of<float>(lane)));
+    } else {
+      const float* p = bs + (kk + q) * SB::kLd + n + g;
+      r[0] = __float_as_uint(p[0]);
+      r[1] = __float_as_uint(p[4 * SB::kLd]);
+      r[2] = __float_as_uint(p[8]);
+      r[3] = __float_as_uint(p[4 * SB::kLd + 8]);
+    }
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      split_tf32(__uint_as_float(r[h]), bb[j + h / 2][h & 1],
+                 bsm[j + h / 2][h & 1]);
+  }
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+    const int m = wm * kWM + i * 16;
+    uint32_t r[4];
+    if constexpr (AK) {
+      ldsm_x4(r, smem_u32(as + (m + a_row(lane)) * SA::kLd + kk +
+                          a_col_of<float>(lane)));
+    } else {
+      const float* p = as + (kk + q) * SA::kLd + m + g;
+      r[0] = __float_as_uint(p[0]);
+      r[1] = __float_as_uint(p[8]);
+      r[2] = __float_as_uint(p[4 * SA::kLd]);
+      r[3] = __float_as_uint(p[4 * SA::kLd + 8]);
+    }
+    uint32_t ab[4], asm_[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      float v = __uint_as_float(r[h]);
+      if (pro_act != kNone) v = act(v, pro_act);
+      split_tf32(v, ab[h], asm_[h]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], asm_, bb[j][0], bb[j][1]);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], ab, bsm[j][0], bsm[j][1]);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], ab, bb[j][0], bb[j][1]);
   }
 }
 
-// One warp's fragments of a 16-deep slice of the stage: A for its kMT m16
-// tiles, B for its kNT n8 tiles
-template <bool AK, bool BK>
-struct Frags {
-  uint32_t a[kMT][4], b[kNT][2];
-
-  __device__ __forceinline__ void load(const bf16* as, const bf16* bs,
-                                       int kk, int wm, int wn, int lane) {
-    using SA = Smem<AK, kTM>;
-    using SB = Smem<BK, kTN>;
-#pragma unroll
-    for (int i = 0; i < kMT; ++i) {
-      const int m = wm * kWM + i * 16;
-      if constexpr (AK)
-        ldsm_x4(a[i], smem_u32(as + (m + a_row(lane)) * SA::kLd + kk +
-                               a_col(lane)));
-      else
-        ldsm_x4_t(a[i], smem_u32(as + (kk + bn_row(lane)) * SA::kLd + m +
-                                 bn_col(lane)));
-    }
-#pragma unroll
-    for (int j = 0; j < kNT; j += 2) {
-      const int n = wn * kWN + j * 8;
-      uint32_t r[4];
-      if constexpr (BK)
-        ldsm_x4(r, smem_u32(bs + (n + bn_row(lane)) * SB::kLd + kk +
-                            bn_col(lane)));
-      else
-        ldsm_x4_t(r, smem_u32(bs + (kk + bk_row(lane)) * SB::kLd + n +
-                              bk_col(lane)));
-      b[j][0] = r[0], b[j][1] = r[1];
-      b[j + 1][0] = r[2], b[j + 1][1] = r[3];
-    }
-  }
-};
-
-// grid (N tiles, M tiles, splits), as gemm_kernel. AK: A is k-contiguous
-// (sak == 1), else m-contiguous; BK: B is k-contiguous (sbk == 1), else
-// n-contiguous. A and B in bf16 (a prologue of A ran before, in
-// act_cast_kernel).
-template <bool AK, bool BK>
-__global__ void __launch_bounds__(kMmaThreads, kBlocksPerSm)
+// grid (N tiles, M tiles, splits). With one split the epilogue runs here;
+// otherwise slice z writes its raw float tile to ws[z] (M x N), which
+// splitk_reduce_kernel adds in order. E: the operands' elements, bf16 (A
+// and B in bf16; a prologue of A ran before, in act_cast_kernel) or float
+// (3xTF32; A's prologue runs here). AK: A is k-contiguous (sak == 1), else
+// m-contiguous; BK: B is k-contiguous (sbk == 1), else n-contiguous.
+template <typename E, bool AK, bool BK>
+__global__ void __launch_bounds__(kMmaThreads, blocks_per_sm<E>())
     gemm_mma_kernel(Operands o, Epilogue e, float* __restrict__ ws) {
-  using SA = Smem<AK, kTM>;
-  using SB = Smem<BK, kTN>;
+  using SA = Smem<E, AK, kTM>;
+  using SB = Smem<E, BK, kTN>;
+  constexpr int kTK = SA::kTK;
   extern __shared__ __align__(16) unsigned char gemm_smem[];
-  bf16* As = reinterpret_cast<bf16*>(gemm_smem);
-  bf16* Bs = As + kStages * SA::kSize;
+  E* As = reinterpret_cast<E*>(gemm_smem);
+  E* Bs = As + kStages * SA::kSize;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
@@ -442,16 +456,16 @@ __global__ void __launch_bounds__(kMmaThreads, kBlocksPerSm)
   const int k_begin = blockIdx.z * k_chunk;
   const int k_end = min(o.K, k_begin + k_chunk);
   const int nk = k_end > k_begin ? (k_end - k_begin + kTK - 1) / kTK : 0;
-  const bf16* A = static_cast<const bf16*>(o.A);
-  const bf16* B = static_cast<const bf16*>(o.B);
+  const E* A = static_cast<const E*>(o.A);
+  const E* B = static_cast<const E*>(o.B);
 
   // stage t's copies into slot t % kStages
   auto issue = [&](int t) {
     const int k0 = k_begin + t * kTK, s = t % kStages;
-    copy_stage<AK, kTM>(As + s * SA::kSize, A, o.sam, o.sak, m0, k0, o.M,
-                        k_end);
-    copy_stage<BK, kTN>(Bs + s * SB::kSize, B, o.sbn, o.sbk, n0, k0, o.N,
-                        k_end);
+    copy_stage<E, AK, kTM>(As + s * SA::kSize, A, o.sam, o.sak, m0, k0, o.M,
+                           k_end);
+    copy_stage<E, BK, kTN>(Bs + s * SB::kSize, B, o.sbn, o.sbk, n0, k0, o.N,
+                           k_end);
   };
 
   float acc[kMT][kNT][4] = {};
@@ -467,17 +481,28 @@ __global__ void __launch_bounds__(kMmaThreads, kBlocksPerSm)
     __syncthreads();
     if (t + kStages - 1 < nk) issue(t + kStages - 1);
     cp_async_commit();
-    const bf16* as = As + (t % kStages) * SA::kSize;
-    const bf16* bs = Bs + (t % kStages) * SB::kSize;
+    const E* as = As + (t % kStages) * SA::kSize;
+    const E* bs = Bs + (t % kStages) * SB::kSize;
+    if constexpr (std::is_same_v<E, bf16>) {
 #pragma unroll
-    for (int kk = 0; kk < kTK; kk += 16) {
-      Frags<AK, BK> f;
-      f.load(as, bs, kk, wm, wn, lane);
+      for (int kk = 0; kk < kTK; kk += 16)
+        bf16_step<AK, BK>(as, bs, kk, wm, wn, lane, acc);
+    } else {
+      // the stage's products into zeroed sums, then added to the running
+      // sums by float adds (round to nearest): the tensor cores' own
+      // accumulation drops the bits of each addend below the running
+      // sum's, which over thousands of steps drifts past float32's
+      // rounding
+      float d[kMT][kNT][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kTK; kk += 8)
+        tf32_step<AK, BK>(as, bs, kk, wm, wn, lane, o.pro_act, d);
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
         for (int j = 0; j < kNT; ++j)
-          mma_bf16(acc[i][j], f.a[i], f.b[j][0], f.b[j][1]);
+#pragma unroll
+          for (int h = 0; h < 4; ++h) acc[i][j][h] += d[i][j][h];
     }
   }
   cp_async_wait<0>();
@@ -509,7 +534,7 @@ __global__ void __launch_bounds__(kMmaThreads, kBlocksPerSm)
     float v[8];
     load8(tile + r * kLdC + c0, v);
     if (gridDim.z == 1) {
-      store_row8(e, o.M, o.N, m, n, v);
+      store_row8<E>(e, o.M, o.N, m, n, v);
     } else {   // slice z's raw partial, added by splitk_reduce_kernel
       float* w = ws + (static_cast<size_t>(blockIdx.z) * o.M + m) * o.N + n;
       if (e.vec && n + 8 <= o.N) {
@@ -579,20 +604,13 @@ cudaError_t reduce(const Operands& o, const Epilogue& e, float* ws,
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const Operands& o, const Epilogue& e, float* ws,
-                       int splits, cudaStream_t s) {
-  const dim3 grid((o.N + kBN - 1) / kBN, (o.M + kBM - 1) / kBM, splits);
-  gemm_kernel<float><<<grid, kThreads, 0, s>>>(o, e, ws);
-  return reduce<float>(o, e, ws, splits, s);
-}
-
 // Opts the layout's kernel into its shared memory with the largest
 // carveout, once.
-template <bool AK, bool BK>
+template <typename E, bool AK, bool BK>
 cudaError_t prepare_mma() {
   static const cudaError_t err = [] {
-    auto kernel = gemm_mma_kernel<AK, BK>;
-    cudaError_t e = allow_smem(kernel, mma_smem<AK, BK>());
+    auto kernel = gemm_mma_kernel<E, AK, BK>;
+    cudaError_t e = allow_smem(kernel, mma_smem<E, AK, BK>());
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -602,31 +620,33 @@ cudaError_t prepare_mma() {
   return err;
 }
 
-template <bool AK, bool BK>
+template <typename E, bool AK, bool BK>
 cudaError_t launch_mma(const Operands& o, const Epilogue& e, float* ws,
                        int splits, cudaStream_t s) {
-  const cudaError_t opt = prepare_mma<AK, BK>();
+  const cudaError_t opt = prepare_mma<E, AK, BK>();
   if (opt != cudaSuccess) return opt;
-  constexpr size_t smem = mma_smem<AK, BK>();
+  constexpr size_t smem = mma_smem<E, AK, BK>();
   const dim3 grid((o.N + kTN - 1) / kTN, (o.M + kTM - 1) / kTM, splits);
-  gemm_mma_kernel<AK, BK><<<grid, kMmaThreads, smem, s>>>(o, e, ws);
-  return reduce<bf16>(o, e, ws, splits, s);
+  gemm_mma_kernel<E, AK, BK><<<grid, kMmaThreads, smem, s>>>(o, e, ws);
+  return reduce<E>(o, e, ws, splits, s);
 }
 
-cudaError_t launch_bf16(const Operands& o, const Epilogue& e, float* ws,
-                        int splits, cudaStream_t s) {
+// the layout's instantiation of the body for elements E
+template <typename E>
+cudaError_t launch(const Operands& o, const Epilogue& e, float* ws,
+                   int splits, cudaStream_t s) {
   if (o.sak == 1)
-    return o.sbk == 1 ? launch_mma<true, true>(o, e, ws, splits, s)
-                      : launch_mma<true, false>(o, e, ws, splits, s);
-  return o.sbk == 1 ? launch_mma<false, true>(o, e, ws, splits, s)
-                    : launch_mma<false, false>(o, e, ws, splits, s);
+    return o.sbk == 1 ? launch_mma<E, true, true>(o, e, ws, splits, s)
+                      : launch_mma<E, true, false>(o, e, ws, splits, s);
+  return o.sbk == 1 ? launch_mma<E, false, true>(o, e, ws, splits, s)
+                    : launch_mma<E, false, false>(o, e, ws, splits, s);
 }
 
 // 16-byte rows: the base 16-byte aligned, the non-unit stride a multiple
-// of 8 elements
-bool rows_aligned(const void* p, long long s0, long long s1) {
+// of the elements in 16 bytes (8 bf16 or 4 floats)
+bool rows_aligned(const void* p, long long s0, long long s1, int elem) {
   const long long s = s0 == 1 ? s1 : s0;
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s % 8 == 0 &&
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s % (16 / elem) == 0 &&
          (s0 == 1) != (s1 == 1);
 }
 
@@ -637,23 +657,24 @@ bool aligned16(const void* p) {
 // K slices of an (M, N) product over K that fill the card: a product whose
 // output tiles (each a block) fill too few of the card's block slots is cut
 // into the fewest slices that fill whole waves of slots to 90 % (the best
-// fill below that), each slice at least kMinDepth deep (1024 for the f32
-// body, whose rule asks for two waves).
+// fill below that), each slice at least kMinDepth deep. Both bodies share
+// the tile; the slots are blocks_per_sm of the dtype's body an SM. The
+// float32 body, at one block an SM, also cuts a product of one to four
+// waves whose last wave runs part full (SASRec's h = x w1 at M = 640: 320
+// tiles on 132 SMs fill three waves to 81 %, two slices five to 97 %).
 int fill_splits(int M, int N, int K, int dtype) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     sms = 132;
-  if (dtype == kF32) {
-    const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
-    if (tiles >= 2 * sms) return 1;
-    return max(1, min((2 * sms + tiles - 1) / tiles, K / 1024));
-  }
   const long long tiles =
       static_cast<long long>((M + kTM - 1) / kTM) * ((N + kTN - 1) / kTN);
-  const long long slots = static_cast<long long>(kBlocksPerSm) * sms;
-  if (tiles >= slots) return 1;
+  const long long slots =
+      static_cast<long long>(dtype == kF32 ? blocks_per_sm<float>()
+                                           : blocks_per_sm<bf16>()) *
+      sms;
+  if (tiles >= slots && (dtype != kF32 || tiles >= 4 * slots)) return 1;
   const int most = max(1, K / kMinDepth);
   int best = 1;
   double best_fill = 0.0;
@@ -668,27 +689,30 @@ int fill_splits(int M, int N, int K, int dtype) {
 }
 
 // K slices of an (M, N) product over K: the one place they are chosen.
-// fill_splits', and in bf16 at least enough that no slice is deeper than
-// max_depth (0: no bound). The tensor cores' float accumulation drifts
-// further from an IEEE float sum the deeper a slice runs (about 6x
+// fill_splits', and at least enough that no slice is deeper than max_depth
+// (0: no bound). The bf16 body's float accumulation on the tensor cores
+// drifts further from an IEEE float sum the deeper a slice runs (about 6x
 // torch.matmul's float32 error at K = 2048, 2x at 1024, PERF.md), and the
 // slices are added in float: a caller whose float output decides a branch,
-// a ReLU's kink, bounds the depth.
+// a ReLU's kink, bounds the depth. The float32 body adds each step in
+// float already; it honours the bound alike.
 int choose_splits(int M, int N, int K, int dtype, int max_depth) {
   const int s = fill_splits(M, N, K, dtype);
-  if (dtype != kBF16 || max_depth < 1) return s;
+  if (max_depth < 1) return s;
   return max(s, (K + max_depth - 1) / max_depth);
 }
 
 }  // namespace
 }  // namespace idvs
 
-// The K slices idvs_gemm takes for an (M, N) product over K in `dtype`,
-// no slice deeper than max_depth in bf16 (0: no bound): the wrapper sizes
-// the workspace from it.
+// The K slices idvs_gemm takes for an (M, N) product over K in `dtype`, no
+// slice deeper than max_depth (0: no bound): the wrapper sizes the
+// workspace from it.
 extern "C" int idvs_gemm_splits(int M, int N, int K, int dtype,
                                 int max_depth) {
-  if (M < 1 || N < 1 || K < 1) return 1;
+  if (M < 1 || N < 1 || K < 1 || (dtype != idvs::kF32 &&
+                                  dtype != idvs::kBF16))
+    return 1;
   return idvs::choose_splits(M, N, K, dtype, max_depth);
 }
 
@@ -716,17 +740,17 @@ extern "C" int idvs_gemm_act_cast(const void* src, void* dst, long long n,
 }
 
 // out (M, N) = epi(pro(A) @ B) with A(m, k) = A[m*sam + k*sak] and
-// B(k, n) = B[k*sbk + n*sbn], both in the compute dtype (A in float when
-// a_f32); one of sam/sak is 1 and one of sbk/sbn is 1. pro_act: 0 none,
-// 1 GELU, 2 ReLU, 3 x*sigmoid(1.702x) (applied to A then cast). bias:
-// compute-dtype (N,) row or null; add: float (M, N) addend or null; gate:
-// (M, N), compute dtype or float (gate_f32), whose act'(gate_act)
-// multiplies the sum, or null. out_f32: store float, else the compute
-// dtype. splits > 1 needs ws of splits * M * N floats. float32 runs the
-// FMA body (with the prologue); bf16 the tensor-core body, which takes A
-// and B in bf16 with no prologue (idvs_gemm_act_cast runs it first) and
-// with every row 16-byte aligned (base aligned, the non-unit stride a
-// multiple of 8).
+// B(k, n) = B[k*sbk + n*sbn], both in the compute dtype; one of sam/sak is
+// 1 and one of sbk/sbn is 1. pro_act: 0 none, 1 GELU, 2 ReLU, 3
+// x*sigmoid(1.702x) (applied to A then cast). bias: compute-dtype (N,) row
+// or null; add: float (M, N) addend or null; gate: (M, N), compute dtype
+// or float (gate_f32), whose act'(gate_act) multiplies the sum, or null.
+// out_f32: store float, else the compute dtype. splits > 1 needs ws of
+// splits * M * N floats. Both dtypes run the tensor-core body and take A
+// and B with every row 16-byte aligned (base aligned, the non-unit stride
+// a multiple of 8 bf16 or 4 floats). bf16 takes A and B in bf16 with no
+// prologue (idvs_gemm_act_cast runs it first; a_f32 must be 0); float32
+// (3xTF32) takes them in float, with the prologue.
 extern "C" int idvs_gemm(const void* A, const void* B, void* out,
                          const void* add, const void* gate, const void* bias,
                          void* ws, int M, int N, int K, long long sam,
@@ -738,7 +762,10 @@ extern "C" int idvs_gemm(const void* A, const void* B, void* out,
       (sam != 1 && sak != 1) || (sbk != 1 && sbn != 1) || pro_act < 0 ||
       pro_act > 3 || gate_act < 1 || gate_act > 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Operands o{A, B, sam, sak, sbk, sbn, M, N, K, pro_act, a_f32};
+  const int elem = dtype == kF32 ? 4 : 2;
+  if (!rows_aligned(A, sam, sak, elem) || !rows_aligned(B, sbk, sbn, elem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Operands o{A, B, sam, sak, sbk, sbn, M, N, K, pro_act};
   // whole 8-element pieces of every (M, N) operand's rows
   const int vec = N % 8 == 0 && aligned16(out) && aligned16(add) &&
                   aligned16(gate) && aligned16(bias) && aligned16(ws);
@@ -747,12 +774,11 @@ extern "C" int idvs_gemm(const void* A, const void* B, void* out,
                    bias, vec};
   float* w = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return static_cast<int>(launch_f32(o, e, w, splits, s));
+  if (dtype == kF32) return static_cast<int>(launch<float>(o, e, w, splits, s));
   if (dtype == kBF16) {
-    if (pro_act != kNone || a_f32 || !rows_aligned(A, sam, sak) ||
-        !rows_aligned(B, sbk, sbn))
+    if (pro_act != kNone || a_f32)
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_bf16(o, e, w, splits, s));
+    return static_cast<int>(launch<bf16>(o, e, w, splits, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

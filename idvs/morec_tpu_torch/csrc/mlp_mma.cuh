@@ -1,7 +1,9 @@
-// The bf16 tensor-core chain of the port's two FFN kernels, shared by
-// premlp.cu (the pre-LN MLP, premlp_mma_kernel) and mlp_resln.cu (the
-// post-LN FFN tail, mlp_resln_mma_kernel): a block's rows of x in a bf16
-// [BM][C + 8] tile in shared memory, then over F in chunks of FC columns
+// The bf16 tensor-core chains of the port's FFN and projection kernels,
+// shared by premlp.cu (the pre-LN MLP, premlp_mma_kernel), mlp_resln.cu
+// (the post-LN FFN tail, mlp_resln_mma_kernel) and proj_resln.cu (the
+// post-LN projection tail, proj_resln_mma_kernel): a block's rows of x in a
+// bf16 [BM][C + 8] tile in shared memory, then over F in chunks of FC
+// columns
 //   h   = x @ W1[:, chunk]             mma.sync m16n8k16, float accumulators
 //   g   = cast(act(h + b1))            once an element, act a constant
 //   acc += g @ W2[chunk, :]            the block's (BM, C) output, registers
@@ -12,14 +14,18 @@
 // columns of acc. With WN = 1, g is packed from the dense1 accumulators
 // straight into dense2's A fragments (mma.cuh), so it never leaves
 // registers; with WN > 1 the cast chunk goes through a bf16 [BM][FC + 8]
-// tile. The caller's kernel owns the prologue (LayerNorm or none) and the
-// epilogue on acc; premlp.cu's header has the measurements behind the
-// layouts.
+// tile. The projection's chain (ProjChain) is the dense2 step alone with
+// A taken from the x tile: acc += x @ W, W's [32][C] slices through the
+// same ring. The caller's kernel owns the prologue (LayerNorm or none) and
+// the epilogue on acc; the post-LN one (b, dropout, residual, cast, y_pre,
+// LayerNorm, one store) is post_ln_epilogue below. premlp.cu's header has
+// the measurements behind the layouts.
 #pragma once
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "dropout.cuh"
 #include "mma.cuh"
 
 namespace idvs {
@@ -236,6 +242,188 @@ struct MlpChain {
     cp_async_wait<0>();
   }
 };
+
+// The projection's chain at width C, RW x WN warps, S ring stages: Xs
+// [BM][ldx], the ring's S slots of [32][C + 8], then the epilogue's
+// [2][WN][BM] float row sums.
+template <int C_, int RW_, int WN_, int S_>
+struct ProjCfg {
+  static constexpr int C = C_, RW = RW_, WN = WN_, S = S_;
+  static constexpr int BM = 16 * RW, threads = 32 * RW * WN;
+  static constexpr int ldx = C + 8, ld2 = C + 8, slot = kSlice * ld2;
+  static constexpr int NJ2 = C / WN / 8, n = C / kSlice;
+  static constexpr size_t chain_smem = sizeof(bf16) * (BM * ldx + S * slot);
+  static constexpr size_t smem = chain_smem + sizeof(float) * 2 * WN * BM;
+  static_assert(C % kSlice == 0 && NJ2 % 2 == 0, "whole slices and pairs");
+  static_assert(smem <= kMaxSmem, "tile does not fit in shared memory");
+};
+
+// acc += Xs @ W for a block's BM rows: W's n slices of [32][C] through
+// the ring, each warp's 16 rows times its C / WN columns. Its ring and its
+// loop mirror MlpChain's x copy, next() and dense2 step: moved into helpers
+// both chains called, they cost mlp_resln_mma_kernel 4-5 % of its device
+// time at the text shape (PERF.md), so each chain keeps its own.
+template <typename K>
+struct ProjChain {
+  const bf16* w;
+  bf16* Xs;
+  bf16* Ws;
+  int M, row0, t;
+
+  __device__ ProjChain(unsigned char* smem, const bf16* w_, int M_)
+      : w(w_), Xs(reinterpret_cast<bf16*>(smem)), Ws(Xs + K::BM * K::ldx),
+        M(M_), row0(blockIdx.x * K::BM), t(0) {}
+
+  // W rows [32 u, 32 u + 32) into slot u % S
+  __device__ void issue(int u) const {
+    if (u >= K::n) return;
+    constexpr int cpr = K::C / 8;
+    bf16* dst = Ws + (u % K::S) * K::slot;
+    for (int c = threadIdx.x; c < kSlice * cpr; c += K::threads) {
+      const int k = c / cpr, col = c % cpr * 8;
+      cp_async16(dst + k * K::ld2 + col,
+                 w + static_cast<size_t>(kSlice * u + k) * K::C + col);
+    }
+  }
+
+  // the block's rows of x (zeros past M), then the first S - 1 slices,
+  // each a group
+  __device__ void start(const bf16* x) const {
+    for (int c = threadIdx.x; c < K::BM * (K::C / 8); c += K::threads) {
+      const int r = c / (K::C / 8), k = c % (K::C / 8) * 8, row = row0 + r;
+      cp_async16_zfill(Xs + r * K::ldx + k,
+                       row < M ? x + static_cast<size_t>(row) * K::C + k : x,
+                       row < M ? 16 : 0);
+    }
+    cp_async_commit();
+#pragma unroll
+    for (int u = 0; u < K::S - 1; ++u) {
+      issue(u);
+      cp_async_commit();
+    }
+  }
+
+  // the next slice of the ring, as MlpChain::next
+  __device__ const bf16* next() {
+    cp_async_wait<K::S - 2>();
+    __syncthreads();
+    issue(t + K::S - 1);
+    cp_async_commit();
+    return Ws + (t++ % K::S) * K::slot;
+  }
+
+  // MlpChain's dense2 step with A from the x tile
+  __device__ void run(float (&acc)[K::NJ2][4]) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int rw = warp / K::WN, ocol = warp % K::WN * (K::C / K::WN);
+    const bf16* xa = Xs + (16 * rw + a_row(lane)) * K::ldx + a_col(lane);
+    for (int r = 0; r < K::n; ++r) {
+      const bf16* ws = next();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, smem_u32(xa + kSlice * r + 16 * kk));
+#pragma unroll
+        for (int j = 0; j < K::NJ2; j += 2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, smem_u32(ws + (16 * kk + bk_row(lane)) * K::ld2 +
+                                ocol + 8 * j + bk_col(lane)));
+          mma_bf16(acc[j], a, b[0], b[1]);
+          mma_bf16(acc[j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+};
+
+// The post-LN epilogue on a block's (BM, C) float accumulators (warp
+// (rw, wn): 16 rows, the C / WN columns from wn * C / WN, mma.cuh's C
+// layout): y_pre = cast(dropout(acc + b) + resid) in place, the dropout at
+// element row * C + col, stored to ypre when it is given (the training
+// edition); the row sums by quad shuffles and, across the WN column warps,
+// through red ([2][WN][BM] floats) in a fixed order; then out = LN(y_pre)
+// (float gamma and beta, the fast variance clamped at 0, flax) and one
+// store. resid(r, row, col) is the float pair of the residual at the
+// block's row r (device row `row`), columns col and col + 1. Rows past M
+// are never stored.
+template <typename K, typename Resid>
+__device__ __forceinline__ void post_ln_epilogue(
+    float (&acc)[K::NJ2][4], const bf16* b, Resid resid, const float* gamma,
+    const float* beta, bf16* out, bf16* ypre, Drop drop, int row0, int M,
+    float eps, float* red) {
+  constexpr int C = K::C, BM = K::BM, WN = K::WN, NJ2 = K::NJ2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rw = warp / WN, wn = warp % WN, g = lane >> 2, q = lane & 3;
+  const int ocol = wn * (C / WN);
+  float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * rw + g + 8 * hh, row = row0 + r;
+#pragma unroll
+    for (int j = 0; j < NJ2; ++j) {
+      const int col = ocol + 8 * j + 2 * q;
+      const float2 bb = pair_f32(b + col), xv = resid(r, row, col);
+      const uint32_t index = static_cast<uint32_t>(row) * C + col;
+      const float y0 = round_to<bf16>(
+          drop.apply(acc[j][2 * hh] + bb.x, index) + xv.x);
+      const float y1 = round_to<bf16>(
+          drop.apply(acc[j][2 * hh + 1] + bb.y, index + 1) + xv.y);
+      acc[j][2 * hh] = y0;
+      acc[j][2 * hh + 1] = y1;
+      sum[hh] += y0 + y1;
+      sq[hh] += y0 * y0 + y1 * y1;
+      if (ypre != nullptr && row < M)
+        store_pair(ypre + static_cast<size_t>(row) * C + col, y0, y1);
+    }
+  }
+  // a row's C columns: 2 NJ2 a lane, the quad's four lanes, the WN warps
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      sum[hh] += __shfl_xor_sync(~0u, sum[hh], o);
+      sq[hh] += __shfl_xor_sync(~0u, sq[hh], o);
+    }
+  if constexpr (WN > 1) {
+    if (q == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = 16 * rw + g + 8 * hh;
+        red[wn * BM + r] = sum[hh];
+        red[(WN + wn) * BM + r] = sq[hh];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * rw + g + 8 * hh;
+      sum[hh] = sq[hh] = 0.f;
+#pragma unroll
+      for (int c = 0; c < WN; ++c) {
+        sum[hh] += red[c * BM + r];
+        sq[hh] += red[(WN + c) * BM + r];
+      }
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 16 * rw + g + 8 * hh;
+    if (row >= M) continue;
+    const float mu = sum[hh] / C;
+    const float var = fmaxf(sq[hh] / C - mu * mu, 0.f);
+    const float rstd = 1.f / sqrtf(var + eps);
+    bf16* orow = out + static_cast<size_t>(row) * C;
+#pragma unroll
+    for (int j = 0; j < NJ2; ++j) {
+      const int col = ocol + 8 * j + 2 * q;
+      store_pair(orow + col,
+                 (acc[j][2 * hh] - mu) * rstd * gamma[col] + beta[col],
+                 (acc[j][2 * hh + 1] - mu) * rstd * gamma[col + 1] +
+                     beta[col + 1]);
+    }
+  }
+}
 
 }  // namespace
 }  // namespace idvs

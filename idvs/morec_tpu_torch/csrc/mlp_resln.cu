@@ -34,8 +34,9 @@
 // mlp_resln_plan in ops/cuda/mlp.py (premlp_plan's layouts), passed to the
 // launch and checked against the instantiation.
 //
-// float32 at C = 128, 256, 512 (mlp_resln_kernel): no TF32, for parity, so
-// the float FMA units; one 256-thread block per 32-row tile keeps its x
+// float32 at C = 128, 256, 512 (mlp_resln_kernel): on the float FMA units
+// (gemm.cu's 3xTF32 route is not taken here yet, ROADMAP); one 256-thread
+// block per 32-row tile keeps its x
 // tile resident in shared memory and walks F in chunks (256 wide at C =
 // 512): h = act(x @ W1[:, chunk] + b1), cast, parked in shared memory and
 // folded into the block's (32, C) dense2 accumulator (an 8 x 8 tile per
@@ -47,11 +48,13 @@
 // W1 and W2 from L2 (10.7 GB at M = 640 in float32; M = 10 filled 2 SMs).
 // So h goes through device memory (10 MB in bf16 at M = 640 beside 67 MB of
 // weights) and the two products are gemm.cu's, split over M, N and K to
-// fill the card whatever M: h = f32(x @ W1) + b1 (bias epilogue, float
-// out), g = cast(act(h)) (gemm.cu's act pre-pass in bf16, on load in
-// float32), y = f32(g @ W2) split over K with a fixed-order sum; then
-// post_ln_rows_kernel, one block a row: b2, dropout, residual, cast, y_pre
-// and the LN. The wrapper (ops/cuda/mlp.py) composes them; the other split,
+// fill the card whatever M (float32 as 3xTF32 on the tensor cores): h =
+// f32(x @ W1) + b1 (bias epilogue, float out), g = cast(act(h)) (gemm.cu's
+// act pre-pass in bf16, on load in float32), y = f32(g @ W2) split over K
+// with a fixed-order sum; then post_ln_rows_kernel, one block a row: b2,
+// dropout, residual, cast, y_pre and the LN (the projection tail's route
+// at C = 2048 and in float32 takes the same row pass, at every kernel
+// width). The wrapper (ops/cuda/mlp.py) composes them; the other split,
 // blocks of (rows, F slice) writing float partial sums of dense2, was not
 // built (PERF.md).
 #include "mlp_mma.cuh"
@@ -189,91 +192,24 @@ using PostCfg = MmaCfg<C, FC, RW, WN, S, sizeof(float) * 2 * WN * 16 * RW>;
 template <typename K>
 __global__ void __launch_bounds__(K::threads, K::threads <= 256 ? 2 : 1)
     mlp_resln_mma_kernel(PostArgs p) {
-  constexpr int C = K::C, BM = K::BM, WN = K::WN, NJ2 = K::NJ2;
   extern __shared__ __align__(16) unsigned char post_smem[];
-  const bf16* b2 = static_cast<const bf16*>(p.b2);
-  bf16* ypre = static_cast<bf16*>(p.ypre);
   MlpChain<K> chain(post_smem, static_cast<const bf16*>(p.w1),
                     static_cast<const bf16*>(p.b1),
                     static_cast<const bf16*>(p.w2),
                     static_cast<bf16*>(p.hsave), p.M, p.F);
-  float* red = reinterpret_cast<float*>(post_smem + K::chain_smem);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rw = warp / WN, wn = warp % WN, g = lane >> 2, q = lane & 3;
   chain.start(static_cast<const bf16*>(p.x));
-  float acc[NJ2][4] = {};
+  float acc[K::NJ2][4] = {};
   chain.run(p.act, acc);
-
-  // y_pre = cast(dropout(acc + b2) + x) in place, its row sums
-  const int ocol = wn * (C / WN);
-  float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = 16 * rw + g + 8 * hh, row = chain.row0 + r;
-    const bf16* xs = chain.Xs + r * K::ldx;
-#pragma unroll
-    for (int j = 0; j < NJ2; ++j) {
-      const int col = ocol + 8 * j + 2 * q;
-      const float2 bb = pair_f32(b2 + col), xv = pair_f32(xs + col);
-      const uint32_t index = static_cast<uint32_t>(row) * C + col;
-      const float y0 = round_to<bf16>(
-          p.drop.apply(acc[j][2 * hh] + bb.x, index) + xv.x);
-      const float y1 = round_to<bf16>(
-          p.drop.apply(acc[j][2 * hh + 1] + bb.y, index + 1) + xv.y);
-      acc[j][2 * hh] = y0;
-      acc[j][2 * hh + 1] = y1;
-      sum[hh] += y0 + y1;
-      sq[hh] += y0 * y0 + y1 * y1;
-      if (ypre != nullptr && row < p.M)
-        store_pair(ypre + static_cast<size_t>(row) * C + col, y0, y1);
-    }
-  }
-  // a row's C columns: 2 NJ2 a lane, the quad's four lanes, the WN warps
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      sum[hh] += __shfl_xor_sync(~0u, sum[hh], o);
-      sq[hh] += __shfl_xor_sync(~0u, sq[hh], o);
-    }
-  if constexpr (WN > 1) {
-    if (q == 0) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = 16 * rw + g + 8 * hh;
-        red[wn * BM + r] = sum[hh];
-        red[(WN + wn) * BM + r] = sq[hh];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = 16 * rw + g + 8 * hh;
-      sum[hh] = sq[hh] = 0.f;
-#pragma unroll
-      for (int c = 0; c < WN; ++c) {
-        sum[hh] += red[c * BM + r];
-        sq[hh] += red[(WN + c) * BM + r];
-      }
-    }
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = chain.row0 + 16 * rw + g + 8 * hh;
-    if (row >= p.M) continue;
-    const float mu = sum[hh] / C;
-    const float var = fmaxf(sq[hh] / C - mu * mu, 0.f);
-    const float rstd = 1.f / sqrtf(var + p.eps);
-    bf16* orow = static_cast<bf16*>(p.out) + static_cast<size_t>(row) * C;
-#pragma unroll
-    for (int j = 0; j < NJ2; ++j) {
-      const int col = ocol + 8 * j + 2 * q;
-      store_pair(orow + col,
-                 (acc[j][2 * hh] - mu) * rstd * p.gamma[col] + p.beta[col],
-                 (acc[j][2 * hh + 1] - mu) * rstd * p.gamma[col + 1] +
-                     p.beta[col + 1]);
-    }
-  }
+  // the residual is x, still in its shared tile (zeros past M)
+  const bf16* xs = chain.Xs;
+  auto resid = [=](int r, int, int col) {
+    return pair_f32(xs + r * K::ldx + col);
+  };
+  post_ln_epilogue<K>(acc, static_cast<const bf16*>(p.b2), resid, p.gamma,
+                      p.beta, static_cast<bf16*>(p.out),
+                      static_cast<bf16*>(p.ypre), p.drop, chain.row0, p.M,
+                      p.eps, reinterpret_cast<float*>(post_smem +
+                                                      K::chain_smem));
 }
 
 // The block plan the launch passes (mlp_resln_plan in ops/cuda/mlp.py):
@@ -345,33 +281,51 @@ cudaError_t dispatch_f32(const PostArgs& p, const Plan& k, int C,
   return dispatch_f32_c<kGelu>(p, k, C, s);
 }
 
-// ---- C = 2048: the row pass after gemm.cu's two products ------------------
+// ---- the row pass after gemm.cu's products ---------------------------------
 
 constexpr int kRowThreads = 256;
 
-// One block a row of C = 2048 columns, 8 a thread in two 4-column groups
-// 1024 apart: y_pre = cast(dropout(y + b2) + x), stored when asked, then
-// the LN of y_pre with the row's sums added in a fixed order (lanes by
-// xor shuffles, then the 8 warps in order through shared memory).
-template <typename T>
+// threads a row at width C: C / 4 up to a block's kRowThreads, so that each
+// holds 4 NG columns in NG 4-column groups 4 RT apart
+template <int C>
+__host__ __device__ constexpr int row_threads() {
+  return C / 4 < kRowThreads ? C / 4 : kRowThreads;
+}
+
+// kRowThreads / RT rows a block (one at C = 2048, 4 at C = 512), RT
+// threads a row: y_pre = cast(dropout(y + b) + res), stored when asked,
+// then the LN of y_pre with the row's sums added in a fixed order (lanes by
+// xor shuffles, then the row's warps in order through shared memory). The
+// tails' second half where a block cannot hold a row's accumulators (C =
+// 2048) or the product ran in float32 (gemm.cu's 3xTF32 body): the FFN
+// tail's res is x, the projection tail's its residual input.
+template <typename T, int C>
 __global__ void __launch_bounds__(kRowThreads)
-    post_ln_rows_kernel(const float* __restrict__ y, const T* __restrict__ b2,
-                        const T* __restrict__ x,
+    post_ln_rows_kernel(const float* __restrict__ y, const T* __restrict__ b,
+                        const T* __restrict__ res,
                         const float* __restrict__ gamma,
                         const float* __restrict__ beta, T* __restrict__ out,
-                        T* __restrict__ ypre, float eps, Drop drop) {
-  constexpr int C = 2048, NG = C / (4 * kRowThreads);
+                        T* __restrict__ ypre, int M, float eps, Drop drop) {
+  constexpr int RT = row_threads<C>(), NG = C / (4 * RT);
+  constexpr int kRows = kRowThreads / RT, kRowWarps = RT / 32;
+  static_assert(NG * 4 * RT == C && RT % 32 == 0, "whole warps a row");
   __shared__ float red[2][kRowThreads / 32];
-  const size_t row = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = threadIdx.x % RT;
+  const size_t row = static_cast<size_t>(blockIdx.x) * kRows +
+                     threadIdx.x / RT;
+  const bool live = row < static_cast<size_t>(M);   // a row's warps alike
   float v[NG][4];
   float sum = 0.f, sq = 0.f;
 #pragma unroll
   for (int j = 0; j < NG; ++j) {
-    const int col = 4 * threadIdx.x + 4 * kRowThreads * j;
-    const float4 a = load4(y + row * C + col), b = load4(b2 + col);
-    const float4 r = load4(x + row * C + col);
-    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+    const int col = 4 * t + 4 * RT * j;
+    const float4 a = live ? load4(y + row * C + col)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 r = live ? load4(res + row * C + col)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 bb = load4(b + col);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {bb.x, bb.y, bb.z, bb.w};
     const float rv[4] = {r.x, r.y, r.z, r.w};
     const uint32_t index = static_cast<uint32_t>(row * C + col);
 #pragma unroll
@@ -380,7 +334,7 @@ __global__ void __launch_bounds__(kRowThreads)
       sum += v[j][c];
       sq += v[j][c] * v[j][c];
     }
-    if (ypre != nullptr)
+    if (ypre != nullptr && live)
       store4(ypre + row * C + col,
              make_float4(v[j][0], v[j][1], v[j][2], v[j][3]));
   }
@@ -394,17 +348,19 @@ __global__ void __launch_bounds__(kRowThreads)
     red[1][warp] = sq;
   }
   __syncthreads();
+  if (!live) return;
   sum = sq = 0.f;
+  const int w0 = warp / kRowWarps * kRowWarps;
 #pragma unroll
-  for (int w = 0; w < kRowThreads / 32; ++w) {
-    sum += red[0][w];
-    sq += red[1][w];
+  for (int w = 0; w < kRowWarps; ++w) {
+    sum += red[0][w0 + w];
+    sq += red[1][w0 + w];
   }
   const float mu = sum / C;
   const float rstd = 1.f / sqrtf(fmaxf(sq / C - mu * mu, 0.f) + eps);
 #pragma unroll
   for (int j = 0; j < NG; ++j) {
-    const int col = 4 * threadIdx.x + 4 * kRowThreads * j;
+    const int col = 4 * t + 4 * RT * j;
     const float4 g4 = load4(gamma + col), be = load4(beta + col);
     store4(out + row * C + col,
            make_float4((v[j][0] - mu) * rstd * g4.x + be.x,
@@ -414,15 +370,38 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-template <typename T>
-cudaError_t launch_rows(const float* y, const void* b2, const void* x,
+template <typename T, int C>
+cudaError_t launch_rows(const float* y, const void* b, const void* res,
                         const float* gamma, const float* beta, void* out,
                         void* ypre, int M, float eps, Drop drop,
                         cudaStream_t s) {
-  post_ln_rows_kernel<T><<<M, kRowThreads, 0, s>>>(
-      y, static_cast<const T*>(b2), static_cast<const T*>(x), gamma, beta,
-      static_cast<T*>(out), static_cast<T*>(ypre), eps, drop);
+  constexpr int kRows = kRowThreads / row_threads<C>();
+  post_ln_rows_kernel<T, C><<<(M + kRows - 1) / kRows, kRowThreads, 0, s>>>(
+      y, static_cast<const T*>(b), static_cast<const T*>(res), gamma, beta,
+      static_cast<T*>(out), static_cast<T*>(ypre), M, eps, drop);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_rows(const float* y, const void* b, const void* res,
+                          const float* gamma, const float* beta, void* out,
+                          void* ypre, int M, int C, float eps, Drop d,
+                          cudaStream_t s) {
+  switch (C) {
+    case 128:
+      return launch_rows<T, 128>(y, b, res, gamma, beta, out, ypre, M, eps,
+                                 d, s);
+    case 256:
+      return launch_rows<T, 256>(y, b, res, gamma, beta, out, ypre, M, eps,
+                                 d, s);
+    case 512:
+      return launch_rows<T, 512>(y, b, res, gamma, beta, out, ypre, M, eps,
+                                 d, s);
+    case 2048:
+      return launch_rows<T, 2048>(y, b, res, gamma, beta, out, ypre, M, eps,
+                                  d, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -459,19 +438,21 @@ extern "C" int idvs_mlp_resln_fwd(const void* x, const void* w1,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The row pass of the C = 2048 tail: y (M, 2048) float, the sum of the two
-// products before b2; b2, x, out and ypre (null outside training) in the
-// compute dtype, gamma and beta float. out = LN(cast(dropout(y + b2) + x))
-// and ypre = cast(dropout(y + b2) + x), the dropout at element row * 2048
-// + col.
-extern "C" int idvs_post_ln_rows(const void* y, const void* b2,
-                                 const void* x, const void* gamma,
+// The row pass of the tails composed from gemm.cu's products (C = 2048,
+// and the projection tail in float32): y (M, C) float, the products' sum
+// before the bias b; b, res, out and ypre (null outside training) in the
+// compute dtype, gamma and beta float. out = LN(cast(dropout(y + b) +
+// res)) and ypre = cast(dropout(y + b) + res), the dropout at element row
+// * C + col. C must be 128, 256, 512 or 2048; every operand 16-byte
+// aligned.
+extern "C" int idvs_post_ln_rows(const void* y, const void* b,
+                                 const void* res, const void* gamma,
                                  const void* beta, void* out, void* ypre,
                                  int M, int C, float eps, unsigned drop_key,
                                  unsigned drop_thresh, float drop_scale,
                                  int dtype, void* stream) {
   using namespace idvs;
-  if (M < 1 || C != 2048) return static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Drop d{drop_key, drop_thresh, drop_scale};
   const float* yf = static_cast<const float*>(y);
   const float* g = static_cast<const float*>(gamma);
@@ -479,9 +460,9 @@ extern "C" int idvs_post_ln_rows(const void* y, const void* b2,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return static_cast<int>(
-        launch_rows<float>(yf, b2, x, g, bt, out, ypre, M, eps, d, s));
+        dispatch_rows<float>(yf, b, res, g, bt, out, ypre, M, C, eps, d, s));
   if (dtype == kBF16)
-    return static_cast<int>(launch_rows<__nv_bfloat16>(yf, b2, x, g, bt, out,
-                                                       ypre, M, eps, d, s));
+    return static_cast<int>(dispatch_rows<__nv_bfloat16>(
+        yf, b, res, g, bt, out, ypre, M, C, eps, d, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

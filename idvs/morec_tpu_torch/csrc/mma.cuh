@@ -1,6 +1,8 @@
-// Warp-level tensor-core building blocks for sm_90a: 16-byte cp.async
-// copies into shared memory, ldmatrix loads of bf16 fragments and the
-// mma.sync m16n8k16 bf16 product with float32 accumulation.
+// Warp-level tensor-core building blocks for sm_90a: 16- and 4-byte
+// cp.async copies into shared memory, ldmatrix loads of bf16 fragments (and
+// of float fragments, two b16 halves a float), the mma.sync m16n8k16 bf16
+// product and the m16n8k8 tf32 product with float32 accumulation, and the
+// split of a float into two tf32 terms.
 //
 // Fragment layout of one m16n8k16 product (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with g = lane / 4 and q = lane % 4:
@@ -74,6 +76,33 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b, m16n8k8 with tf32 operands (floats whose low 13 bits are
+// zero) and float32 accumulators. Fragments (g = lane / 4, q = lane % 4):
+// a0 = (g, q), a1 = (g + 8, q), a2 = (g, q + 4), a3 = (g + 8, q + 4);
+// b0 = (k q, n g), b1 = (k q + 4, n g); C as m16n8k16's.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (10 stored mantissa bits), to nearest with ties away
+// from zero: cvt.rna.tf32.f32's rounding, in two integer operations
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small to about float32's precision (3xTF32): big =
+// tf32_rna(x), small = tf32_rna(x - big), the subtraction exact
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
 }
 
 // two floats rounded to bf16 (to nearest even), lo in the low half

@@ -19,8 +19,9 @@
 // The TPU kernel keeps the (BM, F) tiles of h and dh in VMEM and adds the
 // weight gradients into a resident buffer over a sequential grid. Here the
 // (M, F) h and dh pass through device memory once each between products
-// that are bound by the float FMA rate (4-5 % of the step's time at F = 4C),
-// and the sums over rows are split and added in a fixed order.
+// (4-5 % of the step's time at F = 4C; gemm.cu's tensor cores, as 3xTF32
+// in float32), and the sums over rows are split and added in a fixed
+// order.
 //
 // Bound on the H100: these row passes are pure bandwidth (x, dxn and dout
 // in, xn or dx out). One warp a row, lanes striding the C columns, so any

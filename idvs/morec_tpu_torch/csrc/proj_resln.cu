@@ -3,134 +3,183 @@
 // with a zero bias).
 //
 // Replaces idvs/morec_tpu/ops/pallas/mlp.py _fwd_proj_only_kernel (the
-// custom-VJP primal of fused_proj_resln, when ypre is null) and
-// _fwd_proj_kernel (the training edition, which also stores the cast pre-LN
-// sum y_pre for the backward, resln_bwd.cu), body _fwd_proj_body, with the
-// in-kernel dropout of dropout.cuh.
+// custom-VJP primal of fused_proj_resln, when ypre is null; pallas_call
+// :811) and _fwd_proj_kernel (the training edition, :796, which also stores
+// the cast pre-LN sum y_pre for the backward, resln_bwd.cu), body
+// _fwd_proj_body (:691-706), with the in-kernel dropout of dropout.cuh.
+// Rounding points as the Pallas body's: y = f32(x @ W) + b, dropout, y_pre
+// = cast(y + res), the LN statistics of the cast y_pre.
 //
-// Bound on the H100: a (M, C) x (C, C) product at C = 512 does 2*C = 1024
-// flops per byte of W and M*C*2 bytes of x/res/out traffic; at M = 15360 it
-// is compute-bound on the float units (f32 parity forbids TF32 tensor
-// cores), while the LN epilogue is pure bandwidth.
-// Design: one 256-thread block per 32-row tile owns all C output columns
-// (an 8 x 8 register tile per thread at C = 512, rowtile.cuh), so the
-// dropout, the residual add, the cast and the LN run on the accumulator
-// before the single (M, C) store: device memory sees x and res in and out
-// out, plus y_pre in the training edition. K is walked in 16-deep slices, double-buffered through
-// shared memory with the next slice's loads in flight during the FMAs.
-#include "rowtile.cuh"
+// Bound on the H100: 2 C^2 flops a row. In bf16 at C = 512 a text train
+// step's M = 23040 rows is 12.1 GFLOP, 0.0122 ms at the 989 TFLOP/s rate,
+// below its 0.0283 ms of bytes (x, res, out and y_pre once): bound by
+// bytes, as is every main path's call in bf16.
+//
+// bf16 at C = 128, 256, 512 (proj_resln_mma_kernel), on the tensor cores:
+// mlp_mma.cuh's ProjChain (the block's rows of x by cp.async into a bf16
+// tile, W's [32][C] slices streamed through a ring of cp.async stages,
+// mma.sync m16n8k16 with the block's (BM, C) sum in float registers), then
+// mlp_mma.cuh's post_ln_epilogue, shared with the FFN tail, on the
+// accumulators: b, the dropout at element row * C + col, the residual read
+// from device memory as bf16 pairs, the cast, y_pre's store (training
+// edition only), the row statistics in a fixed order, the LN and one
+// store. The block plan is proj_resln_plan in ops/cuda/mlp.py, passed to
+// the launch and checked against the instantiation: 64-row blocks of 4 x 4
+// warps where they fill the card, 16-row blocks of 1 x (C / 64) warps
+// where they would not (SASRec's M = 2560 took 40 blocks on 132 SMs).
+//
+// C = 2048 (both dtypes) and float32 at every C do not run here: a block
+// cannot hold a (rows, 2048) float sum for more than a few rows, and the
+// float32 product runs faster on gemm.cu's 3xTF32 tensor-core body than on
+// the FMA units (PERF.md). So idvs_proj_resln_products runs y = f32(x @ W)
+// through gemm.cu and then mlp_resln.cu's post_ln_rows_kernel with res as
+// the residual, in one call from ops/cuda/mlp.py proj_resln_products (one
+// wrapper's host work where a request's float32 tail at small M is held
+// by the host).
+#include "mlp_mma.cuh"
 
 namespace idvs {
 namespace {
 
-using namespace rowtile;
+struct ProjArgs {
+  const bf16 *x, *res, *w, *b;
+  const float *gamma, *beta;
+  bf16 *out, *ypre;   // ypre null outside training
+  int M;
+  float eps;
+  Drop drop;
+};
 
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads)
-    proj_resln_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                      const T* __restrict__ w, const T* __restrict__ b,
-                      const float* __restrict__ gamma,
-                      const float* __restrict__ beta, T* __restrict__ out,
-                      T* __restrict__ ypre, int M, float eps, Drop drop) {
-  using Lay = Layout<C>;
-  constexpr int kBM = Lay::BM, kBK = Lay::BK, kLdA = Lay::LDA;
-  constexpr int kSlices = C / kBK;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* At = smem;                        // 2 x [kBK][kLdA]  x slices
-  float* Bs = At + 2 * kBK * kLdA;         // 2 x [kBK][C]     W slices
-  float* red = Bs + 2 * kBK * C;           // [Lay::kRedFloats]
-  const int row0 = blockIdx.x * kBM;
-  const int row_off = Lay::wr() * Lay::TR;
-  const int col_off = Lay::wc() * 128 * Lay::NG;
+template <typename K>
+__global__ void __launch_bounds__(K::threads, K::threads <= 256 ? 2 : 1)
+    proj_resln_mma_kernel(ProjArgs p) {
+  extern __shared__ __align__(16) unsigned char proj_smem[];
+  ProjChain<K> chain(proj_smem, p.w, p.M);
+  chain.start(p.x);
+  float acc[K::NJ2][4] = {};
+  chain.run(acc);
+  const bf16* res = p.res;
+  const int M = p.M;
+  auto resid = [=](int, int row, int col) {
+    return row < M ? pair_f32(res + static_cast<size_t>(row) * K::C + col)
+                   : make_float2(0.f, 0.f);
+  };
+  post_ln_epilogue<K>(acc, p.b, resid, p.gamma, p.beta, p.out, p.ypre,
+                      p.drop, chain.row0, p.M, p.eps,
+                      reinterpret_cast<float*>(proj_smem + K::chain_smem));
+}
 
-  float acc[Lay::TR][4 * Lay::NG] = {};
-  ASlice<T, kBM, kBK> a;
-  BSlice<T, C, kBK> bw;
-  a.load(x, C, row0, M, 0);
-  bw.load(w, C, 0, 0);
-  for (int t = 0; t < kSlices; ++t) {
-    float* at = At + (t & 1) * kBK * kLdA;
-    float* bs = Bs + (t & 1) * kBK * C;
-    a.store(at);
-    bw.store(bs);
-    __syncthreads();
-    if (t + 1 < kSlices) {     // next slice in flight during the FMAs
-      a.load(x, C, row0, M, (t + 1) * kBK);
-      bw.load(w, C, (t + 1) * kBK, 0);
-    }
-    fma_slice<Lay::TR, Lay::NG, C, kBK, kLdA>(acc, at, bs, row_off,
-                                               col_off);
+// The block plan the launch passes (proj_resln_plan): rows a block,
+// threads and shared-memory bytes.
+struct Plan {
+  int rows, threads;
+  long long smem;
+};
+
+// Launches the instantiation (C, RW, WN, S) when the plan is its own;
+// false when it is not
+template <int C, int RW, int WN, int S>
+bool launch(const ProjArgs& p, const Plan& plan, cudaStream_t s,
+            cudaError_t& err) {
+  using K = ProjCfg<C, RW, WN, S>;
+  if (plan.rows != K::BM || plan.threads != K::threads ||
+      plan.smem != static_cast<long long>(K::smem))
+    return false;
+  auto kernel = proj_resln_mma_kernel<K>;
+  err = allow_smem(kernel, K::smem);
+  if (err == cudaSuccess) {
+    kernel<<<(p.M + K::BM - 1) / K::BM, K::threads, K::smem, s>>>(p);
+    err = cudaGetLastError();
   }
-  ln_epilogue<T, C>(acc, b, res, gamma, beta, out, row0, M, eps, red, drop,
-                    ypre);
+  return true;
 }
 
-template <typename T, int C>
-cudaError_t launch(const void* x, const void* res, const void* w,
-                   const void* b, const float* gamma, const float* beta,
-                   void* out, void* ypre, int M, float eps, Drop drop,
-                   cudaStream_t stream) {
-  using Lay = Layout<C>;
-  constexpr int kBM = Lay::BM;
-  const size_t smem = sizeof(float) * (2 * Lay::BK * Lay::LDA +
-                                       2 * Lay::BK * C + Lay::kRedFloats);
-  auto kernel = proj_resln_kernel<T, C>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(M + kBM - 1) / kBM, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res),
-      static_cast<const T*>(w), static_cast<const T*>(b), gamma, beta,
-      static_cast<T*>(out), static_cast<T*>(ypre), M, eps, drop);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* x, const void* res, const void* w,
-                     const void* b, const float* gamma, const float* beta,
-                     void* out, void* ypre, int M, int C, float eps, Drop d,
+// (RW, WN, stages) by C, as proj_resln_plan gives them
+cudaError_t dispatch(const ProjArgs& p, const Plan& k, int C,
                      cudaStream_t s) {
+  cudaError_t err = cudaErrorInvalidValue;
   switch (C) {
     case 128:
-      return launch<T, 128>(x, res, w, b, gamma, beta, out, ypre, M, eps, d, s);
+      launch<128, 4, 1, 3>(p, k, s, err) || launch<128, 1, 2, 3>(p, k, s, err);
+      break;
     case 256:
-      return launch<T, 256>(x, res, w, b, gamma, beta, out, ypre, M, eps, d, s);
+      launch<256, 4, 2, 3>(p, k, s, err) || launch<256, 1, 4, 3>(p, k, s, err);
+      break;
     case 512:
-      return launch<T, 512>(x, res, w, b, gamma, beta, out, ypre, M, eps, d, s);
-    case 2048:   // 8-row tiles
-      return launch<T, 2048>(x, res, w, b, gamma, beta, out, ypre, M, eps, d,
-                             s);
-    default: return cudaErrorInvalidValue;
+      launch<512, 4, 4, 2>(p, k, s, err) || launch<512, 2, 4, 3>(p, k, s, err) ||
+          launch<512, 1, 8, 3>(p, k, s, err);
+      break;
+    default: break;
   }
+  return err;
 }
 
 }  // namespace
 }  // namespace idvs
 
-// x, res, out: (M, C); w: (C, C) in (in, out) layout; b: (C,) in the compute
-// dtype; gamma, beta: (C,) float. C must be 128, 256, 512 or 2048. ypre:
-// (M, C) in the compute dtype, or null for the forward-only edition.
-// Dropout:
-// drop_key = mix32(seed), drop_thresh = 0 for none (dropout.cuh).
+// x, res, out: (M, C) bf16; w: (C, C) bf16 in (in, out) layout; b: (C,)
+// bf16; gamma, beta: (C,) float; every operand 16-byte aligned. C must be
+// 128, 256 or 512, and rows, threads, smem the block plan built for C
+// (proj_resln_plan); dtype bf16 (the other routes compose gemm.cu and the
+// row pass). ypre: (M, C) bf16, or null for the forward-only edition.
+// Dropout: drop_key = mix32(seed), drop_thresh = 0 for none (dropout.cuh).
 extern "C" int idvs_proj_resln_fwd(const void* x, const void* res,
                                    const void* w, const void* b,
                                    const void* gamma, const void* beta,
                                    void* out, void* ypre, int M, int C,
                                    float eps, unsigned drop_key,
                                    unsigned drop_thresh, float drop_scale,
+                                   int rows, int threads, long long smem,
                                    int dtype, void* stream) {
   using namespace idvs;
-  const Drop d{drop_key, drop_thresh, drop_scale};
-  if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const float* g = static_cast<const float*>(gamma);
-  const float* bt = static_cast<const float*>(beta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return static_cast<int>(
-        dispatch<float>(x, res, w, b, g, bt, out, ypre, M, C, eps, d, s));
-  if (dtype == kBF16)
-    return static_cast<int>(
-        dispatch<__nv_bfloat16>(x, res, w, b, g, bt, out, ypre, M, C, eps, d,
-                                s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1 || dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  const ProjArgs p{static_cast<const bf16*>(x),
+                   static_cast<const bf16*>(res),
+                   static_cast<const bf16*>(w),
+                   static_cast<const bf16*>(b),
+                   static_cast<const float*>(gamma),
+                   static_cast<const float*>(beta),
+                   static_cast<bf16*>(out),
+                   static_cast<bf16*>(ypre),
+                   M,
+                   eps,
+                   Drop{drop_key, drop_thresh, drop_scale}};
+  return static_cast<int>(dispatch(p, Plan{rows, threads, smem}, C,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int idvs_gemm(const void* A, const void* B, void* out,
+                         const void* add, const void* gate, const void* bias,
+                         void* ws, int M, int N, int K, long long sam,
+                         long long sak, long long sbk, long long sbn,
+                         int splits, int pro_act, int gate_act, int out_f32,
+                         int a_f32, int gate_f32, int dtype, void* stream);
+extern "C" int idvs_post_ln_rows(const void* y, const void* b,
+                                 const void* res, const void* gamma,
+                                 const void* beta, void* out, void* ypre,
+                                 int M, int C, float eps, unsigned drop_key,
+                                 unsigned drop_thresh, float drop_scale,
+                                 int dtype, void* stream);
+
+// The other route, C = 2048 (both dtypes) and float32 at every C: y = f32(x
+// @ w) through idvs_gemm in `splits` K slices (idvs_gemm_splits(M, C, C,
+// dtype, 0)), then idvs_post_ln_rows with res as the residual. ws holds
+// (1 + splits) * M * C floats when splits > 1, else M * C: y, then the
+// slices' partial sums. Operands as idvs_proj_resln_fwd's, in the compute
+// dtype `dtype`.
+extern "C" int idvs_proj_resln_products(
+    const void* x, const void* res, const void* w, const void* b,
+    const void* gamma, const void* beta, void* out, void* ypre, void* ws,
+    int splits, int M, int C, float eps, unsigned drop_key,
+    unsigned drop_thresh, float drop_scale, int dtype, void* stream) {
+  if (M < 1 || C < 1 || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* y = static_cast<float*>(ws);
+  const long long mc = static_cast<long long>(M) * C;
+  const int err = idvs_gemm(x, w, y, nullptr, nullptr, nullptr,
+                            splits > 1 ? y + mc : nullptr, M, C, C, C, 1, C,
+                            1, splits, 0, 1, 1, 0, 0, dtype, stream);
+  if (err) return err;
+  return idvs_post_ln_rows(y, b, res, gamma, beta, out, ypre, M, C, eps,
+                           drop_key, drop_thresh, drop_scale, dtype, stream);
 }

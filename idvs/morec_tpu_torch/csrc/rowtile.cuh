@@ -1,23 +1,22 @@
-// Row-tile building blocks of the two post-LN epilogue kernels
-// (proj_resln.cu, mlp_resln.cu).
+// Row-tile building blocks of the float32 FFN tail (mlp_resln.cu's
+// mlp_resln_kernel), and the 4-element loads and stores other kernels
+// share (load4, store4).
 //
-// A block of kThreads = 256 threads (8 warps) owns BM rows (32, or 8 at
-// C = 2048) and ALL C output columns, so the LayerNorm over a row runs in the
-// epilogue with no second pass. The warps form a WR x WC grid (Grid<C>): warp
-// (wr, wc) owns rows wr*TR .. wr*TR+TR-1 and the column span wc*128*NG ..
-// +128*NG, in which lane l owns the 4-column groups 4l + 128j (j < NG). A
-// thread therefore holds a TR x 4NG register tile (8 x 8 at C = 512 and at
-// C = 2048, where the 8 warps sit side by side over 8 rows); neighbouring
-// lanes read neighbouring 16-byte words of the B tile, and the A values are
-// broadcast.
+// A block of kThreads = 256 threads (8 warps) owns BM = 32 rows and ALL C
+// output columns, so the LayerNorm over a row runs in the epilogue with no
+// second pass. The warps form a WR x WC grid (Grid<C>): warp (wr, wc) owns
+// rows wr*TR .. wr*TR+TR-1 and the column span wc*128*NG .. +128*NG, in
+// which lane l owns the 4-column groups 4l + 128j (j < NG). A thread
+// therefore holds a TR x 4NG register tile (8 x 8 at C = 512);
+// neighbouring lanes read neighbouring 16-byte words of the B tile, and
+// the A values are broadcast.
 //
 // Operand A sits in shared memory transposed, At[k][row] with a row stride
 // of LDA = BM + 4 floats (padding against bank conflicts on the transposing
-// store); operand B sits row-major, Bs[k][col]. Both hold floats widened
-// from the compute dtype. K is walked in BK deep slices (16, or 4 at
-// C = 2048 where a slice is 2048 wide), double-buffered: the next slice is
-// loaded into registers while the current one is multiplied, so one barrier
-// per slice suffices.
+// store); operand B sits row-major, Bs[k][col]. Both hold floats. K is
+// walked in BK = 16 deep slices, double-buffered: the next slice is loaded
+// into registers while the current one is multiplied, so one barrier per
+// slice suffices.
 #pragma once
 
 #include "common.cuh"
@@ -39,8 +38,6 @@ template <>
 struct Grid<256> { static constexpr int WC = 1, NG = 2, BM = 32, BK = 16; };
 template <>
 struct Grid<512> { static constexpr int WC = 2, NG = 2, BM = 32, BK = 16; };
-template <>
-struct Grid<2048> { static constexpr int WC = 8, NG = 2, BM = 8, BK = 4; };
 
 template <int C>
 struct Layout {
@@ -76,33 +73,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   q[0] = __floats2bfloat162_rn(v.x, v.y);
   q[1] = __floats2bfloat162_rn(v.z, v.w);
 }
-
-// A slice [BM rows][BK] of a row-major (M, lda) matrix, staged in
-// registers: threads 0..BM*BK/4-1 each carry one row's 4 consecutive k
-// values.
-template <typename T, int BM, int BK>
-struct ASlice {
-  static constexpr int kQuads = BK / 4;   // 4-element groups of a row
-  float4 v;
-  __device__ void load(const T* __restrict__ A, int lda, int row0, int M,
-                       int k0) {
-    if (threadIdx.x < BM * kQuads) {
-      const int row = row0 + threadIdx.x / kQuads;
-      v = row < M ? load4(A + static_cast<size_t>(row) * lda + k0 +
-                          4 * (threadIdx.x % kQuads))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-  __device__ void store(float* At) const {
-    if (threadIdx.x < BM * kQuads) {
-      const int r = threadIdx.x / kQuads, k = 4 * (threadIdx.x % kQuads);
-      At[(k + 0) * (BM + 4) + r] = v.x;
-      At[(k + 1) * (BM + 4) + r] = v.y;
-      At[(k + 2) * (BM + 4) + r] = v.z;
-      At[(k + 3) * (BM + 4) + r] = v.w;
-    }
-  }
-};
 
 // A slice [BK][NC] of a row-major (K, ldb) matrix from column c0, staged
 // in registers: kPer float4s per thread.

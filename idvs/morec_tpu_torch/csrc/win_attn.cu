@@ -26,7 +26,7 @@
 // window kernel writes each head's context into a scratch in x's layout,
 // and the output projection, which sums over all heads, is a plain
 // row-major product of that scratch through gemm.cu (idvs_gemm, with its
-// bias epilogue): tensor-core tiles in bf16, the FMA body in float32.
+// bias epilogue): tensor-core tiles in bf16, 3xTF32 tiles in float32.
 //
 // bf16 (win_attn_mma_kernel), on the tensor cores. A block owns G windows
 // and a group of HG heads; its plan (win_attn_plan in ops/cuda/attention.py,

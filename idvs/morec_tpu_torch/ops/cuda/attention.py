@@ -262,7 +262,8 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
 # there, so the window partition and its reverse never exist. The work is
 # 95 % projections: bf16 runs them and the attention on the tensor cores
 # with the block plan of ``win_attn_plan``, float32 on the float FMA units;
-# the output projection is gemm.cu's product; the .cu header has the
+# the output projection is gemm.cu's product (3xTF32 in float32); the .cu
+# header has the
 # design. The backward (``csrc/win_attn_bwd.cu`` and the products of
 # ``csrc/gemm.cu``) saves nothing but x, the bias and the weights: it
 # recomputes qkv and the probabilities and returns the gradients of x, of

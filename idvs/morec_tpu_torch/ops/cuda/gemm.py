@@ -1,8 +1,10 @@
 """The tiled product kernel and the column sums the backward kernels share
 (``csrc/gemm.cu``, ``csrc/resln_bwd.cu``): hand-written products with the
-epilogues the backward passes need, bf16 on the tensor cores (``mma.sync``
-with ``cp.async`` stages) and float32 on the FMA units, split over K with a
-fixed-order second pass; and sums over rows added in a fixed order.
+epilogues the backward passes need, on the tensor cores (``mma.sync`` with
+``cp.async`` stages) in bf16 and in float32 as 3xTF32 (each float split
+into two tf32 terms, three products a step, about float32's accuracy),
+split over K with a fixed-order second pass; and sums over rows added in a
+fixed order.
 ``ops/cuda/mlp.py`` and ``ops/cuda/attention.py`` compose them with their
 own row and attention kernels.
 
@@ -36,13 +38,13 @@ def ptr(t):
 @functools.lru_cache(maxsize=None)
 def splits_of(M: int, N: int, K: int, code: int, max_depth: int = 0) -> int:
     """K slices of an (M, N) product over K, as the kernel chooses them
-    (csrc/gemm.cu choose_splits; in bf16 none deeper than max_depth when it
-    is above 0): the workspace holds one float (M, N) partial a slice."""
+    (csrc/gemm.cu choose_splits; none deeper than max_depth when it is
+    above 0): the workspace holds one float (M, N) partial a slice."""
     return lib.library().idvs_gemm_splits(M, N, K, code, max_depth)
 
 
 def _check_rows(t, strides, what):
-    """The bf16 body copies 16-byte chunks of every operand row: the base
+    """The product copies 16-byte chunks of every operand row: the base
     16-byte aligned, one stride 1 and the other a multiple of 8."""
     s0, s1 = strides
     if t.data_ptr() % 16 or (s0 == 1) == (s1 == 1) or max(s0, s1) % 8:
@@ -117,6 +119,13 @@ def gemm_plain(A, B, M, N, K, sa, sb, *, add=None, gate=None, act="gelu",
     return y if out_f32 else y.to(dt)
 
 
+# csrc/gemm.cu's body by compute dtype, which gemm() records in
+# gemm.bodies as it launches it
+BODIES = {torch.bfloat16: "gemm_mma_kernel<bf16> (mma.sync m16n8k16)",
+          torch.float32: "gemm_mma_kernel<float> (3xTF32, mma.sync m16n8k8 "
+                         "tf32)"}
+
+
 def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
          pro_act=False, bias=None, out_f32=False, dtype=None, max_depth=0):
     """(M, N) = epi(pro(A) @ B) (csrc/gemm.cu); sa = (sam, sak) and sb =
@@ -124,9 +133,11 @@ def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
     compute dtype ``dtype`` (A's when None); A and gate are in it or in
     float32; the result is in it, or float32 with ``out_f32``. A and B need
     16-byte aligned rows (``_check_rows``); it raises otherwise. max_depth
-    > 0 bounds the K a bf16 slice accumulates on the tensor cores before
-    the slices are added in float (``splits_of``); it changes only the
-    float sum's order, so the plain version ignores it."""
+    > 0 bounds the K a slice accumulates on the tensor cores before the
+    slices are added in float (``splits_of``); it changes only the float
+    sum's order, so the plain version ignores it. A float32 product runs
+    as 3xTF32 (csrc/gemm.cu's header): within float32's rounding of the
+    plain version, not bit for bit."""
     if A.device.type == "cpu":
         return gemm_plain(A, B, M, N, K, sa, sb, add=add, gate=gate, act=act,
                           pro_act=pro_act, bias=bias, out_f32=out_f32,
@@ -151,6 +162,7 @@ def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
         lib.stream_handle(A))
     lib.check(err, "gemm")
     gemm.launches += 1
+    gemm.bodies.add(BODIES[dt])
     return out
 
 
@@ -175,3 +187,4 @@ def colsum(x2, code):
 
 
 gemm.launches = 0
+gemm.bodies = set()

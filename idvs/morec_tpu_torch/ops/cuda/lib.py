@@ -52,14 +52,20 @@ _SIGNATURES = {
     "idvs_fused_mha_dbias_chunks": [_I] * 6,
     # part, out, nb, E, stream
     "idvs_sum_partials": [_P, _P, _I, _I, _P],
-    # x, res, w, b, gamma, beta, out, ypre, M, C, eps, drop, dtype, stream
-    "idvs_proj_resln_fwd": [_P] * 8 + [_I, _I, _F] + _DROP + [_I, _P],
+    # x, res, w, b, gamma, beta, out, ypre, M, C, eps, drop, rows,
+    # threads, smem, dtype, stream
+    "idvs_proj_resln_fwd": [_P] * 8 + [_I, _I, _F] + _DROP
+                           + [_I, _I, _LL, _I, _P],
     # x, w1, b1, w2, b2, gamma, beta, out, ypre, h, M, C, F, eps, act, drop,
     # rows, f_chunk, threads, smem, dtype, stream
     "idvs_mlp_resln_fwd": [_P] * 10 + [_I, _I, _I, _F, _I] + _DROP
                           + [_I, _I, _I, _LL, _I, _P],
-    # y, b2, x, gamma, beta, out, ypre, M, C, eps, drop, dtype, stream
+    # y, b, res, gamma, beta, out, ypre, M, C, eps, drop, dtype, stream
     "idvs_post_ln_rows": [_P] * 7 + [_I, _I, _F] + _DROP + [_I, _P],
+    # x, res, w, b, gamma, beta, out, ypre, ws, splits, M, C, eps, drop,
+    # dtype, stream
+    "idvs_proj_resln_products": [_P] * 9 + [_I, _I, _I, _F] + _DROP
+                                + [_I, _P],
     # ypre, dout, gamma, dres, dyp, dz, part, sums, nb, M, C, eps, drop,
     # dtype, stream
     "idvs_resln_bwd_rows": [_P] * 8 + [_I, _I, _I, _F] + _DROP + [_I, _P],

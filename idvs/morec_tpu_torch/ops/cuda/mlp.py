@@ -8,19 +8,20 @@ kernels ``idvs/morec_tpu/ops/pallas/mlp.py`` ``fused_proj_resln``
 (``_fwd_proj_only_kernel``, ``_fwd_proj_kernel``, ``_bwd_proj_kernel``) and
 ``fused_mlp_resln`` (``_fwd_post_only_kernel``, ``_fwd_post_kernel``,
 ``_bwd_post_kernel``), with the in-kernel dropout of ``ops/dropout.py``.
-In float32 (no TF32, for parity) all are bound by the card's float FMA
-rate. Forward: each block owns 32 rows (8 at C = 2048) and all C columns,
-so the dropout,
-the residual add, the cast to the compute dtype and the LayerNorm run on the
-accumulator, and the FFN's (M, F) intermediate never leaves the block
-unless the training edition saves it. The FFN tail in bf16 runs its
-products on the tensor cores with the block plan of ``mlp_resln_plan``; at
-C = 2048 (SASRec under the vision tower, 10 to 640 rows) its h goes
-through device memory instead, between the two products of gemm.cu and a
-row pass (``mlp_resln_products``). Backward: a row pass recomputes the
-LN statistics from the saved pre-LN sum, and one tiled kernel runs the
-products, split over M with a deterministic second pass for the weight
-gradients. The .cu headers have the details.
+Forward in bf16 at C <= 512: each block owns its rows and all C columns,
+the products run on the tensor cores with the block plans of
+``proj_resln_plan`` and ``mlp_resln_plan``, and the dropout, the residual
+add, the cast to the compute dtype and the LayerNorm run on the
+accumulators, so the FFN's (M, F) intermediate never leaves the block
+unless the training edition saves it. At C = 2048 (SASRec under the vision
+tower, 10 to 640 rows), and for the projection tail in float32 at every C,
+the products go through gemm.cu (bf16, or float32 as 3xTF32 on the tensor
+cores) and a row pass adds the rest (``proj_resln_products``,
+``mlp_resln_products``); the FFN tail's float32 body at C <= 512 runs on
+the float FMA units. Backward: a row pass recomputes the LN statistics
+from the saved pre-LN sum, and gemm.cu runs the products, split over M
+with a deterministic second pass for the weight gradients. The .cu headers
+have the details.
 
 Each wrapper runs its plain PyTorch version (autograd gives its gradient)
 for tensors on the CPU. For tensors on the card it launches the forward-only
@@ -34,17 +35,19 @@ kernels do not take. ``<function>.launches`` counts launches of
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import dropout
 from . import lib
-from .gemm import (act_cast, act_of as _act, colsum, gemm, ptr, row_groups,
-                   sm_count)
+from .gemm import (BODIES as GEMM_BODIES, act_cast, act_of as _act, colsum,
+                   gemm, gemm_plain, ptr, row_groups, sm_count, splits_of)
 from ...models.layers import layer_norm
 
 KERNEL_WIDTHS = (128, 256, 512, 2048)   # C the kernels are instantiated for
 F_CHUNK = {128: 128, 256: 128, 512: 256, 2048: 1024}   # F: a multiple of
-PRODUCTS_WIDTH = 2048   # the FFN tail's C whose h goes through memory
+PRODUCTS_WIDTH = 2048   # the tails' C whose sums go through memory
 # K a bf16 slice of that tail's dense1 accumulates on the tensor cores, in
 # training, before the slices are added in float: the depth of the C = 512
 # tail's dense1, whose h then sits as close to an IEEE float sum as
@@ -71,13 +74,39 @@ def fused_proj_resln_plain(x, res, w, b, *, ln, eps, drop_rate=0.0,
     return _post_ln(y + res.float(), dt, ln, eps)
 
 
+def relu_kink(h, x, w1, b1) -> torch.Tensor:
+    """The pre-activations h = x w1 + b1 that lie within float32's rounding
+    of ReLU's kink, where two float32 sums in different orders may fall on
+    either side of 0: |h| <= sqrt(K) 2^-24 (|x| |w1| + |b1|), the
+    probabilistic rounding bound of a K-term float32 sum (Higham and Mary,
+    2019). A bool mask shaped as h."""
+    K = x.shape[-1]
+    bound = K ** 0.5 * 2.0 ** -24 * (x.float().abs() @ w1.float().abs()
+                                     + b1.float().abs())
+    return h.abs() <= bound
+
+
 def fused_mlp_resln_plain(x, w1, b1, w2, b2, *, ln, eps, act="gelu",
-                          drop_rate=0.0, seed=None):
+                          drop_rate=0.0, seed=None, kink_from=None):
     """LN(x + dropout(act(x @ w1 + b1) @ w2 + b2)) in plain PyTorch; act(h)
-    is cast to the compute dtype before dense2 (JAX ops/pallas/mlp.py:406)."""
+    is cast to the compute dtype before dense2 (JAX ops/pallas/mlp.py:406).
+    kink_from: with act "relu", the pre-activation of another float32 sum
+    (a kernel's saved h) whose sign takes ReLU's branch where this h lies
+    within rounding of the kink (``relu_kink``); h > 0 decides elsewhere.
+    A check of a kernel's gradient passes it: no float32 sum decides those
+    units' branch."""
     dt = x.dtype
     h = x.float() @ w1.to(dt).float() + b1.to(dt).float()
-    g = _act(h, act).to(dt).float()
+    if kink_from is None:
+        g = _act(h, act)
+    elif act == "relu":
+        h0 = h.detach()
+        at_kink = relu_kink(h0, x.detach(), w1.detach().to(dt),
+                            b1.detach().to(dt))
+        g = h * torch.where(at_kink, kink_from > 0, h0 > 0)
+    else:
+        raise ValueError(f"kink_from takes act 'relu', got {act!r}")
+    g = g.to(dt).float()
     y = g @ w2.to(dt).float() + b2.to(dt).float()
     y = dropout.apply(y, drop_rate, seed)
     return _post_ln(y + x.float(), dt, ln, eps)
@@ -106,21 +135,95 @@ def _needs_grad(*tensors) -> bool:
 
 # -- the projection tail ------------------------------------------------------
 
-def _launch_proj(x2, r2, w, b, g, bt, ypre, eps, drop, code):
+# csrc/proj_resln.cu's bf16 body by C: (row warps, column warps, stages of
+# W's [32][C] slices) of its tiles of 64 rows, then of fewer, which M takes
+# where the wider tiles would not give half the SMs a block (the layouts
+# measured best on the H100 at M = 23040, 5120, 2560 and 1280, PERF.md)
+_PROJ_MMA = {128: ((4, 1, 3), (1, 2, 3)), 256: ((4, 2, 3), (1, 4, 3)),
+             512: ((4, 4, 2), (2, 4, 3), (1, 8, 3))}
+
+
+@functools.lru_cache(maxsize=None)
+def proj_resln_plan(C: int, dtype: torch.dtype, M: int,
+                    sms: int = 132) -> dict:
+    """The launch plan of the projection tail at width C for M rows on a
+    card of ``sms`` SMs. bf16 at C <= 512: route "block", the block plan
+    of csrc/proj_resln.cu's proj_resln_mma_kernel, which the launch passes
+    to the kernel (it refuses any other): rows a block, threads and
+    shared-memory bytes, the warps' layout, the ring's stages and the
+    accumulators a thread holds. C = 2048 and float32 at every C: route
+    "products", x w through gemm.cu and then the row pass
+    (``proj_resln_products``). "kernels" names the device kernels the
+    route launches."""
+    if C not in KERNEL_WIDTHS:
+        raise ValueError(f"kernel takes C in {KERNEL_WIDTHS}, got {C}")
+    if C == PRODUCTS_WIDTH or dtype == torch.float32:
+        return dict(route="products",
+                    kernels=(GEMM_BODIES[dtype], "post_ln_rows_kernel"))
+    tiers = _PROJ_MMA[C]
+    RW, WN, S = next((t for t in tiers if -(-M // (16 * t[0])) >= sms // 2),
+                     tiers[-1])
+    rows, threads = 16 * RW, 32 * RW * WN
+    # the x tile, the ring, the epilogue's row sums
+    smem = 2 * (rows + S * 32) * (C + 8) + 4 * 2 * WN * rows
+    return dict(route="block", kernels=("proj_resln_mma_kernel",), rows=rows,
+                threads=threads, smem=smem, row_warps=RW, col_warps=WN,
+                stages=S, acc_floats=rows * C // threads)
+
+
+def proj_resln_products(x2, r2, w, b, ln, *, eps, drop, train):
+    """The projection tail as gemm.cu's product and the row pass: y =
+    f32(x w), then LN(cast(dropout(y + b) + res)) (csrc/proj_resln.cu's
+    header), in one call (idvs_proj_resln_products) that counts as one
+    launch of gemm.cu's product. (out, ypre) in training, (out, None)
+    otherwise. On the CPU every piece is its plain version, so this is the
+    composition's order and rounding points in plain PyTorch."""
     M, C = x2.shape
+    if x2.device.type == "cpu":
+        y = gemm_plain(x2, w, M, C, C, (C, 1), (C, 1), out_f32=True)
+        out, ypre = post_ln_rows_plain(y, b, r2, ln, eps=eps, drop=drop)
+        return out, ypre if train else None
+    code = lib.dtype_code(x2)
+    splits = splits_of(M, C, C, code)
+    # y, then the K slices' partial sums
+    ws = torch.empty((1 + splits * (splits > 1)) * M * C, device=x2.device)
     out = torch.empty_like(x2)
+    ypre = torch.empty_like(x2) if train else None
+    err = lib.library().idvs_proj_resln_products(
+        x2.data_ptr(), r2.data_ptr(), w.data_ptr(), b.data_ptr(),
+        ln[0].data_ptr(), ln[1].data_ptr(), out.data_ptr(), ptr(ypre),
+        ws.data_ptr(), splits, M, C, float(eps), *drop, code,
+        lib.stream_handle(x2))
+    lib.check(err, "fused_proj_resln")
+    gemm.launches += 1
+    gemm.bodies.add(GEMM_BODIES[x2.dtype])
+    return out, ypre
+
+
+def _launch_proj(x2, r2, w, b, g, bt, eps, drop, code, train):
+    """(out, ypre) of the projection tail on the card; ypre only in
+    training."""
+    M, C = x2.shape
+    k = proj_resln_plan(C, x2.dtype, M, sm_count(x2.device.index or 0))
+    (fused_proj_resln_res if train else fused_proj_resln).bodies.update(
+        k["kernels"])
+    if k["route"] == "products":
+        return proj_resln_products(x2, r2, w, b, (g, bt), eps=eps,
+                                   drop=drop, train=train)
+    out = torch.empty_like(x2)
+    ypre = torch.empty_like(x2) if train else None
     err = lib.library().idvs_proj_resln_fwd(
         x2.data_ptr(), r2.data_ptr(), w.data_ptr(), b.data_ptr(),
         g.data_ptr(), bt.data_ptr(), out.data_ptr(), ptr(ypre), M, C,
-        float(eps), *drop, code, lib.stream_handle(x2))
+        float(eps), *drop, k["rows"], k["threads"], k["smem"], code,
+        lib.stream_handle(x2))
     lib.check(err, "fused_proj_resln")
-    return out
+    return out, ypre
 
 
 def fused_proj_resln_res(x2, r2, w, b, g, bt, *, eps, drop, code):
     """Training edition: (out, y_pre), y_pre the cast pre-LN sum."""
-    ypre = torch.empty_like(x2)
-    out = _launch_proj(x2, r2, w, b, g, bt, ypre, eps, drop, code)
+    out, ypre = _launch_proj(x2, r2, w, b, g, bt, eps, drop, code, True)
     fused_proj_resln_res.launches += 1
     return out, ypre
 
@@ -198,7 +301,8 @@ def fused_proj_resln(x: torch.Tensor, res: torch.Tensor, w: torch.Tensor,
         out = _ProjResLN.apply(x2, r2, w_, b_, g_, bt_, float(eps), drop,
                                code)
     else:
-        out = _launch_proj(x2, r2, w_, b_, g_, bt_, None, eps, drop, code)
+        out = _launch_proj(x2, r2, w_, b_, g_, bt_, eps, drop, code,
+                           False)[0]
         fused_proj_resln.launches += 1
     return out.reshape(x.shape)
 
@@ -213,43 +317,48 @@ def mlp_resln_plan(C: int, dtype: torch.dtype) -> dict:
     are premlp_plan's (the two share csrc/mlp_mma.cuh's chain), with the
     epilogue's row sums after the chain. At C = 2048 no block plan: h goes
     through device memory between gemm.cu's products
-    (``mlp_resln_products``; their splits are gemm.cu's choose_splits)."""
+    (``mlp_resln_products``; their splits are gemm.cu's choose_splits).
+    "kernels" names the device kernels the route launches."""
     if C == PRODUCTS_WIDTH:
-        return dict(route="products", f_chunk=F_CHUNK[C])
+        return dict(route="products", f_chunk=F_CHUNK[C],
+                    kernels=(GEMM_BODIES[dtype], "post_ln_rows_kernel"))
     if C not in F_CHUNK:
         raise ValueError(f"kernel takes C in {KERNEL_WIDTHS}, got {C}")
     if dtype == torch.bfloat16:
         k = premlp_plan(C, dtype)
-        return dict(k, route="block",
+        return dict(k, route="block", kernels=("mlp_resln_mma_kernel",),
                     smem=k["smem"] + 4 * 2 * k["col_warps"] * k["rows"])
     WC = F_CHUNK[C] // 128        # rowtile.cuh Grid<C>: 32 rows, K 16 deep
-    return dict(route="block", rows=32, f_chunk=F_CHUNK[C], threads=256,
+    return dict(route="block", kernels=("mlp_resln_kernel",), rows=32,
+                f_chunk=F_CHUNK[C], threads=256,
                 smem=4 * ((C + F_CHUNK[C]) * 36 + 2 * 16 * C + 2 * WC * 32))
 
 
-def post_ln_rows_plain(y, b2, x2, ln, *, eps, drop):
-    """The C = 2048 row pass in plain PyTorch: (LN(ypre), ypre) with ypre =
-    cast(dropout(y + b2) + x), y the float sum of the two products and
-    ``drop`` the call's kernel arguments (``ops/dropout.py``)."""
-    dt = x2.dtype
-    v = dropout.apply_args(y.float() + b2.to(dt).float(), drop)
-    ypre = (v + x2.float()).to(dt)
+def post_ln_rows_plain(y, b, res, ln, *, eps, drop):
+    """The row pass in plain PyTorch: (LN(ypre), ypre) with ypre =
+    cast(dropout(y + b) + res), y the float sum of the products, res the
+    residual (the FFN tail's x) and ``drop`` the call's kernel arguments
+    (``ops/dropout.py``)."""
+    dt = res.dtype
+    v = dropout.apply_args(y.float() + b.to(dt).float(), drop)
+    ypre = (v + res.float()).to(dt)
     return _post_ln(ypre, dt, ln, eps), ypre
 
 
-def post_ln_rows(y, b2, x2, ln, *, eps, drop, train):
-    """The row pass (csrc/mlp_resln.cu post_ln_rows_kernel) on the card,
-    its plain version on the CPU: (out, ypre, or None outside training)."""
+def post_ln_rows(y, b, res, ln, *, eps, drop, train):
+    """The row pass (csrc/mlp_resln.cu post_ln_rows_kernel, C in
+    KERNEL_WIDTHS) on the card, its plain version on the CPU: (out, ypre,
+    or None outside training)."""
     if y.device.type == "cpu":
-        out, ypre = post_ln_rows_plain(y, b2, x2, ln, eps=eps, drop=drop)
+        out, ypre = post_ln_rows_plain(y, b, res, ln, eps=eps, drop=drop)
         return out, ypre if train else None
-    M, C = x2.shape
-    out = torch.empty_like(x2)
-    ypre = torch.empty_like(x2) if train else None
+    M, C = res.shape
+    out = torch.empty_like(res)
+    ypre = torch.empty_like(res) if train else None
     err = lib.library().idvs_post_ln_rows(
-        y.data_ptr(), b2.data_ptr(), x2.data_ptr(), ln[0].data_ptr(),
+        y.data_ptr(), b.data_ptr(), res.data_ptr(), ln[0].data_ptr(),
         ln[1].data_ptr(), out.data_ptr(), ptr(ypre), M, C, float(eps), *drop,
-        lib.dtype_code(x2), lib.stream_handle(x2))
+        lib.dtype_code(res), lib.stream_handle(res))
     lib.check(err, "post_ln_rows")
     return out, ypre
 
@@ -280,14 +389,16 @@ def _launch_mlp(x2, w1, b1, w2, b2, g, bt, eps, act, drop, code, train):
     training."""
     M, C = x2.shape
     F = w1.shape[1]
-    if C == PRODUCTS_WIDTH:
+    k = mlp_resln_plan(C, x2.dtype)
+    (fused_mlp_resln_res if train else fused_mlp_resln).bodies.update(
+        k["kernels"])
+    if k["route"] == "products":
         return mlp_resln_products(x2, w1, b1, w2, b2, (g, bt), eps=eps,
                                   act=act, drop=drop, train=train)
     out = torch.empty_like(x2)
     ypre = torch.empty_like(x2) if train else None
     h = (torch.empty(M, F, dtype=x2.dtype, device=x2.device) if train
          else None)
-    k = mlp_resln_plan(C, x2.dtype)
     err = lib.library().idvs_mlp_resln_fwd(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), g.data_ptr(), bt.data_ptr(), out.data_ptr(),
@@ -400,7 +511,9 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 # through the tiled kernel of gemm.cu with the activation on load and its
 # derivative as an epilogue, and the LayerNorm's backward as a row pass;
 # every sum over rows is added in a fixed order. bf16 runs on the tensor
-# cores, float32 on the float FMA units; the .cu headers have the design.
+# cores; in float32 the forward runs on the float FMA units and the
+# backward's products on the tensor cores as 3xTF32 (gemm.cu); the .cu
+# headers have the design.
 # ``fused_mlp_bwd.launches`` and ``fused_mlp_res_bwd.launches`` count the
 # backward's launches.
 
@@ -711,3 +824,7 @@ fused_proj_resln_bwd.launches = 0
 fused_mlp_resln.launches = 0
 fused_mlp_resln_res.launches = 0
 fused_mlp_resln_bwd.launches = 0
+# the device kernels each forward wrapper launched, by its plans' "kernels"
+for _wrapper in (fused_proj_resln, fused_proj_resln_res, fused_mlp_resln,
+                 fused_mlp_resln_res):
+    _wrapper.bodies = set()

@@ -13,7 +13,11 @@ and from float, the same bits on two runs, and the operands the kernel
 refuses. Tolerance: one bf16 rounding of the output
 (2^-7 of each value) and 2^-10 of the largest value, where both sides'
 float sums (in other orders) sit near a rounding edge; float32 outputs
-2^-10 of the largest value.
+2^-10 of the largest value. The float32 body (3xTF32) likewise at its
+tiles' edges, each epilogue, the prologue on the float, rows that are not
+16-byte aligned (through the C entry), the depth bound and the same bits
+on two runs, within 1e-5 of the largest value (float32's rounding in
+another order).
 """
 
 import numpy as np
@@ -196,7 +200,10 @@ def test_refuses_rows_that_are_not_16_byte_aligned(dtype):
 
 
 def test_float32_edition_unchanged():
-    """The float FMA body at edges of its 128 x 128 x 8 tiles."""
+    """The float32 body (3xTF32 on the tensor cores, 128 x 128 tiles 16
+    floats deep a stage) at edges of its tiles, within float32's rounding
+    of the plain version (1e-5 of the largest value, as when it ran on the
+    FMA units)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     code = lib.DTYPE_CODES[torch.float32]
     for layout in LAYOUTS:
@@ -208,6 +215,124 @@ def test_float32_edition_unchanged():
             torch.cuda.synchronize()
             scale = max(1.0, want.abs().max().item())
             assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+F32 = torch.float32
+F32_TOL = 1e-5      # of max(1, the largest value), test_float32_edition_...
+
+
+def _check_f32(gen, layout, M, N, K, **kw):
+    """The float32 body against gemm_plain, every operand in float32."""
+    A, sa, B, sb = _operands(gen, layout, M, N, K, F32)
+    B = B.float()
+    before = gemm.launches
+    got = gemm(A, B, M, N, K, sa, sb, lib.DTYPE_CODES[F32], **kw)
+    assert gemm.launches == before + 1
+    want = gemm_plain(A, B, M, N, K, sa, sb, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == F32 and got.shape == want.shape
+    scale = max(1.0, want.abs().max().item())
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= F32_TOL * scale
+
+
+@pytest.mark.parametrize("N", (1, 17, 128, 129, 288))
+@pytest.mark.parametrize("M", (1, 7, 16, 127, 129))
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_float32_body_at_the_tile_edges(layout, M, N):
+    """M and N on both sides of the 128-row tile and of a 16-row fragment,
+    K from part of one 16-deep stage to many split slices."""
+    gen = torch.Generator(device="cuda").manual_seed(M * 1000 + N + 1)
+    for K in (5, 16, 24, 3137):
+        _check_f32(gen, layout, M, N, K)
+
+
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_float32_epilogues(layout, epilogue):
+    """Each epilogue in float32 (bias and gate in float), one split and
+    several."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for M, N, K in ((129, 17, 24), (288, 96, 3137), (33, 288, 600)):
+        kw = {k: (v.float() if torch.is_tensor(v) else v)
+              for k, v in _epilogue(gen, epilogue, M, N).items()}
+        _check_f32(gen, layout, M, N, K, **kw)
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu", "quick_gelu"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_float32_prologue(layout, act):
+    """act(A) on the float in the body, before the split (the float32
+    C = 2048 tail's cast(act(h)) w2), at the tiles' edges."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for M, N, K in ((640, 2048, 8192), (10, 2048, 8192), (7, 17, 24),
+                    (129, 129, 3137)):
+        _check_f32(gen, layout, M, N, K, act=act, pro_act=True)
+
+
+def _c_gemm(A, B, M, N, K, sa, sb, out, ws=None, splits=1):
+    """idvs_gemm itself in float32, past the wrapper's checks."""
+    return lib.library().idvs_gemm(
+        A.data_ptr(), B.data_ptr(), out.data_ptr(), None, None, None,
+        None if ws is None else ws.data_ptr(), M, N, K, *sa, *sb, splits, 0,
+        1, 1, 1, 0, lib.DTYPE_CODES[F32], lib.stream_handle(A))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_float32_c_entry_refuses_rows_that_are_not_16_byte_aligned(layout):
+    """The C entry takes float operands whose rows start 16-byte aligned
+    and refuses others (a base 4 bytes past 16, a row stride that is no
+    multiple of 4 floats), as it does bf16 ones."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    M, N, K = 129, 17, 3137
+    A, sa, B, sb = _operands(gen, layout, M, N, K, F32)
+    B = B.float()
+    out = torch.empty(M, N, device="cuda")
+    assert _c_gemm(A, B, M, N, K, sa, sb, out) == 0
+    want = gemm_plain(A, B, M, N, K, sa, sb)
+    torch.cuda.synchronize()
+    scale = max(1.0, want.abs().max().item())
+    assert (out - want).abs().max().item() <= F32_TOL * scale
+    shifted = lambda t: torch.empty(t.numel() + 1, device="cuda")[1:]
+    odd = lambda s: tuple(x - 1 if x > 1 else x for x in s)
+    for args in ((shifted(A), B, sa, sb), (A, shifted(B), sa, sb),
+                 (A, B, odd(sa), sb), (A, B, sa, odd(sb))):
+        assert _c_gemm(*args[:2], M, N, K, *args[2:], out) != 0
+
+
+@pytest.mark.parametrize("M", (1, 10, 640))
+def test_float32_bounds_its_tensor_core_depth(M):
+    """max_depth bounds the float32 body's slices too: the C = 2048 tail's
+    dense1 in training, h = x w1 + b1 at K = 2048 in slices of at most 512
+    added in float, within 2^-20 of mean |h| of the float64 sum (as the
+    bf16 body's, tests/test_torch_mlp_resln_tiles.py)."""
+    C, F, depth = 2048, 8192, 512
+    code = lib.DTYPE_CODES[F32]
+    assert splits_of(M, F, C, code, depth) >= C // depth
+    gen = torch.Generator(device="cuda").manual_seed(M)
+    x = 2.0 * torch.randn(M, C, generator=gen, device="cuda")
+    w1 = torch.randn(C, F, generator=gen, device="cuda") * C ** -0.5
+    b1 = 0.1 * torch.randn(F, generator=gen, device="cuda")
+    h = gemm(x, w1, M, F, C, (C, 1), (F, 1), code, bias=b1, out_f32=True,
+             max_depth=depth)
+    exact = x.double() @ w1.double() + b1.double()
+    torch.cuda.synchronize()
+    err = (h.double() - exact).abs().mean().item()
+    assert err <= 2.0 ** -20 * exact.abs().mean().item(), err
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_float32_two_runs_give_the_same_bits(layout):
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    code = lib.DTYPE_CODES[F32]
+    for M, N, K in ((96, 288, 40000), (17, 129, 3137)):
+        A, sa, B, sb = _operands(gen, layout, M, N, K, F32)
+        B = B.float()
+        assert splits_of(M, N, K, code) > 1
+        one = gemm(A, B, M, N, K, sa, sb, code)
+        two = gemm(A, B, M, N, K, sa, sb, code)
+        torch.cuda.synchronize()
+        assert torch.equal(one, two)
 
 
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])

@@ -12,7 +12,9 @@ held against the Pallas ``fused_mlp_resln`` in interpret mode, its
 forward-only primal and its training edition's (out, y_pre, h), at C =
 2048 with F = 1024 and M = 1, 10 and 17, float32 tolerance 2e-5
 as tests/test_fused_attention.py:187. And the dropout of the row pass,
-``ops/dropout.py`` ``apply_args``, against ``keep_mask``.
+``ops/dropout.py`` ``apply_args``, against ``keep_mask``. Last, the rule
+by which a check holds a float32 ReLU tail's gradient to its plain version
+(``relu_kink``, ``fused_mlp_resln_plain``'s ``kink_from``).
 """
 
 import jax.numpy as jnp
@@ -24,8 +26,9 @@ from idvs.morec_tpu.ops.pallas import mlp as pallas_mlp
 from idvs.morec_tpu_torch.ops import dropout
 from idvs.morec_tpu_torch.ops.cuda import lib
 from idvs.morec_tpu_torch.ops.cuda.mlp import (F_CHUNK, KERNEL_WIDTHS,
+                                               fused_mlp_resln_plain,
                                                mlp_resln_plan,
-                                               mlp_resln_products)
+                                               mlp_resln_products, relu_kink)
 
 BF16, F32 = torch.bfloat16, torch.float32
 TOL = 2e-5
@@ -126,3 +129,43 @@ def test_dropout_from_kernel_args_is_the_seeded_mask(p):
                        want)
     assert torch.equal(dropout.apply_args(x, dropout.kernel_args(0.0, None)),
                        x)
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+def test_kink_from_takes_the_other_branch_only_at_the_kink(drop):
+    """fused_mlp_resln_plain with kink_from takes kink_from's sign for
+    ReLU's branch exactly where relu_kink marks h (within float32's
+    rounding of 0), its own elsewhere: given its own h it is the plain
+    version to the bit, and given an h of the other sign everywhere only
+    the db1 entries of marked units move by a row's step (the others
+    within rounding)."""
+    rng = np.random.default_rng(7)
+    M, C, F = 9, 64, 32
+    t = lambda *s, scale=1.0: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32) * scale)
+    x, w1, w2 = t(M, C), t(C, F, scale=C ** -0.5), t(F, C, scale=F ** -0.5)
+    b2, g, bt = t(C, scale=0.1), 1.0 + t(C, scale=0.1), t(C, scale=0.1)
+    # units 0-3 of row 0 a few roundings from 0, units 4-7 0.01 away
+    b1 = t(F, scale=0.1)
+    s = (x[0].double() @ w1.double()).float()
+    b1[:4] = -s[:4]
+    b1[4:8] = -s[4:8] + 0.01
+    h = x @ w1 + b1
+    at_kink = relu_kink(h, x, w1, b1)
+    assert at_kink[0, :4].all() and not at_kink[0, 4:8].any()
+    assert at_kink.sum() == 4
+    kw = dict(ln=(g, bt), eps=1e-6, act="relu", drop_rate=drop, seed=5)
+    dout = t(M, C)
+
+    def grads(**k):
+        leaves = [v.clone().requires_grad_(True) for v in (x, w1, b1)]
+        out = fused_mlp_resln_plain(*leaves, w2, b2, **kw, **k)
+        return out, torch.autograd.grad(out, leaves, dout)
+
+    out, want = grads()
+    same, same_grads = grads(kink_from=h)
+    assert torch.equal(out, same)
+    assert all(torch.equal(a, b) for a, b in zip(want, same_grads))
+    _, flipped = grads(kink_from=torch.where(h > 0, -1.0, 1.0))
+    step = (flipped[2] - want[2]).abs()
+    assert (step[:4] > 1e-3).all() and (step[4:] <= 1e-5).all()
