@@ -19,12 +19,16 @@ failure:
    card, at the serving path's shapes, in float32 and bfloat16, with kernel
    and plain times (CUDA events, median), every post-LN tail beside its
    yardstick, its products through torch.matmul in its dtype (float32 with
-   TF32 off); and the FFN tail with quick_gelu, which no main path takes,
-   at C = 512 and 2048;
+   TF32 off); the float32 rows of fused_mha and of the FFN tail (text
+   encode's and recommend's, at B = 64 and 1) also with device time
+   (torch.profiler) beside the library call's or the yardstick's and the
+   share of the bound it reaches; and the FFN tail with quick_gelu, which
+   no main path takes, at C = 512 and 2048;
 4. backward kernels: the training editions, the backward kernels and the
    scatter-add against autograd of the plain versions at the train step's
    shapes, and the quick_gelu FFN tail at C = 512 and 2048, in float32 and
-   bfloat16, dropout 0 and 0.1, with times (a bf16 FFN tail's training
+   bfloat16, dropout 0 and 0.1 (the float32 ReLU tail held as phase 10
+   holds it, relu_at_kink), with times (a bf16 FFN tail's training
    forward beside its two products through torch.matmul, in float32
    too); beside
    fused_mha's backward at dropout 0, F.scaled_dot_product_attention's
@@ -32,7 +36,10 @@ failure:
 5. serving: Retriever.encode_catalog over the catalog, then recommend for
    request batches of 1, 8 and 64, with every launch counter set to 0
    first; every kernel launched in the encode and in recommend (gemm
-   among them: the float32 projection tails are its products), the table
+   among them: the float32 tails are its products), and each of them
+   through its float32 body on the tensor cores (fused_mha's 3xTF32
+   forward, gemm.cu's 3xTF32 products and the tails' row pass: the
+   "serving bodies" lines), the table
    is finite, no result holds the padding id or a history id, and on a
    2048-item sub-catalog the kernel path agrees with the plain path (the
    same model and wrappers on the CPU); catalog encode seconds and items/s,
@@ -53,7 +60,8 @@ failure:
    bench_swin's), and the post-LN tails and the attention at SASRec's D =
    2048 for request batches of 64 and of 1 (M = 640 and 10), in bfloat16
    and float32, with times and the share of each kernel's bound reached
-   (each tail beside its products through torch.matmul in its dtype);
+   (each tail beside its products through torch.matmul in its dtype; the
+   float32 attention and FFN tail with device times as in phase 3);
 9. vision serving: the counters set to 0, Retriever.encode_catalog through
    the bf16 Swin-T tower over images drawn from a pool on the card (100_001
    items if a probe says that takes 30 s or less, else 16_385), recommend
@@ -194,13 +202,14 @@ from idvs.morec_tpu_torch.models.text_tower import TextTower
 from idvs.morec_tpu_torch.models.vision_tower import VisionTower
 from idvs.morec_tpu_torch.ops.cuda import lib
 from idvs.morec_tpu_torch.ops.cuda.attention import (
-    dbias_chunks, fused_mha, fused_mha_bwd, fused_mha_bwd_dbias,
+    FWD_BODIES, dbias_chunks, fused_mha, fused_mha_bwd, fused_mha_bwd_dbias,
     fused_mha_plain, fused_mha_proj, fused_mha_proj_band,
     fused_mha_proj_band_bwd, fused_mha_proj_band_plain, fused_mha_proj_bwd,
     fused_mha_proj_plain, sum_partials, window_partition)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     scatter_add_rows, scatter_add_rows_plain)
-from idvs.morec_tpu_torch.ops.cuda.gemm import gemm, gemm_plain
+from idvs.morec_tpu_torch.ops.cuda.gemm import (BODIES as GEMM_BODIES, gemm,
+                                                gemm_plain)
 from idvs.morec_tpu_torch.ops.cuda.inbatch_ce import (fused_ce,
                                                       fused_inbatch_ce,
                                                       fused_inbatch_ce_bwd)
@@ -425,6 +434,16 @@ WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "fused_inbatch_ce_bwd": fused_inbatch_ce_bwd, "gemm": gemm}
 # text serving runs in float32: its projection tails through gemm.cu
 SERVE_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln", "gemm")
+# the device kernels text serving must launch in the encode and in
+# recommend, by wrapper: the float32 bodies on the tensor cores (3xTF32)
+SERVE_BODIES = {"fused_mha": (FWD_BODIES[torch.float32],),
+                "fused_proj_resln": (GEMM_BODIES[torch.float32],
+                                     "post_ln_rows_kernel"),
+                "fused_mlp_resln": (GEMM_BODIES[torch.float32],
+                                    "post_ln_rows_kernel")}
+# float32 kernel rows printed with device time beside the library call's
+# or the yardstick's (the serving paths' float32 kernels)
+DEVICE_ROWS = ("fused_mha", "fused_mlp_resln")
 TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
                  "fused_proj_resln_bwd", "fused_mlp_resln_res",
                  "fused_mlp_resln_bwd", "scatter_add_rows", "gemm")
@@ -646,6 +665,9 @@ def kernel_cases(rng, dev):
         for M, eps, act, who in ((512 * TITLE_LEN, 1e-12, "gelu", "BERT"),
                                  (64 * L, 1e-6, "relu", "SASRec")):
             cases += tail_cases(g, dev, dt, M, HIDDEN, FFN, eps, act, who)
+        if dt == torch.float32:     # a recommend at B = 1
+            cases += tail_cases(g, dev, dt, L, HIDDEN, FFN, 1e-6, "relu",
+                                "SASRec")
         for M, C, Fw in QUICK_GELU_SHAPES:     # the FFN tail's case only
             cases += tail_cases(g, dev, dt, M, C, Fw, 1e-5, "quick_gelu",
                                 "FFN")[1:]
@@ -680,7 +702,11 @@ def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
     (and the library call, where there is one). A case may carry an eighth
     element, a factory of the yardstick: a function running the same
     products through torch.matmul, timed and printed beside the kernel
-    (never a library column: no one call computes the function)."""
+    (never a library column: no one call computes the function). The
+    float32 serving rows of DEVICE_ROWS also print device time (the
+    profiler's sum over the call's kernels) beside the library call's or
+    the yardstick's, and the share of the bound that device time reaches:
+    at a request's shapes the event time is mostly the host's."""
     results = {}
     for name, label, dt, run_kernel, run_plain, work, library, *more in cases:
         got, tf32x3 = gemm_ran(run_kernel, dt)
@@ -698,11 +724,14 @@ def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
         bound_ms, bound_by = bound_of(work, dt, tf32x3)
         lib_text = ("" if library is None
                     else f", library call {library_ms:.4f} ms")
-        if more:
-            products = more[0]()
+        products = more[0]() if more else None
+        if products is not None:
             lib_text += (f", the same products through torch.matmul "
                          f"{cuda_ms(products, reps):.4f} ms")
-            del products
+        if dt == torch.float32 and name in DEVICE_ROWS:
+            lib_text += device_text(run_kernel, library or products,
+                                    bound_ms, reps)
+        del products
         print(f"kernel {name} [{label}]: max_abs_err {err:.3e} "
               f"(tol {tol:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
               f"{lib_text}, bound {bound_text(work, dt, tf32x3)} "
@@ -713,6 +742,18 @@ def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
         _record(results, name, err, ms, plain_ms, work, dt, library_ms,
                 tf32x3)
     return results
+
+
+def device_text(run_kernel, other, bound_ms: float, reps: int) -> str:
+    """The device times a serving row prints: the kernel's, with the share
+    of its bound reached, beside `other`'s (the library call or the
+    yardstick), each the profiler's sum over the call's kernels."""
+    ms = device_ms(run_kernel, reps)[0]
+    text = (f"; device {ms:.4f} ms ({100 * bound_ms / ms:.1f} % of the "
+            f"bound)")
+    if other is not None:
+        text += f" against {device_ms(other, reps)[0]:.4f} ms"
+    return text
 
 
 def _leaves(tensors):
@@ -847,7 +888,9 @@ def backward_cases(rng, dev, titles: int):
                         *a[:5], ln=a[5:], act=act, **kw),
                     mlp_bwd_work(M, C, FFN, it),
                     mlp_work(M, C, FFN, it, saved=True), None,
-                    tail_yardstick))
+                    tail_yardstick,
+                    (lambda *a, kw=kw: relu_at_kink(*a, **kw))
+                    if dt == torch.float32 and act == "relu" else None))
             for M, C, Fw in QUICK_GELU_SHAPES:
                 kw = dict(eps=1e-5, drop_rate=p, seed=seed, act="quick_gelu")
                 cases.append((
@@ -904,9 +947,10 @@ def gradient_cases(cases, card: str, reps: int = FEW_REPS) -> dict:
     inputs that ask for it get a gradient. A case may carry, after its
     works, the library call's factory (or None) and, for the FFN tail, a
     factory of its yardstick from its inputs (timed beside the training
-    forward of the tails at C = 2048) and, for the float32 ReLU tail at
-    C = 2048, a factory of the plain version the check holds it to
-    (relu_at_kink: of 5.2M pre-activations there a few lie within float32's
+    forward of the tails at C = 2048) and, for the float32 ReLU tails
+    (SASRec's at C = 512 and 2048, both through gemm.cu's 3xTF32), a
+    factory of the plain version the check holds it to (relu_at_kink: of
+    the 5.2M pre-activations of each a few lie within float32's
     rounding of 0, where the kernel's 3xTF32 sum and torch.matmul's may
     take opposite branches; the plain version takes the kernel's branch
     there and only there); the windowed attention's backward rows also
@@ -1091,6 +1135,9 @@ def serve_path(dev, card: str, content) -> dict:
     requests = {B: histories(rng, B, ITEM_NUM) for B in REQUEST_BATCHES}
 
     reset_counts()
+    earlier = {n: WRAPPERS[n].bodies for n in SERVE_BODIES}
+    for n in SERVE_BODIES:      # each part's bodies, from none
+        WRAPPERS[n].bodies = set()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     table = Retriever.encode_catalog(model, ITEM_NUM, content, D,
@@ -1098,11 +1145,17 @@ def serve_path(dev, card: str, content) -> dict:
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
     after_encode = counts()
+    bodies = {"encode": {n: WRAPPERS[n].bodies for n in SERVE_BODIES}}
+    for n in SERVE_BODIES:
+        WRAPPERS[n].bodies = set()
     retriever = Retriever(model, table, max_seq_len=L,
                           batch_sizes=REQUEST_BATCHES)
     results = {B: retriever.recommend(h, top_k=TOP_K)
                for B, h in requests.items()}
     final = counts()
+    bodies["recommend"] = {n: WRAPPERS[n].bodies for n in SERVE_BODIES}
+    for n in SERVE_BODIES:
+        WRAPPERS[n].bodies |= earlier[n] | bodies["encode"][n]
 
     print(f"serving launches after encode {after_encode}, after recommend "
           f"{final}", flush=True)
@@ -1110,6 +1163,12 @@ def serve_path(dev, card: str, content) -> dict:
         require(after_encode[n] > 0, f"{n} never launched in the encode")
         require(final[n] > after_encode[n],
                 f"{n} never launched in recommend")
+    for part, seen in bodies.items():
+        print(f"serving bodies, {part}: "
+              f"{ {n: sorted(b) for n, b in seen.items()} }", flush=True)
+        for n, want in SERVE_BODIES.items():
+            require(set(want) <= seen[n],
+                    f"{n} did not launch {set(want) - seen[n]} in {part}")
     require(tuple(table.shape) == (ITEM_NUM + 1, D), f"table {table.shape}")
     require(bool(torch.isfinite(table).all()), "table not finite")
     for B, (ids, vals) in results.items():

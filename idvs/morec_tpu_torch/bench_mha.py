@@ -1,6 +1,7 @@
 """Times fused_mha's kernels at the port's main-path shapes on one GPU.
 
     python -m idvs.morec_tpu_torch.bench_mha [--dtype bf16|f32] [--reps N]
+        [--cases serve,request]
 
 For each shape: the forward (no graph) and the backward alone on a kept
 graph (autograd: ``fused_mha_bwd``, or ``fused_mha_bwd_dbias`` and its
@@ -10,14 +11,16 @@ time a call of the library's kernels (torch.profiler: the kernels named
 ``mha_fwd*``, ``mha_bwd*`` and ``sum_partials``, the dbias edition's second
 pass); F.scaled_dot_product_attention's forward and backward on the same
 operands (the library yardstick, dropout off, the mask trainable where the
-bias is; the port never calls it); and the least time the card could take
+bias is; the port never calls it), its forward also as device time (every
+kernel the call launched); and the least time the card could take
 by bytes for each direction (inputs read once, outputs written once).
 Shapes: BERT's attention over deduplicated titles (serving 512, training
 768 titles of 30 tokens, 8 heads of 64, key mask), SASRec's (text: 64 /
 128 users of L 20, 2 heads of 256; vision: 64 / 1 users of L 10, 2 heads
 of 1024; causal) and Swin-T's window attention at 288 images a train step
 (T 49, heads of 32, a trainable bias for all windows or one per window),
-training shapes at dropout 0.1 as the train steps run them.
+training shapes at dropout 0.1 as the train steps run them. --cases keeps
+the cases whose label holds one of the given words.
 
 Prints one JSON object a line, then the card's name and power limit. The
 package is imported from sys.path, so ``PYTHONPATH=<checkout> python
@@ -34,6 +37,7 @@ import subprocess
 import torch
 import torch.nn.functional as F
 
+from idvs.morec_tpu_torch.bench_swin import device_ms
 from idvs.morec_tpu_torch.measure import PEAK_BYTES, cuda_ms
 from idvs.morec_tpu_torch.ops.cuda.attention import fused_mha
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
@@ -119,6 +123,7 @@ def run_case(label, B, T, nh, dh, kind, P, drop, trainable, dt, reps, gen,
         *(heads(t) for t in q.split(H, dim=-1)), attn_mask=smask)
     with torch.no_grad():
         sdpa_fwd = cuda_ms(lambda: sdpa(qkv), reps)
+        sdpa_fwd_kernel = device_ms(lambda: sdpa(qkv), reps)[0]
     sout = sdpa(sleaf)
     sleaves = [sleaf] + ([smask] if trainable else [])
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
@@ -135,6 +140,7 @@ def run_case(label, B, T, nh, dh, kind, P, drop, trainable, dt, reps, gen,
             "dtype": str(dt).split(".")[-1],
             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_kernel_ms": fwd_kernel,
             "bwd_kernel_ms": bwd_kernel, "sdpa_fwd_ms": sdpa_fwd,
+            "sdpa_fwd_kernel_ms": sdpa_fwd_kernel,
             "sdpa_bwd_ms": sdpa_bwd, "fwd_bound_ms": fwd_bound,
             "bwd_bound_ms": bwd_bound}
 
@@ -143,7 +149,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     parser.add_argument("--reps", type=int, default=10)
+    parser.add_argument("--cases", default="",
+                        help="comma-separated words; only the cases whose "
+                             "label holds one of them")
     args = parser.parse_args()
+    words = [w for w in args.cases.split(",") if w]
     if not torch.cuda.is_available():
         raise SystemExit("bench_mha: no CUDA device visible")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -151,6 +161,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
     for case in cases():
+        if words and not any(w in case[0] for w in words):
+            continue
         row = run_case(*case, dt, args.reps, gen, dev)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()

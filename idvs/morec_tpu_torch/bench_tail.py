@@ -5,6 +5,7 @@ product and the row pass), at the port's main-path shapes on one GPU, and
 reports what the compiler made of them.
 
     python -m idvs.morec_tpu_torch.bench_tail [--reps N] [--report]
+        [--paths E,TR]
 
 Rows (``TAILS``), LN(x + dropout(act(x w1 + b1) w2 + b2)):
 T, a text train step's BERT tail (768 titles of 30 tokens, C = 512, F =
@@ -13,12 +14,14 @@ T, a text train step's BERT tail (768 titles of 30 tokens, C = 512, F =
 float32, forward only); VT, a vision train step's SASRec tail (64 users of
 10 at D = 2048, F = 8192, ReLU, bf16, training edition, dropout 0.1); R, a
 vision ``recommend``'s (B = 64 and 1: M = 640 and 10, float32, forward
-only) and the same in bf16. Each as CUDA-event time around the Python call
-(median of --reps) and as device time a call (torch.profiler, every kernel
-the call launched), beside the least time the card could take
-(``measure.bound_of``), TFLOP/s, and the yardstick torch.matmul of the
-tail's two products on the same operands (x w1, then g w2 with g an (M, F)
-tensor in the compute dtype), which the port never calls for this.
+only) and the same in bf16; TR, a text ``recommend``'s SASRec tail (B = 64
+and 1: M = 1280 and 20, C = 512, F = 2048, ReLU, float32, forward only).
+Each as CUDA-event time around the Python call (median of --reps) and as
+device time a call (torch.profiler, every kernel the call launched),
+beside the least time the card could take (``measure.bound_of``),
+TFLOP/s, and the yardstick torch.matmul of the tail's two products on the
+same operands (x w1, then g w2 with g an (M, F) tensor in the compute
+dtype; event and device time), which the port never calls for this.
 
 Projection rows (``PROJS``), LN(res + dropout(x w + b)): T, the text train
 step's BERT (M = 23040) and SASRec (M = 2560) tails at C = 512, bf16,
@@ -43,7 +46,8 @@ kernel's registers, spills and shared memory and its HMMA instructions
 Prints one JSON object a line, then the card's name and power limit. The
 package is imported from sys.path, so ``PYTHONPATH=<checkout> python
 <this file>`` from another checkout's root times that checkout's kernel
-with the same cases (the checkout needs ``measure.py``).
+with the same cases (the checkout needs ``measure.py``). --paths keeps the
+rows of the given paths.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ DROP = 0.1
 
 
 class Tail(NamedTuple):
-    path: str     # T, E, VT or R
+    path: str     # T, E, VT, R or TR
     M: int
     C: int
     F: int
@@ -86,7 +90,9 @@ TAILS = (Tail("T", 768 * 30, 512, 2048, "gelu", BF16, True),
          Tail("R", 64 * 10, 2048, 8192, "relu", F32, False),
          Tail("R", 10, 2048, 8192, "relu", F32, False),
          Tail("R", 64 * 10, 2048, 8192, "relu", BF16, False),
-         Tail("R", 10, 2048, 8192, "relu", BF16, False))
+         Tail("R", 10, 2048, 8192, "relu", BF16, False),
+         Tail("TR", 64 * 20, 512, 2048, "relu", F32, False),
+         Tail("TR", 20, 512, 2048, "relu", F32, False))
 
 
 class Proj(NamedTuple):
@@ -187,7 +193,11 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--report", action="store_true")
+    parser.add_argument("--paths", default="",
+                        help="comma-separated paths (T, IT, E, VT, R, TR); "
+                             "only their rows")
     args = parser.parse_args()
+    paths = [p for p in args.paths.split(",") if p]
     if not torch.cuda.is_available():
         raise SystemExit("bench_tail: no CUDA device visible")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -197,10 +207,11 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
                                           device="cuda") * scale
+    keep = lambda t: not paths or t.path in paths
     rows = [(t, f"M={t.M} C={t.C} F={t.F} {t.act}", *tail_call(t, g),
-             tail_work(t)) for t in TAILS]
+             tail_work(t)) for t in TAILS if keep(t)]
     rows += [(t, f"proj M={t.M} C={t.C}", *proj_call(t, g), proj_work(t))
-             for t in PROJS]
+             for t in PROJS if keep(t)]
     for t, case, call, products, work in rows:
         before = gemm.launches
         call()
@@ -220,6 +231,7 @@ def main():
             row["fma_bound_ms"] = round(bound_of(work, t.dtype)[0], 4)
         fn = products()
         row["matmul_ms"] = round(cuda_ms(fn, args.reps), 4)
+        row["matmul_device_ms"] = round(device_ms(fn, args.reps)[0], 4)
         del fn
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()

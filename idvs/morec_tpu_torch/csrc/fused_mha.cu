@@ -1,9 +1,10 @@
 // Multi-head self-attention over packed (B, T, 3H) QKV for short sequences
 // (T <= 128): the forward and its backward, and the backward's dbias
-// edition for a trainable additive bias. Two bodies, chosen by the compute
-// dtype in each entry point: bf16 on the tensor cores (mha_*_mma_kernel),
-// float32 in scalar float FMAs (mha_fwd_kernel, mha_bwd_kernel,
-// mha_bwd_dbias_kernel).
+// edition for a trainable additive bias. The bodies are chosen by the
+// compute dtype in each entry point: bf16 on the tensor cores
+// (mha_*_mma_kernel); float32 forward on the tensor cores as 3xTF32
+// (mha_fwd_tf32_kernel); float32 backward in scalar float FMAs
+// (mha_bwd_kernel, mha_bwd_dbias_kernel).
 //
 // Replaces idvs/morec_tpu/ops/pallas/attention.py _fwd_kernel and
 // _bwd_kernel (reached through fused_mha), with the in-kernel dropout of the
@@ -76,14 +77,52 @@
 //   T = 64) and the block writes one partial plane; idvs_sum_partials adds
 //   the chunks in a fixed order. No atomics: two runs give the same bits.
 //
-// The float32 body: one block holds one (row, head) tile of q, k, v (and
-// dout) and the (T, T) scores in shared memory (rows padded by one float to
-// keep the column walks conflict-free), reads qkv and dout in their natural
-// layouts with no head transpose, and writes the context or the packed
-// dqkv directly, in scalar float FMAs with a __syncthreads between stages.
-// Its dbias edition walks the rows of block (chunk, p, head) as above with
-// the sum in a shared (T, T) plane. SASRec's dh = 256 at T = 20 needs ~82 KB
-// in backward, so these kernels opt into dynamic shared memory above 48 KB.
+// The float32 forward (text encode and both recommends serve in float32):
+// bf16's structure with float tiles, and both products as 3xTF32 on
+// mma.sync m16n8k8 (mma.cuh: each operand split into big + small tf32
+// terms, small.big + big.small + big.big; plain TF32's 10 mantissa bits
+// are too few for the float32 parity held here). Each k-step's three
+// products go into zeroed sums that are added to the running sums by float
+// adds, as gemm.cu's float32 body does. The work is bound by bytes at every
+// main-path shape (text encode: 0.014 ms of operations at 67 TFLOP/s
+// against 0.038 ms of bytes), so what counts is what the bf16 body fixed:
+// - q, k and v as float [T][Dp + 8] planes copied by 16-byte cp.async (or
+//   plain loads where a row is not 16-byte aligned), rows past T not kept
+//   (a fragment read of such a row gives zeros) and columns past dh zeros,
+//   so a tile takes at most 12 (Dp + 8) bytes a token: every (T, dh) the
+//   scalar body it replaced launched still fits. A row of 8 mod 16
+//   floats keeps the float2 fragment reads of q and k conflict-free; v's
+//   reads walk rows 2q and 2q + 1, which an XOR of column bit 3 by row bit
+//   2 spreads over the banks.
+// - A warp owns 16 query rows; the scores, the softmax (expf), the dropout
+//   (dropout.cuh's hash at the element index) and the probabilities stay in
+//   registers, and the score accumulators are pd v's A operand as they
+//   are: key 2q of a k-step is fragment column q and key 2q + 1 column
+//   q + 4, so B reads v's rows 2q and 2q + 1 (q k's columns are paired the
+//   same way, one float2 a fragment pair).
+// - Blocking (choose_f32): Tp / 16 row groups; fewer than eight of wide
+//   heads (SASRec, dh 256 and 1024) split each KS ways as bf16 does, up to
+//   eight warps. Blocks are persistent, one wave, one buffer each; each
+//   tile is two copy groups, q and k then v, so the scores start while v
+//   lands, the next q and k go out once the scores are done and the next v
+//   once the output is stored. At text encode's shape (T 30, dh 64) that
+//   beat two buffers, the bf16 body's way, 0.073 ms to 0.103 (PERF.md):
+//   the smaller block lets twice the blocks onto an SM. Where three planes
+//   do not fit (T 64 at dh 256), v is copied into q's plane after the
+//   scores.
+// The float32 backward (only the float32 gradient checks reach it) stays
+// on the scalar body: one block holds one (row, head) tile of q, k, v and
+// dout and the (T, T) planes in shared memory (rows padded by one float to
+// keep the column walks conflict-free), reads qkv and dout in their
+// natural layouts and writes the packed dqkv directly, in scalar float
+// FMAs with a __syncthreads between stages. It recomputes p in its own
+// sums, which differ from the forward's 3xTF32 sums in the last bits,
+// within float32's tolerance. Its dbias edition walks the rows of block
+// (chunk, p, head) as above with the sum in a shared (T, T) plane.
+// SASRec's dh = 256 at T = 20 needs ~82 KB in backward, so these kernels
+// opt into dynamic shared memory above 48 KB.
+#include <initializer_list>
+
 #include "mha_mma.cuh"
 #include "mha_tile.cuh"
 #include "reduce.cuh"
@@ -116,45 +155,285 @@ __device__ __forceinline__ void scores(const float* qs, const float* ks,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMhaThreads)
-    mha_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                   T* __restrict__ out, Geometry g, Drop drop) {
-  extern __shared__ float smem[];
-  const int T_ = g.T, dh = g.dh, ld = dh + 1, lds = T_ + 1;
-  float* qs = smem;             // [T][dh + 1]
-  float* ks = qs + T_ * ld;     // [T][dh + 1]
-  float* vs = ks + T_ * ld;     // [T][dh + 1]
-  float* ss = vs + T_ * ld;     // [T][T + 1]  scores, then probabilities
+// ---- float32 forward on the tensor cores (3xTF32) --------------------------
 
-  const int b = blockIdx.x / g.nh, h = blockIdx.x % g.nh;
-  const int H = g.nh * dh;
-  const size_t row_stride = 3 * static_cast<size_t>(H);
-  const T* base = qkv + static_cast<size_t>(b) * T_ * row_stride + h * dh;
-  load_head(base, row_stride, T_, dh, qs);
-  load_head(base + H, row_stride, T_, dh, ks);
-  load_head(base + 2 * H, row_stride, T_, dh, vs);
-  __syncthreads();
-  scores(qs, ks, ss, bias, b, h, g);
-  __syncthreads();
-  softmax_rows(ss, T_);
-  __syncthreads();
-  // cast, then dropout on the cast probabilities (attention.py:166-170)
-  const uint32_t plane = static_cast<uint32_t>(blockIdx.x) * T_ * T_;
-  for (int idx = threadIdx.x; idx < T_ * T_; idx += blockDim.x) {
-    const int i = idx / T_, j = idx % T_;
-    float* s = ss + i * lds + j;
-    *s = round_to<T>(drop.apply(round_to<T>(*s), plane + idx));
+// How a float32 forward launch is cut (choose_f32, the one place it is
+// decided); sizes in floats unless named bytes.
+struct F32Blocking {
+  int Tp, Dp;         // T rounded up to 16 (row groups), dh to 16 (k-steps)
+  int ld;             // row stride of a plane: Dp + 8, 8 mod 16 floats
+  int RG, KS, warps;  // row groups of 16 query rows, splits of each, warps
+  int planes;         // 3: q, k, v; 2: v copied into q's plane after the scores
+  int plane;          // floats of one [T][ld] plane (rows past T not kept)
+  int vsw;            // v's column swizzle: 8 with three planes, else 0
+  size_t smem;        // dynamic shared memory of a block, bytes
+};
+
+constexpr int kF32Warps = 8;   // at most, RG * KS
+
+F32Blocking choose_f32(int T, int dh) {
+  F32Blocking k;
+  k.Tp = (T + 15) / 16 * 16;
+  k.Dp = (dh + 15) / 16 * 16;
+  k.ld = k.Dp + 8;
+  k.RG = k.Tp / 16;
+  k.plane = T * k.ld;
+  // fewer than eight row groups of wide heads (SASRec): up to eight warps a
+  // tile, each at least 32 columns of the head
+  const int want =
+      k.RG < kF32Warps && k.Dp >= 128 ? std::min(kF32Warps / k.RG, k.Dp / 32)
+                                      : 1;
+  for (int ks : {want, 1}) {
+    k.KS = ks;
+    k.warps = k.RG * ks;
+    // [KS][RG][Tp / 8 tiles][32 lanes][4] partial scores
+    const size_t rest = ks > 1 ? sizeof(float) * ks * k.RG * 16 * k.Tp : 0;
+    k.planes = sizeof(float) * 3 * k.plane + rest <= kMaxSmem ? 3 : 2;
+    k.smem = sizeof(float) * k.planes * k.plane + rest;
+    if (k.smem <= kMaxSmem) break;
   }
-  __syncthreads();
+  k.vsw = k.planes == 3 ? 8 : 0;
+  return k;
+}
 
-  T* obase = out + static_cast<size_t>(b) * T_ * H + h * dh;
-  for (int idx = threadIdx.x; idx < T_ * dh; idx += blockDim.x) {
-    const int i = idx / dh, d = idx % dh;
-    const float* pi = ss + i * lds;
-    float acc = 0.f;
-    for (int j = 0; j < T_; ++j) acc = fmaf(pi[j], vs[j * ld + d], acc);
-    obase[static_cast<size_t>(i) * H + d] = from_f32<T>(acc);
+// Copies plane p (0 q, 1 k, 2 v) of tile (row b, head h) into dst, a [T][ld]
+// plane, column d of token t at t * ld + (d ^ sw(t)), sw(t) = vsw on rows
+// with bit 2 set: 16-byte cp.async copies where every row is 16-byte
+// aligned (vec), else plain loads. Columns >= dh are never written.
+__device__ __forceinline__ void copy_plane(const float* __restrict__ qkv,
+                                           int b, int h, int p, float* dst,
+                                           int vsw, const Geometry& g,
+                                           const F32Blocking& k, bool vec) {
+  const int H = g.nh * g.dh;
+  const float* src =
+      qkv + static_cast<size_t>(b) * g.T * 3 * H + p * H + h * g.dh;
+  const int cpr = g.dh / 4;   // 16-byte chunks a row
+  if (vec && static_cast<int>(blockDim.x) % cpr == 0) {
+    // each thread copies one chunk column of every step-th row
+    const int c = threadIdx.x % cpr * 4, step = blockDim.x / cpr;
+    for (int t = threadIdx.x / cpr; t < g.T; t += step)
+      cp_async16(dst + t * k.ld + (c ^ (t & 4 ? vsw : 0)),
+                 src + static_cast<size_t>(t) * 3 * H + c);
+  } else if (vec) {
+    for (int idx = threadIdx.x; idx < g.T * cpr; idx += blockDim.x) {
+      const int t = idx / cpr, c = idx % cpr * 4;
+      cp_async16(dst + t * k.ld + (c ^ (t & 4 ? vsw : 0)),
+                 src + static_cast<size_t>(t) * 3 * H + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < g.T * g.dh; idx += blockDim.x) {
+      const int t = idx / g.dh, d = idx % g.dh;
+      dst[t * k.ld + (d ^ (t & 4 ? vsw : 0))] =
+          src[static_cast<size_t>(t) * 3 * H + d];
+    }
+  }
+}
+
+// a float2 of a plane's row, zeros past the T rows it keeps
+__device__ __forceinline__ float2 row_pair(const float* plane, int row,
+                                           int col, int T, int ld) {
+  return row < T ? *reinterpret_cast<const float2*>(plane + row * ld + col)
+                 : make_float2(0.f, 0.f);
+}
+
+// The 3xTF32 product of one m16n8k8 step into the running sums c: the
+// step's small.big + big.small + big.big into zeroed sums d (the tensor
+// cores' accumulation is no float sum, gemm.cu's header), then c += d by
+// float adds
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+// s = rows [16 rg, 16 rg + 16) of q times kᵀ over the 8-column k-steps
+// [k0, k1) and the live key tiles. Within a k-step, fragment column q
+// (lane % 4) is the head's column 2q and column q + 4 is 2q + 1, for A and
+// B alike, so each is one float2 (the sum over the head's columns does
+// not mind their order); ld = 8 mod 16 keeps those loads conflict-free.
+template <int RG>
+__device__ __forceinline__ void scores_tf32(const float* Q, const float* K,
+                                            int ld, int T, int rg, int k0,
+                                            int k1, int live,
+                                            float (&s)[2 * RG][4]) {
+  const int l = threadIdx.x & 31, g = l >> 2, q = l & 3;
+  const int r0 = 16 * rg + g;
+#pragma unroll
+  for (int n = 0; n < 2 * RG; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  for (int kk = k0; kk < k1; ++kk) {
+    const int col = 8 * kk + 2 * q;
+    const float2 lo = row_pair(Q, r0, col, T, ld);
+    const float2 hi = row_pair(Q, r0 + 8, col, T, ld);
+    const float a[4] = {lo.x, hi.x, lo.y, hi.y};
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
+#pragma unroll
+    for (int n = 0; n < 2 * RG; ++n) {
+      if (n < live) {
+        const float2 kv = row_pair(K, 8 * n + g, col, T, ld);
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(kv.x, bb0, bs0);
+        split_tf32(kv.y, bb1, bs1);
+        mma_3xtf32(s[n], ab, as, bb0, bb1, bs0, bs1);
+      }
+    }
+  }
+}
+
+// out = pd v for the output columns of the 8-wide tiles [c0, c1), 4 tiles
+// at a time: pd (the probabilities after dropout, zero in padded rows and
+// keys) is A straight from the score accumulators, key 2q of a k-step's 8
+// as fragment column q and key 2q + 1 as column q + 4, so B reads v's
+// rows 2q and 2q + 1 (v's column swizzle keeps those reads conflict-free
+// in a three-plane buffer). Row i of the tile stored at out + i * H.
+template <int RG>
+__device__ __forceinline__ void product_store_tf32(
+    const float (&p)[2 * RG][4], const float* V, const F32Blocking& k,
+    int T, int live, int rg, int c0, int c1, float* __restrict__ out, int H,
+    int dh) {
+  const int l = threadIdx.x & 31, g = l >> 2, q = l & 3;
+  const int i0 = 16 * rg + g;
+  const bool pairs = dh % 2 == 0;
+  for (int cb = c0; cb < c1; cb += 4) {
+    float o[4][4] = {};
+#pragma unroll
+    for (int kb = 0; kb < 2 * RG; ++kb) {
+      if (kb >= live) continue;
+      const float a[4] = {p[kb][0], p[kb][2], p[kb][1], p[kb][3]};
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
+      const int j = 8 * kb + 2 * q, sw = j & 4 ? k.vsw : 0;
+      const float* v0 = V + j * k.ld;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (cb + t < c1) {
+          const int col = (8 * (cb + t) + g) ^ sw;
+          const float x0 = j < T ? v0[col] : 0.f;
+          const float x1 = j + 1 < T ? v0[k.ld + col] : 0.f;
+          uint32_t bb0, bs0, bb1, bs1;
+          split_tf32(x0, bb0, bs0);
+          split_tf32(x1, bb1, bs1);
+          mma_3xtf32(o[t], ab, as, bb0, bb1, bs0, bs1);
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int col = 8 * (cb + t) + 2 * q;
+      if (cb + t >= c1 || col >= dh) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = i0 + 8 * hh;
+        if (i >= T) continue;
+        float* row = out + static_cast<size_t>(i) * H + col;
+        if (pairs) {
+          *reinterpret_cast<float2*>(row) =
+              make_float2(o[t][2 * hh], o[t][2 * hh + 1]);
+        } else {
+          row[0] = o[t][2 * hh];
+          if (col + 1 < dh) row[1] = o[t][2 * hh + 1];
+        }
+      }
+    }
+  }
+}
+
+// grid: persistent blocks walking tiles t = b * nh + h with stride
+// gridDim.x; warp (rg, ks) holds row group rg's scores over its share ks
+// of the head's columns (the KS partial sums added in a fixed order
+// through shared memory), then computes and stores its share of the
+// output columns. One buffer, two copy groups a tile in flight: with three
+// planes the next tile's q and k go out once this tile's scores are done
+// and its v once this tile's output is stored, so the scores start while
+// v lands and each tile's copies overlap the last one's work; with two
+// planes v goes into q's plane once the scores are done.
+template <int RG>
+__global__ void __launch_bounds__(32 * kF32Warps)
+    mha_fwd_tf32_kernel(const float* __restrict__ qkv,
+                        const float* __restrict__ bias,
+                        float* __restrict__ out, int B, Geometry g,
+                        F32Blocking k, Drop drop) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  float* Q = reinterpret_cast<float*>(f32_smem);
+  float* K = Q + k.plane;
+  float* V = k.planes == 3 ? K + k.plane : Q;
+  float* red = Q + k.planes * k.plane;
+  const int end = B * g.nh;
+  int it = blockIdx.x;
+  if (it >= end) return;
+  const bool vec = g.dh % 4 == 0 && aligned16(qkv);
+  const int warp = threadIdx.x >> 5, rg = warp / k.KS, ks = warp % k.KS;
+  const int i0 = 16 * rg + ((threadIdx.x & 31) >> 2), q = threadIdx.x & 3;
+  const int steps = k.Dp / 8, live = live_tiles(g), H = g.nh * g.dh;
+  const int k0 = ks * steps / k.KS, k1 = (ks + 1) * steps / k.KS;
+  zero_smem(Q, sizeof(float) * k.planes * k.plane);
+  __syncthreads();
+  auto copy_qk = [&](int t) {
+    copy_plane(qkv, t / g.nh, t % g.nh, 0, Q, 0, g, k, vec);
+    copy_plane(qkv, t / g.nh, t % g.nh, 1, K, 0, g, k, vec);
+    cp_async_commit();
+  };
+  auto copy_v = [&](int t) {
+    copy_plane(qkv, t / g.nh, t % g.nh, 2, V, k.vsw, g, k, vec);
+    cp_async_commit();
+  };
+  copy_qk(it);
+  if (k.planes == 3) copy_v(it);
+  for (; it < end; it += gridDim.x) {
+    const int nxt = it + gridDim.x, b = it / g.nh, h = it % g.nh;
+    if (k.planes == 3)
+      cp_async_wait<1>();   // this tile's q and k; its v may be in flight
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    float s[2 * RG][4];
+    scores_tf32<RG>(Q, K, k.ld, g.T, rg, k0, k1, live, s);
+    if (k.KS > 1) write_partial<RG>(s, red, rg, ks);
+    __syncthreads();        // q and k read, the partials written
+    if (k.KS > 1) read_sum<RG>(s, red, rg, k.KS);
+    if (k.planes == 2)
+      copy_v(it);
+    else if (nxt < end)
+      copy_qk(nxt);
+    softmax_frag<RG, true>(s, bias_row(bias, b, h, g), i0, g);
+    // dropout on the probabilities at their element index; padded query
+    // rows zero (padded keys are zero already)
+    const uint32_t plane = static_cast<uint32_t>(it) *
+                           static_cast<uint32_t>(g.T * g.T);
+#pragma unroll
+    for (int n = 0; n < 2 * RG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + 8 * (e >> 1), j = 8 * n + 2 * q + (e & 1);
+        if (i >= g.T)
+          s[n][e] = 0.f;
+        else if (n < live && j < g.T)
+          s[n][e] = drop.apply(s[n][e], plane + i * g.T + j);
+      }
+    if (k.planes == 3 && nxt < end)
+      cp_async_wait<1>();   // this tile's v; the next q and k may fly on
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    product_store_tf32<RG>(s, V, k, g.T, live, rg, k0, k1,
+                           out + static_cast<size_t>(b) * g.T * H + h * g.dh,
+                           H, g.dh);
+    __syncthreads();        // this tile's planes read
+    if (nxt < end) {
+      if (k.planes == 3)
+        copy_v(nxt);
+      else
+        copy_qk(nxt);
+    }
   }
 }
 
@@ -343,11 +622,6 @@ __global__ void __launch_bounds__(32 * (RG > 4 ? RG : 4))
       });
 }
 
-size_t fwd_smem_bytes(int T_, int dh) {
-  return sizeof(float) * (3 * static_cast<size_t>(T_) * (dh + 1) +
-                          static_cast<size_t>(T_) * (T_ + 1));
-}
-
 size_t bwd_smem_bytes(int T_, int dh) {
   return sizeof(float) * (4 * static_cast<size_t>(T_) * (dh + 1) +
                           2 * static_cast<size_t>(T_) * (T_ + 1));
@@ -360,7 +634,7 @@ size_t dbias_smem_bytes(int T_, int dh) {
 // the shared memory a block of the dtype's body needs
 size_t smem_bytes(int T_, int dh, int edition, int dtype) {
   if (dtype == kBF16) return choose_blocking(T_, dh, edition).smem;
-  return edition == kFwd   ? fwd_smem_bytes(T_, dh)
+  return edition == kFwd   ? choose_f32(T_, dh).smem
          : edition == kBwd ? bwd_smem_bytes(T_, dh)
                            : dbias_smem_bytes(T_, dh);
 }
@@ -370,16 +644,19 @@ bool valid(int B, const Geometry& g, size_t smem) {
          smem <= kMaxSmem && (g.mode == 0 || (g.mode == 1 && g.P >= 1));
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* qkv, const float* bias, void* out, int B,
-                       const Geometry& g, Drop drop, size_t smem,
-                       cudaStream_t stream) {
-  auto kernel = mha_fwd_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<B * g.nh, kMhaThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), bias, static_cast<T*>(out), g, drop);
-  return cudaGetLastError();
+cudaError_t launch_fwd_tf32(const void* qkv, const float* bias, void* out,
+                            int B, const Geometry& g, const F32Blocking& k,
+                            Drop drop, cudaStream_t stream) {
+  return with_rg(k.RG, [&](auto rg) {
+    auto kernel = mha_fwd_tf32_kernel<decltype(rg)::value>;
+    int slots = 0;
+    cudaError_t err = resident(kernel, k, &slots);
+    if (err != cudaSuccess) return err;
+    kernel<<<std::min(B * g.nh, slots), 32 * k.warps, k.smem, stream>>>(
+        static_cast<const float*>(qkv), bias, static_cast<float*>(out), B, g,
+        k, drop);
+    return cudaGetLastError();
+  });
 }
 
 template <typename T>
@@ -455,7 +732,8 @@ cudaError_t launch_bwd_mma(const void* qkv, const float* bias,
 // wrapper has already rounded it through the compute dtype. Dropout:
 // drop_key = mix32(seed), drop_thresh = 0 for none (dropout.cuh); the
 // element index of probability (row, head, i, j) is ((row*nh + head)*T +
-// i)*T + j. dtype picks the body: float32 scalar, bf16 tensor cores.
+// i)*T + j. dtype picks the body: float32 as 3xTF32, bf16, both on the
+// tensor cores.
 extern "C" int idvs_fused_mha_fwd(const void* qkv, const void* bias,
                                   void* out, int B, int T_, int nh, int dh,
                                   int mode, int P, long long bias_sp,
@@ -468,10 +746,9 @@ extern "C" int idvs_fused_mha_fwd(const void* qkv, const void* bias,
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
-    const size_t smem = fwd_smem_bytes(T_, dh);
-    if (!valid(B, g, smem)) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_fwd<float>(qkv, b, out, B, g, drop, smem,
-                                              s));
+    const F32Blocking k = choose_f32(T_, dh);
+    if (!valid(B, g, k.smem)) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_fwd_tf32(qkv, b, out, B, g, k, drop, s));
   }
   if (dtype == kBF16) {
     const Blocking k = choose_blocking(T_, dh, kFwd);

@@ -23,9 +23,10 @@
 // or cast(act(.)) (the recomputed activation of the FFN's saved h, which is
 // in the compute dtype or, where the backward recomputed it, float; a float
 // A is cast to the compute dtype, and the forward's float h of the C = 2048
-// tail takes act on load too); epi() adds a bias row, a float addend
-// and/or multiplies by act'(gate), then casts to the compute dtype or
-// stores float.
+// tail takes act on load too); epi() adds a bias row, a float addend,
+// applies act (out_act: the float32 forward-only FFN tail's dense1, so
+// that act runs once an element) and/or multiplies by
+// act'(gate), then casts to the compute dtype or stores float.
 //
 // Bound on the H100, bf16. The text FFN's products (M = 23040 rows, C =
 // 512, F = 2048: 48 GFLOP each) are bound by arithmetic, 0.049 ms each at
@@ -132,6 +133,7 @@ struct Epilogue {
   int gate_act;
   int gate_f32;       // gate holds floats, not the compute dtype
   const void* bias;   // (N,) compute dtype, added to every row, or null
+  int out_act;        // Act applied after the bias and addend (kNone: none)
   int vec;            // N % 8 == 0 and every pointer 16-byte aligned
 };
 
@@ -142,6 +144,7 @@ __device__ __forceinline__ float epi(const Epilogue& e, int N, int m, int n,
   const size_t i = static_cast<size_t>(m) * N + n;
   if (e.bias != nullptr) v += to_f32(static_cast<const T*>(e.bias)[n]);
   if (e.add != nullptr) v += e.add[i];
+  if (e.out_act != kNone) v = act(v, e.out_act);
   if (e.gate != nullptr)
     v *= dact(e.gate_f32 ? static_cast<const float*>(e.gate)[i]
                          : to_f32(static_cast<const T*>(e.gate)[i]),
@@ -299,6 +302,10 @@ __device__ __forceinline__ void store_row8(const Epilogue& e, int M, int N,
     load8(e.add + i, f);
 #pragma unroll
     for (int c = 0; c < 8; ++c) v[c] += f[c];
+  }
+  if (e.out_act != kNone) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) v[c] = act(v[c], e.out_act);
   }
   if (e.gate != nullptr) {
     if (e.gate_f32)
@@ -745,6 +752,10 @@ extern "C" int idvs_gemm_act_cast(const void* src, void* dst, long long n,
 // x*sigmoid(1.702x) (applied to A then cast). bias: compute-dtype (N,) row
 // or null; add: float (M, N) addend or null; gate: (M, N), compute dtype
 // or float (gate_f32), whose act'(gate_act) multiplies the sum, or null.
+// out_act: act (pro_act's numbering, 0 for none) applied to every sum
+// after the bias and addend (the float32 forward-only FFN tail's dense1,
+// g = act(x w1 + b1), so that act runs once an element rather than on
+// dense2's load of every N tile).
 // out_f32: store float, else the compute dtype. splits > 1 needs ws of
 // splits * M * N floats. Both dtypes run the tensor-core body and take A
 // and B with every row 16-byte aligned (base aligned, the non-unit stride
@@ -755,12 +766,14 @@ extern "C" int idvs_gemm(const void* A, const void* B, void* out,
                          const void* add, const void* gate, const void* bias,
                          void* ws, int M, int N, int K, long long sam,
                          long long sak, long long sbk, long long sbn,
-                         int splits, int pro_act, int gate_act, int out_f32,
-                         int a_f32, int gate_f32, int dtype, void* stream) {
+                         int splits, int pro_act, int gate_act, int out_act,
+                         int out_f32, int a_f32, int gate_f32, int dtype,
+                         void* stream) {
   using namespace idvs;
   if (M < 1 || N < 1 || K < 1 || splits < 1 || (splits > 1 && !ws) ||
       (sam != 1 && sak != 1) || (sbk != 1 && sbn != 1) || pro_act < 0 ||
-      pro_act > 3 || gate_act < 1 || gate_act > 3)
+      pro_act > 3 || gate_act < 1 || gate_act > 3 || out_act < 0 ||
+      out_act > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   const int elem = dtype == kF32 ? 4 : 2;
   if (!rows_aligned(A, sam, sak, elem) || !rows_aligned(B, sbk, sbn, elem))
@@ -771,7 +784,7 @@ extern "C" int idvs_gemm(const void* A, const void* B, void* out,
                   aligned16(gate) && aligned16(bias) && aligned16(ws);
   const Epilogue e{out,  out_f32,  static_cast<const float*>(add),
                    gate, gate_act, gate_f32,
-                   bias, vec};
+                   bias, out_act,  vec};
   float* w = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return static_cast<int>(launch<float>(o, e, w, splits, s));

@@ -278,7 +278,9 @@ __device__ __forceinline__ void read_sum(float (&s)[2 * RG][4],
 // tile's bias row `row`, -inf in padded key columns, a float32 softmax
 // over each row (a quad's four lanes hold a row). Padded query rows take
 // row T - 1's bias: their probabilities are finite and never used.
-template <int RG>
+// kExact: expf (the float32 forward, held to float32's tolerance), else
+// the fast __expf (bf16 rounds the probabilities anyway).
+template <int RG, bool kExact = false>
 __device__ __forceinline__ void softmax_frag(float (&s)[2 * RG][4],
                                              const float* __restrict__ row,
                                              int i0, const Geometry& g) {
@@ -315,7 +317,8 @@ __device__ __forceinline__ void softmax_frag(float (&s)[2 * RG][4],
     if (n >= live) continue;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float x = __expf(s[n][e] - m[e >> 1]);
+      const float x = kExact ? expf(s[n][e] - m[e >> 1])
+                             : __expf(s[n][e] - m[e >> 1]);
       s[n][e] = x;
       sum[e >> 1] += x;
     }
@@ -666,8 +669,9 @@ cudaError_t with_rg(int RG, F f) {
 // must (the library's kernels run on device 0). A kernel's opt-in is one
 // value for all its launches: it only ever grows, to the largest shared
 // memory asked for, or a launch remembered earlier would be refused.
-template <typename K>
-cudaError_t resident(K kernel, const Blocking& k, int* slots) {
+// Plan: a blocking with the block's warps and shared-memory bytes (smem).
+template <typename K, typename Plan>
+cudaError_t resident(K kernel, const Plan& k, int* slots) {
   struct Seen {
     const void* fn;
     size_t smem;

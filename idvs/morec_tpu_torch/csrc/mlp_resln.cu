@@ -19,7 +19,7 @@
 // 989 TFLOP/s bf16 rate); SASRec's at D = 2048 (M = 10 to 640 rows, F =
 // 8192) reads 67 MB of bf16 weights (134 MB in float32) for 0.9-43 GFLOP,
 // bound by bytes at every M the main paths run in float32 and at M <= 295
-// in bf16. Three bodies:
+// in bf16. Two routes:
 //
 // bf16 at C = 128, 256, 512 (mlp_resln_mma_kernel), on the tensor cores:
 // the dense1 -> act -> dense2 chain of mlp_mma.cuh (premlp.cu's: the
@@ -34,144 +34,32 @@
 // mlp_resln_plan in ops/cuda/mlp.py (premlp_plan's layouts), passed to the
 // launch and checked against the instantiation.
 //
-// float32 at C = 128, 256, 512 (mlp_resln_kernel): on the float FMA units
-// (gemm.cu's 3xTF32 route is not taken here yet, ROADMAP); one 256-thread
-// block per 32-row tile keeps its x
-// tile resident in shared memory and walks F in chunks (256 wide at C =
-// 512): h = act(x @ W1[:, chunk] + b1), cast, parked in shared memory and
-// folded into the block's (32, C) dense2 accumulator (an 8 x 8 tile per
-// thread, rowtile.cuh), weight slices double-buffered; the epilogue is
-// rowtile.cuh's ln_epilogue.
-//
-// C = 2048, both dtypes: a block cannot hold a (rows, 2048) float
-// accumulator for more than 8 rows, and 8-row blocks each streamed all of
-// W1 and W2 from L2 (10.7 GB at M = 640 in float32; M = 10 filled 2 SMs).
-// So h goes through device memory (10 MB in bf16 at M = 640 beside 67 MB of
-// weights) and the two products are gemm.cu's, split over M, N and K to
-// fill the card whatever M (float32 as 3xTF32 on the tensor cores): h =
-// f32(x @ W1) + b1 (bias epilogue, float out), g = cast(act(h)) (gemm.cu's
-// act pre-pass in bf16, on load in float32), y = f32(g @ W2) split over K
-// with a fixed-order sum; then post_ln_rows_kernel, one block a row: b2,
-// dropout, residual, cast, y_pre and the LN (the projection tail's route
-// at C = 2048 and in float32 takes the same row pass, at every kernel
-// width). The wrapper (ops/cuda/mlp.py) composes them; the other split,
-// blocks of (rows, F slice) writing float partial sums of dense2, was not
-// built (PERF.md).
+// C = 2048 in both dtypes, and float32 at every C: a block cannot hold a
+// (rows, 2048) float accumulator for more than 8 rows, and 8-row blocks
+// each streamed all of W1 and W2 from L2 (10.7 GB at M = 640 in float32;
+// M = 10 filled 2 SMs). In float32 at C <= 512 a block body on the float
+// FMA units (one 256-thread block per 32 rows) was slower than its plain
+// version at the text encode's M = 15360 and ran a request's M = 20 on one
+// SM (PERF.md). So h goes through device memory (10 MB in bf16 at M = 640
+// beside 67 MB of weights) and the two products are gemm.cu's, split over
+// M, N and K to fill the card whatever M (float32 as 3xTF32 on the tensor
+// cores): h = f32(x @ W1) + b1 (bias epilogue, float out), g =
+// cast(act(h)) (gemm.cu's act pre-pass in bf16, on load in float32, in
+// dense1's epilogue in a float32 forward alone), y =
+// f32(g @ W2) split over K with a fixed-order sum; then
+// post_ln_rows_kernel: b2, dropout, residual, cast, y_pre and the LN (the
+// projection tail's route at C = 2048 and in float32 takes the same row
+// pass, at every kernel width). The wrapper (ops/cuda/mlp.py) composes
+// them; the other split, blocks of (rows, F slice) writing float partial
+// sums of dense2, was not built (PERF.md).
 #include "mlp_mma.cuh"
 #include "rowtile.cuh"
 
 namespace idvs {
 namespace {
 
-using rowtile::BSlice;
-using rowtile::fma_slice;
-using rowtile::kThreads;
-using rowtile::Layout;
-using rowtile::ln_epilogue;
 using rowtile::load4;
 using rowtile::store4;
-
-// ---- float32 at C <= 512: the scalar FMA body ------------------------------
-
-// F is walked in chunks of FC = 128 * WC columns: in dense1 every lane owns
-// one 4-column group of the chunk (a TR x 4 tile of h).
-template <int C>
-__host__ __device__ constexpr int f_chunk() { return 128 * Layout<C>::WC; }
-
-template <int C>
-constexpr size_t mlp_smem_floats() {
-  using Lay = Layout<C>;
-  return C * Lay::LDA + f_chunk<C>() * Lay::LDA + 2 * Lay::BK * C +
-         Lay::kRedFloats;
-}
-
-template <int C, int ACT>
-__global__ void __launch_bounds__(kThreads)
-    mlp_resln_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                     const float* __restrict__ b1,
-                     const float* __restrict__ w2,
-                     const float* __restrict__ b2,
-                     const float* __restrict__ gamma,
-                     const float* __restrict__ beta, float* __restrict__ out,
-                     float* __restrict__ ypre, float* __restrict__ hsave,
-                     int M, int F, float eps, Drop drop) {
-  using Lay = Layout<C>;
-  constexpr int TR = Lay::TR, FC = f_chunk<C>();
-  constexpr int kBM = Lay::BM, kBK = Lay::BK, kLdA = Lay::LDA;
-  constexpr int kSlices1 = C / kBK, kSlices2 = FC / kBK;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Xt = smem;                // [C][kLdA]      x tile, transposed
-  float* Ht = Xt + C * kLdA;       // [FC][kLdA]     act(h) chunk, transposed
-  float* Ws = Ht + FC * kLdA;      // 2 x [kBK][C]   W1 or W2 slices
-  float* red = Ws + 2 * kBK * C;   // [Lay::kRedFloats]
-  const int row0 = blockIdx.x * kBM;
-  const int l = threadIdx.x & 31;
-  const int row_off = Lay::wr() * TR;
-  const int col1 = Lay::wc() * 128;            // dense1 column span
-  const int col2 = Lay::wc() * 128 * Lay::NG;  // dense2 column span
-
-  // the x tile stays resident for the whole F walk
-  for (int i = threadIdx.x; i < kBM * C / 4; i += kThreads) {
-    const int r = i / (C / 4), k = 4 * (i % (C / 4));
-    const int row = row0 + r;
-    const float4 v = row < M ? load4(x + static_cast<size_t>(row) * C + k)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-    Xt[(k + 0) * kLdA + r] = v.x;
-    Xt[(k + 1) * kLdA + r] = v.y;
-    Xt[(k + 2) * kLdA + r] = v.z;
-    Xt[(k + 3) * kLdA + r] = v.w;
-  }
-
-  float acc[TR][4 * Lay::NG] = {};
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    // dense1: h = x @ W1[:, f0:f0+FC], double-buffered over K = C
-    float h[TR][4] = {};
-    BSlice<float, FC, kBK> s1;
-    s1.load(w1, F, 0, f0);
-    for (int t = 0; t < kSlices1; ++t) {
-      float* ws = Ws + (t & 1) * kBK * C;
-      s1.store(ws);
-      __syncthreads();
-      if (t + 1 < kSlices1) s1.load(w1, F, (t + 1) * kBK, f0);
-      fma_slice<TR, 1, FC, kBK, kLdA>(h, Xt + t * kBK * kLdA, ws, row_off,
-                                      col1);
-    }
-    // act(h + b1) into the chunk buffer; the previous chunk's reads of Ht
-    // ended before the first barrier of the loop above
-    const float4 bv = load4(b1 + f0 + col1 + 4 * l);
-    const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
-    if (hsave != nullptr) {
-#pragma unroll
-      for (int r = 0; r < TR; ++r) {
-        const int row = row0 + row_off + r;
-        if (row < M)
-          store4(hsave + static_cast<size_t>(row) * F + f0 + col1 + 4 * l,
-                 make_float4(h[r][0] + bb[0], h[r][1] + bb[1],
-                             h[r][2] + bb[2], h[r][3] + bb[3]));
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int r = 0; r < TR; ++r)
-        Ht[(col1 + 4 * l + c) * kLdA + row_off + r] = act(h[r][c] + bb[c],
-                                                          ACT);
-    // dense2: acc += h @ W2[f0:f0+FC, :], double-buffered over K = FC
-    BSlice<float, C, kBK> s2;
-    s2.load(w2, C, f0, 0);
-    for (int t = 0; t < kSlices2; ++t) {
-      float* ws = Ws + (t & 1) * kBK * C;
-      s2.store(ws);
-      __syncthreads();
-      if (t + 1 < kSlices2) s2.load(w2, C, f0 + (t + 1) * kBK, 0);
-      fma_slice<TR, Lay::NG, C, kBK, kLdA>(acc, Ht + t * kBK * kLdA, ws,
-                                           row_off, col2);
-    }
-  }
-  ln_epilogue<float, C>(acc, b2, x, gamma, beta, out, row0, M, eps, red,
-                        drop, ypre);
-}
 
 // ---- bf16 at C <= 512: the tensor-core body (mlp_mma.cuh) --------------------
 
@@ -242,43 +130,6 @@ cudaError_t dispatch_bf16(const PostArgs& p, const Plan& k, int C,
     case 512: return launch_mma<512, 256, 4, 4, 3>(p, k, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-template <int C, int ACT>
-cudaError_t launch_f32(const PostArgs& p, const Plan& plan, cudaStream_t s) {
-  constexpr int kBM = Layout<C>::BM;
-  const size_t smem = sizeof(float) * mlp_smem_floats<C>();
-  if (p.F % f_chunk<C>() != 0 || plan.rows != kBM ||
-      plan.f_chunk != f_chunk<C>() || plan.threads != kThreads ||
-      plan.smem != static_cast<long long>(smem))
-    return cudaErrorInvalidValue;
-  auto kernel = mlp_resln_kernel<C, ACT>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  auto f = [](const void* v) { return static_cast<const float*>(v); };
-  kernel<<<(p.M + kBM - 1) / kBM, kThreads, smem, s>>>(
-      f(p.x), f(p.w1), f(p.b1), f(p.w2), f(p.b2), p.gamma, p.beta,
-      static_cast<float*>(p.out), static_cast<float*>(p.ypre),
-      static_cast<float*>(p.hsave), p.M, p.F, p.eps, p.drop);
-  return cudaGetLastError();
-}
-
-template <int ACT>
-cudaError_t dispatch_f32_c(const PostArgs& p, const Plan& k, int C,
-                           cudaStream_t s) {
-  switch (C) {
-    case 128: return launch_f32<128, ACT>(p, k, s);
-    case 256: return launch_f32<256, ACT>(p, k, s);
-    case 512: return launch_f32<512, ACT>(p, k, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-cudaError_t dispatch_f32(const PostArgs& p, const Plan& k, int C,
-                         cudaStream_t s) {
-  if (p.act == kRelu) return dispatch_f32_c<kRelu>(p, k, C, s);
-  if (p.act == kQuickGelu) return dispatch_f32_c<kQuickGelu>(p, k, C, s);
-  return dispatch_f32_c<kGelu>(p, k, C, s);
 }
 
 // ---- the row pass after gemm.cu's products ---------------------------------
@@ -408,13 +259,14 @@ cudaError_t dispatch_rows(const float* y, const void* b, const void* res,
 }  // namespace idvs
 
 // x, out: (M, C); w1: (C, F) and w2: (F, C) in (in, out) layout; b1: (F,),
-// b2: (C,) in the compute dtype; gamma, beta: (C,) float. C must be 128,
-// 256 or 512, F a multiple of the plan's chunk; rows, f_chunk, threads,
-// smem: the block plan (mlp_resln_plan), which must be the one built for C
-// and the dtype. activation: 0 = exact GELU, 1 = ReLU, 2 = quick_gelu.
-// ypre (M, C) and h (M, F), in the compute dtype, are both given (training
-// edition) or both null. Dropout: drop_key = mix32(seed), drop_thresh = 0
-// for none (dropout.cuh). bf16 operands 16-byte aligned.
+// b2: (C,) bf16; gamma, beta: (C,) float. C must be 128, 256 or 512, F a
+// multiple of the plan's chunk; rows, f_chunk, threads, smem: the block
+// plan (mlp_resln_plan), which must be the one built for C. activation: 0
+// = exact GELU, 1 = ReLU, 2 = quick_gelu. ypre (M, C) and h (M, F), bf16,
+// are both given (training edition) or both null. Dropout: drop_key =
+// mix32(seed), drop_thresh = 0 for none (dropout.cuh). Operands 16-byte
+// aligned. dtype must be bf16: the other routes compose gemm.cu's products
+// and the row pass.
 extern "C" int idvs_mlp_resln_fwd(const void* x, const void* w1,
                                   const void* b1, const void* w2,
                                   const void* b2, const void* gamma,
@@ -433,13 +285,12 @@ extern "C" int idvs_mlp_resln_fwd(const void* x, const void* w1,
                    activation, Drop{drop_key, drop_thresh, drop_scale}};
   const Plan plan{rows, f_chunk, threads, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return static_cast<int>(dispatch_f32(p, plan, C, s));
-  if (dtype == kBF16) return static_cast<int>(dispatch_bf16(p, plan, C, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_bf16(p, plan, C, s));
 }
 
 // The row pass of the tails composed from gemm.cu's products (C = 2048,
-// and the projection tail in float32): y (M, C) float, the products' sum
+// and both tails in float32): y (M, C) float, the products' sum
 // before the bias b; b, res, out and ypre (null outside training) in the
 // compute dtype, gamma and beta float. out = LN(cast(dropout(y + b) +
 // res)) and ypre = cast(dropout(y + b) + res), the dropout at element row

@@ -152,8 +152,9 @@ extern "C" int idvs_gemm(const void* A, const void* B, void* out,
                          const void* add, const void* gate, const void* bias,
                          void* ws, int M, int N, int K, long long sam,
                          long long sak, long long sbk, long long sbn,
-                         int splits, int pro_act, int gate_act, int out_f32,
-                         int a_f32, int gate_f32, int dtype, void* stream);
+                         int splits, int pro_act, int gate_act, int out_act,
+                         int out_f32, int a_f32, int gate_f32, int dtype,
+                         void* stream);
 extern "C" int idvs_post_ln_rows(const void* y, const void* b,
                                  const void* res, const void* gamma,
                                  const void* beta, void* out, void* ypre,
@@ -178,7 +179,7 @@ extern "C" int idvs_proj_resln_products(
   const long long mc = static_cast<long long>(M) * C;
   const int err = idvs_gemm(x, w, y, nullptr, nullptr, nullptr,
                             splits > 1 ? y + mc : nullptr, M, C, C, C, 1, C,
-                            1, splits, 0, 1, 1, 0, 0, dtype, stream);
+                            1, splits, 0, 1, 0, 1, 0, 0, dtype, stream);
   if (err) return err;
   return idvs_post_ln_rows(y, b, res, gamma, beta, out, ypre, M, C, eps,
                            drop_key, drop_thresh, drop_scale, dtype, stream);

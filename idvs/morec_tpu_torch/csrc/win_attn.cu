@@ -633,8 +633,9 @@ extern "C" int idvs_gemm(const void* A, const void* B, void* out,
                          const void* add, const void* gate, const void* bias,
                          void* ws, int M, int N, int K, long long sam,
                          long long sak, long long sbk, long long sbn,
-                         int splits, int pro_act, int gate_act, int out_f32,
-                         int a_f32, int gate_f32, int dtype, void* stream);
+                         int splits, int pro_act, int gate_act, int out_act,
+                         int out_f32, int a_f32, int gate_f32, int dtype,
+                         void* stream);
 
 // x, ctx (scratch), out: windows * T rows of C in the compute dtype, in the
 // window layout (band = 0: window r is rows r*T .. r*T+T-1) or the band
@@ -681,5 +682,5 @@ extern "C" int idvs_win_attn_fwd(const void* x, const void* bias,
   // out = cast(ctx Wo + bo): row-major (M, C) x (C, C), one K slice
   const int M = windows * T;
   return idvs_gemm(ctx, wo, out, nullptr, nullptr, bo, nullptr, M, C, C, C,
-                   1, C, 1, 1, 0, 1, 0, 0, 0, dtype, stream);
+                   1, C, 1, 1, 0, 1, 0, 0, 0, 0, dtype, stream);
 }

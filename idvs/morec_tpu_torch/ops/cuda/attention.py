@@ -13,8 +13,10 @@ memory, copied with 16-byte ``cp.async`` from the natural (B, T, 3H) /
 with float32 accumulators, and keep the scores, the softmax, the dropout
 and (backward) dp and ds in registers, one warp to 16 query rows; blocks
 are persistent and copy the next tile while they compute the current one.
-The float32 kernels are scalar float FMAs over float tiles in shared
-memory. The backward recomputes the probabilities and returns the packed
+The float32 forward has the same structure with float tiles, its two
+products as 3xTF32 on the tensor cores (each float split into two tf32
+terms, three products a step); the float32 backward is scalar float FMAs
+over float tiles in shared memory. The backward recomputes the probabilities and returns the packed
 dqkv; a bias that requires a gradient (Swin's relative-position table under
 attention dropout) gets one from the backward's dbias edition, summed over
 the rows that share a bias row in a fixed order. The kernels choose their
@@ -26,7 +28,8 @@ launches the forward kernel, through a ``torch.autograd.Function`` whose
 backward is ``fused_mha_bwd`` (or ``fused_mha_bwd_dbias`` for a trainable
 bias) when a gradient is wanted; it raises for anything the kernels do not
 take. ``fused_mha.launches``, ``fused_mha_bwd.launches`` and
-``fused_mha_bwd_dbias.launches`` count launches.
+``fused_mha_bwd_dbias.launches`` count launches; ``fused_mha.bodies`` names
+the forward's device kernels launched.
 """
 
 from __future__ import annotations
@@ -110,6 +113,11 @@ def _operands(qkv, mask, bias, n_heads, B, T, dh):
 
 # editions of the kernel library's shared-memory query (csrc/fused_mha.cu)
 FWD, BWD, DBIAS = 0, 1, 2
+# the forward's body by compute dtype, which _launch_fwd records in
+# fused_mha.bodies as it launches it
+FWD_BODIES = {torch.bfloat16: "mha_fwd_mma_kernel (bf16, mma.sync m16n8k16)",
+              torch.float32: "mha_fwd_tf32_kernel (3xTF32, mma.sync m16n8k8 "
+                             "tf32)"}
 
 
 def mha_smem(T, dh, edition, code) -> int:
@@ -137,6 +145,7 @@ def _launch_fwd(qkv, table, args, code, drop):
         lib.stream_handle(qkv))
     lib.check(err, "fused_mha")
     fused_mha.launches += 1
+    fused_mha.bodies.add(FWD_BODIES[qkv.dtype])
     return out
 
 
@@ -655,6 +664,7 @@ def fused_mha_proj_band(x: torch.Tensor, bias: torch.Tensor,
 
 
 fused_mha.launches = 0
+fused_mha.bodies = set()
 fused_mha_bwd.launches = 0
 fused_mha_bwd_dbias.launches = 0
 fused_mha_proj.launches = 0

@@ -99,11 +99,12 @@ def act_cast(A: torch.Tensor, act=None) -> torch.Tensor:
 
 
 def gemm_plain(A, B, M, N, K, sa, sb, *, add=None, gate=None, act="gelu",
-               pro_act=False, bias=None, out_f32=False, dtype=None):
+               pro_act=False, bias=None, out_f32=False, dtype=None,
+               out_act=None):
     """The kernel's contract in PyTorch ops (csrc/gemm.cu's header): A(m, k)
     and B(k, n) taken through their strides, pro(A) rounded to the compute
-    dtype, the product in float32, then bias, addend and act'(gate) in the
-    order of the kernel's epilogue, and the cast."""
+    dtype, the product in float32, then bias, addend, out_act and
+    act'(gate) in the order of the kernel's epilogue, and the cast."""
     dt = dtype or A.dtype
     a = A.as_strided((M, K), sa).float()
     if pro_act:
@@ -114,6 +115,8 @@ def gemm_plain(A, B, M, N, K, sa, sb, *, add=None, gate=None, act="gelu",
         y = y + bias.float()
     if add is not None:
         y = y + add.reshape(M, N).float()
+    if out_act is not None:
+        y = act_of(y, out_act)
     if gate is not None:
         y = y * _dact_f32(gate.reshape(M, N).float(), act)
     return y if out_f32 else y.to(dt)
@@ -127,7 +130,8 @@ BODIES = {torch.bfloat16: "gemm_mma_kernel<bf16> (mma.sync m16n8k16)",
 
 
 def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
-         pro_act=False, bias=None, out_f32=False, dtype=None, max_depth=0):
+         pro_act=False, bias=None, out_f32=False, dtype=None, max_depth=0,
+         out_act=None):
     """(M, N) = epi(pro(A) @ B) (csrc/gemm.cu); sa = (sam, sak) and sb =
     (sbk, sbn) are the element strides of A(m, k), B(k, n). B is in the
     compute dtype ``dtype`` (A's when None); A and gate are in it or in
@@ -135,13 +139,14 @@ def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
     16-byte aligned rows (``_check_rows``); it raises otherwise. max_depth
     > 0 bounds the K a slice accumulates on the tensor cores before the
     slices are added in float (``splits_of``); it changes only the float
-    sum's order, so the plain version ignores it. A float32 product runs
-    as 3xTF32 (csrc/gemm.cu's header): within float32's rounding of the
-    plain version, not bit for bit."""
+    sum's order, so the plain version ignores it. out_act ("gelu", "relu",
+    "quick_gelu" or None) is applied to the sum after the bias and addend.
+    A float32 product runs as 3xTF32 (csrc/gemm.cu's header): within
+    float32's rounding of the plain version, not bit for bit."""
     if A.device.type == "cpu":
         return gemm_plain(A, B, M, N, K, sa, sb, add=add, gate=gate, act=act,
                           pro_act=pro_act, bias=bias, out_f32=out_f32,
-                          dtype=dtype)
+                          dtype=dtype, out_act=out_act)
     dt = dtype or A.dtype
     _check_rows(A, sa, "A")
     _check_rows(B, sb, "B")
@@ -156,7 +161,8 @@ def gemm(A, B, M, N, K, sa, sb, code, *, add=None, gate=None, act="gelu",
     err = lib.library().idvs_gemm(
         A.data_ptr(), B.data_ptr(), out.data_ptr(), ptr(add), ptr(gate),
         ptr(bias), ptr(ws), M, N, K, *sa, *sb, splits,
-        ACTS[act] if pro_act else 0, ACTS[act], int(out_f32),
+        ACTS[act] if pro_act else 0, ACTS[act],
+        ACTS[out_act] if out_act else 0, int(out_f32),
         int(A.dtype == torch.float32),
         int(gate is not None and gate.dtype == torch.float32), code,
         lib.stream_handle(A))

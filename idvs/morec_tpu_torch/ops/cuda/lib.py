@@ -72,8 +72,8 @@ _SIGNATURES = {
     # x, part, out, nb, M, N, dtype, stream
     "idvs_colsum": [_P] * 3 + [_I] * 4 + [_P],
     # A, B, out, add, gate, bias, ws, M, N, K, sam, sak, sbk, sbn, splits,
-    # pro_act, gate_act, out_f32, a_f32, gate_f32, dtype, stream
-    "idvs_gemm": [_P] * 7 + [_I] * 3 + [_LL] * 4 + [_I] * 7 + [_P],
+    # pro_act, gate_act, out_act, out_f32, a_f32, gate_f32, dtype, stream
+    "idvs_gemm": [_P] * 7 + [_I] * 3 + [_LL] * 4 + [_I] * 8 + [_P],
     # M, N, K, dtype, max_depth -> the K slices of idvs_gemm
     "idvs_gemm_splits": [_I] * 5,
     # src, dst, n, act, src_f32, stream

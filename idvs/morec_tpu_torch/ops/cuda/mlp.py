@@ -14,11 +14,10 @@ the products run on the tensor cores with the block plans of
 add, the cast to the compute dtype and the LayerNorm run on the
 accumulators, so the FFN's (M, F) intermediate never leaves the block
 unless the training edition saves it. At C = 2048 (SASRec under the vision
-tower, 10 to 640 rows), and for the projection tail in float32 at every C,
-the products go through gemm.cu (bf16, or float32 as 3xTF32 on the tensor
+tower, 10 to 640 rows), and for both tails in float32 at every C, the
+products go through gemm.cu (bf16, or float32 as 3xTF32 on the tensor
 cores) and a row pass adds the rest (``proj_resln_products``,
-``mlp_resln_products``); the FFN tail's float32 body at C <= 512 runs on
-the float FMA units. Backward: a row pass recomputes the LN statistics
+``mlp_resln_products``). Backward: a row pass recomputes the LN statistics
 from the saved pre-LN sum, and gemm.cu runs the products, split over M
 with a deterministic second pass for the weight gradients. The .cu headers
 have the details.
@@ -310,28 +309,26 @@ def fused_proj_resln(x: torch.Tensor, res: torch.Tensor, w: torch.Tensor,
 # -- the FFN tail -------------------------------------------------------------
 
 def mlp_resln_plan(C: int, dtype: torch.dtype) -> dict:
-    """The block plan of csrc/mlp_resln.cu at width C, which the launch
-    passes to the kernel (the kernel refuses any other): rows a block, the
-    F chunk, threads and shared-memory bytes; for bf16 also the warps'
-    layout, the ring's stages and the accumulators a thread holds, which
-    are premlp_plan's (the two share csrc/mlp_mma.cuh's chain), with the
-    epilogue's row sums after the chain. At C = 2048 no block plan: h goes
-    through device memory between gemm.cu's products
+    """The launch plan of the FFN tail at width C. bf16 at C <= 512:
+    route "block", the block plan of csrc/mlp_resln.cu's
+    mlp_resln_mma_kernel, which the launch passes to the kernel (it
+    refuses any other): rows a block, the F chunk, threads and
+    shared-memory bytes, the warps' layout, the ring's stages and the
+    accumulators a thread holds, which are premlp_plan's (the two share
+    csrc/mlp_mma.cuh's chain), with the epilogue's row sums after the
+    chain. C = 2048 and float32 at every C: route "products", h through
+    device memory between gemm.cu's products and then the row pass
     (``mlp_resln_products``; their splits are gemm.cu's choose_splits).
-    "kernels" names the device kernels the route launches."""
-    if C == PRODUCTS_WIDTH:
-        return dict(route="products", f_chunk=F_CHUNK[C],
-                    kernels=(GEMM_BODIES[dtype], "post_ln_rows_kernel"))
+    "kernels" names the device kernels the route launches; F must be a
+    multiple of "f_chunk"."""
     if C not in F_CHUNK:
         raise ValueError(f"kernel takes C in {KERNEL_WIDTHS}, got {C}")
-    if dtype == torch.bfloat16:
-        k = premlp_plan(C, dtype)
-        return dict(k, route="block", kernels=("mlp_resln_mma_kernel",),
-                    smem=k["smem"] + 4 * 2 * k["col_warps"] * k["rows"])
-    WC = F_CHUNK[C] // 128        # rowtile.cuh Grid<C>: 32 rows, K 16 deep
-    return dict(route="block", kernels=("mlp_resln_kernel",), rows=32,
-                f_chunk=F_CHUNK[C], threads=256,
-                smem=4 * ((C + F_CHUNK[C]) * 36 + 2 * 16 * C + 2 * WC * 32))
+    if C == PRODUCTS_WIDTH or dtype == torch.float32:
+        return dict(route="products", f_chunk=F_CHUNK[C],
+                    kernels=(GEMM_BODIES[dtype], "post_ln_rows_kernel"))
+    k = premlp_plan(C, dtype)
+    return dict(k, route="block", kernels=("mlp_resln_mma_kernel",),
+                smem=k["smem"] + 4 * 2 * k["col_warps"] * k["rows"])
 
 
 def post_ln_rows_plain(y, b, res, ln, *, eps, drop):
@@ -364,14 +361,23 @@ def post_ln_rows(y, b, res, ln, *, eps, drop, train):
 
 
 def mlp_resln_products(x2, w1, b1, w2, b2, ln, *, eps, act, drop, train):
-    """The FFN tail at C = 2048 (csrc/mlp_resln.cu's header): h = f32(x w1)
-    + b1 and y = f32(cast(act(h)) w2) through gemm.cu, then the row pass.
+    """The FFN tail at C = 2048 and in float32 (csrc/mlp_resln.cu's
+    header): h = f32(x w1) + b1 and y = f32(cast(act(h)) w2) through
+    gemm.cu, then the row pass; a float32 forward alone applies act in
+    dense1's epilogue, once an element, rather than on dense2's load.
     (out, ypre, h) in training, h cast to the compute dtype; (out, None,
     None) otherwise. On the CPU every piece is its plain version, so this
     is the composition's order and rounding points in plain PyTorch."""
     M, C = x2.shape
     F = w1.shape[1]
     dt, code = x2.dtype, lib.dtype_code(x2)
+    if dt == torch.float32 and not train:
+        # act in dense1's epilogue, once an element: g = act(x w1 + b1)
+        g = gemm(x2, w1, M, F, C, (C, 1), (F, 1), code, bias=b1,
+                 out_f32=True, out_act=act)
+        y = gemm(g, w2, M, C, F, (F, 1), (C, 1), code, out_f32=True)
+        out, _ = post_ln_rows(y, b2, x2, ln, eps=eps, drop=drop, train=False)
+        return out, None, None
     # in training, h decides the backward's branch at a ReLU's kink: at
     # most DENSE1_DEPTH of K a tensor-core slice
     h = gemm(x2, w1, M, F, C, (C, 1), (F, 1), code, bias=b1, out_f32=True,

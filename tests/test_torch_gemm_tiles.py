@@ -275,7 +275,7 @@ def _c_gemm(A, B, M, N, K, sa, sb, out, ws=None, splits=1):
     return lib.library().idvs_gemm(
         A.data_ptr(), B.data_ptr(), out.data_ptr(), None, None, None,
         None if ws is None else ws.data_ptr(), M, N, K, *sa, *sb, splits, 0,
-        1, 1, 1, 0, lib.DTYPE_CODES[F32], lib.stream_handle(A))
+        1, 0, 1, 1, 0, lib.DTYPE_CODES[F32], lib.stream_handle(A))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

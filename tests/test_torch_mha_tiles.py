@@ -1,18 +1,22 @@
-"""The bf16 tensor-core editions of fused_mha (csrc/fused_mha.cu) at the
-edges of their tiling, against the plain version on the card: every T the
-tiles pad to a multiple of 16 (1 ... 128) against every dh they pad
-likewise (16 ... 1024), forward and backward, with a row whose keys are all
-masked; the dropout mask at a T that is no multiple of 16 (the bits of
-ops/dropout.py, forward and backward); and the dbias edition, the same bits
-on two runs, with its sum in registers (T <= 64) and in shared memory
-(T > 64). A shape whose tiles do not fit a block's shared memory raises and
-launches nothing. Every test needs an NVIDIA GPU and skips without one. On
-the card (no jax there, so without the repo's conftest):
+"""The tensor-core editions of fused_mha (csrc/fused_mha.cu) at the edges
+of their tiling, against the plain version on the card: every T the tiles
+pad to a multiple of 16 (1 ... 128) against every dh they pad likewise (16
+... 1024), the forward in bf16 and in float32 (3xTF32) with the key mask (a
+row whose keys are all masked), a bias per row and head, a bias shared by
+the heads and dropout, and the bf16 backward; the dropout mask at a T that
+is no multiple of 16 (the bits of ops/dropout.py, forward and backward, in
+both dtypes); and the dbias edition, the same bits on two runs, with its
+sum in registers (T <= 64) and in shared memory (T > 64). A shape whose
+tiles do not fit a block's shared memory raises and launches nothing; in
+float32 every (T, dh) the scalar forward it replaced launched still
+launches. Every test needs an NVIDIA GPU and skips without one. On the
+card (no jax there, so without the repo's conftest):
 
     python -m pytest tests/test_torch_mha_tiles.py -q --noconftest
 
-Tolerances are tests/test_torch_cuda.py's for bf16: 1e-1 on outputs, and
-3e-2 of max(1, the largest plain gradient) on gradients.
+Tolerances are tests/test_torch_cuda.py's: 1e-1 on bf16 outputs and 1e-4
+on float32 ones, and 3e-2 (bf16) and 1e-4 (float32) of max(1, the largest
+plain gradient) on gradients.
 """
 
 import numpy as np
@@ -27,8 +31,10 @@ from idvs.morec_tpu_torch.ops.cuda.attention import (
 
 pytestmark = pytest.mark.cuda
 
-BF16 = torch.bfloat16
+BF16, F32 = torch.bfloat16, torch.float32
 TOL, GRAD_TOL = 1e-1, 3e-2
+FWD_TOL = {BF16: TOL, F32: 1e-4}
+DTYPE_GRAD_TOL = {BF16: GRAD_TOL, F32: 1e-4}
 TS = (1, 10, 16, 17, 30, 49, 64, 65, 128)
 DHS = (16, 32, 40, 64, 256, 1024)
 
@@ -54,8 +60,14 @@ def _key_mask(rng, B, T):
         (np.arange(T)[None] < lens[:, None]).astype(np.float32)).cuda()
 
 
-def _fits(T, dh, edition):
-    return mha_smem(T, dh, edition, lib.DTYPE_CODES[BF16]) <= SMEM
+def _fits(T, dh, edition, dtype=BF16):
+    return mha_smem(T, dh, edition, lib.DTYPE_CODES[dtype]) <= SMEM
+
+
+def _scalar_fwd_fits(T, dh):
+    """The float32 forward this body replaced held q, k, v at (dh + 1)
+    floats a row and the (T, T + 1) scores in one block's shared memory."""
+    return 4 * (3 * T * (dh + 1) + T * (T + 1)) <= SMEM
 
 
 def _grads(fn, qkv, dout, *more):
@@ -64,37 +76,50 @@ def _grads(fn, qkv, dout, *more):
     return out.detach(), torch.autograd.grad(out, leaves, dout)
 
 
-def _assert_grads_close(got, want):
+def _assert_grads_close(got, want, tol=GRAD_TOL):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert torch.isfinite(g).all()
         scale = max(1.0, w.float().abs().max().item())
         err = (g.float() - w.float()).abs().max().item()
-        assert err <= GRAD_TOL * scale, (err, scale)
+        assert err <= tol * scale, (err, scale)
 
 
 @pytest.mark.parametrize("dh", DHS)
 @pytest.mark.parametrize("T", TS)
-def test_forward_tiles(T, dh):
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_forward_tiles(dtype, T, dh):
+    """The key mask (row 0 all masked), a bias per row and head, one (T, T)
+    plane shared by every row and head (with -100 on some pairs, as Swin's
+    shift mask), and the key mask with dropout 0.1."""
     B, nh = 3, 2
     rng = np.random.default_rng(1000 * T + dh)
-    qkv = _rand(rng, B, T, 3 * nh * dh)
+    qkv = _rand(rng, B, T, 3 * nh * dh, dtype=dtype)
     mask = _key_mask(rng, B, T)
     before = fused_mha.launches
-    if not _fits(T, dh, FWD):
+    if not _fits(T, dh, FWD, dtype):
+        assert dtype == BF16 or not _scalar_fwd_fits(T, dh)
         with pytest.raises(ValueError):
             fused_mha(qkv, mask, n_heads=nh)
         assert fused_mha.launches == before
         return
-    got = fused_mha(qkv, mask, n_heads=nh)
-    want = fused_mha_plain(qkv, mask, n_heads=nh)
-    torch.cuda.synchronize()
-    assert fused_mha.launches == before + 1
-    assert got.shape == want.shape and got.dtype == BF16
-    assert torch.isfinite(got).all()
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= TOL, err
+    shared = _rand(rng, 1, 1, T, T, scale=0.5, dtype=F32) - 100.0 * (
+        torch.from_numpy((rng.uniform(size=(1, 1, T, T)) < 0.2)
+                         .astype(np.float32)).cuda())
+    calls = (dict(mask=mask),
+             dict(bias=_rand(rng, B, nh, T, T, scale=0.5, dtype=F32)),
+             dict(bias=shared),
+             dict(mask=mask, drop_rate=0.1, seed=T + dh))
+    for kw in calls:
+        got = fused_mha(qkv, n_heads=nh, **kw)
+        want = fused_mha_plain(qkv, n_heads=nh, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= FWD_TOL[dtype], (kw.keys(), err)
+    assert fused_mha.launches == before + len(calls)
 
 
 @pytest.mark.parametrize("dh", DHS)
@@ -147,7 +172,8 @@ def test_fully_masked_row_is_uniform_over_the_real_keys(T):
 
 
 @pytest.mark.parametrize("T", [17, 49])
-def test_dropout_bits_match_the_plain_mask(T):
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_dropout_bits_match_the_plain_mask(dtype, T):
     """q = k = 0 makes every probability 1/T. With v the identity on the
     first T columns, out[b, i, h, j] is the forward's pd (b, h, i, j); with
     dout the identity, dv[b, j, h, i] is the backward's pd (b, h, i, j).
@@ -157,10 +183,10 @@ def test_dropout_bits_match_the_plain_mask(T):
     eye[np.arange(T), np.arange(T)] = 1.0
     qkv = np.zeros((B, T, 3, nh, dh), np.float32)
     qkv[:, :, 2] = eye[None, :, None]
-    qkv = torch.from_numpy(qkv.reshape(B, T, 3 * nh * dh)).to("cuda", BF16)
+    qkv = torch.from_numpy(qkv.reshape(B, T, 3 * nh * dh)).to("cuda", dtype)
     dout = torch.from_numpy(np.broadcast_to(
         eye[None, :, None], (B, T, nh, dh)).reshape(B, T, nh * dh).copy()
-    ).to("cuda", BF16)
+    ).to("cuda", dtype)
     mask = torch.ones(B, T, device="cuda")
     keep = dropout.keep_mask(seed, (B, nh, T, T), p, device="cuda")
     kern = lambda q: fused_mha(q, mask, n_heads=nh, drop_rate=p, seed=seed)
@@ -172,7 +198,7 @@ def test_dropout_bits_match_the_plain_mask(T):
     assert torch.equal(dv != 0, keep)
     out_p, want = _grads(lambda q: fused_mha_plain(
         q, mask, n_heads=nh, drop_rate=p, seed=seed), qkv, dout)
-    _assert_grads_close((out, dqkv), (out_p, *want))
+    _assert_grads_close((out, dqkv), (out_p, *want), DTYPE_GRAD_TOL[dtype])
 
 
 def _dbias_inputs(rng, B, P, heads, nh, T, dh):

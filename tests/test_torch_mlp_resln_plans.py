@@ -1,17 +1,18 @@
-"""The post-LN FFN tail's launch plans and its C = 2048 composition, on the
-CPU.
+"""The post-LN FFN tail's launch plans and its products route, on the CPU.
 
-``mlp_resln_plan`` (the block plan csrc/mlp_resln.cu checks at launch) at
-every width and dtype the main paths run: the text train step's BERT and
-SASRec tails (C = 512, bf16), the text encode and ``recommend`` (C = 512,
-float32) and SASRec under the vision tower (C = 2048, both dtypes, h
-through device memory), and the widths it refuses. Then
-``mlp_resln_products``, the C = 2048 tail as the card composes it (gemm.cu's
-two products and the row pass), here with every piece's plain version:
-held against the Pallas ``fused_mlp_resln`` in interpret mode, its
-forward-only primal and its training edition's (out, y_pre, h), at C =
-2048 with F = 1024 and M = 1, 10 and 17, float32 tolerance 2e-5
-as tests/test_fused_attention.py:187. And the dropout of the row pass,
+``mlp_resln_plan`` (the block plan csrc/mlp_resln.cu checks at launch, or
+the products route) at every width and dtype the main paths run: the text
+train step's BERT and SASRec tails (C = 512, bf16, block plans), the text
+encode and ``recommend`` (C = 512, float32) and SASRec under the vision
+tower (C = 2048, both dtypes), both through the products route (h through
+device memory), and the widths it refuses. Then ``mlp_resln_products``,
+the tail as the card composes it there (gemm.cu's two products and the row
+pass), here with every piece's plain version: held against the Pallas
+``fused_mlp_resln`` in interpret mode, its forward-only primal and its
+training edition's (out, y_pre, h), at C = 2048 with F = 1024 and M = 1,
+10 and 17, and at the float32 widths C = 512 (F = 2048, the text tails')
+and 128 (F = 512) with GELU and ReLU, float32 tolerance 2e-5 as
+tests/test_fused_attention.py:187. And the dropout of the row pass,
 ``ops/dropout.py`` ``apply_args``, against ``keep_mask``. Last, the rule
 by which a check holds a float32 ReLU tail's gradient to its plain version
 (``relu_kink``, ``fused_mlp_resln_plain``'s ``kink_from``).
@@ -25,6 +26,7 @@ import torch
 from idvs.morec_tpu.ops.pallas import mlp as pallas_mlp
 from idvs.morec_tpu_torch.ops import dropout
 from idvs.morec_tpu_torch.ops.cuda import lib
+from idvs.morec_tpu_torch.ops.cuda.gemm import BODIES
 from idvs.morec_tpu_torch.ops.cuda.mlp import (F_CHUNK, KERNEL_WIDTHS,
                                                fused_mlp_resln_plain,
                                                mlp_resln_plan,
@@ -43,31 +45,33 @@ MAIN_PATHS = (("text train step, BERT and SASRec", 512, 2048, BF16),
 def test_plan_of_every_main_path(what, C, F, dtype):
     k = mlp_resln_plan(C, dtype)
     assert F % k["f_chunk"] == 0 and F_CHUNK[C] % k["f_chunk"] == 0
-    if C == 2048:       # h through device memory between gemm.cu's products
+    if C == 2048 or dtype == F32:
+        # h through device memory between gemm.cu's products (float32 as
+        # 3xTF32), then the row pass
         assert k["route"] == "products"
+        assert k["kernels"] == (BODIES[dtype], "post_ln_rows_kernel")
         return
     assert k["route"] == "block"
+    assert k["kernels"] == ("mlp_resln_mma_kernel",)
     assert k["smem"] <= lib.MAX_SMEM and k["threads"] <= 1024
-    if dtype == BF16:
-        # mma.sync tiles: 16 rows a warp, the (rows, C) accumulators spread
-        # over the block's threads, at most 96 floats a thread
-        assert k["rows"] == 16 * k["row_warps"]
-        assert k["threads"] == 32 * k["row_warps"] * k["col_warps"]
-        assert k["acc_floats"] == k["rows"] * C // k["threads"] <= 96
-        # the chain's bf16 tiles and ring, and the epilogue's row sums
-        chain = 2 * (k["rows"] * (C + 8) + k["stages"] * 32 * (
-            max(k["f_chunk"], C) + 8) + (k["rows"] * (k["f_chunk"] + 8)
-                                         if k["col_warps"] > 1 else 0))
-        assert k["smem"] == chain + 4 * 2 * k["col_warps"] * k["rows"]
-    else:
-        assert (k["rows"], k["threads"]) == (32, 256)
+    # mma.sync tiles: 16 rows a warp, the (rows, C) accumulators spread
+    # over the block's threads, at most 96 floats a thread
+    assert k["rows"] == 16 * k["row_warps"]
+    assert k["threads"] == 32 * k["row_warps"] * k["col_warps"]
+    assert k["acc_floats"] == k["rows"] * C // k["threads"] <= 96
+    # the chain's bf16 tiles and ring, and the epilogue's row sums
+    chain = 2 * (k["rows"] * (C + 8) + k["stages"] * 32 * (
+        max(k["f_chunk"], C) + 8) + (k["rows"] * (k["f_chunk"] + 8)
+                                     if k["col_warps"] > 1 else 0))
+    assert k["smem"] == chain + 4 * 2 * k["col_warps"] * k["rows"]
 
 
 @pytest.mark.parametrize("C", KERNEL_WIDTHS)
 def test_plans_of_every_width(C):
     for dtype in (BF16, F32):
         k = mlp_resln_plan(C, dtype)
-        assert k["route"] == ("products" if C == 2048 else "block")
+        assert k["route"] == ("products" if C == 2048 or dtype == F32
+                              else "block")
         assert F_CHUNK[C] % k["f_chunk"] == 0
 
 
@@ -111,6 +115,32 @@ def test_the_2048_composition_matches_pallas(M, act, train):
     w2, b2 = f32(F, C, scale=F ** -0.5), f32(C, scale=0.1)
     g, bt = 1.0 + f32(C, scale=0.1), f32(C, scale=0.1)
     want = _pallas(x, w1, b1, w2, b2, g, bt, act, train)
+    t = [torch.from_numpy(a) for a in (x, w1, b1, w2, b2, g, bt)]
+    got = mlp_resln_products(*t[:5], (t[5], t[6]), eps=1e-6, act=act,
+                             drop=dropout.kernel_args(0.0, None), train=train)
+    assert len([a for a in got if a is not None]) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == F32 and tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), b, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("M,C,F", [(10, 512, 2048), (33, 512, 2048),
+                                   (17, 128, 512)])
+def test_the_float32_products_route_matches_pallas(M, C, F, act, train):
+    """The float32 tail at C <= 512 as the card composes it (text encode's
+    BERT tail, GELU, and ``recommend``'s SASRec tail, ReLU, at C = 512),
+    against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(M + C + F)
+    f32 = lambda *s, scale=1.0: (scale * rng.standard_normal(s)
+                                 ).astype(np.float32)
+    x = f32(M, C, scale=2.0)
+    w1, b1 = f32(C, F, scale=C ** -0.5), f32(F, scale=0.1)
+    w2, b2 = f32(F, C, scale=F ** -0.5), f32(C, scale=0.1)
+    g, bt = 1.0 + f32(C, scale=0.1), f32(C, scale=0.1)
+    want = _pallas(x, w1, b1, w2, b2, g, bt, act, train)
+    assert mlp_resln_plan(C, F32)["route"] == "products"
     t = [torch.from_numpy(a) for a in (x, w1, b1, w2, b2, g, bt)]
     got = mlp_resln_products(*t[:5], (t[5], t[6]), eps=1e-6, act=act,
                              drop=dropout.kernel_args(0.0, None), train=train)

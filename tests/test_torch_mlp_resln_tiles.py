@@ -1,6 +1,6 @@
-"""The post-LN FFN tail's forward (csrc/mlp_resln.cu, and at C = 2048 the
-products of csrc/gemm.cu around its row pass) against its plain version
-on the card. Every test needs an NVIDIA GPU and skips without one. On the
+"""The post-LN FFN tail's forward (csrc/mlp_resln.cu in bf16 at C <= 512,
+and at C = 2048 and in float32 the products of csrc/gemm.cu around its
+row pass) against its plain version on the card. Every test needs an NVIDIA GPU and skips without one. On the
 card (no jax there, so without the repo's conftest):
 
     python -m pytest tests/test_torch_mlp_resln_tiles.py -q --noconftest
@@ -9,8 +9,10 @@ bf16 (the tensor-core body) at C = 128, 256 and 512, M on both sides of a
 block's rows and of a 16-row fragment (1, 10, 17, 640, 2560), F of one
 chunk and of several, each activation, the forward-only and the training
 edition; C = 2048 (h through device memory) in bf16 and float32 at the
-same M, F of one and of eight chunks; the float32 body at C <= 512 at a
-few shapes. The training edition's y_pre and h against the plain
+same M, F of one and of eight chunks; float32 at C <= 512 through the
+same products (3xTF32) at a few shapes and at the main paths' rows at C =
+512 (M = 1, 20 and 1280: a ``recommend`` at B = 1 and 64; 15360: a text
+encode chunk) with GELU and ReLU. The training edition's y_pre and h against the plain
 version's; the dropout's bits against ops/dropout.py's mask (a dropped
 element of y_pre is x itself); the same bits on two runs; the plans the
 kernel refuses. Tolerances: chip_smoke.py's TOL for the output (bf16: a
@@ -117,10 +119,18 @@ def test_the_2048_tail_in_both_dtypes(dtype, M):
         _check(M + F, M, 2048, F, act, dtype)
 
 
-@pytest.mark.parametrize("C,M,act", [(128, 33, "gelu"), (256, 70, "relu"),
-                                     (512, 1001, "quick_gelu")])
+@pytest.mark.parametrize("C,M,act", [
+    (128, 33, "gelu"), (256, 70, "relu"), (512, 1001, "quick_gelu"),
+    (512, 1, "gelu"), (512, 1, "relu"), (512, 20, "gelu"), (512, 20, "relu"),
+    (512, 1280, "gelu"), (512, 1280, "relu"), (512, 15360, "gelu"),
+    (512, 15360, "relu")])
 def test_float32_body(C, M, act):
+    """Both editions (y_pre and h from the training one) through gemm.cu's
+    3xTF32 products and the row pass."""
+    before = gemm.launches
     _check(C + M, M, C, 4 * C, act, torch.float32)
+    assert gemm.launches == before + 4
+    assert mlp_resln_plan(C, torch.float32)["route"] == "products"
 
 
 @pytest.mark.parametrize("C,dtype", [(512, BF16), (2048, BF16),
@@ -171,10 +181,11 @@ def test_refuses_a_plan_not_built_for_the_width():
     out = torch.empty_like(x)
     ops = [t.to(BF16).contiguous() for t in w] + [t.float() for t in ln]
     k = mlp_resln_plan(512, BF16)
+    # float32 has no block body: the entry refuses it whatever the plan
     for dtype, bad in ((BF16, dict(rows=32)), (BF16, dict(f_chunk=128)),
                        (BF16, dict(threads=256)),
                        (BF16, dict(smem=k["smem"] + 16)),
-                       (BF16, mlp_resln_plan(512, torch.float32))):
+                       (torch.float32, {})):
         p = {**k, **bad}
         err = lib.library().idvs_mlp_resln_fwd(
             x.data_ptr(), *(t.data_ptr() for t in ops), out.data_ptr(),
