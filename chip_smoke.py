@@ -1274,9 +1274,11 @@ def train_config(cap: int, compute_dtype: str = "bfloat16"):
                         fine_tune_l2_weight=0.0, dedup_cap=cap)
 
 
-def train_setup(dev, content, cap: int):
-    """(model, train state, step) of the flagship bf16 train step."""
+def train_setup(dev, content, cap: int, pallas: bool = False):
+    """(model, train state, step) of the flagship bf16 train step, the CE
+    through its kernels when `pallas`."""
     cfg = train_config(cap)
+    cfg.use_pallas = pallas
     model = build_model(dev, cfg, seed=SEED + 3)
     state = make_train_state(model, cfg, param_labels(model), seed=SEED)
     step = make_train_step(cfg, item_content=content,
@@ -1427,15 +1429,21 @@ def profiled(run, n: int, what: str, unit: str, card: str) -> None:
 
 
 def profile_train(dev, card: str, content, batches, cap: int) -> None:
-    """The train step by device kernel: PROFILE_STEPS steps on distinct
-    batches after as many warm-up steps."""
-    _, state, step = train_setup(dev, content, cap)
-    run = lambda part: [step(state, device_batch(ids, lm, cap, dev)).item()
-                        for ids, lm in part]
-    run(batches[:PROFILE_STEPS])
-    profiled(lambda: run(batches[PROFILE_STEPS:2 * PROFILE_STEPS]),
-             PROFILE_STEPS, f"train step B={TRAIN_B} bf16, dropout {DROP}, "
-             f"dedup cap {cap}, {PROFILE_STEPS} steps", "step", card)
+    """The train step by device kernel, with the in-batch CE's
+    composition and under use_pallas (the CE kernels): PROFILE_STEPS steps
+    on distinct batches after as many warm-up steps, each."""
+    for pallas in (False, True):
+        _, state, step = train_setup(dev, content, cap, pallas)
+        run = lambda part: [step(state, device_batch(ids, lm, cap,
+                                                     dev)).item()
+                            for ids, lm in part]
+        run(batches[:PROFILE_STEPS])
+        profiled(lambda: run(batches[PROFILE_STEPS:2 * PROFILE_STEPS]),
+                 PROFILE_STEPS, f"train step B={TRAIN_B} bf16, dropout "
+                 f"{DROP}, dedup cap {cap}, use_pallas {pallas}, "
+                 f"{PROFILE_STEPS} steps", "step", card)
+        del state, step
+        torch.cuda.empty_cache()
 
 
 def profile_vision_encode(dev, card: str) -> None:
@@ -2459,6 +2467,12 @@ def ce_case(results, card, case, dt, args, reps) -> None:
     out_k, out_p = fused_ce(*lk, *rest), inbatch_ce_candidates(*lp, *rest)
     got = torch.autograd.grad(out_k, lk, retain_graph=True)
     want = torch.autograd.grad(out_p, lp, retain_graph=True)
+    # a second run gives the same bits: no atomics, fixed-order sums
+    again = fused_ce(*lk, *rest)
+    require(torch.equal(again, out_k) and all(
+        torch.equal(a, b) for a, b in zip(
+            torch.autograd.grad(again, lk), got)),
+        f"{what}: two runs of the CE kernels differ")
     torch.cuda.synchronize()
     loss_abs = abs(out_k.item() - out_p.item())
     loss_err = loss_abs / abs(out_p.item())
@@ -2479,22 +2493,24 @@ def ce_case(results, card, case, dt, args, reps) -> None:
     it, id_elems = size_of(dt), rest[0].numel()
     work, work_bwd = (ce_work(M, N, Dc, it, id_elems),
                       ce_bwd_work(M, N, Dc, it, id_elems))
+    # float32 runs its products as 3xTF32 on the tensor cores
+    tf32x3 = dt == torch.float32
     label = (f"{what} M={M} N={N} D={Dc} W={W} label_off={rest[-1]} "
              f"{tag_of(dt)}")
     print(f"kernel fused_inbatch_ce [{label}]: loss {out_k.item():.6f} vs "
           f"plain {out_p.item():.6f}, rel err {loss_err:.3e} (tol "
           f"{CE_LOSS_TOL[dt]:g}); gradients max_abs_err {worst[1]:.3e} on a "
           f"scale of {worst[2]:.3e} (tol {CE_GRAD_TOL[dt]:g} of the scale); "
-          f"forward {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_of(work, dt)[0]:.4f} ms by {bound_of(work, dt)[1]}; "
-          f"backward {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound "
-          f"{bound_of(work_bwd, dt)[0]:.4f} ms by {bound_of(work_bwd, dt)[1]}"
-          f" [{card}]", flush=True)
+          f"two runs bit-equal; forward {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {bound_text(work, dt, tf32x3)}; backward "
+          f"{bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, bound "
+          f"{bound_text(work_bwd, dt, tf32x3)} [{card}]", flush=True)
     require(loss_err <= CE_LOSS_TOL[dt], f"{label}: loss disagrees")
     require(worst[0] <= CE_GRAD_TOL[dt], f"{label}: gradients disagree")
-    _record(results, "fused_inbatch_ce", loss_abs, ms, plain_ms, work, dt)
+    _record(results, "fused_inbatch_ce", loss_abs, ms, plain_ms, work, dt,
+            tf32x3=tf32x3)
     _record(results, "fused_inbatch_ce_bwd", worst[1], bwd_ms, bwd_plain,
-            work_bwd, dt)
+            work_bwd, dt, tf32x3=tf32x3)
 
 
 def ce_grads(fn, args) -> tuple:
@@ -2645,6 +2661,9 @@ def pallas_train_path(dev, card: str, content, batches, cap: int,
     for n in PALLAS_KERNELS:
         require(launched[n] == n_steps,
                 f"{n} launched {launched[n]} times in {n_steps} steps")
+    print(f"use_pallas steps beside the composition's: text p50 {p50:.3f} "
+          f"ms against {composition[1]:.3f} ms, IDRec {on[1]:.3f} ms "
+          f"against {off[1]:.3f} ms [{card}]", flush=True)
     return launched
 
 

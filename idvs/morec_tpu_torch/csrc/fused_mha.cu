@@ -236,23 +236,6 @@ __device__ __forceinline__ float2 row_pair(const float* plane, int row,
                  : make_float2(0.f, 0.f);
 }
 
-// The 3xTF32 product of one m16n8k8 step into the running sums c: the
-// step's small.big + big.small + big.big into zeroed sums d (the tensor
-// cores' accumulation is no float sum, gemm.cu's header), then c += d by
-// float adds
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4],
-                                           uint32_t bb0, uint32_t bb1,
-                                           uint32_t bs0, uint32_t bs1) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(d, as, bb0, bb1);
-  mma_tf32(d, ab, bs0, bs1);
-  mma_tf32(d, ab, bb0, bb1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += d[e];
-}
-
 // s = rows [16 rg, 16 rg + 16) of q times kᵀ over the 8-column k-steps
 // [k0, k1) and the live key tiles. Within a k-step, fragment column q
 // (lane % 4) is the head's column 2q and column q + 4 is 2q + 1, for A and

@@ -1,8 +1,8 @@
 // Warp-level tensor-core building blocks for sm_90a: 16- and 4-byte
 // cp.async copies into shared memory, ldmatrix loads of bf16 fragments (and
 // of float fragments, two b16 halves a float), the mma.sync m16n8k16 bf16
-// product and the m16n8k8 tf32 product with float32 accumulation, and the
-// split of a float into two tf32 terms.
+// product and the m16n8k8 tf32 product with float32 accumulation, the
+// split of a float into two tf32 terms and the 3xTF32 step built on both.
 //
 // Fragment layout of one m16n8k16 product (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with g = lane / 4 and q = lane % 4:
@@ -103,6 +103,23 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = tf32_rna(x);
   small = tf32_rna(x - __uint_as_float(big));
+}
+
+// The 3xTF32 product of one m16n8k8 step into the running sums c: the
+// step's small.big + big.small + big.big into zeroed sums d (the tensor
+// cores' accumulation is no float sum, gemm.cu's header), then c += d by
+// float adds
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += d[e];
 }
 
 // two floats rounded to bf16 (to nearest even), lo in the low half

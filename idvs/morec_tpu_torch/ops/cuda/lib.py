@@ -102,11 +102,12 @@ _SIGNATURES = {
     # windows, T, nh, dh, P, dtype -> the attention core's chunks
     "idvs_win_attn_bwd_chunks": [_I] * 6,
     # u, cand, ids, cand_ids, colmask, logpop, part, ce, m, l, M, N, D, L,
-    # S, label_off, per, splits, dtype, stream
-    "idvs_inbatch_ce_fwd": [_P] * 10 + [_I] * 9 + [_P],
-    # u, cand, ids, cand_ids, colmask, logpop, m, l, ws, du, dcand, M, N,
-    # D, L, S, label_off, dtype, stream
-    "idvs_inbatch_ce_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    # S, label_off, per, splits, smem, dtype, stream
+    "idvs_inbatch_ce_fwd": [_P] * 10 + [_I] * 8 + [_LL, _I, _P],
+    # u, cand, ids, cand_ids, colmask, logpop, m, l, ws, du, dcand, part_u,
+    # part_c, M, N, D, L, S, label_off, dc, per_u, splits_u, per_c,
+    # splits_c, smem, dtype, stream
+    "idvs_inbatch_ce_bwd": [_P] * 13 + [_I] * 11 + [_LL, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,8 @@ from idvs.morec_tpu_torch.ops.cuda.attention import (
     fused_mha_proj_bwd, fused_mha_proj_plain)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     embed_gather, scatter_add_rows, scatter_add_rows_plain)
-from idvs.morec_tpu_torch.ops.cuda.inbatch_ce import (fused_ce,
+from idvs.morec_tpu_torch.ops.cuda import inbatch_ce
+from idvs.morec_tpu_torch.ops.cuda.inbatch_ce import (ce_plan, fused_ce,
                                                       fused_inbatch_ce,
                                                       fused_inbatch_ce_bwd)
 from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
@@ -831,7 +832,15 @@ def _assert_ce_close(args, dtype):
                                    (8, 15, 32),     # N 128, one tile
                                    (16, 8, 48),     # N 144, M 128
                                    (7, 20, 512),    # the flagship's D
-                                   (4, 10, 2048)])  # 4 gradient chunks
+                                   (4, 10, 2048),   # 4 gradient chunks
+                                   # M 65: a last row tile of one row
+                                   (13, 5, 64),
+                                   # M 135 and N 162 end in partial tiles
+                                   (27, 5, 16),
+                                   # D 2048 over two row and column tiles
+                                   (9, 20, 2048),
+                                   # the text step: both passes split
+                                   (128, 20, 512)])
 def test_inbatch_ce_kernels(B, L, D, dtype):
     args = _ce_inputs(np.random.default_rng(B * L + D), B, L, D,
                       dtype=dtype)
@@ -840,14 +849,29 @@ def test_inbatch_ce_kernels(B, L, D, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("W,rank", [(3, 1), (4, 3)])
+@pytest.mark.parametrize("W,rank", [(3, 1), (4, 3), (8, 5)])
 def test_inbatch_ce_gathered_candidates(W, rank, dtype):
     """Every rank's candidates on one card, the label offset rank * B * S
     > 0, as the gathered edition calls the kernels after its all-gather."""
     args = _ce_inputs(np.random.default_rng(W + rank), 6, 9, 64, W, rank,
                       dtype)
     assert args[-1] > 0
-    _assert_ce_close(args, dtype)
+    got = _assert_ce_close(args, dtype)
+    _assert_same_bits(got, _ce_grads(fused_ce, args)[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_inbatch_ce_masked_label_rows(dtype):
+    """Rows that count (log mask 1) whose label column is masked (a log
+    mask of 0 inside the history): a masked logit is a constant, so the
+    kernels follow the composition's autograd there (C4)."""
+    B, L = 40, 5
+    args = _ce_inputs(np.random.default_rng(11), B, L, 32, dtype=dtype)
+    lm, colmask = args[3].cpu().numpy(), args[5].cpu().numpy()
+    assert any(lm[i, j] != 0 and colmask[i, j + 1] == 0
+               for i in range(B) for j in range(L))
+    got = _assert_ce_close(args, dtype)
+    _assert_same_bits(got, _ce_grads(fused_ce, args)[1])
 
 
 def test_inbatch_ce_entry_point_on_the_card():
@@ -885,3 +909,56 @@ def test_inbatch_ce_refusals():
             fused_ce(uu, cc, *r)
     assert (fused_inbatch_ce.launches,
             fused_inbatch_ce_bwd.launches) == before
+
+
+@pytest.mark.parametrize("what", ["fwd_smem", "fwd_split", "bwd_smem",
+                                  "bwd_dc", "bwd_split"])
+def test_inbatch_ce_entries_refuse_other_plans(what):
+    """The C entries take only the plan ce_plan builds: another
+    shared-memory size, a split that leaves a range empty, a gradient
+    width the kernel has no edition for, or a split pass without its
+    partials' buffer returns an error, and nothing is written."""
+    args = _ce_inputs(np.random.default_rng(5), 16, 8, 48)   # N 144
+    u, cand = args[0], args[1]
+    (B, L, D, N, off, code), aux, w = inbatch_ce._operands(
+        u, cand, *args[2:])
+    M = B * L
+    k = ce_plan(M, N, D, L, u.dtype)
+    nan = lambda n: torch.full((n,), float("nan"), device="cuda")
+    ptrs = lambda ts: [t.data_ptr() for t in ts]
+    stream = lib.stream_handle(u)
+    if what.startswith("fwd"):
+        outs = [nan(M) for _ in range(3)]
+        per, splits, smem = k["fwd_per"], k["fwd_splits"], k["fwd_smem"]
+        if what == "fwd_smem":
+            smem += 16
+        else:
+            per, splits = 1, -(-N // 128) + 1
+        part = nan(3 * splits * M)
+        err = lib.library().idvs_inbatch_ce_fwd(
+            *ptrs([u, cand, *aux, part, *outs]), M, N, D, L, L + 1, off,
+            per, splits, smem, code, stream)
+    else:
+        outs = [torch.full_like(u, float("nan")),
+                torch.full_like(cand, float("nan"))]
+        stats = [torch.ones(M, device="cuda") for _ in range(3)]
+        dc, smem = k["dc"], k["bwd_smem"]
+        per_u, splits_u = k["per_u"], k["splits_u"]
+        # the partials' buffers the plan needs (none in "bwd_split")
+        bufs = [nan(s * rows * D) if s > 1 else None
+                for s, rows in ((splits_u, M), (k["splits_c"], N))]
+        parts = [None if b is None else b.data_ptr() for b in bufs]
+        if what == "bwd_smem":
+            smem -= 16
+        elif what == "bwd_dc":
+            dc = 192
+        else:
+            per_u, splits_u = 1, -(-N // 128)   # two ranges
+            parts[0] = None
+        err = lib.library().idvs_inbatch_ce_bwd(
+            *ptrs([u, cand, *aux, *stats, *outs]), *parts, M, N, D, L,
+            L + 1, off, dc, per_u, splits_u, k["per_c"], k["splits_c"],
+            smem, code, stream)
+    torch.cuda.synchronize()
+    assert err != 0
+    assert all(t.isnan().all() for t in outs)
