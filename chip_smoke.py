@@ -143,13 +143,33 @@ failure:
     Swin blocks through the dbias edition), fused_mlp in every Swin block,
     and no kernel of the two selections' pairs;
 18. vision dropout gradient check: phase 12's float32 step with Swin's
-    dropouts at 0.1, on the card and on the CPU plain path.
+    dropouts at 0.1, on the card and on the CPU plain path;
+19. runner (last): the training and evaluation loop (train/runner.py) in
+    a temporary directory, the counters set to 0 before each part: IDRec
+    through the CLI (run.main; 20_000 users drawn as the quickstart draws
+    them over 100_000 items in groups of 100, bench.py GEOM["idrec"]'s D
+    512, L 20, B 256, 5 epochs, saving on a better valid HR@10, then
+    --mode test on the best epoch-N.pt), which must beat the untrained
+    model's valid HR@10; text MoRec at the flagship width through Trainer
+    (BERT-small from its config, 8_000 users over the 100_000 items,
+    B 128, bf16, dedup, use_pallas; one epoch, the full-catalog eval, the
+    save, a fresh Trainer in test mode); vision MoRec through Trainer
+    (Swin-T from the CLI's load_encoder, SASRec at D 2048, an MKV store of
+    512 images written by the phase, read through the native transform;
+    2 epochs, dedup cap 576 in chunks of 96, the eval, the save, a fresh
+    Trainer in test mode, whose eval is repeated under the "windows"
+    kernel selection); every reloaded checkpoint's valid evaluation must
+    equal the in-memory one of its epoch in every bit, and every kernel of
+    each part's training and evaluation must have launched. It prints
+    train samples/s, eval users/s, catalog encode items/s, checkpoint
+    bytes and save/load seconds, HR@10 and nDCG@10 and the launches in
+    training and in evaluation of each part.
 
 Prints each phase's seconds and a JSON line of per-kernel results (launches
 on the main paths, in all and by path: text serving, training, vision
 serving, the "windows" sub-catalog, vision training, the "windows" train
 step, the vision dropout step, the use_pallas steps, the data-parallel
-steps; error
+steps, the runner; error
 and time against the plain version, the least time the card could take for
 the same work (float32 rows that launched gemm.cu, whose products run as
 3xTF32, at that rate, 165 TFLOP/s), the time of the one PyTorch call that
@@ -174,6 +194,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -182,12 +203,14 @@ import subprocess
 import sys
 import tempfile
 import time
-from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from idvs.morec_tpu_torch import quickstart, run
+from idvs.morec_tpu_torch.config import Config, parse_args
+from idvs.morec_tpu_torch.data.imagestore import write_mkv
 from idvs.morec_tpu_torch.bench_gemm import f32_product_cases, product_cases
 from idvs.morec_tpu_torch.bench_swin import (CORE, attention_products,
                                              device_ms, mlp_products)
@@ -196,8 +219,8 @@ from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models import sasrec
 from idvs.morec_tpu_torch.models.model import make_model
-from idvs.morec_tpu_torch.models.swin import (SwinConfig, SwinModel,
-                                              _shift_mask)
+from idvs.morec_tpu_torch.models.swin import (SwinBlock, SwinConfig,
+                                              SwinModel, _shift_mask)
 from idvs.morec_tpu_torch.models.text_tower import TextTower
 from idvs.morec_tpu_torch.models.vision_tower import VisionTower
 from idvs.morec_tpu_torch.ops.cuda import lib
@@ -232,6 +255,7 @@ from idvs.morec_tpu_torch.ops.losses import inbatch_ce_candidates
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
 from idvs.morec_tpu_torch.parallel import mesh
 from idvs.morec_tpu_torch.serve import Retriever
+from idvs.morec_tpu_torch.train import runner
 from idvs.morec_tpu_torch.train.state import make_train_state, param_labels
 from idvs.morec_tpu_torch.train.step import dedup_pack, make_train_step
 
@@ -1078,14 +1102,13 @@ def histories(rng, B: int, item_num: int):
             for _ in range(B)]
 
 
-def model_config(**train) -> SimpleNamespace:
-    """The flagship configuration with the JAX Config's field names; the
-    train step's fields as keyword arguments."""
-    return SimpleNamespace(item_tower="modal", user_tower="sasrec",
-                           stage="end2end", embedding_dim=D,
-                           num_attention_heads=USER_HEADS,
-                           transformer_block=BLOCKS, max_seq_len=L,
-                           drop_rate=DROP, **train)
+def model_config(**train) -> Config:
+    """The flagship configuration; the train step's fields as keyword
+    arguments."""
+    return Config(item_tower="modal", user_tower="sasrec", stage="end2end",
+                  embedding_dim=D, num_attention_heads=USER_HEADS,
+                  transformer_block=BLOCKS, max_seq_len=L, drop_rate=DROP,
+                  **train)
 
 
 def build_model(dev, cfg, seed: int = SEED):
@@ -1932,13 +1955,11 @@ def dbias_phase(dev, card: str, images: int) -> dict:
 
 
 def vision_train_config(cap: int, chunk: int,
-                        compute_dtype: str = "bfloat16") -> SimpleNamespace:
-    cfg = vision_config()
-    cfg.__dict__.update(loss="inbatch_ce", compute_dtype=compute_dtype,
-                        lr=V_LR, l2_weight=0.0, fine_tune_lr=V_FT_LR,
-                        fine_tune_l2_weight=0.0, dedup_cap=cap,
-                        encoder_chunk=chunk)
-    return cfg
+                        compute_dtype: str = "bfloat16") -> Config:
+    return dataclasses.replace(
+        vision_config(), loss="inbatch_ce", compute_dtype=compute_dtype,
+        lr=V_LR, l2_weight=0.0, fine_tune_lr=V_FT_LR,
+        fine_tune_l2_weight=0.0, dedup_cap=cap, encoder_chunk=chunk)
 
 
 def vision_batches(rng, n: int, zipf: bool) -> list:
@@ -2255,13 +2276,12 @@ def profile_vision_train(dev, card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def vision_config() -> SimpleNamespace:
-    """The vision flagship with the JAX Config's field names."""
-    return SimpleNamespace(item_tower="modal", user_tower="sasrec",
-                           stage="end2end", embedding_dim=V_D,
-                           num_attention_heads=USER_HEADS,
-                           transformer_block=BLOCKS, max_seq_len=V_L,
-                           drop_rate=DROP)
+def vision_config() -> Config:
+    """The vision flagship."""
+    return Config(item_tower="modal", user_tower="sasrec", stage="end2end",
+                  modality="vision", embedding_dim=V_D,
+                  num_attention_heads=USER_HEADS, transformer_block=BLOCKS,
+                  max_seq_len=V_L, drop_rate=DROP)
 
 
 def build_vision_model(dev, item_num: int, kernels: str = "band",
@@ -2559,17 +2579,15 @@ def timed_steps(step, state, first, batches, to_device) -> tuple:
     return losses, walls
 
 
-def idrec_config(pallas: bool) -> SimpleNamespace:
+def idrec_config(pallas: bool) -> Config:
     """bench.py GEOM["idrec"]: the ID table of ITEM_NUM + 1 rows at D under
     SASRec, lr 1e-4, bf16 compute, dropout 0.1."""
-    return SimpleNamespace(item_tower="id", user_tower="sasrec",
-                           stage="end2end", embedding_dim=D,
-                           num_attention_heads=USER_HEADS,
-                           transformer_block=BLOCKS, max_seq_len=L,
-                           drop_rate=DROP, loss="inbatch_ce",
-                           compute_dtype="bfloat16", lr=LR, l2_weight=0.0,
-                           fine_tune_lr=FT_LR, fine_tune_l2_weight=0.0,
-                           use_pallas=pallas)
+    return Config(item_tower="id", user_tower="sasrec", stage="end2end",
+                  embedding_dim=D, num_attention_heads=USER_HEADS,
+                  transformer_block=BLOCKS, max_seq_len=L, drop_rate=DROP,
+                  loss="inbatch_ce", compute_dtype="bfloat16", lr=LR,
+                  l2_weight=0.0, fine_tune_lr=FT_LR, fine_tune_l2_weight=0.0,
+                  use_pallas=pallas)
 
 
 def idrec_run(dev, card, batches, pallas: bool) -> tuple:
@@ -2705,6 +2723,364 @@ def dp_path(dev, card: str, content, batches, cap: int) -> dict:
     return launched
 
 
+# -- the runner phase (train/runner.py, run.py) --------------------------------
+# IDRec through the CLI: users drawn as the quickstart draws them (each
+# user's items within one group of R_GROUP), at bench.py GEOM["idrec"]'s
+# width (D, L, IDREC_B, BLOCKS) over ITEM_NUM items, the quickstart's lr
+# and epochs: an item is seen about 3 times an epoch, and valid HR@10 first
+# rises above the untrained model's at the third epoch (PERF.md §6)
+R_USERS, R_GROUP, R_LENGTHS, R_EPOCHS, R_LR = 20_000, 100, (6, 24), 5, 1e-3
+# text MoRec at the flagship width through Trainer: each user's 12-13
+# items a slice of one permutation of the catalog, so every item is read
+# and the catalog keeps its ITEM_NUM items; an item's title shares its
+# group's words
+RT_USERS, RT_GROUP, RT_GROUP_WORDS = 8_000, 100, 12
+# vision MoRec: a store of RV_ITEMS images of RV_SIDE px (resized to
+# IMAGE), groups of RV_GROUP items, RV_USERS users; the dedup cap holds a
+# batch's every item, encoded in chunks of V_CAP_QUANTUM
+RV_ITEMS, RV_SIDE, RV_GROUP, RV_USERS, RV_EPOCHS = 512, 256, 32, 384, 2
+RV_CAP = 6 * V_CAP_QUANTUM
+# the kernels each part must launch, in its training and in its evaluation
+RUNNER_EVAL_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln",
+                       "gemm")
+IDREC_TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
+                       "fused_proj_resln_bwd", "fused_mlp_resln_res",
+                       "fused_mlp_resln_bwd", "gemm")
+
+
+class RunnerWatch:
+    """Watches the port's runner from outside while the CLI or a Trainer
+    runs: the Trainers made, the launches inside evaluations (run_eval)
+    and outside them, and each checkpoint save and load (seconds, bytes).
+    Launch counts start from 0 when the watch starts."""
+
+    def __init__(self):
+        self.trainers, self.saves, self.loads = [], [], []
+        self.eval_launches = dict.fromkeys(WRAPPERS, 0)
+
+    def __enter__(self):
+        reset_counts()
+        T = runner.Trainer
+        self._saved = (T.__init__, T.run_eval, runner.save_checkpoint,
+                       runner.load_checkpoint)
+        init, run_eval, save, load = self._saved
+        watch = self
+
+        def init_(tr, *a, **k):
+            init(tr, *a, **k)
+            watch.trainers.append(tr)
+
+        def run_eval_(tr, *a, **k):
+            before = counts()
+            out = run_eval(tr, *a, **k)
+            for n, c in counts().items():
+                watch.eval_launches[n] += c - before[n]
+            return out
+
+        def timed(fn, into):
+            def call(path_or_dir, *a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(path_or_dir, *a, **k)
+                torch.cuda.synchronize()
+                path = out if isinstance(out, str) else path_or_dir
+                into.append((time.perf_counter() - t0,
+                             os.path.getsize(path)))
+                return out
+            return call
+
+        T.__init__, T.run_eval = init_, run_eval_
+        runner.save_checkpoint = timed(save, self.saves)
+        runner.load_checkpoint = timed(load, self.loads)
+        return self
+
+    def __exit__(self, *exc):
+        T = runner.Trainer
+        (T.__init__, T.run_eval, runner.save_checkpoint,
+         runner.load_checkpoint) = self._saved
+
+    def launches(self) -> tuple:
+        """(training launches, evaluation launches) since the start."""
+        total = counts()
+        return ({n: total[n] - self.eval_launches[n] for n in total},
+                dict(self.eval_launches))
+
+
+def require_launched(launched: dict, names, what: str) -> None:
+    missing = [n for n in names if not launched[n]]
+    require(not missing, f"{what}: {missing} never launched")
+
+
+def report_runner(part: str, card: str, tr, watch: RunnerWatch,
+                  ev: dict) -> None:
+    """The part's numbers, each line beside the card."""
+    s = tr.train_stats
+    print(f"runner {part}: train {s['samples']} samples in {s['steps']} "
+          f"steps, {s['seconds']:.3f} s, "
+          f"{s['samples'] / s['seconds']:.1f} samples/s [{card}]",
+          flush=True)
+    print(f"runner {part}: eval of the {ev['split']} split: catalog encode "
+          f"{ev['items']} items in {ev['encode_s']:.3f} s, "
+          f"{ev['items'] / ev['encode_s']:.1f} items/s; scoring "
+          f"{ev['users']} users in {ev['score_s']:.3f} s, "
+          f"{ev['users'] / ev['score_s']:.1f} users/s [{card}]", flush=True)
+    for what, rows in (("save", watch.saves), ("load", watch.loads)):
+        for sec, size in rows:
+            print(f"runner {part}: checkpoint {what} {size} bytes in "
+                  f"{sec:.3f} s [{card}]", flush=True)
+    train, evals = watch.launches()
+    print(f"runner {part}: launches in training "
+          f"{ {n: c for n, c in train.items() if c} }, in evaluation "
+          f"{ {n: c for n, c in evals.items() if c} }", flush=True)
+
+
+def same_eval(got: dict, want: dict, what: str) -> None:
+    """A reloaded checkpoint's evaluation against the in-memory one of the
+    same epoch and split: every bit."""
+    same = (got["split"] == want["split"] and got["hit"] == want["hit"]
+            and got["ndcg"] == want["ndcg"]
+            and np.array_equal(got["hits"], want["hits"])
+            and np.array_equal(got["ndcgs"], want["ndcgs"]))
+    print(f"{what}: the reloaded checkpoint's {got['split']} HR@10 "
+          f"{got['hit']:.6f} nDCG@10 {got['ndcg']:.6f} against "
+          f"{want['hit']:.6f} {want['ndcg']:.6f} in memory; every per-user "
+          f"value equal: {same}", flush=True)
+    require(same, f"{what}: the reloaded checkpoint evaluates otherwise")
+
+
+def runner_idrec(dev, card: str) -> dict:
+    """IDRec through the CLI: the untrained model's valid HR@10, R_EPOCHS
+    epochs (save on a better HR@10), then a --mode test reload of the best
+    epoch; its valid split evaluates to the run's bits. Returns the
+    part's launches."""
+    argv = ["--root_data_dir", "./", "--dataset", "IDREC", "--news",
+            "news.tsv", "--behaviors", "behaviors.tsv", "--item_tower", "id",
+            "--max_seq_len", str(L), "--embedding_dim", str(D),
+            "--num_attention_heads", str(USER_HEADS), "--transformer_block",
+            str(BLOCKS), "--batch_size", str(IDREC_B), "--lr", str(R_LR),
+            "--drop_rate", str(DROP), "--epoch", str(R_EPOCHS)]
+    quickstart.make_dataset("IDREC", n_users=R_USERS, n_items=ITEM_NUM,
+                            n_groups=ITEM_NUM // R_GROUP, seed=SEED,
+                            lengths=R_LENGTHS)
+    untrained = runner.Trainer(parse_args(argv))
+    untrained.load_data()
+    untrained.build_model()
+    hit0, ndcg0 = untrained.run_eval("valid")
+    del untrained
+    with RunnerWatch() as watch:
+        best, best_epoch = run.main(argv)
+        trained = watch.trainers[-1]
+        hit, ndcg = run.main(argv + ["--mode", "test", "--load_ckpt_name",
+                                     f"epoch-{best_epoch}.pt"])
+        tested = watch.trainers[-1]
+        tested.run_eval("valid")
+    print(f"runner IDRec (CLI): {trained.item_num} items, "
+          f"{trained.batcher.n} users, D {D}, L {L}, B {IDREC_B}, "
+          f"{R_EPOCHS} epochs: best valid HR@10 {best:.6f} at epoch "
+          f"{best_epoch} (untrained {hit0:.6f}, nDCG@10 {ndcg0:.6f}); valid "
+          f"by epoch { {e: (r['hit'], r['ndcg']) for e, r in trained.valid_results.items()} }; "
+          f"test reload HR@10 {hit:.6f} nDCG@10 {ndcg:.6f} [{card}]",
+          flush=True)
+    report_runner("IDRec", card, trained, watch,
+                  trained.valid_results[best_epoch])
+    require(best > hit0, "IDRec's best valid HR@10 does not beat the "
+            "untrained model's")
+    same_eval(tested.last_eval, trained.valid_results[best_epoch],
+              "runner IDRec")
+    train, evals = watch.launches()
+    require_launched(train, IDREC_TRAIN_KERNELS, "IDRec training")
+    require_launched(evals, RUNNER_EVAL_KERNELS, "IDRec evaluation")
+    return counts()
+
+
+class WordTokenizer:
+    """The HF tokenizer's call signature over titles of "w<k>" words: a
+    CLS id, then word k's id k, padded with 0 (no files: the card's machine
+    has no tokenizer files)."""
+
+    def __call__(self, text, max_length, padding, truncation):
+        ids = [101] + [int(w[1:]) for w in text.split()][:max_length - 1]
+        n = len(ids)
+        return {"input_ids": ids + [0] * (max_length - n),
+                "attention_mask": [1] * n + [0] * (max_length - n)}
+
+
+def text_runner_data(rng) -> None:
+    """TEXT/news.tsv (ITEM_NUM titles: the group's RT_GROUP_WORDS words and
+    a few of the item's own) and TEXT/behaviors.tsv (RT_USERS users, each a
+    slice of one permutation of the items sorted into groups)."""
+    os.makedirs("TEXT", exist_ok=True)
+    n_groups = ITEM_NUM // RT_GROUP
+    group_words = rng.integers(1000, VOCAB, size=(n_groups, RT_GROUP_WORDS))
+    with open("TEXT/news.tsv", "w") as f:
+        for k in range(1, ITEM_NUM + 1):
+            g = (k - 1) // RT_GROUP
+            own = rng.integers(1000, VOCAB, size=int(rng.integers(2, 10)))
+            words = " ".join(f"w{w}" for w in (*group_words[g], *own))
+            f.write(f"i{k}\t{words}\tabstract\n")
+    # users take consecutive slices of the catalog shuffled within groups
+    order = np.concatenate([1 + g * RT_GROUP + rng.permutation(RT_GROUP)
+                            for g in rng.permutation(n_groups)])
+    with open("TEXT/behaviors.tsv", "w") as f:
+        for u, items in enumerate(np.array_split(order, RT_USERS)):
+            f.write(f"u{u}\t" + " ".join(f"i{k}" for k in items) + "\n")
+
+
+def runner_text(dev, card: str) -> dict:
+    """Text MoRec at the flagship width through Trainer: BERT-small from
+    its config (random weights), SASRec D 512, bf16, dedup, use_pallas;
+    one epoch, the valid eval over the whole catalog, the save, then a
+    fresh Trainer in test mode whose valid eval is the run's bits."""
+    text_runner_data(np.random.default_rng(SEED + 20))
+    cfg = dict(root_data_dir="./", dataset="TEXT", news="news.tsv",
+               behaviors="behaviors.tsv", item_tower="modal",
+               bert_model_load="bert_small", max_seq_len=L, embedding_dim=D,
+               num_attention_heads=USER_HEADS, transformer_block=BLOCKS,
+               batch_size=TRAIN_B, lr=LR, fine_tune_lr=FT_LR, drop_rate=DROP,
+               dedup_items=True, use_pallas=True, num_words_title=TITLE_LEN,
+               item_emb_batch_size=ENCODE_BATCH, epoch=1)
+
+    def trainer(**kw):
+        bcfg = BertConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
+                          num_hidden_layers=LAYERS, num_attention_heads=HEADS,
+                          intermediate_size=FFN, max_position_embeddings=512,
+                          hidden_dropout_prob=DROP,
+                          attention_probs_dropout_prob=DROP)
+        tower = TextTower(BertModel(bcfg, device=dev), embedding_dim=D,
+                          word_embedding_dim=HIDDEN, pooling="cls",
+                          attr_lengths=(TITLE_LEN,), device=dev)
+        tr = runner.Trainer(Config(**cfg, **kw), device=dev,
+                            encoder_bundle=(tower, None, set(), HIDDEN),
+                            tokenizer=WordTokenizer())
+        tr.load_data()
+        tr.build_model()
+        return tr
+
+    with RunnerWatch() as watch:
+        tr = trainer()
+        best, best_epoch = tr.train()
+        require(best_epoch == 1, "text MoRec saved no checkpoint")
+        te = trainer(mode="test", load_ckpt_name="epoch-1.pt")
+        hit, ndcg = te.test()
+        te.run_eval("valid")
+    print(f"runner text MoRec: {tr.item_num} items, {tr.batcher.n} users, "
+          f"BERT-small + SASRec D {D}, B {TRAIN_B}, bf16, dedup, "
+          f"use_pallas: valid HR@10 {best:.6f} nDCG@10 "
+          f"{tr.valid_results[1]['ndcg']:.6f}; test reload HR@10 "
+          f"{hit:.6f} nDCG@10 {ndcg:.6f} [{card}]", flush=True)
+    report_runner("text MoRec", card, tr, watch, tr.valid_results[1])
+    require(tr.item_num == ITEM_NUM, "the text catalog lost items")
+    same_eval(te.last_eval, tr.valid_results[1], "runner text MoRec")
+    train, evals = watch.launches()
+    require_launched(train, TRAIN_KERNELS + PALLAS_KERNELS,
+                     "text MoRec training")
+    require_launched(evals, RUNNER_EVAL_KERNELS, "text MoRec evaluation")
+    return counts()
+
+
+def vision_runner_data(rng) -> None:
+    """VISION/images.tsv, VISION/images.mkv (RV_ITEMS uint8 images of
+    RV_SIDE px) and VISION/behaviors.tsv (RV_USERS users within groups of
+    RV_GROUP items)."""
+    os.makedirs("VISION", exist_ok=True)
+    with open("VISION/images.tsv", "w") as f:
+        f.writelines(f"v{k}\tx\n" for k in range(1, RV_ITEMS + 1))
+    write_mkv("VISION/images.mkv", (
+        (str(k).encode(), rng.integers(0, 256, (RV_SIDE, RV_SIDE, 3),
+                                       dtype=np.uint8))
+        for k in range(1, RV_ITEMS + 1)))
+    with open("VISION/behaviors.tsv", "w") as f:
+        for u in range(RV_USERS):
+            g = u % (RV_ITEMS // RV_GROUP)
+            items = 1 + g * RV_GROUP + rng.choice(
+                RV_GROUP, size=int(rng.integers(6, 14)), replace=False)
+            f.write(f"u{u}\t" + " ".join(f"v{k}" for k in items) + "\n")
+
+
+def set_swin_kernels(model, kernels: str) -> None:
+    for m in model.modules():
+        if isinstance(m, SwinBlock):
+            m.kernels = kernels
+
+
+def runner_vision(dev, card: str) -> dict:
+    """Vision MoRec through Trainer: Swin-T from its config (the CLI's
+    load_encoder) under SASRec at V_D over an MKV store, RV_EPOCHS epochs
+    (dedup, chunks of V_CAP_QUANTUM images, images from the store through
+    the native transform), the full eval, the save, a fresh Trainer in
+    test mode whose valid eval is the run's bits, and that eval again
+    with the "windows" kernel selection."""
+    vision_runner_data(np.random.default_rng(SEED + 21))
+    cfg = dict(root_data_dir="./", dataset="VISION", news="images.tsv",
+               behaviors="behaviors.tsv", image_store="images.mkv",
+               image_resize=IMAGE, modality="vision", item_tower="modal",
+               cv_model_load="swin_tiny", max_seq_len=V_L,
+               embedding_dim=V_D, num_attention_heads=USER_HEADS,
+               transformer_block=BLOCKS, batch_size=V_TRAIN_B, lr=V_LR,
+               fine_tune_lr=V_FT_LR, drop_rate=DROP, dedup_items=True,
+               dedup_cap=RV_CAP, encoder_chunk=V_CAP_QUANTUM,
+               item_emb_batch_size=ENCODE_BATCH, epoch=RV_EPOCHS)
+
+    def trainer(**kw):
+        c = Config(**cfg, **kw)
+        tr = runner.Trainer(c, device=dev,
+                            encoder_bundle=runner.load_encoder(c, dev))
+        tr.load_data()
+        tr.build_model()
+        return tr
+
+    with RunnerWatch() as watch:
+        tr = trainer()
+        best, best_epoch = tr.train()
+        require(best_epoch > 0, "vision MoRec saved no checkpoint")
+        te = trainer(mode="test", load_ckpt_name=f"epoch-{best_epoch}.pt")
+        hit, ndcg = te.test()
+        te.run_eval("valid")
+        band = te.last_eval
+        set_swin_kernels(te.model, "windows")
+        te.run_eval("valid")
+        windows = te.last_eval
+        set_swin_kernels(te.model, "band")
+    print(f"runner vision MoRec: {tr.item_num} items, {tr.batcher.n} users, "
+          f"Swin-T + SASRec D {V_D}, B {V_TRAIN_B}, bf16, dedup cap "
+          f"{RV_CAP}, chunks of {V_CAP_QUANTUM}: best valid HR@10 "
+          f"{best:.6f} at epoch {best_epoch}; test reload HR@10 {hit:.6f} "
+          f"nDCG@10 {ndcg:.6f}; valid under \"windows\" HR@10 "
+          f"{windows['hit']:.6f} nDCG@10 {windows['ndcg']:.6f} [{card}]",
+          flush=True)
+    report_runner("vision MoRec", card, tr, watch,
+                  tr.valid_results[best_epoch])
+    same_eval(band, tr.valid_results[best_epoch], "runner vision MoRec")
+    n = band["users"]
+    require(abs(windows["hit"] - band["hit"]) <= 2 / n
+            and abs(windows["ndcg"] - band["ndcg"]) <= 2 / n,
+            "the two kernel selections evaluate apart")
+    train, evals = watch.launches()
+    require_launched(train, VISION_TRAIN_KERNELS, "vision MoRec training")
+    require_launched(evals, VISION_ENCODE_KERNELS + VISION_WINDOWS_KERNELS
+                     + RUNNER_EVAL_KERNELS, "vision MoRec evaluation")
+    return counts()
+
+
+def runner_path(dev, card: str) -> dict:
+    """The runner phase in a temporary directory (data, logs and
+    checkpoints there): IDRec through the CLI, text and vision MoRec
+    through Trainer. Returns the launches of all three."""
+    launched = dict.fromkeys(WRAPPERS, 0)
+    here = os.getcwd()
+    for part in (runner_idrec, runner_text, runner_vision):
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                got = part(dev, card)
+            finally:
+                os.chdir(here)
+        for n in launched:
+            launched[n] += got[n]
+        torch.cuda.empty_cache()
+    return launched
+
+
 def merge(kernels: dict, more: dict) -> None:
     """Adds a phase's per-kernel results: a kernel seen before keeps its
     headline times and takes the worse error."""
@@ -2814,15 +3190,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("data-parallel"):
         parallel = dp_path(dev, card, content, batches, cap)
+    torch.cuda.empty_cache()
+    with phase("runner"):
+        ran = runner_path(dev, card)
 
-    # launches: every main path's count, each taken from 0; the nine keys
+    # launches: every main path's count, each taken from 0; the ten keys
     # after it say which path launched how many
     paths = {"launches_serve": served, "launches_train": trained,
              "launches_vision": seen, "launches_windows": windows,
              "launches_vision_train": vtrained,
              "launches_windows_train": vwindows,
              "launches_vision_dropout": vdropped,
-             "launches_pallas_train": pallas, "launches_dp": parallel}
+             "launches_pallas_train": pallas, "launches_dp": parallel,
+             "launches_runner": ran}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": CSRC + SOURCES[n][0],
          "replaces": PALLAS + SOURCES[n][1],

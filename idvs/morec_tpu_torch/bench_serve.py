@@ -23,11 +23,11 @@ import json
 import statistics
 import subprocess
 import time
-from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from idvs.morec_tpu_torch.config import Config
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models.model import make_model
 from idvs.morec_tpu_torch.models.text_tower import TextTower
@@ -41,11 +41,9 @@ BATCHES, TOP_K, TRACED, KERNELS_SHOWN = (1, 8, 64), 10, 20, 8
 
 
 def text_model(dev):
-    cfg = SimpleNamespace(item_tower="modal", user_tower="sasrec",
-                          stage="end2end", embedding_dim=D,
-                          num_attention_heads=USER_HEADS,
-                          transformer_block=BLOCKS, max_seq_len=L,
-                          drop_rate=0.1)
+    cfg = Config(item_tower="modal", user_tower="sasrec", stage="end2end",
+                 embedding_dim=D, num_attention_heads=USER_HEADS,
+                 transformer_block=BLOCKS, max_seq_len=L, drop_rate=0.1)
     bcfg = BertConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
                       num_hidden_layers=LAYERS, num_attention_heads=HEADS,
                       intermediate_size=FFN, max_position_embeddings=512,

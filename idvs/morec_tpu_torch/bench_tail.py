@@ -30,7 +30,9 @@ text encode's BERT tail (M = 15360, float32, forward only); VT, the vision
 train step's SASRec at D = 2048 (M = 640, bf16, training); R, a vision
 ``recommend``'s at B = 64 and 1 (M = 640 and 10) in float32 and bf16; TR,
 a text ``recommend``'s SASRec at B = 64 and 1 (M = 1280 and 20, C = 512,
-float32). The same columns, the yardstick torch.matmul of x w.
+float32). The same columns, the yardstick torch.matmul of x w, and the
+plain version's event time (``fused_proj_resln_plain`` on the same
+operands and dropout).
 
 Every row also gives the host's time a call (``measure.host_ms``, the card
 idle before it): where it exceeds the device time, the host holds the
@@ -67,6 +69,7 @@ from idvs.morec_tpu_torch.ops.cuda.gemm import gemm
 from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp_resln,
                                                fused_mlp_resln_res,
                                                fused_proj_resln,
+                                               fused_proj_resln_plain,
                                                fused_proj_resln_res)
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -127,7 +130,7 @@ def proj_work(t: Proj):
 
 
 def proj_call(t: Proj, g):
-    """(call, yardstick factory) of a projection tail."""
+    """(call, yardstick factory, plain call) of a projection tail."""
     x, res = g(t.M, t.C).to(t.dtype), g(t.M, t.C).to(t.dtype)
     w, b = g(t.C, t.C, scale=t.C ** -0.5), g(t.C, scale=0.1)
     ln = (1.0 + g(t.C, scale=0.1), g(t.C, scale=0.1))
@@ -138,7 +141,11 @@ def proj_call(t: Proj, g):
             x, res, *ops, *ln, eps=1e-6, drop=drop, code=lib.dtype_code(x))
     else:
         call = lambda: fused_proj_resln(x, res, *ops, ln=ln, eps=1e-6)
-    return call, lambda: proj_products(x, ops[0])
+    rate = DROP if t.train else 0.0
+    plain = lambda: fused_proj_resln_plain(x, res, *ops, ln=ln, eps=1e-6,
+                                           drop_rate=rate,
+                                           seed=7 if rate else None)
+    return call, lambda: proj_products(x, ops[0]), plain
 
 
 def tail_work(t: Tail):
@@ -209,10 +216,10 @@ def main():
                                           device="cuda") * scale
     keep = lambda t: not paths or t.path in paths
     rows = [(t, f"M={t.M} C={t.C} F={t.F} {t.act}", *tail_call(t, g),
-             tail_work(t)) for t in TAILS if keep(t)]
+             None, tail_work(t)) for t in TAILS if keep(t)]
     rows += [(t, f"proj M={t.M} C={t.C}", *proj_call(t, g), proj_work(t))
              for t in PROJS if keep(t)]
-    for t, case, call, products, work in rows:
+    for t, case, call, products, plain, work in rows:
         before = gemm.launches
         call()
         tc = t.dtype == F32 and gemm.launches > before
@@ -233,6 +240,8 @@ def main():
         row["matmul_ms"] = round(cuda_ms(fn, args.reps), 4)
         row["matmul_device_ms"] = round(device_ms(fn, args.reps)[0], 4)
         del fn
+        if plain is not None:
+            row["plain_ms"] = round(cuda_ms(plain, args.reps), 4)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

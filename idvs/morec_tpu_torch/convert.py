@@ -11,14 +11,22 @@ Flax tree and keeps the Flax layouts (``models/layers.py``):
   (p, p, C, D) ``kernel`` is a ``weight`` like a Dense's.
 
 So any Flax ``RecModel.init`` tree of the ported towers loads with
-``model.load_state_dict(from_flax(variables))``. The inverse needs the
-model, because ``weight`` alone does not say which Flax leaf it was.
+``model.load_state_dict(from_flax(variables))`` (``load_flax``: a JAX
+``Trainer``'s ``state.params`` into a port ``Trainer``'s model). The inverse
+needs the model, because ``weight`` alone does not say which Flax leaf it
+was.
+
+The reference freezes a text encoder's parameters by their index in HF's
+``named_parameters()`` order (run.py:73-75); ``bert_param_order`` lists that
+order with the port's names, and ``bert_frozen_names`` the names frozen
+under ``freeze_paras_before`` (JAX twin: models/convert_text.py
+``bert_frozen_paths``, the same set through ``flax_name``).
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Mapping
+from typing import Iterable, List, Mapping, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -41,16 +49,67 @@ def _flatten(tree: Mapping, prefix=()):
             yield path, value
 
 
+def flax_name(path: Iterable[str]) -> str:
+    """The port's parameter name of a Flax param path (from the params
+    root), by the one renaming rule."""
+    *mods, leaf = (str(k) for k in path)
+    return ".".join(mods + [_TO_TORCH.get(leaf, leaf)])
+
+
 def from_flax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """Flax variables (``{"params": ...}`` or the params tree itself, leaves
-    as numpy arrays) -> a state_dict for the port's model."""
+    as numpy or jax arrays) -> a state_dict for the port's model."""
     params = variables.get("params", variables)
     out = OrderedDict()
     for path, value in _flatten(params):
-        *mods, leaf = path
-        key = ".".join(mods + [_TO_TORCH.get(leaf, leaf)])
-        out[key] = torch.from_numpy(np.array(value, copy=True))
+        out[flax_name(path)] = torch.from_numpy(np.array(value, copy=True))
     return out
+
+
+def load_flax(model: nn.Module, variables: Mapping) -> None:
+    """Loads Flax variables (e.g. a JAX ``Trainer``'s ``state.params``) into
+    ``model`` in place, every parameter, onto the model's device."""
+    model.load_state_dict(from_flax(variables))
+
+
+def bert_param_order(num_layers: int, prefix: str = ""
+                     ) -> List[Tuple[str, Optional[str]]]:
+    """[(HF name, port name)] in HF ``BertModel.named_parameters()`` order;
+    the pooler, which the port does not build, maps to None."""
+    P = prefix
+    order: List[Tuple[str, Optional[str]]] = [
+        ("embeddings.word_embeddings.weight", P + "word_embeddings.weight"),
+        ("embeddings.position_embeddings.weight",
+         P + "position_embeddings.weight"),
+        ("embeddings.token_type_embeddings.weight",
+         P + "token_type_embeddings.weight"),
+        ("embeddings.LayerNorm.weight", P + "embeddings_ln.weight"),
+        ("embeddings.LayerNorm.bias", P + "embeddings_ln.bias"),
+    ]
+    leaves = (("attention.self.query", "attention_self.query"),
+              ("attention.self.key", "attention_self.key"),
+              ("attention.self.value", "attention_self.value"),
+              ("attention.output.dense", "attention_output"),
+              ("attention.output.LayerNorm", "attention_ln"),
+              ("intermediate.dense", "intermediate"),
+              ("output.dense", "output"),
+              ("output.LayerNorm", "output_ln"))
+    for i in range(num_layers):
+        for hf, port in leaves:
+            for w in ("weight", "bias"):
+                order.append((f"encoder.layer.{i}.{hf}.{w}",
+                              f"{P}layer_{i}.{port}.{w}"))
+    order += [("pooler.dense.weight", None), ("pooler.dense.bias", None)]
+    return order
+
+
+def bert_frozen_names(num_layers: int, freeze_before: int,
+                      prefix: str = "encoder.net.") -> Set[str]:
+    """The port's names of the BERT parameters the reference freezes: index
+    < freeze_before in HF's order (the pooler is not built)."""
+    return {name for idx, (_, name) in
+            enumerate(bert_param_order(num_layers, prefix))
+            if idx < freeze_before and name is not None}
 
 
 def to_flax(model: nn.Module) -> dict:

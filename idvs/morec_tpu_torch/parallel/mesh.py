@@ -9,10 +9,11 @@ gives each process its own card through ``CUDA_VISIBLE_DEVICES``), and the
 by rows (``host_rows``), parameters are replicated, and the train step
 averages the gradients over the group (JAX's ``pmean``).
 
-Only what the data-parallel train step needs is here: the group, the row
-split, the rank and world size, and an all-gather whose gradient is the
-reduce-scatter (the ``gather_negatives`` candidates). ZeRO-1, SyncBN and
-multi-host batch assembly are not ported.
+Only what the data-parallel train step and the runner need is here: the
+group, the row split, the rank and world size, rank 0's gate for logging
+and checkpoints (``is_coordinator``), and an all-gather whose gradient is
+the reduce-scatter (the ``gather_negatives`` candidates). ZeRO-1, SyncBN,
+sharded evaluation and multi-host batch assembly are not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +56,12 @@ def process_index(pg=None) -> int:
 
 def process_count(pg=None) -> int:
     return dist.get_world_size(pg) if group() is not None else 1
+
+
+def is_coordinator() -> bool:
+    """Rank 0's gate for logging and checkpointing (the reference's rank-0
+    gating, run.py:265-267); True on one process."""
+    return process_index() == 0
 
 
 def host_rows(global_n: int) -> slice:

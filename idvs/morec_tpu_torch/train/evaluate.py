@@ -1,11 +1,34 @@
-"""Catalog encode (JAX twin: train/evaluate.py compute_item_embeddings)."""
+"""Full-catalog evaluation on one device (JAX twin: idvs/morec_tpu/train/
+evaluate.py).
+
+Replaces the reference eval path (inbatch_sasrec_e2e_text/data_utils/
+metrics.py:60-107):
+- the catalog encode: the item tower over every id in fixed chunks
+  (``compute_item_embeddings``; the reference's get_item_embeddings);
+- user scoring: one batched step a user batch, the SASRec state at the last
+  position, the (B, I+1) float32 catalog product, the history set to -inf,
+  the rank of the target, HR@10 / nDCG@10 (``make_eval_step``; the
+  reference's per-user Python loop, metrics.py:90-102);
+- aggregation: padding users are masked out exactly, reproducing
+  SequentialDistributedSampler's pad-then-truncate semantics
+  (dataset.py:68-94, metrics.py:33-46).
+
+Both run under ``eval_mode``, so the result is the same whatever mode the
+model is in. The host builds the next user batch on a worker thread while
+the device scores the current one (``data/vision_loader.py``
+``Prefetcher``), in order, so prefetching changes no result.
+"""
 
 from __future__ import annotations
 
 import contextlib
 from typing import Optional
 
+import numpy as np
 import torch
+
+from ..data.vision_loader import Prefetcher
+from ..ops.metrics import hit_and_ndcg, masked_catalog_scores, target_rank
 
 
 @contextlib.contextmanager
@@ -55,3 +78,56 @@ def compute_item_embeddings(model, item_num: int,
             n = min(batch_size, total - start)
             table[start:start + n] = chunk[:n].float()
     return table
+
+
+def make_eval_step(model, topk: int = 10):
+    """step(item_table, ids, log_mask, target, history, valid) -> per-user
+    (hit, ndcg, valid) float32 vectors on the device, zero on padding users,
+    so the caller can take exact means (and tests can compare per-user
+    values against the reference's metrics_topK outputs). The towers run in
+    eval mode. SASRec's only: DSSM's comes with ROADMAP A3."""
+
+    @torch.no_grad()
+    def step(item_table, ids, log_mask, target, history, valid):
+        with eval_mode(model):
+            states = model.user_states(item_table[ids], log_mask)
+        scores = masked_catalog_scores(states[:, -1], item_table, history)
+        hit, ndcg = hit_and_ndcg(target_rank(scores, target), topk)
+        v = valid.float()
+        return hit * v, ndcg * v, v
+
+    return step
+
+
+def evaluate(model, item_table: torch.Tensor, eval_batches,
+             topk: int = 10, per_user: bool = False):
+    """Mean HR@topk and nDCG@topk over all true users of ``eval_batches``
+    (``data/loader.py`` ``EvalBatches``), scored against ``item_table`` on
+    its device.
+
+    per_user=True additionally returns (hits, ndcgs) numpy arrays of the
+    true users in order -- the reference's stacked eval_all_user tensors
+    before eval_concat's mean (metrics.py:103-106).
+    """
+    step = make_eval_step(model, topk)
+    device = item_table.device
+    dtypes = (torch.long, torch.float32, torch.long, torch.long, torch.bool)
+
+    def host(raw):   # on the worker thread
+        return [torch.from_numpy(np.asarray(x)).to(dt)
+                for x, dt in zip(raw, dtypes)]
+
+    hits, ndcgs, valids = [], [], []
+    for batch in Prefetcher(iter(eval_batches), host):
+        h, n, v = step(item_table, *(x.to(device) for x in batch))
+        hits.append(h)
+        ndcgs.append(n)
+        valids.append(v)
+    h, n, v = (torch.cat(x).cpu().numpy() for x in (hits, ndcgs, valids))
+    count = max(float(v.sum(dtype=np.float64)), 1.0)
+    hr = float(h.sum(dtype=np.float64)) / count
+    nd = float(n.sum(dtype=np.float64)) / count
+    if per_user:
+        keep = v > 0
+        return hr, nd, h[keep], n[keep]
+    return hr, nd

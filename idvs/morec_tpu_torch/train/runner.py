@@ -1,0 +1,444 @@
+"""Training/test orchestrator (JAX twin: idvs/morec_tpu/train/runner.py), the
+reference's run.py / run_test.py (inbatch_sasrec_e2e_text/run.py:26-352) as
+one config-driven entry point, for the in-batch CE x SASRec x end2end
+variant with the ``id``, text ``modal`` and vision ``modal`` item towers.
+
+Flow (parity with run.py):
+  data read -> batcher -> model + optimizer -> [resume] ->
+  epoch loop { train steps, eval, save-best, early stop } -> final report
+
+On one device, the card unless the caller names another (``on_device``);
+under a process group (``parallel/mesh.py``) every rank takes its rows of
+each global batch (``host_rows``), the step averages the gradients, every
+rank evaluates every user, and rank 0 alone logs and writes checkpoints.
+The host builds the next batch (ids, dedup packing, images) on a worker
+thread while the device runs the current step (``Prefetcher``).
+
+BCE, DSSM, two-stage, ID+modality fusion, cold/new-item eval and gradient
+accumulation raise ``NotImplementedError`` naming their ROADMAP item.
+``steps_per_dispatch`` runs that many single steps and reads their losses
+together (the JAX package's one-dispatch scan makes the same updates).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.loader import EvalBatches, TrainBatcher, pad_user_sequences
+from ..data.preprocess import (BehaviorData, build_doc_matrix,
+                               read_behaviors, read_image_manifest,
+                               read_items_text, read_items_tokenized)
+from ..models.layers import on_device
+from ..models.model import make_model
+from ..parallel import mesh
+from ..utils.logging import (para_and_log, print_metrics, report_time_eval,
+                             report_time_train, setuplogger)
+from .checkpoint import (epoch_from_name, get_checkpoint, latest_checkpoint,
+                         load_checkpoint, save_checkpoint)
+from .evaluate import compute_item_embeddings, evaluate
+from .state import count_params, make_train_state, param_labels
+from .step import dedup_pack, make_train_step
+
+
+def check_supported(cfg: Config) -> None:
+    """Raises NotImplementedError for a configuration the port's runner does
+    not run yet, naming the ROADMAP item that brings it."""
+    later = [
+        (cfg.loss != "inbatch_ce", "loss='bce' (ROADMAP A3, BCE and DSSM)"),
+        (cfg.user_tower != "sasrec",
+         "user_tower='dssm' (ROADMAP A3, BCE and DSSM)"),
+        (cfg.stage != "end2end",
+         "stage='two_stage' (ROADMAP A4, fusion and two-stage)"),
+        (cfg.use_fusion, f"item_tower={cfg.item_tower!r} (ROADMAP A4, "
+                         f"fusion and two-stage)"),
+        (cfg.accumulation_step > 1,
+         "accumulation_step > 1 (ROADMAP A1, gradient accumulation)"),
+    ]
+    bad = [what for cond, what in later if cond]
+    if bad:
+        raise NotImplementedError("not ported: " + "; ".join(bad))
+
+
+def _pad_histories(hist_dict: Dict[int, np.ndarray], width: int) -> np.ndarray:
+    n = len(hist_dict)
+    out = np.zeros((n, width), dtype=np.int64)
+    for row, uid in enumerate(sorted(hist_dict.keys())):
+        h = hist_dict[uid]
+        out[row, :len(h)] = h[:width]
+    return out
+
+
+def _groups(batches, k: int):
+    """The batches in lists of k (the last one shorter)."""
+    group = []
+    for b in batches:
+        group.append(b)
+        if len(group) == k:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Trainer:
+    """Drives one experiment. Data, encoder and tokenizer are injectable.
+
+    encoder_bundle: (module, net_state_dict or None, frozen parameter
+    names, feature width) for a modal item tower -- the module built on the
+    trainer's device (``TextTower``, ``VisionTower``), the state_dict of its
+    pretrained ``net`` to load over the drawn weights, the names
+    ``param_labels`` freezes (``convert.bert_frozen_names``).
+    tokenizer: the text items' tokenizer (``data/preprocess.py``
+    ``read_items_tokenized``), for text end2end.
+    """
+
+    vision_pipe = None   # set for vision end2end (data/vision_loader.py)
+
+    def __init__(self, cfg: Config, log_file=None, log_screen=None, *,
+                 device=None, encoder_bundle=None, tokenizer=None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = on_device(device)
+        self.n_shards = mesh.process_count()
+        if log_file is None:
+            time_run = time.strftime("-%Y%m%d-%H%M%S", time.localtime())
+            log_file, log_screen = setuplogger(
+                cfg.dir_label(), cfg.log_paras(self.n_shards), time_run,
+                cfg.mode, cfg.behaviors)
+            if not mesh.is_coordinator():
+                # reference rank gating: non-rank-0 loggers log WARN+ only
+                log_file.setLevel(logging.WARNING)
+                log_screen.setLevel(logging.WARNING)
+        self.log = log_file
+        self.log_screen = log_screen or log_file
+        self.encoder_bundle = encoder_bundle
+        self.tokenizer = tokenizer
+        self.model_dir = cfg.model_dir(self.n_shards)
+        self.valid_results: Dict[int, dict] = {}   # epoch -> run_eval's
+        self.last_eval: Optional[dict] = None
+        self.train_stats = {"seconds": 0.0, "samples": 0, "steps": 0}
+
+    # ----------------------------------------------------------------- data
+    def load_data(self):
+        cfg = self.cfg
+        base = os.path.join(cfg.root_data_dir, cfg.dataset)
+        if cfg.use_modal and cfg.modality == "vision":
+            from ..data.imagestore import open_store
+            from ..data.vision_loader import VisionBatchPipe
+            keys_dic, n2i, i2n = read_image_manifest(
+                os.path.join(base, cfg.news))
+            bd = read_behaviors(os.path.join(base, cfg.behaviors), keys_dic,
+                                n2i, i2n, cfg.max_seq_len, cfg.min_seq_len,
+                                self.log)
+            store = open_store(os.path.join(base, cfg.image_store))
+            self.vision_pipe = VisionBatchPipe(store, bd.item_id_to_dic,
+                                               cfg.image_resize)
+            self.set_data(bd, None)
+            return
+        if cfg.use_modal:
+            if self.tokenizer is None:
+                raise ValueError(
+                    "text end2end tokenizes its items: pass "
+                    "Trainer(..., tokenizer=...) (the HF tokenizer's call "
+                    "signature)")
+            dic, n2i, i2n = read_items_tokenized(
+                os.path.join(base, cfg.news), cfg, self.tokenizer)
+            bd = read_behaviors(os.path.join(base, cfg.behaviors), dic, n2i,
+                                i2n, cfg.max_seq_len, cfg.min_seq_len,
+                                self.log)
+            item_content = build_doc_matrix(bd.item_id_to_dic, cfg)
+        else:
+            dic, n2i, i2n = read_items_text(os.path.join(base, cfg.news))
+            bd = read_behaviors(os.path.join(base, cfg.behaviors), dic, n2i,
+                                i2n, cfg.max_seq_len, cfg.min_seq_len,
+                                self.log)
+            item_content = None
+        self.set_data(bd, item_content)
+
+    def set_data(self, bd: BehaviorData, item_content: Optional[np.ndarray]):
+        """item_content: None (id, vision) or the int32 token matrix (text
+        end2end), kept on the device."""
+        cfg = self.cfg
+        self.bd = bd
+        self.item_num = bd.item_num
+        self.item_content = (None if item_content is None else
+                             torch.as_tensor(np.asarray(item_content)
+                                             ).long().to(self.device))
+        # an item seen only in valid/test has popularity 0: log -inf, as in
+        # the JAX package; no train batch holds it
+        with np.errstate(divide="ignore"):
+            log_pop = np.log(bd.pop_prob_list).astype(np.float32)
+        self.log_pop = torch.from_numpy(log_pop).to(self.device)
+        seqs, lens = pad_user_sequences(bd.users_train, cfg.seq_len_total)
+        self.batcher = TrainBatcher(seqs, lens, cfg.max_seq_len,
+                                    cfg.batch_size * self.n_shards,
+                                    seed=cfg.seed)
+        H = cfg.max_seq_len + 2
+        self.eval_valid = self._make_eval(bd.users_valid,
+                                          bd.users_history_for_valid, H)
+        self.eval_test = self._make_eval(bd.users_test,
+                                         bd.users_history_for_test, H)
+
+    def _make_eval(self, users_eval, histories, hist_width):
+        cfg = self.cfg
+        seqs, lens = pad_user_sequences(users_eval, cfg.seq_len_total)
+        return EvalBatches(seqs, lens, cfg.max_seq_len,
+                           cfg.eval_batch_size * self.n_shards,
+                           _pad_histories(histories, hist_width),
+                           num_shards=1)
+
+    # ---------------------------------------------------------------- model
+    def build_model(self):
+        """The model drawn from a generator seeded with ``cfg.seed`` (the
+        bundle's pretrained net loaded over it), its optimizer groups, and
+        a dropout generator seeded with ``cfg.seed + 1``."""
+        cfg = self.cfg
+        bundle = self.encoder_bundle
+        encoder = bundle[0] if bundle else None
+        if cfg.use_modal and encoder is None:
+            raise ValueError("a modal item tower needs Trainer(..., "
+                             "encoder_bundle=...)")
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.model = make_model(cfg, self.item_num,
+                                encoder if cfg.use_modal else None,
+                                device=self.device, generator=gen)
+        labels = None
+        if cfg.use_modal:
+            if bundle[1] is not None:
+                self.model.encoder.net.load_state_dict(bundle[1])
+            labels = param_labels(self.model, frozen=bundle[2])
+        n = count_params(self.model, labels)
+        self.n_total, self.n_trainable = n["total"], n["trainable"]
+        self.state = make_train_state(self.model, cfg, labels,
+                                      seed=cfg.seed + 1)
+        self.train_step = make_train_step(cfg, item_content=self.item_content,
+                                          log_pop=self.log_pop)
+
+    # ---------------------------------------------------------------- train
+    def make_batch(self, raw) -> Dict[str, Any]:
+        """One step's batch on the device from the batcher's global (ids,
+        log_mask): this rank's rows, dedup packing (``dedup_items``) and the
+        images of a vision tower (``uniq_content`` or ``content``)."""
+        cfg = self.cfg
+        ids, lm = raw
+        if self.n_shards > 1:
+            rows = mesh.host_rows(len(ids))
+            ids, lm = ids[rows], lm[rows]
+        host = {"ids": torch.from_numpy(np.asarray(ids, np.int64)),
+                "log_mask": torch.from_numpy(np.asarray(lm, np.float32))}
+        if cfg.dedup_items and cfg.use_modal:
+            packed = dedup_pack(ids, cfg.dedup_cap)
+            if packed is not None:
+                host["uniq_ids"], host["inverse"] = (torch.from_numpy(a)
+                                                     for a in packed)
+                if self.vision_pipe is not None:
+                    host["uniq_content"] = torch.from_numpy(
+                        self.vision_pipe.images_for(packed[0]))
+        if self.vision_pipe is not None and "uniq_ids" not in host:
+            host["content"] = torch.from_numpy(
+                self.vision_pipe.images_for(ids))
+        return {k: v.to(self.device) for k, v in host.items()}
+
+    def run_eval(self, users: str = "valid") -> tuple:
+        """(HR@10, nDCG@10) of the ``users`` split ("valid" or "test") over
+        the whole catalog; ``last_eval`` keeps the per-user values and the
+        encode and scoring seconds."""
+        cfg = self.cfg
+        content_fn = (self.vision_pipe.images_for
+                      if self.vision_pipe is not None else None)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        table = compute_item_embeddings(
+            self.model, self.item_num, self.item_content, cfg.embedding_dim,
+            cfg.item_emb_batch_size, content_fn=content_fn)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        ev = self.eval_valid if users == "valid" else self.eval_test
+        hit, ndcg, hits, ndcgs = evaluate(self.model, table, ev,
+                                          per_user=True)
+        t2 = time.perf_counter()
+        self.last_eval = {"split": users, "hit": hit, "ndcg": ndcg,
+                          "hits": hits, "ndcgs": ndcgs,
+                          "items": self.item_num + 1, "users": len(hits),
+                          "encode_s": t1 - t0, "score_s": t2 - t1}
+        print_metrics([hit, ndcg], self.log, cfg.mode)
+        return hit, ndcg
+
+    def _resume(self) -> int:
+        """Loads ``cfg.load_ckpt_name`` ("latest" for the newest) from the
+        model directory; returns its epoch."""
+        cfg = self.cfg
+        if cfg.load_ckpt_name == "latest":
+            ckpt_path = latest_checkpoint(self.model_dir)
+            if ckpt_path is None:
+                raise FileNotFoundError(f"no epoch-N.pt in {self.model_dir}")
+            cfg.load_ckpt_name = os.path.basename(ckpt_path)
+        else:
+            ckpt_path = get_checkpoint(self.model_dir, cfg.load_ckpt_name)
+            if ckpt_path is None:
+                raise FileNotFoundError(
+                    f"{cfg.load_ckpt_name} is not in {self.model_dir}")
+        load_checkpoint(ckpt_path, self.state)
+        self.log.info(f"Model loaded from {ckpt_path}")
+        return epoch_from_name(cfg.load_ckpt_name)
+
+    def _steps(self, batches):
+        """Runs the batches' steps back to back and returns their losses,
+        read together (one wait for the card a group)."""
+        losses = [self.train_step(self.state, b) for b in batches]
+        return torch.stack(losses).tolist()
+
+    def train(self):
+        cfg = self.cfg
+        from ..data.vision_loader import Prefetcher
+        start_time = time.time()
+        start_epoch = 0
+        is_early_stop = True
+        if "None" not in cfg.load_ckpt_name:
+            start_epoch = self._resume()
+            is_early_stop = False
+
+        global_bs = cfg.batch_size * self.n_shards
+        steps_for_log, _ = para_and_log(
+            self.n_total, self.n_trainable, self.batcher.n, global_bs,
+            self.log, cfg.logging_num, cfg.testing_num)
+
+        k = max(1, cfg.steps_per_dispatch)
+        max_eval_value, max_epoch, early_stop_count = 0.0, 0, 0
+        early_stop_epoch = cfg.epoch
+        next_set_start = time.time()
+        need_break = False
+        last_log_t = time.time()
+        for ep in range(cfg.epoch):
+            now_epoch = start_epoch + ep + 1
+            self.log.info(f"epoch {now_epoch} start")
+            loss_sum, batch_index = 0.0, 1
+            _sync(self.device)
+            t_epoch = time.perf_counter()
+            for group in _groups(Prefetcher(self.batcher.epoch(now_epoch),
+                                            self.make_batch), k):
+                losses = self._steps(group)
+                self.train_stats["steps"] += len(group)
+                self.train_stats["samples"] += len(group) * global_bs
+                for loss in losses:
+                    loss_sum += loss
+                    if np.isnan(loss):
+                        self.log.info(
+                            "NaN loss — stopping (run.py:249-251 parity)")
+                        need_break = True
+                        break
+                    if batch_index % steps_for_log == 0:
+                        now = time.time()
+                        sps = (steps_for_log * global_bs
+                               / max(now - last_log_t, 1e-9))
+                        last_log_t = now
+                        self.log.info(
+                            "cnt: {}, Ed: {}, batch loss: {:.5f}, sum loss: "
+                            "{:.5f}, samples/s: {:.0f}".format(
+                                batch_index, batch_index * global_bs,
+                                loss_sum / batch_index, loss_sum, sps))
+                    batch_index += 1
+                if need_break:
+                    break
+            _sync(self.device)
+            self.train_stats["seconds"] += time.perf_counter() - t_epoch
+
+            if not need_break:
+                eval_start = time.time()
+                self.log.info("Validating...")
+                hit, _ = self.run_eval("valid")
+                self.valid_results[now_epoch] = self.last_eval
+                report_time_eval(eval_start, self.log)
+                if hit > max_eval_value:
+                    max_eval_value, max_epoch = hit, now_epoch
+                    early_stop_count = 0
+                    save_checkpoint(self.model_dir, now_epoch, self.state,
+                                    {"best": max_eval_value},
+                                    self.log if mesh.is_coordinator()
+                                    else None)
+                else:
+                    early_stop_count += 1
+                    if early_stop_count > cfg.early_stop_gap:
+                        early_stop_epoch = now_epoch
+                        if is_early_stop:
+                            need_break = True
+            next_set_start = report_time_train(batch_index - 1, now_epoch,
+                                               loss_sum, next_set_start,
+                                               start_time, self.log)
+            self.log_screen.info("{} training: epoch {}/{}".format(
+                cfg.label_screen, now_epoch, cfg.epoch))
+            if need_break:
+                break
+        self.log.info(" max eval Hit10 {:0.5f}  in epoch {}".format(
+            max_eval_value * 100, max_epoch))
+        self.log.info(" early stop in epoch {}".format(early_stop_epoch))
+        return max_eval_value, max_epoch
+
+    def test(self):
+        """Standalone checkpoint evaluation on the test split (reference
+        run_test.py:26-187). Without a checkpoint of that name, the model
+        as built is evaluated, as in the JAX package."""
+        cfg = self.cfg
+        if cfg.cold_behaviors or cfg.new_behaviors:
+            raise NotImplementedError(
+                "cold/new-item evaluation is not ported (ROADMAP A5)")
+        if cfg.load_ckpt_name == "latest":
+            ckpt_path = latest_checkpoint(self.model_dir)
+        else:
+            ckpt_path = get_checkpoint(self.model_dir, cfg.load_ckpt_name)
+        if ckpt_path:
+            load_checkpoint(ckpt_path, self.state)
+            self.log.info(f"Model loaded from {ckpt_path}")
+        else:
+            self.log.warning(f"no checkpoint {cfg.load_ckpt_name} in "
+                             f"{self.model_dir}: testing the model as built")
+        return self.run_eval("test")
+
+
+def load_encoder(cfg: Config, device) -> tuple:
+    """The encoder bundle the CLI builds for a modal item tower: the Swin
+    tower of ``cfg.cv_model_load`` from its config, weights drawn by
+    ``build_model``. Text end2end needs a tokenizer and pretrained BERT
+    files, which the repository does not hold: build the tower and call
+    ``Trainer(cfg, encoder_bundle=..., tokenizer=...)``."""
+    if cfg.modality == "text":
+        raise NotImplementedError(
+            "text end2end through the CLI needs a tokenizer and pretrained "
+            "BERT weights, which are not in the repository; build a "
+            "TextTower (models/text_tower.py) and run Trainer(cfg, "
+            "encoder_bundle=(tower, None, frozen, width), tokenizer=...)")
+    if cfg.freeze_paras_before > 0:
+        raise NotImplementedError(
+            "freezing a vision tower by the reference's parameter index is "
+            "not ported (ROADMAP A7, the other encoders)")
+    from ..models.vision_tower import build_vision_tower
+    tower = build_vision_tower(cfg, device=device)
+    return tower, None, set(), tower.classifier.weight.shape[0]
+
+
+def run(cfg: Config, device=None):
+    """The CLI's experiment: train (returns (best valid HR@10, its epoch))
+    or test (returns (HR@10, nDCG@10)). ``device`` None is the card."""
+    if cfg.distributed:
+        mesh.init_distributed(cfg.process_id, cfg.num_processes,
+                              init_method=f"tcp://{cfg.coordinator_address}")
+    trainer = Trainer(cfg, device=device)
+    if cfg.use_modal:
+        trainer.encoder_bundle = load_encoder(cfg, trainer.device)
+    trainer.load_data()
+    trainer.build_model()
+    if "train" in cfg.mode:
+        return trainer.train()
+    return trainer.test()

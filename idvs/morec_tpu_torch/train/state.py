@@ -5,14 +5,20 @@ Reference semantics (inbatch_sasrec_e2e_text/run.py:150-191): two AdamW
 parameter groups, the pretrained text encoder at (fine_tune_lr,
 fine_tune_l2_weight) and everything else, the item tower's projection fc
 included, at (lr, l2_weight); one group for IDRec. torch AdamW defaults:
-betas (0.9, 0.999), eps 1e-8, decoupled weight decay. Frozen encoder layers
-are not ported.
+betas (0.9, 0.999), eps 1e-8, decoupled weight decay.
+
+Frozen parameters (the encoder's first ``freeze_paras_before`` parameters in
+the reference's ``named_parameters()`` order, ``convert.py``
+``bert_frozen_names``) carry FROZEN_LABEL: ``make_train_state`` sets their
+``requires_grad`` to False and no optimizer group holds them, so they get
+no update and no weight decay (the JAX package's ``optax.set_to_zero``
+group; torch never decays a parameter without a gradient).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 from torch import nn
@@ -21,6 +27,7 @@ from ..parallel import mesh
 
 ENCODER_LABEL = "encoder"
 RECSYS_LABEL = "recsys"
+FROZEN_LABEL = "frozen"
 
 
 def default_encoder_predicate(keys: tuple) -> bool:
@@ -33,19 +40,42 @@ def default_encoder_predicate(keys: tuple) -> bool:
 
 def param_labels(model: nn.Module,
                  is_encoder_path: Callable[[tuple], bool]
-                 = default_encoder_predicate) -> Dict[str, str]:
+                 = default_encoder_predicate,
+                 frozen: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Parameter name -> ENCODER_LABEL or RECSYS_LABEL, by the predicate on
-    the name's dotted keys."""
-    return {name: (ENCODER_LABEL if is_encoder_path(tuple(name.split(".")))
+    the name's dotted keys; FROZEN_LABEL for the names in ``frozen``."""
+    frozen = set(frozen or ())
+    names = [name for name, _ in model.named_parameters()]
+    unknown = frozen.difference(names)
+    if unknown:
+        raise KeyError(f"frozen names that are no parameter of the model: "
+                       f"{sorted(unknown)[:5]}")
+    return {name: (FROZEN_LABEL if name in frozen else
+                   ENCODER_LABEL if is_encoder_path(tuple(name.split(".")))
                    else RECSYS_LABEL)
-            for name, _ in model.named_parameters()}
+            for name in names}
+
+
+def count_params(model: nn.Module,
+                 labels: Optional[Dict[str, str]] = None) -> Dict[str, int]:
+    """{"total", "trainable"}: the parameters' element counts (buffers are
+    no parameters), trainable without the frozen ones (JAX runner.py:350-364,
+    the reference's utils.py:92-96 audit)."""
+    labels = labels or {}
+    total = trainable = 0
+    for name, p in model.named_parameters():
+        total += p.numel()
+        if labels.get(name) != FROZEN_LABEL:
+            trainable += p.numel()
+    return {"total": total, "trainable": trainable}
 
 
 def make_optimizer(cfg, model: nn.Module,
                    labels: Optional[Dict[str, str]] = None
                    ) -> torch.optim.AdamW:
     """AdamW over the model's parameters: one group (IDRec, labels None) or
-    the encoder and recsys groups of ``labels``."""
+    the encoder and recsys groups of ``labels``; frozen parameters are in
+    no group."""
     hyper = {RECSYS_LABEL: (cfg.lr, cfg.l2_weight),
              ENCODER_LABEL: (cfg.fine_tune_lr, cfg.fine_tune_l2_weight)}
     named = list(model.named_parameters())
@@ -73,10 +103,12 @@ def make_train_state(model: nn.Module, cfg,
                      labels: Optional[Dict[str, str]] = None,
                      seed: int = 1) -> TrainState:
     """Switches ``model`` to training mode and builds its TrainState; the
-    dropout generator lives on the host and is seeded with ``seed``. Under
-    a process group every rank starts from rank 0's parameters and
-    buffers."""
+    dropout generator lives on the host and is seeded with ``seed``. The
+    parameters ``labels`` freezes stop requiring a gradient. Under a process
+    group every rank starts from rank 0's parameters and buffers."""
     model.train()
+    for name, p in model.named_parameters():
+        p.requires_grad_((labels or {}).get(name) != FROZEN_LABEL)
     pg = mesh.group()
     if pg is not None:
         with torch.no_grad():

@@ -962,3 +962,49 @@ def test_inbatch_ce_entries_refuse_other_plans(what):
     torch.cuda.synchronize()
     assert err != 0
     assert all(t.isnan().all() for t in outs)
+
+
+def test_idrec_runner_launches_the_kernels(tmp_path, monkeypatch):
+    """One IDRec epoch through the runner on the card (bf16, use_pallas,
+    SASRec at D 512, L 20), its evaluation in float32 and a test-mode
+    reload: every kernel of the path launched, the train step's kernels
+    once a step a block or more, and the reload's evaluation of the valid
+    split the same bits as the run's."""
+    from idvs.morec_tpu_torch import quickstart
+    from idvs.morec_tpu_torch.config import parse_args
+    from idvs.morec_tpu_torch.ops.cuda import gemm as gemm_mod
+    from idvs.morec_tpu_torch.train.runner import Trainer
+    monkeypatch.chdir(tmp_path)
+    quickstart.make_dataset("SYNTH", n_users=512, n_items=400, n_groups=4,
+                            lengths=(6, 24))
+    flags = ["--root_data_dir", "./", "--dataset", "SYNTH", "--news",
+             "news.tsv", "--behaviors", "behaviors.tsv", "--item_tower", "id",
+             "--max_seq_len", "20", "--embedding_dim", "512",
+             "--batch_size", "64", "--lr", "1e-3", "--use_pallas", "true",
+             "--epoch", "1"]
+    tr = Trainer(parse_args(flags))
+    assert tr.device.type == "cuda"
+    tr.load_data()
+    tr.build_model()
+    train_kernels = (fused_mha_bwd, fused_proj_resln_res, fused_proj_resln_bwd,
+                     fused_mlp_resln_res, fused_mlp_resln_bwd,
+                     fused_inbatch_ce, fused_inbatch_ce_bwd)
+    eval_kernels = (fused_proj_resln, fused_mlp_resln)
+    for w in (fused_mha, gemm_mod.gemm) + train_kernels + eval_kernels:
+        w.launches = 0
+    best, best_epoch = tr.train()
+    steps = tr.train_stats["steps"]
+    assert steps == tr.batcher.steps_per_epoch() and best_epoch == 1
+    for w in train_kernels:
+        assert w.launches >= steps, w.__name__
+    assert fused_inbatch_ce.launches == steps
+    for w in (fused_mha, gemm_mod.gemm) + eval_kernels:
+        assert w.launches > 0, w.__name__
+    te = Trainer(parse_args(flags + ["--mode", "test", "--load_ckpt_name",
+                                     f"epoch-{best_epoch}.pt"]))
+    te.load_data()
+    te.build_model()
+    te.test()
+    assert te.run_eval("valid") == (best, tr.valid_results[1]["ndcg"])
+    np.testing.assert_array_equal(te.last_eval["hits"],
+                                  tr.valid_results[1]["hits"])

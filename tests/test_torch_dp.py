@@ -19,7 +19,6 @@ import itertools
 import os
 import subprocess
 import sys
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -68,6 +67,7 @@ def _data():
 def _rank_main(rank: int, tmp: str) -> None:
     assert "jax" not in sys.modules
     torch.set_num_threads(1)
+    from idvs.morec_tpu_torch.config import Config
     from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
     from idvs.morec_tpu_torch.models.model import make_model
     from idvs.morec_tpu_torch.models.text_tower import TextTower
@@ -84,8 +84,8 @@ def _rank_main(rank: int, tmp: str) -> None:
     assert rows == slice(rank * B // WORLD, (rank + 1) * B // WORLD)
     out = {}
     for item_tower, gather, pallas in CASES:
-        cfg = SimpleNamespace(**CFG, item_tower=item_tower,
-                              gather_negatives=gather, use_pallas=pallas)
+        cfg = Config(**CFG, item_tower=item_tower,
+                     gather_negatives=gather, use_pallas=pallas)
         modal = item_tower == "modal"
         enc = (TextTower(BertModel(BertConfig(**BERT), device="cpu"), D, 64,
                          attr_lengths=(T,), device="cpu") if modal else None)

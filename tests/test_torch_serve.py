@@ -129,14 +129,12 @@ def test_serving_runs_in_eval_mode_whatever_the_model_mode():
     leaves it in training mode): encode_catalog, recommend and
     update_items give their eval-mode results, and the model stays in
     training mode."""
-    from types import SimpleNamespace
+    from idvs.morec_tpu_torch.config import Config
     from idvs.morec_tpu_torch.train.state import make_train_state
-    cfg = SimpleNamespace(item_tower="id", user_tower="sasrec",
-                          stage="end2end", embedding_dim=D,
-                          num_attention_heads=2, transformer_block=2,
-                          max_seq_len=L, drop_rate=0.1, lr=1e-3,
-                          l2_weight=0.0, fine_tune_lr=1e-3,
-                          fine_tune_l2_weight=0.0)
+    cfg = Config(item_tower="id", user_tower="sasrec", stage="end2end",
+                 embedding_dim=D, num_attention_heads=2, transformer_block=2,
+                 max_seq_len=L, drop_rate=0.1, lr=1e-3, l2_weight=0.0,
+                 fine_tune_lr=1e-3, fine_tune_l2_weight=0.0)
     model = make_model(cfg, ITEMS, device="cpu",
                        generator=torch.Generator().manual_seed(0))
     model.eval()
@@ -156,15 +154,30 @@ def test_serving_runs_in_eval_mode_whatever_the_model_mode():
 
 
 def test_port_runs_the_slice_without_jax():
-    """A fresh interpreter imports the port, encodes a catalog, serves a
-    request and takes one train step on the CPU (text MoRec), then encodes
-    an image catalog through a Swin tower, serves a request and takes one
-    train step over images shipped with the batch (vision MoRec), and never
-    imports jax (the test process itself has jax loaded
-    by conftest, hence the subprocess)."""
+    """A fresh interpreter, where importing jax or the JAX package raises,
+    imports the port, encodes a catalog, serves a request and takes one
+    train step on the CPU (text MoRec), then encodes an image catalog
+    through a Swin tower, serves a request and takes one train step over
+    images shipped with the batch (vision MoRec); then imports the runner's
+    modules and the CLI, trains IDRec for one epoch through
+    ``Trainer(cfg, device="cpu")`` and reloads the best checkpoint in test
+    mode; the CLI itself refuses to run without a GPU (the test process
+    itself has jax loaded by conftest, hence the subprocess)."""
     code = textwrap.dedent("""
+        import importlib.abc
         import sys
-        from types import SimpleNamespace
+
+        class NoJax(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                top = name.split(".")[0]
+                if (top in ("jax", "jaxlib", "flax", "optax")
+                        or name == "idvs.morec_tpu"
+                        or name.startswith("idvs.morec_tpu.")):
+                    raise ImportError(f"{name} is blocked in this test")
+                return None
+
+        sys.meta_path.insert(0, NoJax())
+        from idvs.morec_tpu_torch.config import Config
         import numpy as np
         import torch
         import idvs.morec_tpu_torch
@@ -172,10 +185,10 @@ def test_port_runs_the_slice_without_jax():
         from idvs.morec_tpu_torch.models.model import make_model
         from idvs.morec_tpu_torch.models.text_tower import TextTower
         from idvs.morec_tpu_torch.serve import Retriever
-        cfg = SimpleNamespace(item_tower="modal", user_tower="sasrec",
-                              stage="end2end", embedding_dim=32,
-                              num_attention_heads=2, transformer_block=2,
-                              max_seq_len=6)
+        cfg = Config(item_tower="modal", user_tower="sasrec",
+                     stage="end2end", embedding_dim=32,
+                     num_attention_heads=2, transformer_block=2,
+                     max_seq_len=6)
         enc = TextTower(BertModel(BertConfig(
             vocab_size=97, hidden_size=32, num_hidden_layers=2,
             num_attention_heads=2, intermediate_size=64,
@@ -258,6 +271,42 @@ def test_port_runs_the_slice_without_jax():
         first = engine.recommend([[1, 2, 3]], top_k=5)
         again = engine.recommend([[1, 2, 3]], top_k=5)
         assert (first[0] == again[0]).all() and vmodel.training
+        # the runner: every module of it and the CLI, one IDRec epoch and a
+        # test-mode reload of the best checkpoint on the CPU
+        import os, tempfile
+        import idvs.morec_tpu_torch.data.imagestore
+        import idvs.morec_tpu_torch.data.loader
+        import idvs.morec_tpu_torch.data.preprocess
+        import idvs.morec_tpu_torch.data.vision_loader
+        import idvs.morec_tpu_torch.ops.metrics
+        import idvs.morec_tpu_torch.train.checkpoint
+        import idvs.morec_tpu_torch.train.evaluate
+        import idvs.morec_tpu_torch.utils.logging
+        from idvs.morec_tpu_torch import quickstart, run
+        from idvs.morec_tpu_torch.config import parse_args
+        from idvs.morec_tpu_torch.train.runner import Trainer
+        os.chdir(tempfile.mkdtemp())
+        quickstart.make_dataset("SYNTH", n_users=120, n_items=40, n_groups=4)
+        flags = quickstart.FLAGS + ["--epoch", "1"]
+        tr = Trainer(parse_args(flags), device="cpu")
+        tr.load_data()
+        tr.build_model()
+        best, best_epoch = tr.train()
+        assert best_epoch == 1 and 0 < best <= 1
+        te = Trainer(parse_args(flags + ["--mode", "test", "--load_ckpt_name",
+                                         "epoch-1.pt"]), device="cpu")
+        te.load_data()
+        te.build_model()
+        hit, ndcg = te.test()
+        assert 0 <= ndcg <= hit <= 1
+        assert te.run_eval("valid")[0] == best
+        if not torch.cuda.is_available():
+            try:
+                run.main(flags)
+            except RuntimeError as e:
+                assert "no CUDA device" in str(e)
+            else:
+                raise AssertionError("the CLI ran without a GPU")
         mods = [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")]
         assert not mods, mods

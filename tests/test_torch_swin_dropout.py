@@ -16,7 +16,6 @@
 """
 
 import math
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -27,6 +26,7 @@ import jax.numpy as jnp
 
 from idvs.morec_tpu.models import swin as jswin
 from idvs.morec_tpu_torch import convert
+from idvs.morec_tpu_torch.config import Config
 from idvs.morec_tpu_torch.models.layers import init_parameters, layer_norm
 from idvs.morec_tpu_torch.models.model import make_model
 from idvs.morec_tpu_torch.models.swin import (SwinBlock, SwinConfig,
@@ -186,13 +186,12 @@ def test_recompute_draws_the_dropouts_of_the_first_forward(monkeypatch):
                       num_heads=(2, 4), window_size=4, drop_path_rate=0.1,
                       hidden_dropout_prob=0.1,
                       attention_probs_dropout_prob=0.1)
-    cfg = SimpleNamespace(item_tower="modal", user_tower="sasrec",
-                          stage="end2end", embedding_dim=32,
-                          num_attention_heads=2, transformer_block=2,
-                          max_seq_len=6, drop_rate=0.1, loss="inbatch_ce",
-                          compute_dtype="float32", lr=1e-3, l2_weight=0.0,
-                          fine_tune_lr=5e-4, fine_tune_l2_weight=0.0,
-                          encoder_chunk=4)
+    cfg = Config(item_tower="modal", user_tower="sasrec", stage="end2end",
+                 embedding_dim=32, num_attention_heads=2,
+                 transformer_block=2, max_seq_len=6, drop_rate=0.1,
+                 loss="inbatch_ce", compute_dtype="float32", lr=1e-3,
+                 l2_weight=0.0, fine_tune_lr=5e-4, fine_tune_l2_weight=0.0,
+                 encoder_chunk=4)
     rng = np.random.default_rng(0)
     pool = rng.integers(0, 256, size=(8, 32, 32, 3), dtype=np.uint8)
     ids = rng.integers(1, 12, size=(4, 7))

@@ -8,7 +8,6 @@ tolerance for its Swin modules; the catalog table within 1e-4 (a tower, a
 classifier and a GELU deep); top-k ids are the same outside score ties.
 """
 
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -25,6 +24,7 @@ from idvs.morec_tpu.models.vision_tower import VisionTower as JaxVisionTower
 from idvs.morec_tpu.ops.masking import causal_additive_mask as jax_causal
 from idvs.morec_tpu.serve import Retriever as JaxRetriever
 from idvs.morec_tpu_torch import convert
+from idvs.morec_tpu_torch.config import Config as PortConfig
 from idvs.morec_tpu_torch.models.layers import init_parameters
 from idvs.morec_tpu_torch.models.model import make_model
 from idvs.morec_tpu_torch.models.sasrec import TransformerBlock
@@ -139,8 +139,8 @@ def test_vision_tower_compute_dtype_and_refusals():
 @pytest.mark.parametrize("name,features,depths", [
     ("swin-tiny", 768, (2, 2, 6, 2)), ("swin_base", 1024, (2, 2, 18, 2))])
 def test_build_vision_tower_default_geometries(name, features, depths):
-    cfg = SimpleNamespace(cv_model_load=name, embedding_dim=64,
-                          compute_dtype="bfloat16", stage="end2end")
+    cfg = PortConfig(cv_model_load=name, embedding_dim=64,
+                     compute_dtype="bfloat16", stage="end2end")
     tower = build_vision_tower(cfg, device="meta")
     assert tower.net.cfg.depths == depths
     assert tuple(tower.classifier.weight.shape) == (features, 64)
@@ -154,7 +154,7 @@ def test_build_vision_tower_default_geometries(name, features, depths):
 
 @pytest.mark.parametrize("name", ["resnet50", "mae", "beit_base", "clip_vit"])
 def test_build_vision_tower_names_the_later_slice(name):
-    cfg = SimpleNamespace(cv_model_load=name, embedding_dim=64)
+    cfg = PortConfig(cv_model_load=name, embedding_dim=64)
     with pytest.raises(NotImplementedError, match="later slice"):
         build_vision_tower(cfg)
 
@@ -168,10 +168,10 @@ def test_build_vision_tower_names_the_later_slice(name):
 def test_entry_points_build_on_the_gpu_unless_told(build):
     """With no device named a module is built on the GPU; where none is
     visible that raises and nothing lands on the CPU unasked."""
-    cfg = SimpleNamespace(cv_model_load="swin-tiny", embedding_dim=D,
-                          item_tower="id", user_tower="sasrec",
-                          stage="end2end", num_attention_heads=2,
-                          transformer_block=1, max_seq_len=L)
+    cfg = PortConfig(cv_model_load="swin-tiny", embedding_dim=D,
+                     item_tower="id", user_tower="sasrec", stage="end2end",
+                     num_attention_heads=2, transformer_block=1,
+                     max_seq_len=L)
     if torch.cuda.is_available():
         assert {p.device.type for p in build(cfg).parameters()} == {"cuda"}
     else:
