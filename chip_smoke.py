@@ -85,7 +85,10 @@ failure:
     beside F.scaled_dot_product_attention's backward at dropout 0; each
     windowed attention backward with its attention core's device time,
     torch.profiler; each tail's training forward beside its products
-    through torch.matmul); then
+    through torch.matmul); then the pre-LN MLP's backward at each Swin-T
+    stage through the route premlp_bwd_plan picks and, where it picks
+    the fused kernel (premlp_bwd_mma_kernel), both routes' times (CUDA
+    events and device time) and their gradients against each other; then
     the tensor-core gemm() (every backward's products) at the three
     largest products of the stage-0 band backward, against torch.matmul
     on the same bf16 operands, and at the four of the text FFN tail's
@@ -103,7 +106,8 @@ failure:
     then, the counters set to 0 again, two Zipf steps under the "windows"
     kernel selection; step p50, samples/s, images/s, losses, peak device
     memory; every training-edition and backward kernel of each selection's
-    path launched;
+    path launched, the residual MLP's backward through
+    premlp_bwd_mma_kernel;
 12. vision gradient check: one float32 step in training mode on 2 users,
     on the card under both kernel selections and through the plain path on
     a CPU copy of the model, DropPath and dropout drawn from the same seed:
@@ -184,9 +188,9 @@ is visible.
 runs only the card and build phases and a torch.profiler split by device
 kernel of the train step, of the vision catalog encode, of the vision
 recommend at batches of 1 and 64 and of the vision train step without and
-with Swin's dropouts (wall and device-busy ms, each kernel's share, and
-fused_mha's kernels even outside the top rows), and prints no result
-line.
+with Swin's dropouts (wall and device-busy ms, each kernel's share,
+fused_mha's kernels and the pre-LN MLP backward's even outside the top
+rows, gemm.cu's sum and colsum_kernel's), and prints no result line.
 """
 
 from __future__ import annotations
@@ -214,6 +218,7 @@ from idvs.morec_tpu_torch.data.imagestore import write_mkv
 from idvs.morec_tpu_torch.bench_gemm import f32_product_cases, product_cases
 from idvs.morec_tpu_torch.bench_swin import (CORE, attention_products,
                                              device_ms, mlp_products)
+from idvs.morec_tpu_torch.bench_swin import mlp_bwd_work as premlp_bwd_work
 from idvs.morec_tpu_torch.bench_tail import proj_products, tail_products
 from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
@@ -249,7 +254,8 @@ from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
                                                fused_proj_resln_bwd,
                                                fused_proj_resln_plain,
                                                fused_proj_resln_res,
-                                               relu_kink)
+                                               premlp_bwd_plan,
+                                               PREMLP_BWD_ROUTES, relu_kink)
 from idvs.morec_tpu_torch.ops import dropout
 from idvs.morec_tpu_torch.ops.losses import inbatch_ce_candidates
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
@@ -274,7 +280,13 @@ LR, FT_LR, DROP = 1e-4, 5e-5, 0.1
 FIXED_STEPS, TIMED_STEPS = 20, 10
 CHECK_USERS = 8             # users of the float32 gradient check
 PROFILE_STEPS, PROFILE_ROWS = 5, 12   # --profile: steps traced, rows shown
-PROFILE_WATCH = "::mha_"    # --profile: fused_mha's kernels, always shown
+# --profile: kernels shown even outside the top rows: fused_mha's, and the
+# pre-LN MLP backward's on both routes (premlp_bwd.cu, gemm.cu's A pre-pass,
+# the column sums)
+PROFILE_WATCH = ("::mha_", "premlp_bwd_mma_kernel", "group_sums_kernel",
+                 "::act_cast_kernel", "::colsum_kernel", "::ln_rows_kernel",
+                 "scale_rows_kernel", "ln_bwd_rows_kernel",
+                 "ln_colsums_kernel")
 # --profile: csrc/gemm.cu's kernels (products, split-K sums, A's
 # prologue), summed on a line of their own
 PROFILE_GEMM = ("::gemm_mma_kernel", "::splitk_reduce_kernel",
@@ -613,12 +625,6 @@ def win_attn_bwd_work(windows, T, C, nh, P, it):
     rows = windows * T
     return (rows * (22 * C * C + 12 * T * C),
             (3 * rows * C + 8 * C * C + 8 * C) * it + 8 * P * nh * T * T)
-
-
-def premlp_bwd_work(M, C, F, it, scale=False):
-    # h again, dw2, dh, dw1, dxn; reads x, dout, w1, w2; writes dx, dw1, dw2
-    return 10 * M * C * F, ((3 * M * C + 4 * C * F + 2 * F + 2 * C) * it
-                            + 16 * C + (4 * M if scale else 0))
 
 
 def ce_work(M, N, D, it, id_elems):
@@ -1409,9 +1415,10 @@ def profiled(run, n: int, what: str, unit: str, card: str) -> None:
     """torch.profiler split of ``run()`` by device kernel, reported per
     ``unit`` (``run`` covers n of them): the wall and device-busy time and
     each kernel's share of the busy time (user annotations left out); the
-    top PROFILE_ROWS kernels, the rest in one line, then each fused_mha
-    kernel (PROFILE_WATCH) among the rest on a line of its own, and last
-    the sum of gemm.cu's kernels (PROFILE_GEMM)."""
+    top PROFILE_ROWS kernels, the rest in one line, then each kernel of
+    PROFILE_WATCH (fused_mha's, the pre-LN MLP backward's) among the rest
+    on a line of its own, and last the sum of gemm.cu's kernels
+    (PROFILE_GEMM) and the column sums' (colsum_kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1442,13 +1449,17 @@ def profiled(run, n: int, what: str, unit: str, card: str) -> None:
           f"x{sum(r[1] for r in rest):<5g} the other {len(rest)} kernels",
           flush=True)
     for ms, count, name in rest:
-        if PROFILE_WATCH in name:
+        if any(w in name for w in PROFILE_WATCH):
             print(f"    of which {100 * ms / busy:6.2f} % {ms:8.3f} "
                   f"ms/{unit} x{count:<5g} {name[:100]}", flush=True)
     gemm = [r for r in rows if any(k in r[2] for k in PROFILE_GEMM)]
     ms = sum(r[0] for r in gemm)
     print(f"  gemm.cu's kernels: {100 * ms / busy:.2f} % {ms:.3f} ms/{unit} "
           f"x{sum(r[1] for r in gemm):g} in {len(gemm)} kernels", flush=True)
+    sums = [r for r in rows if "::colsum_kernel" in r[2]]
+    print(f"  colsum_kernel: {100 * sum(r[0] for r in sums) / busy:.2f} % "
+          f"{sum(r[0] for r in sums):.3f} ms/{unit} "
+          f"x{sum(r[1] for r in sums):g}", flush=True)
 
 
 def profile_train(dev, card: str, content, batches, cap: int) -> None:
@@ -1731,6 +1742,55 @@ def vision_backward_cases(dev, images: int):
                 (lambda *a, kw=kw: relu_at_kink(*a, **kw))
                 if dt == torch.float32 else None))
     return cases
+
+
+def premlp_bwd_routes(dev, card: str, images: int) -> None:
+    """The pre-LN MLP's backward at each Swin-T stage for `images`
+    images, bf16, with DropPath's row scale: the route premlp_bwd_plan
+    picks, and where it picks the fused kernel both routes' calls alone
+    (PREMLP_BWD_ROUTES: premlp_bwd_mma_kernel and gemm.cu's two weight
+    products, or gemm.cu's five products around the row passes), CUDA-event
+    and device time, their gradients against each other at GRAD_TOL (each
+    route is held against autograd of the plain version in the cases
+    before)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
+                                          device=dev) * scale
+    bf = torch.bfloat16
+    for C, _, side in SWIN_STAGES:
+        M, Fw = images * side * side, 4 * C
+        k = premlp_bwd_plan(C, M, bf)
+        where = f"scaled M={M} C={C} F={Fw} gelu bf16"
+        if k["route"] != "fused":
+            print(f"premlp_bwd routes [{where}]: the plan takes "
+                  f"{k['route']} [{card}]", flush=True)
+            continue
+        x2, dout = g(M, C).to(bf), g(M, C).to(bf)
+        w1, b1, w2 = (g(C, Fw, scale=C ** -0.5).to(bf),
+                      g(Fw, scale=0.1).to(bf), g(Fw, C, scale=Fw ** -0.5).to(bf))
+        ln = [1.0 + g(C, scale=0.1), g(C, scale=0.1)]
+        keep = (torch.rand(images, generator=gen, device=dev) < 0.9)
+        scale = (keep.float() / 0.9).repeat_interleave(side * side)
+        ops = (x2, dout, scale, w1, b1, w2, ln, None, 1e-5, "gelu", True,
+               lib.DTYPE_CODES[bf])
+        got = {r: fn(*ops) for r, fn in PREMLP_BWD_ROUTES.items()}
+        torch.cuda.synchronize()
+        worst = _worst_err(got["fused"], got["products"],
+                           f"premlp_bwd routes {where}")
+        del got
+        times = {r: (cuda_ms(lambda fn=fn: fn(*ops), reps=VB_REPS),
+                     device_ms(lambda fn=fn: fn(*ops), VB_REPS)[0])
+                 for r, fn in PREMLP_BWD_ROUTES.items()}
+        plan = {n: k[n] for n in ("rows", "f_chunk", "threads", "smem",
+                                  "row_warps", "col_warps", "blocks_per_sm")}
+        print(f"premlp_bwd routes [{where}]: the plan takes fused {plan}; "
+              + ", ".join(f"{r} {ms:.4f} ms ({dev_ms:.4f} ms device)"
+                          for r, (ms, dev_ms) in times.items())
+              + f"; fused against products max_abs_err {worst[1]:.3e} on a "
+              f"scale of {worst[2]:.3g} [{card}]", flush=True)
+        require(worst[0] <= GRAD_TOL[bf], f"premlp_bwd routes {where}: "
+                f"error {worst[1]} above {GRAD_TOL[bf]} x {worst[2]}")
+        del x2, dout, ops
 
 
 def gemm_phase(dev, card: str, images: int, titles: int) -> dict:
@@ -2065,9 +2125,15 @@ def vision_train_path(dev, card: str, pool: np.ndarray) -> dict:
     cap = -(-most // V_CAP_QUANTUM) * V_CAP_QUANTUM
     print(f"vision train: {len(zipf)} Zipf({ZIPF_A}) batches, at most {most} "
           f"unique items, dedup cap {cap}", flush=True)
+    earlier, fused_mlp_res_bwd.bodies = fused_mlp_res_bwd.bodies, set()
     launched = vision_train_run(dev, card, pool, zipf, cap, 0, V_FIXED_STEPS,
                                 V_TIMED_STEPS, "zipf, dedup")
-    print(f"vision training launches {launched}", flush=True)
+    seen = fused_mlp_res_bwd.bodies
+    fused_mlp_res_bwd.bodies = earlier | seen
+    print(f"vision training launches {launched}; the MLP backward's device "
+          f"kernels {sorted(seen)}", flush=True)
+    require("premlp_bwd_mma_kernel" in seen, "the vision train step's MLP "
+            "backward never took premlp_bwd_mma_kernel")
     for n in VISION_TRAIN_KERNELS:
         require(launched[n] > 0, f"{n} never launched in vision training")
     torch.cuda.empty_cache()
@@ -3051,8 +3117,10 @@ def runner_vision(dev, card: str) -> dict:
     report_runner("vision MoRec", card, tr, watch,
                   tr.valid_results[best_epoch])
     same_eval(band, tr.valid_results[best_epoch], "runner vision MoRec")
+    # HR@10 as hit counts: a float difference of two fractions of n can
+    # round one ulp above 2 / n when exactly two users differ
     n = band["users"]
-    require(abs(windows["hit"] - band["hit"]) <= 2 / n
+    require(abs(round(windows["hit"] * n) - round(band["hit"] * n)) <= 2
             and abs(windows["ndcg"] - band["ndcg"]) <= 2 / n,
             "the two kernel selections evaluate apart")
     train, evals = watch.launches()
@@ -3165,6 +3233,8 @@ def main() -> int:
               f"plain versions' autograd "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
               flush=True)
+        torch.cuda.empty_cache()
+        premlp_bwd_routes(dev, card, V_BWD_IMAGES)
         torch.cuda.empty_cache()
         merge(kernels, gemm_phase(dev, card, V_BWD_IMAGES, cap))
     torch.cuda.empty_cache()

@@ -23,7 +23,17 @@ CUDA-event and device time of autograd's backward of the call, and the
 device time of the attention core alone (the kernels of ``CORE``: the core
 and its fixed-order dbias sum) beside the core's own bound (``core_work``).
 
---report compiles premlp.cu, win_attn.cu and win_attn_bwd.cu with the
+MLP backward rows, bf16, 288 images a stage: ``fused_mlp_res`` with
+DropPath's row scale (the band path's block) and ``fused_mlp`` with its
+LayerNorm (the window path's), F = 4C, GELU, as CUDA-event and device time
+of autograd's backward of one kept forward, by kernel, beside
+``mlp_bwd_work``'s bound and the yardstick of its five products through
+torch.matmul on bf16 operands (h = xn w1, dg = dy w2ᵀ, dW2 = gᵀ dy, dW1 =
+xnᵀ dh, dxn = dh w1ᵀ); where the tree has ``premlp_bwd_plan``, the row
+names the plan's route and times each route's call alone (``routes``:
+event and device ms).
+
+--report compiles premlp.cu, premlp_bwd.cu, win_attn.cu and win_attn_bwd.cu with the
 library's flags and -Xptxas -v and prints each kernel's registers, spills
 and static shared memory and its HMMA instructions (bench_gemm's report);
 the bf16 plans' dynamic shared memory is in each row (``plan_smem``).
@@ -77,6 +87,25 @@ def core_work(windows, T, C, nh, P, it=2):
     and its gradient written; six (T, T, dh) products a (window, head)."""
     rows = windows * T
     return rows * 12 * T * C, 8 * rows * C * it + 8 * P * nh * T * T
+
+
+def mlp_bwd_work(M, C, F, it=2, scale=False):
+    """(operations, bytes) of the pre-LN MLP's backward: h again, dW2, dg,
+    dW1, dxn (10 M C F); x, dout, the weights and biases read once, dx and
+    the weights' and biases' gradients written once, the LayerNorm's float
+    vectors and their gradients, the float row scale."""
+    return 10 * M * C * F, ((3 * M * C + 4 * C * F + 2 * F + 2 * C) * it
+                            + 16 * C + (4 * M if scale else 0))
+
+
+def mlp_bwd_products(x2, dy, w1, w2):
+    """A function that runs the MLP backward's five products through
+    torch.matmul on bf16 operands, an (M, F) bf16 tensor standing for g
+    and dh."""
+    g = torch.matmul(x2, w1)
+    return lambda: (torch.matmul(x2, w1), torch.matmul(dy, w2.t()),
+                    torch.matmul(g.t(), dy), torch.matmul(x2.t(), g),
+                    torch.matmul(g, w1.t()))
 
 
 def mlp_products(x2, w1, w2):
@@ -168,6 +197,51 @@ def swin_bwd_rows(g, images=BWD_IMAGES):
                core_work(windows, T, C, nh, 1))
 
 
+def mlp_bwd_rows(g, images=BWD_IMAGES):
+    """(row, stage, label, call, work, products factory, routes, plan) for
+    the MLP backward at each Swin-T stage, bf16: call runs autograd's
+    backward of one kept forward; routes maps each route of
+    ``PREMLP_BWD_ROUTES`` to a call of it alone on the same operands (None
+    in a tree without the plan)."""
+    from idvs.morec_tpu_torch.ops.cuda import mlp
+    plan = getattr(mlp, "premlp_bwd_plan", None)
+    routes = getattr(mlp, "PREMLP_BWD_ROUTES", None)
+    for stage, (C, _, side) in enumerate(SWIN_T):
+        M, F = images * side * side, 4 * C
+        x2 = g(M, C).to(BF16)
+        dout = g(M, C).to(BF16)
+        weights = [g(C, F, scale=C ** -0.5), g(F, scale=0.1),
+                   g(F, C, scale=F ** -0.5), g(C, scale=0.1)]
+        ln = [1.0 + g(C, scale=0.1), g(C, scale=0.1)]
+        # DropPath's factor: an image kept (1 / 0.9) or dropped (0)
+        keep = (g(images) > -1.2815516).float() / 0.9
+        scale = keep.repeat_interleave(side * side).contiguous()
+        bf = [t.to(BF16).contiguous() for t in weights[:3]]
+        for name, label, res in (
+                ("fused_mlp_res_bwd", f"scaled M={M} C={C} F={F} gelu", True),
+                ("fused_mlp_bwd", f"LN M={M} C={C} F={F} gelu", False)):
+            leaves = [t.clone().requires_grad_(True)
+                      for t in [x2] + weights + ln]
+            if res:
+                out = fused_mlp_res(leaves[0], scale, *leaves[1:5],
+                                    ln=leaves[5:])
+            else:
+                out = fused_mlp(*leaves[:5], ln=leaves[5:])
+            k = plan(C, M, BF16) if plan else None
+            calls = None
+            if routes and k["route"] == "fused":
+                ops = (x2, dout, scale if res else None, *bf, ln, None, 1e-5,
+                       "gelu", res, 1)
+                calls = {r: (lambda fn=fn, ops=ops: fn(*ops))
+                         for r, fn in routes.items()}
+            yield (name, stage, label,
+                   lambda out=out, leaves=leaves: torch.autograd.grad(
+                       out, leaves, dout, retain_graph=True),
+                   mlp_bwd_work(M, C, F, scale=res),
+                   lambda: mlp_bwd_products(x2, dout, bf[0], bf[2]), calls,
+                   k)
+
+
 def device_ms(fn, reps):
     """Device time a call (ms) and the kernels it launched, by name, from a
     torch.profiler trace of `reps` calls. A trace can miss kernels (on the
@@ -199,7 +273,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.report:
         from idvs.morec_tpu_torch.bench_gemm import report
-        report(("premlp.cu", "win_attn.cu", "win_attn_bwd.cu"))
+        report(("premlp.cu", "premlp_bwd.cu", "win_attn.cu",
+                "win_attn_bwd.cu"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
                                           device="cuda") * scale
@@ -233,6 +308,29 @@ def main():
             "kernels": {k[:80]: round(v, 4) for k, v in kernels.items()}}),
             flush=True)
         del call
+        torch.cuda.empty_cache()
+    for (name, stage, label, call, work, products, routes,
+         plan) in mlp_bwd_rows(g):
+        ms = cuda_ms(call, args.reps)
+        dev_ms, kernels = device_ms(call, args.reps)
+        bound, by = bound_of(work, BF16)
+        row = {"kernel": name, "stage": stage, "case": label,
+               "route": plan and plan["route"], "ms": round(ms, 4),
+               "device_ms": round(dev_ms, 4), "bound_ms": round(bound, 4),
+               "bound_by": by,
+               "bound_share": dev_ms and round(bound / dev_ms, 4),
+               "tflops": dev_ms and round(work[0] / dev_ms / 1e9, 1),
+               "kernels": {k[:80]: round(v, 4) for k, v in kernels.items()}}
+        fn = products()
+        row["matmul_ms"] = round(cuda_ms(fn, args.reps), 4)
+        del fn
+        if routes:
+            row["routes"] = {
+                r: {"ms": round(cuda_ms(c, args.reps), 4),
+                    "device_ms": round(device_ms(c, args.reps)[0], 4)}
+                for r, c in routes.items()}
+        print(json.dumps(row), flush=True)
+        del call, routes
         torch.cuda.empty_cache()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

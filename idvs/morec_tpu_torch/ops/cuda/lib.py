@@ -95,6 +95,11 @@ _SIGNATURES = {
     "idvs_scale_rows": [_P] * 3 + [_I] * 3 + [_P],
     # x, dxn, gamma, stats, dout, dx, part, sums, nb, M, C, dtype, stream
     "idvs_premlp_ln_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    # x, dout, scale, gamma, beta, w1, b1, w2, hsave, dx, xn, dy, g, dh,
+    # part, part2, sums, M, C, F, eps, act, res, per, rows, f_chunk,
+    # threads, smem, dtype, stream
+    "idvs_premlp_bwd": [_P] * 17 + [_I] * 3 + [_F] + [_I] * 6
+                       + [_LL, _I, _P],
     # qkv, bias, dctx, dqkv, ctx, part, dbias, windows, T, nh, dh, P,
     # chunks, bias_sp, bias_sh, band, w, nwc, nwr, scale, dtype, stream
     "idvs_win_attn_bwd": [_P] * 7 + [_I] * 6 + [_LL, _LL] + [_I] * 4

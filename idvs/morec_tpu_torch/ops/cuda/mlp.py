@@ -35,6 +35,7 @@ kernels do not take. ``<function>.launches`` counts launches of
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -513,15 +514,18 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 # the activation and dense2 with the (M, F) intermediate never in device
 # memory, and for ``fused_mlp_res`` the residual (and DropPath's per-row
 # scale) on the accumulator. The backward recomputes the LayerNorm and h
-# from x (or reads the h that ``save_h`` stored), runs its four products
-# through the tiled kernel of gemm.cu with the activation on load and its
-# derivative as an epilogue, and the LayerNorm's backward as a row pass;
-# every sum over rows is added in a fixed order. bf16 runs on the tensor
-# cores; in float32 the forward runs on the float FMA units and the
-# backward's products on the tensor cores as 3xTF32 (gemm.cu); the .cu
-# headers have the design.
+# from x (or reads the h that ``save_h`` stored) and takes one of two
+# routes, which ``premlp_bwd_plan`` decides: "fused" (bf16 at the widths
+# its kernel is built for), one tensor-core kernel for the row-local half
+# and the three products along the rows, which writes g and dh once for
+# gemm.cu's two weight-gradient products; or "products", gemm.cu's five
+# products with the activation on load and its derivative as an epilogue
+# around the LayerNorm's row passes. Every sum over rows is added in a fixed
+# order. bf16 runs on the tensor cores; in float32 the forward runs on the
+# float FMA units and the backward's products on the tensor cores as
+# 3xTF32 (gemm.cu); the .cu headers have the design.
 # ``fused_mlp_bwd.launches`` and ``fused_mlp_res_bwd.launches`` count the
-# backward's launches.
+# backward's launches, their ``bodies`` the device kernels its plans named.
 
 PRE_ACTS = {"gelu": 0, "relu": 1, "quick_gelu": 2}
 # The bf16 body (premlp_mma_kernel) by C: (F chunk, row warps, column warps,
@@ -636,17 +640,118 @@ def _premlp_fwd(name, x2, s, ops, lnf, eps, act, res, code, hsave=None):
     return out
 
 
-def _premlp_bwd(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code):
-    """(dx, dw1, db1, dw2, db2, dgamma, dbeta) of the pre-LN MLP
-    (csrc/premlp_bwd.cu has the plan); weights and biases in the compute
-    dtype, dgamma and dbeta float32 (None without a LayerNorm)."""
+# The bf16 fused backward (premlp_bwd.cu premlp_bwd_mma_kernel) by C: (row
+# warps, column warps, blocks an SM). Warp (rw, wn) computes h and dg for
+# 16 rows and 32 columns of a chunk of F (chunks of 32 x column warps) and
+# holds dxn for C / column warps of its rows' columns. One column warp (dh
+# packed in registers), 64 rows and four blocks an SM up to C = 96; two
+# column warps (dh through a shared tile) from C = 128 on, 128 rows at C =
+# 128 and 192, 64 at C = 256 and 384, where the (rows, C + 8) tiles of x
+# and dy and the chunk's weights fill one block's shared memory. The
+# layouts measured best of those tried on the H100 (PERF.md). C = 512 and
+# up, and float32, take the products route.
+_PRE_BWD_MMA = {32: (4, 1, 4), 64: (4, 1, 4), 96: (4, 1, 4), 128: (8, 2, 1),
+                192: (8, 2, 1), 256: (4, 2, 1), 384: (4, 2, 1)}
+
+
+@functools.lru_cache(maxsize=None)
+def premlp_bwd_plan(C: int, M: int, dtype: torch.dtype) -> dict:
+    """The route of the pre-LN MLP's backward at width C for M rows, the
+    one place it is decided. Route "fused" (bf16 at the widths of
+    ``_PRE_BWD_MMA``): the block plan of csrc/premlp_bwd.cu's
+    premlp_bwd_mma_kernel, which the launch passes to the kernel (it
+    refuses any other): rows a block, the F chunk, threads and
+    shared-memory bytes, the warps' layout, blocks an SM, the ring's
+    stages (one slot each of a chunk's W2 rows and W1 columns, refilled
+    in turn), the accumulator floats a thread holds (dxn, h and dg)
+    against its register cap; ``blocks`` partial rows of (db2, dgamma,
+    dbeta, db1) added in ``groups`` groups of ``per``. Route "products"
+    (float32, other widths): gemm.cu's
+    products around the row passes (``premlp_bwd_products``). "kernels"
+    names the device kernels the route launches; F must be a multiple of
+    "f_chunk" on the fused route."""
+    if dtype != torch.bfloat16 or C not in _PRE_BWD_MMA:
+        rows = ("ln_rows_kernel", "scale_rows_kernel", "colsum_kernel",
+                "ln_bwd_rows_kernel", "ln_colsums_kernel",
+                "sum_partials_kernel")
+        cast = ("act_cast_kernel",) if dtype == torch.bfloat16 else ()
+        return dict(route="products",
+                    kernels=(GEMM_BODIES[dtype],) + cast + rows)
+    RW, WN, B = _PRE_BWD_MMA[C]
+    rows, FC, threads = 16 * RW, 32 * WN, 32 * RW * WN
+    # the bf16 tiles of x (then xn) and dy, W1's and W2's chunk slots, the
+    # dh tile, the warps' [16][40] staging tiles of g (and dh); the rows'
+    # (mu, rstd) and db1's row-warp sums in float
+    stage = threads // 32 * 16 * 40 * (2 if WN == 1 else 1)
+    smem = (2 * (2 * rows * (C + 8) + C * (FC + 8) + FC * (C + 8)
+                 + (rows * (FC + 8) if WN > 1 else 0) + stage)
+            + 8 * rows + 4 * RW * FC)
+    blocks = -(-M // rows)
+    per = math.isqrt(blocks - 1) + 1
+    return dict(route="fused",
+                kernels=("premlp_bwd_mma_kernel", "group_sums_kernel",
+                         "sum_partials_kernel", GEMM_BODIES[dtype]),
+                rows=rows, f_chunk=FC, threads=threads, smem=smem,
+                row_warps=RW, col_warps=WN, blocks_per_sm=B, stages=1,
+                acc_floats=rows * C // threads + 32,
+                reg_cap=min(255, 65536 // (threads * B)), blocks=blocks,
+                per=per, groups=-(-blocks // per))
+
+
+def premlp_bwd_fused(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code):
+    """The fused route (csrc/premlp_bwd.cu's header): premlp_bwd_mma_kernel
+    and the fixed-order sums of its partial rows in one call, then dW2 =
+    gᵀ dy and dW1 = xnᵀ dh through gemm.cu. Operands as
+    ``premlp_bwd_products`` takes them; it raises where the plan names
+    the other route."""
+    M, C = x2.shape
+    F = w1.shape[1]
+    k = premlp_bwd_plan(C, M, x2.dtype)
+    if k["route"] != "fused":
+        raise ValueError(f"premlp_bwd_fused: no fused kernel at C={C} in "
+                         f"{x2.dtype}")
+    dev, dt = x2.device, x2.dtype
+    ln = lnf[0] is not None
+    E = 3 * C + F
+    dx = torch.empty_like(x2)
+    xn = torch.empty_like(x2) if ln else None
+    dy = torch.empty_like(dout) if s is not None else None
+    g = torch.empty(M, F, dtype=dt, device=dev)
+    dh = torch.empty_like(g)
+    part = torch.empty(k["blocks"] * E, device=dev)
+    part2 = torch.empty(k["groups"] * E, device=dev)
+    sums = torch.empty(E, device=dev)
+    res_code = 0 if not res else (1 if s is None else 2)
+    lib.check(lib.library().idvs_premlp_bwd(
+        x2.data_ptr(), dout.data_ptr(), ptr(s), ptr(lnf[0]), ptr(lnf[1]),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), ptr(h), dx.data_ptr(),
+        ptr(xn), ptr(dy), g.data_ptr(), dh.data_ptr(), part.data_ptr(),
+        part2.data_ptr(), sums.data_ptr(), M, C, F, float(eps),
+        PRE_ACTS[act], res_code, k["per"], k["rows"], k["f_chunk"],
+        k["threads"], k["smem"], code, lib.stream_handle(x2)), "premlp_bwd")
+    del part, part2
+    dw2 = gemm(g, dout if dy is None else dy, F, C, M, (1, F), (C, 1),
+               code)                                   # gᵀ dy
+    del g, dy
+    dw1 = gemm(x2 if xn is None else xn, dh, C, F, M, (1, C), (F, 1),
+               code)                                   # xnᵀ dh
+    db2, dgamma, dbeta, db1 = sums.split((C, C, C, F))
+    if not ln:
+        dgamma = dbeta = None
+    return dx, dw1, db1.to(dt), dw2, db2.to(dt), dgamma, dbeta
+
+
+def premlp_bwd_products(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res,
+                        code):
+    """The products route (csrc/premlp_bwd.cu's header): x2 and dout (M, C)
+    contiguous in the compute dtype, s the row scale or None, lnf the
+    LayerNorm's float32 (scale, bias) or (None, None), h the save_h
+    edition's (M, F) or None, res whether dx adds dout."""
     M, C = x2.shape
     F = w1.shape[1]
     dt, dev = x2.dtype, x2.device
     k = lib.library()
     stream = lib.stream_handle(x2)
-    dout = dout.reshape(M, C).to(dt).contiguous()
-    lib.check_device(dout)
     ln = lnf[0] is not None
     xn = x2
     if ln:
@@ -658,7 +763,7 @@ def _premlp_bwd(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code):
             "premlp_ln_rows")
     if h is None:
         h = gemm(xn, w1, M, F, C, (C, 1), (F, 1), code, bias=b1,
-                  out_f32=True)
+                 out_f32=True)
     dy = dout
     if s is not None:
         dy = torch.empty_like(dout)
@@ -667,7 +772,7 @@ def _premlp_bwd(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code):
                   "scale_rows")
     # dw2 = cast(act(h))ᵀ dy;  dh = cast((dy w2ᵀ) * act'(h))
     dw2 = gemm(h, dy, F, C, M, (1, F), (C, 1), code, act=act, pro_act=True,
-                dtype=dt)
+               dtype=dt)
     db2 = colsum(dy, code)
     dh = gemm(dy, w2, M, F, C, (C, 1), (1, C), code, gate=h, act=act)
     del h
@@ -688,12 +793,32 @@ def _premlp_bwd(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code):
     return dx, dw1, db1.to(dt), dw2, db2.to(dt), sums[0], sums[1]
 
 
+PREMLP_BWD_ROUTES = {"fused": premlp_bwd_fused,
+                     "products": premlp_bwd_products}
+
+
+def _premlp_bwd(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code,
+                bodies):
+    """(dx, dw1, db1, dw2, db2, dgamma, dbeta) of the pre-LN MLP through
+    the route premlp_bwd_plan picks; weights and biases in the compute
+    dtype, dgamma and dbeta float32 (None without a LayerNorm). Adds the
+    route's device kernels to ``bodies``."""
+    M, C = x2.shape
+    dout = dout.reshape(M, C).to(x2.dtype).contiguous()
+    lib.check_device(dout)
+    lib.check_aligned(dout, *([] if h is None else [h]))
+    k = premlp_bwd_plan(C, M, x2.dtype)
+    bodies.update(k["kernels"])
+    return PREMLP_BWD_ROUTES[k["route"]](x2, dout, s, w1, b1, w2, lnf, h,
+                                         eps, act, res, code)
+
+
 def fused_mlp_bwd(x2, dout, w1, b1, w2, lnf, h, *, eps, act, code):
     """Backward of ``fused_mlp`` on the card: x2 (M, C) and dout in the
     compute dtype, lnf the LayerNorm's float32 (scale, bias) or (None,
     None), h the (M, F) residual of the save_h edition or None."""
     grads = _premlp_bwd(x2, dout, None, w1, b1, w2, lnf, h, eps, act, False,
-                        code)
+                        code, fused_mlp_bwd.bodies)
     fused_mlp_bwd.launches += 1
     return grads
 
@@ -703,7 +828,7 @@ def fused_mlp_res_bwd(x2, dout, s, w1, b1, w2, lnf, *, eps, act, code):
     the unit edition, s None), the residual adds the raw dout to dx; s gets
     no gradient."""
     grads = _premlp_bwd(x2, dout, s, w1, b1, w2, lnf, None, eps, act, True,
-                        code)
+                        code, fused_mlp_res_bwd.bodies)
     fused_mlp_res_bwd.launches += 1
     return grads
 
@@ -832,5 +957,5 @@ fused_mlp_resln_res.launches = 0
 fused_mlp_resln_bwd.launches = 0
 # the device kernels each forward wrapper launched, by its plans' "kernels"
 for _wrapper in (fused_proj_resln, fused_proj_resln_res, fused_mlp_resln,
-                 fused_mlp_resln_res):
+                 fused_mlp_resln_res, fused_mlp_bwd, fused_mlp_res_bwd):
     _wrapper.bodies = set()
