@@ -32,7 +32,14 @@ failure:
    forward beside its two products through torch.matmul, in float32
    too); beside
    fused_mha's backward at dropout 0, F.scaled_dot_product_attention's
-   with a mask that needs no gradient (the library column);
+   with a mask that needs no gradient (the library column); then both
+   post-LN tails' backward on both routes of resln_bwd_plan (the fused
+   wgmma kernels of resln_bwd_wg.cu and the products route) at the text
+   step's BERT and SASRec shapes and IDRec's, bf16, dropout 0 and 0.1,
+   each against autograd of the plain version, with event and device
+   time, bound, plain and torch.matmul of the same products
+   (tail_bwd_routes; the kernels line takes the fused route's row at the
+   BERT shape);
 5. serving: Retriever.encode_catalog over the catalog, then recommend for
    request batches of 1, 8 and 64, with every launch counter set to 0
    first; every kernel launched in the encode and in recommend (gemm
@@ -46,8 +53,10 @@ failure:
    recommend p50 per batch;
 6. training: the counters set to 0, 20 steps on one fixed batch (the loss
    must fall), then 10 timed steps on distinct batches (p50, samples/s);
-   every training-edition and backward kernel launched, gemm 36 times a
-   step, every parameter finite (phases 11, 14 and 17 print gemm's
+   every training-edition and backward kernel launched, gemm 18 times a
+   step, the tails' backward through their fused kernels and none of the
+   products route's row kernels (the wrappers' bodies), every parameter
+   finite (phases 11, 14 and 17 print gemm's
    launches a step too);
 7. gradient check: one float32 step without dropout on 8 users, on the card
    and through the plain path on a CPU copy of the model: the loss and
@@ -219,7 +228,8 @@ from idvs.morec_tpu_torch.bench_gemm import f32_product_cases, product_cases
 from idvs.morec_tpu_torch.bench_swin import (CORE, attention_products,
                                              device_ms, mlp_products)
 from idvs.morec_tpu_torch.bench_swin import mlp_bwd_work as premlp_bwd_work
-from idvs.morec_tpu_torch.bench_tail import proj_products, tail_products
+from idvs.morec_tpu_torch.bench_tail import (bwd_yardstick, proj_products,
+                                             tail_products)
 from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models import sasrec
@@ -255,7 +265,9 @@ from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
                                                fused_proj_resln_plain,
                                                fused_proj_resln_res,
                                                premlp_bwd_plan,
-                                               PREMLP_BWD_ROUTES, relu_kink)
+                                               PREMLP_BWD_ROUTES,
+                                               RESLN_BWD_ROUTES, relu_kink,
+                                               resln_bwd_plan)
 from idvs.morec_tpu_torch.ops import dropout
 from idvs.morec_tpu_torch.ops.losses import inbatch_ce_candidates
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
@@ -433,10 +445,10 @@ SOURCES = {
     "fused_mha_bwd_dbias": ("fused_mha.cu", "attention.py:179"),
     "fused_proj_resln": ("proj_resln.cu", "mlp.py:715"),
     "fused_proj_resln_res": ("proj_resln.cu", "mlp.py:709"),
-    "fused_proj_resln_bwd": ("resln_bwd.cu", "mlp.py:723"),
+    "fused_proj_resln_bwd": ("resln_bwd_wg.cu", "mlp.py:723"),
     "fused_mlp_resln": ("mlp_resln.cu", "mlp.py:432"),
     "fused_mlp_resln_res": ("mlp_resln.cu", "mlp.py:424"),
-    "fused_mlp_resln_bwd": ("resln_bwd.cu", "mlp.py:444"),
+    "fused_mlp_resln_bwd": ("resln_bwd_wg.cu", "mlp.py:444"),
     "scatter_add_rows": ("embed_scatter.cu", "embed_scatter.py:66"),
     "fused_mha_proj_band": ("win_attn.cu", "attention.py:860"),
     "fused_mha_proj": ("win_attn.cu", "attention.py:530"),
@@ -498,8 +510,12 @@ PALLAS_KERNELS = ("fused_inbatch_ce", "fused_inbatch_ce_bwd")
 # backward rows whose attention core's device time phase 10 prints
 WINDOW_BWD = ("fused_mha_proj_band_bwd", "fused_mha_proj_bwd")
 # gemm launches a text train step: BERT's 4 and SASRec's 2 layers, each a
-# projection tail's backward (2 products) and an FFN tail's (4)
-TEXT_GEMM_STEP = 36
+# projection tail's backward (dW on the fused route) and an FFN tail's
+# (dW1 and dW2)
+TEXT_GEMM_STEP = 18
+# the products route's row kernels, which the text step's tails no longer
+# launch
+TAIL_ROW_KERNELS = ("ln_bwd_rows_kernel", "act_cast_kernel", "colsum_kernel")
 # a vision train step with Swin's dropouts: a step's launches of each
 # kernel (12 Swin blocks on the window path, SASRec's 2 blocks), and the
 # kernel pairs of the two selections, which it never takes
@@ -939,6 +955,106 @@ def backward_cases(rng, dev, titles: int):
     return cases
 
 
+def tail_bwd_routes(dev, card: str, titles: int) -> dict:
+    """The post-LN tails' backward on both routes of resln_bwd_plan at the
+    text step's BERT (`titles` titles of TITLE_LEN) and SASRec (TRAIN_B
+    users of L) shapes and IDRec's SASRec (IDREC_B users), bf16, dropout 0
+    and DROP: each route's call alone (RESLN_BWD_ROUTES: the fused kernel
+    and gemm.cu's weight products, or the row pass and gemm.cu's
+    products) on the saved tensors of the kernels' training forward, held
+    against autograd of the plain version at GRAD_TOL, with CUDA-event and
+    device time, the bound of the backward's work, the plain version's
+    backward and the yardstick torch.matmul of the same products (event
+    and device time). Returns the fused route's records at the BERT
+    shape, dropout DROP, for the kernels line."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
+                                          device=dev) * scale
+    bf, code, C = torch.bfloat16, lib.DTYPE_CODES[torch.bfloat16], HIDDEN
+    records = {}
+    for who, M, act, eps in (("BERT", titles * TITLE_LEN, "gelu", 1e-12),
+                             ("SASRec", TRAIN_B * L, "relu", 1e-6),
+                             ("IDRec", IDREC_B * L, "relu", 1e-6)):
+        for p in (0.0, DROP):
+            seed = 1000 + int(p * 10)
+            drop = dropout.kernel_args(p, seed if p else None)
+            for tail in ("mlp", "proj"):
+                name = f"fused_{tail}_resln_bwd"
+                x, dout = g(M, C).to(bf), g(M, C).to(bf)
+                ln = [1.0 + g(C, scale=0.1), g(C, scale=0.1)]
+                if tail == "mlp":
+                    ops = [g(C, FFN, scale=C ** -0.5), g(FFN, scale=0.1),
+                           g(FFN, C, scale=FFN ** -0.5), g(C, scale=0.1)]
+                    plain = lambda *a: fused_mlp_resln_plain(
+                        *a[:5], ln=a[5:], eps=eps, act=act, drop_rate=p,
+                        seed=seed)
+                    w = [t.to(bf).contiguous() for t in ops]
+                    _, ypre, h = fused_mlp_resln_res(
+                        x, *w, *ln, eps=eps, act=act, drop=drop, code=code)
+                    args = (x, w[0], w[2], ln[0], ypre, h, dout, eps, act,
+                            drop, code)
+                    work, F = mlp_bwd_work(M, C, FFN, 2), FFN
+                else:
+                    ops = [g(M, C).to(bf), g(C, C, scale=C ** -0.5),
+                           g(C, scale=0.1)]
+                    plain = lambda *a: fused_proj_resln_plain(
+                        *a[:4], ln=a[4:], eps=eps, drop_rate=p, seed=seed)
+                    w = ops[1].to(bf).contiguous()
+                    _, ypre = fused_proj_resln_res(
+                        x, ops[0], w, ops[2].to(bf), *ln, eps=eps, drop=drop,
+                        code=code)
+                    args = (x, w, ln[0], ypre, dout, eps, drop, code)
+                    work, F = proj_bwd_work(M, C, 2), None
+                lp = _leaves([x, *ops, *ln])
+                out_p = plain(*lp)
+                want = torch.autograd.grad(out_p, lp, dout, retain_graph=True)
+                plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                    out_p, lp, dout, retain_graph=True), reps=FEW_REPS)
+                yard = bwd_yardstick(M, C, F, bf, g)
+                yard_ms = (cuda_ms(yard, reps=FEW_REPS),
+                           device_ms(yard, FEW_REPS)[0])
+                del yard
+                bound_ms, bound_by = bound_of(work, bf)
+                where = (f"{who} M={M} C={C}" + (f" F={FFN} {act}" if F
+                                                 else "") + f" bf16 drop={p}")
+                plan = resln_bwd_plan(tail, C, M, bf)
+                times = {}
+                for route, fn in RESLN_BWD_ROUTES[tail].items():
+                    got = fn(*args)
+                    torch.cuda.synchronize()
+                    worst = _worst_err([a.to(b.dtype) for a, b in
+                                        zip(got, want)], want,
+                                       f"{name} {route} {where}")
+                    del got
+                    times[route] = (cuda_ms(lambda: fn(*args), reps=FEW_REPS),
+                                    device_ms(lambda: fn(*args),
+                                              FEW_REPS)[0], worst)
+                    require(worst[0] <= GRAD_TOL[bf], f"{name} {route} "
+                            f"{where}: error {worst[1]} above "
+                            f"{GRAD_TOL[bf]} x {worst[2]}")
+                print(f"tail backward routes {name} [{where}]: the plan "
+                      f"takes {plan['route']}; " + ", ".join(
+                          f"{r} {ms:.4f} ms ({dms:.4f} ms device, "
+                          f"max_abs_err {wst[1]:.3e} on a scale of "
+                          f"{wst[2]:.3g})"
+                          for r, (ms, dms, wst) in times.items())
+                      + f"; bound {bound_ms:.4f} ms by {bound_by}, plain "
+                      f"{plain_ms:.4f} ms, torch.matmul of the same "
+                      f"products {yard_ms[0]:.4f} ms ({yard_ms[1]:.4f} ms "
+                      f"device) [{card}]", flush=True)
+                require(plan["route"] == "fused", f"{name} {where}: the plan "
+                        f"takes {plan['route']}")
+                if who == "BERT" and p == DROP:
+                    records[name] = dict(
+                        max_abs_err=max(t[2][1] for t in times.values()),
+                        ms=times["fused"][0], plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None)
+                del lp, out_p, want, args, ypre, x, dout
+                torch.cuda.empty_cache()
+    return records
+
+
 def gemm_ran(fn, dt) -> tuple:
     """fn's result, and whether a float32 call's products ran as 3xTF32 on
     the tensor cores: fn launched csrc/gemm.cu (its counter moved), whose
@@ -1056,6 +1172,14 @@ def backward_phase(dev, card: str, titles: int) -> dict:
     shapes (gradient_cases), then the embedding scatter-add."""
     rng = np.random.default_rng(SEED + 2)
     results = gradient_cases(backward_cases(rng, dev, titles), card)
+    torch.cuda.empty_cache()
+    for name, record in tail_bwd_routes(dev, card, titles).items():
+        # the bf16 text step's route is the headline; the worst error of
+        # every case stays
+        record["max_abs_err"] = max(record["max_abs_err"],
+                                    results[name]["max_abs_err"])
+        results[name] = record
+    torch.cuda.empty_cache()
     for dt in (torch.float32, torch.bfloat16):
         # BERT's word-table gradient: the titles' token ids, duplicates
         # included, into the 30522-row table
@@ -1323,6 +1447,10 @@ def train_path(dev, card: str, content, batches, cap: int):
     fixed = device_batch(*batches[0], cap, dev)
     torch.cuda.reset_peak_memory_stats()
 
+    tails = (fused_mlp_resln_bwd, fused_proj_resln_bwd)
+    earlier = [w.bodies for w in tails]
+    for w in tails:
+        w.bodies = set()
     reset_counts()
     losses = [step(state, fixed).item() for _ in range(FIXED_STEPS)]
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
@@ -1350,13 +1478,25 @@ def train_path(dev, card: str, content, batches, cap: int):
     print(f"training launches {launched}", flush=True)
     steps = FIXED_STEPS + len(walls)
     print(f"gemm launches a text train step: {launched['gemm'] / steps:g} "
-          f"(BERT's and SASRec's post-LN tails: 2 a projection tail, 4 an "
+          f"(BERT's and SASRec's post-LN tails: 1 a projection tail, 2 an "
           f"FFN tail)", flush=True)
     require(launched["gemm"] == TEXT_GEMM_STEP * steps,
             f"gemm launched {launched['gemm']} times in {steps} text steps, "
             f"not {TEXT_GEMM_STEP} a step")
     for n in TRAIN_KERNELS:
         require(launched[n] > 0, f"{n} never launched in training")
+    seen = [w.bodies for w in tails]
+    for w, before, now in zip(tails, earlier, seen):
+        w.bodies = before | now
+    print(f"the text step's tails' backward device kernels: FFN "
+          f"{sorted(seen[0])}, projection {sorted(seen[1])}", flush=True)
+    for tail, now in zip(("mlp", "proj"), seen):
+        require(f"{tail}_resln_bwd_wg_kernel" in now,
+                f"the text step's {tail} tail backward never took "
+                f"{tail}_resln_bwd_wg_kernel")
+        require(not set(TAIL_ROW_KERNELS) & now,
+                f"the text step's {tail} tail backward launched "
+                f"{sorted(set(TAIL_ROW_KERNELS) & now)}")
     require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
             "a parameter is not finite after training")
     return model, launched, (losses[0], p50)
@@ -3162,11 +3302,13 @@ def merge(kernels: dict, more: dict) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--profile", action="store_true",
+    parser.add_argument("--profile", nargs="?", const="all",
+                        choices=("all", "text"),
                         help="only profile the train step, the vision "
                              "catalog encode and recommend and the vision "
                              "train step by device kernel (torch.profiler), "
-                             "after the card and build phases")
+                             "after the card and build phases; 'text': the "
+                             "text train step alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
@@ -3193,6 +3335,8 @@ def main() -> int:
     cap = dedup_cap(batches)
     if args.profile:
         profile_train(dev, card, content, batches, cap)
+        if args.profile == "text":
+            return 0
         profile_vision_encode(dev, card)
         profile_vision_recommend(dev, card)
         profile_vision_train(dev, card)

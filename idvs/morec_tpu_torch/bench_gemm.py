@@ -251,8 +251,9 @@ def run_scatter(reps):
 
 def report(sources=("gemm.cu", "embed_scatter.cu")):
     """Registers, spills and shared memory (-Xptxas -v), and HMMA
-    instructions (cuobjdump -sass), of the kernels of `sources` (files of
-    csrc/), each kernel by its demangled name where c++filt is there."""
+    (mma.sync) and HGMMA (wgmma) instructions (cuobjdump -sass), of the
+    kernels of `sources` (files of csrc/), each kernel by its demangled
+    name where c++filt is there."""
     nvcc = lib._nvcc()
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
     filt = shutil.which("c++filt")
@@ -282,7 +283,8 @@ def report(sources=("gemm.cu", "embed_scatter.cu")):
                     r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass,
                     re.S):
                 print(json.dumps({"source": src, "kernel": name_of(name),
-                                  "hmma": body.count("HMMA")}))
+                                  "hmma": body.count("HMMA"),
+                                  "hgmma": body.count("HGMMA")}))
 
 
 def main():

@@ -5,7 +5,7 @@ product and the row pass), at the port's main-path shapes on one GPU, and
 reports what the compiler made of them.
 
     python -m idvs.morec_tpu_torch.bench_tail [--reps N] [--report]
-        [--paths E,TR]
+        [--paths E,TR] [--backward]
 
 Rows (``TAILS``), LN(x + dropout(act(x w1 + b1) w2 + b2)):
 T, a text train step's BERT tail (768 titles of 30 tokens, C = 512, F =
@@ -34,16 +34,34 @@ float32). The same columns, the yardstick torch.matmul of x w, and the
 plain version's event time (``fused_proj_resln_plain`` on the same
 operands and dropout).
 
+Backward rows (``TAIL_BWDS``, ``PROJ_BWDS``; --backward prints only
+these): the tails' backward alone (``fused_mlp_resln_bwd``,
+``fused_proj_resln_bwd``) at the shapes the main paths run it, bf16,
+dropout 0.1: T, the text train step's BERT (M = 23040) and SASRec (M =
+2560) tails at C = 512, F = 2048; IT, IDRec's SASRec (M = 5120); VT, the
+vision train step's SASRec at D = 2048 (M = 640, F = 8192). Operands come
+from a training forward on random data. Each row is the route
+``resln_bwd_plan`` picks ("route"), as CUDA-event time and device time by
+kernel, beside the bound of the backward's work (the four products of the
+FFN tail or the two of the projection, x, y_pre, h, dout and the weights
+read once, dx, dres and the weight gradients written once) and the
+yardstick torch.matmul of the same products on operands of the same
+shapes (event and device time). Where the plan picks the fused route, a
+second row times the products route on the same operands, in the same
+call. A checkout without ``resln_bwd_plan`` (older than the fused route)
+times its one route.
+
 Every row also gives the host's time a call (``measure.host_ms``, the card
 idle before it): where it exceeds the device time, the host holds the
 call. A float32 row whose call launched gemm.cu (its launch counter moved)
 ran its products as 3xTF32 on the tensor cores: its bound takes that rate
 (165 TFLOP/s), the FMA units' bound beside it.
 
---report compiles mlp_resln.cu, proj_resln.cu and mlp_mma.cuh's other
-user premlp.cu with the library's flags and -Xptxas -v and prints each
-kernel's registers, spills and shared memory and its HMMA instructions
-(bench_gemm's report).
+--report compiles mlp_resln.cu, proj_resln.cu, mlp_mma.cuh's other user
+premlp.cu and the backward's resln_bwd_wg.cu with the library's flags and
+-Xptxas -v and prints each kernel's registers, spills and shared memory
+and its HMMA (mma.sync) and HGMMA (wgmma) instructions (bench_gemm's
+report).
 
 Prints one JSON object a line, then the card's name and power limit. The
 package is imported from sys.path, so ``PYTHONPATH=<checkout> python
@@ -196,10 +214,114 @@ def tail_call(t: Tail, g):
     return call, lambda: tail_products(x, ops[0], ops[2])
 
 
+TAIL_BWDS = (Tail("T", 768 * 30, 512, 2048, "gelu", BF16, True),
+             Tail("T", 128 * 20, 512, 2048, "relu", BF16, True),
+             Tail("IT", 256 * 20, 512, 2048, "relu", BF16, True),
+             Tail("VT", 64 * 10, 2048, 8192, "relu", BF16, True))
+PROJ_BWDS = (Proj("T", 768 * 30, 512, BF16, True),
+             Proj("T", 128 * 20, 512, BF16, True),
+             Proj("IT", 256 * 20, 512, BF16, True),
+             Proj("VT", 64 * 10, 2048, BF16, True))
+
+
+def tail_bwd_work(M, C, F, it):
+    """(operations, bytes) of the FFN tail's backward: dW2, dh, dW1, dx;
+    x, y_pre, h, dout, W1, W2 read, dx, dW1, dW2 written, the float
+    vectors."""
+    return 8 * M * C * F, (4 * M * C + M * F + 4 * C * F) * it + 16 * C
+
+
+def proj_bwd_work(M, C, it):
+    """(operations, bytes) of the projection tail's backward: dW and dx;
+    x, y_pre, dout, W read, dx, dres, dW written, the float vectors."""
+    return 4 * M * C * C, (5 * M * C + 2 * C * C) * it + 16 * C
+
+
+def bwd_yardstick(M, C, F, dt, g):
+    """torch.matmul of the backward's products on operands of their
+    shapes in dt: the FFN tail's four (F = None: the projection's two)."""
+    r = lambda *s: g(*s).to(dt)
+    x, dz = r(M, C), r(M, C)
+    if F is None:
+        w = r(C, C)
+        return lambda: (x.t() @ dz, dz @ w.t())
+    h, dh, w1, w2 = r(M, F), r(M, F), r(C, F), r(F, C)
+    return lambda: (h.t() @ dz, dz @ w2.t(), x.t() @ dh, dh @ w1.t())
+
+
+def bwd_calls(t, g):
+    """[(route, call)] of a tail's backward (Tail or Proj) on operands
+    from its training forward: the wrapper (the plan's route) and, where
+    the plan picks the fused route, the products route's entry."""
+    from idvs.morec_tpu_torch.ops.cuda import mlp
+    code, drop = lib.dtype_code(torch.empty(0, dtype=t.dtype)), \
+        dropout.kernel_args(DROP, 7)
+    x = g(t.M, t.C).to(t.dtype)
+    ln = (1.0 + g(t.C, scale=0.1), g(t.C, scale=0.1))
+    dout = g(t.M, t.C).to(t.dtype)
+    plan = getattr(mlp, "resln_bwd_plan", None)
+    if isinstance(t, Tail):
+        ops = [w.to(t.dtype).contiguous() for w in (
+            g(t.C, t.F, scale=t.C ** -0.5), g(t.F, scale=0.1),
+            g(t.F, t.C, scale=t.F ** -0.5), g(t.C, scale=0.1))]
+        _, ypre, h = fused_mlp_resln_res(x, *ops, *ln, eps=1e-6, act=t.act,
+                                         drop=drop, code=code)
+        args = (x, ops[0], ops[2], ln[0], ypre, h, dout)
+        kw = dict(eps=1e-6, act=t.act, drop=drop, code=code)
+        calls = [(plan and plan("mlp", t.C, t.M, t.dtype)["route"],
+                  lambda: mlp.fused_mlp_resln_bwd(*args, **kw))]
+        if calls[0][0] == "fused":
+            calls.append(("products", lambda: mlp.mlp_resln_bwd_products(
+                *args, *kw.values())))
+        return calls
+    w = g(t.C, t.C, scale=t.C ** -0.5).to(t.dtype).contiguous()
+    b = g(t.C, scale=0.1).to(t.dtype)
+    _, ypre = fused_proj_resln_res(x, g(t.M, t.C).to(t.dtype), w, b, *ln,
+                                   eps=1e-6, drop=drop, code=code)
+    args = (x, w, ln[0], ypre, dout)
+    kw = dict(eps=1e-6, drop=drop, code=code)
+    calls = [(plan and plan("proj", t.C, t.M, t.dtype)["route"],
+              lambda: mlp.fused_proj_resln_bwd(*args, **kw))]
+    if calls[0][0] == "fused":
+        calls.append(("products", lambda: mlp.proj_resln_bwd_products(
+            *args, *kw.values())))
+    return calls
+
+
+def backward_rows(g, reps: int):
+    """The backward rows, one JSON line each."""
+    cases = [(t, f"M={t.M} C={t.C} F={t.F} {t.act}",
+              tail_bwd_work(t.M, t.C, t.F, 2), t.F) for t in TAIL_BWDS]
+    cases += [(t, f"proj M={t.M} C={t.C}", proj_bwd_work(t.M, t.C, 2), None)
+              for t in PROJ_BWDS]
+    for t, case, work, F in cases:
+        bound, by = bound_of(work, t.dtype)
+        fn = bwd_yardstick(t.M, t.C, F, t.dtype, g)
+        yard = (round(cuda_ms(fn, reps), 4), round(device_ms(fn, reps)[0], 4))
+        del fn
+        for route, call in bwd_calls(t, g):
+            call()
+            torch.cuda.synchronize()
+            dev_ms, kernels = device_ms(call, reps)
+            print(json.dumps({
+                "path": t.path, "case": f"backward {case} bf16 drop=0.1",
+                "route": route, "ms": round(cuda_ms(call, reps), 4),
+                "device_ms": round(dev_ms, 4),
+                "bound_ms": round(bound, 4), "bound_by": by,
+                "bound_share": round(bound / dev_ms, 4),
+                "tflops": round(work[0] / dev_ms / 1e9, 1),
+                "kernels": {k[:80]: round(v, 4) for k, v in kernels.items()},
+                "matmul_ms": yard[0], "matmul_device_ms": yard[1]}),
+                flush=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--report", action="store_true")
+    parser.add_argument("--backward", action="store_true",
+                        help="only the backward rows")
     parser.add_argument("--paths", default="",
                         help="comma-separated paths (T, IT, E, VT, R, TR); "
                              "only their rows")
@@ -210,11 +332,18 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.report:
         from idvs.morec_tpu_torch.bench_gemm import report
-        report(("mlp_resln.cu", "proj_resln.cu", "premlp.cu"))
+        report(("mlp_resln.cu", "proj_resln.cu", "premlp.cu",
+                "resln_bwd_wg.cu"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
                                           device="cuda") * scale
     keep = lambda t: not paths or t.path in paths
+    if args.backward:
+        backward_rows(g, args.reps)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip())
+        return
     rows = [(t, f"M={t.M} C={t.C} F={t.F} {t.act}", *tail_call(t, g),
              None, tail_work(t)) for t in TAILS if keep(t)]
     rows += [(t, f"proj M={t.M} C={t.C}", *proj_call(t, g), proj_work(t))
@@ -244,6 +373,7 @@ def main():
             row["plain_ms"] = round(cuda_ms(plain, args.reps), 4)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
+    backward_rows(g, args.reps)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -39,6 +39,38 @@ __device__ __forceinline__ float act(float h, int a) {
   return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
 }
 
+// act(h) and act'(h) of one pre-activation, act a compile-time constant.
+// ReLU and quick_gelu as act above and gemm.cu's dact; GELU's erf
+// as the TPU kernel's _erf (Abramowitz-Stegun 7.1.26, |error| <= 5.3e-7,
+// idvs/morec_tpu/ops/pallas/mlp.py:46-57), built from the exp(-h^2 / 2)
+// that act' needs anyway: one fast exponential and one fast division an
+// element, cheaper than erff and expf and measured faster at every Swin-T
+// stage. g may then differ from the forward's cast(act(h)) (erff) in a
+// rare rounding.
+template <int A>
+__device__ __forceinline__ void act_dact(float h, float& a, float& d) {
+  if constexpr (A == kRelu) {
+    a = fmaxf(h, 0.f);
+    d = h > 0.f ? 1.f : 0.f;
+  } else if constexpr (A == kQuickGelu) {
+    const float e = expf(-1.702f * h);
+    const float s = 1.f / (1.f + e);
+    a = h / (1.f + e);
+    d = s + h * 1.702f * s * (1.f - s);
+  } else {
+    const float t =
+        __fdividef(1.f, 1.f + 0.3275911f * 0.70710678118654752f * fabsf(h));
+    const float e = __expf(-0.5f * h * h);
+    const float poly =
+        t * (0.254829592f +
+             t * (-0.284496736f +
+                  t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+    const float erf = copysignf(1.f - poly * e, h);
+    a = 0.5f * h * (1.f + erf);
+    d = 0.5f * (1.f + erf) + h * 0.39894228040143268f * e;
+  }
+}
+
 using bf16 = __nv_bfloat16;
 
 constexpr int kSlice = 32;   // rows of a weight slice: two 16-deep k-steps

@@ -37,7 +37,7 @@
 // columns from 32 wn (mma.sync m16n8k16 bf16, float accumulators,
 // mma.cuh); the activation and its derivative run once an element on the
 // accumulators (the activation a compile-time constant; GELU's erf as the
-// TPU kernel's, act_dact below); g and dh are
+// TPU kernel's, mlp_mma.cuh's act_dact); g and dh are
 // stored once as bf16 (M, F) for the weight gradients, through each warp's
 // shared staging tile so that they leave as 16-byte pieces of rows (a
 // first version stored the accumulators' 4-byte pairs, each warp store
@@ -223,38 +223,6 @@ cudaError_t ln_bwd(const void* x, const float* dxn, const float* gamma,
 // ---- the fused route: bf16 on the tensor cores -----------------------------
 
 enum Res { kNoRes = 0, kUnit = 1, kScaled = 2 };
-
-// act(h) and act'(h) of one pre-activation, act a compile-time constant.
-// ReLU and quick_gelu as mlp_mma.cuh's act and gemm.cu's dact; GELU's erf
-// as the TPU kernel's _erf (Abramowitz-Stegun 7.1.26, |error| <= 5.3e-7,
-// idvs/morec_tpu/ops/pallas/mlp.py:46-57), built from the exp(-h^2 / 2)
-// that act' needs anyway: one fast exponential and one fast division an
-// element, cheaper than erff and expf and measured faster at every Swin-T
-// stage. g may then differ from the forward's cast(act(h)) (erff) in a
-// rare rounding.
-template <int A>
-__device__ __forceinline__ void act_dact(float h, float& a, float& d) {
-  if constexpr (A == kRelu) {
-    a = fmaxf(h, 0.f);
-    d = h > 0.f ? 1.f : 0.f;
-  } else if constexpr (A == kQuickGelu) {
-    const float e = expf(-1.702f * h);
-    const float s = 1.f / (1.f + e);
-    a = h / (1.f + e);
-    d = s + h * 1.702f * s * (1.f - s);
-  } else {
-    const float t =
-        __fdividef(1.f, 1.f + 0.3275911f * 0.70710678118654752f * fabsf(h));
-    const float e = __expf(-0.5f * h * h);
-    const float poly =
-        t * (0.254829592f +
-             t * (-0.284496736f +
-                  t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-    const float erf = copysignf(1.f - poly * e, h);
-    a = 0.5f * h * (1.f + erf);
-    d = 0.5f * (1.f + erf) + h * 0.39894228040143268f * e;
-  }
-}
 
 // bar.sync over `threads` threads of the block (a row group's warps)
 __device__ __forceinline__ void named_barrier(int id, int threads) {
@@ -752,20 +720,6 @@ __global__ void __launch_bounds__(K::threads, K::MINB)
   }
 }
 
-// part2[y][e] = the sum, in order, of part[b][e] over the rows b in
-// [y per, min(nb, y per + per)): the first of the two fixed-order passes
-// over the blocks' partial rows (the second is sum_partials)
-__global__ void group_sums_kernel(const float* __restrict__ part,
-                                  float* __restrict__ part2, int nb, int E,
-                                  int per) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  const int b0 = blockIdx.y * per, b1 = min(nb, b0 + per);
-  float s = 0.f;
-  for (int b = b0; b < b1; ++b) s += part[static_cast<size_t>(b) * E + e];
-  part2[static_cast<size_t>(blockIdx.y) * E + e] = s;
-}
-
 // The block plan the launch passes (premlp_bwd_plan in ops/cuda/mlp.py)
 struct BwdPlan {
   int rows, f_chunk, threads;
@@ -787,12 +741,7 @@ cudaError_t launch_bwd(const BwdArgs& p, const BwdPlan& plan, float* part2,
   kernel<<<nb, K::threads, K::smem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int groups = (nb + per - 1) / per;
-  group_sums_kernel<<<dim3((E + 255) / 256, groups), 256, 0, s>>>(
-      p.part, part2, nb, E, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return sum_partials(part2, sums, groups, E, s);
+  return group_sums(p.part, part2, sums, nb, E, per, s);
 }
 
 // (RW, WN, blocks an SM) by C, as premlp_bwd_plan gives them

@@ -11,7 +11,9 @@
 // and the column sums dgamma = sum(dout * xhat), dbeta = sum(dout),
 // db = sum(dropout(dyp)) (float, before the cast, as the Pallas kernels).
 // The products of the backward (dW = xᵀ dz, dx = dz Wᵀ, ...) run in
-// gemm.cu.
+// gemm.cu. This is the products route of resln_bwd_plan (ops/cuda/mlp.py):
+// C = 2048, and float32 at every C; bf16 at C <= 512 takes the fused
+// route, resln_bwd_wg.cu, which runs this pass as its prologue.
 //
 // Bound on the H100: pure bandwidth (y_pre and dout in, dz and dres out).
 // The TPU kernels accumulate the column sums in a resident buffer over a

@@ -69,6 +69,14 @@ _SIGNATURES = {
     # ypre, dout, gamma, dres, dyp, dz, part, sums, nb, M, C, eps, drop,
     # dtype, stream
     "idvs_resln_bwd_rows": [_P] * 8 + [_I, _I, _I, _F] + _DROP + [_I, _P],
+    # ypre, dout, gamma, h, w1, w2, dz, g, dh, dx, part, part2, sums, M, C,
+    # F, eps, act, drop, per, rows, chunk, threads, smem, dtype, stream
+    "idvs_mlp_resln_bwd_wg": [_P] * 13 + [_I, _I, _I, _F, _I] + _DROP
+                             + [_I] * 4 + [_LL, _I, _P],
+    # ypre, dout, gamma, w, dz, dres, dx, part, part2, sums, M, C, eps,
+    # drop, per, rows, chunk, threads, smem, dtype, stream
+    "idvs_proj_resln_bwd_wg": [_P] * 10 + [_I, _I, _F] + _DROP
+                              + [_I] * 4 + [_LL, _I, _P],
     # x, part, out, nb, M, N, dtype, stream
     "idvs_colsum": [_P] * 3 + [_I] * 4 + [_P],
     # A, B, out, add, gate, bias, ws, M, N, K, sam, sak, sbk, sbn, splits,

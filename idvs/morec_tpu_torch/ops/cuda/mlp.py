@@ -3,7 +3,8 @@ and backward; and the pre-LN MLP sub-block (``fused_mlp``,
 ``fused_mlp_res``, forward and backward), at the end of the module.
 
 Kernels: ``csrc/proj_resln.cu`` and ``csrc/mlp_resln.cu`` (forward),
-``csrc/resln_bwd.cu`` and ``csrc/gemm.cu`` (backward). They replace the TPU
+``csrc/resln_bwd_wg.cu``, ``csrc/resln_bwd.cu`` and ``csrc/gemm.cu``
+(backward). They replace the TPU
 kernels ``idvs/morec_tpu/ops/pallas/mlp.py`` ``fused_proj_resln``
 (``_fwd_proj_only_kernel``, ``_fwd_proj_kernel``, ``_bwd_proj_kernel``) and
 ``fused_mlp_resln`` (``_fwd_post_only_kernel``, ``_fwd_post_kernel``,
@@ -17,10 +18,13 @@ unless the training edition saves it. At C = 2048 (SASRec under the vision
 tower, 10 to 640 rows), and for both tails in float32 at every C, the
 products go through gemm.cu (bf16, or float32 as 3xTF32 on the tensor
 cores) and a row pass adds the rest (``proj_resln_products``,
-``mlp_resln_products``). Backward: a row pass recomputes the LN statistics
-from the saved pre-LN sum, and gemm.cu runs the products, split over M
-with a deterministic second pass for the weight gradients. The .cu headers
-have the details.
+``mlp_resln_products``). Backward, by ``resln_bwd_plan``: in bf16 at C <=
+512 one warp-specialised row-block kernel a tail (csrc/resln_bwd_wg.cu),
+which recomputes the LN statistics from the saved pre-LN sum and runs the
+products along the rows on wgmma, then gemm.cu's weight gradients over K
+= M; at C = 2048 and in float32 a row pass and gemm.cu's products. Every
+sum over rows is added in a fixed order. The .cu headers have the
+details.
 
 Each wrapper runs its plain PyTorch version (autograd gives its gradient)
 for tensors on the CPU. For tensors on the card it launches the forward-only
@@ -29,7 +33,8 @@ does, and otherwise a ``torch.autograd.Function`` over the training edition
 (which also saves y_pre, and h) and the backward; it raises for anything the
 kernels do not take. ``<function>.launches`` counts launches of
 ``fused_proj_resln`` / ``fused_mlp_resln`` (forward-only), ``*_res``
-(training forward) and ``*_bwd`` (backward).
+(training forward) and ``*_bwd`` (backward); ``<function>.bodies`` the
+device kernels their plans named.
 """
 
 from __future__ import annotations
@@ -246,18 +251,121 @@ def _rows_bwd(ypre, dout, gamma, eps, drop, code, *, dres: bool):
     return dz, dres_t, dyp, sums
 
 
+# csrc/resln_bwd_wg.cu's block: 64 rows (one wgmma M tile), 64 columns of
+# F (the FFN tail) or of K (the projection) a weight slot (one 128-byte
+# swizzled line), 384 threads (two consumer warpgroups and the producer's)
+# and the consumers' registers a thread after setmaxnreg
+WG_ROWS, WG_CHUNK, WG_THREADS, WG_REGS = 64, 64, 384, 232
+TAILS = ("mlp", "proj")
+
+
+@functools.lru_cache(maxsize=None)
+def resln_bwd_plan(tail: str, C: int, M: int, dtype: torch.dtype) -> dict:
+    """The route of a post-LN tail's backward (tail "mlp", the FFN tail, or
+    "proj", the projection tail) at width C for M rows, the one place it is
+    decided. Route "fused" (bf16 at C <= 512): the block plan of
+    csrc/resln_bwd_wg.cu's kernel, which the launch passes to it (it
+    refuses any other): rows a block, the chunk of F or K a weight slot
+    holds, threads (the producer warpgroup and two consumer warpgroups),
+    shared-memory bytes, the ring's stages, the accumulator floats a
+    consumer thread holds (dx's, and the FFN's dg) against its register
+    cap, and ``blocks`` partial rows added in ``groups`` groups of
+    ``per``. Route "products" (C = 2048, and float32 at every C): the row
+    pass and gemm.cu's products. "kernels" names the device kernels the
+    route launches; F must be a multiple of "chunk" on the fused route."""
+    if tail not in TAILS:
+        raise ValueError(f"tail must be one of {TAILS}, got {tail!r}")
+    if C not in KERNEL_WIDTHS:
+        raise ValueError(f"kernel takes C in {KERNEL_WIDTHS}, got {C}")
+    mlp = tail == "mlp"
+    if C == PRODUCTS_WIDTH or dtype == torch.float32:
+        rows = ("ln_bwd_rows_wide_kernel" if C == PRODUCTS_WIDTH
+                else "ln_bwd_rows_kernel")
+        kernels = (rows, "sum_partials_kernel", GEMM_BODIES[dtype])
+        if mlp:
+            kernels += ("colsum_kernel",) + (
+                ("act_cast_kernel",) if dtype == torch.bfloat16 else ())
+        return dict(route="products", kernels=kernels)
+    rows, chunk = WG_ROWS, WG_CHUNK
+    # the dz tile and two weight slots (rows x C and chunk x C bf16 each),
+    # the FFN's dh and g tiles; each row's (mu, rstd, m1, m2), the FFN's
+    # db1 warp sums, four mbarriers, and 1024 bytes to align the base
+    small = 2 * 2 * rows * chunk if mlp else 0
+    smem = (2 * rows * C + 2 * 2 * chunk * C + small + 16 * rows
+            + (4 * 4 * chunk if mlp else 0) + 4 * 8 + 1024)
+    blocks = -(-M // rows)
+    per = math.isqrt(blocks - 1) + 1
+    name = "mlp_resln_bwd_wg_kernel" if mlp else "proj_resln_bwd_wg_kernel"
+    return dict(route="fused",
+                kernels=(name, "group_sums_kernel", "sum_partials_kernel",
+                         GEMM_BODIES[dtype]),
+                rows=rows, chunk=chunk, threads=WG_THREADS, smem=smem,
+                stages=2, acc_floats=rows * (C // 2) // 128
+                + (rows * (chunk // 2) // 128 if mlp else 0),
+                reg_cap=WG_REGS, blocks=blocks, per=per,
+                groups=-(-blocks // per))
+
+
+def _fused_plan(tail, C, M, dtype):
+    k = resln_bwd_plan(tail, C, M, dtype)
+    if k["route"] != "fused":
+        raise ValueError(f"{tail}_resln_bwd_fused: no fused kernel at C={C} "
+                         f"in {dtype}")
+    return k
+
+
+def _partials(k, E, dev):
+    """The fused route's partial rows: (part, part2, sums)."""
+    return (torch.empty(k["blocks"] * E, device=dev),
+            torch.empty(k["groups"] * E, device=dev),
+            torch.empty(E, device=dev))
+
+
+def proj_resln_bwd_products(x2, w, g, ypre, dout, eps, drop, code):
+    """The projection tail's products route: the row pass
+    (csrc/resln_bwd.cu), then dW = xᵀ dz and dx = dz Wᵀ through gemm.cu."""
+    M, C = x2.shape
+    dz, dres, _, sums = _rows_bwd(ypre, dout, g, eps, drop, code, dres=True)
+    dw = gemm(x2, dz, C, C, M, (1, C), (C, 1), code)           # xᵀ dz
+    dx = gemm(dz, w, M, C, C, (C, 1), (1, C), code)            # dz wᵀ
+    return dx, dres, dw, sums[2].to(x2.dtype), sums[0], sums[1]
+
+
+def proj_resln_bwd_fused(x2, w, g, ypre, dout, eps, drop, code):
+    """The projection tail's fused route (csrc/resln_bwd_wg.cu's header):
+    proj_resln_bwd_wg_kernel and the fixed-order sums of its partial rows
+    in one call, then dW = xᵀ dz through gemm.cu. It raises where the plan
+    names the other route."""
+    M, C = x2.shape
+    k = _fused_plan("proj", C, M, x2.dtype)
+    dz, dres, dx = (torch.empty_like(x2) for _ in range(3))
+    part, part2, sums = _partials(k, 3 * C, x2.device)
+    lib.check(lib.library().idvs_proj_resln_bwd_wg(
+        ypre.data_ptr(), dout.data_ptr(), g.data_ptr(), w.data_ptr(),
+        dz.data_ptr(), dres.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        part2.data_ptr(), sums.data_ptr(), M, C, float(eps), *drop, k["per"],
+        k["rows"], k["chunk"], k["threads"], k["smem"], code,
+        lib.stream_handle(x2)), "proj_resln_bwd_wg")
+    del part, part2
+    dw = gemm(x2, dz, C, C, M, (1, C), (C, 1), code)           # xᵀ dz
+    dgamma, dbeta, db = sums.split((C, C, C))
+    return dx, dres, dw, db.to(x2.dtype), dgamma, dbeta
+
+
 def fused_proj_resln_bwd(x2, w, g, ypre, dout, *, eps, drop, code):
     """Backward of the training edition: (dx, dres, dw, db, dgamma, dbeta);
-    dw and db in the compute dtype, dgamma and dbeta float."""
+    dw and db in the compute dtype, dgamma and dbeta float. The route is
+    resln_bwd_plan's."""
     M, C = x2.shape
     dout = dout.reshape(M, C).to(x2.dtype).contiguous()
     lib.check_device(dout)
     lib.check_aligned(dout)
-    dz, dres, _, sums = _rows_bwd(ypre, dout, g, eps, drop, code, dres=True)
-    dw = gemm(x2, dz, C, C, M, (1, C), (C, 1), code)           # xᵀ dz
-    dx = gemm(dz, w, M, C, C, (C, 1), (1, C), code)            # dz wᵀ
+    k = resln_bwd_plan("proj", C, M, x2.dtype)
+    fused_proj_resln_bwd.bodies.update(k["kernels"])
+    grads = RESLN_BWD_ROUTES["proj"][k["route"]](x2, w, g, ypre, dout, eps,
+                                                  drop, code)
     fused_proj_resln_bwd.launches += 1
-    return dx, dres, dw, sums[2].to(x2.dtype), sums[0], sums[1]
+    return grads
 
 
 class _ProjResLN(torch.autograd.Function):
@@ -426,16 +534,12 @@ def fused_mlp_resln_res(x2, w1, b1, w2, b2, g, bt, *, eps, act, drop,
     return out, ypre, h
 
 
-def fused_mlp_resln_bwd(x2, w1, w2, g, ypre, h, dout, *, eps, act, drop,
-                        code):
-    """Backward of the training edition (mlp.py:463-495): (dx, dw1, db1,
-    dw2, db2, dgamma, dbeta); weights and biases in the compute dtype,
-    dgamma and dbeta float."""
+def mlp_resln_bwd_products(x2, w1, w2, g, ypre, h, dout, eps, act, drop,
+                           code):
+    """The FFN tail's products route: the row pass (csrc/resln_bwd.cu),
+    then gemm.cu's four products and db1's column sums."""
     M, C = x2.shape
     F = w1.shape[1]
-    dout = dout.reshape(M, C).to(x2.dtype).contiguous()
-    lib.check_device(dout)
-    lib.check_aligned(dout)
     dz, _, dyp, sums = _rows_bwd(ypre, dout, g, eps, drop, code, dres=False)
     # dw2 = cast(act(h))ᵀ dz
     dw2 = gemm(h, dz, F, C, M, (1, F), (C, 1), code, act=act, pro_act=True)
@@ -445,9 +549,64 @@ def fused_mlp_resln_bwd(x2, w1, w2, g, ypre, h, dout, *, eps, act, drop,
     dw1 = gemm(x2, dh, C, F, M, (1, C), (F, 1), code)
     dx = gemm(dh, w1, M, C, F, (F, 1), (1, F), code, add=dyp)
     db1 = colsum(dh, code)
-    fused_mlp_resln_bwd.launches += 1
     dt = x2.dtype
     return dx, dw1, db1.to(dt), dw2, sums[2].to(dt), sums[0], sums[1]
+
+
+def mlp_resln_bwd_fused(x2, w1, w2, g, ypre, h, dout, eps, act, drop, code):
+    """The FFN tail's fused route (csrc/resln_bwd_wg.cu's header):
+    mlp_resln_bwd_wg_kernel and the fixed-order sums of its partial rows
+    in one call, which write dz, g = cast(act(h)), dh and dx, then dW2 =
+    gᵀ dz and dW1 = xᵀ dh through gemm.cu. It raises where the plan names
+    the other route."""
+    M, C = x2.shape
+    F = w1.shape[1]
+    k = _fused_plan("mlp", C, M, x2.dtype)
+    if F % k["chunk"]:
+        raise ValueError(f"mlp_resln_bwd_fused takes F a multiple of "
+                         f"{k['chunk']}, got {F}")
+    lib.check_aligned(h)
+    dz, dx = torch.empty_like(x2), torch.empty_like(x2)
+    gh, dh = torch.empty_like(h), torch.empty_like(h)
+    part, part2, sums = _partials(k, 3 * C + F, x2.device)
+    lib.check(lib.library().idvs_mlp_resln_bwd_wg(
+        ypre.data_ptr(), dout.data_ptr(), g.data_ptr(), h.data_ptr(),
+        w1.data_ptr(), w2.data_ptr(), dz.data_ptr(), gh.data_ptr(),
+        dh.data_ptr(), dx.data_ptr(), part.data_ptr(), part2.data_ptr(),
+        sums.data_ptr(), M, C, F, float(eps), ACTS[act], *drop, k["per"],
+        k["rows"], k["chunk"], k["threads"], k["smem"], code,
+        lib.stream_handle(x2)), "mlp_resln_bwd_wg")
+    del part, part2
+    dw2 = gemm(gh, dz, F, C, M, (1, F), (C, 1), code)          # gᵀ dz
+    del gh
+    dw1 = gemm(x2, dh, C, F, M, (1, C), (F, 1), code)          # xᵀ dh
+    dgamma, dbeta, db2, db1 = sums.split((C, C, C, F))
+    dt = x2.dtype
+    return dx, dw1, db1.to(dt), dw2, db2.to(dt), dgamma, dbeta
+
+
+# the tails' backward on each route of resln_bwd_plan, by tail
+RESLN_BWD_ROUTES = {"mlp": {"fused": mlp_resln_bwd_fused,
+                            "products": mlp_resln_bwd_products},
+                    "proj": {"fused": proj_resln_bwd_fused,
+                             "products": proj_resln_bwd_products}}
+
+
+def fused_mlp_resln_bwd(x2, w1, w2, g, ypre, h, dout, *, eps, act, drop,
+                        code):
+    """Backward of the training edition (mlp.py:463-495): (dx, dw1, db1,
+    dw2, db2, dgamma, dbeta); weights and biases in the compute dtype,
+    dgamma and dbeta float. The route is resln_bwd_plan's."""
+    M, C = x2.shape
+    dout = dout.reshape(M, C).to(x2.dtype).contiguous()
+    lib.check_device(dout)
+    lib.check_aligned(dout)
+    k = resln_bwd_plan("mlp", C, M, x2.dtype)
+    fused_mlp_resln_bwd.bodies.update(k["kernels"])
+    grads = RESLN_BWD_ROUTES["mlp"][k["route"]](x2, w1, w2, g, ypre, h, dout,
+                                                 eps, act, drop, code)
+    fused_mlp_resln_bwd.launches += 1
+    return grads
 
 
 class _MLPResLN(torch.autograd.Function):
@@ -955,7 +1114,8 @@ fused_proj_resln_bwd.launches = 0
 fused_mlp_resln.launches = 0
 fused_mlp_resln_res.launches = 0
 fused_mlp_resln_bwd.launches = 0
-# the device kernels each forward wrapper launched, by its plans' "kernels"
-for _wrapper in (fused_proj_resln, fused_proj_resln_res, fused_mlp_resln,
-                 fused_mlp_resln_res, fused_mlp_bwd, fused_mlp_res_bwd):
+# the device kernels each wrapper launched, by its plans' "kernels"
+for _wrapper in (fused_proj_resln, fused_proj_resln_res, fused_proj_resln_bwd,
+                 fused_mlp_resln, fused_mlp_resln_res, fused_mlp_resln_bwd,
+                 fused_mlp_bwd, fused_mlp_res_bwd):
     _wrapper.bodies = set()

@@ -34,19 +34,27 @@ def save_checkpoint(model_dir: str, epoch: int, state: TrainState,
                     extra: Optional[Dict] = None, log=None) -> str:
     """Writes ``epoch-{epoch}.pt`` under model_dir and returns its path.
     Under a process group only rank 0 writes (every rank holds the same
-    weights)."""
+    weights), and every rank returns only once the file is there (a
+    barrier after rank 0's rename), so any rank may load it next."""
     path = os.path.join(model_dir, f"epoch-{epoch}.pt")
-    if mesh.process_index() != 0:
-        return path
-    payload = {
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "generator": state.generator.get_state(),
-        "step": int(state.step),
-        "epoch": int(epoch),
-        "scaler_state": {},
-        "extra": dict(extra or {}),
-    }
+    if mesh.process_index() == 0:
+        _write(path, model_dir, {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "generator": state.generator.get_state(),
+            "step": int(state.step),
+            "epoch": int(epoch),
+            "scaler_state": {},
+            "extra": dict(extra or {}),
+        })
+        if log:
+            log.info(f"Model saved to {path}")
+    if mesh.group() is not None:
+        torch.distributed.barrier()
+    return path
+
+
+def _write(path: str, model_dir: str, payload: Dict) -> None:
     os.makedirs(model_dir, exist_ok=True)
     # a temporary file and a rename: a reader never sees half a checkpoint
     fd, tmp = tempfile.mkstemp(suffix=".pt.tmp", dir=model_dir)
@@ -57,9 +65,6 @@ def save_checkpoint(model_dir: str, epoch: int, state: TrainState,
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    if log:
-        log.info(f"Model saved to {path}")
-    return path
 
 
 def load_checkpoint(path: str, state: TrainState):
