@@ -95,9 +95,11 @@ failure:
     windowed attention backward with its attention core's device time,
     torch.profiler; each tail's training forward beside its products
     through torch.matmul); then the pre-LN MLP's backward at each Swin-T
-    stage through the route premlp_bwd_plan picks and, where it picks
-    the fused kernel (premlp_bwd_mma_kernel), both routes' times (CUDA
-    events and device time) and their gradients against each other; then
+    stage through the route premlp_bwd_plan picks (premlp_bwd_mma_kernel
+    at stages 0-2, premlp_bwd_wg_kernel at stage 3) and through the
+    products route, both routes' times (CUDA events and device time) and
+    their gradients against each other, and at stage 3 the wg kernel alone
+    (premlp_bwd_gdh) against its plain version, with its bound; then
     the tensor-core gemm() (every backward's products) at the three
     largest products of the stage-0 band backward, against torch.matmul
     on the same bf16 operands, and at the four of the text FFN tail's
@@ -116,7 +118,7 @@ failure:
     kernel selection; step p50, samples/s, images/s, losses, peak device
     memory; every training-edition and backward kernel of each selection's
     path launched, the residual MLP's backward through
-    premlp_bwd_mma_kernel;
+    premlp_bwd_mma_kernel and, at stage 3, premlp_bwd_wg_kernel;
 12. vision gradient check: one float32 step in training mode on 2 users,
     on the card under both kernel selections and through the plain path on
     a CPU copy of the model, DropPath and dropout drawn from the same seed:
@@ -199,7 +201,9 @@ kernel of the train step, of the vision catalog encode, of the vision
 recommend at batches of 1 and 64 and of the vision train step without and
 with Swin's dropouts (wall and device-busy ms, each kernel's share,
 fused_mha's kernels and the pre-LN MLP backward's even outside the top
-rows, gemm.cu's sum and colsum_kernel's), and prints no result line.
+rows, gemm.cu's sum and colsum_kernel's), and prints no result line;
+--profile text the text train step alone, --profile vision the vision
+train step alone.
 """
 
 from __future__ import annotations
@@ -264,6 +268,8 @@ from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
                                                fused_proj_resln_bwd,
                                                fused_proj_resln_plain,
                                                fused_proj_resln_res,
+                                               premlp_bwd_gdh,
+                                               premlp_bwd_gdh_plain,
                                                premlp_bwd_plan,
                                                PREMLP_BWD_ROUTES,
                                                RESLN_BWD_ROUTES, relu_kink,
@@ -293,12 +299,12 @@ FIXED_STEPS, TIMED_STEPS = 20, 10
 CHECK_USERS = 8             # users of the float32 gradient check
 PROFILE_STEPS, PROFILE_ROWS = 5, 12   # --profile: steps traced, rows shown
 # --profile: kernels shown even outside the top rows: fused_mha's, and the
-# pre-LN MLP backward's on both routes (premlp_bwd.cu, gemm.cu's A pre-pass,
-# the column sums)
-PROFILE_WATCH = ("::mha_", "premlp_bwd_mma_kernel", "group_sums_kernel",
+# pre-LN MLP backward's on its three routes (premlp_bwd.cu,
+# premlp_bwd_wg.cu, gemm.cu's A pre-pass, the column sums)
+PROFILE_WATCH = ("::mha_", "premlp_bwd_mma_kernel", "premlp_bwd_wg_kernel",
+                 "group_sums_kernel",
                  "::act_cast_kernel", "::colsum_kernel", "::ln_rows_kernel",
-                 "scale_rows_kernel", "ln_bwd_rows_kernel",
-                 "ln_colsums_kernel")
+                 "ln_bwd_rows_kernel", "ln_colsums_kernel")
 # --profile: csrc/gemm.cu's kernels (products, split-K sums, A's
 # prologue), summed on a line of their own
 PROFILE_GEMM = ("::gemm_mma_kernel", "::splitk_reduce_kernel",
@@ -458,6 +464,7 @@ SOURCES = {
     "fused_mha_proj_bwd": ("win_attn_bwd.cu", "attention.py:597"),
     "fused_mlp_res_bwd": ("premlp_bwd.cu", "mlp.py:134"),
     "fused_mlp_bwd": ("premlp_bwd.cu", "mlp.py:134"),
+    "premlp_bwd_gdh": ("premlp_bwd_wg.cu", "mlp.py:134"),
     "fused_inbatch_ce": ("inbatch_ce.cu", "inbatch_ce.py:61"),
     "fused_inbatch_ce_bwd": ("inbatch_ce.cu", "inbatch_ce.py:99"),
     "gemm": ("gemm.cu", "mlp.py:444"),
@@ -478,6 +485,7 @@ WRAPPERS = {"fused_mha": fused_mha, "fused_mha_bwd": fused_mha_bwd,
             "fused_mha_proj_bwd": fused_mha_proj_bwd,
             "fused_mlp_res_bwd": fused_mlp_res_bwd,
             "fused_mlp_bwd": fused_mlp_bwd,
+            "premlp_bwd_gdh": premlp_bwd_gdh,
             "fused_inbatch_ce": fused_inbatch_ce,
             "fused_inbatch_ce_bwd": fused_inbatch_ce_bwd, "gemm": gemm}
 # text serving runs in float32: its projection tails through gemm.cu
@@ -500,7 +508,8 @@ VISION_RECOMMEND_KERNELS = ("fused_mha", "fused_proj_resln",
                             "fused_mlp_resln", "gemm")
 VISION_WINDOWS_KERNELS = ("fused_mha_proj", "fused_mlp")
 VISION_TRAIN_KERNELS = ("fused_mha_proj_band", "fused_mha_proj_band_bwd",
-                        "fused_mlp_res", "fused_mlp_res_bwd", "fused_mha",
+                        "fused_mlp_res", "fused_mlp_res_bwd",
+                        "premlp_bwd_gdh", "fused_mha",
                         "fused_mha_bwd", "fused_proj_resln_res",
                         "fused_proj_resln_bwd", "fused_mlp_resln_res",
                         "fused_mlp_resln_bwd", "gemm")
@@ -795,6 +804,8 @@ def device_text(run_kernel, other, bound_ms: float, reps: int) -> str:
     of its bound reached, beside `other`'s (the library call or the
     yardstick), each the profiler's sum over the call's kernels."""
     ms = device_ms(run_kernel, reps)[0]
+    if not ms or math.isnan(ms):
+        return "; device time not recorded by the profiler"
     text = (f"; device {ms:.4f} ms ({100 * bound_ms / ms:.1f} % of the "
             f"bound)")
     if other is not None:
@@ -1884,27 +1895,37 @@ def vision_backward_cases(dev, images: int):
     return cases
 
 
-def premlp_bwd_routes(dev, card: str, images: int) -> None:
+def gdh_work(M, C, F, it=2):
+    # h and dg; reads xn, dy, w1, w2, b1; writes g, dh and the two column
+    # sums (float)
+    return 4 * M * C * F, (2 * M * C + 2 * C * F + F + 2 * M * F) * it + 4 * (
+        C + F)
+
+
+def premlp_bwd_routes(dev, card: str, images: int) -> dict:
     """The pre-LN MLP's backward at each Swin-T stage for `images`
     images, bf16, with DropPath's row scale: the route premlp_bwd_plan
-    picks, and where it picks the fused kernel both routes' calls alone
-    (PREMLP_BWD_ROUTES: premlp_bwd_mma_kernel and gemm.cu's two weight
-    products, or gemm.cu's five products around the row passes), CUDA-event
-    and device time, their gradients against each other at GRAD_TOL (each
-    route is held against autograd of the plain version in the cases
-    before)."""
+    picks (premlp_bwd_mma_kernel's "fused" at stages 0-2,
+    premlp_bwd_wg_kernel's "wg" at stage 3) and the products route, each
+    call alone (PREMLP_BWD_ROUTES: the kernel and gemm.cu's products, or
+    gemm.cu's five products around the row passes), CUDA-event and device
+    time, their gradients against each other at GRAD_TOL (each route is
+    held against autograd of the plain version in the cases before).
+    Where the plan takes "wg", the kernel alone (premlp_bwd_gdh: g, dh,
+    db1 and db2 of the row pass's xn and dy) against premlp_bwd_gdh_plain
+    at GRAD_TOL, with event and device time, its bound, the plain
+    version's time and the torch.matmul yardstick of its two products.
+    Returns that row for the kernels line."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
                                           device=dev) * scale
     bf = torch.bfloat16
+    records = {}
     for C, _, side in SWIN_STAGES:
         M, Fw = images * side * side, 4 * C
         k = premlp_bwd_plan(C, M, bf)
         where = f"scaled M={M} C={C} F={Fw} gelu bf16"
-        if k["route"] != "fused":
-            print(f"premlp_bwd routes [{where}]: the plan takes "
-                  f"{k['route']} [{card}]", flush=True)
-            continue
+        routes = (k["route"], "products")
         x2, dout = g(M, C).to(bf), g(M, C).to(bf)
         w1, b1, w2 = (g(C, Fw, scale=C ** -0.5).to(bf),
                       g(Fw, scale=0.1).to(bf), g(Fw, C, scale=Fw ** -0.5).to(bf))
@@ -1913,24 +1934,68 @@ def premlp_bwd_routes(dev, card: str, images: int) -> None:
         scale = (keep.float() / 0.9).repeat_interleave(side * side)
         ops = (x2, dout, scale, w1, b1, w2, ln, None, 1e-5, "gelu", True,
                lib.DTYPE_CODES[bf])
-        got = {r: fn(*ops) for r, fn in PREMLP_BWD_ROUTES.items()}
+        got = {r: PREMLP_BWD_ROUTES[r](*ops) for r in routes}
         torch.cuda.synchronize()
-        worst = _worst_err(got["fused"], got["products"],
+        worst = _worst_err(got[k["route"]], got["products"],
                            f"premlp_bwd routes {where}")
         del got
-        times = {r: (cuda_ms(lambda fn=fn: fn(*ops), reps=VB_REPS),
-                     device_ms(lambda fn=fn: fn(*ops), VB_REPS)[0])
-                 for r, fn in PREMLP_BWD_ROUTES.items()}
-        plan = {n: k[n] for n in ("rows", "f_chunk", "threads", "smem",
-                                  "row_warps", "col_warps", "blocks_per_sm")}
-        print(f"premlp_bwd routes [{where}]: the plan takes fused {plan}; "
-              + ", ".join(f"{r} {ms:.4f} ms ({dev_ms:.4f} ms device)"
-                          for r, (ms, dev_ms) in times.items())
-              + f"; fused against products max_abs_err {worst[1]:.3e} on a "
-              f"scale of {worst[2]:.3g} [{card}]", flush=True)
+        times = {}
+        for r in routes:
+            fn = lambda r=r: PREMLP_BWD_ROUTES[r](*ops)
+            times[r] = (cuda_ms(fn, reps=VB_REPS), device_ms(
+                fn, VB_REPS, expect=(k["kernels"][0],)
+                if r == k["route"] else ())[0])
+        plan = {n: v for n, v in k.items()
+                if n not in ("route", "kernels", "blocks", "per", "groups")}
+        print(f"premlp_bwd routes [{where}]: the plan takes {k['route']} "
+              f"{plan}; " + ", ".join(f"{r} {ms:.4f} ms ({dev_ms:.4f} ms "
+                                      f"device)"
+                                      for r, (ms, dev_ms) in times.items())
+              + f"; {k['route']} against products max_abs_err "
+              f"{worst[1]:.3e} on a scale of {worst[2]:.3g} [{card}]",
+              flush=True)
         require(worst[0] <= GRAD_TOL[bf], f"premlp_bwd routes {where}: "
                 f"error {worst[1]} above {GRAD_TOL[bf]} x {worst[2]}")
+        if k["route"] == "wg":
+            records["premlp_bwd_gdh"] = gdh_case(card, where, x2, dout,
+                                                 scale, w1, b1, w2, ln)
         del x2, dout, ops
+    return records
+
+
+def gdh_case(card: str, where: str, x2, dout, scale, w1, b1, w2, ln) -> dict:
+    """premlp_bwd_gdh (premlp_bwd_wg_kernel and its fixed-order sums) on
+    the wg route's xn = cast(LN(x)) and dy = cast(s dout) against
+    premlp_bwd_gdh_plain at GRAD_TOL; event and device time (the kernel's
+    own beside), bound, plain and the torch.matmul yardstick of h = xn w1
+    and dg = dy w2ᵀ. Returns the kernels line's row."""
+    bf, C = torch.bfloat16, x2.shape[1]
+    M, Fw = x2.shape[0], w1.shape[1]
+    xn = F.layer_norm(x2.float(), (C,), ln[0], ln[1], 1e-5).to(bf)
+    dy = (dout.float() * scale[:, None]).to(bf)
+    run = lambda: premlp_bwd_gdh(xn, dy, w1, b1, w2, None, "gelu")
+    plain = lambda: premlp_bwd_gdh_plain(xn, dy, w1, b1, w2, None, "gelu")
+    yard = lambda: (xn @ w1, dy @ w2.t())
+    worst = _worst_err(run(), plain(), f"premlp_bwd_gdh {where}")
+    ms, plain_ms = cuda_ms(run, reps=VB_REPS), cuda_ms(plain, reps=VB_REPS)
+    # ten calls a trace, after device_ms's warm-up call (PERF.md §7)
+    dev_ms, by_kernel = device_ms(run, 10, expect=("premlp_bwd_wg_kernel",))
+    own = sum(v for n, v in by_kernel.items() if "premlp_bwd_wg_kernel" in n)
+    yard_ms = (cuda_ms(yard, reps=VB_REPS), device_ms(yard, VB_REPS)[0])
+    work = gdh_work(M, C, Fw)
+    bound_ms, bound_by = bound_of(work, bf)
+    print(f"kernel premlp_bwd_gdh [{where}]: max_abs_err {worst[1]:.3e} on a "
+          f"scale of {worst[2]:.3g} (tol {GRAD_TOL[bf]:g} of it), kernel "
+          f"{ms:.4f} ms ({dev_ms:.4f} ms device, premlp_bwd_wg_kernel "
+          f"{own:.4f}, {own and work[0] / own / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.4f} ms, the two products through torch.matmul "
+          f"{yard_ms[0]:.4f} ms ({yard_ms[1]:.4f} ms device), bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f} % of "
+          f"it reached in event time) [{card}]", flush=True)
+    require(worst[0] <= GRAD_TOL[bf], f"premlp_bwd_gdh {where}: error "
+            f"{worst[1]} above {GRAD_TOL[bf]} x {worst[2]}")
+    return dict(max_abs_err=worst[1], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def gemm_phase(dev, card: str, images: int, titles: int) -> dict:
@@ -2272,8 +2337,9 @@ def vision_train_path(dev, card: str, pool: np.ndarray) -> dict:
     fused_mlp_res_bwd.bodies = earlier | seen
     print(f"vision training launches {launched}; the MLP backward's device "
           f"kernels {sorted(seen)}", flush=True)
-    require("premlp_bwd_mma_kernel" in seen, "the vision train step's MLP "
-            "backward never took premlp_bwd_mma_kernel")
+    for body in ("premlp_bwd_mma_kernel", "premlp_bwd_wg_kernel"):
+        require(body in seen, f"the vision train step's MLP backward never "
+                f"took {body}")
     for n in VISION_TRAIN_KERNELS:
         require(launched[n] > 0, f"{n} never launched in vision training")
     torch.cuda.empty_cache()
@@ -2287,7 +2353,7 @@ def vision_train_path(dev, card: str, pool: np.ndarray) -> dict:
     windows = vision_train_run(dev, card, pool, zipf, cap, 0, 1, 1,
                                "zipf, dedup, 'windows' kernels", "windows")
     print(f"vision training launches under 'windows' {windows}", flush=True)
-    for n in VISION_WINDOWS_TRAIN_KERNELS:
+    for n in VISION_WINDOWS_TRAIN_KERNELS + ("premlp_bwd_gdh",):
         require(windows[n] > 0, f"{n} never launched by the 'windows' "
                 f"train step")
     torch.cuda.empty_cache()
@@ -2450,6 +2516,10 @@ def vision_dropout_train_path(dev, card: str, pool: np.ndarray) -> dict:
     print(f"vision dropout training launches {launched}", flush=True)
     check_dropout_launches(launched, V_DROP_FIXED + V_DROP_TIMED,
                            "the vision dropout train step")
+    # stage 3's two blocks take the wg route in bf16
+    require(launched["premlp_bwd_gdh"] == 2 * (V_DROP_FIXED + V_DROP_TIMED),
+            f"the vision dropout train step launched premlp_bwd_gdh "
+            f"{launched['premlp_bwd_gdh']} times")
     torch.cuda.empty_cache()
     vision_train_run(dev, card, pool, zipf, cap, cap // 3, 1,
                      V_DROP_CHUNKED - 1, "zipf, dedup, chunked, Swin dropouts",
@@ -3303,12 +3373,13 @@ def merge(kernels: dict, more: dict) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="all",
-                        choices=("all", "text"),
+                        choices=("all", "text", "vision"),
                         help="only profile the train step, the vision "
                              "catalog encode and recommend and the vision "
                              "train step by device kernel (torch.profiler), "
                              "after the card and build phases; 'text': the "
-                             "text train step alone")
+                             "text train step alone; 'vision': the vision "
+                             "train step alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
@@ -3333,6 +3404,9 @@ def main() -> int:
     batches = train_batches(np.random.default_rng(SEED + 4),
                             TIMED_STEPS + 1)
     cap = dedup_cap(batches)
+    if args.profile == "vision":
+        profile_vision_train(dev, card)
+        return 0
     if args.profile:
         profile_train(dev, card, content, batches, cap)
         if args.profile == "text":
@@ -3378,7 +3452,7 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
               flush=True)
         torch.cuda.empty_cache()
-        premlp_bwd_routes(dev, card, V_BWD_IMAGES)
+        merge(kernels, premlp_bwd_routes(dev, card, V_BWD_IMAGES))
         torch.cuda.empty_cache()
         merge(kernels, gemm_phase(dev, card, V_BWD_IMAGES, cap))
     torch.cuda.empty_cache()

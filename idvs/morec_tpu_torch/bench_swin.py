@@ -30,10 +30,11 @@ of autograd's backward of one kept forward, by kernel, beside
 ``mlp_bwd_work``'s bound and the yardstick of its five products through
 torch.matmul on bf16 operands (h = xn w1, dg = dy w2ᵀ, dW2 = gᵀ dy, dW1 =
 xnᵀ dh, dxn = dh w1ᵀ); where the tree has ``premlp_bwd_plan``, the row
-names the plan's route and times each route's call alone (``routes``:
-event and device ms).
+names the plan's route and times its call alone and the products
+route's (``routes``: event and device ms; "fused" at stages 0-2, "wg" at
+stage 3 from PR 17 on, "products" at stage 3 before).
 
---report compiles premlp.cu, premlp_bwd.cu, win_attn.cu and win_attn_bwd.cu with the
+--report compiles premlp.cu, premlp_bwd.cu, premlp_bwd_wg.cu, win_attn.cu and win_attn_bwd.cu with the
 library's flags and -Xptxas -v and prints each kernel's registers, spills
 and static shared memory and its HMMA instructions (bench_gemm's report);
 the bf16 plans' dynamic shared memory is in each row (``plan_smem``).
@@ -48,7 +49,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
+import sys
 
 import torch
 
@@ -64,6 +67,8 @@ BWD_IMAGES = 288
 # the backward's attention core by kernel name: this tree's (fused_mha.cu's
 # tensor-core backward, shared) or an older tree's, and the dbias sum
 CORE = ("win_attn_bwd", "mha_bwd_mma", "sum_partials")
+# device_ms: the traces of a call it takes before it gives up
+TRACE_TRIES = 5
 SWIN_T = ((96, 3, 56), (192, 6, 28), (384, 12, 14), (768, 24, 7))
 
 
@@ -201,8 +206,9 @@ def mlp_bwd_rows(g, images=BWD_IMAGES):
     """(row, stage, label, call, work, products factory, routes, plan) for
     the MLP backward at each Swin-T stage, bf16: call runs autograd's
     backward of one kept forward; routes maps each route of
-    ``PREMLP_BWD_ROUTES`` to a call of it alone on the same operands (None
-    in a tree without the plan)."""
+    ``PREMLP_BWD_ROUTES`` to a call of it alone on the same operands: the
+    plan's route and the products route (None in a tree without the plan,
+    or where the plan takes the products route)."""
     from idvs.morec_tpu_torch.ops.cuda import mlp
     plan = getattr(mlp, "premlp_bwd_plan", None)
     routes = getattr(mlp, "PREMLP_BWD_ROUTES", None)
@@ -229,11 +235,11 @@ def mlp_bwd_rows(g, images=BWD_IMAGES):
                 out = fused_mlp(*leaves[:5], ln=leaves[5:])
             k = plan(C, M, BF16) if plan else None
             calls = None
-            if routes and k["route"] == "fused":
+            if routes and k["route"] != "products":
                 ops = (x2, dout, scale if res else None, *bf, ln, None, 1e-5,
                        "gelu", res, 1)
-                calls = {r: (lambda fn=fn, ops=ops: fn(*ops))
-                         for r, fn in routes.items()}
+                calls = {r: (lambda fn=routes[r], ops=ops: fn(*ops))
+                         for r in (k["route"], "products")}
             yield (name, stage, label,
                    lambda out=out, leaves=leaves: torch.autograd.grad(
                        out, leaves, dout, retain_graph=True),
@@ -242,25 +248,50 @@ def mlp_bwd_rows(g, images=BWD_IMAGES):
                    k)
 
 
-def device_ms(fn, reps):
-    """Device time a call (ms) and the kernels it launched, by name, from a
-    torch.profiler trace of `reps` calls. A trace can miss kernels (on the
-    H100 one row read 0 ms and one a third of its other runs' time,
-    PERF.md): repeat a row before trusting an outlier."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, reps, expect=()):
+    """Device time a call (ms) and the kernels it launched, by name (ms a
+    call each), from a torch.profiler trace of `reps` calls, reps >= 3.
 
+    On the H100 a trace loses launches: without a warm-up, the first
+    launch of some kernels in each trace (the window backward's core in
+    every trace of three calls), so that the recorded time over `reps`
+    read up to 20 % fast (PERF.md §7). So one call runs in the
+    profiler's warm-up step, whose records are dropped, before the
+    traced calls. Even then a trace can miss a launch; a kernel's time a
+    call is therefore its mean time a recorded launch times its launches
+    a call, and a trace is kept only where each kernel has a whole
+    multiple of `reps` launches or one fewer, and each name of `expect`
+    among them. Else the trace is taken again, up to TRACE_TRIES times,
+    and then the time is nan: not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    if reps < 3:
+        raise ValueError(f"device_ms takes reps >= 3, got {reps}")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-    kernels = {e.key: e.self_device_time_total / 1e3 / reps
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0}
-    return sum(kernels.values()), kernels
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if (events and all(e.count % reps in (0, reps - 1) for e in events)
+                and all(any(n in e.key for e in events) for n in expect)):
+            kernels = {e.key: e.self_device_time_total / 1e3 / e.count
+                       * -(-e.count // reps) for e in events}
+            return sum(kernels.values()), kernels
+    print(f"device_ms: {TRACE_TRIES} traces of {reps} calls each lost "
+          f"launches; device time not measured", file=sys.stderr, flush=True)
+    return math.nan, {}
 
 
 def main():
@@ -273,8 +304,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.report:
         from idvs.morec_tpu_torch.bench_gemm import report
-        report(("premlp.cu", "premlp_bwd.cu", "win_attn.cu",
-                "win_attn_bwd.cu"))
+        report(("premlp.cu", "premlp_bwd.cu", "premlp_bwd_wg.cu",
+                "win_attn.cu", "win_attn_bwd.cu"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
                                           device="cuda") * scale
@@ -327,7 +358,9 @@ def main():
         if routes:
             row["routes"] = {
                 r: {"ms": round(cuda_ms(c, args.reps), 4),
-                    "device_ms": round(device_ms(c, args.reps)[0], 4)}
+                    "device_ms": round(device_ms(
+                        c, args.reps, expect=(plan["kernels"][0],)
+                        if r == plan["route"] else ())[0], 4)}
                 for r, c in routes.items()}
         print(json.dumps(row), flush=True)
         del call, routes

@@ -11,9 +11,12 @@
 //   dW2 = g^T dy, db2 = colsum(dy); dW1 = xn^T dh, db1 = colsum(dh);
 //   dgamma = colsum(dxn * xhat), dbeta = colsum(dxn)
 // The TPU kernel keeps a row block's h, g, dg and dh in VMEM and adds the
-// weight gradients into resident buffers over a sequential grid. Two
-// routes here, chosen by premlp_bwd_plan (ops/cuda/mlp.py), the one place
-// the route is decided; neither is a fallback of the other.
+// weight gradients into resident buffers over a sequential grid. Three
+// routes, chosen by premlp_bwd_plan (ops/cuda/mlp.py), the one place the
+// route is decided; none is a fallback of another. Two are here; the
+// third, "wg" (bf16 at C = 512, 768, 1024), is premlp_bwd_wg.cu's kernel
+// between this file's row pass (ln_rows_kernel, dy too) and LayerNorm
+// backward and gemm.cu's three products, that file's header.
 //
 // "fused" (bf16 at the widths premlp_bwd_mma_kernel is built for): one
 // tensor-core kernel runs the row-local half and the three products along
@@ -61,11 +64,12 @@
 // atomics, so two runs give the same bits. xn (LN edition) and dy (scaled
 // edition) are written once for the weight gradients.
 //
-// "products" (float32; bf16 at the other widths): the row passes below
+// "products" (float32; bf16 at no width now: every bf16 width of
+// PRE_F_CHUNK takes "fused" or "wg"): the row passes below
 // around gemm.cu's products (as 3xTF32 in float32):
 //   xn  = cast(LN_f32(x))                           ln_rows_kernel
 //   h   = f32(xn @ W1) + b1                         gemm, float out
-//   dy  = cast(s[row] * dout)                       scale_rows_kernel
+//   dy  = cast(s[row] * dout)                       ln_rows_kernel too
 //   dW2 = cast(act(h))^T dy,  db2 = colsum(dy)      gemm (act on load)
 //   dh  = cast((dy @ W2^T) * act'(h))               gemm (gate epilogue)
 //   dW1 = xn^T dh,  db1 = colsum(dh)                gemm
@@ -90,12 +94,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // xn = cast(LN(x)); stats[row] = (mu, rstd). The fast variance
-// E[x^2] - E[x]^2 clamped at 0, as the forward (premlp.cu).
+// E[x^2] - E[x]^2 clamped at 0, as the forward (premlp.cu). With dy not
+// null also dy = cast(scale[row] * dout) in the same pass (the scaled
+// edition, which always has its LayerNorm).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                    const float* __restrict__ beta, T* __restrict__ xn,
-                   float2* __restrict__ stats, int M, int C, float eps) {
+                   float2* __restrict__ stats, const T* __restrict__ dout,
+                   const float* __restrict__ scale, T* __restrict__ dy,
+                   int M, int C, float eps) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int row = blockIdx.x * kWarps + warp; row < M;
        row += gridDim.x * kWarps) {
@@ -114,17 +122,13 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = lane; k < C; k += 32)
       out[k] = from_f32<T>((to_f32(xr[k]) - mu) * rstd * gamma[k] + beta[k]);
     if (lane == 0) stats[row] = make_float2(mu, rstd);
+    if (dy != nullptr) {
+      const size_t base = static_cast<size_t>(row) * C;
+      const float sc = scale[row];
+      for (int k = lane; k < C; k += 32)
+        dy[base + k] = from_f32<T>(to_f32(dout[base + k]) * sc);
+    }
   }
-}
-
-// dy = cast(scale[row] * dout)
-template <typename T>
-__global__ void scale_rows_kernel(const T* __restrict__ dout,
-                                  const float* __restrict__ scale,
-                                  T* __restrict__ dy, size_t n, int C) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x)
-    dy[i] = from_f32<T>(to_f32(dout[i]) * scale[i / C]);
 }
 
 // dx = cast(rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) + dout)
@@ -185,20 +189,12 @@ int row_blocks(int M) {
 
 template <typename T>
 cudaError_t ln_rows(const void* x, const float* gamma, const float* beta,
-                    void* xn, float2* stats, int M, int C, float eps,
+                    void* xn, float2* stats, const void* dout,
+                    const float* scale, void* dy, int M, int C, float eps,
                     cudaStream_t s) {
   ln_rows_kernel<T><<<row_blocks(M), kThreads, 0, s>>>(
-      static_cast<const T*>(x), gamma, beta, static_cast<T*>(xn), stats, M, C,
-      eps);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t scale_rows(const void* dout, const float* scale, void* dy, int M,
-                       int C, cudaStream_t s) {
-  scale_rows_kernel<T><<<132 * 8, 256, 0, s>>>(
-      static_cast<const T*>(dout), scale, static_cast<T*>(dy),
-      static_cast<size_t>(M) * C, C);
+      static_cast<const T*>(x), gamma, beta, static_cast<T*>(xn), stats,
+      static_cast<const T*>(dout), scale, static_cast<T*>(dy), M, C, eps);
   return cudaGetLastError();
 }
 
@@ -767,36 +763,29 @@ cudaError_t dispatch_bwd(const BwdArgs& p, const BwdPlan& k, int C,
 }  // namespace idvs
 
 // x, xn: (M, C) in the compute dtype; gamma, beta: (C,) float; stats:
-// (M, 2) float, which receives each row's (mean, 1/std).
+// (M, 2) float, which receives each row's (mean, 1/std). dout, dy (M, C)
+// in the compute dtype and scale (M,) float: dy = cast(scale[row] dout)
+// in the same pass, or all three null.
 extern "C" int idvs_premlp_ln_rows(const void* x, const void* gamma,
                                    const void* beta, void* xn, void* stats,
-                                   int M, int C, float eps, int dtype,
-                                   void* stream) {
+                                   const void* dout, const void* scale,
+                                   void* dy, int M, int C, float eps,
+                                   int dtype, void* stream) {
   using namespace idvs;
-  if (M < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1 || C < 1 || (dout == nullptr) != (dy == nullptr) ||
+      (scale == nullptr) != (dy == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
+  const float* sc = static_cast<const float*>(scale);
   float2* st = static_cast<float2*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return static_cast<int>(ln_rows<float>(x, g, b, xn, st, M, C, eps, s));
-  if (dtype == kBF16)
     return static_cast<int>(
-        ln_rows<__nv_bfloat16>(x, g, b, xn, st, M, C, eps, s));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// dy (M, C) = cast(scale[row] * dout), scale (M,) float.
-extern "C" int idvs_scale_rows(const void* dout, const void* scale, void* dy,
-                               int M, int C, int dtype, void* stream) {
-  using namespace idvs;
-  if (M < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const float* sc = static_cast<const float*>(scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return static_cast<int>(scale_rows<float>(dout, sc, dy, M, C, s));
+        ln_rows<float>(x, g, b, xn, st, dout, sc, dy, M, C, eps, s));
   if (dtype == kBF16)
-    return static_cast<int>(scale_rows<__nv_bfloat16>(dout, sc, dy, M, C, s));
+    return static_cast<int>(ln_rows<__nv_bfloat16>(x, g, b, xn, st, dout, sc,
+                                                   dy, M, C, eps, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

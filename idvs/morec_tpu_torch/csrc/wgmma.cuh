@@ -1,12 +1,13 @@
 // Hopper's asynchronous building blocks for sm_90a, shared by the port's
-// warp-specialised kernels (resln_bwd_wg.cu): warpgroup products
-// (wgmma.mma_async) on bf16 operands in shared memory with float
+// warp-specialised kernels (resln_bwd_wg.cu, premlp_bwd_wg.cu): warpgroup
+// products (wgmma.mma_async) on bf16 operands in shared memory with float
 // accumulators in registers, their shared-memory descriptors, the
 // mbarriers of a producer-consumer ring, TMA tile loads into that ring,
 // and setmaxnreg.
 //
 // Operand layout. Every operand here is K-major (each row of A or B holds
-// consecutive k) in the 128-byte swizzled layout that TMA writes with
+// consecutive k; premlp_bwd_wg.cu's W1 alone is MN-major, sw128_desc_mn)
+// in the 128-byte swizzled layout that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: a row of 64 bf16 (128 bytes) per line, 8
 // lines an atom of 1024 bytes (1024-byte aligned), and within line r the
 // 16-byte piece c stored at piece c ^ (r % 8). A tile deeper than 64 in K
@@ -47,6 +48,20 @@ __device__ __forceinline__ uint32_t sw128_offset(int r, int k) {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
          (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// The descriptor of an MN-major (transposed) operand in the same swizzle,
+// as TMA writes a [k][64] box of a row-major (K, N) matrix: each 128-byte
+// line holds 64 consecutive n of one k, 8 lines an atom; the stride byte
+// offset (bits 32-45) steps 8 k (1024 bytes), the leading byte offset
+// (bits 16-29) steps 64 n, `mn_stride` bytes. A k-step of 16 advances the
+// start address by 2048 bytes.
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t addr,
+                                                  uint32_t mn_stride) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(mn_stride >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
 }
@@ -124,6 +139,8 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// TB 1 takes B MN-major (transposed, sw128_desc_mn), bf16 only
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a,
                                             uint64_t b, int scale_d) {
   asm volatile(
@@ -135,7 +152,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a,
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -149,7 +166,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
 __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a,

@@ -97,10 +97,8 @@ _SIGNATURES = {
     # res, rows, f_chunk, threads, smem, dtype, stream
     "idvs_premlp_fwd": [_P] * 10 + [_I] * 3 + [_F] + [_I] * 5
                        + [_LL, _I, _P],
-    # x, gamma, beta, xn, stats, M, C, eps, dtype, stream
-    "idvs_premlp_ln_rows": [_P] * 5 + [_I, _I, _F, _I, _P],
-    # dout, scale, dy, M, C, dtype, stream
-    "idvs_scale_rows": [_P] * 3 + [_I] * 3 + [_P],
+    # x, gamma, beta, xn, stats, dout, scale, dy, M, C, eps, dtype, stream
+    "idvs_premlp_ln_rows": [_P] * 8 + [_I, _I, _F, _I, _P],
     # x, dxn, gamma, stats, dout, dx, part, sums, nb, M, C, dtype, stream
     "idvs_premlp_ln_bwd": [_P] * 8 + [_I] * 4 + [_P],
     # x, dout, scale, gamma, beta, w1, b1, w2, hsave, dx, xn, dy, g, dh,
@@ -108,6 +106,10 @@ _SIGNATURES = {
     # threads, smem, dtype, stream
     "idvs_premlp_bwd": [_P] * 17 + [_I] * 3 + [_F] + [_I] * 6
                        + [_LL, _I, _P],
+    # xn, dy, w1, b1, w2, hsave, g, dh, part, part2, sums, M, C, F, act,
+    # per, rows, f_tile, stages, threads, producer_regs, consumer_regs,
+    # smem, dtype, stream
+    "idvs_premlp_bwd_wg": [_P] * 11 + [_I] * 11 + [_LL, _I, _P],
     # qkv, bias, dctx, dqkv, ctx, part, dbias, windows, T, nh, dh, P,
     # chunks, bias_sp, bias_sh, band, w, nwc, nwr, scale, dtype, stream
     "idvs_win_attn_bwd": [_P] * 7 + [_I] * 6 + [_LL, _LL] + [_I] * 4

@@ -46,8 +46,9 @@ import torch
 
 from .. import dropout
 from . import lib
-from .gemm import (BODIES as GEMM_BODIES, act_cast, act_of as _act, colsum,
-                   gemm, gemm_plain, ptr, row_groups, sm_count, splits_of)
+from .gemm import (BODIES as GEMM_BODIES, _dact_f32, act_cast,
+                   act_of as _act, colsum, gemm, gemm_plain, ptr, row_groups,
+                   sm_count, splits_of)
 from ...models.layers import layer_norm
 
 KERNEL_WIDTHS = (128, 256, 512, 2048)   # C the kernels are instantiated for
@@ -673,18 +674,22 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 # the activation and dense2 with the (M, F) intermediate never in device
 # memory, and for ``fused_mlp_res`` the residual (and DropPath's per-row
 # scale) on the accumulator. The backward recomputes the LayerNorm and h
-# from x (or reads the h that ``save_h`` stored) and takes one of two
-# routes, which ``premlp_bwd_plan`` decides: "fused" (bf16 at the widths
-# its kernel is built for), one tensor-core kernel for the row-local half
-# and the three products along the rows, which writes g and dh once for
-# gemm.cu's two weight-gradient products; or "products", gemm.cu's five
-# products with the activation on load and its derivative as an epilogue
-# around the LayerNorm's row passes. Every sum over rows is added in a fixed
-# order. bf16 runs on the tensor cores; in float32 the forward runs on the
-# float FMA units and the backward's products on the tensor cores as
-# 3xTF32 (gemm.cu); the .cu headers have the design.
-# ``fused_mlp_bwd.launches`` and ``fused_mlp_res_bwd.launches`` count the
-# backward's launches, their ``bodies`` the device kernels its plans named.
+# from x (or reads the h that ``save_h`` stored) and takes one of three
+# routes, which ``premlp_bwd_plan`` decides: "fused" (bf16 at C <= 384),
+# one tensor-core kernel for the row-local half and the three products
+# along the rows, which writes g and dh once for gemm.cu's two
+# weight-gradient products; "wg" (bf16 at C = 512, 768, 1024), a
+# warp-specialised wgmma kernel for the row-local half alone (h and dg on
+# tiles of rows x F, g and dh written once, ``premlp_bwd_gdh``) between the
+# LayerNorm's row passes and gemm.cu's three products; or "products"
+# (float32), gemm.cu's five products with the activation on load and its
+# derivative as an epilogue around the LayerNorm's row passes. Every sum
+# over rows is added in a fixed order. bf16 runs on the tensor cores; in
+# float32 the forward runs on the float FMA units and the backward's
+# products on the tensor cores as 3xTF32 (gemm.cu); the .cu headers have
+# the design. ``fused_mlp_bwd.launches`` and ``fused_mlp_res_bwd.launches``
+# count the backward's launches, their ``bodies`` the device kernels its
+# plans named; ``premlp_bwd_gdh.launches`` the wg kernel's.
 
 PRE_ACTS = {"gelu": 0, "relu": 1, "quick_gelu": 2}
 # The bf16 body (premlp_mma_kernel) by C: (F chunk, row warps, column warps,
@@ -808,9 +813,18 @@ def _premlp_fwd(name, x2, s, ops, lnf, eps, act, res, code, hsave=None):
 # 128 and 192, 64 at C = 256 and 384, where the (rows, C + 8) tiles of x
 # and dy and the chunk's weights fill one block's shared memory. The
 # layouts measured best of those tried on the H100 (PERF.md). C = 512 and
-# up, and float32, take the products route.
+# up take the wg route, float32 the products route.
 _PRE_BWD_MMA = {32: (4, 1, 4), 64: (4, 1, 4), 96: (4, 1, 4), 128: (8, 2, 1),
                 192: (8, 2, 1), 256: (4, 2, 1), 384: (4, 2, 1)}
+# csrc/premlp_bwd_wg.cu's block by C: 128 rows (an m64 tile for each of two
+# consumer warpgroups) x 128 columns of F, K in blocks of 64 through a ring
+# of 3 TMA stages (xn's, dy's, W1's and W2's K-blocks, 64 KB), 384 threads
+# (the producer warpgroup's too) and the registers a thread after
+# setmaxnreg: the consumers' hold the h and dg accumulators, 64 x 128
+# floats each a warpgroup
+PRE_WG_WIDTHS = (512, 768, 1024)
+PRE_WG_ROWS, PRE_WG_COLS, PRE_WG_DEPTH, PRE_WG_STAGES = 128, 128, 64, 3
+PRE_WG_THREADS, PRE_WG_PRODUCER_REGS, PRE_WG_CONSUMER_REGS = 384, 40, 232
 
 
 @functools.lru_cache(maxsize=None)
@@ -824,13 +838,42 @@ def premlp_bwd_plan(C: int, M: int, dtype: torch.dtype) -> dict:
     stages (one slot each of a chunk's W2 rows and W1 columns, refilled
     in turn), the accumulator floats a thread holds (dxn, h and dg)
     against its register cap; ``blocks`` partial rows of (db2, dgamma,
-    dbeta, db1) added in ``groups`` groups of ``per``. Route "products"
-    (float32, other widths): gemm.cu's
-    products around the row passes (``premlp_bwd_products``). "kernels"
-    names the device kernels the route launches; F must be a multiple of
-    "f_chunk" on the fused route."""
+    dbeta, db1) added in ``groups`` groups of ``per``. Route "wg" (bf16
+    at ``PRE_WG_WIDTHS``): the block plan of csrc/premlp_bwd_wg.cu's
+    premlp_bwd_wg_kernel, likewise checked there: rows and F columns a
+    block, the K-block depth, the ring's stages, threads (a producer
+    warpgroup and two consumer warpgroups), shared-memory bytes, the
+    producer's and the consumers' setmaxnreg caps, the h and dg
+    accumulator floats a consumer thread holds, ``blocks`` row tiles
+    whose partial rows of (db2, db1) are added in ``groups`` groups of
+    ``per``. Route "products" (float32): gemm.cu's products around the
+    row passes (``premlp_bwd_products``). "kernels" names the device
+    kernels the route launches (the LayerNorm's row passes,
+    ``LN_KERNELS``, with the LayerNorm only); F must be a multiple of "f_chunk" on the fused route, of "f_tile" on wg."""
+    if dtype == torch.bfloat16 and C in PRE_WG_WIDTHS:
+        rows, cols, depth = PRE_WG_ROWS, PRE_WG_COLS, PRE_WG_DEPTH
+        # a stage: the xn and dy K-blocks (rows x depth), W1's (depth x
+        # cols) and W2's (cols x depth), bf16; then db1's warp sums [8][cols]
+        # and db2's warpgroup sums [2][C] in float, the full and empty
+        # mbarrier of each stage, and 1024 bytes to align the base
+        stage = 2 * (2 * rows * depth + 2 * depth * cols)
+        smem = (PRE_WG_STAGES * stage + 4 * (8 * cols + 2 * C)
+                + 2 * 8 * PRE_WG_STAGES + 1024)
+        blocks = -(-M // rows)
+        per = math.isqrt(blocks - 1) + 1
+        return dict(route="wg",
+                    kernels=("premlp_bwd_wg_kernel", "ln_rows_kernel",
+                             "group_sums_kernel", "sum_partials_kernel",
+                             GEMM_BODIES[dtype], "ln_bwd_rows_kernel",
+                             "ln_colsums_kernel"),
+                    rows=rows, f_tile=cols, depth=depth,
+                    stages=PRE_WG_STAGES, threads=PRE_WG_THREADS, smem=smem,
+                    producer_regs=PRE_WG_PRODUCER_REGS,
+                    consumer_regs=PRE_WG_CONSUMER_REGS,
+                    acc_floats=2 * 64 * cols // 128, blocks=blocks, per=per,
+                    groups=-(-blocks // per))
     if dtype != torch.bfloat16 or C not in _PRE_BWD_MMA:
-        rows = ("ln_rows_kernel", "scale_rows_kernel", "colsum_kernel",
+        rows = ("ln_rows_kernel", "colsum_kernel",
                 "ln_bwd_rows_kernel", "ln_colsums_kernel",
                 "sum_partials_kernel")
         cast = ("act_cast_kernel",) if dtype == torch.bfloat16 else ()
@@ -900,6 +943,125 @@ def premlp_bwd_fused(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code):
     return dx, dw1, db1.to(dt), dw2, db2.to(dt), dgamma, dbeta
 
 
+def premlp_bwd_gdh_plain(xn, dy, w1, b1, w2, h, act):
+    """premlp_bwd_wg_kernel's function in plain PyTorch, with its casting
+    points: (g, dh, db1, db2) of xn and dy (M, C) in the compute dtype,
+    with h = f32(xn w1) + b1, or the save_h edition's stored h: g =
+    cast(act(h)), dh = cast(f32(dy w2ᵀ) act'(h)), db1 and db2 the float
+    column sums of the cast dh and of dy."""
+    dt = xn.dtype
+    if h is None:
+        hf = xn.float() @ w1.to(dt).float() + b1.to(dt).float()
+    else:
+        hf = h.float()
+    g = _act(hf, act).to(dt)
+    dh = (dy.float() @ w2.to(dt).float().t() * _dact_f32(hf, act)).to(dt)
+    return g, dh, dh.float().sum(0), dy.float().sum(0)
+
+
+def premlp_bwd_gdh(xn, dy, w1, b1, w2, h, act):
+    """(g, dh, db1, db2) as ``premlp_bwd_gdh_plain`` gives them: on the card
+    csrc/premlp_bwd_wg.cu's premlp_bwd_wg_kernel and the fixed-order sums
+    of its partial rows in one call (``premlp_bwd_gdh.launches`` counts
+    it), with the plan of ``premlp_bwd_plan``, which must name the wg
+    route; the plain version for tensors on the CPU. xn, dy (M, C), w1 (C,
+    F), b1 (F,), w2 (F, C) and h (M, F) or None, bf16, contiguous."""
+    if xn.device.type == "cpu":
+        return premlp_bwd_gdh_plain(xn, dy, w1, b1, w2, h, act)
+    M, C = xn.shape
+    F = w1.shape[1]
+    k = premlp_bwd_plan(C, M, xn.dtype)
+    if k["route"] != "wg":
+        raise ValueError(f"premlp_bwd_gdh: no wg kernel at C={C} in "
+                         f"{xn.dtype}")
+    if F % k["f_tile"]:
+        raise ValueError(f"premlp_bwd_gdh takes F a multiple of "
+                         f"{k['f_tile']}, got {F}")
+    live = [t for t in (xn, dy, w1, b1, w2, h) if t is not None]
+    lib.check_device(*live)
+    lib.check_aligned(*live)
+    dev = xn.device
+    g = torch.empty(M, F, dtype=xn.dtype, device=dev)
+    dh = torch.empty_like(g)
+    E = C + F
+    part = torch.empty(k["blocks"] * E, device=dev)
+    part2 = torch.empty(k["groups"] * E, device=dev)
+    sums = torch.empty(E, device=dev)
+    lib.check(lib.library().idvs_premlp_bwd_wg(
+        xn.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), ptr(h), g.data_ptr(), dh.data_ptr(), part.data_ptr(),
+        part2.data_ptr(), sums.data_ptr(), M, C, F, PRE_ACTS[act], k["per"],
+        k["rows"], k["f_tile"], k["stages"], k["threads"],
+        k["producer_regs"], k["consumer_regs"], k["smem"],
+        lib.dtype_code(xn), lib.stream_handle(xn)), "premlp_bwd_wg")
+    premlp_bwd_gdh.launches += 1
+    db2, db1 = sums.split((C, F))
+    return g, dh, db1, db2
+
+
+def _premlp_ln_rows(x2, dout, s, lnf, eps, code):
+    """(xn, stats, dy): with the LayerNorm, xn = cast(LN(x)) with each
+    row's (mu, rstd) and dy = cast(s dout) in the same pass (dout itself
+    when s is None), csrc/premlp_bwd.cu's ln_rows_kernel; without it (x2,
+    None, dout). The scaled edition always has its LayerNorm."""
+    if lnf[0] is None:
+        if s is not None:
+            raise ValueError("premlp_bwd: the scaled edition has a LayerNorm")
+        return x2, None, dout
+    M, C = x2.shape
+    xn = torch.empty_like(x2)
+    stats = torch.empty(M, 2, device=x2.device)
+    dy = dout if s is None else torch.empty_like(dout)
+    lib.check(lib.library().idvs_premlp_ln_rows(
+        x2.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), xn.data_ptr(),
+        stats.data_ptr(), ptr(None if s is None else dout), ptr(s),
+        ptr(None if s is None else dy), M, C, float(eps), code,
+        lib.stream_handle(x2)), "premlp_ln_rows")
+    return xn, stats, dy
+
+
+def _premlp_ln_bwd(x2, dxn, lnf, stats, dout, res, code):
+    """dx = cast(LN_bwd(dxn) [+ dout]) and the float (dgamma, dbeta) from
+    the float dxn (csrc/premlp_bwd.cu's LayerNorm backward: the row pass,
+    the column sums and their fixed-order pass)."""
+    M, C = x2.shape
+    dx = torch.empty_like(x2)
+    nb = row_groups(M)
+    part = torch.empty(nb * 2 * C, device=x2.device)
+    sums = torch.empty(2, C, device=x2.device)
+    lib.check(lib.library().idvs_premlp_ln_bwd(
+        x2.data_ptr(), dxn.data_ptr(), lnf[0].data_ptr(), stats.data_ptr(),
+        dout.data_ptr() if res else None, dx.data_ptr(), part.data_ptr(),
+        sums.data_ptr(), nb, M, C, code, lib.stream_handle(x2)),
+        "premlp_ln_bwd")
+    return dx, sums[0], sums[1]
+
+
+def premlp_bwd_wg(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code):
+    """The wg route (csrc/premlp_bwd_wg.cu's header): the row pass (xn and
+    dy), ``premlp_bwd_gdh`` (g, dh, db1, db2), then dW2 = gᵀ dy, dW1 =
+    xnᵀ dh and dxn = dh W1ᵀ through gemm.cu and the LayerNorm's backward.
+    Operands as ``premlp_bwd_products`` takes them; it raises where the
+    plan names another route."""
+    M, C = x2.shape
+    F = w1.shape[1]
+    dt = x2.dtype
+    if premlp_bwd_plan(C, M, dt)["route"] != "wg":
+        raise ValueError(f"premlp_bwd_wg: no wg kernel at C={C} in {dt}")
+    ln = lnf[0] is not None
+    xn, stats, dy = _premlp_ln_rows(x2, dout, s, lnf, eps, code)
+    g, dh, db1, db2 = premlp_bwd_gdh(xn, dy, w1, b1, w2, h, act)
+    dw2 = gemm(g, dy, F, C, M, (1, F), (C, 1), code)        # gᵀ dy
+    del g, dy
+    dw1 = gemm(xn, dh, C, F, M, (1, C), (F, 1), code)       # xnᵀ dh
+    dxn = gemm(dh, w1, M, C, F, (F, 1), (1, F), code, out_f32=ln)
+    if not ln:      # fused_mlp without its LayerNorm: dxn is dx
+        return dxn, dw1, db1.to(dt), dw2, db2.to(dt), None, None
+    del dh, xn
+    dx, dgamma, dbeta = _premlp_ln_bwd(x2, dxn, lnf, stats, dout, res, code)
+    return dx, dw1, db1.to(dt), dw2, db2.to(dt), dgamma, dbeta
+
+
 def premlp_bwd_products(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res,
                         code):
     """The products route (csrc/premlp_bwd.cu's header): x2 and dout (M, C)
@@ -908,27 +1070,12 @@ def premlp_bwd_products(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res,
     edition's (M, F) or None, res whether dx adds dout."""
     M, C = x2.shape
     F = w1.shape[1]
-    dt, dev = x2.dtype, x2.device
-    k = lib.library()
-    stream = lib.stream_handle(x2)
+    dt = x2.dtype
     ln = lnf[0] is not None
-    xn = x2
-    if ln:
-        xn = torch.empty_like(x2)
-        stats = torch.empty(M, 2, device=dev)
-        lib.check(k.idvs_premlp_ln_rows(
-            x2.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(),
-            xn.data_ptr(), stats.data_ptr(), M, C, float(eps), code, stream),
-            "premlp_ln_rows")
+    xn, stats, dy = _premlp_ln_rows(x2, dout, s, lnf, eps, code)
     if h is None:
         h = gemm(xn, w1, M, F, C, (C, 1), (F, 1), code, bias=b1,
                  out_f32=True)
-    dy = dout
-    if s is not None:
-        dy = torch.empty_like(dout)
-        lib.check(k.idvs_scale_rows(dout.data_ptr(), s.data_ptr(),
-                                    dy.data_ptr(), M, C, code, stream),
-                  "scale_rows")
     # dw2 = cast(act(h))ᵀ dy;  dh = cast((dy w2ᵀ) * act'(h))
     dw2 = gemm(h, dy, F, C, M, (1, F), (C, 1), code, act=act, pro_act=True,
                dtype=dt)
@@ -941,19 +1088,18 @@ def premlp_bwd_products(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res,
     dxn = gemm(dh, w1, M, C, F, (F, 1), (1, F), code, out_f32=ln)
     if not ln:      # fused_mlp without its LayerNorm: dxn is dx
         return dxn, dw1, db1.to(dt), dw2, db2.to(dt), None, None
-    dx = torch.empty_like(x2)
-    nb = row_groups(M)
-    part = torch.empty(nb * 2 * C, device=dev)
-    sums = torch.empty(2, C, device=dev)
-    lib.check(k.idvs_premlp_ln_bwd(
-        x2.data_ptr(), dxn.data_ptr(), lnf[0].data_ptr(), stats.data_ptr(),
-        dout.data_ptr() if res else None, dx.data_ptr(), part.data_ptr(),
-        sums.data_ptr(), nb, M, C, code, stream), "premlp_ln_bwd")
-    return dx, dw1, db1.to(dt), dw2, db2.to(dt), sums[0], sums[1]
+    dx, dgamma, dbeta = _premlp_ln_bwd(x2, dxn, lnf, stats, dout, res, code)
+    return dx, dw1, db1.to(dt), dw2, db2.to(dt), dgamma, dbeta
 
 
-PREMLP_BWD_ROUTES = {"fused": premlp_bwd_fused,
+PREMLP_BWD_ROUTES = {"fused": premlp_bwd_fused, "wg": premlp_bwd_wg,
                      "products": premlp_bwd_products}
+
+
+# the LayerNorm's row passes of a plan's kernels, which an edition without
+# the LayerNorm does not launch
+LN_KERNELS = frozenset({"ln_rows_kernel", "ln_bwd_rows_kernel",
+                        "ln_colsums_kernel"})
 
 
 def _premlp_bwd(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code,
@@ -967,7 +1113,8 @@ def _premlp_bwd(x2, dout, s, w1, b1, w2, lnf, h, eps, act, res, code,
     lib.check_device(dout)
     lib.check_aligned(dout, *([] if h is None else [h]))
     k = premlp_bwd_plan(C, M, x2.dtype)
-    bodies.update(k["kernels"])
+    ln = lnf[0] is not None
+    bodies.update(n for n in k["kernels"] if ln or n not in LN_KERNELS)
     return PREMLP_BWD_ROUTES[k["route"]](x2, dout, s, w1, b1, w2, lnf, h,
                                          eps, act, res, code)
 
@@ -1106,6 +1253,7 @@ def fused_mlp_res(x: torch.Tensor, scale, w1: torch.Tensor,
 
 fused_mlp.launches = 0
 fused_mlp_bwd.launches = 0
+premlp_bwd_gdh.launches = 0
 fused_mlp_res.launches = 0
 fused_mlp_res_bwd.launches = 0
 fused_proj_resln.launches = 0

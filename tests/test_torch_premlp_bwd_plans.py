@@ -83,10 +83,12 @@ def test_plan_of_every_swin_t_stage(stage):
     if C in _PRE_BWD_MMA:
         _check_fused(k, C, M, F)
     else:
-        # stage 3: each block would stream all of W1 and W2 for its rows
-        # (PERF.md), gemm.cu's products and the row passes
-        assert k["route"] == "products"
-        assert k["kernels"][0] == BODIES[BF16]
+        # stage 3: the row kernel's C-wide tiles exceed a block's shared
+        # memory; premlp_bwd_wg.cu's tiles of rows x F
+        # (tests/test_torch_premlp_bwd_wg.py checks the plan)
+        assert k["route"] == "wg"
+        assert k["kernels"][0] == "premlp_bwd_wg_kernel"
+        assert F % k["f_tile"] == 0
     assert premlp_bwd_plan(C, M, F32)["route"] == "products"
 
 
@@ -94,10 +96,16 @@ def test_plan_of_every_swin_t_stage(stage):
 def test_plan_of_every_width(C):
     for dtype in (BF16, F32):
         k = premlp_bwd_plan(C, 1000, dtype)
-        assert k["route"] in ("fused", "products")
-        if dtype == F32 or C not in _PRE_BWD_MMA:
+        assert k["route"] in ("fused", "wg", "products")
+        if dtype == F32:
             assert k["route"] == "products"
             assert k["kernels"][0] == BODIES[dtype]
+            continue
+        if C not in _PRE_BWD_MMA:
+            # C = 512, 768, 1024: every F the forward takes in whole tiles
+            assert k["route"] == "wg"
+            assert k["kernels"][0] == "premlp_bwd_wg_kernel"
+            assert PRE_F_CHUNK[C] % k["f_tile"] == 0
             continue
         # every F the forward takes (a multiple of PRE_F_CHUNK[C])
         _check_fused(k, C, 1000, PRE_F_CHUNK[C])

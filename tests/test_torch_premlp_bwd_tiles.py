@@ -146,7 +146,7 @@ def test_every_width_at_the_block_edges(C):
     assert "colsum_kernel" not in fused_mlp_res_bwd.bodies
 
 
-@pytest.mark.parametrize("route", sorted(PREMLP_BWD_ROUTES))
+@pytest.mark.parametrize("route", ("fused", "products"))
 @pytest.mark.parametrize("act", sorted(PRE_ACTS))
 @pytest.mark.parametrize("C", WIDTHS)
 def test_each_edition_and_activation_on_both_routes(C, act, route):
@@ -217,7 +217,7 @@ def test_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="no fused kernel"):
         PREMLP_BWD_ROUTES["fused"](x32, dout.float(), None, *mlp[:3], lnf,
                                    None, EPS, "gelu", False, 0)
-    assert premlp_bwd_plan(512, M, BF16)["route"] == "products"
+    assert premlp_bwd_plan(512, M, BF16)["route"] == "wg"
     assert premlp_bwd_plan(C, M, torch.float32)["route"] == "products"
     # a dout whose rows are not 16-byte aligned
     buf = torch.empty(M * C + 1, dtype=BF16, device="cuda")
