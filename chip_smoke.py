@@ -9,9 +9,10 @@ idvs/morec_tpu_torch/csrc by nvcc on first use: end2end text MoRec
 (catalog encode, recommend) and training (the bf16 train step with
 dropout); end2end vision MoRec (Swin-T item tower at full width and
 depth, SASRec at D = 2048), serving and training; the use_pallas train
-step (the in-batch CE kernels) of text MoRec, IDRec and vision MoRec; and
-the data-parallel step with gather_negatives. Phases, each fatal on
-failure:
+step (the in-batch CE kernels) of text MoRec, IDRec and vision MoRec; the
+data-parallel step with gather_negatives; BCE with sampled negatives and
+the DSSM two-tower (text MoRec, a 600_001-user table). Phases, each fatal
+on failure:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: build (or load) the kernel library;
@@ -173,18 +174,39 @@ failure:
     512 images written by the phase, read through the native transform;
     2 epochs, dedup cap 576 in chunks of 96, the eval, the save, a fresh
     Trainer in test mode, whose eval is repeated under the "windows"
-    kernel selection); every reloaded checkpoint's valid evaluation must
-    equal the in-memory one of its epoch in every bit, and every kernel of
-    each part's training and evaluation must have launched. It prints
-    train samples/s, eval users/s, catalog encode items/s, checkpoint
-    bytes and save/load seconds, HR@10 and nDCG@10 and the launches in
-    training and in evaluation of each part.
+    kernel selection); then each of the three again with BCE (--loss bce)
+    and with DSSM (--loss bce --user_tower dssm --neg_num 1 --dnn_layers
+    0), the reference launchers' flags: IDRec through the CLI for 5 epochs
+    each, text for one epoch, vision for one (DSSM: 96 users a step, two
+    chunks of 96 images, no dedup); every reloaded checkpoint's valid
+    evaluation must equal the in-memory one of its epoch in every bit,
+    and every kernel of each part's training and evaluation must have
+    launched (IDRec's DSSM has no kernel on its path: no SASRec, no
+    encoder). It prints train samples/s, eval users/s, catalog encode
+    items/s, checkpoint bytes and save/load seconds, HR@10 and nDCG@10 and
+    the launches in training and in evaluation of each part;
+20. bce (run after phase 7): BCE with sampled negatives on the text
+    flagship, bf16 with dropout: the training phase's batches with one
+    negative at each valid transition's slot (BCETrainBatcher's rule),
+    the positives and negatives deduplicated together under a cap taken
+    from the batches; the counters set to 0, 10 steps on one batch (the
+    loss must fall), 10 timed steps (p50, samples/s, peak memory, each
+    text-step kernel's launches a step, every one launched), then the
+    float32 gradient check of phase 7 on 8 users' BCE batch;
+21. dssm: the DSSM two-tower of variants/bce_text/main-end2end(DSSM)
+    (B 128, D 512, neg_num 1, dnn_layers 0) over BERT-small and a user
+    table of 600_001 x 512: the counters set to 0, 10 steps on one batch
+    (the loss must fall), 10 timed steps (p50, samples/s, peak memory,
+    launches a step, every BERT kernel of the text step launched); the
+    float32 gradient check at dnn_layers 0 and 2; the catalog encoded
+    (float32) and recommend_users at B = 1 and 64 (p50), its ids and
+    scores against a float32 plain scoring of the same table on the CPU.
 
 Prints each phase's seconds and a JSON line of per-kernel results (launches
-on the main paths, in all and by path: text serving, training, vision
-serving, the "windows" sub-catalog, vision training, the "windows" train
-step, the vision dropout step, the use_pallas steps, the data-parallel
-steps, the runner; error
+on the main paths, in all and by path: text serving, training, BCE and
+DSSM training, vision serving, the "windows" sub-catalog, vision
+training, the "windows" train step, the vision dropout step, the
+use_pallas steps, the data-parallel steps, the runner; error
 and time against the plain version, the least time the card could take for
 the same work (float32 rows that launched gemm.cu, whose products run as
 3xTF32, at that rate, 165 TFLOP/s), the time of the one PyTorch call that
@@ -203,7 +225,8 @@ with Swin's dropouts (wall and device-busy ms, each kernel's share,
 fused_mha's kernels and the pre-LN MLP backward's even outside the top
 rows, gemm.cu's sum and colsum_kernel's), and prints no result line;
 --profile text the text train step alone, --profile vision the vision
-train step alone.
+train step alone, --profile bce_dssm the BCE and DSSM train steps of
+phases 20 and 21 alone.
 """
 
 from __future__ import annotations
@@ -212,6 +235,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -228,6 +252,7 @@ import torch.nn.functional as F
 from idvs.morec_tpu_torch import quickstart, run
 from idvs.morec_tpu_torch.config import Config, parse_args
 from idvs.morec_tpu_torch.data.imagestore import write_mkv
+from idvs.morec_tpu_torch.data.loader import sample_negatives
 from idvs.morec_tpu_torch.bench_gemm import f32_product_cases, product_cases
 from idvs.morec_tpu_torch.bench_swin import (CORE, attention_products,
                                              device_ms, mlp_products)
@@ -352,6 +377,15 @@ CE_WIDE = ("gathered IDRec", IDREC_B, L, D, 8, 5, False)
 # fused_mlp_resln's quick_gelu, which no main path takes (CLIP's MLP is
 # pre-LN): (M, C, F) of the text and the vision user tower's train steps
 QUICK_GELU_SHAPES = ((TRAIN_B * L, D, FFN), (V_TRAIN_B * V_L, V_D, 4 * V_D))
+# BCE with sampled negatives (text MoRec): steps on one batch before the
+# timed steps on the train batches
+BCE_FIXED = 10
+# DSSM text MoRec (variants/bce_text/main-end2end(DSSM)/train_bert_base.py:
+# B 128, D 512, neg_num 1, dnn_layers 0, l2_weight and fine_tune_l2_weight
+# 0.01; MIND-large's 60w users, mind_60w_users.tsv): steps on one batch,
+# request batches of recommend_users
+DSSM_USERS, DSSM_NEG, DSSM_FIXED, DSSM_L2 = 600_000, 1, 10, 0.01
+DSSM_REQUESTS = (1, 64)
 PALLAS_WARM_STEPS = 2       # use_pallas steps on batches[0] before the timed
 DP_STEPS = 2                # gather_negatives steps at world size 1
 # Swin-T stages: (C, heads, side of the token map)
@@ -443,6 +477,11 @@ DP_LOSS_TOL = 1e-6
 # (patch projection, patch merging, classifier) may sum in another order
 # at another batch size; a few bf16 units of values up to ~2.
 V_PAD_TOL = 3e-2
+# recommend_users against the plain scoring on the CPU: the same float32
+# user vectors and table, each score a 512-term float32 sum in another
+# order (about 1e-7 of the row's largest score); ids may swap only inside
+# such a tie
+DSSM_SCORE_TOL = 1e-5
 
 CSRC, PALLAS = "idvs/morec_tpu_torch/csrc/", "idvs/morec_tpu/ops/pallas/"
 SOURCES = {
@@ -1244,15 +1283,16 @@ def histories(rng, B: int, item_num: int):
 
 
 def model_config(**train) -> Config:
-    """The flagship configuration; the train step's fields as keyword
-    arguments."""
-    return Config(item_tower="modal", user_tower="sasrec", stage="end2end",
-                  embedding_dim=D, num_attention_heads=USER_HEADS,
-                  transformer_block=BLOCKS, max_seq_len=L, drop_rate=DROP,
-                  **train)
+    """The flagship configuration; the train step's fields (and another
+    user tower's) as keyword arguments."""
+    return Config(**{**dict(item_tower="modal", user_tower="sasrec",
+                            stage="end2end", embedding_dim=D,
+                            num_attention_heads=USER_HEADS,
+                            transformer_block=BLOCKS, max_seq_len=L,
+                            drop_rate=DROP), **train})
 
 
-def build_model(dev, cfg, seed: int = SEED):
+def build_model(dev, cfg, seed: int = SEED, user_num: int = 0):
     bcfg = BertConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
                       num_hidden_layers=LAYERS, num_attention_heads=HEADS,
                       intermediate_size=FFN, max_position_embeddings=512,
@@ -1262,7 +1302,8 @@ def build_model(dev, cfg, seed: int = SEED):
                         word_embedding_dim=HIDDEN, pooling="cls",
                         attr_lengths=(TITLE_LEN,), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return make_model(cfg, ITEM_NUM, encoder, device=dev, generator=gen)
+    return make_model(cfg, ITEM_NUM, encoder, user_num=user_num, device=dev,
+                      generator=gen)
 
 
 def counts() -> dict:
@@ -1513,6 +1554,56 @@ def train_path(dev, card: str, content, batches, cap: int):
     return model, launched, (losses[0], p50)
 
 
+def card_and_plain(dev, model, cfg, content, batch_of,
+                   log_pop: bool = True) -> list:
+    """One float32 step of ``cfg`` without dropout (eval mode) on the card
+    through the kernels, and on a CPU copy of the model through the plain
+    versions: [(loss, seconds, gradients, launches)] of the card's run,
+    then the CPU's. batch_of(device) builds the step's batch there."""
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        m = copy.deepcopy(model).to(where)
+        state = make_train_state(m, cfg, param_labels(m))
+        m.eval()
+        step = make_train_step(
+            cfg, item_content=content.to(where),
+            log_pop=log_popularity(where) if log_pop else None)
+        before = counts()
+        t0 = time.perf_counter()
+        loss = step(state, batch_of(where)).item()
+        runs.append((loss, time.perf_counter() - t0,
+                     {n: p.grad.detach().cpu()
+                      for n, p in m.named_parameters()},
+                     {n: c - before[n] for n, c in counts().items()}))
+        del m, state
+    return runs
+
+
+def same_step(runs: list, what: str) -> None:
+    """The card's loss and every gradient against the CPU plain path's,
+    within STEP_LOSS_TOL and STEP_GRAD_TOL (GRAD_FLOOR's scale)."""
+    (lk, sk, gk, _), (lp, sp, gp, _) = runs
+    loss_err = abs(lk - lp) / abs(lp)
+    top = max(want.abs().max().item() for want in gp.values())
+    worst, worst_name = (-1.0, 0.0, 0.0), None
+    for n, want in gp.items():
+        scale = max(want.abs().max().item(), GRAD_FLOOR * top)
+        err = (gk[n] - want).abs().max().item()
+        if err / scale >= worst[0]:
+            worst, worst_name = (err / scale, err, scale), n
+    print(f"{what}, card {sk:.2f} s vs CPU plain path {sp:.2f} s: loss "
+          f"{lk:.6f} vs {lp:.6f}, rel err {loss_err:.3e} (tol "
+          f"{STEP_LOSS_TOL:g}); largest gradient error {worst[1]:.3e} on a "
+          f"scale of {worst[2]:.3e} in {worst_name} (tol {STEP_GRAD_TOL:g} "
+          f"of the scale; largest gradient {top:.3e}) over {len(gp)} "
+          f"parameters", flush=True)
+    require(math.isfinite(loss_err) and loss_err <= STEP_LOSS_TOL,
+            f"{what}: the loss disagrees with the plain path")
+    require(worst[0] <= STEP_GRAD_TOL,
+            f"{what}: the gradient of {worst_name} disagrees with the plain "
+            f"path")
+
+
 def grad_check(dev, model, content, batch, pallas: bool = False) -> None:
     """One float32 step without dropout (eval mode) on CHECK_USERS users:
     on the card through the kernels, and on a CPU copy of the model
@@ -1523,43 +1614,269 @@ def grad_check(dev, model, content, batch, pallas: bool = False) -> None:
     cap = -(-len(np.unique(ids)) // 8) * 8
     cfg = train_config(cap, "float32")
     cfg.use_pallas = pallas
-    runs = []
-    for where in (dev, torch.device("cpu")):
-        m = copy.deepcopy(model).to(where)
-        state = make_train_state(m, cfg, param_labels(m))
-        m.eval()
-        step = make_train_step(cfg, item_content=content.to(where),
-                               log_pop=log_popularity(where))
-        before = counts()
+    runs = card_and_plain(dev, model, cfg, content,
+                          lambda where: device_batch(ids, lm, cap, where))
+    if pallas:
+        for n in PALLAS_KERNELS:
+            require(runs[0][3][n] == 1,
+                    f"{n} not launched once by the use_pallas step")
+    same_step(runs, f"gradient check{' [use_pallas]' if pallas else ''}: "
+                    f"f32 step on {CHECK_USERS} users ({cap} titles)")
+
+
+def bce_batches(rng, batches) -> list:
+    """(pos, neg, log_mask) host batches: the train batches' ids and masks
+    with one negative at each valid transition's slot, drawn by
+    BCETrainBatcher's rule (uniform over the catalog, none of the user's
+    items; the last slot and the masked slots 0)."""
+    out = []
+    for ids, lm in batches:
+        draws = sample_negatives(rng, ids, ITEM_NUM)[:, :, 0]
+        neg = np.zeros_like(ids)
+        neg[:, :-1] = np.where(lm != 0, draws, 0)
+        out.append((ids, neg, lm))
+    return out
+
+
+def bce_unique(pos, neg) -> int:
+    return len(np.unique(np.concatenate([pos.ravel(), neg.ravel()])))
+
+
+def bce_device_batch(pos, neg, lm, cap: int, dev) -> dict:
+    """A BCE host batch, its positives and negatives deduplicated together
+    (one dedup_pack, as the runner packs them), on the device."""
+    packed = dedup_pack(np.concatenate([pos.ravel(), neg.ravel()]), cap)
+    require(packed is not None, f"a BCE batch holds more than {cap} items")
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return {"ids": t(pos), "neg_ids": t(neg), "log_mask": t(lm),
+            "uniq_ids": t(packed[0]), "inverse": t(packed[1])}
+
+
+def step_launches(launched: dict, steps: int) -> dict:
+    """Launches a step of the text step's kernels (TPU rows 1-4)."""
+    return {n: launched[n] / steps for n in TRAIN_KERNELS}
+
+
+def bce_setup(dev, content, batches) -> tuple:
+    """(model, train state, step, BCE host batches, dedup cap) of the text
+    flagship's bf16 BCE step on the train batches; the cap is the most
+    unique titles of a batch, rounded up to 256."""
+    bb = bce_batches(np.random.default_rng(SEED + 30), batches)
+    cap = -(-max(bce_unique(p, n) for p, n, _ in bb) // 256) * 256
+    cfg = train_config(cap)
+    cfg.loss = "bce"
+    model = build_model(dev, cfg, seed=SEED + 30)
+    state = make_train_state(model, cfg, param_labels(model), seed=SEED)
+    return (model, state, make_train_step(cfg, item_content=content), bb,
+            cap)
+
+
+def bce_path(dev, card: str, content, batches) -> dict:
+    """BCE with sampled negatives (text MoRec, bf16, dropout): BCE_FIXED
+    steps on one batch (the loss must fall), then a timed step on each
+    further batch; every kernel of the text step launched; then the float32
+    gradient check on CHECK_USERS users. Returns the launches."""
+    model, state, step, bb, cap = bce_setup(dev, content, batches)
+    pos_u = [len(np.unique(p)) for p, _, _ in bb]
+    print(f"bce: {TRAIN_B} users a step, {int(bb[0][2].sum())} negatives "
+          f"in the first batch; unique items a batch: positives "
+          f"{min(pos_u)}-{max(pos_u)}, positives and negatives "
+          f"{min(bce_unique(p, n) for p, n, _ in bb)}-"
+          f"{max(bce_unique(p, n) for p, n, _ in bb)}; cap {cap}, BERT rows "
+          f"M = {cap * TITLE_LEN} (the in-batch CE step's "
+          f"{dedup_cap(batches) * TITLE_LEN})", flush=True)
+    fixed = bce_device_batch(*bb[0], cap, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = [step(state, fixed).item() for _ in range(BCE_FIXED)]
+    walls = []
+    for b in bb[1:]:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = step(state, device_batch(ids, lm, cap, where)).item()
-        runs.append((loss, time.perf_counter() - t0, {
-            n: p.grad.detach().cpu() for n, p in m.named_parameters()}))
-        if pallas and where == dev:
-            for n in PALLAS_KERNELS:
-                require(counts()[n] == before[n] + 1,
-                        f"{n} not launched once by the use_pallas step")
-    (lk, sk, gk), (lp, sp, gp) = runs
-    loss_err = abs(lk - lp) / abs(lp)
-    top = max(want.abs().max().item() for want in gp.values())
-    worst, worst_name = (-1.0, 0.0, 0.0), None
-    for n, want in gp.items():
-        scale = max(want.abs().max().item(), GRAD_FLOOR * top)
-        err = (gk[n] - want).abs().max().item()
-        if err / scale >= worst[0]:
-            worst, worst_name = (err / scale, err, scale), n
-    print(f"gradient check{' [use_pallas]' if pallas else ''}: f32 step on "
-          f"{CHECK_USERS} users ({cap} titles), "
-          f"card {sk:.2f} s vs CPU plain path {sp:.2f} s: loss {lk:.6f} vs "
-          f"{lp:.6f}, rel err {loss_err:.3e} (tol {STEP_LOSS_TOL:g}); "
-          f"largest gradient error {worst[1]:.3e} on a scale of "
-          f"{worst[2]:.3e} in {worst_name} (tol {STEP_GRAD_TOL:g} of the "
-          f"scale; largest gradient {top:.3e}) over {len(gp)} parameters",
+        losses.append(step(state, bce_device_batch(*b, cap, dev)).item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launched = counts()
+    steps = BCE_FIXED + len(walls)
+    p50 = statistics.median(walls)
+    print(f"bce train step B={TRAIN_B} L={L} bf16, dropout {DROP}, dedup cap "
+          f"{cap}: loss on one batch {losses[0]:.5f} -> "
+          f"{losses[BCE_FIXED - 1]:.5f}; p50 {p50:.3f} ms over {len(walls)} "
+          f"distinct batches (min {min(walls):.3f}, max {max(walls):.3f}), "
+          f"{TRAIN_B / p50 * 1e3:.1f} samples/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
           flush=True)
-    require(math.isfinite(loss_err) and loss_err <= STEP_LOSS_TOL,
-            "train-step loss disagrees with the plain path")
-    require(worst[0] <= STEP_GRAD_TOL,
-            f"gradient of {worst_name} disagrees with the plain path")
+    print(f"bce launches a step: {step_launches(launched, steps)}",
+          flush=True)
+    require(all(math.isfinite(x) for x in losses), "a BCE loss is not finite")
+    require(losses[BCE_FIXED - 1] < losses[0],
+            "the BCE loss did not fall on a fixed batch")
+    require_launched(launched, TRAIN_KERNELS, "bce training")
+    require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            "a parameter is not finite after BCE training")
+    pos, neg, lm = (a[:CHECK_USERS] for a in bb[0])
+    ccap = -(-bce_unique(pos, neg) // 8) * 8
+    ccfg = train_config(ccap, "float32")
+    ccfg.loss = "bce"
+    same_step(card_and_plain(
+        dev, model, ccfg, content,
+        lambda where: bce_device_batch(pos, neg, lm, ccap, where),
+        log_pop=False),
+        f"bce gradient check: f32 step on {CHECK_USERS} users ({ccap} "
+        f"titles)")
+    return launched
+
+
+def dssm_config(dnn_layers: int = 0, compute_dtype: str = "bfloat16"):
+    """The DSSM reference launcher's configuration (variants/bce_text/
+    main-end2end(DSSM)/train_bert_base.py: D 512, neg_num 1, dnn_layers 0,
+    B 128, lr 1e-4 and 5e-5, weight decay 0.01 in both groups) over the
+    flagship's BERT-small."""
+    return model_config(user_tower="dssm", loss="bce", neg_num=DSSM_NEG,
+                        dnn_layers=dnn_layers, compute_dtype=compute_dtype,
+                        lr=LR, l2_weight=DSSM_L2, fine_tune_lr=FT_LR,
+                        fine_tune_l2_weight=DSSM_L2)
+
+
+def dssm_batches(rng, n: int, B: int = TRAIN_B) -> list:
+    """(users, items, labels) host batches: uniform user ids, a Zipf(1.2)
+    positive and DSSM_NEG negatives drawn by DSSMTrainBatcher's rule
+    (uniform over the catalog, not the positive)."""
+    out = []
+    for _ in range(n):
+        pos = np.minimum(rng.zipf(ZIPF_A, size=(B, 1)), ITEM_NUM)
+        # the user's row: its positive, padded with 0 (one draw a slot but
+        # the last)
+        seq = np.concatenate([pos, np.zeros_like(pos)], axis=1)
+        negs = sample_negatives(rng, seq, ITEM_NUM,
+                                neg_per_pos=DSSM_NEG)[:, 0, :]
+        items = np.concatenate([pos, negs], axis=1)
+        labels = np.zeros(items.shape, np.float32)
+        labels[:, 0] = 1.0
+        out.append((rng.integers(1, DSSM_USERS + 1, size=B), items, labels))
+    return out
+
+
+def dssm_device_batch(users, items, labels, dev) -> dict:
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return {"users": t(users), "items": t(items), "labels": t(labels)}
+
+
+def dssm_setup(dev, content, rng, n: int) -> tuple:
+    """(model, train state, step, n host batches) of the bf16 DSSM step
+    (dssm_config, a user table of DSSM_USERS rows)."""
+    cfg = dssm_config()
+    model = build_model(dev, cfg, seed=SEED + 40, user_num=DSSM_USERS)
+    state = make_train_state(model, cfg, param_labels(model), seed=SEED)
+    return (model, state, make_train_step(cfg, item_content=content),
+            dssm_batches(rng, n))
+
+
+def dssm_path(dev, card: str, content) -> dict:
+    """DSSM text MoRec (BERT-small item tower, a user table of DSSM_USERS
+    rows, bf16, dropout): DSSM_FIXED steps on one batch (the loss must
+    fall), then TIMED_STEPS timed steps; every BERT kernel of the text step
+    launched; the float32 gradient check at dnn_layers 0 and 2; the catalog
+    encoded and recommend_users at B = 1 and 64 against a float32 plain
+    scoring of the same table. Returns the train steps' launches."""
+    rng = np.random.default_rng(SEED + 40)
+    model, state, step, batches = dssm_setup(dev, content, rng,
+                                             TIMED_STEPS + 1)
+    table_bytes = model.user_embedding.weight.numel() * 4
+    fixed = dssm_device_batch(*batches[0], dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = [step(state, fixed).item() for _ in range(DSSM_FIXED)]
+    walls = []
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, dssm_device_batch(*b, dev)).item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launched = counts()
+    steps = DSSM_FIXED + len(walls)
+    p50 = statistics.median(walls)
+    print(f"dssm train step B={TRAIN_B} (1 + {DSSM_NEG} titles a user) "
+          f"bf16, dropout {DROP}, user table {DSSM_USERS + 1} x {D} "
+          f"({table_bytes / 2 ** 30:.2f} GiB float32, with AdamW's moments "
+          f"{3 * table_bytes / 2 ** 30:.2f}): loss on one batch "
+          f"{losses[0]:.5f} -> {losses[DSSM_FIXED - 1]:.5f}; p50 {p50:.3f} "
+          f"ms over {len(walls)} distinct batches (min {min(walls):.3f}, max "
+          f"{max(walls):.3f}), {TRAIN_B / p50 * 1e3:.1f} samples/s, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB [{card}]", flush=True)
+    print(f"dssm launches a step: {step_launches(launched, steps)}",
+          flush=True)
+    require(all(math.isfinite(x) for x in losses),
+            "a DSSM loss is not finite")
+    require(losses[DSSM_FIXED - 1] < losses[0],
+            "the DSSM loss did not fall on a fixed batch")
+    require_launched(launched, TRAIN_KERNELS, "dssm training")
+    del state, step
+    torch.cuda.empty_cache()
+
+    users, items, labels = (a[:CHECK_USERS] for a in batches[0])
+    for layers in (0, 2):
+        m = model if layers == 0 else build_model(
+            dev, dssm_config(layers), seed=SEED + 41, user_num=DSSM_USERS)
+        same_step(card_and_plain(
+            dev, m, dssm_config(layers, "float32"), content,
+            lambda where: dssm_device_batch(users, items, labels, where),
+            log_pop=False),
+            f"dssm gradient check (dnn_layers {layers}): f32 step on "
+            f"{CHECK_USERS} users ({CHECK_USERS * (1 + DSSM_NEG)} titles)")
+        del m
+    torch.cuda.empty_cache()
+    recommend_users_check(dev, card, model, content, rng)
+    return launched
+
+
+def recommend_users_check(dev, card: str, model, content, rng) -> None:
+    """The catalog through the model's item tower (float32, as served),
+    then recommend_users at each of DSSM_REQUESTS: p50 over 20 requests,
+    and the results against a float32 plain scoring of the same table on
+    the CPU (the user tower's vectors there, scores by torch.matmul, the
+    padding column at -inf, topk)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = Retriever.encode_catalog(model, ITEM_NUM, content, D,
+                                     batch_size=ENCODE_BATCH)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(table).all()), "DSSM table not finite")
+    engine = Retriever(model, table, batch_sizes=DSSM_REQUESTS)
+    towers = copy.deepcopy(
+        torch.nn.ModuleDict({"e": model.user_embedding,
+                             "m": model.user_mlp})).cpu().eval()
+    table_c = table.cpu()
+    print(f"dssm catalog encode: {ITEM_NUM + 1} items in {encode_s:.3f} s "
+          f"[{card}]", flush=True)
+    for B in DSSM_REQUESTS:
+        users = rng.integers(1, DSSM_USERS + 1, size=B).tolist()
+        ids, vals = engine.recommend_users(users, TOP_K)
+        with torch.no_grad():
+            uvec = towers["m"](towers["e"](torch.tensor(users)))
+        scores = uvec @ table_c.T
+        scores[:, 0] = -torch.inf
+        vals_p, ids_p = (a.numpy() for a in torch.topk(scores, TOP_K, dim=1))
+        scale = np.abs(vals_p).max(axis=1, keepdims=True)
+        err = float((np.abs(vals - vals_p) / scale).max())
+        mismatch = np.argwhere(ids != ids_p)
+        walls = []
+        for _ in range(25):
+            t0 = time.perf_counter()
+            engine.recommend_users(users, TOP_K)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"recommend_users B={B} top_k={TOP_K}: p50 "
+              f"{statistics.median(walls[5:]):.3f} ms over 20 requests; "
+              f"against the plain scoring: score err {err:.3e} of the row's "
+              f"largest |score| (tol {DSSM_SCORE_TOL:g}), {len(mismatch)} of "
+              f"{ids.size} ids differ [{card}]", flush=True)
+        require(ids.shape == (B, TOP_K) and (ids != 0).all(),
+                f"recommend_users B={B}: ids {ids.shape} or the padding id")
+        require(err <= DSSM_SCORE_TOL,
+                f"recommend_users B={B}: scores disagree")
+        check_ties(mismatch, vals_p, np.broadcast_to(scale, vals_p.shape),
+                   DSSM_SCORE_TOL)
 
 
 def profiled(run, n: int, what: str, unit: str, card: str) -> None:
@@ -1629,6 +1946,32 @@ def profile_train(dev, card: str, content, batches, cap: int) -> None:
                  f"{PROFILE_STEPS} steps", "step", card)
         del state, step
         torch.cuda.empty_cache()
+
+
+def profile_bce_dssm(dev, card: str, content, batches) -> None:
+    """The BCE step (phase "bce") and the DSSM step (phase "dssm") by
+    device kernel: PROFILE_STEPS steps on distinct batches after as many
+    warm-up steps, each."""
+    _, state, step, bb, cap = bce_setup(dev, content, batches)
+    run = lambda part: [step(state, bce_device_batch(*b, cap, dev)).item()
+                        for b in part]
+    run(bb[:PROFILE_STEPS])
+    profiled(lambda: run(bb[PROFILE_STEPS:2 * PROFILE_STEPS]), PROFILE_STEPS,
+             f"BCE train step B={TRAIN_B} bf16, dropout {DROP}, dedup cap "
+             f"{cap}, {PROFILE_STEPS} steps", "step", card)
+    del state, step
+    torch.cuda.empty_cache()
+    _, state, step, db = dssm_setup(dev, content,
+                                    np.random.default_rng(SEED + 40),
+                                    2 * PROFILE_STEPS)
+    run = lambda part: [step(state, dssm_device_batch(*b, dev)).item()
+                        for b in part]
+    run(db[:PROFILE_STEPS])
+    profiled(lambda: run(db[PROFILE_STEPS:]), PROFILE_STEPS,
+             f"DSSM train step B={TRAIN_B} bf16, dropout {DROP}, user table "
+             f"{DSSM_USERS + 1} x {D}, {PROFILE_STEPS} steps", "step", card)
+    del state, step
+    torch.cuda.empty_cache()
 
 
 def profile_vision_encode(dev, card: str) -> None:
@@ -3002,15 +3345,26 @@ def dp_path(dev, card: str, content, batches, cap: int) -> dict:
 # -- the runner phase (train/runner.py, run.py) --------------------------------
 # IDRec through the CLI: users drawn as the quickstart draws them (each
 # user's items within one group of R_GROUP), at bench.py GEOM["idrec"]'s
-# width (D, L, IDREC_B, BLOCKS) over ITEM_NUM items, the quickstart's lr
-# and epochs: an item is seen about 3 times an epoch, and valid HR@10 first
-# rises above the untrained model's at the third epoch (PERF.md §6)
-R_USERS, R_GROUP, R_LENGTHS, R_EPOCHS, R_LR = 20_000, 100, (6, 24), 5, 1e-3
+# width (D, L, IDREC_B, BLOCKS), the quickstart's lr
+R_USERS, R_GROUP, R_LENGTHS, R_LR = 20_000, 100, (6, 24), 1e-3
+# each IDRec part's (items, epochs), chosen so that its valid HR@10 beats
+# the untrained model's: the in-batch CE over ITEM_NUM items first rises
+# at the third epoch (an item seen about 3 times an epoch, PERF.md §6);
+# BCE moves an ID row only where it is a positive or a sampled negative,
+# and over ITEM_NUM items stays at the untrained model's few hits in 5
+# epochs, so it runs over R_BCE_ITEMS items (about 150 sightings an item
+# an epoch); DSSM beats it after one epoch
+R_BCE_ITEMS = 2_000
+R_IDREC = {"": (ITEM_NUM, 5), "BCE": (R_BCE_ITEMS, 3), "DSSM": (ITEM_NUM, 1)}
 # text MoRec at the flagship width through Trainer: each user's 12-13
 # items a slice of one permutation of the catalog, so every item is read
 # and the catalog keeps its ITEM_NUM items; an item's title shares its
 # group's words
 RT_USERS, RT_GROUP, RT_GROUP_WORDS = 8_000, 100, 12
+# DSSM trains on a user's every (user, item) pair, about 10 a user: the
+# text and vision DSSM parts' epochs are cut to their in-batch CE part's
+# number of steps
+RT_DSSM_STEPS = -(-RT_USERS // TRAIN_B)
 # vision MoRec: a store of RV_ITEMS images of RV_SIDE px (resized to
 # IMAGE), groups of RV_GROUP items, RV_USERS users; the dedup cap holds a
 # batch's every item, encoded in chunks of V_CAP_QUANTUM
@@ -3022,29 +3376,49 @@ RUNNER_EVAL_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln",
 IDREC_TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
                        "fused_proj_resln_bwd", "fused_mlp_resln_res",
                        "fused_mlp_resln_bwd", "gemm")
+# the BCE and DSSM parts: the flags the reference launchers of
+# variants/bce_*/main-end2end and main-end2end(DSSM) add to the in-batch
+# CE part's (loss, user tower, neg_num 1, dnn_layers 0)
+R_VARIANTS = {"": {}, "BCE": dict(loss="bce"),
+              "DSSM": dict(loss="bce", user_tower="dssm", neg_num=1,
+                           dnn_layers=0)}
+# vision DSSM: users a step, their (1 + neg_num) images two encoder chunks
+RV_DSSM_B = V_CAP_QUANTUM
+RV_DSSM_STEPS = -(-RV_USERS // V_TRAIN_B)
+# the Swin tower's training kernels (vision DSSM has no SASRec)
+SWIN_TRAIN_KERNELS = ("fused_mha_proj_band", "fused_mha_proj_band_bwd",
+                      "fused_mlp_res", "fused_mlp_res_bwd", "premlp_bwd_gdh",
+                      "gemm")
 
 
 class RunnerWatch:
     """Watches the port's runner from outside while the CLI or a Trainer
-    runs: the Trainers made, the launches inside evaluations (run_eval)
-    and outside them, and each checkpoint save and load (seconds, bytes).
-    Launch counts start from 0 when the watch starts."""
+    runs: the Trainers made, their train steps' losses, the launches
+    inside evaluations (run_eval) and outside them, and each checkpoint
+    save and load (seconds, bytes). Launch counts start from 0 when the
+    watch starts."""
 
     def __init__(self):
         self.trainers, self.saves, self.loads = [], [], []
         self.eval_launches = dict.fromkeys(WRAPPERS, 0)
+        self.losses = {}        # id(trainer) -> its train steps' losses
 
     def __enter__(self):
         reset_counts()
         T = runner.Trainer
-        self._saved = (T.__init__, T.run_eval, runner.save_checkpoint,
-                       runner.load_checkpoint)
-        init, run_eval, save, load = self._saved
+        self._saved = (T.__init__, T.run_eval, T._steps,
+                       runner.save_checkpoint, runner.load_checkpoint)
+        init, run_eval, steps, save, load = self._saved
         watch = self
 
         def init_(tr, *a, **k):
             init(tr, *a, **k)
             watch.trainers.append(tr)
+
+        def steps_(tr, batches):
+            out = steps(tr, batches)
+            watch.losses.setdefault(id(tr), []).extend(out)
+            return out
 
         def run_eval_(tr, *a, **k):
             before = counts()
@@ -3065,15 +3439,22 @@ class RunnerWatch:
                 return out
             return call
 
-        T.__init__, T.run_eval = init_, run_eval_
+        T.__init__, T.run_eval, T._steps = init_, run_eval_, steps_
         runner.save_checkpoint = timed(save, self.saves)
         runner.load_checkpoint = timed(load, self.loads)
         return self
 
     def __exit__(self, *exc):
         T = runner.Trainer
-        (T.__init__, T.run_eval, runner.save_checkpoint,
+        (T.__init__, T.run_eval, T._steps, runner.save_checkpoint,
          runner.load_checkpoint) = self._saved
+
+    def loss_fell(self, tr) -> tuple:
+        """(mean loss of the first tenth of tr's train steps, of the last
+        tenth)."""
+        losses = self.losses[id(tr)]
+        q = max(1, len(losses) // 10)
+        return statistics.mean(losses[:q]), statistics.mean(losses[-q:])
 
     def launches(self) -> tuple:
         """(training launches, evaluation launches) since the start."""
@@ -3091,10 +3472,12 @@ def report_runner(part: str, card: str, tr, watch: RunnerWatch,
                   ev: dict) -> None:
     """The part's numbers, each line beside the card."""
     s = tr.train_stats
+    first, last = watch.loss_fell(tr)
     print(f"runner {part}: train {s['samples']} samples in {s['steps']} "
           f"steps, {s['seconds']:.3f} s, "
-          f"{s['samples'] / s['seconds']:.1f} samples/s [{card}]",
-          flush=True)
+          f"{s['samples'] / s['seconds']:.1f} samples/s; loss, mean of the "
+          f"first tenth of the steps {first:.5f}, of the last tenth "
+          f"{last:.5f} [{card}]", flush=True)
     print(f"runner {part}: eval of the {ev['split']} split: catalog encode "
           f"{ev['items']} items in {ev['encode_s']:.3f} s, "
           f"{ev['items'] / ev['encode_s']:.1f} items/s; scoring "
@@ -3124,19 +3507,25 @@ def same_eval(got: dict, want: dict, what: str) -> None:
     require(same, f"{what}: the reloaded checkpoint evaluates otherwise")
 
 
-def runner_idrec(dev, card: str) -> dict:
-    """IDRec through the CLI: the untrained model's valid HR@10, R_EPOCHS
-    epochs (save on a better HR@10), then a --mode test reload of the best
-    epoch; its valid split evaluates to the run's bits. Returns the
-    part's launches."""
+def runner_idrec(dev, card: str, variant: str = "") -> dict:
+    """IDRec through the CLI, with the flags of R_VARIANTS[variant], over
+    R_IDREC[variant]'s items and epochs: the untrained model's valid
+    HR@10, the epochs (save on a better HR@10), which must beat it, then a
+    --mode test reload of the best epoch; its valid split evaluates to the
+    run's bits. Returns the part's launches (DSSM's IDRec runs no kernel:
+    no SASRec, no encoder)."""
+    what = f"IDRec {variant}".strip()
+    items, epochs = R_IDREC[variant]
     argv = ["--root_data_dir", "./", "--dataset", "IDREC", "--news",
             "news.tsv", "--behaviors", "behaviors.tsv", "--item_tower", "id",
             "--max_seq_len", str(L), "--embedding_dim", str(D),
             "--num_attention_heads", str(USER_HEADS), "--transformer_block",
             str(BLOCKS), "--batch_size", str(IDREC_B), "--lr", str(R_LR),
-            "--drop_rate", str(DROP), "--epoch", str(R_EPOCHS)]
-    quickstart.make_dataset("IDREC", n_users=R_USERS, n_items=ITEM_NUM,
-                            n_groups=ITEM_NUM // R_GROUP, seed=SEED,
+            "--drop_rate", str(DROP), "--epoch", str(epochs)]
+    for k, v in R_VARIANTS[variant].items():
+        argv += [f"--{k}", str(v)]
+    quickstart.make_dataset("IDREC", n_users=R_USERS, n_items=items,
+                            n_groups=items // R_GROUP, seed=SEED,
                             lengths=R_LENGTHS)
     untrained = runner.Trainer(parse_args(argv))
     untrained.load_data()
@@ -3150,22 +3539,25 @@ def runner_idrec(dev, card: str) -> dict:
                                      f"epoch-{best_epoch}.pt"])
         tested = watch.trainers[-1]
         tested.run_eval("valid")
-    print(f"runner IDRec (CLI): {trained.item_num} items, "
-          f"{trained.batcher.n} users, D {D}, L {L}, B {IDREC_B}, "
-          f"{R_EPOCHS} epochs: best valid HR@10 {best:.6f} at epoch "
+    print(f"runner {what} (CLI): {trained.item_num} items, "
+          f"{trained.batcher.n} samples, D {D}, L {L}, B {IDREC_B}, "
+          f"{epochs} epochs: best valid HR@10 {best:.6f} at epoch "
           f"{best_epoch} (untrained {hit0:.6f}, nDCG@10 {ndcg0:.6f}); valid "
           f"by epoch { {e: (r['hit'], r['ndcg']) for e, r in trained.valid_results.items()} }; "
           f"test reload HR@10 {hit:.6f} nDCG@10 {ndcg:.6f} [{card}]",
           flush=True)
-    report_runner("IDRec", card, trained, watch,
+    report_runner(what, card, trained, watch,
                   trained.valid_results[best_epoch])
-    require(best > hit0, "IDRec's best valid HR@10 does not beat the "
-            "untrained model's")
+    first, last = watch.loss_fell(trained)
+    require(last < first, f"{what}'s train loss did not fall")
+    require(best > hit0, f"{what}'s best valid HR@10 does not beat the "
+            f"untrained model's")
     same_eval(tested.last_eval, trained.valid_results[best_epoch],
-              "runner IDRec")
-    train, evals = watch.launches()
-    require_launched(train, IDREC_TRAIN_KERNELS, "IDRec training")
-    require_launched(evals, RUNNER_EVAL_KERNELS, "IDRec evaluation")
+              f"runner {what}")
+    if variant != "DSSM":
+        train, evals = watch.launches()
+        require_launched(train, IDREC_TRAIN_KERNELS, f"{what} training")
+        require_launched(evals, RUNNER_EVAL_KERNELS, f"{what} evaluation")
     return counts()
 
 
@@ -3202,19 +3594,30 @@ def text_runner_data(rng) -> None:
             f.write(f"u{u}\t" + " ".join(f"i{k}" for k in items) + "\n")
 
 
-def runner_text(dev, card: str) -> dict:
-    """Text MoRec at the flagship width through Trainer: BERT-small from
-    its config (random weights), SASRec D 512, bf16, dedup, use_pallas;
-    one epoch, the valid eval over the whole catalog, the save, then a
-    fresh Trainer in test mode whose valid eval is the run's bits."""
+def cut_epochs(tr, steps: int) -> None:
+    """Cuts each epoch of tr's batcher to its first `steps` batches."""
+    epoch = tr.batcher.epoch
+    tr.batcher.epoch = lambda e: itertools.islice(epoch(e), steps)
+
+
+def runner_text(dev, card: str, variant: str = "") -> dict:
+    """Text MoRec at the flagship width through Trainer, with the flags of
+    R_VARIANTS[variant]: BERT-small from its config (random weights),
+    SASRec D 512 (none under DSSM), bf16, dedup (not under DSSM, as in the
+    JAX package), use_pallas for the in-batch CE; one epoch (DSSM's cut to
+    RT_DSSM_STEPS steps), the valid eval over the whole catalog, the save,
+    then a fresh Trainer in test mode whose valid eval is the run's
+    bits."""
+    what = f"text MoRec {variant}".strip()
     text_runner_data(np.random.default_rng(SEED + 20))
     cfg = dict(root_data_dir="./", dataset="TEXT", news="news.tsv",
                behaviors="behaviors.tsv", item_tower="modal",
                bert_model_load="bert_small", max_seq_len=L, embedding_dim=D,
                num_attention_heads=USER_HEADS, transformer_block=BLOCKS,
                batch_size=TRAIN_B, lr=LR, fine_tune_lr=FT_LR, drop_rate=DROP,
-               dedup_items=True, use_pallas=True, num_words_title=TITLE_LEN,
-               item_emb_batch_size=ENCODE_BATCH, epoch=1)
+               dedup_items=True, use_pallas=not variant,
+               num_words_title=TITLE_LEN, item_emb_batch_size=ENCODE_BATCH,
+               epoch=1, **R_VARIANTS[variant])
 
     def trainer(**kw):
         bcfg = BertConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
@@ -3230,27 +3633,33 @@ def runner_text(dev, card: str) -> dict:
                             tokenizer=WordTokenizer())
         tr.load_data()
         tr.build_model()
+        if variant == "DSSM":
+            cut_epochs(tr, RT_DSSM_STEPS)
         return tr
 
     with RunnerWatch() as watch:
         tr = trainer()
         best, best_epoch = tr.train()
-        require(best_epoch == 1, "text MoRec saved no checkpoint")
+        require(best_epoch == 1, f"{what} saved no checkpoint")
         te = trainer(mode="test", load_ckpt_name="epoch-1.pt")
         hit, ndcg = te.test()
         te.run_eval("valid")
-    print(f"runner text MoRec: {tr.item_num} items, {tr.batcher.n} users, "
-          f"BERT-small + SASRec D {D}, B {TRAIN_B}, bf16, dedup, "
-          f"use_pallas: valid HR@10 {best:.6f} nDCG@10 "
-          f"{tr.valid_results[1]['ndcg']:.6f}; test reload HR@10 "
+    towers = "BERT-small" + ("" if variant == "DSSM" else
+                             f" + SASRec D {D}")
+    cut = f" (an epoch of {RT_DSSM_STEPS} steps)" if variant == "DSSM" else ""
+    print(f"runner {what}: {tr.item_num} items, {tr.batcher.n} samples{cut}, "
+          f"{towers}, B {TRAIN_B}, bf16{'' if variant == 'DSSM' else ', dedup'}"
+          f"{'' if variant else ', use_pallas'}: valid HR@10 {best:.6f} "
+          f"nDCG@10 {tr.valid_results[1]['ndcg']:.6f}; test reload HR@10 "
           f"{hit:.6f} nDCG@10 {ndcg:.6f} [{card}]", flush=True)
-    report_runner("text MoRec", card, tr, watch, tr.valid_results[1])
+    report_runner(what, card, tr, watch, tr.valid_results[1])
     require(tr.item_num == ITEM_NUM, "the text catalog lost items")
-    same_eval(te.last_eval, tr.valid_results[1], "runner text MoRec")
+    same_eval(te.last_eval, tr.valid_results[1], f"runner {what}")
     train, evals = watch.launches()
-    require_launched(train, TRAIN_KERNELS + PALLAS_KERNELS,
-                     "text MoRec training")
-    require_launched(evals, RUNNER_EVAL_KERNELS, "text MoRec evaluation")
+    require_launched(train, TRAIN_KERNELS + (() if variant
+                                             else PALLAS_KERNELS),
+                     f"{what} training")
+    require_launched(evals, RUNNER_EVAL_KERNELS, f"{what} evaluation")
     return counts()
 
 
@@ -3279,23 +3688,29 @@ def set_swin_kernels(model, kernels: str) -> None:
             m.kernels = kernels
 
 
-def runner_vision(dev, card: str) -> dict:
-    """Vision MoRec through Trainer: Swin-T from its config (the CLI's
-    load_encoder) under SASRec at V_D over an MKV store, RV_EPOCHS epochs
-    (dedup, chunks of V_CAP_QUANTUM images, images from the store through
-    the native transform), the full eval, the save, a fresh Trainer in
-    test mode whose valid eval is the run's bits, and that eval again
-    with the "windows" kernel selection."""
+def runner_vision(dev, card: str, variant: str = "") -> dict:
+    """Vision MoRec through Trainer, with the flags of R_VARIANTS[variant]:
+    Swin-T from its config (the CLI's load_encoder) under SASRec at V_D
+    (none under DSSM) over an MKV store, images from the store through the
+    native transform, chunks of V_CAP_QUANTUM images; RV_EPOCHS epochs for
+    the in-batch CE (dedup), one for BCE (dedup over the positives and
+    negatives) and DSSM (RV_DSSM_B users a step, no dedup, an epoch cut
+    to RV_DSSM_STEPS steps); the full eval, the save, a fresh Trainer in
+    test mode whose valid eval is the run's bits, and for the in-batch CE
+    that eval again with the "windows" kernel selection."""
+    what = f"vision MoRec {variant}".strip()
     vision_runner_data(np.random.default_rng(SEED + 21))
     cfg = dict(root_data_dir="./", dataset="VISION", news="images.tsv",
                behaviors="behaviors.tsv", image_store="images.mkv",
                image_resize=IMAGE, modality="vision", item_tower="modal",
                cv_model_load="swin_tiny", max_seq_len=V_L,
                embedding_dim=V_D, num_attention_heads=USER_HEADS,
-               transformer_block=BLOCKS, batch_size=V_TRAIN_B, lr=V_LR,
-               fine_tune_lr=V_FT_LR, drop_rate=DROP, dedup_items=True,
-               dedup_cap=RV_CAP, encoder_chunk=V_CAP_QUANTUM,
-               item_emb_batch_size=ENCODE_BATCH, epoch=RV_EPOCHS)
+               transformer_block=BLOCKS, lr=V_LR, fine_tune_lr=V_FT_LR,
+               drop_rate=DROP, dedup_items=True, dedup_cap=RV_CAP,
+               encoder_chunk=V_CAP_QUANTUM, item_emb_batch_size=ENCODE_BATCH,
+               epoch=1 if variant else RV_EPOCHS,
+               batch_size=RV_DSSM_B if variant == "DSSM" else V_TRAIN_B,
+               **R_VARIANTS[variant])
 
     def trainer(**kw):
         c = Config(**cfg, **kw)
@@ -3303,59 +3718,72 @@ def runner_vision(dev, card: str) -> dict:
                             encoder_bundle=runner.load_encoder(c, dev))
         tr.load_data()
         tr.build_model()
+        if variant == "DSSM":
+            cut_epochs(tr, RV_DSSM_STEPS)
         return tr
 
     with RunnerWatch() as watch:
         tr = trainer()
         best, best_epoch = tr.train()
-        require(best_epoch > 0, "vision MoRec saved no checkpoint")
+        require(best_epoch > 0, f"{what} saved no checkpoint")
         te = trainer(mode="test", load_ckpt_name=f"epoch-{best_epoch}.pt")
         hit, ndcg = te.test()
         te.run_eval("valid")
         band = te.last_eval
-        set_swin_kernels(te.model, "windows")
-        te.run_eval("valid")
-        windows = te.last_eval
-        set_swin_kernels(te.model, "band")
-    print(f"runner vision MoRec: {tr.item_num} items, {tr.batcher.n} users, "
-          f"Swin-T + SASRec D {V_D}, B {V_TRAIN_B}, bf16, dedup cap "
-          f"{RV_CAP}, chunks of {V_CAP_QUANTUM}: best valid HR@10 "
-          f"{best:.6f} at epoch {best_epoch}; test reload HR@10 {hit:.6f} "
-          f"nDCG@10 {ndcg:.6f}; valid under \"windows\" HR@10 "
-          f"{windows['hit']:.6f} nDCG@10 {windows['ndcg']:.6f} [{card}]",
-          flush=True)
-    report_runner("vision MoRec", card, tr, watch,
-                  tr.valid_results[best_epoch])
-    same_eval(band, tr.valid_results[best_epoch], "runner vision MoRec")
-    # HR@10 as hit counts: a float difference of two fractions of n can
-    # round one ulp above 2 / n when exactly two users differ
-    n = band["users"]
-    require(abs(round(windows["hit"] * n) - round(band["hit"] * n)) <= 2
-            and abs(windows["ndcg"] - band["ndcg"]) <= 2 / n,
-            "the two kernel selections evaluate apart")
+        if not variant:
+            set_swin_kernels(te.model, "windows")
+            te.run_eval("valid")
+            windows = te.last_eval
+            set_swin_kernels(te.model, "band")
+    towers = "Swin-T" + ("" if variant == "DSSM" else f" + SASRec D {V_D}")
+    cut = f" (an epoch of {RV_DSSM_STEPS} steps)" if variant == "DSSM" else ""
+    print(f"runner {what}: {tr.item_num} items, {tr.batcher.n} samples{cut}, "
+          f"{towers}, B {cfg['batch_size']}, bf16, chunks of {V_CAP_QUANTUM}: best "
+          f"valid HR@10 {best:.6f} at epoch {best_epoch}; test reload HR@10 "
+          f"{hit:.6f} nDCG@10 {ndcg:.6f} [{card}]", flush=True)
+    report_runner(what, card, tr, watch, tr.valid_results[best_epoch])
+    same_eval(band, tr.valid_results[best_epoch], f"runner {what}")
     train, evals = watch.launches()
-    require_launched(train, VISION_TRAIN_KERNELS, "vision MoRec training")
-    require_launched(evals, VISION_ENCODE_KERNELS + VISION_WINDOWS_KERNELS
-                     + RUNNER_EVAL_KERNELS, "vision MoRec evaluation")
+    if variant == "DSSM":
+        require_launched(train, SWIN_TRAIN_KERNELS, f"{what} training")
+        require_launched(evals, VISION_ENCODE_KERNELS, f"{what} evaluation")
+        return counts()
+    require_launched(train, VISION_TRAIN_KERNELS, f"{what} training")
+    require_launched(evals, VISION_ENCODE_KERNELS + RUNNER_EVAL_KERNELS,
+                     f"{what} evaluation")
+    if not variant:
+        print(f"runner {what}: valid under \"windows\" HR@10 "
+              f"{windows['hit']:.6f} nDCG@10 {windows['ndcg']:.6f} [{card}]",
+              flush=True)
+        # HR@10 as hit counts: a float difference of two fractions of n
+        # can round one ulp above 2 / n when exactly two users differ
+        n = band["users"]
+        require(abs(round(windows["hit"] * n) - round(band["hit"] * n)) <= 2
+                and abs(windows["ndcg"] - band["ndcg"]) <= 2 / n,
+                "the two kernel selections evaluate apart")
+        require_launched(evals, VISION_WINDOWS_KERNELS,
+                         f"{what} evaluation")
     return counts()
 
 
 def runner_path(dev, card: str) -> dict:
-    """The runner phase in a temporary directory (data, logs and
+    """The runner phase, each part in a temporary directory (data, logs and
     checkpoints there): IDRec through the CLI, text and vision MoRec
-    through Trainer. Returns the launches of all three."""
+    through Trainer, each with the in-batch CE, BCE and DSSM
+    (R_VARIANTS). Returns the launches of all nine."""
     launched = dict.fromkeys(WRAPPERS, 0)
     here = os.getcwd()
     for part in (runner_idrec, runner_text, runner_vision):
-        with tempfile.TemporaryDirectory() as tmp:
-            os.chdir(tmp)
-            try:
-                got = part(dev, card)
-            finally:
-                os.chdir(here)
-        for n in launched:
-            launched[n] += got[n]
-        torch.cuda.empty_cache()
+        for variant in R_VARIANTS:
+            with tempfile.TemporaryDirectory() as tmp:
+                os.chdir(tmp)
+                try:
+                    got = part(dev, card, variant)
+                finally:
+                    os.chdir(here)
+            for n in launched:
+                launched[n] += got[n]
+            torch.cuda.empty_cache()
     return launched
 
 
@@ -3373,13 +3801,14 @@ def merge(kernels: dict, more: dict) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="all",
-                        choices=("all", "text", "vision"),
+                        choices=("all", "text", "vision", "bce_dssm"),
                         help="only profile the train step, the vision "
                              "catalog encode and recommend and the vision "
                              "train step by device kernel (torch.profiler), "
                              "after the card and build phases; 'text': the "
                              "text train step alone; 'vision': the vision "
-                             "train step alone")
+                             "train step alone; 'bce_dssm': the BCE and "
+                             "DSSM train steps alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
@@ -3407,6 +3836,9 @@ def main() -> int:
     if args.profile == "vision":
         profile_vision_train(dev, card)
         return 0
+    if args.profile == "bce_dssm":
+        profile_bce_dssm(dev, card, content, batches)
+        return 0
     if args.profile:
         profile_train(dev, card, content, batches, cap)
         if args.profile == "text":
@@ -3432,6 +3864,12 @@ def main() -> int:
     with phase("gradient check"):
         grad_check(dev, model, content, batches[0])
     del model
+    torch.cuda.empty_cache()
+    with phase("bce"):
+        bce = bce_path(dev, card, content, batches)
+    torch.cuda.empty_cache()
+    with phase("dssm"):
+        dssm = dssm_path(dev, card, content)
     torch.cuda.empty_cache()
     with phase("vision kernels"):
         vision = kernel_phase(dev, card, vision_kernel_cases(dev),
@@ -3482,9 +3920,10 @@ def main() -> int:
     with phase("runner"):
         ran = runner_path(dev, card)
 
-    # launches: every main path's count, each taken from 0; the ten keys
+    # launches: every main path's count, each taken from 0; the twelve keys
     # after it say which path launched how many
     paths = {"launches_serve": served, "launches_train": trained,
+             "launches_bce": bce, "launches_dssm": dssm,
              "launches_vision": seen, "launches_windows": windows,
              "launches_vision_train": vtrained,
              "launches_windows_train": vwindows,

@@ -1,6 +1,6 @@
 """Host-side batch construction with static shapes (JAX twin:
-idvs/morec_tpu/data/loader.py, copied; its negative sampler and the BCE and
-DSSM batchers come with the BCE/DSSM slice).
+idvs/morec_tpu/data/loader.py, copied, so the same seed gives the same
+batches bit for bit).
 
 - User sequences are padded ONCE into dense int32 matrices; per-epoch work is
   a permutation + fancy-indexing, not per-sample Python
@@ -12,6 +12,9 @@ DSSM batchers come with the BCE/DSSM slice).
   ships (B, L+1) ids. Images travel with the batch (data/vision_loader.py).
 - The order is keyed by (seed, epoch) alone, so a resumed run regenerates
   the same batches.
+- Negative sampling (BCE variants) is vectorized rejection sampling keyed by
+  (seed, epoch), replicating dataset.py:35-39 semantics (uniform over
+  [1, item_num], resample while the draw is in the user's sequence).
 """
 
 from __future__ import annotations
@@ -69,6 +72,45 @@ def _epoch_perm(n: int, seed: int, epoch: int, world_pad: int) -> np.ndarray:
     return perm
 
 
+# rounds of redraws before sample_negatives gives up (the JAX twin's
+# max_rounds default)
+NEG_ROUNDS = 64
+
+
+def sample_negatives(rng: np.random.Generator,
+                     seqs_padded: np.ndarray,
+                     item_num: int,
+                     neg_per_pos: int = 1) -> np.ndarray:
+    """Vectorized rejection sampling of negatives not present in the user's seq.
+
+    seqs_padded: (B, S) the user's padded sequence (0 = pad).
+    Returns (B, S-1, neg_per_pos) draws in [1, item_num] (reference
+    bce_text/main-end2end/data_utils/dataset.py:35-39 semantics): a draw
+    found in the row's sequence is drawn again, up to NEG_ROUNDS rounds; a
+    draw that still hits after the last round is kept, as the JAX twin
+    keeps it (a row whose sequence holds nearly the whole catalog).
+    """
+    B, S = seqs_padded.shape
+    out = rng.integers(1, item_num + 1, size=(B, S - 1, neg_per_pos), dtype=np.int64)
+    # Membership test, fully vectorized: flatten all rows into one sorted key
+    # space by offsetting each row's values with row * (item_num + 1).
+    sorted_seq = np.sort(seqs_padded.astype(np.int64), axis=1)  # (B, S)
+    row_off = (np.arange(B, dtype=np.int64) * (item_num + 1))[:, None]
+    flat_keys = (sorted_seq + row_off).ravel()  # globally sorted
+    for _ in range(NEG_ROUNDS):
+        queries = (out.reshape(B, -1) + row_off).reshape(-1)
+        idx = np.searchsorted(flat_keys, queries, side="left")
+        idx = np.clip(idx, 0, flat_keys.size - 1)
+        hit = (flat_keys[idx] == queries).reshape(B, -1)
+        if not hit.any():
+            break
+        redraw = rng.integers(1, item_num + 1, size=int(hit.sum()), dtype=np.int64)
+        flat = out.reshape(B, -1)
+        flat[hit] = redraw
+        out = flat.reshape(B, S - 1, neg_per_pos)
+    return out
+
+
 @dataclasses.dataclass
 class TrainBatcher:
     """In-batch CE batches: (ids (B, L+1), log_mask (B, L)).
@@ -100,6 +142,87 @@ class TrainBatcher:
         for i in range(0, len(perm), self.batch_size):
             idx = perm[i:i + self.batch_size]
             yield self.seqs[idx], self.log_mask[idx]
+
+
+@dataclasses.dataclass
+class BCETrainBatcher:
+    """BCE/SASRec batches: (pos_ids (B, L+1), neg_ids (B, L+1), log_mask (B, L)).
+
+    neg layout matches the reference interleave semantics
+    (bce_text/main-end2end/data_utils/dataset.py:31-42): negatives aligned so
+    neg_ids[:, :-1] are the per-position negatives and neg_ids[:, -1] = 0.
+    """
+    seqs: np.ndarray
+    lens: np.ndarray
+    max_seq_len: int
+    batch_size: int
+    item_num: int
+    seed: int = 12345
+
+    def __post_init__(self):
+        self.n = self.seqs.shape[0]
+        self.log_mask = log_mask_from_lens(self.lens, self.max_seq_len)
+
+    def steps_per_epoch(self) -> int:
+        return (self.n + self.batch_size - 1) // self.batch_size
+
+    def epoch(self, epoch: int) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        perm = _epoch_perm(self.n, self.seed, epoch, self.batch_size)
+        rng = np.random.default_rng(
+            np.uint64(self.seed) + np.uint64(epoch) * np.uint64(7_368_787) + 1)
+        for i in range(0, len(perm), self.batch_size):
+            idx = perm[i:i + self.batch_size]
+            pos = self.seqs[idx]
+            lm = self.log_mask[idx]
+            draws = sample_negatives(rng, pos, self.item_num)[:, :, 0]  # (B, S-1)
+            # negatives occupy the same slots as their positive transitions:
+            # [0]*mask_len + negs + [0]  (reference dataset.py:40)
+            neg = np.zeros_like(pos)
+            neg[:, :-1] = np.where(lm != 0, draws, 0)
+            yield pos, neg, lm
+
+
+@dataclasses.dataclass
+class DSSMTrainBatcher:
+    """DSSM pair batches: (user (B,), items (B, 1+neg_num), labels (B, 1+neg_num)).
+
+    One sample per (user, pos_item) pair with neg_num rejection-sampled
+    negatives (reference bce_text/main-end2end(DSSM)/data_utils/dataset.py:9-34).
+    """
+    train_pairs: np.ndarray              # (P, 2)
+    user_seqs: Dict[int, List[int]]      # full per-user sequences for rejection
+    item_num: int
+    neg_num: int
+    batch_size: int
+    seed: int = 12345
+
+    def __post_init__(self):
+        self.n = self.train_pairs.shape[0]
+        # Padded per-user sequences for vectorized rejection
+        max_len = max(len(s) for s in self.user_seqs.values()) if self.user_seqs else 1
+        uid_max = max(self.user_seqs.keys())
+        self._seq_mat = np.zeros((uid_max + 1, max_len), dtype=np.int64)
+        for uid, s in self.user_seqs.items():
+            self._seq_mat[uid, :len(s)] = s
+
+    def steps_per_epoch(self) -> int:
+        return (self.n + self.batch_size - 1) // self.batch_size
+
+    def epoch(self, epoch: int) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        perm = _epoch_perm(self.n, self.seed, epoch, self.batch_size)
+        rng = np.random.default_rng(
+            np.uint64(self.seed) + np.uint64(epoch) * np.uint64(7_368_787) + 2)
+        for i in range(0, len(perm), self.batch_size):
+            idx = perm[i:i + self.batch_size]
+            users = self.train_pairs[idx, 0]
+            pos = self.train_pairs[idx, 1]
+            seqs = self._seq_mat[users]                       # (B, max_len)
+            negs = sample_negatives(rng, seqs, self.item_num,
+                                    neg_per_pos=self.neg_num)[:, 0, :]  # (B, neg_num)
+            items = np.concatenate([pos[:, None], negs], axis=1)
+            labels = np.zeros_like(items, dtype=np.float32)
+            labels[:, 0] = 1.0
+            yield users.astype(np.int32), items.astype(np.int32), labels
 
 
 @dataclasses.dataclass

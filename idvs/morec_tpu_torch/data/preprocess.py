@@ -1,5 +1,5 @@
 """Host-side dataset preprocessing, numpy (JAX twin: idvs/morec_tpu/data/
-preprocess.py, copied; its DSSM pair reader comes with the DSSM slice).
+preprocess.py, copied).
 
 Reproduces the reference preprocessing semantics exactly:
 - item TSV readers             (reference inbatch_sasrec_e2e_text/data_utils/preprocess.py:84-128)
@@ -7,6 +7,9 @@ Reproduces the reference preprocessing semantics exactly:
   re-iding of surviving items, leave-one-out split, per-user histories,
   popularity table with sentinel pop[0]=1
                                (reference preprocess.py:5-81)
+- DSSM pair reader: (user, item) pairs, users ided from 1
+                               (reference bce_text/main-end2end(DSSM)/
+                                data_utils/preprocess.py:5-81)
 - tokenized catalog matrices packed [ids || attention_mask] side by side
                                (reference preprocess.py:131-172, run.py:88-98)
 - vision image manifest -> record-store keys
@@ -214,6 +217,64 @@ def read_behaviors(behaviors_path: str,
         users_history_for_test=users_history_for_test,
         item_name_to_id=id_of_name,
         pop_prob_list=pop_prob_list,
+    )
+
+
+@dataclasses.dataclass
+class PairBehaviorData:
+    """DSSM pairwise splits (reference bce_text/main-end2end(DSSM)/data_utils/preprocess.py:5-81)."""
+    user_num: int
+    item_num: int
+    item_id_to_content: Dict[int, object]
+    users_train: Dict[int, List[int]]
+    users_valid: Dict[int, List[int]]
+    train_pairs: np.ndarray    # (P, 2) [user, item]
+    valid_pairs: np.ndarray
+    test_pairs: np.ndarray
+    users_history_for_valid: Dict[int, np.ndarray]
+    users_history_for_test: Dict[int, np.ndarray]
+
+
+def read_behaviors_pairs(behaviors_path: str,
+                         before_item_id_to_dic: dict,
+                         before_item_name_to_id: dict,
+                         min_seq_len: int,
+                         max_seq_len: int,
+                         log=None) -> PairBehaviorData:
+    """DSSM variant: (user, item) interaction pairs; users ided from 1."""
+    raw_seqs, raw_counts, _ = _read_user_sequences(
+        behaviors_path, before_item_name_to_id, min_seq_len, max_seq_len)
+
+    dense_of, content_of, _ = _densify_items(raw_counts, before_item_id_to_dic)
+    item_num = len(dense_of)
+
+    users_train, users_valid = {}, {}
+    users_history_for_valid, users_history_for_test = {}, {}
+    train_pairs, valid_pairs, test_pairs = [], [], []
+    for uid, raw_seq in enumerate(raw_seqs.values(), start=1):
+        seq = [dense_of[rid] for rid in raw_seq]
+        train = seq[:-2]
+        valid = seq[:-1]
+        users_train[uid] = train
+        users_valid[uid] = valid
+        users_history_for_valid[uid] = np.asarray(train, dtype=np.int64)
+        users_history_for_test[uid] = np.asarray(valid, dtype=np.int64)
+        for i in train:
+            train_pairs.append((uid, i))
+        valid_pairs.append((uid, valid[-1]))
+        test_pairs.append((uid, seq[-1]))
+
+    return PairBehaviorData(
+        user_num=len(raw_seqs),
+        item_num=item_num,
+        item_id_to_content=content_of,
+        users_train=users_train,
+        users_valid=users_valid,
+        train_pairs=np.asarray(train_pairs, dtype=np.int64),
+        valid_pairs=np.asarray(valid_pairs, dtype=np.int64),
+        test_pairs=np.asarray(test_pairs, dtype=np.int64),
+        users_history_for_valid=users_history_for_valid,
+        users_history_for_test=users_history_for_test,
     )
 
 

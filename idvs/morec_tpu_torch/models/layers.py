@@ -186,6 +186,29 @@ class Embed(nn.Module):
         return F.embedding(ids, self.weight)
 
 
+class MLPLayers(nn.Module):
+    """[Dropout -> Dense -> exact GELU] x (len(layers) - 1), Xavier-normal
+    kernels and zero biases (JAX models/layers.py ``MLPLayers``; reference
+    bce_text/main-end2end(DSSM)/model/encoders.py:6-18). The Denses keep
+    the Flax names ``Dense_0``, ``Dense_1``, ... (the Dropouts hold no
+    parameters and take no number)."""
+
+    def __init__(self, layers, drop_rate: float, device=None):
+        super().__init__()
+        self.drop = Dropout(drop_rate)
+        self.n_layers = len(layers) - 1
+        for i, (n_in, n_out) in enumerate(zip(layers[:-1], layers[1:])):
+            setattr(self, f"Dense_{i}",
+                    Dense(n_in, n_out, init=xavier_normal_, device=device))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = self.drop(x, generator)
+            x = F.gelu(getattr(self, f"Dense_{i}")(x))
+        return x
+
+
 def drop_path_scale(seed: int, n: int, rate: float, device=None
                     ) -> torch.Tensor:
     """(n,) float32 DropPath factors of one call: row i is kept with

@@ -1,18 +1,26 @@
-"""The in-batch debiased cross-entropy (JAX twin: idvs/morec_tpu/ops/
-losses.py), in plain PyTorch: a (B*L, N) score matmul and elementwise
-masks. The kernel edition, ``ops/cuda/inbatch_ce.py`` (the JAX package's
-``fused_inbatch_ce``), runs under ``use_pallas``; on the CPU it runs
-``inbatch_ce_candidates`` below, so this composition is its plain version.
+"""The reference losses (JAX twin: idvs/morec_tpu/ops/losses.py), in plain
+PyTorch.
+
+The in-batch debiased cross-entropy is a (B*L, N) score matmul and
+elementwise masks. The kernel edition, ``ops/cuda/inbatch_ce.py`` (the JAX
+package's ``fused_inbatch_ce``), runs under ``use_pallas``; on the CPU it
+runs ``inbatch_ce_candidates`` below, so this composition is its plain
+version.
 
 With ``gather_negatives`` the candidates are every rank's items: the
 embeddings, ids, column masks and log popularity are all-gathered over the
 process group (``parallel/mesh.py``), and the labels of rank r's rows sit
 r * B * S columns in.
+
+The two BCE losses (sampled negatives for SASRec, the (1 + neg) candidates
+of DSSM) are dot products and a softplus, which the JAX package computes
+outside any Pallas kernel too.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..parallel import mesh
 from .masking import label_columns
@@ -110,3 +118,36 @@ def inbatch_debiased_ce(user_vec: torch.Tensor, item_embs: torch.Tensor,
     return inbatch_ce_candidates(user_vec, item_embs, item_ids, log_mask,
                                  item_ids, candidate_colmask(log_mask),
                                  log_pop)
+
+
+def bce_sasrec_loss(user_vec: torch.Tensor, pos_embs: torch.Tensor,
+                    neg_embs: torch.Tensor,
+                    log_mask: torch.Tensor) -> torch.Tensor:
+    """BCE over per-position (pos, neg) dot scores (reference
+    bce_text/main-end2end/model/model.py:43-51).
+
+    user_vec (B, L, D) user states; pos_embs and neg_embs (B, L, D) the
+    embeddings of the next positives and of the sampled negatives; log_mask
+    (B, L). Scores and softplus in float32 whatever the inputs' dtype; mean
+    BCE(pos, 1) plus mean BCE(neg, 0), both over the valid positions, n =
+    max(#valid, 1).
+    """
+    u = user_vec.float()
+    pos_score = (u * pos_embs.float()).sum(-1)
+    neg_score = (u * neg_embs.float()).sum(-1)
+    w = (log_mask != 0).float()
+    n = w.sum().clamp_min(1.0)
+    # BCEWithLogits: softplus(-x) for label 1, softplus(x) for label 0
+    pos_loss = (F.softplus(-pos_score) * w).sum() / n
+    neg_loss = (F.softplus(neg_score) * w).sum() / n
+    return pos_loss + neg_loss
+
+
+def bce_dssm_loss(user_vec: torch.Tensor, item_vecs: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """DSSM pointwise BCE (reference bce_text/main-end2end(DSSM)/model/
+    model.py:40-43): user_vec (B, D), item_vecs (B, 1 + neg, D), labels
+    (B, 1 + neg) in {0, 1}; the mean over every element, in float32."""
+    scores = torch.einsum("bnd,bd->bn", item_vecs.float(), user_vec.float())
+    per = F.softplus(scores) - scores * labels.float()
+    return per.mean()

@@ -3,9 +3,12 @@ examples/synthetic_quickstart.py): generates a synthetic dataset with group
 structure, trains IDRec (SASRec + in-batch debiased CE), evaluates, and
 reloads the best ``epoch-N.pt`` in test mode; no external data needed.
 
-    python -m idvs.morec_tpu_torch.quickstart [workdir] [--device cpu]
+    python -m idvs.morec_tpu_torch.quickstart [workdir] [--device cpu] \
+        [config flags]
 
-The card by default; ``--device cpu`` runs it on the CPU.
+The card by default; ``--device cpu`` runs it on the CPU. Any other flags
+are the CLI's and follow the quickstart's own, e.g. ``--loss bce`` (BCE with
+sampled negatives) or ``--loss bce --user_tower dssm`` (DSSM).
 """
 
 import argparse
@@ -50,15 +53,16 @@ def main(argv=None):
     parser.add_argument("workdir", nargs="?", default="./quickstart_data")
     parser.add_argument("--device", default=None,
                         help="'cpu' to run on the CPU (default: the card)")
-    args = parser.parse_args(argv)
+    args, flags = parser.parse_known_args(argv)
+    flags = FLAGS + flags
     make_dataset(os.path.join(args.workdir, "SYNTH"))
     os.chdir(args.workdir)
 
-    best, best_epoch = run(parse_args(FLAGS + ["--epoch", "5",
+    best, best_epoch = run(parse_args(flags + ["--epoch", "5",
                                                "--mode", "train"]),
                            device=args.device)
     print(f"\nbest valid HR@10 = {best * 100:.2f} at epoch {best_epoch}")
-    hit, ndcg = run(parse_args(FLAGS + [
+    hit, ndcg = run(parse_args(flags + [
         "--epoch", "1", "--mode", "test",
         "--load_ckpt_name", f"epoch-{best_epoch}.pt"]), device=args.device)
     print(f"test HR@10 = {hit * 100:.2f}, nDCG@10 = {ndcg * 100:.2f}")

@@ -6,6 +6,9 @@
    histories, the last position's state, a float32 (B, item_num + 1) score
    matmul against the table, the padding column and (optionally) each
    user's history set to -inf, then the top-k.
+   ``recommend_users(user_ids)``: the DSSM user tower on trained user ids,
+   the same scores with only the padding column at -inf (the JAX engine
+   excludes no history for DSSM), then the top-k.
 
 Requests pad up to the smallest configured batch bucket, as in the JAX
 engine, so the shapes the kernels see come from a short fixed list. The
@@ -41,7 +44,8 @@ def pad_histories(histories: Sequence[Sequence[int]], max_seq_len: int
 
 
 class Retriever:
-    """Retrieval engine over a RecModel with a SASRec user tower.
+    """Retrieval engine over a RecModel: ``recommend`` for a SASRec user
+    tower, ``recommend_users`` for a DSSM one (the model's ``user_tower``).
 
     item_table: the (item_num + 1, D) catalog table on the model's device
     (``Retriever.encode_catalog`` builds one). batch_sizes: the request
@@ -53,6 +57,7 @@ class Retriever:
                  batch_sizes: Sequence[int] = (1, 8, 64),
                  exclude_history: bool = True):
         self.model = model
+        self.user_tower = model.user_tower
         self.item_table = item_table
         self.max_seq_len = int(max_seq_len)
         self.batch_sizes = tuple(sorted(int(b) for b in batch_sizes))
@@ -78,11 +83,27 @@ class Retriever:
         top = self.batch_sizes[-1]
         return (n + top - 1) // top * top
 
+    def _top_k(self, uvec: torch.Tensor, top_k: int,
+               history: Optional[torch.Tensor] = None) -> tuple:
+        """float32 scores of the (B, D) user vectors against the table, the
+        padding column and the ids of ``history`` at -inf, then the top-k."""
+        scores = uvec.float() @ self.item_table.float().T    # (B, I + 1)
+        scores[:, 0] = -torch.inf                            # padding item
+        if history is not None:
+            # history ids are left-padded with 0, whose column is -inf already
+            scores.scatter_(1, history, -torch.inf)
+        return torch.topk(scores, top_k, dim=1)
+
     @torch.no_grad()
     def recommend(self, histories: Sequence[Sequence[int]], top_k: int = 10
                   ) -> Tuple[np.ndarray, np.ndarray]:
         """histories: per-user item-id lists, most recent last ->
-        (ids (B, top_k) int64, scores (B, top_k) float32), best first."""
+        (ids (B, top_k) int64, scores (B, top_k) float32), best first. A
+        SASRec model's: a DSSM model serves ``recommend_users``."""
+        if self.user_tower != "sasrec":
+            raise ValueError("recommend takes item histories, which only a "
+                             "SASRec user tower reads: a DSSM model serves "
+                             "recommend_users")
         n = len(histories)
         B = self._bucket(n)
         ids, mask = pad_histories(histories, self.max_seq_len)
@@ -95,13 +116,24 @@ class Retriever:
         table = self.item_table
         with eval_mode(self.model):
             states = self.model.user_states(table[ids], mask)
-        uvec = states[:, -1].float()
-        scores = uvec @ table.float().T                      # (B, I + 1)
-        scores[:, 0] = -torch.inf                            # padding item
-        if self.exclude_history:
-            # history ids are left-padded with 0, whose column is -inf already
-            scores.scatter_(1, ids, -torch.inf)
-        vals, idx = torch.topk(scores, top_k, dim=1)
+        vals, idx = self._top_k(states[:, -1], top_k,
+                                ids if self.exclude_history else None)
+        return idx[:n].cpu().numpy(), vals[:n].cpu().numpy()
+
+    @torch.no_grad()
+    def recommend_users(self, user_ids: Sequence[int], top_k: int = 10
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """DSSM tower: recommend for trained user ids -> (ids (B, top_k)
+        int64, scores (B, top_k) float32), best first."""
+        if self.user_tower != "dssm":
+            raise ValueError("user-id serving is the DSSM path")
+        n = len(user_ids)
+        users = np.zeros(self._bucket(n), dtype=np.int64)
+        users[:n] = np.asarray(list(user_ids), dtype=np.int64)
+        users = torch.from_numpy(users).to(self.item_table.device)
+        with eval_mode(self.model):
+            uvec = self.model.user_vec(users)
+        vals, idx = self._top_k(uvec, top_k)
         return idx[:n].cpu().numpy(), vals[:n].cpu().numpy()
 
     @torch.no_grad()

@@ -6,9 +6,11 @@ metrics.py:60-107):
 - the catalog encode: the item tower over every id in fixed chunks
   (``compute_item_embeddings``; the reference's get_item_embeddings);
 - user scoring: one batched step a user batch, the SASRec state at the last
-  position, the (B, I+1) float32 catalog product, the history set to -inf,
-  the rank of the target, HR@10 / nDCG@10 (``make_eval_step``; the
-  reference's per-user Python loop, metrics.py:90-102);
+  position (DSSM: the user tower's vector of the batch's user ids), the
+  (B, I+1) float32 catalog product, the history set to -inf, the rank of
+  the target, HR@10 / nDCG@10 (``make_eval_step``; the reference's
+  per-user Python loop, metrics.py:90-102, and DSSM's, bce_text/
+  main-end2end(DSSM)/data_utils/metrics.py:93-120);
 - aggregation: padding users are masked out exactly, reproducing
   SequentialDistributedSampler's pad-then-truncate semantics
   (dataset.py:68-94, metrics.py:33-46).
@@ -85,13 +87,19 @@ def make_eval_step(model, topk: int = 10):
     (hit, ndcg, valid) float32 vectors on the device, zero on padding users,
     so the caller can take exact means (and tests can compare per-user
     values against the reference's metrics_topK outputs). The towers run in
-    eval mode. SASRec's only: DSSM's comes with ROADMAP A3."""
+    eval mode. By the model's user tower (the JAX ``user_tower``
+    argument): SASRec scores the state of the item ids at the last
+    position; DSSM takes ``ids`` as (B,) user ids and scores their
+    ``user_vec`` (the log mask unused)."""
 
     @torch.no_grad()
     def step(item_table, ids, log_mask, target, history, valid):
         with eval_mode(model):
-            states = model.user_states(item_table[ids], log_mask)
-        scores = masked_catalog_scores(states[:, -1], item_table, history)
+            if model.user_tower == "dssm":
+                uvec = model.user_vec(ids)
+            else:
+                uvec = model.user_states(item_table[ids], log_mask)[:, -1]
+        scores = masked_catalog_scores(uvec, item_table, history)
         hit, ndcg = hit_and_ndcg(target_rank(scores, target), topk)
         v = valid.float()
         return hit * v, ndcg * v, v
@@ -102,8 +110,9 @@ def make_eval_step(model, topk: int = 10):
 def evaluate(model, item_table: torch.Tensor, eval_batches,
              topk: int = 10, per_user: bool = False):
     """Mean HR@topk and nDCG@topk over all true users of ``eval_batches``
-    (``data/loader.py`` ``EvalBatches``), scored against ``item_table`` on
-    its device.
+    (``data/loader.py`` ``EvalBatches``, or the runner's DSSM pair batches
+    with user ids in the id slot), scored against ``item_table`` on its
+    device.
 
     per_user=True additionally returns (hits, ndcgs) numpy arrays of the
     true users in order -- the reference's stacked eval_all_user tensors

@@ -1,7 +1,10 @@
 """Training/test orchestrator (JAX twin: idvs/morec_tpu/train/runner.py), the
 reference's run.py / run_test.py (inbatch_sasrec_e2e_text/run.py:26-352) as
-one config-driven entry point, for the in-batch CE x SASRec x end2end
-variant with the ``id``, text ``modal`` and vision ``modal`` item towers.
+one config-driven entry point, for the end2end variants with the ``id``,
+text ``modal`` and vision ``modal`` item towers: the in-batch CE and BCE
+with sampled negatives under SASRec (``TrainBatcher``, ``BCETrainBatcher``),
+and DSSM (``DSSMTrainBatcher`` over the (user, item) pairs of
+``read_behaviors_pairs``, evaluated on each user's (user, target) pair).
 
 Flow (parity with run.py):
   data read -> batcher -> model + optimizer -> [resume] ->
@@ -14,7 +17,7 @@ rank evaluates every user, and rank 0 alone logs and writes checkpoints.
 The host builds the next batch (ids, dedup packing, images) on a worker
 thread while the device runs the current step (``Prefetcher``).
 
-BCE, DSSM, two-stage, ID+modality fusion, cold/new-item eval and gradient
+Two-stage, ID+modality fusion, cold/new-item eval and gradient
 accumulation raise ``NotImplementedError`` naming their ROADMAP item.
 ``steps_per_dispatch`` runs that many single steps and reads their losses
 together (the JAX package's one-dispatch scan makes the same updates).
@@ -31,10 +34,12 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.loader import EvalBatches, TrainBatcher, pad_user_sequences
+from ..data.loader import (BCETrainBatcher, DSSMTrainBatcher, EvalBatches,
+                           TrainBatcher, pad_user_sequences)
 from ..data.preprocess import (BehaviorData, build_doc_matrix,
-                               read_behaviors, read_image_manifest,
-                               read_items_text, read_items_tokenized)
+                               read_behaviors, read_behaviors_pairs,
+                               read_image_manifest, read_items_text,
+                               read_items_tokenized)
 from ..models.layers import on_device
 from ..models.model import make_model
 from ..parallel import mesh
@@ -51,9 +56,6 @@ def check_supported(cfg: Config) -> None:
     """Raises NotImplementedError for a configuration the port's runner does
     not run yet, naming the ROADMAP item that brings it."""
     later = [
-        (cfg.loss != "inbatch_ce", "loss='bce' (ROADMAP A3, BCE and DSSM)"),
-        (cfg.user_tower != "sasrec",
-         "user_tower='dssm' (ROADMAP A3, BCE and DSSM)"),
         (cfg.stage != "end2end",
          "stage='two_stage' (ROADMAP A4, fusion and two-stage)"),
         (cfg.use_fusion, f"item_tower={cfg.item_tower!r} (ROADMAP A4, "
@@ -73,6 +75,33 @@ def _pad_histories(hist_dict: Dict[int, np.ndarray], width: int) -> np.ndarray:
         h = hist_dict[uid]
         out[row, :len(h)] = h[:width]
     return out
+
+
+class _DSSMEvalBatches:
+    """DSSM eval (JAX runner ``_dssm_eval_batches``): every (user, target)
+    pair scored against the catalog (reference bce_text/main-end2end(DSSM)/
+    data_utils/metrics.py:93-120), in batches of ``EvalBatches``' 5-tuple
+    with user ids in the id slot and a (B, 1) zero log mask; the histories
+    are indexed by user id (1-based), so row uid - 1."""
+
+    def __init__(self, pairs: np.ndarray, history: np.ndarray,
+                 batch_size: int):
+        self.pairs = pairs
+        self.history = history
+        self.batch_size = batch_size
+        self.n = pairs.shape[0]
+        self.total = ((self.n + batch_size - 1) // batch_size) * batch_size
+
+    def __iter__(self):
+        for i in range(0, self.total, self.batch_size):
+            idx = np.minimum(np.arange(i, i + self.batch_size), self.n - 1)
+            users = self.pairs[idx, 0].astype(np.int32)
+            target = self.pairs[idx, 1].astype(np.int32)
+            hist = self.history[np.minimum(users - 1,
+                                           self.history.shape[0] - 1)]
+            lm = np.zeros((len(idx), 1), np.float32)
+            valid = np.arange(i, i + self.batch_size) < self.n
+            yield users, lm, target, hist, valid
 
 
 def _groups(batches, k: int):
@@ -105,6 +134,7 @@ class Trainer:
     """
 
     vision_pipe = None   # set for vision end2end (data/vision_loader.py)
+    user_num = 0         # DSSM's users, set by its data
 
     def __init__(self, cfg: Config, log_file=None, log_screen=None, *,
                  device=None, encoder_bundle=None, tokenizer=None):
@@ -134,6 +164,9 @@ class Trainer:
     def load_data(self):
         cfg = self.cfg
         base = os.path.join(cfg.root_data_dir, cfg.dataset)
+        if cfg.user_tower == "dssm":
+            self._load_dssm_data(base)
+            return
         if cfg.use_modal and cfg.modality == "vision":
             from ..data.imagestore import open_store
             from ..data.vision_loader import VisionBatchPipe
@@ -148,13 +181,8 @@ class Trainer:
             self.set_data(bd, None)
             return
         if cfg.use_modal:
-            if self.tokenizer is None:
-                raise ValueError(
-                    "text end2end tokenizes its items: pass "
-                    "Trainer(..., tokenizer=...) (the HF tokenizer's call "
-                    "signature)")
             dic, n2i, i2n = read_items_tokenized(
-                os.path.join(base, cfg.news), cfg, self.tokenizer)
+                os.path.join(base, cfg.news), cfg, self._tokenizer())
             bd = read_behaviors(os.path.join(base, cfg.behaviors), dic, n2i,
                                 i2n, cfg.max_seq_len, cfg.min_seq_len,
                                 self.log)
@@ -166,6 +194,56 @@ class Trainer:
                                 self.log)
             item_content = None
         self.set_data(bd, item_content)
+
+    def _tokenizer(self):
+        if self.tokenizer is None:
+            raise ValueError(
+                "text end2end tokenizes its items: pass "
+                "Trainer(..., tokenizer=...) (the HF tokenizer's call "
+                "signature)")
+        return self.tokenizer
+
+    def _load_dssm_data(self, base: str):
+        """DSSM (JAX runner.py:275-314): the (user, item) pairs of
+        ``read_behaviors_pairs``, ``DSSMTrainBatcher`` over the train pairs
+        with each user's train-and-valid items rejected as negatives, and
+        the valid and test pairs as the eval batches; the id, text end2end
+        and vision (MKV store) item towers."""
+        cfg = self.cfg
+        vision = cfg.use_modal and cfg.modality == "vision"
+        news = os.path.join(base, cfg.news)
+        if vision:
+            dic, n2i, _ = read_image_manifest(news)
+        elif cfg.use_modal:
+            dic, n2i, _ = read_items_tokenized(news, cfg, self._tokenizer())
+        else:
+            dic, n2i, _ = read_items_text(news)
+        pd = read_behaviors_pairs(os.path.join(base, cfg.behaviors), dic, n2i,
+                                  cfg.min_seq_len, cfg.max_seq_len, self.log)
+        self.item_num = pd.item_num
+        self.user_num = pd.user_num
+        self.item_content = None
+        if vision:
+            from ..data.imagestore import open_store
+            from ..data.vision_loader import VisionBatchPipe
+            store = open_store(os.path.join(base, cfg.image_store))
+            self.vision_pipe = VisionBatchPipe(store, pd.item_id_to_content,
+                                               cfg.image_resize)
+        elif cfg.use_modal:
+            self.item_content = torch.as_tensor(build_doc_matrix(
+                pd.item_id_to_content, cfg)).long().to(self.device)
+        self.log_pop = None
+        self.batcher = DSSMTrainBatcher(pd.train_pairs, pd.users_valid,
+                                        pd.item_num, cfg.neg_num,
+                                        cfg.batch_size * self.n_shards,
+                                        seed=cfg.seed)
+        H = cfg.max_seq_len + 2
+        ebs = cfg.eval_batch_size * self.n_shards
+        self.eval_valid = _DSSMEvalBatches(
+            pd.valid_pairs, _pad_histories(pd.users_history_for_valid, H),
+            ebs)
+        self.eval_test = _DSSMEvalBatches(
+            pd.test_pairs, _pad_histories(pd.users_history_for_test, H), ebs)
 
     def set_data(self, bd: BehaviorData, item_content: Optional[np.ndarray]):
         """item_content: None (id, vision) or the int32 token matrix (text
@@ -182,9 +260,14 @@ class Trainer:
             log_pop = np.log(bd.pop_prob_list).astype(np.float32)
         self.log_pop = torch.from_numpy(log_pop).to(self.device)
         seqs, lens = pad_user_sequences(bd.users_train, cfg.seq_len_total)
-        self.batcher = TrainBatcher(seqs, lens, cfg.max_seq_len,
-                                    cfg.batch_size * self.n_shards,
-                                    seed=cfg.seed)
+        global_bs = cfg.batch_size * self.n_shards
+        if cfg.loss == "inbatch_ce":
+            self.batcher = TrainBatcher(seqs, lens, cfg.max_seq_len,
+                                        global_bs, seed=cfg.seed)
+        else:
+            self.batcher = BCETrainBatcher(seqs, lens, cfg.max_seq_len,
+                                           global_bs, self.item_num,
+                                           seed=cfg.seed)
         H = cfg.max_seq_len + 2
         self.eval_valid = self._make_eval(bd.users_valid,
                                           bd.users_history_for_valid, H)
@@ -213,6 +296,7 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.model = make_model(cfg, self.item_num,
                                 encoder if cfg.use_modal else None,
+                                user_num=self.user_num,
                                 device=self.device, generator=gen)
         labels = None
         if cfg.use_modal:
@@ -228,27 +312,46 @@ class Trainer:
 
     # ---------------------------------------------------------------- train
     def make_batch(self, raw) -> Dict[str, Any]:
-        """One step's batch on the device from the batcher's global (ids,
-        log_mask): this rank's rows, dedup packing (``dedup_items``) and the
-        images of a vision tower (``uniq_content`` or ``content``)."""
+        """One step's batch on the device from the batcher's global arrays
+        (JAX runner.py:424-449): this rank's rows; SASRec's ids and log
+        mask, with BCE the negatives' ids, dedup packing (``dedup_items``,
+        one pack over the positives and negatives) and the images of a
+        vision tower (``uniq_content``, or ``content`` and with BCE
+        ``neg_content``); DSSM's users, items and labels, and the items'
+        images (no dedup, as in the JAX package)."""
         cfg = self.cfg
-        ids, lm = raw
         if self.n_shards > 1:
-            rows = mesh.host_rows(len(ids))
-            ids, lm = ids[rows], lm[rows]
-        host = {"ids": torch.from_numpy(np.asarray(ids, np.int64)),
-                "log_mask": torch.from_numpy(np.asarray(lm, np.float32))}
+            rows = mesh.host_rows(len(raw[0]))
+            raw = [a[rows] for a in raw]
+        t = lambda a, dt: torch.from_numpy(np.asarray(a, dt))
+        images = (self.vision_pipe.images_for
+                  if self.vision_pipe is not None else None)
+        if cfg.user_tower == "dssm":
+            users, items, labels = raw
+            host = {"users": t(users, np.int64), "items": t(items, np.int64),
+                    "labels": t(labels, np.float32)}
+            if images is not None:
+                host["content"] = torch.from_numpy(images(items))
+            return {k: v.to(self.device) for k, v in host.items()}
+        ids, lm = raw[0], raw[-1]
+        slots = [ids]
+        host = {"ids": t(ids, np.int64), "log_mask": t(lm, np.float32)}
+        if cfg.loss == "bce":
+            slots.append(raw[1])
+            host["neg_ids"] = t(raw[1], np.int64)
         if cfg.dedup_items and cfg.use_modal:
-            packed = dedup_pack(ids, cfg.dedup_cap)
+            packed = dedup_pack(np.concatenate([a.ravel() for a in slots]),
+                                cfg.dedup_cap)
             if packed is not None:
                 host["uniq_ids"], host["inverse"] = (torch.from_numpy(a)
                                                      for a in packed)
-                if self.vision_pipe is not None:
+                if images is not None:
                     host["uniq_content"] = torch.from_numpy(
-                        self.vision_pipe.images_for(packed[0]))
-        if self.vision_pipe is not None and "uniq_ids" not in host:
-            host["content"] = torch.from_numpy(
-                self.vision_pipe.images_for(ids))
+                        images(packed[0]))
+        if images is not None and "uniq_ids" not in host:
+            host["content"] = torch.from_numpy(images(ids))
+            if cfg.loss == "bce":
+                host["neg_content"] = torch.from_numpy(images(raw[1]))
         return {k: v.to(self.device) for k, v in host.items()}
 
     def run_eval(self, users: str = "valid") -> tuple:

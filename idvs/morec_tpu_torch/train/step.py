@@ -1,10 +1,13 @@
-"""The single-device train step of the in-batch CE models (JAX twin:
-idvs/morec_tpu/train/step.py ``make_train_step`` on a one-device mesh).
+"""The train step (JAX twin: idvs/morec_tpu/train/step.py
+``make_train_step``) of the three loss families: the in-batch CE and BCE
+with sampled negatives under SASRec, and DSSM's BCE over (1 + neg_num)
+candidates.
 
-One step, as the JAX ``single_step`` (:155-245, :264-272):
+One in-batch CE step, as the JAX ``single_step`` (:155-245, :264-272):
 
 1. the f32 master parameters are cast to the compute dtype (bf16 or f32,
-   ``cfg.compute_dtype``) and the towers run on the cast copies through
+   ``cfg.compute_dtype``) and the model's towers (``RecModel.item_embs``,
+   ``user_states``, ``user_vec``) run on the cast copies through
    ``torch.func.functional_call``, so the gradients land on the masters;
 2. the item tower encodes the batch's item slots: the catalog rows
    (device-resident, gathered by id) of every slot, or, with host-side
@@ -20,6 +23,20 @@ One step, as the JAX ``single_step`` (:155-245, :264-272):
 The loss is the composition of ``ops/losses.py`` or, with
 ``cfg.use_pallas``, the kernel edition (``ops/cuda/inbatch_ce.py``, JAX
 step.py:219-227).
+
+``cfg.loss == "bce"`` with SASRec (JAX step.py:193-211): the batch adds
+``neg_ids`` (B, L + 1), one sampled negative at each valid transition's
+slot (``data/loader.py`` ``BCETrainBatcher``). The item tower encodes the
+positive and the negative slots together, [ids, neg_ids] flattened (with
+dedup, one ``dedup_pack`` over both; with images, ``content`` and
+``neg_content`` or ``uniq_content``); SASRec runs on the positives'
+``[:, :-1]``, and ``bce_sasrec_loss`` scores its states against the next
+positives and the negatives. ``cfg.user_tower == "dssm"`` (JAX
+step.py:162-171): the batch is ``users`` (B,), ``items`` (B, 1 + neg_num)
+and ``labels`` (plus ``content`` when the items' content travels with the
+batch); the item tower encodes the items, ``user_vec`` the users, and
+``bce_dssm_loss`` scores them. ``use_pallas`` and ``gather_negatives`` are
+options of the in-batch CE only, as in the JAX package.
 
 Under a process group (``parallel/mesh.py`` ``init_distributed``) the step
 is data-parallel (JAX step.py:274-291): each rank runs its local batch,
@@ -45,7 +62,8 @@ dropout and DropPath seeds come from a generator seeded with one value
 drawn from the step's generator before the chunk runs, so the
 recomputation draws the very same masks.
 
-BCE, DSSM and several steps per dispatch raise ``NotImplementedError``.
+Several steps per dispatch raise ``NotImplementedError`` (the runner's
+``steps_per_dispatch`` runs single steps back to back).
 """
 
 from __future__ import annotations
@@ -59,7 +77,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import dropout
 from ..ops.cuda.inbatch_ce import fused_inbatch_ce, fused_inbatch_ce_gathered
-from ..ops.losses import inbatch_debiased_ce
+from ..ops.losses import bce_dssm_loss, bce_sasrec_loss, inbatch_debiased_ce
 from ..parallel import mesh
 from .state import TrainState
 
@@ -84,17 +102,11 @@ def dedup_pack(ids: np.ndarray, cap: int = 0
     return padded, inv.reshape(-1).astype(np.int64)
 
 
-def _check(cfg, n_steps: int) -> None:
-    unported = {
-        "loss": cfg.loss != "inbatch_ce",
-        "user_tower": cfg.user_tower != "sasrec",
-        "n_steps": n_steps != 1,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+def _check(n_steps: int) -> None:
+    if n_steps != 1:
         raise NotImplementedError(
-            f"the port's train step runs the in-batch CE step of SASRec "
-            f"only; not ported: {', '.join(bad)}")
+            "the port's train step runs one step a call; not ported: "
+            "n_steps")
 
 
 def _step_generator(generator: torch.Generator,
@@ -103,11 +115,6 @@ def _step_generator(generator: torch.Generator,
     generator, and the rank."""
     return torch.Generator().manual_seed(
         (rank << 32) | dropout.draw_seed(generator))
-
-
-def _prefixed(params: Dict[str, torch.Tensor], prefix: str):
-    n = len(prefix)
-    return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
 
 
 def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
@@ -120,13 +127,15 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
 
     item_content: the device-resident (item_num + 1, W) catalog rows of a
     modal item tower (None for IDRec). log_pop: (item_num + 1,) log
-    popularity on the device. batch: ``ids`` (B, L + 1) and ``log_mask``
-    (B, L) on the device, plus ``uniq_ids`` and ``inverse`` from
-    ``dedup_pack`` when dedup is on, plus ``content`` (one row or image
-    per slot) or ``uniq_content`` (one per ``uniq_ids`` entry) when the
-    content travels with the batch.
+    popularity on the device (the in-batch CE's only). batch: ``ids``
+    (B, L + 1) and ``log_mask`` (B, L) on the device, plus ``uniq_ids``
+    and ``inverse`` from ``dedup_pack`` when dedup is on, plus ``content``
+    (one row or image per slot) or ``uniq_content`` (one per ``uniq_ids``
+    entry) when the content travels with the batch; BCE adds ``neg_ids``
+    (and ``neg_content``); DSSM's batch is ``users``, ``items``,
+    ``labels`` (and ``content``).
     """
-    _check(cfg, n_steps)
+    _check(n_steps)
     dt = COMPUTE_DTYPES[cfg.compute_dtype]
     chunk = getattr(cfg, "encoder_chunk", 0)
     remat = getattr(cfg, "remat_encoder", False)
@@ -150,28 +159,28 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
         params = {k: p.to(dt) if p.dtype == torch.float32 else p
                   for k, p in model.named_parameters()}
 
-        def encode(item_ids, content, generator):
-            kw = {"generator": generator}
-            if content.dim() == 4:      # images: id 0 is the zero image
-                kw["pad_mask"] = item_ids == 0
-            return functional_call(model.encoder,
-                                   _prefixed(params, "encoder."),
-                                   (content,), kw)
+        towers = {name: {k: v for k, v in params.items()
+                         if k.split(".", 1)[0] in mods}
+                  for name, mods in model.TOWERS.items()}
+
+        def tower(name, *args):
+            # RecModel's own composition, on the tower's cast copies
+            return functional_call(model, towers[name], (name, *args),
+                                   tie_weights=False)
 
         def encode_remat(item_ids, content):
             # the chunk's own generator, seeded before the chunk runs: the
             # backward's recomputation draws the same seeds again
             seed = dropout.draw_seed(gen)
             return checkpoint(
-                lambda i, c: encode(i, c, torch.Generator().manual_seed(seed)),
+                lambda i, c: tower("item_embs", i, c,
+                                   torch.Generator().manual_seed(seed)),
                 item_ids, content, use_reentrant=False,
                 preserve_rng_state=False)
 
         def item_embs(item_ids, content):
             if model.item_tower == "id":
-                return functional_call(model.id_embedding,
-                                       _prefixed(params, "id_embedding."),
-                                       (item_ids,))
+                return tower("item_embs", item_ids, None, gen)
             if content is None:
                 content = item_content[item_ids]
             n = item_ids.shape[0]
@@ -181,20 +190,41 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
                     for i in range(0, n, chunk)])
             if remat:
                 return encode_remat(item_ids, content)
-            return encode(item_ids, content, gen)
+            return tower("item_embs", item_ids, content, gen)
 
-        ids, lm = batch["ids"], batch["log_mask"]
-        B, S = ids.shape
-        if "uniq_ids" in batch:
-            embs = item_embs(batch["uniq_ids"],
-                             batch.get("uniq_content"))[batch["inverse"]]
+        if model.user_tower == "dssm":
+            items = batch["items"]
+            B, N = items.shape
+            ivec = item_embs(items.reshape(-1),
+                             batch.get("content")).reshape(B, N, -1)
+            uvec = tower("user_vec", batch["users"], gen)
+            loss = bce_dssm_loss(uvec, ivec, batch["labels"])
         else:
-            embs = item_embs(ids.reshape(-1), batch.get("content"))
-        embs = embs.reshape(B, S, -1)
-        uv = functional_call(model.user_encoder,
-                             _prefixed(params, "user_encoder."),
-                             (embs[:, :-1].to(dt), lm), {"generator": gen})
-        loss = loss_of(uv, embs, ids, lm, log_pop[ids])
+            ids, lm = batch["ids"], batch["log_mask"]
+            B, S = ids.shape
+            bce = cfg.loss == "bce"
+            if "uniq_ids" in batch:
+                # with BCE, one dedup_pack over [ids, neg_ids] (JAX
+                # runner.py:441-449)
+                embs = item_embs(batch["uniq_ids"],
+                                 batch.get("uniq_content"))[batch["inverse"]]
+            else:
+                slots, content = ids.reshape(-1), batch.get("content")
+                if bce:
+                    slots = torch.cat([slots, batch["neg_ids"].reshape(-1)])
+                    if content is not None:
+                        content = torch.cat([content, batch["neg_content"]])
+                embs = item_embs(slots, content)
+            pos = embs[:B * S].reshape(B, S, -1)
+            uv = tower("user_states", pos[:, :-1].to(dt), lm, gen)
+            if bce:
+                # targets: the next positives; the negatives sit at the
+                # transitions' slots (bce_text/main-end2end/model/
+                # model.py:39-41)
+                neg = embs[B * S:].reshape(B, S, -1)
+                loss = bce_sasrec_loss(uv, pos[:, 1:], neg[:, :-1], lm)
+            else:
+                loss = loss_of(uv, pos, ids, lm, log_pop[ids])
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         loss = loss.detach()

@@ -344,8 +344,7 @@ def test_vision_runner(tmp_path, monkeypatch):
 def test_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     root = synth_dataset(tmp_path)
-    for kw in (dict(loss="bce"), dict(loss="bce", user_tower="dssm"),
-               dict(stage="two_stage"), dict(item_tower="modal_id_add"),
+    for kw in (dict(stage="two_stage"), dict(item_tower="modal_id_add"),
                dict(accumulation_step=2)):
         with pytest.raises(NotImplementedError):
             Trainer(_cfg(Config, root, **kw), quiet_log(), quiet_log(),

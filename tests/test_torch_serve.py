@@ -161,8 +161,10 @@ def test_port_runs_the_slice_without_jax():
     images shipped with the batch (vision MoRec); then imports the runner's
     modules and the CLI, trains IDRec for one epoch through
     ``Trainer(cfg, device="cpu")`` and reloads the best checkpoint in test
-    mode; the CLI itself refuses to run without a GPU (the test process
-    itself has jax loaded by conftest, hence the subprocess)."""
+    mode; takes one BCE step (text MoRec, sampled negatives) and one DSSM
+    step (IDRec) and serves a DSSM ``recommend_users`` call; the CLI itself
+    refuses to run without a GPU (the test process itself has jax loaded
+    by conftest, hence the subprocess)."""
     code = textwrap.dedent("""
         import importlib.abc
         import sys
@@ -300,6 +302,36 @@ def test_port_runs_the_slice_without_jax():
         hit, ndcg = te.test()
         assert 0 <= ndcg <= hit <= 1
         assert te.run_eval("valid")[0] == best
+        # BCE with sampled negatives: one text MoRec step over the
+        # positives and negatives deduplicated together; DSSM: one IDRec
+        # step at dnn_layers 1 and a recommend_users call
+        from idvs.morec_tpu_torch.data.loader import BCETrainBatcher
+        cfg.__dict__.update(loss="bce", encoder_chunk=0)
+        bstep = make_train_step(cfg, item_content=content)
+        pos, neg, lm = next(BCETrainBatcher(
+            rng.integers(1, 41, size=(4, 7)), np.full(4, 7), 6, 4, 40
+            ).epoch(1))
+        uniq, inv = dedup_pack(np.concatenate([pos.ravel(), neg.ravel()]), 64)
+        loss = bstep(state, {
+            k: torch.from_numpy(v) for k, v in dict(
+                ids=pos, neg_ids=neg, log_mask=lm, uniq_ids=uniq,
+                inverse=inv).items()})
+        assert torch.isfinite(loss) and state.step == 2
+        dcfg = Config(item_tower="id", user_tower="dssm", loss="bce",
+                      embedding_dim=32, dnn_layers=1, neg_num=2,
+                      compute_dtype="float32", lr=1e-3, l2_weight=0.0)
+        dmodel = make_model(dcfg, 40, user_num=9, device="cpu",
+                            generator=torch.Generator().manual_seed(2))
+        dstate = make_train_state(dmodel, dcfg)
+        items = torch.from_numpy(rng.integers(1, 41, size=(4, 3)))
+        loss = make_train_step(dcfg)(dstate, {
+            "users": torch.tensor([1, 4, 9, 2]), "items": items,
+            "labels": torch.tensor([[1.0, 0.0, 0.0]]).repeat(4, 1)})
+        assert torch.isfinite(loss) and dstate.step == 1
+        dtable = Retriever.encode_catalog(dmodel, 40, None, 32)
+        ids, scores = Retriever(dmodel, dtable).recommend_users([3, 9], 5)
+        assert ids.shape == (2, 5) and 0 not in ids
+        assert np.isfinite(scores).all()
         if not torch.cuda.is_available():
             try:
                 run.main(flags)

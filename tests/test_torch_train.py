@@ -198,7 +198,7 @@ def test_optimizer_groups_and_dedup_pack():
     slots = np.arange(128 * 21).reshape(128, 21)
     assert dedup_pack(slots % 2048)[0].shape == (2048,)   # cap 0: 3/4 of
     assert dedup_pack(slots % 2049) is None               # 2688, to 256
-    with pytest.raises(NotImplementedError, match="loss"):
-        make_train_step(Config(loss="bce"))
-    with pytest.raises(NotImplementedError, match="user_tower"):
-        make_train_step(Config(user_tower="dssm", loss="bce"))
+    make_train_step(Config(loss="bce"))          # BCE and DSSM are ported
+    make_train_step(Config(user_tower="dssm", loss="bce"))
+    with pytest.raises(NotImplementedError, match="n_steps"):
+        make_train_step(Config(), n_steps=2)
