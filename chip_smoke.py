@@ -11,8 +11,9 @@ dropout); end2end vision MoRec (Swin-T item tower at full width and
 depth, SASRec at D = 2048), serving and training; the use_pallas train
 step (the in-batch CE kernels) of text MoRec, IDRec and vision MoRec; the
 data-parallel step with gather_negatives; BCE with sampled negatives and
-the DSSM two-tower (text MoRec, a 600_001-user table). Phases, each fatal
-on failure:
+the DSSM two-tower (text MoRec, a 600_001-user table); the two-stage
+cached-embedding towers and ID+modality fusion (text and vision). Phases,
+each fatal on failure:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: build (or load) the kernel library;
@@ -182,7 +183,14 @@ on failure:
     evaluation must equal the in-memory one of its epoch in every bit,
     and every kernel of each part's training and evaluation must have
     launched (IDRec's DSSM has no kernel on its path: no SASRec, no
-    encoder). It prints train samples/s, eval users/s, catalog encode
+    encoder). Then three parts of ROADMAP A4, each printing its HR@10 and
+    nDCG@10 beside the untrained model's: text two-stage through
+    Trainer(cfg, encoder_bundle=..., tokenizer=...) (train_bert_lyr_8's
+    flags, the frozen BERT-small caching the 100_000 titles, one epoch, a
+    test-mode reload that caches anew), vision two-stage through the CLI
+    (hm_swin_tiny_lyr_8's flags over the MKV store, 2 epochs, --mode
+    test), and text MoRec with the CAT fusion tower (BCE, one epoch).
+    It prints train samples/s, eval users/s, catalog encode
     items/s, checkpoint bytes and save/load seconds, HR@10 and nDCG@10 and
     the launches in training and in evaluation of each part;
 20. bce (run after phase 7): BCE with sampled negatives on the text
@@ -200,11 +208,41 @@ on failure:
     launches a step, every BERT kernel of the text step launched); the
     float32 gradient check at dnn_layers 0 and 2; the catalog encoded
     (float32) and recommend_users at B = 1 and 64 (p50), its ids and
-    scores against a float32 plain scoring of the same table on the CPU.
+    scores against a float32 plain scoring of the same table on the CPU;
+22. two_stage (after phase 21): the two-stage towers of
+    variants/bce_*/main-2stage(SASRec) and id_plus_mo-2stage. Text: the
+    counters set to 0, the runner's catalog cache (Trainer._encode_catalog)
+    through a frozen BERT at BERT-base's published geometry (12 layers,
+    C 768, 12 heads, F 3072; random weights) over the 100_001 titles in
+    float32 (seconds, items/s, its launches: the tails at C = 768), 256
+    rows against the CPU plain path; then train_bert_lyr_8's bf16 step
+    (BCE, B 128, D 512, dnn_layers 8, l2 0.01; the head and SASRec in
+    float32 on the bf16 copies, as JAX runs it): the counters set to 0, 10
+    steps on one batch (the loss must fall), 10 timed steps (p50,
+    samples/s, peak memory, launches a step, every SASRec training kernel
+    launched), the float32 gradient check on 8 users, the trained head's
+    catalog encode and recommend at B = 1 and 64 (p50), 256 rows of the
+    table and every request's ids and scores against the CPU plain path;
+    then train_bert_cat's first grid point (cat, mo_dnn_layers 4,
+    dnn_layers 2, B 64) on the same cache, 10 + 5 steps and its gradient
+    check. Vision: the Swin-T cache (bf16) of 16_385 items drawn from the
+    image pool, as wide as the tower's output (ROADMAP C9), a float32
+    sub-cache of 16 images against the CPU plain path; then
+    hm_swin_tiny_lyr_8's step (B 64, dnn_layers 8) and
+    train_swin_tiny_add_m8's (add, mo_dnn_layers 8, dnn_layers 2), 5 + 5
+    and 5 + 3 steps, with the same checks;
+23. fusion: id_plus_mo-end2end's towers. Phase 20's BCE text step with
+    modal_id_add and with modal_id_cat (an ID table beside BERT-small:
+    p50, peak memory, launches with scatter_add_rows, the float32 gradient
+    check), then train_swin_tiny_add.py's vision step at B 16 (Swin-T bf16
+    beside an ID table, SASRec D 512): 3 steps on one batch, every vision
+    step kernel launched, and a float32 gradient check on 2 users.
 
 Prints each phase's seconds and a JSON line of per-kernel results (launches
 on the main paths, in all and by path: text serving, training, BCE and
-DSSM training, vision serving, the "windows" sub-catalog, vision
+DSSM training, the two-stage caches (2E), the two-stage text and vision
+steps (2T, 2V), the fusion text and vision steps (FT, FV), vision
+serving, the "windows" sub-catalog, vision
 training, the "windows" train step, the vision dropout step, the
 use_pallas steps, the data-parallel steps, the runner; error
 and time against the plain version, the least time the card could take for
@@ -226,7 +264,8 @@ fused_mha's kernels and the pre-LN MLP backward's even outside the top
 rows, gemm.cu's sum and colsum_kernel's), and prints no result line;
 --profile text the text train step alone, --profile vision the vision
 train step alone, --profile bce_dssm the BCE and DSSM train steps of
-phases 20 and 21 alone.
+phases 20 and 21 alone, --profile two_stage phase 22's two-stage text
+step and a chunk of its BERT-base cache alone.
 """
 
 from __future__ import annotations
@@ -237,6 +276,7 @@ import copy
 import dataclasses
 import itertools
 import json
+import logging
 import math
 import os
 import statistics
@@ -262,6 +302,7 @@ from idvs.morec_tpu_torch.bench_tail import (bwd_yardstick, proj_products,
 from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models import sasrec
+from idvs.morec_tpu_torch.models.layers import init_parameters
 from idvs.morec_tpu_torch.models.model import make_model
 from idvs.morec_tpu_torch.models.swin import (SwinBlock, SwinConfig,
                                               SwinModel, _shift_mask)
@@ -305,6 +346,7 @@ from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
 from idvs.morec_tpu_torch.parallel import mesh
 from idvs.morec_tpu_torch.serve import Retriever
 from idvs.morec_tpu_torch.train import runner
+from idvs.morec_tpu_torch.train.evaluate import eval_mode
 from idvs.morec_tpu_torch.train.state import make_train_state, param_labels
 from idvs.morec_tpu_torch.train.step import dedup_pack, make_train_step
 
@@ -386,6 +428,38 @@ BCE_FIXED = 10
 # request batches of recommend_users
 DSSM_USERS, DSSM_NEG, DSSM_FIXED, DSSM_L2 = 600_000, 1, 10, 0.01
 DSSM_REQUESTS = (1, 64)
+# ID+modality fusion and the two-stage towers (ROADMAP A4).
+# variants/bce_text/main-2stage(SASRec)/train_bert_lyr_8.py: BCE, B 128, D
+# 512, dnn_layers 8, L 20, drop 0.1, lr 1e-4, l2_weight 0.01, bf16; its
+# frozen tower at BERT-base's published geometry (BertConfig's defaults:
+# 12 layers, hidden 768, 12 heads, F 3072) caches the catalog in float32.
+# Steps on one batch, timed steps, cache rows held on the CPU plain path.
+TS_DNN, TS_L2 = 8, 0.01
+TS_FIXED, TS_TIMED, TS_CHECK_ROWS = 10, 10, 256
+# id_plus_mo-2stage/train_bert_cat.py's first grid point on the same cache
+TS_CAT = dict(item_tower="modal_id_cat", mo_dnn_layers=4, dnn_layers=2,
+              batch_size=64)
+TS_CAT_TIMED = 5
+# bce_vision/main-2stage(SASRec)/hm_swin_tiny_lyr_8.py (D 512, B 64,
+# dnn_layers 8, L 20) and id_plus_mo-2stage/train_swin_tiny_add_m8.py (add,
+# mo_dnn_layers 8, dnn_layers 2): a Swin-T cache (bf16, as the vision
+# encode runs) over the vision serving phase's cut catalog, fewer steps;
+# images of the float32 sub-cache held on the CPU plain path
+TV_ITEMS = V_ITEMS_CUT
+TV_FIXED, TV_TIMED, TV_CHECK_ROWS = 5, 5, 16
+TV_ADD = dict(item_tower="modal_id_add", mo_dnn_layers=8, dnn_layers=2)
+# bce_vision/id_plus_mo-end2end/train_swin_tiny_add.py (D 512, L 20, lr and
+# fine_tune_lr 1e-4, both l2 0.01, bf16) cut to B 16: steps on one batch
+FV_B, FV_STEPS = 16, 3
+# the float32 cache against the CPU plain path: twelve BERT layers at C =
+# 768 (3xTF32 against the CPU's float32 sums, about 1e-5 a layer) on the
+# final LayerNorm's O(1) outputs
+TS_CACHE_TOL = 1e-3
+# the two-stage steps' kernels: SASRec's training editions (in float32:
+# the BCE branch hands SASRec the head's float32 embeddings, as JAX does)
+TS_TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
+                    "fused_proj_resln_bwd", "fused_mlp_resln_res",
+                    "fused_mlp_resln_bwd", "gemm")
 PALLAS_WARM_STEPS = 2       # use_pallas steps on batches[0] before the timed
 DP_STEPS = 2                # gather_negatives steps at world size 1
 # Swin-T stages: (C, heads, side of the token map)
@@ -1559,14 +1633,15 @@ def card_and_plain(dev, model, cfg, content, batch_of,
     """One float32 step of ``cfg`` without dropout (eval mode) on the card
     through the kernels, and on a CPU copy of the model through the plain
     versions: [(loss, seconds, gradients, launches)] of the card's run,
-    then the CPU's. batch_of(device) builds the step's batch there."""
+    then the CPU's. batch_of(device) builds the step's batch there; content
+    None where it travels with the batch."""
     runs = []
     for where in (dev, torch.device("cpu")):
         m = copy.deepcopy(model).to(where)
         state = make_train_state(m, cfg, param_labels(m))
         m.eval()
         step = make_train_step(
-            cfg, item_content=content.to(where),
+            cfg, item_content=None if content is None else content.to(where),
             log_pop=log_popularity(where) if log_pop else None)
         before = counts()
         t0 = time.perf_counter()
@@ -1579,9 +1654,10 @@ def card_and_plain(dev, model, cfg, content, batch_of,
     return runs
 
 
-def same_step(runs: list, what: str) -> None:
+def same_step(runs: list, what: str, grad_tol: float = STEP_GRAD_TOL
+              ) -> None:
     """The card's loss and every gradient against the CPU plain path's,
-    within STEP_LOSS_TOL and STEP_GRAD_TOL (GRAD_FLOOR's scale)."""
+    within STEP_LOSS_TOL and grad_tol (GRAD_FLOOR's scale)."""
     (lk, sk, gk, _), (lp, sp, gp, _) = runs
     loss_err = abs(lk - lp) / abs(lp)
     top = max(want.abs().max().item() for want in gp.values())
@@ -1594,12 +1670,12 @@ def same_step(runs: list, what: str) -> None:
     print(f"{what}, card {sk:.2f} s vs CPU plain path {sp:.2f} s: loss "
           f"{lk:.6f} vs {lp:.6f}, rel err {loss_err:.3e} (tol "
           f"{STEP_LOSS_TOL:g}); largest gradient error {worst[1]:.3e} on a "
-          f"scale of {worst[2]:.3e} in {worst_name} (tol {STEP_GRAD_TOL:g} "
+          f"scale of {worst[2]:.3e} in {worst_name} (tol {grad_tol:g} "
           f"of the scale; largest gradient {top:.3e}) over {len(gp)} "
           f"parameters", flush=True)
     require(math.isfinite(loss_err) and loss_err <= STEP_LOSS_TOL,
             f"{what}: the loss disagrees with the plain path")
-    require(worst[0] <= STEP_GRAD_TOL,
+    require(worst[0] <= grad_tol,
             f"{what}: the gradient of {worst_name} disagrees with the plain "
             f"path")
 
@@ -1657,29 +1733,34 @@ def step_launches(launched: dict, steps: int) -> dict:
     return {n: launched[n] / steps for n in TRAIN_KERNELS}
 
 
-def bce_setup(dev, content, batches) -> tuple:
+def bce_setup(dev, content, batches, item_tower: str = "modal") -> tuple:
     """(model, train state, step, BCE host batches, dedup cap) of the text
-    flagship's bf16 BCE step on the train batches; the cap is the most
-    unique titles of a batch, rounded up to 256."""
+    flagship's bf16 BCE step on the train batches, over the item tower
+    `item_tower` (ID+modality fusion: an ID table beside BERT); the cap is
+    the most unique titles of a batch, rounded up to 256."""
     bb = bce_batches(np.random.default_rng(SEED + 30), batches)
     cap = -(-max(bce_unique(p, n) for p, n, _ in bb) // 256) * 256
     cfg = train_config(cap)
-    cfg.loss = "bce"
+    cfg.loss, cfg.item_tower = "bce", item_tower
     model = build_model(dev, cfg, seed=SEED + 30)
     state = make_train_state(model, cfg, param_labels(model), seed=SEED)
     return (model, state, make_train_step(cfg, item_content=content), bb,
             cap)
 
 
-def bce_path(dev, card: str, content, batches) -> dict:
-    """BCE with sampled negatives (text MoRec, bf16, dropout): BCE_FIXED
-    steps on one batch (the loss must fall), then a timed step on each
-    further batch; every kernel of the text step launched; then the float32
-    gradient check on CHECK_USERS users. Returns the launches."""
-    model, state, step, bb, cap = bce_setup(dev, content, batches)
+def bce_path(dev, card: str, content, batches,
+             item_tower: str = "modal") -> dict:
+    """BCE with sampled negatives (text MoRec, bf16, dropout) over the item
+    tower `item_tower`: BCE_FIXED steps on one batch (the loss must fall),
+    then a timed step on each further batch; every kernel of the text step
+    launched; then the float32 gradient check on CHECK_USERS users.
+    Returns the launches."""
+    model, state, step, bb, cap = bce_setup(dev, content, batches,
+                                            item_tower)
+    tag = "" if item_tower == "modal" else f" [{item_tower}]"
     pos_u = [len(np.unique(p)) for p, _, _ in bb]
-    print(f"bce: {TRAIN_B} users a step, {int(bb[0][2].sum())} negatives "
-          f"in the first batch; unique items a batch: positives "
+    print(f"bce{tag}: {TRAIN_B} users a step, {int(bb[0][2].sum())} "
+          f"negatives in the first batch; unique items a batch: positives "
           f"{min(pos_u)}-{max(pos_u)}, positives and negatives "
           f"{min(bce_unique(p, n) for p, n, _ in bb)}-"
           f"{max(bce_unique(p, n) for p, n, _ in bb)}; cap {cap}, BERT rows "
@@ -1698,30 +1779,30 @@ def bce_path(dev, card: str, content, batches) -> dict:
     launched = counts()
     steps = BCE_FIXED + len(walls)
     p50 = statistics.median(walls)
-    print(f"bce train step B={TRAIN_B} L={L} bf16, dropout {DROP}, dedup cap "
-          f"{cap}: loss on one batch {losses[0]:.5f} -> "
+    print(f"bce{tag} train step B={TRAIN_B} L={L} bf16, dropout {DROP}, "
+          f"dedup cap {cap}: loss on one batch {losses[0]:.5f} -> "
           f"{losses[BCE_FIXED - 1]:.5f}; p50 {p50:.3f} ms over {len(walls)} "
           f"distinct batches (min {min(walls):.3f}, max {max(walls):.3f}), "
           f"{TRAIN_B / p50 * 1e3:.1f} samples/s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
           flush=True)
-    print(f"bce launches a step: {step_launches(launched, steps)}",
+    print(f"bce{tag} launches a step: {step_launches(launched, steps)}",
           flush=True)
     require(all(math.isfinite(x) for x in losses), "a BCE loss is not finite")
     require(losses[BCE_FIXED - 1] < losses[0],
             "the BCE loss did not fall on a fixed batch")
-    require_launched(launched, TRAIN_KERNELS, "bce training")
+    require_launched(launched, TRAIN_KERNELS, f"bce{tag} training")
     require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
             "a parameter is not finite after BCE training")
     pos, neg, lm = (a[:CHECK_USERS] for a in bb[0])
     ccap = -(-bce_unique(pos, neg) // 8) * 8
     ccfg = train_config(ccap, "float32")
-    ccfg.loss = "bce"
+    ccfg.loss, ccfg.item_tower = "bce", item_tower
     same_step(card_and_plain(
         dev, model, ccfg, content,
         lambda where: bce_device_batch(pos, neg, lm, ccap, where),
         log_pop=False),
-        f"bce gradient check: f32 step on {CHECK_USERS} users ({ccap} "
+        f"bce{tag} gradient check: f32 step on {CHECK_USERS} users ({ccap} "
         f"titles)")
     return launched
 
@@ -1879,6 +1960,380 @@ def recommend_users_check(dev, card: str, model, content, rng) -> None:
                    DSSM_SCORE_TOL)
 
 
+def add_counts(*launched) -> dict:
+    return {n: sum(c[n] for c in launched) for n in WRAPPERS}
+
+
+def smoke_log() -> logging.Logger:
+    """The runner's logger for a Trainer the smoke drives by hand: warnings
+    only, to the console."""
+    log = logging.getLogger("chip_smoke")
+    log.setLevel(logging.WARNING)
+    return log
+
+
+def two_stage_config(compute_dtype: str = "bfloat16", **kw) -> Config:
+    """train_bert_lyr_8.py's configuration (hm_swin_tiny_lyr_8.py's with
+    modality vision and B 64), the fields of `kw` over it."""
+    return Config(**{**dict(
+        item_tower="modal", user_tower="sasrec", stage="two_stage",
+        loss="bce", embedding_dim=D, num_attention_heads=USER_HEADS,
+        transformer_block=BLOCKS, max_seq_len=L, drop_rate=DROP,
+        dnn_layers=TS_DNN, lr=LR, l2_weight=TS_L2,
+        fine_tune_l2_weight=TS_L2, batch_size=TRAIN_B,
+        compute_dtype=compute_dtype, item_emb_batch_size=ENCODE_BATCH),
+        **kw})
+
+
+def encode_cache(dev, card: str, cfg, bundle, content_for, item_num: int,
+                 what: str) -> tuple:
+    """(cache, launches) of the runner's two-stage catalog cache
+    (Trainer._encode_catalog: the bundle's frozen tower over ids
+    0..item_num in chunks of cfg.item_emb_batch_size), the counters from
+    0; its seconds and items/s."""
+    tr = runner.Trainer(cfg, smoke_log(), smoke_log(), device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = tr._encode_catalog(bundle, content_for, item_num)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = counts()
+    print(f"two_stage cache [{what}]: {item_num + 1} items x "
+          f"{cache.shape[1]} float32 in {secs:.3f} s, "
+          f"{(item_num + 1) / secs:.1f} items/s, chunks of "
+          f"{cfg.item_emb_batch_size}; launches "
+          f"{ {n: c for n, c in launched.items() if c} } [{card}]",
+          flush=True)
+    require(tuple(cache.shape) == (item_num + 1, cfg.word_embedding_dim),
+            f"the {what} cache is {tuple(cache.shape)}")
+    require(bool(torch.isfinite(cache).all()) and not cache[0].any(),
+            f"the {what} cache is not finite or its padding row not zero")
+    return cache, launched
+
+
+def bce_host_batches(rng, n: int, B: int, item_num: int) -> list:
+    """n BCE host batches (pos, neg, log mask) of B users: Zipf(1.2) ids
+    capped at item_num in the L + 1 slots, bench_log_mask's mask, one
+    negative at each valid transition's slot (BCETrainBatcher's rule)."""
+    out = []
+    for _ in range(n):
+        ids = np.minimum(rng.zipf(ZIPF_A, size=(B, L + 1)),
+                         item_num).astype(np.int64)
+        lm = bench_log_mask(rng, B)
+        draws = sample_negatives(rng, ids, item_num)[:, :, 0]
+        neg = np.zeros_like(ids)
+        neg[:, :-1] = np.where(lm != 0, draws, 0)
+        out.append((ids, neg, lm))
+    return out
+
+
+def two_stage_train(dev, card: str, cfg, cache, bb, fixed: int, timed: int,
+                    what: str, item_num: int) -> tuple:
+    """The bf16 two-stage step (the head on the float32 cache, the bf16
+    parameter copies meeting it in float32; SASRec on the head's float32
+    embeddings, as JAX runs the BCE branch): the counters set to 0, `fixed`
+    steps on bb[0] (the loss must fall), then `timed` steps on the next
+    batches, each deduplicated (positives and negatives together) and
+    copied inside its timed step (the mean loss of the last third of the
+    fixed steps below the first third's); every SASRec training kernel
+    launched.
+    Returns (model, launches)."""
+    cap = -(-max(bce_unique(p, n) for p, n, _ in bb) // 256) * 256
+    cfg = dataclasses.replace(cfg, dedup_items=True, dedup_cap=cap)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    model = make_model(cfg, item_num, device=dev, generator=gen)
+    state = make_train_state(model, cfg, None, seed=SEED)
+    step = make_train_step(cfg, item_content=cache)
+    B = len(bb[0][0])
+    first = bce_device_batch(*bb[0], cap, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = [step(state, first).item() for _ in range(fixed)]
+    walls = []
+    for b in bb[1:timed + 1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, bce_device_batch(*b, cap, dev)).item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launched = counts()
+    steps = fixed + len(walls)
+    p50 = statistics.median(walls)
+    print(f"two_stage train [{what}]: {cfg.item_tower}, B={B} L={L} D={D} "
+          f"dnn_layers {cfg.dnn_layers} mo_dnn_layers {cfg.mo_dnn_layers}, "
+          f"{cache.shape[1]}-wide cache, bf16 parameter copies (the head and "
+          f"SASRec in float32), dropout {DROP}, dedup cap {cap}: loss on one "
+          f"batch {losses[0]:.5f} -> {losses[fixed - 1]:.5f}; p50 "
+          f"{p50:.3f} ms over {len(walls)} distinct batches (min "
+          f"{min(walls):.3f}, max {max(walls):.3f}), "
+          f"{B / p50 * 1e3:.1f} samples/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
+          flush=True)
+    print(f"two_stage train [{what}] launches a step: "
+          f"{ {n: launched[n] / steps for n in TS_TRAIN_KERNELS} }",
+          flush=True)
+    require(all(math.isfinite(x) for x in losses),
+            f"two_stage [{what}]: a loss is not finite")
+    q = max(1, fixed // 3)
+    require(statistics.mean(losses[fixed - q:fixed])
+            < statistics.mean(losses[:q]),
+            f"two_stage [{what}]: the loss did not fall on a fixed batch: "
+            f"{losses[:fixed]}")
+    require_launched(launched, TS_TRAIN_KERNELS, f"two_stage [{what}]")
+    require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            f"two_stage [{what}]: a parameter is not finite")
+    return model, launched
+
+
+def two_stage_grad_check(dev, model, cfg, cache, batch, what: str) -> None:
+    """One float32 step without dropout on CHECK_USERS users of `batch`, on
+    the card and on a CPU copy of the model and cache through the plain
+    versions: the loss and every gradient agree."""
+    pos, neg, lm = (a[:CHECK_USERS] for a in batch)
+    cap = -(-bce_unique(pos, neg) // 8) * 8
+    ccfg = dataclasses.replace(cfg, compute_dtype="float32", dedup_items=True,
+                               dedup_cap=cap)
+    same_step(card_and_plain(
+        dev, model, ccfg, cache,
+        lambda where: bce_device_batch(pos, neg, lm, cap, where),
+        log_pop=False),
+        f"two_stage gradient check [{what}]: f32 step on {CHECK_USERS} users "
+        f"({cap} items)")
+
+
+def head_serve_check(dev, card: str, model, cache, item_num: int, rng,
+                     what: str) -> None:
+    """The trained head's catalog encode (float32, as served) and
+    recommend at B = 1 and 64 (p50 over 20 requests): TS_CHECK_ROWS rows
+    of the table, and every request's ids and scores, against the float32
+    plain path on a CPU copy of the model, cache and table. (The vision
+    catalog shows each pool image on TV_ITEMS / POOL items, whose equal
+    scores tie: there ids swap inside ties.)"""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = Retriever.encode_catalog(model, item_num, cache, D,
+                                     batch_size=ENCODE_BATCH)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(table).all()), f"{what}: table not finite")
+    cpu = copy.deepcopy(model).cpu().eval()
+    sub = rng.choice(np.arange(1, item_num + 1), TS_CHECK_ROWS,
+                     replace=False)
+    with torch.no_grad():
+        want = cpu.item_embs(torch.from_numpy(sub),
+                             cache[torch.from_numpy(sub).to(dev)].cpu())
+    table_err = (table[torch.from_numpy(sub).to(dev)].cpu()
+                 - want).abs().max().item()
+    engine = Retriever(model, table, max_seq_len=L)
+    plain = Retriever(cpu, table.cpu(), max_seq_len=L)
+    print(f"two_stage serve [{what}]: the head's catalog encode, "
+          f"{item_num + 1} items in {encode_s:.3f} s; {TS_CHECK_ROWS} rows "
+          f"against the CPU plain path: max abs err {table_err:.3e} (tol "
+          f"{TABLE_TOL:g}) [{card}]", flush=True)
+    require(table_err <= TABLE_TOL, f"{what}: the head's table disagrees "
+            f"with the plain path")
+    for B in (1, 64):
+        hist = histories(rng, B, item_num)
+        ids, vals = engine.recommend(hist, TOP_K)
+        ids_p, vals_p = plain.recommend(hist, TOP_K)
+        scale = np.maximum(1.0, np.abs(vals_p))
+        err = float((np.abs(vals - vals_p) / scale).max())
+        mismatch = np.argwhere(ids != ids_p)
+        walls = []
+        for _ in range(25):
+            t0 = time.perf_counter()
+            engine.recommend(hist, TOP_K)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"two_stage recommend [{what}] B={B} top_k={TOP_K}: p50 "
+              f"{statistics.median(walls[5:]):.3f} ms over 20 requests; "
+              f"against the plain path: score err {err:.3e} (tol "
+              f"{SCORE_TOL:g}), {len(mismatch)} of {ids.size} ids differ "
+              f"[{card}]", flush=True)
+        check_results(ids, hist)
+        require(err <= SCORE_TOL, f"{what}: recommend B={B} scores disagree")
+        check_ties(mismatch, vals_p, scale, SCORE_TOL)
+
+
+def two_stage_text(dev, card: str, content, batches) -> tuple:
+    """Text two-stage: the BERT-base cache of the catalog (float32,
+    TS_CHECK_ROWS rows held on the CPU plain path), then train_bert_lyr_8's
+    step (timed, gradient check, the head's encode and recommend against
+    the plain path) and train_bert_cat's first grid point on the same
+    cache. Returns (the cache's launches, the steps')."""
+    bcfg = BertConfig(hidden_dropout_prob=DROP,
+                      attention_probs_dropout_prob=DROP)
+    tower = TextTower(BertModel(bcfg, device=dev), embedding_dim=D,
+                      word_embedding_dim=bcfg.hidden_size, pooling="cls",
+                      attr_lengths=(TITLE_LEN,), project=False, device=dev)
+    cfg = two_stage_config()
+    cache, cached = encode_cache(
+        dev, card, cfg, (tower, None, set(), bcfg.hidden_size),
+        lambda ids: content[torch.from_numpy(ids).to(dev)], ITEM_NUM,
+        f"text, BERT-base C={bcfg.hidden_size} F={bcfg.intermediate_size} "
+        f"{bcfg.num_hidden_layers} layers")
+    require_launched(cached, SERVE_KERNELS, "the text cache")
+    rng = np.random.default_rng(SEED + 40)
+    rows = torch.from_numpy(rng.choice(np.arange(1, ITEM_NUM + 1),
+                                       TS_CHECK_ROWS, replace=False)).to(dev)
+    cpu = copy.deepcopy(tower).cpu().eval()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu(content[rows].cpu())
+    err = (cache[rows].cpu() - want).abs().max().item()
+    print(f"two_stage cache [text]: {TS_CHECK_ROWS} rows against the CPU "
+          f"plain path ({time.perf_counter() - t0:.1f} s): max abs err "
+          f"{err:.3e} (tol {TS_CACHE_TOL:g}; largest |value| "
+          f"{want.abs().max().item():.3e}) [{card}]", flush=True)
+    require(err <= TS_CACHE_TOL, "the text cache disagrees with the plain "
+            "path")
+    del tower, cpu
+    torch.cuda.empty_cache()
+    bb = bce_batches(np.random.default_rng(SEED + 41), batches)
+    model, plain = two_stage_train(dev, card, cfg, cache, bb, TS_FIXED,
+                                   TS_TIMED, "text", ITEM_NUM)
+    two_stage_grad_check(dev, model, cfg, cache, bb[0], "text")
+    head_serve_check(dev, card, model, cache, ITEM_NUM, rng, "text")
+    del model
+    ccfg = dataclasses.replace(cfg, **TS_CAT)
+    cbb = [tuple(a[:ccfg.batch_size] for a in b) for b in bb]
+    model, cat = two_stage_train(dev, card, ccfg, cache, cbb, TS_FIXED,
+                                 TS_CAT_TIMED, "text, fused cat", ITEM_NUM)
+    two_stage_grad_check(dev, model, ccfg, cache, cbb[0], "text, fused cat")
+    return cached, add_counts(plain, cat)
+
+
+def two_stage_vision(dev, card: str) -> tuple:
+    """Vision two-stage: the Swin-T cache (bf16) of TV_ITEMS items drawn from
+    the image pool, as wide as the tower's output (C9), a float32 sub-cache
+    held on the CPU plain path; then hm_swin_tiny_lyr_8's step and
+    train_swin_tiny_add_m8's (fewer steps, gradient checks, the head's
+    encode and recommend against the plain path). Returns (the cache's
+    launches, the steps')."""
+    pool = image_pool(dev)
+    scfg = SwinConfig()
+    tower = VisionTower(SwinModel(scfg, device=dev), "swin", D,
+                        scfg.num_features, project=False,
+                        compute_dtype=torch.bfloat16, device=dev)
+    cfg = two_stage_config(modality="vision", batch_size=V_TRAIN_B)
+    cache, cached = encode_cache(
+        dev, card, cfg, (tower, None, set(), scfg.num_features),
+        pool_content(pool), TV_ITEMS, "vision, Swin-T bf16")
+    require(cfg.word_embedding_dim == D != scfg.num_features,
+            "the vision cache is not as wide as the tower's output (C9)")
+    require_launched(cached, VISION_ENCODE_KERNELS, "the vision cache")
+    rng = np.random.default_rng(SEED + 43)
+    ids = rng.choice(np.arange(1, TV_ITEMS + 1), TV_CHECK_ROWS, replace=False)
+    images = pool[torch.from_numpy(ids % POOL).to(dev)]
+    tower.compute_dtype = None
+    with torch.no_grad(), eval_mode(tower):
+        f32 = tower(images)
+        cpu = copy.deepcopy(tower).cpu()
+        want = cpu(images.cpu())
+    err = (f32.cpu() - want).abs().max().item()
+    bf = (cache[torch.from_numpy(ids).to(dev)] - f32).abs().max().item()
+    print(f"two_stage cache [vision]: a float32 sub-cache of {TV_CHECK_ROWS} "
+          f"images, card against the CPU plain path: max abs err {err:.3e} "
+          f"(tol {V_TABLE_TOL:g}); the bf16 cache's rows against it: max abs "
+          f"difference {bf:.3e} (largest |value| "
+          f"{want.abs().max().item():.3e}) [{card}]", flush=True)
+    require(err <= V_TABLE_TOL, "the vision sub-cache disagrees with the "
+            "plain path")
+    del tower, cpu
+    torch.cuda.empty_cache()
+    bb = bce_host_batches(np.random.default_rng(SEED + 44), TV_TIMED + 1,
+                          V_TRAIN_B, TV_ITEMS)
+    model, plain = two_stage_train(dev, card, cfg, cache, bb, TV_FIXED,
+                                   TV_TIMED, "vision", TV_ITEMS)
+    two_stage_grad_check(dev, model, cfg, cache, bb[0], "vision")
+    head_serve_check(dev, card, model, cache, TV_ITEMS, rng, "vision")
+    del model
+    acfg = dataclasses.replace(cfg, **TV_ADD)
+    model, add = two_stage_train(dev, card, acfg, cache, bb, TV_FIXED, 3,
+                                 "vision, fused add", TV_ITEMS)
+    two_stage_grad_check(dev, model, acfg, cache, bb[0], "vision, fused add")
+    return cached, add_counts(plain, add)
+
+
+def fusion_vision_config(compute_dtype: str = "bfloat16") -> Config:
+    """train_swin_tiny_add.py's configuration at FV_B users a step."""
+    return Config(item_tower="modal_id_add", user_tower="sasrec",
+                  stage="end2end", modality="vision", loss="bce",
+                  embedding_dim=D, num_attention_heads=USER_HEADS,
+                  transformer_block=BLOCKS, max_seq_len=L, drop_rate=DROP,
+                  lr=V_LR, fine_tune_lr=V_FT_LR, l2_weight=TS_L2,
+                  fine_tune_l2_weight=TS_L2, batch_size=FV_B,
+                  compute_dtype=compute_dtype)
+
+
+def image_bce_batch(pos, neg, lm, cap: int, pool: np.ndarray, dev) -> dict:
+    """A BCE host batch, its positives and negatives deduplicated together,
+    with the unique items' images (pool[id % POOL]), on the device."""
+    packed = dedup_pack(np.concatenate([pos.ravel(), neg.ravel()]), cap)
+    require(packed is not None, f"a BCE batch holds more than {cap} items")
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return {"ids": t(pos), "neg_ids": t(neg), "log_mask": t(lm),
+            "uniq_ids": t(packed[0]), "inverse": t(packed[1]),
+            "uniq_content": t(pool[packed[0] % len(pool)])}
+
+
+def fusion_vision(dev, card: str, pool: np.ndarray) -> dict:
+    """train_swin_tiny_add.py's bf16 step (Swin-T beside an ID table of
+    TV_ITEMS, SASRec at D 512) at B = FV_B: the counters set to 0, FV_STEPS
+    steps on one batch, every vision-step kernel launched; then a float32
+    gradient check on V_CHECK_USERS users of short histories. Returns the
+    launches."""
+    cfg = fusion_vision_config()
+    pos, neg, lm = bce_host_batches(np.random.default_rng(SEED + 46), 1, FV_B,
+                                    TV_ITEMS)[0]
+    cap = -(-bce_unique(pos, neg) // V_CAP_QUANTUM) * V_CAP_QUANTUM
+    scfg = SwinConfig()
+    tower = VisionTower(SwinModel(scfg, device=dev), "swin", D,
+                        scfg.num_features, compute_dtype=torch.bfloat16,
+                        device=dev)
+    model = make_model(cfg, TV_ITEMS, tower, device=dev, generator=torch.
+                       Generator(device=dev).manual_seed(SEED + 45))
+    state = make_train_state(model, cfg, param_labels(model), seed=SEED)
+    step = make_train_step(cfg)
+    batch = image_bce_batch(pos, neg, lm, cap, pool, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls = [], []
+    for _ in range(FV_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, batch).item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launched = counts()
+    print(f"fusion [vision, modal_id_add] train step B={FV_B} L={L} D={D} "
+          f"Swin-T bf16 beside an ID table of {TV_ITEMS + 1} rows, dropout "
+          f"{DROP}, DropPath 0.1, {cap} images a step (positives and "
+          f"negatives deduplicated): {FV_STEPS} steps on one batch, losses "
+          f"{[round(x, 5) for x in losses]}, p50 of the last "
+          f"{FV_STEPS - 1} {statistics.median(walls[1:]):.3f} ms (the first "
+          f"{walls[0]:.3f}), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"a step { {n: launched[n] / FV_STEPS for n in VISION_TRAIN_KERNELS} } "
+          f"[{card}]", flush=True)
+    require(all(math.isfinite(x) for x in losses),
+            "fusion [vision]: a loss is not finite")
+    require_launched(launched, VISION_TRAIN_KERNELS, "fusion [vision]")
+    # the check: two users of five transitions each, float32 images
+    n = V_CHECK_USERS
+    cpos, clm = pos[:n].copy(), lm[:n].copy()
+    cpos[:, :-6], clm[:, :-5] = 0, 0.0
+    cneg = np.zeros_like(cpos)
+    cneg[:, :-1] = np.where(clm != 0, neg[:n, :-1], 0)
+    ccap = -(-bce_unique(cpos, cneg) // 4) * 4
+    model.encoder.compute_dtype = None
+    same_step(card_and_plain(
+        dev, model, fusion_vision_config("float32"), None,
+        lambda where: image_bce_batch(cpos, cneg, clm, ccap, pool, where),
+        log_pop=False),
+        f"fusion gradient check [vision, modal_id_add]: f32 step on {n} users "
+        f"({ccap} images)", V_STEP_GRAD_TOL)
+    return launched
+
+
 def profiled(run, n: int, what: str, unit: str, card: str) -> None:
     """torch.profiler split of ``run()`` by device kernel, reported per
     ``unit`` (``run`` covers n of them): the wall and device-busy time and
@@ -1972,6 +2427,47 @@ def profile_bce_dssm(dev, card: str, content, batches) -> None:
              f"{DSSM_USERS + 1} x {D}, {PROFILE_STEPS} steps", "step", card)
     del state, step
     torch.cuda.empty_cache()
+
+
+def profile_two_stage(dev, card: str, content, batches) -> None:
+    """The two-stage text step of phase "two_stage" (train_bert_lyr_8's
+    head and SASRec, on a float32 cache of BERT-base's width drawn at
+    random: the step's work does not depend on the cache's values) and a
+    chunk of the BERT-base cache encode, by device kernel: PROFILE_STEPS
+    steps (chunks) after as many warm-up ones."""
+    bcfg = BertConfig()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    cache = torch.randn(ITEM_NUM + 1, bcfg.hidden_size, generator=gen,
+                        device=dev)
+    cache[0] = 0.0
+    bb = bce_batches(np.random.default_rng(SEED + 41), batches)
+    cap = -(-max(bce_unique(p, n) for p, n, _ in bb) // 256) * 256
+    cfg = two_stage_config(word_embedding_dim=bcfg.hidden_size,
+                           dedup_items=True, dedup_cap=cap)
+    model = make_model(cfg, ITEM_NUM, device=dev, generator=gen)
+    state = make_train_state(model, cfg, None, seed=SEED)
+    step = make_train_step(cfg, item_content=cache)
+    run = lambda part: [step(state, bce_device_batch(*b, cap, dev)).item()
+                        for b in part]
+    run(bb[:PROFILE_STEPS])
+    profiled(lambda: run(bb[PROFILE_STEPS:2 * PROFILE_STEPS]), PROFILE_STEPS,
+             f"two-stage text train step B={TRAIN_B} bf16 copies, dnn_layers "
+             f"{TS_DNN}, dropout {DROP}, dedup cap {cap}, {PROFILE_STEPS} "
+             f"steps", "step", card)
+    del model, state, step
+    torch.cuda.empty_cache()
+    tower = TextTower(BertModel(bcfg, device=dev), embedding_dim=D,
+                      word_embedding_dim=bcfg.hidden_size,
+                      attr_lengths=(TITLE_LEN,), project=False, device=dev)
+    init_parameters(tower, gen)
+    tower.eval()
+    chunks = [content[i * ENCODE_BATCH:(i + 1) * ENCODE_BATCH]
+              for i in range(2 * PROFILE_STEPS)]
+    with torch.no_grad():
+        [tower(c) for c in chunks[:PROFILE_STEPS]]
+        profiled(lambda: [tower(c) for c in chunks[PROFILE_STEPS:]],
+                 PROFILE_STEPS, f"two-stage text cache, BERT-base float32, "
+                 f"chunks of {ENCODE_BATCH} titles", "chunk", card)
 
 
 def profile_vision_encode(dev, card: str) -> None:
@@ -3382,6 +3878,10 @@ IDREC_TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
 R_VARIANTS = {"": {}, "BCE": dict(loss="bce"),
               "DSSM": dict(loss="bce", user_tower="dssm", neg_num=1,
                            dnn_layers=0)}
+# text MoRec's ID+modality fusion part: id_plus_mo-end2end's BCE with the
+# CAT tower (ROADMAP A4)
+R_TEXT_VARIANTS = {**R_VARIANTS,
+                   "CAT": dict(loss="bce", item_tower="modal_id_cat")}
 # vision DSSM: users a step, their (1 + neg_num) images two encoder chunks
 RV_DSSM_B = V_CAP_QUANTUM
 RV_DSSM_STEPS = -(-RV_USERS // V_TRAIN_B)
@@ -3602,22 +4102,23 @@ def cut_epochs(tr, steps: int) -> None:
 
 def runner_text(dev, card: str, variant: str = "") -> dict:
     """Text MoRec at the flagship width through Trainer, with the flags of
-    R_VARIANTS[variant]: BERT-small from its config (random weights),
+    R_TEXT_VARIANTS[variant]: BERT-small from its config (random weights),
     SASRec D 512 (none under DSSM), bf16, dedup (not under DSSM, as in the
     JAX package), use_pallas for the in-batch CE; one epoch (DSSM's cut to
     RT_DSSM_STEPS steps), the valid eval over the whole catalog, the save,
     then a fresh Trainer in test mode whose valid eval is the run's
-    bits."""
+    bits. The fusion part ("CAT") also evaluates the untrained model."""
     what = f"text MoRec {variant}".strip()
     text_runner_data(np.random.default_rng(SEED + 20))
-    cfg = dict(root_data_dir="./", dataset="TEXT", news="news.tsv",
-               behaviors="behaviors.tsv", item_tower="modal",
-               bert_model_load="bert_small", max_seq_len=L, embedding_dim=D,
-               num_attention_heads=USER_HEADS, transformer_block=BLOCKS,
-               batch_size=TRAIN_B, lr=LR, fine_tune_lr=FT_LR, drop_rate=DROP,
-               dedup_items=True, use_pallas=not variant,
-               num_words_title=TITLE_LEN, item_emb_batch_size=ENCODE_BATCH,
-               epoch=1, **R_VARIANTS[variant])
+    cfg = {**dict(root_data_dir="./", dataset="TEXT", news="news.tsv",
+                  behaviors="behaviors.tsv", item_tower="modal",
+                  bert_model_load="bert_small", max_seq_len=L,
+                  embedding_dim=D, num_attention_heads=USER_HEADS,
+                  transformer_block=BLOCKS, batch_size=TRAIN_B, lr=LR,
+                  fine_tune_lr=FT_LR, drop_rate=DROP, dedup_items=True,
+                  use_pallas=not variant, num_words_title=TITLE_LEN,
+                  item_emb_batch_size=ENCODE_BATCH, epoch=1),
+           **R_TEXT_VARIANTS[variant]}
 
     def trainer(**kw):
         bcfg = BertConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
@@ -3639,19 +4140,25 @@ def runner_text(dev, card: str, variant: str = "") -> dict:
 
     with RunnerWatch() as watch:
         tr = trainer()
+        untrained = tr.run_eval("valid") if variant == "CAT" else None
         best, best_epoch = tr.train()
         require(best_epoch == 1, f"{what} saved no checkpoint")
         te = trainer(mode="test", load_ckpt_name="epoch-1.pt")
         hit, ndcg = te.test()
         te.run_eval("valid")
-    towers = "BERT-small" + ("" if variant == "DSSM" else
-                             f" + SASRec D {D}")
+    towers = ("BERT-small" + (" + an ID table, CAT" if variant == "CAT"
+                              else "")
+              + ("" if variant == "DSSM" else f" + SASRec D {D}"))
     cut = f" (an epoch of {RT_DSSM_STEPS} steps)" if variant == "DSSM" else ""
     print(f"runner {what}: {tr.item_num} items, {tr.batcher.n} samples{cut}, "
           f"{towers}, B {TRAIN_B}, bf16{'' if variant == 'DSSM' else ', dedup'}"
           f"{'' if variant else ', use_pallas'}: valid HR@10 {best:.6f} "
-          f"nDCG@10 {tr.valid_results[1]['ndcg']:.6f}; test reload HR@10 "
-          f"{hit:.6f} nDCG@10 {ndcg:.6f} [{card}]", flush=True)
+          f"nDCG@10 {tr.valid_results[1]['ndcg']:.6f}"
+          + ("" if untrained is None else
+             f" (untrained HR@10 {untrained[0]:.6f} nDCG@10 "
+             f"{untrained[1]:.6f})")
+          + f"; test reload HR@10 {hit:.6f} nDCG@10 {ndcg:.6f} [{card}]",
+          flush=True)
     report_runner(what, card, tr, watch, tr.valid_results[1])
     require(tr.item_num == ITEM_NUM, "the text catalog lost items")
     same_eval(te.last_eval, tr.valid_results[1], f"runner {what}")
@@ -3766,24 +4273,143 @@ def runner_vision(dev, card: str, variant: str = "") -> dict:
     return counts()
 
 
+def runner_two_stage_text(dev, card: str) -> dict:
+    """Text two-stage through Trainer(cfg, encoder_bundle=...,
+    tokenizer=...), train_bert_lyr_8.py's flags (BCE, dnn_layers 8, l2
+    0.01) over the text part's data: the frozen BERT-small tower
+    (project=False) caches the 100_000 titles, the untrained head's valid
+    HR@10, one epoch, the save, then a fresh Trainer in test mode (its own
+    cache, drawn from the seed again) whose valid eval is the run's
+    bits."""
+    what = "text two-stage"
+    text_runner_data(np.random.default_rng(SEED + 20))
+    cfg = dict(root_data_dir="./", dataset="TEXT", news="news.tsv",
+               behaviors="behaviors.tsv", item_tower="modal",
+               stage="two_stage", loss="bce", dnn_layers=TS_DNN,
+               l2_weight=TS_L2, fine_tune_l2_weight=TS_L2,
+               bert_model_load="bert_small", max_seq_len=L, embedding_dim=D,
+               num_attention_heads=USER_HEADS, transformer_block=BLOCKS,
+               batch_size=TRAIN_B, lr=LR, drop_rate=DROP, dedup_items=True,
+               num_words_title=TITLE_LEN, item_emb_batch_size=ENCODE_BATCH,
+               epoch=1)
+
+    def trainer(**kw):
+        bcfg = BertConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
+                          num_hidden_layers=LAYERS, num_attention_heads=HEADS,
+                          intermediate_size=FFN, max_position_embeddings=512)
+        tower = TextTower(BertModel(bcfg, device=dev), embedding_dim=D,
+                          word_embedding_dim=HIDDEN, pooling="cls",
+                          attr_lengths=(TITLE_LEN,), project=False,
+                          device=dev)
+        tr = runner.Trainer(Config(**cfg, **kw), device=dev,
+                            encoder_bundle=(tower, None, set(), HIDDEN),
+                            tokenizer=WordTokenizer())
+        tr.load_data()
+        tr.build_model()
+        return tr
+
+    with RunnerWatch() as watch:
+        tr = trainer()
+        hit0, ndcg0 = tr.run_eval("valid")
+        best, best_epoch = tr.train()
+        require(best_epoch == 1, f"{what} saved no checkpoint")
+        te = trainer(mode="test", load_ckpt_name="epoch-1.pt")
+        hit, ndcg = te.test()
+        te.run_eval("valid")
+    print(f"runner {what}: {tr.item_num} items cached {HIDDEN} wide by "
+          f"BERT-small, {tr.batcher.n} samples, the head (dnn_layers "
+          f"{TS_DNN}) + SASRec D {D}, B {TRAIN_B}, bf16, dedup: valid HR@10 "
+          f"{best:.6f} nDCG@10 {tr.valid_results[1]['ndcg']:.6f} (untrained "
+          f"HR@10 {hit0:.6f} nDCG@10 {ndcg0:.6f}); test reload HR@10 "
+          f"{hit:.6f} nDCG@10 {ndcg:.6f} [{card}]", flush=True)
+    report_runner(what, card, tr, watch, tr.valid_results[1])
+    require(tr.item_num == ITEM_NUM and tr.encoder_bundle is None,
+            f"{what}: the catalog lost items or the encoder was kept")
+    same_eval(te.last_eval, tr.valid_results[1], f"runner {what}")
+    train, evals = watch.launches()
+    require_launched(train, TS_TRAIN_KERNELS, f"{what} training")
+    require_launched(evals, RUNNER_EVAL_KERNELS, f"{what} evaluation")
+    return counts()
+
+
+def runner_two_stage_vision(dev, card: str) -> dict:
+    """Vision two-stage through the CLI (run.main), hm_swin_tiny_lyr_8.py's
+    flags (BCE, Swin-T frozen, dnn_layers 8, D 512, B 64, l2 0.01) over the
+    vision part's MKV store: the untrained head's valid HR@10 (a Trainer of
+    the same flags), RV_EPOCHS epochs, then --mode test on the best
+    epoch-N.pt, whose valid eval is the run's bits."""
+    what = "vision two-stage (CLI)"
+    vision_runner_data(np.random.default_rng(SEED + 21))
+    flags = dict(root_data_dir="./", dataset="VISION", news="images.tsv",
+                 behaviors="behaviors.tsv", image_store="images.mkv",
+                 image_resize=IMAGE, modality="vision", item_tower="modal",
+                 stage="two_stage", loss="bce", cv_model_load="swin_tiny",
+                 freeze_paras_before=10000, dnn_layers=TS_DNN, max_seq_len=L,
+                 embedding_dim=D, num_attention_heads=USER_HEADS,
+                 transformer_block=BLOCKS, batch_size=V_TRAIN_B, lr=V_LR,
+                 l2_weight=TS_L2, fine_tune_l2_weight=TS_L2, drop_rate=DROP,
+                 dedup_items=True, item_emb_batch_size=ENCODE_BATCH,
+                 epoch=RV_EPOCHS)
+    argv = [a for k, v in flags.items() for a in (f"--{k}", str(v))]
+    untrained = runner.Trainer(parse_args(argv), smoke_log(), smoke_log())
+    untrained.encoder_bundle = runner.load_encoder(untrained.cfg,
+                                                   untrained.device)
+    untrained.load_data()
+    untrained.build_model()
+    hit0, ndcg0 = untrained.run_eval("valid")
+    del untrained
+    with RunnerWatch() as watch:
+        best, best_epoch = run.main(argv)
+        trained = watch.trainers[-1]
+        hit, ndcg = run.main(argv + ["--mode", "test", "--load_ckpt_name",
+                                     f"epoch-{best_epoch}.pt"])
+        tested = watch.trainers[-1]
+        tested.run_eval("valid")
+    print(f"runner {what}: {trained.item_num} items cached "
+          f"{trained.item_content.shape[1]} wide by Swin-T (bf16), "
+          f"{trained.batcher.n} samples, the head + SASRec D {D}, B "
+          f"{V_TRAIN_B}, {RV_EPOCHS} epochs: best valid HR@10 {best:.6f} at "
+          f"epoch {best_epoch} (untrained {hit0:.6f}, nDCG@10 {ndcg0:.6f}); "
+          f"test reload HR@10 {hit:.6f} nDCG@10 {ndcg:.6f} [{card}]",
+          flush=True)
+    require(best_epoch > 0, f"{what} saved no checkpoint")
+    require(trained.cfg.word_embedding_dim == D,
+            f"{what}: the cache is not as wide as the tower's output (C9)")
+    report_runner(what, card, trained, watch,
+                  trained.valid_results[best_epoch])
+    same_eval(tested.last_eval, trained.valid_results[best_epoch],
+              f"runner {what}")
+    train, evals = watch.launches()
+    require_launched(train, VISION_ENCODE_KERNELS + TS_TRAIN_KERNELS,
+                     f"{what} training")
+    require_launched(evals, RUNNER_EVAL_KERNELS, f"{what} evaluation")
+    return counts()
+
+
 def runner_path(dev, card: str) -> dict:
     """The runner phase, each part in a temporary directory (data, logs and
     checkpoints there): IDRec through the CLI, text and vision MoRec
     through Trainer, each with the in-batch CE, BCE and DSSM
-    (R_VARIANTS). Returns the launches of all nine."""
+    (R_VARIANTS); then text two-stage through Trainer, vision two-stage
+    through the CLI and text MoRec with the CAT fusion tower. Returns the
+    launches of all twelve."""
     launched = dict.fromkeys(WRAPPERS, 0)
     here = os.getcwd()
-    for part in (runner_idrec, runner_text, runner_vision):
-        for variant in R_VARIANTS:
-            with tempfile.TemporaryDirectory() as tmp:
-                os.chdir(tmp)
-                try:
-                    got = part(dev, card, variant)
-                finally:
-                    os.chdir(here)
-            for n in launched:
-                launched[n] += got[n]
-            torch.cuda.empty_cache()
+    parts = [(part, (variant,)) for part in (runner_idrec, runner_text,
+                                            runner_vision)
+             for variant in R_VARIANTS]
+    parts += [(runner_two_stage_text, ()), (runner_two_stage_vision, ()),
+              (runner_text, ("CAT",))]
+    for part, args in parts:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                got = part(dev, card, *args)
+            finally:
+                os.chdir(here)
+        for n in launched:
+            launched[n] += got[n]
+        torch.cuda.empty_cache()
     return launched
 
 
@@ -3801,14 +4427,17 @@ def merge(kernels: dict, more: dict) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", nargs="?", const="all",
-                        choices=("all", "text", "vision", "bce_dssm"),
+                        choices=("all", "text", "vision", "bce_dssm",
+                                 "two_stage"),
                         help="only profile the train step, the vision "
                              "catalog encode and recommend and the vision "
                              "train step by device kernel (torch.profiler), "
                              "after the card and build phases; 'text': the "
                              "text train step alone; 'vision': the vision "
                              "train step alone; 'bce_dssm': the BCE and "
-                             "DSSM train steps alone")
+                             "DSSM train steps alone; 'two_stage': the "
+                             "two-stage text step and a chunk of its "
+                             "BERT-base cache alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this smoke runs on the "
@@ -3838,6 +4467,9 @@ def main() -> int:
         return 0
     if args.profile == "bce_dssm":
         profile_bce_dssm(dev, card, content, batches)
+        return 0
+    if args.profile == "two_stage":
+        profile_two_stage(dev, card, content, batches)
         return 0
     if args.profile:
         profile_train(dev, card, content, batches, cap)
@@ -3871,6 +4503,18 @@ def main() -> int:
     with phase("dssm"):
         dssm = dssm_path(dev, card, content)
     torch.cuda.empty_cache()
+    with phase("two_stage"):
+        cached_text, two_text = two_stage_text(dev, card, content, batches)
+        torch.cuda.empty_cache()
+        cached_vision, two_vision = two_stage_vision(dev, card)
+    torch.cuda.empty_cache()
+    pool = image_pool(dev).cpu().numpy()
+    with phase("fusion"):
+        fusion_text = add_counts(*(bce_path(dev, card, content, batches, t)
+                                   for t in ("modal_id_add", "modal_id_cat")))
+        torch.cuda.empty_cache()
+        fusion_images = fusion_vision(dev, card, pool)
+    torch.cuda.empty_cache()
     with phase("vision kernels"):
         vision = kernel_phase(dev, card, vision_kernel_cases(dev),
                               reps=FEW_REPS)
@@ -3879,7 +4523,6 @@ def main() -> int:
     with phase("vision serving"):
         seen, windows = vision_serve_path(dev, card)
     torch.cuda.empty_cache()
-    pool = image_pool(dev).cpu().numpy()
     with phase("vision backward kernels"):
         torch.cuda.reset_peak_memory_stats()
         merge(kernels, gradient_cases(
@@ -3920,10 +4563,15 @@ def main() -> int:
     with phase("runner"):
         ran = runner_path(dev, card)
 
-    # launches: every main path's count, each taken from 0; the twelve keys
-    # after it say which path launched how many
+    # launches: every main path's count, each taken from 0; the seventeen
+    # keys after it say which path launched how many (2E: the two-stage
+    # caches, text and vision; 2T / 2V: the two-stage steps; FT / FV: the
+    # fusion steps)
     paths = {"launches_serve": served, "launches_train": trained,
              "launches_bce": bce, "launches_dssm": dssm,
+             "launches_2E": add_counts(cached_text, cached_vision),
+             "launches_2T": two_text, "launches_2V": two_vision,
+             "launches_FT": fusion_text, "launches_FV": fusion_images,
              "launches_vision": seen, "launches_windows": windows,
              "launches_vision_train": vtrained,
              "launches_windows_train": vwindows,

@@ -11,7 +11,8 @@ Rows (``TAILS``), LN(x + dropout(act(x w1 + b1) w2 + b2)):
 T, a text train step's BERT tail (768 titles of 30 tokens, C = 512, F =
 2048, GELU, bf16, the training edition at dropout 0.1) and its SASRec tail
 (128 users of 20, ReLU); E, a text encode chunk's BERT tail (512 titles,
-float32, forward only); VT, a vision train step's SASRec tail (64 users of
+float32, forward only); 2E, a two-stage text cache chunk's BERT-base tail
+(512 titles, C = 768, F = 3072, float32, forward only); VT, a vision train step's SASRec tail (64 users of
 10 at D = 2048, F = 8192, ReLU, bf16, training edition, dropout 0.1); R, a
 vision ``recommend``'s (B = 64 and 1: M = 640 and 10, float32, forward
 only) and the same in bf16; TR, a text ``recommend``'s SASRec tail (B = 64
@@ -26,7 +27,9 @@ dtype; event and device time), which the port never calls for this.
 Projection rows (``PROJS``), LN(res + dropout(x w + b)): T, the text train
 step's BERT (M = 23040) and SASRec (M = 2560) tails at C = 512, bf16,
 training edition at dropout 0.1; IT, IDRec's SASRec (M = 5120); E, the
-text encode's BERT tail (M = 15360, float32, forward only); VT, the vision
+text encode's BERT tail (M = 15360, float32, forward only); 2E, the
+two-stage text cache's BERT-base tail (M = 15360, C = 768, float32,
+forward only); VT, the vision
 train step's SASRec at D = 2048 (M = 640, bf16, training); R, a vision
 ``recommend``'s at B = 64 and 1 (M = 640 and 10) in float32 and bf16; TR,
 a text ``recommend``'s SASRec at B = 64 and 1 (M = 1280 and 20, C = 512,
@@ -95,7 +98,7 @@ DROP = 0.1
 
 
 class Tail(NamedTuple):
-    path: str     # T, E, VT, R or TR
+    path: str     # T, E, 2E, VT, R or TR
     M: int
     C: int
     F: int
@@ -107,6 +110,7 @@ class Tail(NamedTuple):
 TAILS = (Tail("T", 768 * 30, 512, 2048, "gelu", BF16, True),
          Tail("T", 128 * 20, 512, 2048, "relu", BF16, True),
          Tail("E", 512 * 30, 512, 2048, "gelu", F32, False),
+         Tail("2E", 512 * 30, 768, 3072, "gelu", F32, False),
          Tail("VT", 64 * 10, 2048, 8192, "relu", BF16, True),
          Tail("R", 64 * 10, 2048, 8192, "relu", F32, False),
          Tail("R", 10, 2048, 8192, "relu", F32, False),
@@ -117,7 +121,7 @@ TAILS = (Tail("T", 768 * 30, 512, 2048, "gelu", BF16, True),
 
 
 class Proj(NamedTuple):
-    path: str     # T, IT, E, VT, R or TR
+    path: str     # T, IT, E, 2E, VT, R or TR
     M: int
     C: int
     dtype: torch.dtype
@@ -128,6 +132,7 @@ PROJS = (Proj("T", 768 * 30, 512, BF16, True),
          Proj("T", 128 * 20, 512, BF16, True),
          Proj("IT", 256 * 20, 512, BF16, True),
          Proj("E", 512 * 30, 512, F32, False),
+         Proj("2E", 512 * 30, 768, F32, False),
          Proj("VT", 64 * 10, 2048, BF16, True),
          Proj("R", 64 * 10, 2048, F32, False),
          Proj("R", 10, 2048, F32, False),
@@ -323,7 +328,7 @@ def main():
     parser.add_argument("--backward", action="store_true",
                         help="only the backward rows")
     parser.add_argument("--paths", default="",
-                        help="comma-separated paths (T, IT, E, VT, R, TR); "
+                        help="comma-separated paths (T, IT, E, 2E, VT, R, TR); "
                              "only their rows")
     args = parser.parse_args()
     paths = [p for p in args.paths.split(",") if p]

@@ -34,7 +34,8 @@
 // mlp_resln_plan in ops/cuda/mlp.py (premlp_plan's layouts), passed to the
 // launch and checked against the instantiation.
 //
-// C = 2048 in both dtypes, and float32 at every C: a block cannot hold a
+// C = 2048 (and BERT-base's 768, which the bf16 body is not built for) in
+// both dtypes, and float32 at every C: a block cannot hold a
 // (rows, 2048) float accumulator for more than 8 rows, and 8-row blocks
 // each streamed all of W1 and W2 from L2 (10.7 GB at M = 640 in float32;
 // M = 10 filled 2 SMs). In float32 at C <= 512 a block body on the float
@@ -143,8 +144,14 @@ __host__ __device__ constexpr int row_threads() {
   return C / 4 < kRowThreads ? C / 4 : kRowThreads;
 }
 
-// kRowThreads / RT rows a block (one at C = 2048, 4 at C = 512), RT
-// threads a row: y_pre = cast(dropout(y + b) + res), stored when asked,
+// rows a block: as many whole rows as kRowThreads holds
+template <int C>
+__host__ __device__ constexpr int block_rows() {
+  return kRowThreads / row_threads<C>();
+}
+
+// block_rows rows a block (one at C = 768 and 2048, 4 at C = 512) of RT
+// threads each, block_rows * RT threads (192 at C = 768, else 256): y_pre = cast(dropout(y + b) + res), stored when asked,
 // then the LN of y_pre with the row's sums added in a fixed order (lanes by
 // xor shuffles, then the row's warps in order through shared memory). The
 // tails' second half where a block cannot hold a row's accumulators (C =
@@ -158,7 +165,7 @@ __global__ void __launch_bounds__(kRowThreads)
                         const float* __restrict__ beta, T* __restrict__ out,
                         T* __restrict__ ypre, int M, float eps, Drop drop) {
   constexpr int RT = row_threads<C>(), NG = C / (4 * RT);
-  constexpr int kRows = kRowThreads / RT, kRowWarps = RT / 32;
+  constexpr int kRows = block_rows<C>(), kRowWarps = RT / 32;
   static_assert(NG * 4 * RT == C && RT % 32 == 0, "whole warps a row");
   __shared__ float red[2][kRowThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -226,8 +233,9 @@ cudaError_t launch_rows(const float* y, const void* b, const void* res,
                         const float* gamma, const float* beta, void* out,
                         void* ypre, int M, float eps, Drop drop,
                         cudaStream_t s) {
-  constexpr int kRows = kRowThreads / row_threads<C>();
-  post_ln_rows_kernel<T, C><<<(M + kRows - 1) / kRows, kRowThreads, 0, s>>>(
+  constexpr int kRows = block_rows<C>();
+  post_ln_rows_kernel<T, C>
+      <<<(M + kRows - 1) / kRows, kRows * row_threads<C>(), 0, s>>>(
       y, static_cast<const T*>(b), static_cast<const T*>(res), gamma, beta,
       static_cast<T*>(out), static_cast<T*>(ypre), M, eps, drop);
   return cudaGetLastError();
@@ -247,6 +255,9 @@ cudaError_t dispatch_rows(const float* y, const void* b, const void* res,
                                  d, s);
     case 512:
       return launch_rows<T, 512>(y, b, res, gamma, beta, out, ypre, M, eps,
+                                 d, s);
+    case 768:
+      return launch_rows<T, 768>(y, b, res, gamma, beta, out, ypre, M, eps,
                                  d, s);
     case 2048:
       return launch_rows<T, 2048>(y, b, res, gamma, beta, out, ypre, M, eps,
@@ -289,12 +300,12 @@ extern "C" int idvs_mlp_resln_fwd(const void* x, const void* w1,
   return static_cast<int>(dispatch_bf16(p, plan, C, s));
 }
 
-// The row pass of the tails composed from gemm.cu's products (C = 2048,
-// and both tails in float32): y (M, C) float, the products' sum
+// The row pass of the tails composed from gemm.cu's products (C = 768 and
+// 2048, and both tails in float32): y (M, C) float, the products' sum
 // before the bias b; b, res, out and ypre (null outside training) in the
 // compute dtype, gamma and beta float. out = LN(cast(dropout(y + b) +
 // res)) and ypre = cast(dropout(y + b) + res), the dropout at element row
-// * C + col. C must be 128, 256, 512 or 2048; every operand 16-byte
+// * C + col. C must be 128, 256, 512, 768 or 2048; every operand 16-byte
 // aligned.
 extern "C" int idvs_post_ln_rows(const void* y, const void* b,
                                  const void* res, const void* gamma,

@@ -12,7 +12,7 @@
 // db = sum(dropout(dyp)) (float, before the cast, as the Pallas kernels).
 // The products of the backward (dW = xᵀ dz, dx = dz Wᵀ, ...) run in
 // gemm.cu. This is the products route of resln_bwd_plan (ops/cuda/mlp.py):
-// C = 2048, and float32 at every C; bf16 at C <= 512 takes the fused
+// C = 768 and 2048, and float32 at every C; bf16 at C <= 512 takes the fused
 // route, resln_bwd_wg.cu, which runs this pass as its prologue.
 //
 // Bound on the H100: pure bandwidth (y_pre and dout in, dz and dres out).
@@ -286,6 +286,9 @@ cudaError_t dispatch_rows(const void* ypre, const void* dout,
     case 512:
       return launch_rows<T, 4>(ypre, dout, gamma, dres, dyp, dz, part, sums,
                                nb, M, eps, d, s);
+    case 768:
+      return launch_rows<T, 6>(ypre, dout, gamma, dres, dyp, dz, part, sums,
+                               nb, M, eps, d, s);
     case 2048:
       return launch_rows_wide<T>(ypre, dout, gamma, dres, dyp, dz, part, sums,
                                  nb, M, eps, d, s);
@@ -301,7 +304,7 @@ cudaError_t dispatch_rows(const void* ypre, const void* dout,
 // dz (M, C) in the compute dtype, dres (M, C, compute dtype) and dyp
 // (M, C, float) when they are not null, and sums (3, C) float = dgamma,
 // dbeta, db. part: nb * 3 * C floats of scratch; nb blocks. C must be 128,
-// 256, 512 or 2048. Dropout as the forward (dropout.cuh).
+// 256, 512, 768 or 2048. Dropout as the forward (dropout.cuh).
 extern "C" int idvs_resln_bwd_rows(const void* ypre, const void* dout,
                                    const void* gamma, void* dres, void* dyp,
                                    void* dz, void* part, void* sums, int nb,

@@ -209,6 +209,63 @@ class MLPLayers(nn.Module):
         return x
 
 
+class FCLayers(nn.Module):
+    """``fc`` (word_embedding_dim -> item_embedding_dim), exact GELU, then
+    ``MLPLayers`` named ``mlp`` dnn_layers deep when dnn_layers > 0 (JAX
+    models/layers.py ``FCLayers``; reference bce_text/main-2stage(SASRec)/
+    model/encoders.py:7-31): the fused two-stage tower's ``turn_dim``."""
+
+    def __init__(self, word_embedding_dim: int, item_embedding_dim: int,
+                 dnn_layers: int, drop_rate: float, device=None):
+        super().__init__()
+        self.fc = Dense(word_embedding_dim, item_embedding_dim,
+                        init=xavier_normal_, device=device)
+        self.mlp = (MLPLayers([item_embedding_dim] * (dnn_layers + 1),
+                              drop_rate, device=device)
+                    if dnn_layers > 0 else None)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = F.gelu(self.fc(x))
+        return x if self.mlp is None else self.mlp(x, generator)
+
+
+def _promoted(x: torch.Tensor, y: torch.Tensor) -> tuple:
+    """x and y in their promoted dtype, as jnp promotes a bf16 and a
+    float32 operand to float32."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
+class AddFusion(nn.Module):
+    """ID (+) modality: id + modal, in the promoted dtype (JAX
+    models/layers.py ``AddFusion``; reference bce_text/id_plus_mo-end2end/
+    model/encoders.py:8-13)."""
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x, y = _promoted(x, y)
+        return x + y
+
+
+class CatFusion(nn.Module):
+    """concat(id, modal) -> ``MLPLayers([2D] + [D] * n_layers)`` named
+    ``mlp`` (JAX models/layers.py ``CatFusion``; reference
+    id_plus_mo-end2end/model/encoders.py:17-39): n_layers 1 for item tower
+    'modal_cat', 3 for 'modal_cat_3'."""
+
+    def __init__(self, embedding_dim: int, drop_rate: float,
+                 n_layers: int = 1, device=None):
+        super().__init__()
+        self.mlp = MLPLayers([2 * embedding_dim]
+                             + [embedding_dim] * n_layers, drop_rate,
+                             device=device)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.mlp(torch.cat(_promoted(x, y), dim=-1), generator)
+
+
 def drop_path_scale(seed: int, n: int, rate: float, device=None
                     ) -> torch.Tensor:
     """(n,) float32 DropPath factors of one call: row i is kept with

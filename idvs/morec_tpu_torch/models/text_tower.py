@@ -3,8 +3,12 @@
 A catalog row concatenates attributes, each packed ``[ids || attmask]``
 side by side. Each attribute runs through the shared language model, is
 pooled (CLS, or the masked mean), projected by ``fc`` and passed through an
-exact GELU; several attributes are averaged. The generator passed to
-``forward`` feeds the language model's dropout in training mode.
+exact GELU; several attributes are averaged. With ``project=False`` (the
+two-stage towers' frozen encoder, reference bce_text/main-2stage(SASRec)/
+model/encoders.py:79-95) the tower has no ``fc`` and returns the raw pooled
+hidden, word_embedding_dim wide, averaged over the attributes. The
+generator passed to ``forward`` feeds the language model's dropout in
+training mode.
 """
 
 from __future__ import annotations
@@ -21,14 +25,17 @@ from .layers import Dense, xavier_normal_
 class TextTower(nn.Module):
     def __init__(self, net: nn.Module, embedding_dim: int,
                  word_embedding_dim: int, pooling: str = "cls",
-                 attr_lengths: Sequence[int] = (30,), device=None):
+                 attr_lengths: Sequence[int] = (30,), project: bool = True,
+                 device=None):
         super().__init__()
         if pooling not in ("cls", "mean"):
             raise ValueError(f"pooling must be 'cls' or 'mean', got "
                              f"{pooling!r}")
         self.net = net
-        self.fc = Dense(word_embedding_dim, embedding_dim,
-                        init=xavier_normal_, device=device)
+        self.project = project
+        if project:
+            self.fc = Dense(word_embedding_dim, embedding_dim,
+                            init=xavier_normal_, device=device)
         self.pooling = pooling
         self.attr_lengths = tuple(attr_lengths)
 
@@ -44,11 +51,14 @@ class TextTower(nn.Module):
         num_words = packed.shape[1] // 2
         ids, attmask = packed[:, :num_words], packed[:, num_words:]
         pooled = self._pool(self.net(ids, attmask, generator), attmask)
+        if not self.project:
+            return pooled
         return F.gelu(self.fc(pooled), approximate="none")
 
     def forward(self, content: torch.Tensor,
                 generator=None) -> torch.Tensor:
-        """(N, sum(2 * attr_lengths)) token rows -> (N, embedding_dim)."""
+        """(N, sum(2 * attr_lengths)) token rows -> (N, embedding_dim), or
+        (N, word_embedding_dim) with ``project=False``."""
         vecs, start = [], 0
         for n in self.attr_lengths:
             vecs.append(self._encode_attr(content[:, start:start + 2 * n],

@@ -4,9 +4,11 @@ embeddings.
 For the Swin family the tower is GELU(classifier(pooled)), the classifier a
 Linear from the network's features to the embedding dim (the reference's
 Vit_Encoder). uint8 images are normalised on the device, ToTensor +
-Normalize((.5, .5, .5), (.5, .5, .5)). Only ``kind="swin"`` is ported;
-ResNet, MAE, BEiT and CLIP, and the two-stage mode that returns the raw
-features, come with later slices.
+Normalize((.5, .5, .5), (.5, .5, .5)). With ``project=False`` (the
+two-stage towers' frozen encoder, reference bce_vision/main-2stage(SASRec)/
+run.py:64-69) it returns the classifier's output before the GELU,
+embedding_dim wide. Only ``kind="swin"`` is ported; ResNet, MAE, BEiT and
+CLIP come with a later slice.
 """
 
 from __future__ import annotations
@@ -38,10 +40,8 @@ class VisionTower(nn.Module):
             raise NotImplementedError(
                 f"VisionTower kind={kind!r}: only 'swin' is ported; the "
                 f"other encoders come with a later slice")
-        if not project:
-            raise NotImplementedError(
-                "project=False (the two-stage raw features) is not ported")
         self.net, self.kind = net, kind
+        self.project = project
         self.compute_dtype = compute_dtype
         self.classifier = Dense(feature_dim, embedding_dim,
                                 init=xavier_normal_, device=device)
@@ -49,7 +49,8 @@ class VisionTower(nn.Module):
     def forward(self, images: torch.Tensor, generator=None,
                 pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(N, H, W, 3) uint8 or normalised float images -> (N,
-        embedding_dim); pad_mask (N,) marks the padding item's slots."""
+        embedding_dim), before the GELU with ``project=False``; pad_mask
+        (N,) marks the padding item's slots."""
         if not images.is_floating_point():
             images = (images.float() / 255.0 - 0.5) / 0.5
         if pad_mask is not None:
@@ -60,8 +61,10 @@ class VisionTower(nn.Module):
                                              device=images.device), images)
         if self.compute_dtype is not None:
             images = images.to(self.compute_dtype)
-        pooled = self.net(images, generator)
-        return F.gelu(self.classifier(pooled), approximate="none")
+        feats = self.classifier(self.net(images, generator))
+        if not self.project:
+            return feats
+        return F.gelu(feats, approximate="none")
 
 
 def build_vision_tower(cfg, device=None) -> VisionTower:

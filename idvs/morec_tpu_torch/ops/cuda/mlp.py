@@ -15,16 +15,16 @@ the products run on the tensor cores with the block plans of
 add, the cast to the compute dtype and the LayerNorm run on the
 accumulators, so the FFN's (M, F) intermediate never leaves the block
 unless the training edition saves it. At C = 2048 (SASRec under the vision
-tower, 10 to 640 rows), and for both tails in float32 at every C, the
-products go through gemm.cu (bf16, or float32 as 3xTF32 on the tensor
-cores) and a row pass adds the rest (``proj_resln_products``,
-``mlp_resln_products``). Backward, by ``resln_bwd_plan``: in bf16 at C <=
-512 one warp-specialised row-block kernel a tail (csrc/resln_bwd_wg.cu),
-which recomputes the LN statistics from the saved pre-LN sum and runs the
-products along the rows on wgmma, then gemm.cu's weight gradients over K
-= M; at C = 2048 and in float32 a row pass and gemm.cu's products. Every
-sum over rows is added in a fixed order. The .cu headers have the
-details.
+tower, 10 to 640 rows) and 768 (BERT-base, the two-stage text cache's
+encoder), and for both tails in float32 at every C, the products go
+through gemm.cu (bf16, or float32 as 3xTF32 on the tensor cores) and a row
+pass adds the rest (``proj_resln_products``, ``mlp_resln_products``).
+Backward, by ``resln_bwd_plan``: in bf16 at C <= 512 one warp-specialised
+row-block kernel a tail (csrc/resln_bwd_wg.cu), which recomputes the LN
+statistics from the saved pre-LN sum and runs the products along the rows
+on wgmma, then gemm.cu's weight gradients over K = M; at C = 768 and 2048
+and in float32 a row pass and gemm.cu's products. Every sum over rows is
+added in a fixed order. The .cu headers have the details.
 
 Each wrapper runs its plain PyTorch version (autograd gives its gradient)
 for tensors on the CPU. For tensors on the card it launches the forward-only
@@ -51,9 +51,13 @@ from .gemm import (BODIES as GEMM_BODIES, _dact_f32, act_cast,
                    sm_count, splits_of)
 from ...models.layers import layer_norm
 
-KERNEL_WIDTHS = (128, 256, 512, 2048)   # C the kernels are instantiated for
-F_CHUNK = {128: 128, 256: 128, 512: 256, 2048: 1024}   # F: a multiple of
-PRODUCTS_WIDTH = 2048   # the tails' C whose sums go through memory
+# C the kernels are instantiated for: 768 is BERT-base's hidden width
+KERNEL_WIDTHS = (128, 256, 512, 768, 2048)
+F_CHUNK = {128: 128, 256: 128, 512: 256, 768: 256, 2048: 1024}   # F: a multiple of
+# the tails' C whose sums go through memory in both dtypes: the block
+# bodies are built for C <= 512 (ROW_WIDE: the backward's one-row-a-block
+# pass)
+PRODUCTS_WIDTHS, ROW_WIDE = (768, 2048), 2048
 # K a bf16 slice of that tail's dense1 accumulates on the tensor cores, in
 # training, before the slices are added in float: the depth of the C = 512
 # tail's dense1, whose h then sits as close to an IEEE float sum as
@@ -157,13 +161,13 @@ def proj_resln_plan(C: int, dtype: torch.dtype, M: int,
     of csrc/proj_resln.cu's proj_resln_mma_kernel, which the launch passes
     to the kernel (it refuses any other): rows a block, threads and
     shared-memory bytes, the warps' layout, the ring's stages and the
-    accumulators a thread holds. C = 2048 and float32 at every C: route
-    "products", x w through gemm.cu and then the row pass
+    accumulators a thread holds. C = 768 and 2048, and float32 at every
+    C: route "products", x w through gemm.cu and then the row pass
     (``proj_resln_products``). "kernels" names the device kernels the
     route launches."""
     if C not in KERNEL_WIDTHS:
         raise ValueError(f"kernel takes C in {KERNEL_WIDTHS}, got {C}")
-    if C == PRODUCTS_WIDTH or dtype == torch.float32:
+    if C in PRODUCTS_WIDTHS or dtype == torch.float32:
         return dict(route="products",
                     kernels=(GEMM_BODIES[dtype], "post_ln_rows_kernel"))
     tiers = _PROJ_MMA[C]
@@ -271,16 +275,17 @@ def resln_bwd_plan(tail: str, C: int, M: int, dtype: torch.dtype) -> dict:
     shared-memory bytes, the ring's stages, the accumulator floats a
     consumer thread holds (dx's, and the FFN's dg) against its register
     cap, and ``blocks`` partial rows added in ``groups`` groups of
-    ``per``. Route "products" (C = 2048, and float32 at every C): the row
-    pass and gemm.cu's products. "kernels" names the device kernels the
-    route launches; F must be a multiple of "chunk" on the fused route."""
+    ``per``. Route "products" (C = 768 and 2048, and float32 at every C):
+    the row pass and gemm.cu's products. "kernels" names the device
+    kernels the route launches; F must be a multiple of "chunk" on the
+    fused route."""
     if tail not in TAILS:
         raise ValueError(f"tail must be one of {TAILS}, got {tail!r}")
     if C not in KERNEL_WIDTHS:
         raise ValueError(f"kernel takes C in {KERNEL_WIDTHS}, got {C}")
     mlp = tail == "mlp"
-    if C == PRODUCTS_WIDTH or dtype == torch.float32:
-        rows = ("ln_bwd_rows_wide_kernel" if C == PRODUCTS_WIDTH
+    if C in PRODUCTS_WIDTHS or dtype == torch.float32:
+        rows = ("ln_bwd_rows_wide_kernel" if C == ROW_WIDE
                 else "ln_bwd_rows_kernel")
         kernels = (rows, "sum_partials_kernel", GEMM_BODIES[dtype])
         if mlp:
@@ -426,14 +431,14 @@ def mlp_resln_plan(C: int, dtype: torch.dtype) -> dict:
     shared-memory bytes, the warps' layout, the ring's stages and the
     accumulators a thread holds, which are premlp_plan's (the two share
     csrc/mlp_mma.cuh's chain), with the epilogue's row sums after the
-    chain. C = 2048 and float32 at every C: route "products", h through
-    device memory between gemm.cu's products and then the row pass
+    chain. C = 768 and 2048, and float32 at every C: route "products", h
+    through device memory between gemm.cu's products and then the row pass
     (``mlp_resln_products``; their splits are gemm.cu's choose_splits).
     "kernels" names the device kernels the route launches; F must be a
     multiple of "f_chunk"."""
     if C not in F_CHUNK:
         raise ValueError(f"kernel takes C in {KERNEL_WIDTHS}, got {C}")
-    if C == PRODUCTS_WIDTH or dtype == torch.float32:
+    if C in PRODUCTS_WIDTHS or dtype == torch.float32:
         return dict(route="products", f_chunk=F_CHUNK[C],
                     kernels=(GEMM_BODIES[dtype], "post_ln_rows_kernel"))
     k = premlp_plan(C, dtype)
@@ -471,7 +476,7 @@ def post_ln_rows(y, b, res, ln, *, eps, drop, train):
 
 
 def mlp_resln_products(x2, w1, b1, w2, b2, ln, *, eps, act, drop, train):
-    """The FFN tail at C = 2048 and in float32 (csrc/mlp_resln.cu's
+    """The FFN tail at C = 768 and 2048 and in float32 (csrc/mlp_resln.cu's
     header): h = f32(x w1) + b1 and y = f32(cast(act(h)) w2) through
     gemm.cu, then the row pass; a float32 forward alone applies act in
     dense1's epilogue, once an element, rather than on dense2's load.

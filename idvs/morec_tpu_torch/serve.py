@@ -141,9 +141,9 @@ class Retriever:
                      content: Optional[torch.Tensor] = None,
                      embeddings: Optional[torch.Tensor] = None) -> None:
         """Splices new or updated items into the live table, from
-        precomputed ``embeddings`` or from raw ``content`` (token rows or
-        images) run through the item tower. The table is updated in
-        place."""
+        precomputed ``embeddings`` or from raw ``content`` (token rows,
+        images, or a two-stage tower's cached rows) run through the item
+        tower with the ids. The table is updated in place."""
         device = self.item_table.device
         ids = torch.as_tensor(list(item_ids), dtype=torch.long, device=device)
         if embeddings is None:

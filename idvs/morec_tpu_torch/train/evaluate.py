@@ -58,7 +58,9 @@ def compute_item_embeddings(model, item_num: int,
     The catalog goes through in fixed chunks of ``batch_size`` ids (the
     reference's item_emb_batch_size); the last chunk is padded with the last
     id so every chunk has the same shape. ``item_content`` holds the
-    (item_num + 1, W) token rows on the device (None for the ID tower).
+    (item_num + 1, W) token rows, or a two-stage tower's float32 cache, on
+    the device (None for the ID tower); the tower takes each chunk's ids
+    with its content (ID+modality fusion reads both).
     ``content_fn``, when given, takes its place: it maps a chunk's ids (a
     numpy array) to the chunk's content (images from a store), as a numpy
     array or a tensor, which is moved to the model's device.

@@ -1,10 +1,14 @@
 """Training/test orchestrator (JAX twin: idvs/morec_tpu/train/runner.py), the
 reference's run.py / run_test.py (inbatch_sasrec_e2e_text/run.py:26-352) as
-one config-driven entry point, for the end2end variants with the ``id``,
-text ``modal`` and vision ``modal`` item towers: the in-batch CE and BCE
-with sampled negatives under SASRec (``TrainBatcher``, ``BCETrainBatcher``),
-and DSSM (``DSSMTrainBatcher`` over the (user, item) pairs of
+one config-driven entry point, for every item tower (``id``, text and
+vision ``modal``, ID+modality fusion ``modal_id_add`` / ``modal_id_cat``)
+and both stages: the in-batch CE and BCE with sampled negatives under
+SASRec (``TrainBatcher``, ``BCETrainBatcher``), and DSSM
+(``DSSMTrainBatcher`` over the (user, item) pairs of
 ``read_behaviors_pairs``, evaluated on each user's (user, target) pair).
+The two-stage towers first run the frozen encoder once over the catalog
+(``_encode_catalog``), then train a head on that float32 cache with the
+encoder dropped (JAX runner.py:129-203).
 
 Flow (parity with run.py):
   data read -> batcher -> model + optimizer -> [resume] ->
@@ -17,8 +21,10 @@ rank evaluates every user, and rank 0 alone logs and writes checkpoints.
 The host builds the next batch (ids, dedup packing, images) on a worker
 thread while the device runs the current step (``Prefetcher``).
 
-Two-stage, ID+modality fusion, cold/new-item eval and gradient
-accumulation raise ``NotImplementedError`` naming their ROADMAP item.
+Cold/new-item eval and gradient accumulation raise
+``NotImplementedError`` naming their ROADMAP item; DSSM over a two-stage
+tower, which is no reference variant and which the JAX runner's DSSM data
+cannot feed (it builds no cache), raises too.
 ``steps_per_dispatch`` runs that many single steps and reads their losses
 together (the JAX package's one-dispatch scan makes the same updates).
 """
@@ -40,26 +46,27 @@ from ..data.preprocess import (BehaviorData, build_doc_matrix,
                                read_behaviors, read_behaviors_pairs,
                                read_image_manifest, read_items_text,
                                read_items_tokenized)
-from ..models.layers import on_device
+from ..models.layers import init_parameters, on_device
 from ..models.model import make_model
 from ..parallel import mesh
 from ..utils.logging import (para_and_log, print_metrics, report_time_eval,
                              report_time_train, setuplogger)
 from .checkpoint import (epoch_from_name, get_checkpoint, latest_checkpoint,
                          load_checkpoint, save_checkpoint)
-from .evaluate import compute_item_embeddings, evaluate
+from .evaluate import compute_item_embeddings, eval_mode, evaluate
 from .state import count_params, make_train_state, param_labels
 from .step import dedup_pack, make_train_step
 
 
 def check_supported(cfg: Config) -> None:
     """Raises NotImplementedError for a configuration the port's runner does
-    not run yet, naming the ROADMAP item that brings it."""
+    not run, naming the ROADMAP item that brings it (or saying that none
+    will)."""
     later = [
-        (cfg.stage != "end2end",
-         "stage='two_stage' (ROADMAP A4, fusion and two-stage)"),
-        (cfg.use_fusion, f"item_tower={cfg.item_tower!r} (ROADMAP A4, "
-                         f"fusion and two-stage)"),
+        (cfg.user_tower == "dssm" and cfg.use_modal
+         and cfg.stage == "two_stage",
+         "user_tower='dssm' with stage='two_stage' (no reference variant; "
+         "the JAX runner's DSSM data builds no two-stage cache)"),
         (cfg.accumulation_step > 1,
          "accumulation_step > 1 (ROADMAP A1, gradient accumulation)"),
     ]
@@ -126,11 +133,12 @@ class Trainer:
 
     encoder_bundle: (module, net_state_dict or None, frozen parameter
     names, feature width) for a modal item tower -- the module built on the
-    trainer's device (``TextTower``, ``VisionTower``), the state_dict of its
-    pretrained ``net`` to load over the drawn weights, the names
-    ``param_labels`` freezes (``convert.bert_frozen_names``).
+    trainer's device (``TextTower``, ``VisionTower``; for a two-stage tower
+    built with ``project=False``), the state_dict of its pretrained ``net``
+    to load over the drawn weights, the names ``param_labels`` freezes
+    (``convert.bert_frozen_names``; end2end only).
     tokenizer: the text items' tokenizer (``data/preprocess.py``
-    ``read_items_tokenized``), for text end2end.
+    ``read_items_tokenized``), for a text modal tower.
     """
 
     vision_pipe = None   # set for vision end2end (data/vision_loader.py)
@@ -167,6 +175,9 @@ class Trainer:
         if cfg.user_tower == "dssm":
             self._load_dssm_data(base)
             return
+        if cfg.use_modal and cfg.stage == "two_stage":
+            self._load_two_stage(base)
+            return
         if cfg.use_modal and cfg.modality == "vision":
             from ..data.imagestore import open_store
             from ..data.vision_loader import VisionBatchPipe
@@ -198,7 +209,7 @@ class Trainer:
     def _tokenizer(self):
         if self.tokenizer is None:
             raise ValueError(
-                "text end2end tokenizes its items: pass "
+                "a text modal tower tokenizes its items: pass "
                 "Trainer(..., tokenizer=...) (the HF tokenizer's call "
                 "signature)")
         return self.tokenizer
@@ -245,15 +256,89 @@ class Trainer:
         self.eval_test = _DSSMEvalBatches(
             pd.test_pairs, _pad_histories(pd.users_history_for_test, H), ebs)
 
-    def set_data(self, bd: BehaviorData, item_content: Optional[np.ndarray]):
-        """item_content: None (id, vision) or the int32 token matrix (text
-        end2end), kept on the device."""
+    def _encode_catalog(self, bundle, content_for, item_num: int
+                        ) -> torch.Tensor:
+        """The two-stage cache (JAX runner.py:129-177; reference
+        bce_text/main-2stage(SASRec)/data_utils/metrics.py:60-71): the
+        bundle's tower, its parameters drawn from ``cfg.seed`` and its
+        pretrained ``net`` loaded over them, run frozen, in eval mode and
+        without gradients on the trainer's device, over ids 0..item_num in
+        chunks of ``cfg.item_emb_batch_size`` (the last chunk padded with
+        the last id). content_for(ids) maps a chunk's ids (numpy) to its
+        content (token rows, images). Returns the (item_num + 1, width)
+        float32 cache on the device, row 0 (the padding item) zero, where
+        width is what the tower returns, and sets
+        ``cfg.word_embedding_dim`` to it. (The JAX runner sizes the cache by
+        the bundle's feature width, which a Swin tower's embedding_dim-wide
+        classifier output does not fill: ROADMAP C9.)"""
+        module, net_state = bundle[0], bundle[1]
+        init_parameters(module, torch.Generator(
+            device=self.device).manual_seed(self.cfg.seed))
+        if net_state is not None:
+            module.net.load_state_dict(net_state)
+        chunk = self.cfg.item_emb_batch_size
+        total = item_num + 1
+        cache = None
+        with torch.no_grad(), eval_mode(module):
+            for start in range(0, total, chunk):
+                ids = np.minimum(np.arange(start, start + chunk), item_num)
+                out = module(torch.as_tensor(content_for(ids)
+                                             ).to(self.device)).float()
+                if cache is None:
+                    cache = torch.empty((total, out.shape[1]),
+                                        dtype=torch.float32,
+                                        device=self.device)
+                n = min(chunk, total - start)
+                cache[start:start + n] = out[:n]
+        cache[0] = 0.0
+        self.cfg.word_embedding_dim = int(cache.shape[1])
+        return cache
+
+    def _load_two_stage(self, base: str):
+        """The behaviours, then the catalog cache through the bundle's
+        frozen tower, then the encoder dropped (JAX runner.py:179-203): text
+        from the tokenized titles, vision from the image store
+        (``VisionBatchPipe.images_for``)."""
+        cfg = self.cfg
+        if self.encoder_bundle is None:
+            raise ValueError("a two-stage tower caches its encoder's "
+                             "outputs: pass Trainer(..., encoder_bundle=...)")
+        news = os.path.join(base, cfg.news)
+        if cfg.modality == "text":
+            dic, n2i, i2n = read_items_tokenized(news, cfg, self._tokenizer())
+            bd = read_behaviors(os.path.join(base, cfg.behaviors), dic, n2i,
+                                i2n, cfg.max_seq_len, cfg.min_seq_len,
+                                self.log)
+            doc = build_doc_matrix(bd.item_id_to_dic, cfg).astype(np.int64)
+            content_for = doc.__getitem__
+        else:
+            from ..data.imagestore import open_store
+            from ..data.vision_loader import VisionBatchPipe
+            keys_dic, n2i, i2n = read_image_manifest(news)
+            bd = read_behaviors(os.path.join(base, cfg.behaviors), keys_dic,
+                                n2i, i2n, cfg.max_seq_len, cfg.min_seq_len,
+                                self.log)
+            store = open_store(os.path.join(base, cfg.image_store))
+            content_for = VisionBatchPipe(store, bd.item_id_to_dic,
+                                          cfg.image_resize).images_for
+        cache = self._encode_catalog(self.encoder_bundle, content_for,
+                                     bd.item_num)
+        self.encoder_bundle = None   # frozen and cached: dropped
+        self.set_data(bd, cache)
+
+    def set_data(self, bd: BehaviorData, item_content):
+        """item_content: None (id, vision end2end), the token matrix (text
+        end2end) or a two-stage tower's float32 cache, kept on the
+        device."""
         cfg = self.cfg
         self.bd = bd
         self.item_num = bd.item_num
-        self.item_content = (None if item_content is None else
-                             torch.as_tensor(np.asarray(item_content)
-                                             ).long().to(self.device))
+        if item_content is None:
+            self.item_content = None
+        else:
+            content = torch.as_tensor(item_content)
+            self.item_content = (content.float() if content.is_floating_point()
+                                 else content.long()).to(self.device)
         # an item seen only in valid/test has popularity 0: log -inf, as in
         # the JAX package; no train batch holds it
         with np.errstate(divide="ignore"):
@@ -285,21 +370,24 @@ class Trainer:
     # ---------------------------------------------------------------- model
     def build_model(self):
         """The model drawn from a generator seeded with ``cfg.seed`` (the
-        bundle's pretrained net loaded over it), its optimizer groups, and
-        a dropout generator seeded with ``cfg.seed + 1``."""
+        bundle's pretrained net loaded over it), its optimizer groups (the
+        encoder's and the recsys group end2end, one group for IDRec and the
+        two-stage heads, JAX runner.py:353-365), and a dropout generator
+        seeded with ``cfg.seed + 1``."""
         cfg = self.cfg
         bundle = self.encoder_bundle
         encoder = bundle[0] if bundle else None
-        if cfg.use_modal and encoder is None:
-            raise ValueError("a modal item tower needs Trainer(..., "
-                             "encoder_bundle=...)")
+        end2end = cfg.use_modal and cfg.stage == "end2end"
+        if end2end and encoder is None:
+            raise ValueError("an end2end modal item tower needs "
+                             "Trainer(..., encoder_bundle=...)")
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.model = make_model(cfg, self.item_num,
-                                encoder if cfg.use_modal else None,
+                                encoder if end2end else None,
                                 user_num=self.user_num,
                                 device=self.device, generator=gen)
         labels = None
-        if cfg.use_modal:
+        if end2end:
             if bundle[1] is not None:
                 self.model.encoder.net.load_state_dict(bundle[1])
             labels = param_labels(self.model, frozen=bundle[2])
@@ -512,17 +600,19 @@ class Trainer:
 
 def load_encoder(cfg: Config, device) -> tuple:
     """The encoder bundle the CLI builds for a modal item tower: the Swin
-    tower of ``cfg.cv_model_load`` from its config, weights drawn by
-    ``build_model``. Text end2end needs a tokenizer and pretrained BERT
-    files, which the repository does not hold: build the tower and call
-    ``Trainer(cfg, encoder_bundle=..., tokenizer=...)``."""
+    tower of ``cfg.cv_model_load`` from its config (``project=False`` for
+    the two-stage stage), weights drawn by ``build_model`` (two-stage: by
+    ``_encode_catalog``). A text tower needs a tokenizer and pretrained
+    BERT files, which the repository does not hold: build the tower and
+    call ``Trainer(cfg, encoder_bundle=..., tokenizer=...)``."""
     if cfg.modality == "text":
         raise NotImplementedError(
-            "text end2end through the CLI needs a tokenizer and pretrained "
+            "a text tower through the CLI needs a tokenizer and pretrained "
             "BERT weights, which are not in the repository; build a "
             "TextTower (models/text_tower.py) and run Trainer(cfg, "
             "encoder_bundle=(tower, None, frozen, width), tokenizer=...)")
-    if cfg.freeze_paras_before > 0:
+    if cfg.freeze_paras_before > 0 and cfg.stage == "end2end":
+        # a two-stage tower is frozen whole: its outputs are cached
         raise NotImplementedError(
             "freezing a vision tower by the reference's parameter index is "
             "not ported (ROADMAP A7, the other encoders)")

@@ -4,7 +4,9 @@ state.py).
 Reference semantics (inbatch_sasrec_e2e_text/run.py:150-191): two AdamW
 parameter groups, the pretrained text encoder at (fine_tune_lr,
 fine_tune_l2_weight) and everything else, the item tower's projection fc
-included, at (lr, l2_weight); one group for IDRec. torch AdamW defaults:
+and an ID+modality fusion's ID table and MLP included, at (lr, l2_weight);
+one group for IDRec and the two-stage heads (labels None, as the JAX
+runner builds them, runner.py:353-365). torch AdamW defaults:
 betas (0.9, 0.999), eps 1e-8, decoupled weight decay.
 
 Frozen parameters (the encoder's first ``freeze_paras_before`` parameters in
@@ -73,9 +75,9 @@ def count_params(model: nn.Module,
 def make_optimizer(cfg, model: nn.Module,
                    labels: Optional[Dict[str, str]] = None
                    ) -> torch.optim.AdamW:
-    """AdamW over the model's parameters: one group (IDRec, labels None) or
-    the encoder and recsys groups of ``labels``; frozen parameters are in
-    no group."""
+    """AdamW over the model's parameters: one group (IDRec and the two-stage
+    heads, labels None) or the encoder and recsys groups of ``labels``;
+    frozen parameters are in no group."""
     hyper = {RECSYS_LABEL: (cfg.lr, cfg.l2_weight),
              ENCODER_LABEL: (cfg.fine_tune_lr, cfg.fine_tune_l2_weight)}
     named = list(model.named_parameters())

@@ -10,9 +10,14 @@ One in-batch CE step, as the JAX ``single_step`` (:155-245, :264-272):
    ``user_states``, ``user_vec``) run on the cast copies through
    ``torch.func.functional_call``, so the gradients land on the masters;
 2. the item tower encodes the batch's item slots: the catalog rows
-   (device-resident, gathered by id) of every slot, or, with host-side
+   (device-resident, gathered by id: token rows, or a two-stage tower's
+   float32 cache of the frozen encoder's outputs) of every slot, or, with
+   host-side
    dedup (``dedup_pack``: ``uniq_ids`` + ``inverse`` in the batch), of each
-   unique item once, gathered back by ``inverse``. Content shipped with the
+   unique item once, gathered back by ``inverse``. The tower takes the ids
+   with the content (ID+modality fusion reads both). A bf16 parameter copy
+   meets the float32 cache in float32, as Flax promotes (JAX step.py:80-85
+   casts the parameters, not the cache). Content shipped with the
    batch takes the catalog's place: ``content`` (every slot) or
    ``uniq_content`` (the unique items), e.g. uint8 NHWC images, whose
    padding slots (id 0) the tower sees as zero images;
@@ -216,7 +221,11 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
                         content = torch.cat([content, batch["neg_content"]])
                 embs = item_embs(slots, content)
             pos = embs[:B * S].reshape(B, S, -1)
-            uv = tower("user_states", pos[:, :-1].to(dt), lm, gen)
+            # the CE casts SASRec's input to the compute dtype, BCE does not
+            # (JAX step.py:207, 217): a two-stage head's float32
+            # embeddings run SASRec in float32 on the bf16 copies
+            uv = tower("user_states", pos[:, :-1] if bce
+                       else pos[:, :-1].to(dt), lm, gen)
             if bce:
                 # targets: the next positives; the negatives sit at the
                 # transitions' slots (bce_text/main-end2end/model/

@@ -109,7 +109,8 @@ def test_mha_bias_mode(B, P, T, nh, dh, shared, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,C,eps", [(15360, 512, 1e-12), (45, 512, 1e-6),
-                                     (33, 256, 1e-6), (7, 128, 1e-12)])
+                                     (33, 256, 1e-6), (7, 128, 1e-12),
+                                     (3000, 768, 1e-12)])
 def test_proj_resln(M, C, eps, dtype):
     rng = np.random.default_rng(2)
     x, res = _rand(rng, M, C, dtype=dtype), _rand(rng, M, C, dtype=dtype)
@@ -128,7 +129,8 @@ def test_proj_resln(M, C, eps, dtype):
                                        (100, 512, 256, "gelu"),
                                        (7, 128, 128, "relu"),
                                        (33, 512, 2048, "quick_gelu"),
-                                       (640, 2048, 8192, "quick_gelu")])
+                                       (640, 2048, 8192, "quick_gelu"),
+                                       (1500, 768, 3072, "gelu")])
 def test_mlp_resln(M, C, F, act, dtype):
     rng = np.random.default_rng(3)
     x = _rand(rng, M, C, dtype=dtype)
@@ -236,7 +238,7 @@ def test_mha_backward_dbias(B, P, nh, heads, dtype, drop):
 @pytest.mark.parametrize("drop", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,C,eps", [(3000, 512, 1e-12), (45, 256, 1e-6),
-                                     (7, 128, 1e-12)])
+                                     (7, 128, 1e-12), (300, 768, 1e-12)])
 def test_proj_resln_backward(M, C, eps, dtype, drop):
     """The training edition and the backward kernels against autograd of
     the plain version: dx, dres, dw, db, dgamma, dbeta."""
@@ -267,7 +269,8 @@ def test_proj_resln_backward(M, C, eps, dtype, drop):
                                        (45, 256, 384, "relu"),
                                        (7, 128, 128, "gelu"),
                                        (300, 512, 2048, "quick_gelu"),
-                                       (10, 2048, 8192, "quick_gelu")])
+                                       (10, 2048, 8192, "quick_gelu"),
+                                       (300, 768, 3072, "gelu")])
 def test_mlp_resln_backward(M, C, F, act, dtype, drop):
     """The training edition (y_pre and h saved) and the backward kernels
     against autograd of the plain version: dx, dw1, db1, dw2, db2, dgamma,

@@ -358,11 +358,15 @@ def test_dssm_trainer_matches_jax_and_reloads(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(stage="two_stage"), "A4"), (dict(item_tower="modal_id_add"), "A4"),
+    (dict(stage="two_stage"), None), (dict(item_tower="modal_id_add"), None),
     (dict(accumulation_step=2), "A1")])
 def test_check_supported_names_what_is_left(kw, item):
     check_supported(Config(loss="bce", user_tower="dssm"))
     check_supported(Config(loss="bce"))
+    if item is None:
+        # two-stage and fusion are ported (ROADMAP A4)
+        check_supported(Config(loss="bce", user_tower="dssm", **kw))
+        return
     with pytest.raises(NotImplementedError, match=item):
         check_supported(Config(loss="bce", user_tower="dssm", **kw))
 

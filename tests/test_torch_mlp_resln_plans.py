@@ -3,8 +3,9 @@
 ``mlp_resln_plan`` (the block plan csrc/mlp_resln.cu checks at launch, or
 the products route) at every width and dtype the main paths run: the text
 train step's BERT and SASRec tails (C = 512, bf16, block plans), the text
-encode and ``recommend`` (C = 512, float32) and SASRec under the vision
-tower (C = 2048, both dtypes), both through the products route (h through
+encode and ``recommend`` (C = 512, float32), the two-stage text cache's
+BERT-base (C = 768, F = 3072, float32) and SASRec under the vision tower
+(C = 2048, both dtypes), all three through the products route (h through
 device memory), and the widths it refuses. Then ``mlp_resln_products``,
 the tail as the card composes it there (gemm.cu's two products and the row
 pass), here with every piece's plain version: held against the Pallas
@@ -37,6 +38,7 @@ TOL = 2e-5
 # (what, C, F, dtype) of every tail a main path runs
 MAIN_PATHS = (("text train step, BERT and SASRec", 512, 2048, BF16),
               ("text encode and recommend", 512, 2048, F32),
+              ("two-stage text cache, BERT-base", 768, 3072, F32),
               ("vision train step, SASRec", 2048, 8192, BF16),
               ("vision recommend, SASRec", 2048, 8192, F32))
 
@@ -70,12 +72,12 @@ def test_plan_of_every_main_path(what, C, F, dtype):
 def test_plans_of_every_width(C):
     for dtype in (BF16, F32):
         k = mlp_resln_plan(C, dtype)
-        assert k["route"] == ("products" if C == 2048 or dtype == F32
-                              else "block")
+        assert k["route"] == ("products" if C in (768, 2048)
+                              or dtype == F32 else "block")
         assert F_CHUNK[C] % k["f_chunk"] == 0
 
 
-@pytest.mark.parametrize("C", [64, 96, 768, 1024, 4096])
+@pytest.mark.parametrize("C", [64, 96, 640, 1024, 4096])
 def test_refuses_widths_without_a_kernel(C):
     with pytest.raises(ValueError, match="takes C in"):
         mlp_resln_plan(C, BF16)

@@ -5,8 +5,9 @@ the product kernel and the row pass, on the CPU.
 or the "products" route) at every (C, M, dtype) the main paths run: the
 text train step's BERT and SASRec tails and IDRec's SASRec (C = 512,
 bf16, the tensor-core body), the text encode and ``recommend`` (C = 512,
-float32) and SASRec under the vision tower (C = 2048, both dtypes), which
-go through gemm.cu and the row pass; and the widths it refuses. Then
+float32), the two-stage text cache's BERT-base (C = 768, float32) and
+SASRec under the vision tower (C = 2048, both dtypes), which go through
+gemm.cu and the row pass; and the widths it refuses. Then
 ``proj_resln_products``, that route as the card composes it (gemm.cu's
 product with a float output, then the row pass with res as its
 residual), here with every piece's plain version (``gemm_plain``,
@@ -37,6 +38,7 @@ MAIN_PATHS = (("text train step, BERT", 512, 768 * 30, BF16),
               ("text train step, SASRec", 512, 128 * 20, BF16),
               ("IDRec train step, SASRec", 512, 256 * 20, BF16),
               ("text encode, BERT", 512, 512 * 30, F32),
+              ("two-stage text cache, BERT-base", 768, 512 * 30, F32),
               ("text recommend at B = 1, SASRec", 512, 20, F32),
               ("text recommend at B = 64, SASRec", 512, 64 * 20, F32),
               ("vision train step, SASRec", 2048, 64 * 10, BF16),
@@ -78,7 +80,7 @@ def test_plans_of_every_width(C):
     for M in (1, 10, 2560, 8448, 8449, 23040):
         assert proj_resln_plan(C, F32, M, SMS)["route"] == "products"
         k = proj_resln_plan(C, BF16, M, SMS)
-        if C == 2048:
+        if C in (768, 2048):
             assert k["route"] == "products"
         else:
             _check_block_plan(k, C, M)
@@ -94,7 +96,7 @@ def test_small_m_takes_narrow_blocks():
     assert rows(2560, 32) == 64
 
 
-@pytest.mark.parametrize("C", [64, 96, 768, 1024, 4096])
+@pytest.mark.parametrize("C", [64, 96, 640, 1024, 4096])
 def test_refuses_widths_without_a_kernel(C):
     for dtype in (BF16, F32):
         with pytest.raises(ValueError, match="takes C in"):

@@ -162,7 +162,10 @@ def test_port_runs_the_slice_without_jax():
     modules and the CLI, trains IDRec for one epoch through
     ``Trainer(cfg, device="cpu")`` and reloads the best checkpoint in test
     mode; takes one BCE step (text MoRec, sampled negatives) and one DSSM
-    step (IDRec) and serves a DSSM ``recommend_users`` call; the CLI itself
+    step (IDRec) and serves a DSSM ``recommend_users`` call; builds a
+    two-stage catalog cache through the runner's frozen text tower and
+    takes one BCE step of the fused two-stage head over it, and one BCE
+    step of the fusion end2end tower over BERT; the CLI itself
     refuses to run without a GPU (the test process itself has jax loaded
     by conftest, hence the subprocess)."""
     code = textwrap.dedent("""
@@ -332,6 +335,43 @@ def test_port_runs_the_slice_without_jax():
         ids, scores = Retriever(dmodel, dtable).recommend_users([3, 9], 5)
         assert ids.shape == (2, 5) and 0 not in ids
         assert np.isfinite(scores).all()
+        # two-stage: the frozen text tower's catalog cache through the
+        # runner, one BCE step of the fused (cat) head over it; fusion
+        # end2end: one BCE step of the add tower over BERT
+        bce = dict(ids=pos, neg_ids=neg, log_mask=lm, uniq_ids=uniq,
+                   inverse=inv)
+        scfg = Config(item_tower="modal_id_cat", stage="two_stage",
+                      loss="bce", embedding_dim=32, num_attention_heads=2,
+                      transformer_block=1, max_seq_len=6, mo_dnn_layers=1,
+                      dnn_layers=1, compute_dtype="bfloat16", lr=1e-3,
+                      item_emb_batch_size=16)
+        raw = TextTower(BertModel(BertConfig(
+            vocab_size=97, hidden_size=24, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=48,
+            max_position_embeddings=16), device="cpu"), 32, 24,
+            attr_lengths=(8,), project=False, device="cpu")
+        cache = Trainer(scfg, device="cpu")._encode_catalog(
+            (raw, None, set(), 24), content.numpy().__getitem__, 40)
+        assert cache.shape == (41, 24) and scfg.word_embedding_dim == 24
+        smodel = make_model(scfg, 40, device="cpu",
+                            generator=torch.Generator().manual_seed(3))
+        sstate = make_train_state(smodel, scfg)
+        loss = make_train_step(scfg, item_content=cache)(sstate, {
+            k: torch.from_numpy(v) for k, v in bce.items()})
+        assert torch.isfinite(loss) and sstate.step == 1
+        fcfg = Config(item_tower="modal_id_add", loss="bce", embedding_dim=32,
+                      num_attention_heads=2, transformer_block=1,
+                      max_seq_len=6, compute_dtype="float32", lr=1e-3)
+        fmodel = make_model(fcfg, 40, TextTower(BertModel(BertConfig(
+            vocab_size=97, hidden_size=32, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=64,
+            max_position_embeddings=16), device="cpu"), 32, 32,
+            attr_lengths=(8,), device="cpu"), device="cpu",
+            generator=torch.Generator().manual_seed(4))
+        fstate = make_train_state(fmodel, fcfg, param_labels(fmodel))
+        loss = make_train_step(fcfg, item_content=content)(fstate, {
+            k: torch.from_numpy(v) for k, v in bce.items()})
+        assert torch.isfinite(loss) and fstate.step == 1
         if not torch.cuda.is_available():
             try:
                 run.main(flags)

@@ -130,8 +130,14 @@ def test_vision_tower_compute_dtype_and_refusals():
     net = SwinModel(SwinConfig(**SWIN), device="cpu")
     with pytest.raises(NotImplementedError):
         VisionTower(net, "resnet", D, 64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        VisionTower(net, "swin", D, 64, project=False, device="cpu")
+    # project=False (the two-stage cache's tower) is ported: the
+    # classifier's output before the GELU
+    raw = VisionTower(net, "swin", D, 64, project=False, device="cpu")
+    raw.load_state_dict(tt.state_dict())
+    raw.compute_dtype = torch.bfloat16
+    with torch.no_grad():
+        feats = raw.eval()(torch.zeros(2, 32, 32, 3, dtype=torch.uint8))
+    torch.testing.assert_close(torch.nn.functional.gelu(feats), out)
     with pytest.raises(ValueError):
         SwinModel(SwinConfig(**SWIN), kernels="fallback", device="cpu")
 
