@@ -41,7 +41,9 @@ each fatal on failure:
    each against autograd of the plain version, with event and device
    time, bound, plain and torch.matmul of the same products
    (tail_bwd_routes; the kernels line takes the fused route's row at the
-   BERT shape);
+   BERT shape); fused_mha's float32 backward must have run on its
+   tensor-core body (BWD_BODIES: mha_bwd_tf32_kernel, 3xTF32), as in
+   phases 10, 16 and 22;
 5. serving: Retriever.encode_catalog over the catalog, then recommend for
    request batches of 1, 8 and 64, with every launch counter set to 0
    first; every kernel launched in the encode and in recommend (gemm
@@ -96,11 +98,12 @@ each fatal on failure:
     beside F.scaled_dot_product_attention's backward at dropout 0; each
     windowed attention backward with its attention core's device time,
     torch.profiler; each tail's training forward beside its products
-    through torch.matmul); then the pre-LN MLP's backward at each Swin-T
-    stage through the route premlp_bwd_plan picks (premlp_bwd_mma_kernel
-    at stages 0-2, premlp_bwd_wg_kernel at stage 3) and through the
-    products route, both routes' times (CUDA events and device time) and
-    their gradients against each other, and at stage 3 the wg kernel alone
+    through torch.matmul; the float32 windowed attention's and SASRec's
+    backward through mha_bwd_tf32_kernel); then the pre-LN MLP's backward
+    at each Swin-T stage through the route premlp_bwd_plan picks
+    (premlp_bwd_mma_kernel at stages 0-2, premlp_bwd_wg_kernel at stage 3)
+    and through the products route, both routes' times (CUDA events and
+    device time) and their gradients against each other, and at stage 3 the wg kernel alone
     (premlp_bwd_gdh) against its plain version, with its bound; then
     the tensor-core gemm() (every backward's products) at the three
     largest products of the stage-0 band backward, against torch.matmul
@@ -152,6 +155,7 @@ each fatal on failure:
     against autograd of the plain version, the same bits on a second run;
     backward, plain and fixed-order-sum times, and at dropout 0
     F.scaled_dot_product_attention's with the bias as a trainable mask;
+    the float32 cases through mha_bwd_tf32_kernel;
 17. vision dropout training (run after phase 12): the counters set to 0,
     the bf16 train step of phase 11 with Swin's hidden and attention-
     probability dropout at 0.1: 4 steps on one batch (the loss must fall),
@@ -230,7 +234,9 @@ each fatal on failure:
     sub-cache of 16 images against the CPU plain path; then
     hm_swin_tiny_lyr_8's step (B 64, dnn_layers 8) and
     train_swin_tiny_add_m8's (add, mo_dnn_layers 8, dnn_layers 2), 5 + 5
-    and 5 + 3 steps, with the same checks;
+    and 5 + 3 steps, with the same checks; the phase's float32 SASRec
+    backward ran on mha_bwd_tf32_kernel (fused_mha_bwd's bodies, from
+    none);
 23. fusion: id_plus_mo-end2end's towers. Phase 20's BCE text step with
     modal_id_add and with modal_id_cat (an ID table beside BERT-small:
     p50, peak memory, launches with scatter_add_rows, the float32 gradient
@@ -310,7 +316,8 @@ from idvs.morec_tpu_torch.models.text_tower import TextTower
 from idvs.morec_tpu_torch.models.vision_tower import VisionTower
 from idvs.morec_tpu_torch.ops.cuda import lib
 from idvs.morec_tpu_torch.ops.cuda.attention import (
-    FWD_BODIES, dbias_chunks, fused_mha, fused_mha_bwd, fused_mha_bwd_dbias,
+    BWD_BODIES, FWD_BODIES, dbias_chunks, fused_mha, fused_mha_bwd,
+    fused_mha_bwd_dbias,
     fused_mha_plain, fused_mha_proj, fused_mha_proj_band,
     fused_mha_proj_band_bwd, fused_mha_proj_band_plain, fused_mha_proj_bwd,
     fused_mha_proj_plain, sum_partials, window_partition)
@@ -658,6 +665,16 @@ class PhaseError(RuntimeError):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise PhaseError(what)
+
+
+def require_bwd_body(names, what: str) -> None:
+    """Fails unless each wrapper of `names` launched the float32 backward
+    body on the tensor cores (BWD_BODIES) in `what`; prints their bodies."""
+    for n in names:
+        seen = sorted(WRAPPERS[n].bodies)
+        print(f"{what}: {n} bodies {seen}", flush=True)
+        require(BWD_BODIES[torch.float32] in seen,
+                f"{what}: {n} launched no {BWD_BODIES[torch.float32]}")
 
 
 def card_info() -> str:
@@ -4485,6 +4502,7 @@ def main() -> int:
             np.random.default_rng(SEED), dev))
     with phase("backward kernels"):
         kernels.update(backward_phase(dev, card, cap))
+        require_bwd_body(("fused_mha_bwd",), "backward kernels")
     with phase("ce kernels"):
         kernels.update(ce_kernel_phase(dev, card))
     torch.cuda.empty_cache()
@@ -4504,9 +4522,14 @@ def main() -> int:
         dssm = dssm_path(dev, card, content)
     torch.cuda.empty_cache()
     with phase("two_stage"):
+        # the float32 SASRec of the two-stage steps: its backward's bodies
+        # from none, then merged back for the kernels line
+        earlier, fused_mha_bwd.bodies = fused_mha_bwd.bodies, set()
         cached_text, two_text = two_stage_text(dev, card, content, batches)
         torch.cuda.empty_cache()
         cached_vision, two_vision = two_stage_vision(dev, card)
+        require_bwd_body(("fused_mha_bwd",), "two_stage")
+        fused_mha_bwd.bodies |= earlier
     torch.cuda.empty_cache()
     pool = image_pool(dev).cpu().numpy()
     with phase("fusion"):
@@ -4536,9 +4559,12 @@ def main() -> int:
         merge(kernels, premlp_bwd_routes(dev, card, V_BWD_IMAGES))
         torch.cuda.empty_cache()
         merge(kernels, gemm_phase(dev, card, V_BWD_IMAGES, cap))
+        require_bwd_body(("fused_mha_proj_band_bwd", "fused_mha_proj_bwd",
+                          "fused_mha_bwd"), "vision backward kernels")
     torch.cuda.empty_cache()
     with phase("dbias kernels"):
         merge(kernels, dbias_phase(dev, card, V_BWD_IMAGES))
+        require_bwd_body(("fused_mha_bwd_dbias",), "dbias kernels")
     torch.cuda.empty_cache()
     with phase("vision training"):
         vtrained, vwindows = vision_train_path(dev, card, pool)

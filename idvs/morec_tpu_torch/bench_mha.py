@@ -11,9 +11,10 @@ time a call of the library's kernels (torch.profiler: the kernels named
 ``mha_fwd*``, ``mha_bwd*`` and ``sum_partials``, the dbias edition's second
 pass); F.scaled_dot_product_attention's forward and backward on the same
 operands (the library yardstick, dropout off, the mask trainable where the
-bias is; the port never calls it), its forward also as device time (every
-kernel the call launched); and the least time the card could take
-by bytes for each direction (inputs read once, outputs written once).
+bias is; the port never calls it), its forward and its backward also as
+device time (every kernel the call launched); and the least time the card
+could take by bytes for each direction (inputs read once, outputs written
+once).
 Shapes: BERT's attention over deduplicated titles (serving 512, training
 768 titles of 30 tokens, 8 heads of 64, key mask), SASRec's (text: 64 /
 128 users of L 20, 2 heads of 256; vision: 64 / 1 users of L 10, 2 heads
@@ -126,8 +127,10 @@ def run_case(label, B, T, nh, dh, kind, P, drop, trainable, dt, reps, gen,
         sdpa_fwd_kernel = device_ms(lambda: sdpa(qkv), reps)[0]
     sout = sdpa(sleaf)
     sleaves = [sleaf] + ([smask] if trainable else [])
-    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-        sout, sleaves, heads(dout), retain_graph=True), reps)
+    sdpa_grad = lambda: torch.autograd.grad(sout, sleaves, heads(dout),
+                                            retain_graph=True)
+    sdpa_bwd = cuda_ms(sdpa_grad, reps)
+    sdpa_bwd_kernel = device_ms(sdpa_grad, reps)[0]
     del sout
     # bytes: qkv, the table and out forward; qkv, dout, the table, dqkv
     # (and dbias) backward
@@ -141,7 +144,8 @@ def run_case(label, B, T, nh, dh, kind, P, drop, trainable, dt, reps, gen,
             "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_kernel_ms": fwd_kernel,
             "bwd_kernel_ms": bwd_kernel, "sdpa_fwd_ms": sdpa_fwd,
             "sdpa_fwd_kernel_ms": sdpa_fwd_kernel,
-            "sdpa_bwd_ms": sdpa_bwd, "fwd_bound_ms": fwd_bound,
+            "sdpa_bwd_ms": sdpa_bwd, "sdpa_bwd_kernel_ms": sdpa_bwd_kernel,
+            "fwd_bound_ms": fwd_bound,
             "bwd_bound_ms": bwd_bound}
 
 
@@ -157,6 +161,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench_mha: no CUDA device visible")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -4,6 +4,7 @@ core csrc/win_attn_bwd.cu among gemm.cu's products) at the four Swin-T
 stages on one GPU, and reports what the compiler made of them.
 
     python -m idvs.morec_tpu_torch.bench_swin [--reps N] [--report]
+        [--rows fwd,bwd,mlp] [--dtype bf16|f32]
 
 Rows, bf16, 512 images a stage (an encode chunk, ``item_emb_batch_size``):
 ``fused_mlp`` with its LayerNorm and ``fused_mlp_res`` (unit), F = 4C, GELU;
@@ -17,11 +18,13 @@ products through torch.matmul on bf16 operands (the MLP's two; the
 attention's qkv projection, the batched scores and P . V, the output
 projection), which the port never calls for these.
 
-Backward rows, bf16, 288 images a stage (a Zipf train batch's dedup
-capacity): ``fused_mha_proj_band``'s backward with one bias (P = 1), as
-CUDA-event and device time of autograd's backward of the call, and the
-device time of the attention core alone (the kernels of ``CORE``: the core
-and its fixed-order dbias sum) beside the core's own bound (``core_work``).
+Backward rows, 288 images a stage (a Zipf train batch's dedup capacity),
+bf16 or (``--dtype f32``) float32: ``fused_mha_proj_band``'s backward with
+one bias (P = 1) and ``fused_mha_proj``'s on the partitioned windows with a
+bias per window (P = nW), as CUDA-event and device time of autograd's
+backward of the call, and the device time of the attention core alone (the
+kernels of ``CORE``: the core and its fixed-order dbias sum) beside the
+core's own bound (``core_work``).
 
 MLP backward rows, bf16, 288 images a stage: ``fused_mlp_res`` with
 DropPath's row scale (the band path's block) and ``fused_mlp`` with its
@@ -38,6 +41,8 @@ stage 3 from PR 17 on, "products" at stage 3 before).
 library's flags and -Xptxas -v and prints each kernel's registers, spills
 and static shared memory and its HMMA instructions (bench_gemm's report);
 the bf16 plans' dynamic shared memory is in each row (``plan_smem``).
+--rows keeps the forward, backward and MLP backward rows named; --dtype
+sets the backward rows' dtype (the others are bf16).
 
 Prints one JSON object a line, then the card's name and power limit. The
 package is imported from sys.path, so ``PYTHONPATH=<checkout> python
@@ -65,8 +70,9 @@ BF16 = torch.bfloat16
 IMAGES, WINDOW = 512, 7
 BWD_IMAGES = 288
 # the backward's attention core by kernel name: this tree's (fused_mha.cu's
-# tensor-core backward, shared) or an older tree's, and the dbias sum
-CORE = ("win_attn_bwd", "mha_bwd_mma", "sum_partials")
+# tensor-core backward in either dtype, shared) or an older tree's, and the
+# dbias sum
+CORE = ("win_attn_bwd", "mha_bwd_mma", "mha_bwd_tf32", "sum_partials")
 # device_ms: the traces of a call it takes before it gives up
 TRACE_TRIES = 5
 SWIN_T = ((96, 3, 56), (192, 6, 28), (384, 12, 14), (768, 24, 7))
@@ -181,25 +187,40 @@ def swin_rows(g, images=IMAGES):
                                           ws[2].to(BF16), nh))
 
 
-def swin_bwd_rows(g, images=BWD_IMAGES):
-    """(row, stage, label, call, work of the core) for the band backward at
-    each Swin-T stage, bf16: call runs autograd's backward of one kept
-    forward."""
-    T = WINDOW * WINDOW
+def swin_bwd_rows(g, images=BWD_IMAGES, dt=BF16):
+    """(row, stage, label, call, work of the core) for the band backward
+    (P = 1) and the window layout's (P = nW) at each Swin-T stage in dtype
+    dt: call runs autograd's backward of one kept forward."""
+    T, it = WINDOW * WINDOW, torch.finfo(dt).bits // 8
     for stage, (C, nh, side) in enumerate(SWIN_T):
-        windows = images * (side // WINDOW) ** 2
-        x = g(images, side, side, C).to(BF16).requires_grad_(True)
-        leaves = [x, g(1, nh, T, T, scale=0.5).requires_grad_(True)] + [
-            w.requires_grad_(True) for w in (
-                g(C, 3 * C, scale=C ** -0.5), g(3 * C, scale=0.1),
-                g(C, C, scale=C ** -0.5), g(C, scale=0.1))]
-        out = fused_mha_proj_band(*leaves, n_heads=nh, window=WINDOW)
-        dout = g(images, side, side, C).to(BF16)
-        yield ("fused_mha_proj_band_bwd", stage,
-               f"P=1 N={images} {side}x{side} C={C} nh={nh}",
-               lambda: torch.autograd.grad(out, leaves, dout,
-                                           retain_graph=True),
-               core_work(windows, T, C, nh, 1))
+        nW = (side // WINDOW) ** 2
+        windows = images * nW
+        x = g(images, side, side, C).to(dt)
+        rel = g(1, nh, T, T, scale=0.5)
+        weights = (g(C, 3 * C, scale=C ** -0.5), g(3 * C, scale=0.1),
+                   g(C, C, scale=C ** -0.5), g(C, scale=0.1))
+        dout = g(images, side, side, C).to(dt)
+        for name, P in (("fused_mha_proj_band_bwd", 1),
+                        ("fused_mha_proj_bwd", nW)):
+            if name == "fused_mha_proj_band_bwd":
+                leaves = [x.clone().requires_grad_(True),
+                          rel.clone().requires_grad_(True)]
+                fn = lambda *a: fused_mha_proj_band(*a, n_heads=nh,
+                                                    window=WINDOW)
+                d, label = dout, f"P=1 N={images} {side}x{side}"
+            else:
+                leaves = [window_partition(x, WINDOW).requires_grad_(True),
+                          rel.repeat(nW, 1, 1, 1).requires_grad_(True)]
+                fn = lambda *a: fused_mha_proj(*a, n_heads=nh)
+                d, label = window_partition(dout, WINDOW), \
+                    f"P={nW} B={windows} T={T}"
+            leaves += [w.clone().requires_grad_(True) for w in weights]
+            out = fn(*leaves)
+            yield (name, stage, f"{label} C={C} nh={nh} {str(dt)[6:]}",
+                   lambda out=out, leaves=leaves, d=d: torch.autograd.grad(
+                       out, leaves, d, retain_graph=True),
+                   core_work(windows, T, C, nh, P, it))
+            del out, leaves
 
 
 def mlp_bwd_rows(g, images=BWD_IMAGES):
@@ -298,7 +319,13 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--report", action="store_true")
+    parser.add_argument("--rows", default="fwd,bwd,mlp",
+                        help="comma-separated: fwd, bwd, mlp")
+    parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16",
+                        help="the backward rows' dtype")
     args = parser.parse_args()
+    rows = set(args.rows.split(","))
+    bwd_dt = BF16 if args.dtype == "bf16" else torch.float32
     if not torch.cuda.is_available():
         raise SystemExit("bench_swin: no CUDA device visible")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -309,7 +336,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
                                           device="cuda") * scale
-    for name, stage, label, call, work, smem, products in swin_rows(g):
+    for name, stage, label, call, work, smem, products in (
+            swin_rows(g) if "fwd" in rows else ()):
         ms = cuda_ms(call, args.reps)
         dev_ms, kernels = device_ms(call, args.reps)
         bound, by = bound_of(work, BF16)
@@ -325,12 +353,13 @@ def main():
         del fn
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
-    for name, stage, label, call, work in swin_bwd_rows(g):
+    for name, stage, label, call, work in (
+            swin_bwd_rows(g, dt=bwd_dt) if "bwd" in rows else ()):
         ms = cuda_ms(call, args.reps)
         dev_ms, kernels = device_ms(call, args.reps)
         core = sum(v for k, v in kernels.items()
                    if any(c in k for c in CORE))
-        bound, by = bound_of(work, BF16)
+        bound, by = bound_of(work, bwd_dt, tf32x3=True)
         print(json.dumps({
             "kernel": name, "stage": stage, "case": label,
             "ms": round(ms, 4), "device_ms": round(dev_ms, 4),
@@ -341,7 +370,7 @@ def main():
         del call
         torch.cuda.empty_cache()
     for (name, stage, label, call, work, products, routes,
-         plan) in mlp_bwd_rows(g):
+         plan) in (mlp_bwd_rows(g) if "mlp" in rows else ()):
         ms = cuda_ms(call, args.reps)
         dev_ms, kernels = device_ms(call, args.reps)
         bound, by = bound_of(work, BF16)

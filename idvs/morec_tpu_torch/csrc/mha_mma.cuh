@@ -1,11 +1,12 @@
-// The bf16 tensor-core body of the short-sequence attention tiles, shared
-// by fused_mha.cu (the forward and both backward editions of fused_mha) and
+// The tensor-core bodies of the short-sequence attention tiles, shared by
+// fused_mha.cu (the forward and both backward editions of fused_mha) and
 // win_attn_bwd.cu (the attention core of the windowed attention's
-// backward). fused_mha.cu's header has the design; in short: q, k, v (and
-// dout) as bf16 [Tp][Dp + 8] tiles copied by cp.async, every (T, T, dh)
-// product an mma.sync m16n8k16 tile with float accumulators, a warp to 16
-// query rows, the scores, the softmax, dp, ds and the dbias sums in
-// registers.
+// backward). fused_mha.cu's header has the design; in short: bf16 keeps q,
+// k, v (and dout) as bf16 [Tp][Dp + 8] tiles copied by cp.async, every (T,
+// T, dh) product an mma.sync m16n8k16 tile with float accumulators, a warp
+// to 16 query rows, the scores, the softmax, dp, ds and the dbias sums in
+// registers; float32 has the same structure with float [T][Dp + 8] planes
+// and every product as 3xTF32 on mma.sync m16n8k8.
 //
 // A tile is (row b, head h) of a packed (rows, T, 3H) qkv and (rows, T, H)
 // dout, its tokens found through a TokenMap (win_map.cuh): fused_mha's
@@ -17,6 +18,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <initializer_list>
 #include <mutex>
 #include <type_traits>
 
@@ -108,10 +110,11 @@ __device__ __forceinline__ MmaSmem carve(unsigned char* base,
 }
 
 // The map's offset of every token (0 past T), once a block, before the
-// barrier that precedes the block's first copy.
+// barrier that precedes the block's first copy; k: either dtype's blocking.
+template <typename Plan>
 __device__ __forceinline__ void fill_offsets(int* off, const TokenMap& map,
                                              const Geometry& g,
-                                             const Blocking& k) {
+                                             const Plan& k) {
   for (int t = threadIdx.x; t < k.Tp; t += blockDim.x)
     off[t] = t < g.T ? map.offset(t) : 0;
 }
@@ -569,9 +572,10 @@ __device__ __forceinline__ void bwd_tile_mma(const bf16* ops,
 // edition: block (chunk, p, h) walks rows i * P + p for i in its chunk's
 // share of the B / P rows, in order, and writes its partial plane at
 // ((chunk * P + p) * nh + h) for a bias per head, at ((chunk * nh + h) * P
-// + p) for a bias shared by the heads (as fused_mha.cu's
-// mha_bwd_dbias_kernel). kCtx: ctx (rows, T, H) receives the forward's
-// output (bwd_tile_mma), else it is not read. Tokens found through `map`.
+// + p) for a bias shared by the heads, so that idvs_sum_partials over the
+// leading index gives (P, nh, T, T) or (P, 1, T, T). kCtx: ctx (rows, T, H)
+// receives the forward's output (bwd_tile_mma), else it is not read.
+// Tokens found through `map`.
 template <int RG, bool kDbias, bool kCtx = false>
 __global__ void __launch_bounds__(32 * (RG > 4 ? RG : 4),
                                   kDbias && RG <= 4 ? 3 : 1)
@@ -640,6 +644,603 @@ __global__ void __launch_bounds__(32 * (RG > 4 ? RG : 4),
   }
 }
 
+// ---- the float32 body: every product as 3xTF32 on mma.sync m16n8k8 --------
+//
+// bf16's structure with float planes (fused_mha.cu's header): a plane is a
+// head's (T, dh) tile of q, k, v or dout, [T][ld] floats, rows past T not
+// kept (a read of such a row gives zeros) and columns [dh, Dp) zeros. Each
+// float is split into big + small tf32 terms and each 8-deep k-step sums
+// small.big + big.small + big.big into zeroed sums that float adds take to
+// the running sums (mma.cuh mma_3xtf32). Within a k-step, fragment column q
+// is the step's k index 2q and column q + 4 is 2q + 1, for A and B alike
+// (the sum over k does not mind its order): a row read is then one float2,
+// and the score accumulators are, as they lie, the A operand of a product
+// over the keys, whose B reads rows 2q and 2q + 1 at one column.
+
+// How a float32 launch is cut (choose_f32, the one place it is decided);
+// sizes in floats unless named bytes.
+struct F32Blocking {
+  int Tp, Dp;         // T rounded up to 16 (row groups), dh to 16 (k-steps)
+  int ld;             // row stride of a plane: Dp + 8, 8 mod 16 floats
+  int RG, KS, warps;  // row groups of 16 query rows, splits of each, warps
+  int planes;         // forward: 3 (q, k, v), or 2 (v into q's after the scores)
+  int plane;          // floats of one [T][ld] plane (rows past T not kept)
+  int vsw;            // forward: v's column swizzle, 8 with three planes
+  int ldt;            // backward: row stride of the staged ds and pd, Tp + 8
+  int srows;          // backward: rows a staged plane keeps, T up to 8s
+  int staged;         // backward: staged_planes(RG, ctx)
+  int region;         // backward: floats of v's plane, where ds and pd go
+  int acc_smem;       // backward: the dbias sums in a shared (Tp, Tp) plane
+  size_t smem;        // dynamic shared memory of a block, bytes
+};
+
+constexpr int kF32Warps = 8;   // at most, RG * KS
+constexpr int kSwizzle = 8;    // the backward's planes: column bit 3 flipped
+
+// The backward's staged planes: ds and pd side by side up to four row
+// groups (T <= 64, the main paths), so that neither stays in registers
+// during the products; above, and in the window core's edition (ctx), one
+// plane that takes ds, then pd. The dbias sums: in registers up to four
+// row groups, else (and in the ctx edition) in a shared (Tp, Tp) plane.
+// With two blocks an SM up to four row groups (mha_bwd_tf32_kernel's
+// launch bounds: 128 registers a thread), these let three of the window
+// core's blocks onto an SM at Swin-T's T = 49, and every (T, dh) the scalar
+// bodies took at the tests' widths still fits.
+__host__ __device__ constexpr int staged_planes(int RG, bool ctx) {
+  return RG > 4 || ctx ? 1 : 2;
+}
+__host__ __device__ constexpr bool acc_in_smem(int RG, bool dbias, bool ctx) {
+  return dbias && (RG > 4 || ctx);
+}
+
+// Tp / 16 row groups; fewer than eight of wide heads (SASRec, dh 256 and
+// 1024) split each KS ways, up to eight warps a tile, each at least 32
+// columns of the head, or none where that does not fit. The forward keeps
+// q, k and v (two planes where three do not fit); the backward q, k, dout
+// and v, then the staged ds and pd (staged_planes) in v's plane, grown to
+// hold them, its dbias plane (acc_in_smem) and the token offsets.
+// edition: kFwd, kBwd or kBwdDbias; ctx: the window core's edition.
+F32Blocking choose_f32(int T, int dh, int edition, bool ctx = false) {
+  F32Blocking k;
+  k.Tp = (T + 15) / 16 * 16;
+  k.Dp = (dh + 15) / 16 * 16;
+  k.ld = k.Dp + 8;
+  k.RG = k.Tp / 16;
+  k.plane = T * k.ld;
+  k.ldt = k.Tp + 8;
+  k.srows = (T + 7) / 8 * 8;
+  k.planes = k.vsw = k.staged = k.region = 0;
+  k.acc_smem = acc_in_smem(k.RG, edition == kBwdDbias, ctx);
+  const int want =
+      k.RG < kF32Warps && k.Dp >= 128 ? std::min(kF32Warps / k.RG, k.Dp / 32)
+                                      : 1;
+  for (int ks : {want, 1}) {
+    k.KS = ks;
+    k.warps = k.RG * ks;
+    // [KS][RG][Tp / 8 tiles][32 lanes][4] partial scores (and dp)
+    const size_t red = ks > 1 ? sizeof(float) * (edition == kFwd ? 1 : 2) *
+                                    ks * k.RG * 16 * k.Tp
+                              : 0;
+    if (edition == kFwd) {
+      k.planes = sizeof(float) * 3 * k.plane + red <= kMaxSmem ? 3 : 2;
+      k.vsw = k.planes == 3 ? 8 : 0;
+      k.smem = sizeof(float) * k.planes * k.plane + red;
+      if (k.smem <= kMaxSmem) return k;
+      continue;
+    }
+    const size_t rest = red + sizeof(int) * k.Tp +
+                        (k.acc_smem ? sizeof(float) * k.Tp * k.Tp : 0);
+    k.staged = staged_planes(k.RG, ctx);
+    // ds's plane keeps the srows rows the transposed products read; dq's
+    // reads of its rows up to Tp run into pd's plane (they reach only dq
+    // rows past T, which are never stored), and one plane keeps Tp rows
+    k.region = std::max(k.plane, k.staged == 2 ? 2 * k.srows * k.ldt
+                                              : k.Tp * k.ldt);
+    k.smem = sizeof(float) * (3 * k.plane + k.region) + rest;
+    if (k.smem <= kMaxSmem) return k;
+  }
+  return k;   // too large: the entry points refuse it
+}
+
+// The backward block's shared memory: the q, k and dout planes, the region
+// of v's plane and the staged ds and pd, the partial scores and dp (KS >
+// 1), the dbias plane (acc_smem), the token offsets.
+struct F32Smem {
+  float *Q, *K, *O, *V, *red, *da;
+  int* off;
+};
+
+__device__ __forceinline__ F32Smem carve_f32(unsigned char* base,
+                                             const F32Blocking& k) {
+  F32Smem s;
+  s.Q = reinterpret_cast<float*>(base);
+  s.K = s.Q + k.plane;
+  s.O = s.K + k.plane;
+  s.V = s.O + k.plane;
+  s.red = s.V + k.region;
+  s.da = s.red + (k.KS > 1 ? 2 * k.KS * k.RG * 16 * k.Tp : 0);
+  s.off = reinterpret_cast<int*>(s.da + (k.acc_smem ? k.Tp * k.Tp : 0));
+  return s;
+}
+
+// Where column c of row r of a plane lies: bit 3 of c flipped on rows with
+// bit 2 set (sw = 8; 0: no swizzle). With a row stride of 8 mod 16 floats
+// a warp's reads of rows 2q and 2q + 1 at one column then hit 32 distinct
+// banks, and float2 row reads stay conflict-free.
+__device__ __forceinline__ int swz(int r, int c, int sw) {
+  return c ^ (r & 4 ? sw : 0);
+}
+
+// Copies one head's (T, dh) tile into dst, a [T][ld] plane with the column
+// swizzle sw: token t is row row0 + off[t] (off null: row0 + t) of a tensor
+// whose rows are rs floats apart, src its row 0 at the head's column 0.
+// 16-byte cp.async copies where every row is 16-byte aligned (vec), else
+// plain loads; columns [dh, Dp) get zeros.
+__device__ __forceinline__ void copy_plane(const float* __restrict__ src,
+                                           size_t rs, long long row0,
+                                           const int* off, float* dst, int sw,
+                                           int T, int dh, int Dp, int ld,
+                                           bool vec) {
+  auto row = [&](int t) {
+    return src + static_cast<size_t>(row0 + (off ? off[t] : t)) * rs;
+  };
+  if (vec) {
+    const int cpr = Dp / 4, real = dh / 4;   // 16-byte chunks a row, the head's
+    auto chunk = [&](int t, int c) {
+      float* d = dst + t * ld + swz(t, 4 * c, sw);
+      if (c < real)
+        cp_async16(d, row(t) + 4 * c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    };
+    if (static_cast<int>(blockDim.x) % cpr == 0) {
+      // each thread copies one chunk column of every step-th row
+      const int c = threadIdx.x % cpr, step = blockDim.x / cpr;
+      for (int t = threadIdx.x / cpr; t < T; t += step) chunk(t, c);
+    } else {
+      for (int idx = threadIdx.x; idx < T * cpr; idx += blockDim.x)
+        chunk(idx / cpr, idx % cpr);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < T * Dp; idx += blockDim.x) {
+      const int t = idx / Dp, d = idx % Dp;
+      dst[t * ld + swz(t, d, sw)] = d < dh ? row(t)[d] : 0.f;
+    }
+  }
+}
+
+// a float2 of a plane's row, zeros past the T rows it keeps
+__device__ __forceinline__ float2 row_pair(const float* plane, int row,
+                                           int col, int T, int ld, int sw) {
+  return row < T ? *reinterpret_cast<const float2*>(plane + row * ld +
+                                                    swz(row, col, sw))
+                 : make_float2(0.f, 0.f);
+}
+
+// U independent 3xTF32 products of one k-step into zeroed sums d, in
+// rounds: every product's small.big, then big.small, then big.big, so that
+// the tensor cores see U independent products in a row rather than one
+// chain of three (mma.cuh mma_3xtf32's arithmetic; the caller adds d to
+// its running sums by float adds). Product u runs where on[u], with
+// b[u] its B pair (k rows 2q and 2q + 1 of one n column).
+template <int U>
+__device__ __forceinline__ void tf32_rounds(float (&d)[U][4],
+                                            const bool (&on)[U],
+                                            const uint32_t (&ab)[4],
+                                            const uint32_t (&as)[4],
+                                            const float (&b)[U][2]) {
+  uint32_t bb[U][2], bs[U][2];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    split_tf32(b[u][0], bb[u][0], bs[u][0]);
+    split_tf32(b[u][1], bb[u][1], bs[u][1]);
+    d[u][0] = d[u][1] = d[u][2] = d[u][3] = 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (on[u]) mma_tf32(d[u], as, bb[u][0], bb[u][1]);
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (on[u]) mma_tf32(d[u], ab, bs[u][0], bs[u][1]);
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (on[u]) mma_tf32(d[u], ab, bb[u][0], bb[u][1]);
+}
+
+// s = rows [16 rg, 16 rg + 16) of A times Bᵀ over the 8-column k-steps
+// [k0, k1) and the live key tiles, A and B [T][ld] planes with the swizzle
+// sw (q and k, or dout and v): fragment columns q and q + 4 are the head's
+// columns 2q and 2q + 1 of the step, one float2 for A and for B. The key
+// tiles go four at a time through tf32_rounds.
+template <int RG>
+__device__ __forceinline__ void scores_tf32(const float* A, const float* B,
+                                            int ld, int sw, int T, int rg,
+                                            int k0, int k1, int live,
+                                            float (&s)[2 * RG][4]) {
+  constexpr int U = 2 * RG < 4 ? 2 * RG : 4;
+  const int l = threadIdx.x & 31, g = l >> 2, q = l & 3;
+  const int r0 = 16 * rg + g;
+#pragma unroll
+  for (int n = 0; n < 2 * RG; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  for (int kk = k0; kk < k1; ++kk) {
+    const int col = 8 * kk + 2 * q;
+    const float2 lo = row_pair(A, r0, col, T, ld, sw);
+    const float2 hi = row_pair(A, r0 + 8, col, T, ld, sw);
+    const float a[4] = {lo.x, hi.x, lo.y, hi.y};
+    uint32_t ab[4], as[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(a[e], ab[e], as[e]);
+#pragma unroll
+    for (int n0 = 0; n0 < 2 * RG; n0 += U) {
+      if (n0 < live) {
+        bool on[U];
+        float b[U][2], d[U][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          on[u] = n0 + u < 2 * RG && n0 + u < live;
+          const float2 kv = on[u]
+                                ? row_pair(B, 8 * (n0 + u) + g, col, T, ld, sw)
+                                : make_float2(0.f, 0.f);
+          b[u][0] = kv.x;
+          b[u][1] = kv.y;
+        }
+        tf32_rounds<U>(d, on, ab, as, b);
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (n0 + u < 2 * RG)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n0 + u][e] += d[u][e];
+      }
+    }
+  }
+}
+
+// A fragments over the keys from score-shaped accumulators x, as they lie:
+// tile kb's c0, c1 are row g's keys 2q and 2q + 1, c2, c3 row g + 8's
+template <int RG>
+struct RegFrags {
+  const float (&x)[2 * RG][4];
+  __device__ __forceinline__ void operator()(int kb, float (&f)[4]) const {
+    f[0] = x[kb][0];
+    f[1] = x[kb][2];
+    f[2] = x[kb][1];
+    f[3] = x[kb][3];
+  }
+};
+
+// A fragments of rows [i, i + 16) of P over its columns, i = 16 rg, P a
+// staged [Tp][ldt] plane with the swizzle: k-step kb's columns q and q + 4
+// are P's columns 8 kb + 2q and 8 kb + 2q + 1, one float2 a row
+struct RowFrags {
+  const float* P;
+  int ldt, i;
+  __device__ __forceinline__ void operator()(int kb, float (&f)[4]) const {
+    const int r = i + ((threadIdx.x & 31) >> 2), c = 8 * kb + 2 * (threadIdx.x & 3);
+    const float2 lo = *reinterpret_cast<const float2*>(
+        P + r * ldt + swz(r, c, kSwizzle));
+    const float2 hi = *reinterpret_cast<const float2*>(
+        P + (r + 8) * ldt + swz(r + 8, c, kSwizzle));
+    f[0] = lo.x;
+    f[1] = hi.x;
+    f[2] = lo.y;
+    f[3] = hi.y;
+  }
+};
+
+// A fragments of rows [j, j + 16) of Pᵀ, j = 16 rg, P a staged [Tp][ldt]
+// plane with the swizzle: k-step kb's columns q and q + 4 are P's rows 8 kb
+// + 2q and 8 kb + 2q + 1
+struct PlaneFrags {
+  const float* P;
+  int ldt, j;
+  __device__ __forceinline__ void operator()(int kb, float (&f)[4]) const {
+    const int i = 8 * kb + 2 * (threadIdx.x & 3);
+    const int c = j + ((threadIdx.x & 31) >> 2);
+    const float* r = P + i * ldt;
+    f[0] = r[swz(i, c, kSwizzle)];
+    f[1] = r[swz(i, c + 8, kSwizzle)];
+    f[2] = r[ldt + swz(i, c, kSwizzle)];
+    f[3] = r[ldt + swz(i, c + 8, kSwizzle)];
+  }
+};
+
+__device__ __forceinline__ void store_pair(float* row, int col, float x,
+                                           float y, int cols) {
+  if (col + 1 < cols && (reinterpret_cast<uintptr_t>(row + col) & 7) == 0) {
+    *reinterpret_cast<float2*>(row + col) = make_float2(x, y);
+  } else {
+    if (col < cols) row[col] = x;
+    if (col + 1 < cols) row[col + 1] = y;
+  }
+}
+
+// rows [16 rg, 16 rg + 16) of A . B over the live k-steps, for the 8-wide
+// output column tiles [c0, c1), four at a time: a(kb, f) gives k-step kb's
+// A fragment, B is a [T][ld] plane with the swizzle sw read as [k][n], rows
+// 2q and 2q + 1 of each k-step at column n (zeros past T). Tile row r goes
+// to dst + (row0 + off[r]) * rs (off null: row0 + r) for r < T, columns <
+// cols.
+template <int RG, typename AFrags>
+__device__ __forceinline__ void product_store_f32(
+    const AFrags& a, const float* B, int ld, int sw, int T, int live, int rg,
+    int c0, int c1, float* __restrict__ dst, size_t rs, long long row0,
+    const int* off, int cols) {
+  const int l = threadIdx.x & 31, g = l >> 2, q = l & 3;
+  float* out[2];   // this thread's two rows, null past T
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * rg + g + 8 * hh;
+    out[hh] = r < T ? dst + static_cast<size_t>(row0 + (off ? off[r] : r)) * rs
+                    : nullptr;
+  }
+  for (int cb = c0; cb < c1; cb += 4) {
+    float o[4][4] = {};
+    bool on[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) on[t] = cb + t < c1;
+#pragma unroll
+    for (int kb = 0; kb < 2 * RG; ++kb) {
+      if (kb >= live) continue;
+      float f[4];
+      a(kb, f);
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(f[e], ab[e], as[e]);
+      const int j = 8 * kb + 2 * q;
+      const float* b0 = B + j * ld;
+      float b[4][2];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int col = swz(j, 8 * (cb + t) + g, sw);
+        b[t][0] = on[t] && j < T ? b0[col] : 0.f;
+        b[t][1] = on[t] && j + 1 < T ? b0[ld + col] : 0.f;
+      }
+      float d[4][4];
+      tf32_rounds<4>(d, on, ab, as, b);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[t][e] += d[t][e];
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int col = 8 * (cb + t) + 2 * q;
+      if (cb + t >= c1 || col >= cols) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (out[hh] != nullptr)
+          store_pair(out[hh], col, o[t][2 * hh], o[t][2 * hh + 1], cols);
+    }
+  }
+}
+
+// One (tile b, head h) tile of the float32 backward, bwd_tile_mma's steps
+// on float planes: warp (rg, ks) recomputes row group rg's probabilities
+// over its share of the head's columns (the KS partial sums added in a
+// fixed order), stores its column share of ctx (kCtx: p v), computes dp
+// the same way and forms ds and pd in registers (ds unscaled into the
+// dbias sums when ks == 0); after a barrier that ends every read of v, the
+// ks == 0 warps stage ds * scale and pd in v's region, and every warp
+// stores its column share of dq and, for the key rows of group rg, of dk
+// and dv, all three products' A operands read from the staged planes (one
+// staged plane: ds for dq and dk, then pd for dv). Token t is row row0 +
+// sm.off[t] of qkv, dqkv and ctx. With one staged plane, next() copies the
+// next tile's q and k once the barrier before pd's staging has ended their
+// reads.
+template <int RG, bool kDbias, bool kCtx, typename Next>
+__device__ __forceinline__ void bwd_tile_tf32(
+    const F32Smem& sm, float (&acc)[2 * RG][4], const float* __restrict__ bias,
+    float* __restrict__ dqkv, float* __restrict__ ctx, int b, int h,
+    long long row0, const Geometry& g, const F32Blocking& k, const Drop& drop,
+    Next next) {
+  constexpr bool kOnePlane = staged_planes(RG, kCtx) == 1;
+  constexpr bool kAccSmem = acc_in_smem(RG, kDbias, kCtx);
+  const int warp = threadIdx.x >> 5, rg = warp / k.KS, ks = warp % k.KS;
+  const int q = threadIdx.x & 3, i0 = 16 * rg + ((threadIdx.x & 31) >> 2);
+  const int steps = k.Dp / 8, live = live_tiles(g);
+  const int c0 = ks * steps / k.KS, c1 = (ks + 1) * steps / k.KS;
+  const int H = g.nh * g.dh;
+  const uint32_t plane = static_cast<uint32_t>(b * g.nh + h) *
+                         static_cast<uint32_t>(g.T * g.T);
+  float s[2 * RG][4], dp[2 * RG][4];
+  scores_tf32<RG>(sm.Q, sm.K, k.ld, kSwizzle, g.T, rg, c0, c1, live, s);
+  if (k.KS > 1) {
+    write_partial<RG>(s, sm.red, rg, ks);
+    __syncthreads();
+    read_sum<RG>(s, sm.red, rg, k.KS);
+  }
+  softmax_frag<RG, true>(s, bias_row(bias, b, h, g), i0, g);
+  // ctx = p v: the window core takes no dropout (idvs_win_attn_bwd passes
+  // none), and p's padded query rows reach only rows that are never stored
+  if constexpr (kCtx)
+    product_store_f32<RG>(RegFrags<RG>{s}, sm.V, k.ld, kSwizzle, g.T, live,
+                          rg, c0, c1, ctx + h * g.dh, H, row0, sm.off, g.dh);
+  scores_tf32<RG>(sm.O, sm.V, k.ld, kSwizzle, g.T, rg, c0, c1, live, dp);
+  if (k.KS > 1) {
+    float* red_dp = sm.red + k.KS * k.RG * 16 * k.Tp;
+    write_partial<RG>(dp, red_dp, rg, ks);
+    __syncthreads();
+    read_sum<RG>(dp, red_dp, rg, k.KS);
+  }
+  // dp dropped with the forward's mask, and dot = rowsum(dp * p); bit 4 n +
+  // e of `dropped_bits` marks a dropped element, for pd below
+  float dot[2] = {0.f, 0.f};
+  uint64_t dropped_bits = 0;
+#pragma unroll
+  for (int n = 0; n < 2 * RG; ++n) {
+    if (n >= live) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + (e >> 1) * 8, j = 8 * n + 2 * q + (e & 1);
+      if (drop.on() && i < g.T && j < g.T) {
+        if (drop.keep(plane + i * g.T + j)) {
+          dp[n][e] *= drop.scale;
+        } else {
+          dp[n][e] = 0.f;
+          dropped_bits |= 1ull << (4 * n + e);
+        }
+      }
+      dot[e >> 1] = fmaf(dp[n][e], s[n][e], dot[e >> 1]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dot[r] += __shfl_xor_sync(~0u, dot[r], 1);
+    dot[r] += __shfl_xor_sync(~0u, dot[r], 2);
+  }
+  // ds = p (dp - dot) into the dbias sums unscaled and into dp as ds *
+  // scale; pd, dropped as dp was, into s (zero in padded query rows and
+  // keys; dead key tiles are zero in both already)
+#pragma unroll
+  for (int n = 0; n < 2 * RG; ++n) {
+    if (n >= live) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + (e >> 1) * 8, j = 8 * n + 2 * q + (e & 1);
+      const float ds = i < g.T ? s[n][e] * (dp[n][e] - dot[e >> 1]) : 0.f;
+      if (kDbias && ks == 0) {
+        if constexpr (kAccSmem)
+          sm.da[i * k.Tp + j] += ds;
+        else
+          acc[n][e] += ds;
+      }
+      dp[n][e] = ds * g.scale;
+      const bool gone = i >= g.T || (dropped_bits >> (4 * n + e) & 1);
+      s[n][e] = gone ? 0.f : s[n][e] * (drop.on() ? drop.scale : 1.f);
+    }
+  }
+  float* P_ds = sm.V;
+  float* P_pd = kOnePlane ? sm.V : sm.V + k.srows * k.ldt;
+  // the ks == 0 warps write rows below srows, zeros past T
+  auto stage = [&](float* P, const float (&x)[2 * RG][4]) {
+    if (ks) return;
+#pragma unroll
+    for (int n = 0; n < 2 * RG; ++n) {
+      if (n >= live) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = i0 + 8 * hh;
+        if (i >= k.srows) continue;
+        *reinterpret_cast<float2*>(P + i * k.ldt +
+                                   swz(i, 8 * n + 2 * q, kSwizzle)) =
+            make_float2(x[n][2 * hh], x[n][2 * hh + 1]);
+      }
+    }
+  };
+  __syncthreads();   // every read of v is over: its region takes ds and pd
+  stage(P_ds, dp);
+  if constexpr (!kOnePlane) stage(P_pd, s);
+  __syncthreads();   // staged
+  const size_t rs = 3 * static_cast<size_t>(H);
+  float* base = dqkv + h * g.dh;
+  product_store_f32<RG>(RowFrags{P_ds, k.ldt, 16 * rg}, sm.K, k.ld,
+                        kSwizzle, g.T, live, rg, c0, c1, base, rs, row0,
+                        sm.off, g.dh);   // dq
+  product_store_f32<RG>(PlaneFrags{P_ds, k.ldt, 16 * rg}, sm.Q, k.ld,
+                        kSwizzle, g.T, live, rg, c0, c1, base + H, rs, row0,
+                        sm.off, g.dh);   // dk
+  if constexpr (kOnePlane) {
+    __syncthreads();   // ds, q and k read
+    next();
+    stage(P_pd, s);
+    __syncthreads();
+  }
+  product_store_f32<RG>(PlaneFrags{P_pd, k.ldt, 16 * rg}, sm.O, k.ld,
+                        kSwizzle, g.T, live, rg, c0, c1, base + 2 * H, rs,
+                        row0, sm.off, g.dh);   // dv
+}
+
+// grid and dbias edition as mha_bwd_mma_kernel's. One buffer: the next
+// tile's four planes are copied once this tile is done, or, with one
+// staged plane, its q and k once this tile's dk is done (a copy group of
+// their own) and its dout and v once this tile is done.
+template <int RG, bool kDbias, bool kCtx = false>
+__global__ void __launch_bounds__(32 * kF32Warps, RG <= 4 ? 2 : 1)
+    mha_bwd_tf32_kernel(const float* __restrict__ qkv,
+                        const float* __restrict__ bias,
+                        const float* __restrict__ dout,
+                        float* __restrict__ dqkv, float* __restrict__ ctx,
+                        float* __restrict__ part, int B, int chunks,
+                        Geometry g, F32Blocking k, Drop drop, TokenMap map) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  const F32Smem sm = carve_f32(f32_smem, k);
+  fill_offsets(sm.off, map, g, k);
+  const bool vec = g.dh % 4 == 0 && aligned16(qkv) && aligned16(dout);
+  int first = blockIdx.x, end = B * g.nh, step = gridDim.x;
+  int hd = 0, p = 0, chunk = 0;
+  if (kDbias) {
+    hd = blockIdx.x % g.nh;
+    p = blockIdx.x / g.nh % g.P;
+    chunk = blockIdx.x / (g.nh * g.P);
+    const int rows = B / g.P, per = (rows + chunks - 1) / chunks;
+    first = chunk * per;
+    end = min(rows, first + per);
+    step = 1;
+  }
+  auto row_of = [&](int it) { return kDbias ? it * g.P + p : it / g.nh; };
+  auto head_of = [&](int it) { return kDbias ? hd : it % g.nh; };
+  constexpr bool kAccSmem = acc_in_smem(RG, kDbias, kCtx);
+  if (kAccSmem)
+    for (int idx = threadIdx.x; idx < k.Tp * k.Tp; idx += blockDim.x)
+      sm.da[idx] = 0.f;
+  float acc[2 * RG][4];
+#pragma unroll
+  for (int n = 0; n < 2 * RG; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  __syncthreads();   // the offsets
+  const int H = g.nh * g.dh;
+  const size_t rs = 3 * static_cast<size_t>(H);
+  constexpr bool kOnePlane = staged_planes(RG, kCtx) == 1;
+  // planes p (0 q, 1 k, 2 dout, 3 v) in [p0, p1) of tile it, one group
+  auto copy = [&](int it, int p0, int p1) {
+    const long long row0 = map.base(row_of(it), g.T);
+    const int c = head_of(it) * g.dh;
+    const float* src[4] = {qkv + c, qkv + H + c, dout + c, qkv + 2 * H + c};
+    float* dst[4] = {sm.Q, sm.K, sm.O, sm.V};
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      if (p >= p0 && p < p1)
+        copy_plane(src[p], p == 2 ? H : rs, row0, sm.off, dst[p], kSwizzle,
+                   g.T, g.dh, k.Dp, k.ld, vec);
+    cp_async_commit();
+  };
+  if (first < end) copy(first, 0, 4);
+  for (int it = first; it < end; it += step) {
+    const int nxt = it + step;
+    cp_async_wait<0>();
+    __syncthreads();   // this tile's planes
+    bwd_tile_tf32<RG, kDbias, kCtx>(
+        sm, acc, bias, dqkv, ctx, row_of(it), head_of(it),
+        map.base(row_of(it), g.T), g, k, drop, [&] {
+          if (nxt < end) copy(nxt, 0, 2);
+        });
+    __syncthreads();   // every read of this tile's planes is over
+    if (nxt < end) copy(nxt, kOnePlane ? 2 : 0, 4);
+  }
+  if (!kDbias) return;
+  const size_t slot =
+      g.bias_sh == 0 ? (static_cast<size_t>(chunk) * g.nh + hd) * g.P + p
+                     : (static_cast<size_t>(chunk) * g.P + p) * g.nh + hd;
+  float* out = part + slot * g.T * g.T;
+  if constexpr (!kAccSmem) {
+    // the warps of split 0 own every (i, j) of their row groups
+    const int warp = threadIdx.x >> 5, q = threadIdx.x & 3;
+    if (warp % k.KS) return;
+    const int i0 = 16 * (warp / k.KS) + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+    for (int n = 0; n < 2 * RG; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + (e >> 1) * 8, j = 8 * n + 2 * q + (e & 1);
+        if (i < g.T && j < g.T) out[i * g.T + j] = acc[n][e];
+      }
+  } else {
+    // every element of sm.da was last written before the loop's barrier
+    for (int idx = threadIdx.x; idx < g.T * g.T; idx += blockDim.x)
+      out[idx] = sm.da[idx / g.T * k.Tp + idx % g.T];
+  }
+}
+
 int sm_count() {
   int dev = 0, n = 0;
   cudaGetDevice(&dev);
@@ -702,6 +1303,72 @@ cudaError_t resident(K kernel, const Plan& k, int* slots) {
   return cudaSuccess;
 }
 
+// The backward body of a blocking's dtype: bf16 (Blocking) or float32
+// (F32Blocking)
+template <int R, bool kDbias, bool kCtx>
+auto bwd_body(const Blocking&) {
+  return mha_bwd_mma_kernel<R, kDbias, kCtx>;
+}
+template <int R, bool kDbias, bool kCtx>
+auto bwd_body(const F32Blocking&) {
+  return mha_bwd_tf32_kernel<R, kDbias, kCtx>;
+}
+
+// The blocks of k's dbias edition the SMs hold at once, after opting the
+// kernel into its shared memory
+template <bool kCtx, typename Plan>
+cudaError_t dbias_slots(const Plan& k, int* slots) {
+  return with_rg(k.RG, [&](auto rg) {
+    return resident(bwd_body<decltype(rg)::value, true, kCtx>(k), k, slots);
+  });
+}
+
+// Launches the backward body of k's dtype on elements T: chunks > 0 its
+// dbias edition, block (chunk, p, head) each, else a persistent grid over
+// the tiles; ctx is written in the kCtx edition (dbias only), tokens found
+// through map.
+template <bool kCtx, typename Plan, typename T>
+cudaError_t launch_bwd(const T* qkv, const float* bias, const T* dout,
+                       T* dqkv, T* ctx, float* part, int B, int chunks,
+                       const Geometry& g, const Plan& k, Drop drop,
+                       const TokenMap& map, cudaStream_t stream) {
+  return with_rg(k.RG, [&](auto rg) {
+    constexpr int R = decltype(rg)::value;
+    auto kernel = bwd_body<R, true, kCtx>(k);
+    if constexpr (!kCtx)
+      if (chunks == 0) kernel = bwd_body<R, false, false>(k);
+    int slots = 0;
+    cudaError_t err = resident(kernel, k, &slots);
+    if (err != cudaSuccess) return err;
+    const int grid = chunks > 0 ? chunks * g.P * g.nh
+                                : std::min(B * g.nh, slots);
+    kernel<<<grid, 32 * k.warps, k.smem, stream>>>(qkv, bias, dout, dqkv,
+                                                   ctx, part, B, chunks, g,
+                                                   k, drop, map);
+    return cudaGetLastError();
+  });
+}
+
+bool valid(int B, const Geometry& g, size_t smem) {
+  return B >= 1 && g.T >= 1 && g.T <= 128 && g.nh >= 1 && g.dh >= 1 &&
+         smem <= kMaxSmem && (g.mode == 0 || (g.mode == 1 && g.P >= 1));
+}
+
+// fused_mha's backward in the dtype's body at its blocking k, edition kBwd
+// (chunks = 0) or kBwdDbias (writing part), after checking that the
+// geometry and k fit.
+template <typename T, typename Plan>
+int fused_mha_backward(const void* qkv, const float* bias, const void* dout,
+                       void* dqkv, float* part, int B, int chunks,
+                       const Geometry& g, const Plan& k, Drop drop,
+                       cudaStream_t stream) {
+  if (!valid(B, g, k.smem)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_bwd<false>(
+      static_cast<const T*>(qkv), bias, static_cast<const T*>(dout),
+      static_cast<T*>(dqkv), static_cast<T*>(nullptr), part, B, chunks, g,
+      k, drop, TokenMap{}, stream));
+}
+
 // the non-empty shares of `rows` rows that `chunks` asks for
 int normalised(int rows, int chunks) {
   const int per = (rows + chunks - 1) / chunks;
@@ -709,17 +1376,12 @@ int normalised(int rows, int chunks) {
 }
 
 // Chunks of the dbias edition: how many shares the B / P rows of each
-// (bias row, head) are cut into, one block each. bf16: the count that
-// minimises waves x (rows a block walks + 2), the 2 standing for the
-// partial plane it writes and the sum reads back (about two rows' bytes),
-// with `slots` the blocks the SMs hold at once. float32: about eight waves
-// of the four blocks an SM holds, as before.
-int dbias_chunks(int B, int P, int nh, int dtype, int slots) {
+// (bias row, head) are cut into, one block each: the count that minimises
+// waves x (rows a block walks + 2), the 2 standing for the partial plane
+// it writes and the sum reads back (about two rows' bytes), with `slots`
+// the blocks of the body (either dtype's) the SMs hold at once.
+int dbias_chunks(int B, int P, int nh, int slots) {
   const int rows = B / P, cells = P * nh;
-  if (dtype != kBF16)
-    return normalised(
-        rows, std::max(1, std::min(rows, (32 * sm_count() + cells - 1) /
-                                             cells)));
   int best = 1;
   long long best_cost = LLONG_MAX;
   const int most = std::min(rows, std::max(1, 16 * slots / cells));
@@ -734,6 +1396,17 @@ int dbias_chunks(int B, int P, int nh, int dtype, int slots) {
     }
   }
   return best;
+}
+
+// The chunks of fused_mha's dbias edition in the dtype's body at its
+// blocking k (dbias_chunks), or a negative CUDA error
+template <typename Plan>
+int fused_mha_dbias_chunks(int B, int P, int nh, const Plan& k) {
+  if (k.smem > kMaxSmem) return -static_cast<int>(cudaErrorInvalidValue);
+  int slots = 0;
+  const cudaError_t err = dbias_slots<false>(k, &slots);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return dbias_chunks(B, P, nh, slots);
 }
 
 }  // namespace

@@ -13,14 +13,14 @@ memory, copied with 16-byte ``cp.async`` from the natural (B, T, 3H) /
 with float32 accumulators, and keep the scores, the softmax, the dropout
 and (backward) dp and ds in registers, one warp to 16 query rows; blocks
 are persistent and copy the next tile while they compute the current one.
-The float32 forward has the same structure with float tiles, its two
-products as 3xTF32 on the tensor cores (each float split into two tf32
-terms, three products a step); the float32 backward is scalar float FMAs
-over float tiles in shared memory. The backward recomputes the probabilities and returns the packed
-dqkv; a bias that requires a gradient (Swin's relative-position table under
-attention dropout) gets one from the backward's dbias edition, summed over
-the rows that share a bias row in a fixed order. The kernels choose their
-own blocking; the header of the .cu file has the details.
+The float32 kernels, forward and backward, have the same structure with
+float tiles, every product as 3xTF32 on the tensor cores (each float split
+into two tf32 terms, three products a step). The backward recomputes the
+probabilities and returns the packed dqkv; a bias that requires a gradient
+(Swin's relative-position table under attention dropout) gets one from the
+backward's dbias edition, summed over the rows that share a bias row in a
+fixed order. The kernels choose their own blocking; the header of the .cu
+file has the details.
 
 ``fused_mha`` runs the plain PyTorch version ``fused_mha_plain`` (autograd
 gives its gradient) for tensors on the CPU. For tensors on the card it
@@ -28,8 +28,8 @@ launches the forward kernel, through a ``torch.autograd.Function`` whose
 backward is ``fused_mha_bwd`` (or ``fused_mha_bwd_dbias`` for a trainable
 bias) when a gradient is wanted; it raises for anything the kernels do not
 take. ``fused_mha.launches``, ``fused_mha_bwd.launches`` and
-``fused_mha_bwd_dbias.launches`` count launches; ``fused_mha.bodies`` names
-the forward's device kernels launched.
+``fused_mha_bwd_dbias.launches`` count launches; their ``bodies`` name the
+device kernels each launched (``FWD_BODIES``, ``BWD_BODIES``).
 """
 
 from __future__ import annotations
@@ -113,10 +113,14 @@ def _operands(qkv, mask, bias, n_heads, B, T, dh):
 
 # editions of the kernel library's shared-memory query (csrc/fused_mha.cu)
 FWD, BWD, DBIAS = 0, 1, 2
-# the forward's body by compute dtype, which _launch_fwd records in
-# fused_mha.bodies as it launches it
+# the forward's and the backward's body by compute dtype, which the
+# wrappers record in their ``bodies`` as they launch them (the backward's
+# serves fused_mha_bwd, its dbias edition and the windowed attention's core)
 FWD_BODIES = {torch.bfloat16: "mha_fwd_mma_kernel (bf16, mma.sync m16n8k16)",
               torch.float32: "mha_fwd_tf32_kernel (3xTF32, mma.sync m16n8k8 "
+                             "tf32)"}
+BWD_BODIES = {torch.bfloat16: "mha_bwd_mma_kernel (bf16, mma.sync m16n8k16)",
+              torch.float32: "mha_bwd_tf32_kernel (3xTF32, mma.sync m16n8k8 "
                              "tf32)"}
 
 
@@ -162,6 +166,7 @@ def fused_mha_bwd(qkv, table, dout, args, code, drop) -> torch.Tensor:
         *args, *drop, code, lib.stream_handle(qkv))
     lib.check(err, "fused_mha_bwd")
     fused_mha_bwd.launches += 1
+    fused_mha_bwd.bodies.add(BWD_BODIES[qkv.dtype])
     return dqkv
 
 
@@ -205,6 +210,7 @@ def fused_mha_bwd_dbias(qkv, table, dout, args, code, drop, heads):
     # a bias shared by the heads sums the heads' planes too (sh == 0)
     sum_partials(part, dbias, chunks * nh if sh == 0 else chunks)
     fused_mha_bwd_dbias.launches += 1
+    fused_mha_bwd_dbias.bodies.add(BWD_BODIES[qkv.dtype])
     return dqkv, dbias
 
 
@@ -278,12 +284,13 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
 # recomputes qkv and the probabilities and returns the gradients of x, of
 # the four weights and of the bias, the latter summed over the windows that
 # share a bias row, in a fixed order. Its products are row-wise, so they run
-# on x's rows as they lie, and its attention core (bf16: fused_mha.cu's
-# tensor-core backward, shared through ``csrc/mha_mma.cuh``) reads and
-# writes a window's tokens through the forward's row index map
-# (``csrc/win_map.cuh``, twin ``band_token_rows``): the band layout's
-# backward copies nothing into windows. ``fused_mha_proj_bwd.launches`` and
-# ``fused_mha_proj_band_bwd.launches`` count the backward's launches.
+# on x's rows as they lie, and its attention core (fused_mha.cu's
+# tensor-core backward in either dtype, ``BWD_BODIES``, shared through
+# ``csrc/mha_mma.cuh``) reads and writes a window's tokens through the
+# forward's row index map (``csrc/win_map.cuh``, twin ``band_token_rows``):
+# the band layout's backward copies nothing into windows.
+# ``fused_mha_proj_bwd.launches`` and ``fused_mha_proj_band_bwd.launches``
+# count the backward's launches, their ``bodies`` the core's kernels.
 
 LINEAR_WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 CUDA_INVALID_VALUE = 1     # cudaErrorInvalidValue
@@ -536,6 +543,7 @@ def fused_mha_proj_bwd(xw, table, dout, wqkv, bqkv, wo, *, n_heads, code):
     grads = _windowed_bwd(xw, table, dout.to(xw.dtype).contiguous(), wqkv,
                           bqkv, wo, n_heads, B, T, None, code)
     fused_mha_proj_bwd.launches += 1
+    fused_mha_proj_bwd.bodies.add(BWD_BODIES[xw.dtype])
     return grads
 
 
@@ -550,6 +558,7 @@ def fused_mha_proj_band_bwd(x, table, dout, wqkv, bqkv, wo, *, n_heads,
                           bqkv, wo, n_heads, N * nwr * nwc, window * window,
                           (window, nwc, nwr), code)
     fused_mha_proj_band_bwd.launches += 1
+    fused_mha_proj_band_bwd.bodies.add(BWD_BODIES[x.dtype])
     return grads
 
 
@@ -666,8 +675,12 @@ def fused_mha_proj_band(x: torch.Tensor, bias: torch.Tensor,
 fused_mha.launches = 0
 fused_mha.bodies = set()
 fused_mha_bwd.launches = 0
+fused_mha_bwd.bodies = set()
 fused_mha_bwd_dbias.launches = 0
+fused_mha_bwd_dbias.bodies = set()
 fused_mha_proj.launches = 0
 fused_mha_proj_bwd.launches = 0
+fused_mha_proj_bwd.bodies = set()
 fused_mha_proj_band.launches = 0
 fused_mha_proj_band_bwd.launches = 0
+fused_mha_proj_band_bwd.bodies = set()

@@ -3,14 +3,17 @@ of their tiling, against the plain version on the card: every T the tiles
 pad to a multiple of 16 (1 ... 128) against every dh they pad likewise (16
 ... 1024), the forward in bf16 and in float32 (3xTF32) with the key mask (a
 row whose keys are all masked), a bias per row and head, a bias shared by
-the heads and dropout, and the bf16 backward; the dropout mask at a T that
-is no multiple of 16 (the bits of ops/dropout.py, forward and backward, in
-both dtypes); and the dbias edition, the same bits on two runs, with its
-sum in registers (T <= 64) and in shared memory (T > 64). A shape whose
-tiles do not fit a block's shared memory raises and launches nothing; in
-float32 every (T, dh) the scalar forward it replaced launched still
-launches. Every test needs an NVIDIA GPU and skips without one. On the
-card (no jax there, so without the repo's conftest):
+the heads and dropout, and the backward in both dtypes with the key mask
+and with a bias shared by the heads under dropout; the dropout mask at a T
+that is no multiple of 16 (the bits of ops/dropout.py, forward and
+backward, in both dtypes); and the dbias edition in both dtypes, the same
+bits on two runs, with its sum in registers (T <= 64) and in shared memory
+(T > 64). A shape whose tiles do not fit a block's shared memory raises
+and launches nothing; in float32 every (T, dh) the scalar bodies the
+tensor-core ones replaced launched still launches (forward:
+_scalar_fwd_fits; backward: SCALAR_BWD_SHAPES). Every test needs an NVIDIA
+GPU and skips without one. On the card (no jax there, so without the
+repo's conftest):
 
     python -m pytest tests/test_torch_mha_tiles.py -q --noconftest
 
@@ -26,8 +29,8 @@ import torch
 from idvs.morec_tpu_torch.ops import dropout
 from idvs.morec_tpu_torch.ops.cuda import lib
 from idvs.morec_tpu_torch.ops.cuda.attention import (
-    BWD, FWD, SMEM, fused_mha, fused_mha_bwd, fused_mha_bwd_dbias,
-    fused_mha_plain, mha_smem)
+    BWD, BWD_BODIES, DBIAS, FWD, SMEM, fused_mha, fused_mha_bwd,
+    fused_mha_bwd_dbias, fused_mha_plain, mha_smem)
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +71,16 @@ def _scalar_fwd_fits(T, dh):
     """The float32 forward this body replaced held q, k, v at (dh + 1)
     floats a row and the (T, T + 1) scores in one block's shared memory."""
     return 4 * (3 * T * (dh + 1) + T * (T + 1)) <= SMEM
+
+
+# The (T, dh) of the grid that the scalar float32 backward launched: it held
+# q, k, v and dout at (dh + 1) floats a row and two (T, T + 1) planes in one
+# block's shared memory (its dbias edition one (T, T) plane more).
+SCALAR_BWD_SHAPES = [(T, dh) for T in TS for dh in DHS
+                     if 4 * (4 * T * (dh + 1) + 2 * T * (T + 1)) <= SMEM]
+SCALAR_DBIAS_SHAPES = [(T, dh) for T, dh in SCALAR_BWD_SHAPES
+                       if 4 * (4 * T * (dh + 1) + 2 * T * (T + 1) + T * T)
+                       <= SMEM]
 
 
 def _grads(fn, qkv, dout, *more):
@@ -124,29 +137,44 @@ def test_forward_tiles(dtype, T, dh):
 
 @pytest.mark.parametrize("dh", DHS)
 @pytest.mark.parametrize("T", TS)
-def test_backward_tiles(T, dh):
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_backward_tiles(dtype, T, dh):
+    """The key mask (row 0 all masked), then one (T, T) plane shared by
+    every row and head under dropout 0.1."""
     B, nh = 3, 2
     rng = np.random.default_rng(2000 * T + dh)
-    qkv = _rand(rng, B, T, 3 * nh * dh)
-    dout = _rand(rng, B, T, nh * dh)
+    qkv = _rand(rng, B, T, 3 * nh * dh, dtype=dtype)
+    dout = _rand(rng, B, T, nh * dh, dtype=dtype)
     mask = _key_mask(rng, B, T)
-    kern = lambda q: fused_mha(q, mask, n_heads=nh)
+    shared = _rand(rng, 1, 1, T, T, scale=0.5, dtype=F32)
+    calls = (dict(mask=mask),
+             dict(bias=shared, drop_rate=0.1, seed=T + dh))
     before = fused_mha_bwd.launches
-    if not _fits(T, dh, FWD):
+    if not (_fits(T, dh, FWD, dtype) and _fits(T, dh, BWD, dtype)):
+        assert dtype == BF16 or (T, dh) not in SCALAR_BWD_SHAPES
         with pytest.raises(ValueError):
-            _grads(kern, qkv, dout)
+            _grads(lambda q: fused_mha(q, mask, n_heads=nh), qkv, dout)
         assert fused_mha_bwd.launches == before
         return
-    if not _fits(T, dh, BWD):
-        with pytest.raises(ValueError):
-            _grads(kern, qkv, dout)
-        assert fused_mha_bwd.launches == before
-        return
-    out_k, got = _grads(kern, qkv, dout)
-    assert fused_mha_bwd.launches == before + 1
-    out_p, want = _grads(lambda q: fused_mha_plain(q, mask, n_heads=nh),
-                         qkv, dout)
-    _assert_grads_close((out_k, *got), (out_p, *want))
+    for kw in calls:
+        out_k, got = _grads(lambda q: fused_mha(q, n_heads=nh, **kw), qkv,
+                            dout)
+        out_p, want = _grads(lambda q: fused_mha_plain(q, n_heads=nh, **kw),
+                             qkv, dout)
+        _assert_grads_close((out_k, *got), (out_p, *want),
+                            DTYPE_GRAD_TOL[dtype])
+    assert fused_mha_bwd.launches == before + len(calls)
+    if dtype == F32:
+        assert BWD_BODIES[F32] in fused_mha_bwd.bodies
+
+
+@pytest.mark.parametrize("edition", [BWD, DBIAS])
+def test_float32_backward_launches_where_the_scalar_body_did(edition):
+    """Every (T, dh) of the grid that the scalar float32 backward (and its
+    dbias edition) launched fits the tensor-core body."""
+    shapes = SCALAR_BWD_SHAPES if edition == BWD else SCALAR_DBIAS_SHAPES
+    assert {(30, 64), (30, 256), (10, 1024), (49, 32)} <= set(shapes)
+    assert [s for s in shapes if not _fits(*s, edition, F32)] == []
 
 
 @pytest.mark.parametrize("T", [10, 17, 49])
@@ -201,29 +229,31 @@ def test_dropout_bits_match_the_plain_mask(dtype, T):
     _assert_grads_close((out, dqkv), (out_p, *want), DTYPE_GRAD_TOL[dtype])
 
 
-def _dbias_inputs(rng, B, P, heads, nh, T, dh):
-    qkv = _rand(rng, B, T, 3 * nh * dh)
+def _dbias_inputs(rng, B, P, heads, nh, T, dh, dtype=BF16):
+    qkv = _rand(rng, B, T, 3 * nh * dh, dtype=dtype)
     # Swin's relative-position table plus a shift mask's -100 on some pairs
     bias = _rand(rng, P, heads, T, T, scale=0.5, dtype=torch.float32) - (
         100.0 * torch.from_numpy((rng.uniform(size=(P, 1, T, T)) < 0.2)
                                  .astype(np.float32)).cuda())
-    return qkv, bias, _rand(rng, B, T, nh * dh)
+    return qkv, bias, _rand(rng, B, T, nh * dh, dtype=dtype)
 
 
+@pytest.mark.parametrize("dtype", [BF16, F32])
 @pytest.mark.parametrize("drop", [0.0, 0.1])
 @pytest.mark.parametrize("B,P,heads,nh,T,dh", [
     (256, 1, 3, 3, 49, 32),     # Swin-T stage 0, unshifted: P = 1
     (256, 64, 3, 3, 49, 32),    # shifted: a bias per window, P = nW
     (40, 4, 1, 3, 49, 32),      # one plane shared by the heads
     (12, 3, 2, 2, 65, 32),      # above T = 64: the sum in shared memory
-    (8, 2, 2, 2, 128, 16),
+    (8, 2, 2, 2, 128, 16),      # float32: ds and pd staged in turn
     (6, 2, 2, 2, 30, 256)])     # wide heads: four warps a tile
-def test_dbias_edition_same_bits_on_two_runs(B, P, heads, nh, T, dh, drop):
+def test_dbias_edition_same_bits_on_two_runs(B, P, heads, nh, T, dh, drop,
+                                             dtype):
     """dqkv and dbias of the dbias edition against autograd of the plain
     version, and bit-equal on a second run (a fixed-order sum, no
     atomics)."""
     rng = np.random.default_rng(B + P + T)
-    qkv, bias, dout = _dbias_inputs(rng, B, P, heads, nh, T, dh)
+    qkv, bias, dout = _dbias_inputs(rng, B, P, heads, nh, T, dh, dtype)
     kern = lambda q, b: fused_mha(q, bias=b, n_heads=nh, drop_rate=drop,
                                   seed=5)
     before = (fused_mha_bwd.launches, fused_mha_bwd_dbias.launches)
@@ -233,7 +263,8 @@ def test_dbias_edition_same_bits_on_two_runs(B, P, heads, nh, T, dh, drop):
     assert got[1].shape == bias.shape and got[1].dtype == torch.float32
     out_p, want = _grads(lambda q, b: fused_mha_plain(
         q, bias=b, n_heads=nh, drop_rate=drop, seed=5), qkv, dout, bias)
-    _assert_grads_close((out_k, *got), (out_p, *want))
+    _assert_grads_close((out_k, *got), (out_p, *want), DTYPE_GRAD_TOL[dtype])
+    assert BWD_BODIES[dtype] in fused_mha_bwd_dbias.bodies
     again = _grads(kern, qkv, dout, bias)[1]
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))

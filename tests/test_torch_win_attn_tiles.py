@@ -18,10 +18,12 @@ against the plain version (bf16: one or two units of 2^-7 relative after
 the casts of qkv, the probabilities and the context; float32: sums in
 other orders).
 
-Backward, bf16 (fused_mha.cu's tensor-core backward shared through
-csrc/mha_mma.cuh) and float32: both layouts, one bias (P = 1) and a bias
-per window (P = nW) under the shift mask, at the four Swin-T stages'
-geometries for two images, and heads of 4 to 128 columns; dx, dbias and the
+Backward (fused_mha.cu's tensor-core backward shared through
+csrc/mha_mma.cuh, bf16 on m16n8k16 and float32 as 3xTF32): both layouts,
+one bias (P = 1) and a bias per window (P = nW) under the shift mask, at
+the four Swin-T stages' geometries for two images, and heads of 4 to 128
+columns in both dtypes (float32 at dh = 4, which its forward takes in no
+head group, through the backward's wrapper alone); dx, dbias and the
 four weights' gradients against autograd of the plain version at
 chip_smoke.py's GRAD_TOL (max abs error over max(1, the largest plain
 value)); dbias and dx the same bits on two runs; and the band layout's
@@ -38,7 +40,7 @@ import torch
 from idvs.morec_tpu_torch.models.swin import _shift_mask
 from idvs.morec_tpu_torch.ops.cuda import attention, lib
 from idvs.morec_tpu_torch.ops.cuda.attention import (
-    LINEAR_WIDTHS, fused_mha_proj, fused_mha_proj_band,
+    BWD_BODIES, LINEAR_WIDTHS, fused_mha_proj, fused_mha_proj_band,
     fused_mha_proj_band_bwd, fused_mha_proj_band_plain, fused_mha_proj_bwd,
     fused_mha_proj_plain, win_attn_plan)
 
@@ -174,10 +176,11 @@ def _grads(fn, inputs, dout):
     return (out, *torch.autograd.grad(out, leaves, dout))
 
 
-def _close_grads(got, want, dtype):
+def _close_grads(got, want, dtype,
+                 names=("out", "dx", "dbias", "dwqkv", "dbqkv", "dwo",
+                        "dbo")):
     torch.cuda.synchronize()
-    for name, a, b in zip(("out", "dx", "dbias", "dwqkv", "dbqkv", "dwo",
-                           "dbo"), got, want):
+    for name, a, b in zip(names, got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert torch.isfinite(a).all(), name
         err = (a.float() - b.float()).abs().max().item()
@@ -212,16 +215,16 @@ def test_band_backward_at_the_swin_stages(C, nh, side, shifted, dtype):
     assert fused_mha_proj_band_bwd.launches == before + 1
 
 
-@pytest.mark.parametrize("C,nh,dtype", [
-    (96, 24, BF16), (96, 8, BF16), (192, 8, BF16), (96, 3, BF16),
-    (384, 8, BF16), (128, 2, BF16), (384, 3, BF16), (96, 8, torch.float32),
-    (96, 3, torch.float32), (384, 3, torch.float32)])
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("C,nh", [(96, 24), (96, 8), (192, 8), (96, 3),
+                                  (384, 8), (128, 2), (384, 3)])
 def test_window_backward_at_every_head_width(C, nh, dtype):
     """The window layout with a bias per window (P = B / 2 of B = 2P
     windows), heads of dh = 4, 12, 24, 32, 48, 64 and 128 columns: no
     whole 16-byte pieces, zero-filled to 16s, one or more 16-column
-    steps; float32 where its forward takes the heads (a head group of 32
-    or more columns)."""
+    steps. The float32 forward takes head groups of 32 or more columns of
+    at most 4 heads, none at dh = 4: there the backward's wrapper runs
+    alone on the forward's operands."""
     gen = torch.Generator(device="cuda").manual_seed(C * nh)
     B, P = 10, 5
     x = torch.randn(B, 49, C, generator=gen, device="cuda").to(dtype)
@@ -231,9 +234,17 @@ def test_window_backward_at_every_head_width(C, nh, dtype):
     kern = lambda *a: fused_mha_proj(*a, n_heads=nh)
     plain = lambda *a: fused_mha_proj_plain(*a, n_heads=nh)
     before = fused_mha_proj_bwd.launches
-    _close_grads(_grads(kern, inputs, dout), _grads(plain, inputs, dout),
-                 dtype)
+    want = _grads(plain, inputs, dout)
+    if dtype == torch.float32 and 4 * (C // nh) < 32:
+        ws = [t.to(dtype).contiguous() for t in inputs[2:5]]
+        got = fused_mha_proj_bwd(x, bias.float().contiguous(), dout, *ws,
+                                 n_heads=nh, code=lib.DTYPE_CODES[dtype])
+        _close_grads(got, want[1:], dtype, names=(
+            "dx", "dbias", "dwqkv", "dbqkv", "dwo", "dbo"))
+    else:
+        _close_grads(_grads(kern, inputs, dout), want, dtype)
     assert fused_mha_proj_bwd.launches == before + 1
+    assert BWD_BODIES[dtype] in fused_mha_proj_bwd.bodies
 
 
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
