@@ -64,7 +64,10 @@ each fatal on failure:
    launches a step too);
 7. gradient check: one float32 step without dropout on 8 users, on the card
    and through the plain path on a CPU copy of the model: the loss and
-   every parameter's gradient agree;
+   every parameter's gradient agree, the columns of SASRec's ReLU units
+   whose pre-activation sits within 10x the two paths' difference of 0
+   left out (at most 1 % of a block's units), as phase 12 does, and so
+   every float32 gradient check of a model with SASRec (phases 14, 20-25);
 8. vision kernels: the windowed attention (band layout with one bias and
    with a bias per window, window layout) and the pre-LN MLP (with and
    without its LayerNorm, with the residual, unit and scaled) against their
@@ -242,7 +245,26 @@ each fatal on failure:
     p50, peak memory, launches with scatter_add_rows, the float32 gradient
     check), then train_swin_tiny_add.py's vision step at B 16 (Swin-T bf16
     beside an ID table, SASRec D 512): 3 steps on one batch, every vision
-    step kernel launched, and a float32 gradient check on 2 users.
+    step kernel launched, and a float32 gradient check on 2 users;
+24. accumulation (after phase 7): the text flagship's bf16 step with
+    accumulation_step 2, one warm window, then the counters set to 0 and
+    four micro-steps on the training phase's batches: the parameters keep their bits after
+    micro-steps 1 and 3, and after 2 and 4 are the bits torch.optim.AdamW
+    makes on the card from the window's mean gradient; the micro-steps'
+    times; then a float32 window of two micro-steps (4 users each) against
+    the CPU plain path (the mean gradient, phase 7's rule);
+25. special (after phase 19): cold and new-item evaluation of the runner's
+    trained text and vision MoRec (its in-batch CE parts' checkpoints, at
+    the flagship widths), the counters set to 0: text through
+    Trainer.test() (256 cold users, 256 new users whose targets are 64 new
+    titles in TEXT/news.tsv that no behaviour holds), vision through the
+    CLI (--mode test; 96 and 96 users, 16 new images in a second MKV store,
+    --new_image_store); every kernel of each evaluation launched inside
+    it; cold and new users/s and the new-item encode's items/s; then the
+    same evaluation in float32 on the card and on a CPU copy through the
+    plain versions (the card's table, 8 of its vision rows re-encoded on
+    the CPU): the new items' embeddings within TABLE_TOL / V_TABLE_TOL,
+    HR@10 as hit counts within two users.
 
 Prints each phase's seconds and a JSON line of per-kernel results (launches
 on the main paths, in all and by path: text serving, training, BCE and
@@ -250,7 +272,8 @@ DSSM training, the two-stage caches (2E), the two-stage text and vision
 steps (2T, 2V), the fusion text and vision steps (FT, FV), vision
 serving, the "windows" sub-catalog, vision
 training, the "windows" train step, the vision dropout step, the
-use_pallas steps, the data-parallel steps, the runner; error
+use_pallas steps, the data-parallel steps, the runner, the accumulated
+micro-steps, the cold and new-item evaluations; error
 and time against the plain version, the least time the card could take for
 the same work (float32 rows that launched gemm.cu, whose products run as
 3xTF32, at that rate, 165 TFLOP/s), the time of the one PyTorch call that
@@ -285,6 +308,7 @@ import json
 import logging
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -352,9 +376,10 @@ from idvs.morec_tpu_torch.ops.losses import inbatch_ce_candidates
 from idvs.morec_tpu_torch.ops.masking import causal_additive_mask
 from idvs.morec_tpu_torch.parallel import mesh
 from idvs.morec_tpu_torch.serve import Retriever
-from idvs.morec_tpu_torch.train import runner
+from idvs.morec_tpu_torch.train import runner, special_eval
 from idvs.morec_tpu_torch.train.evaluate import eval_mode
-from idvs.morec_tpu_torch.train.state import make_train_state, param_labels
+from idvs.morec_tpu_torch.train.state import (make_optimizer,
+                                              make_train_state, param_labels)
 from idvs.morec_tpu_torch.train.step import dedup_pack, make_train_step
 
 SEED = 0
@@ -371,6 +396,9 @@ TRAIN_B, ZIPF_A = 128, 1.2  # users a step, Zipf exponent of the item ids
 LR, FT_LR, DROP = 1e-4, 5e-5, 0.1
 FIXED_STEPS, TIMED_STEPS = 20, 10
 CHECK_USERS = 8             # users of the float32 gradient check
+# gradient accumulation: the text step's accumulation_step, and its
+# micro-steps on the card (two windows)
+ACC_STEPS, ACC_MICRO = 2, 4
 PROFILE_STEPS, PROFILE_ROWS = 5, 12   # --profile: steps traced, rows shown
 # --profile: kernels shown even outside the top rows: fused_mha's, and the
 # pre-LN MLP backward's on its three routes (premlp_bwd.cu,
@@ -1645,13 +1673,21 @@ def train_path(dev, card: str, content, batches, cap: int):
     return model, launched, (losses[0], p50)
 
 
+def sasrec_blocks(model) -> int:
+    """The model's SASRec blocks (a DSSM user tower has none)."""
+    return model.user_encoder.n_layers if model.user_tower == "sasrec" else 0
+
+
 def card_and_plain(dev, model, cfg, content, batch_of,
                    log_pop: bool = True) -> list:
     """One float32 step of ``cfg`` without dropout (eval mode) on the card
     through the kernels, and on a CPU copy of the model through the plain
-    versions: [(loss, seconds, gradients, launches)] of the card's run,
-    then the CPU's. batch_of(device) builds the step's batch there; content
-    None where it travels with the batch."""
+    versions: [(loss, seconds, gradients, launches, SASRec ReLU inputs,
+    SASRec blocks)] of the card's run, then the CPU's. batch_of(device)
+    builds the step's batch there, or a list of batches, one a micro-step
+    of an accumulation window (``cfg.accumulation_step`` of them: the
+    gradients are then the window's mean, the loss the last micro-step's);
+    content None where it travels with the batch."""
     runs = []
     for where in (dev, torch.device("cpu")):
         m = copy.deepcopy(model).to(where)
@@ -1660,13 +1696,19 @@ def card_and_plain(dev, model, cfg, content, batch_of,
         step = make_train_step(
             cfg, item_content=None if content is None else content.to(where),
             log_pop=log_popularity(where) if log_pop else None)
+        batches = batch_of(where)
+        batches = batches if isinstance(batches, list) else [batches]
         before = counts()
+        relu_in = []
         t0 = time.perf_counter()
-        loss = step(state, batch_of(where)).item()
+        with relu_inputs(relu_in):
+            for b in batches:
+                loss = step(state, b).item()
         runs.append((loss, time.perf_counter() - t0,
                      {n: p.grad.detach().cpu()
                       for n, p in m.named_parameters()},
-                     {n: c - before[n] for n, c in counts().items()}))
+                     {n: c - before[n] for n, c in counts().items()},
+                     relu_in, sasrec_blocks(m)))
         del m, state
     return runs
 
@@ -1674,14 +1716,22 @@ def card_and_plain(dev, model, cfg, content, batch_of,
 def same_step(runs: list, what: str, grad_tol: float = STEP_GRAD_TOL
               ) -> None:
     """The card's loss and every gradient against the CPU plain path's,
-    within STEP_LOSS_TOL and grad_tol (GRAD_FLOOR's scale)."""
-    (lk, sk, gk, _), (lp, sp, gp, _) = runs
+    within STEP_LOSS_TOL and grad_tol (GRAD_FLOOR's scale); with SASRec,
+    the columns of its ReLU units at the kink left out (V_KINK, as the
+    vision checks do; kink_units)."""
+    (lk, sk, gk, _, hk, blocks), (lp, sp, gp, _, hp, _) = runs
     loss_err = abs(lk - lp) / abs(lp)
     top = max(want.abs().max().item() for want in gp.values())
+    kinks, kink_note = kink_units(hk, hp, blocks) if blocks else ({}, None)
     worst, worst_name = (-1.0, 0.0, 0.0), None
+    raw = (-1.0, None)
     for n, want in gp.items():
         scale = max(want.abs().max().item(), GRAD_FLOOR * top)
-        err = (gk[n] - want).abs().max().item()
+        diff = (gk[n] - want).abs()
+        raw = max(raw, (diff.max().item() / scale, n))
+        if n in kinks:
+            diff = diff[..., ~kinks[n]]
+        err = diff.max().item() if diff.numel() else 0.0
         if err / scale >= worst[0]:
             worst, worst_name = (err / scale, err, scale), n
     print(f"{what}, card {sk:.2f} s vs CPU plain path {sp:.2f} s: loss "
@@ -1690,6 +1740,9 @@ def same_step(runs: list, what: str, grad_tol: float = STEP_GRAD_TOL
           f"scale of {worst[2]:.3e} in {worst_name} (tol {grad_tol:g} "
           f"of the scale; largest gradient {top:.3e}) over {len(gp)} "
           f"parameters", flush=True)
+    if kink_note:
+        print(f"{what}: {kink_note}; with their columns the largest error "
+              f"is {raw[0]:.3e} of the scale in {raw[1]}", flush=True)
     require(math.isfinite(loss_err) and loss_err <= STEP_LOSS_TOL,
             f"{what}: the loss disagrees with the plain path")
     require(worst[0] <= grad_tol,
@@ -1715,6 +1768,81 @@ def grad_check(dev, model, content, batch, pallas: bool = False) -> None:
                     f"{n} not launched once by the use_pallas step")
     same_step(runs, f"gradient check{' [use_pallas]' if pallas else ''}: "
                     f"f32 step on {CHECK_USERS} users ({cap} titles)")
+
+
+def accumulation_path(dev, card: str, content, batches, cap: int) -> dict:
+    """The text flagship's bf16 train step (dropout, dedup) with
+    accumulation_step ACC_STEPS: one window on batches[0] to warm up (a
+    fresh model's first steps allocate), then, the counters set to 0,
+    ACC_MICRO timed micro-steps on distinct batches: after a micro-step
+    that ends no window every parameter keeps its bits; after one that
+    ends a window every parameter is the bits torch.optim.AdamW makes on
+    the card from the window's mean gradient (a twin optimizer over a copy
+    of the parameters and of the optimizer's state, in step with it). Then the float32 gradient
+    check of one window of two micro-steps, CHECK_USERS / 2 users each
+    (the rows of phase 7's check, so as many SASRec ReLU units may sit at
+    the kink), against the CPU plain path (the mean gradient; same_step's
+    rule).
+    Returns the launches of the bf16 micro-steps."""
+    cfg = train_config(cap)
+    cfg.accumulation_step = ACC_STEPS
+    model = build_model(dev, cfg, seed=SEED + 3)
+    labels = param_labels(model)
+    state = make_train_state(model, cfg, labels, seed=SEED)
+    step = make_train_step(cfg, item_content=content,
+                           log_pop=log_popularity(dev))
+    for _ in range(ACC_STEPS):
+        step(state, device_batch(*batches[0], cap, dev))
+    twin = copy.deepcopy(model)
+    twin_opt = make_optimizer(cfg, twin, labels)
+    # a copy: loading keeps the tensors it is given, and both step them
+    twin_opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    params = dict(model.named_parameters())
+    twins = dict(twin.named_parameters())
+    reset_counts()
+    walls, losses = [], []
+    for i, (ids, lm) in enumerate(batches[1:ACC_MICRO + 1]):
+        before = {n: p.detach().clone() for n, p in params.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, device_batch(ids, lm, cap, dev)).item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+        require(math.isfinite(losses[-1]), "an accumulation loss is not "
+                "finite")
+        if (i + 1) % ACC_STEPS:
+            moved = [n for n, p in params.items()
+                     if not torch.equal(p, before[n])]
+            require(not moved, f"accumulation micro-step {i + 1} moved "
+                    f"{moved[:3]}")
+            continue
+        for n, p in twins.items():
+            p.grad = params[n].grad
+        twin_opt.step()
+        off = [n for n, p in params.items() if not torch.equal(p, twins[n])]
+        require(not off, f"accumulation micro-step {i + 1}: the update of "
+                f"{off[:3]} is not AdamW's on the window's mean gradient")
+    launched = counts()
+    print(f"accumulation: text step B={TRAIN_B} L={L} bf16, dropout {DROP}, "
+          f"dedup cap {cap}, accumulation_step {ACC_STEPS}: {ACC_MICRO} "
+          f"micro-steps, ms " + ", ".join(f"{w:.3f}" for w in walls)
+          + f" (mean {statistics.mean(walls):.3f}); losses "
+          + ", ".join(f"{x:.5f}" for x in losses) + "; parameters the same "
+          f"bits after micro-steps 1 and 3, AdamW's bits on the mean "
+          f"gradient after 2 and 4 [{card}]", flush=True)
+    require_launched(launched, TRAIN_KERNELS, "accumulation")
+    del twin, twin_opt
+    ids, lm = batches[0]
+    half = CHECK_USERS // 2
+    halves = [(ids[i:i + half], lm[i:i + half]) for i in (0, half)]
+    ccap = -(-max(len(np.unique(h[0])) for h in halves) // 8) * 8
+    ccfg = train_config(ccap, "float32")
+    ccfg.accumulation_step = len(halves)
+    same_step(card_and_plain(
+        dev, model, ccfg, content,
+        lambda where: [device_batch(i, m, ccap, where) for i, m in halves]),
+        f"accumulation gradient check: f32 window of {len(halves)} "
+        f"micro-steps on {half} users each ({ccap} titles)")
+    return launched
 
 
 def bce_batches(rng, batches) -> list:
@@ -3256,7 +3384,7 @@ def vision_grad_check(dev, card: str, pool: np.ndarray,
     for kernels in selections:
         lk, sk, gk, hk = runs[kernels]
         loss_err = abs(lk - lp) / abs(lp)
-        kinks, kink_note = kink_units(hk, hp)
+        kinks, kink_note = kink_units(hk, hp, sasrec_blocks(model))
         worst, table, worst_name = (-1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), None
         raw = (-1.0, None)
         for n, want in gp.items():
@@ -3316,25 +3444,35 @@ def relu_inputs(record: list):
         sasrec.fused_mlp_resln = inner
 
 
-def kink_units(card: list, plain: list) -> tuple:
-    """The SASRec ReLU units at the kink (see V_KINK): {name of a w_1 weight
-    or bias: bool mask over its output units}, and a line that says how
-    many there are."""
-    require(len(card) == len(plain) == BLOCKS,
-            f"{len(card)} and {len(plain)} SASRec FFNs recorded, not {BLOCKS}")
-    kinks, notes = {}, []
+def kink_units(card: list, plain: list, blocks: int) -> tuple:
+    """The ReLU units at the kink (see V_KINK) of a model's `blocks` SASRec
+    blocks, from the FFN inputs that relu_inputs recorded on each side (in
+    block order, `blocks` of them a step; a unit at the kink in any step
+    counts): {name of a w_1 weight or bias: bool mask over its output
+    units}, and a line that says how many there are."""
+    require(len(card) == len(plain) and len(card) % blocks == 0
+            and len(card) > 0,
+            f"{len(card)} and {len(plain)} SASRec FFNs recorded, not a "
+            f"multiple of the model's {blocks} blocks")
+    units, margins, flips = [None] * blocks, [0.0] * blocks, [0] * blocks
     for i, (hk, hp) in enumerate(zip(card, plain)):
+        b = i % blocks
         margin = V_KINK * (hk - hp).abs().max().item()
-        units = (hp.abs() <= margin).any(0)
-        flips = ((hk > 0) != (hp > 0)).sum().item()
-        require(units.float().mean().item() <= V_KINK_SHARE,
-                f"SASRec block {i}: {int(units.sum())} of {units.numel()} "
-                f"ReLU units within {margin:.2e} of the kink")
+        near = (hp.abs() <= margin).any(0)
+        units[b] = near if units[b] is None else units[b] | near
+        margins[b] = max(margins[b], margin)
+        flips[b] += ((hk > 0) != (hp > 0)).sum().item()
+    kinks, notes = {}, []
+    for b in range(blocks):
+        require(units[b].float().mean().item() <= V_KINK_SHARE,
+                f"SASRec block {b}: {int(units[b].sum())} of "
+                f"{units[b].numel()} ReLU units within {margins[b]:.2e} of "
+                f"the kink")
         for p in ("weight", "bias"):
-            kinks[f"user_encoder.block_{i}.w_1.{p}"] = units
-        notes.append(f"block {i}: {int(units.sum())} of {units.numel()} "
-                     f"within {margin:.2e} ({flips} pre-activations of "
-                     f"opposite signs)")
+            kinks[f"user_encoder.block_{b}.w_1.{p}"] = units[b]
+        notes.append(f"block {b}: {int(units[b].sum())} of "
+                     f"{units[b].numel()} within {margins[b]:.2e} "
+                     f"({flips[b]} pre-activations of opposite signs)")
     return kinks, ("SASRec ReLU units left out at the kink: "
                    + "; ".join(notes))
 
@@ -3883,6 +4021,12 @@ RT_DSSM_STEPS = -(-RT_USERS // TRAIN_B)
 # batch's every item, encoded in chunks of V_CAP_QUANTUM
 RV_ITEMS, RV_SIDE, RV_GROUP, RV_USERS, RV_EPOCHS = 512, 256, 32, 384, 2
 RV_CAP = 6 * V_CAP_QUANTUM
+# the special phase (cold and new users of the runner's text and vision
+# parts): text cold and new users and new titles; vision cold and new
+# users and new images (a second MKV store); vision catalog rows
+# re-encoded on the CPU
+RS_USERS, RS_NEW = 256, 64
+RSV_USERS, RSV_NEW, RS_SUB = 96, 16, 8
 # the kernels each part must launch, in its training and in its evaluation
 RUNNER_EVAL_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln",
                        "gemm")
@@ -4117,6 +4261,35 @@ def cut_epochs(tr, steps: int) -> None:
     tr.batcher.epoch = lambda e: itertools.islice(epoch(e), steps)
 
 
+def text_trainer(dev, variant: str = "", **kw):
+    """The text part's Trainer, data loaded and model built: the flagship
+    widths with R_TEXT_VARIANTS[variant]'s flags and ``kw``, BERT-small
+    from its config (random weights), the word tokenizer."""
+    cfg = {**dict(root_data_dir="./", dataset="TEXT", news="news.tsv",
+                  behaviors="behaviors.tsv", item_tower="modal",
+                  bert_model_load="bert_small", max_seq_len=L,
+                  embedding_dim=D, num_attention_heads=USER_HEADS,
+                  transformer_block=BLOCKS, batch_size=TRAIN_B, lr=LR,
+                  fine_tune_lr=FT_LR, drop_rate=DROP, dedup_items=True,
+                  use_pallas=not variant, num_words_title=TITLE_LEN,
+                  item_emb_batch_size=ENCODE_BATCH, epoch=1),
+           **R_TEXT_VARIANTS[variant], **kw}
+    bcfg = BertConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
+                      num_hidden_layers=LAYERS, num_attention_heads=HEADS,
+                      intermediate_size=FFN, max_position_embeddings=512,
+                      hidden_dropout_prob=DROP,
+                      attention_probs_dropout_prob=DROP)
+    tower = TextTower(BertModel(bcfg, device=dev), embedding_dim=D,
+                      word_embedding_dim=HIDDEN, pooling="cls",
+                      attr_lengths=(TITLE_LEN,), device=dev)
+    tr = runner.Trainer(Config(**cfg), device=dev,
+                        encoder_bundle=(tower, None, set(), HIDDEN),
+                        tokenizer=WordTokenizer())
+    tr.load_data()
+    tr.build_model()
+    return tr
+
+
 def runner_text(dev, card: str, variant: str = "") -> dict:
     """Text MoRec at the flagship width through Trainer, with the flags of
     R_TEXT_VARIANTS[variant]: BERT-small from its config (random weights),
@@ -4127,30 +4300,9 @@ def runner_text(dev, card: str, variant: str = "") -> dict:
     bits. The fusion part ("CAT") also evaluates the untrained model."""
     what = f"text MoRec {variant}".strip()
     text_runner_data(np.random.default_rng(SEED + 20))
-    cfg = {**dict(root_data_dir="./", dataset="TEXT", news="news.tsv",
-                  behaviors="behaviors.tsv", item_tower="modal",
-                  bert_model_load="bert_small", max_seq_len=L,
-                  embedding_dim=D, num_attention_heads=USER_HEADS,
-                  transformer_block=BLOCKS, batch_size=TRAIN_B, lr=LR,
-                  fine_tune_lr=FT_LR, drop_rate=DROP, dedup_items=True,
-                  use_pallas=not variant, num_words_title=TITLE_LEN,
-                  item_emb_batch_size=ENCODE_BATCH, epoch=1),
-           **R_TEXT_VARIANTS[variant]}
 
     def trainer(**kw):
-        bcfg = BertConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
-                          num_hidden_layers=LAYERS, num_attention_heads=HEADS,
-                          intermediate_size=FFN, max_position_embeddings=512,
-                          hidden_dropout_prob=DROP,
-                          attention_probs_dropout_prob=DROP)
-        tower = TextTower(BertModel(bcfg, device=dev), embedding_dim=D,
-                          word_embedding_dim=HIDDEN, pooling="cls",
-                          attr_lengths=(TITLE_LEN,), device=dev)
-        tr = runner.Trainer(Config(**cfg, **kw), device=dev,
-                            encoder_bundle=(tower, None, set(), HIDDEN),
-                            tokenizer=WordTokenizer())
-        tr.load_data()
-        tr.build_model()
+        tr = text_trainer(dev, variant, **kw)
         if variant == "DSSM":
             cut_epochs(tr, RT_DSSM_STEPS)
         return tr
@@ -4212,6 +4364,23 @@ def set_swin_kernels(model, kernels: str) -> None:
             m.kernels = kernels
 
 
+def vision_runner_flags(variant: str = "") -> dict:
+    """The vision part's configuration, R_VARIANTS[variant]'s flags
+    added."""
+    return dict(root_data_dir="./", dataset="VISION", news="images.tsv",
+                behaviors="behaviors.tsv", image_store="images.mkv",
+                image_resize=IMAGE, modality="vision", item_tower="modal",
+                cv_model_load="swin_tiny", max_seq_len=V_L,
+                embedding_dim=V_D, num_attention_heads=USER_HEADS,
+                transformer_block=BLOCKS, lr=V_LR, fine_tune_lr=V_FT_LR,
+                drop_rate=DROP, dedup_items=True, dedup_cap=RV_CAP,
+                encoder_chunk=V_CAP_QUANTUM,
+                item_emb_batch_size=ENCODE_BATCH,
+                epoch=1 if variant else RV_EPOCHS,
+                batch_size=RV_DSSM_B if variant == "DSSM" else V_TRAIN_B,
+                **R_VARIANTS[variant])
+
+
 def runner_vision(dev, card: str, variant: str = "") -> dict:
     """Vision MoRec through Trainer, with the flags of R_VARIANTS[variant]:
     Swin-T from its config (the CLI's load_encoder) under SASRec at V_D
@@ -4224,17 +4393,7 @@ def runner_vision(dev, card: str, variant: str = "") -> dict:
     that eval again with the "windows" kernel selection."""
     what = f"vision MoRec {variant}".strip()
     vision_runner_data(np.random.default_rng(SEED + 21))
-    cfg = dict(root_data_dir="./", dataset="VISION", news="images.tsv",
-               behaviors="behaviors.tsv", image_store="images.mkv",
-               image_resize=IMAGE, modality="vision", item_tower="modal",
-               cv_model_load="swin_tiny", max_seq_len=V_L,
-               embedding_dim=V_D, num_attention_heads=USER_HEADS,
-               transformer_block=BLOCKS, lr=V_LR, fine_tune_lr=V_FT_LR,
-               drop_rate=DROP, dedup_items=True, dedup_cap=RV_CAP,
-               encoder_chunk=V_CAP_QUANTUM, item_emb_batch_size=ENCODE_BATCH,
-               epoch=1 if variant else RV_EPOCHS,
-               batch_size=RV_DSSM_B if variant == "DSSM" else V_TRAIN_B,
-               **R_VARIANTS[variant])
+    cfg = vision_runner_flags(variant)
 
     def trainer(**kw):
         c = Config(**cfg, **kw)
@@ -4403,13 +4562,15 @@ def runner_two_stage_vision(dev, card: str) -> dict:
     return counts()
 
 
-def runner_path(dev, card: str) -> dict:
+def runner_path(dev, card: str, kept: dict) -> dict:
     """The runner phase, each part in a temporary directory (data, logs and
     checkpoints there): IDRec through the CLI, text and vision MoRec
     through Trainer, each with the in-batch CE, BCE and DSSM
     (R_VARIANTS); then text two-stage through Trainer, vision two-stage
-    through the CLI and text MoRec with the CAT fusion tower. Returns the
-    launches of all twelve."""
+    through the CLI and text MoRec with the CAT fusion tower. The text and
+    vision in-batch CE parts' directories stay, in kept["text"] and
+    kept["vision"], for the special phase; the caller removes them. Returns
+    the launches of all twelve."""
     launched = dict.fromkeys(WRAPPERS, 0)
     here = os.getcwd()
     parts = [(part, (variant,)) for part in (runner_idrec, runner_text,
@@ -4417,16 +4578,233 @@ def runner_path(dev, card: str) -> dict:
              for variant in R_VARIANTS]
     parts += [(runner_two_stage_text, ()), (runner_two_stage_vision, ()),
               (runner_text, ("CAT",))]
+    keep = {(runner_text, ("",)): "text", (runner_vision, ("",)): "vision"}
     for part, args in parts:
-        with tempfile.TemporaryDirectory() as tmp:
-            os.chdir(tmp)
-            try:
-                got = part(dev, card, *args)
-            finally:
-                os.chdir(here)
+        tmp = tempfile.mkdtemp()
+        os.chdir(tmp)
+        try:
+            got = part(dev, card, *args)
+        finally:
+            os.chdir(here)
+            if (part, args) in keep:
+                kept[keep[part, args]] = tmp
+            else:
+                shutil.rmtree(tmp)
         for n in launched:
             launched[n] += got[n]
         torch.cuda.empty_cache()
+    return launched
+
+
+@contextlib.contextmanager
+def special_watch(launched: dict, trainers: list):
+    """Counts into `launched` the launches inside every
+    Trainer.run_special_eval that runs in the block, and appends each
+    trainer that ran one to `trainers`."""
+    inner = runner.Trainer.run_special_eval
+
+    def counted(tr):
+        before = counts()
+        out = inner(tr)
+        for n, c in counts().items():
+            launched[n] += c - before[n]
+        trainers.append(tr)
+        return out
+
+    runner.Trainer.run_special_eval = counted
+    try:
+        yield
+    finally:
+        runner.Trainer.run_special_eval = inner
+
+
+def special_files(dataset: str, rng, users: int, n_new: int, keep: int,
+                  new_name) -> None:
+    """<dataset>/cold.tsv: the first `users` users' sequences (at most
+    `keep` items); <dataset>/new.tsv: the next `users` users' inputs (at
+    most keep - 1 items) and one of `n_new` new items, new_name(k) for k in
+    1..n_new, drawn for each."""
+    with open(f"{dataset}/behaviors.tsv") as f:
+        rows = [ln.split("\t")[1].split(" ") for ln in f.read().split("\n")
+                if ln]
+    require(len(rows) >= 2 * users, f"{dataset}: fewer than {2 * users} "
+            f"users")
+    with open(f"{dataset}/cold.tsv", "w") as f:
+        f.writelines(f"c{u}\t{' '.join(r[-keep:])}\n"
+                     for u, r in enumerate(rows[:users]))
+    with open(f"{dataset}/new.tsv", "w") as f:
+        f.writelines(
+            f"n{u}\t{' '.join(r[-keep:-1])} "
+            f"{new_name(int(rng.integers(1, n_new + 1)))}\n"
+            for u, r in enumerate(rows[users:2 * users]))
+
+
+def report_special(what: str, card: str, tr) -> None:
+    got = tr.special_results
+    for split in ("cold", "new"):
+        r = got[split]
+        print(f"special {what}: {split} HR@10 {r['hit']:.6f} nDCG@10 "
+              f"{r['ndcg']:.6f} over {r['users']} users in "
+              f"{r['seconds']:.3f} s, {r['users_per_s']:.1f} users/s "
+              f"[{card}]", flush=True)
+    r = got["new"]
+    print(f"special {what}: new-item encode {r['items']} items in "
+          f"{r['encode_s']:.3f} s, {r['items_per_s']:.1f} items/s [{card}]",
+          flush=True)
+
+
+def special_on_cpu(dev, tr, what: str, tol: float, sub: int = 0) -> None:
+    """The trainer's cold and new evaluation again on a CPU copy of its
+    model through the plain versions, in float32 on both sides (the card's
+    again where its run was bf16): the card's catalog table (its first
+    `sub` rows besides re-encoded on the CPU within `tol`), the new items'
+    embeddings within `tol`, the cold and new HR@10 as hit counts within
+    two users and nDCG@10 within 2 / users."""
+    cfg = tr.cfg
+    base = os.path.join(cfg.root_data_dir, cfg.dataset)
+    dic, n2i = tr._before_catalog(base)
+    sc, hc, sn, hn, new_content = runner.read_behaviors_special(
+        os.path.join(base, cfg.cold_behaviors),
+        os.path.join(base, cfg.new_behaviors), tr.bd.item_name_to_id, dic,
+        n2i, True)
+    content = tr._new_item_content(base, new_content)
+    images = cfg.modality == "vision"
+    fn = tr.vision_pipe.images_for if images else None
+    encoder = tr.model.encoder
+    dtype = encoder.compute_dtype if images else None
+    if images:
+        encoder.compute_dtype = None
+    try:
+        table = runner.compute_item_embeddings(
+            tr.model, tr.item_num, tr.item_content, cfg.embedding_dim,
+            cfg.item_emb_batch_size, content_fn=fn)
+        card_new = special_eval.encode_new_items(
+            tr.model, content, cfg.item_emb_batch_size, images)
+        card = (special_eval.eval_cold(tr.model, table, sc, hc,
+                                       cfg.max_seq_len, cfg.eval_batch_size,
+                                       per_user=True),
+                special_eval.eval_new(tr.model, table, card_new, sn, hn,
+                                      cfg.max_seq_len, cfg.eval_batch_size,
+                                      per_user=True))
+    finally:
+        if images:
+            encoder.compute_dtype = dtype
+    m = copy.deepcopy(tr.model).cpu()
+    if images:
+        m.encoder.compute_dtype = None
+    t0 = time.perf_counter()
+    table = table.cpu()
+    if sub:
+        ids = np.arange(sub)
+        with torch.no_grad(), eval_mode(m):
+            rows = m.item_embs(torch.from_numpy(ids),
+                               torch.from_numpy(fn(ids)))
+        err = (rows - table[:sub]).abs().max().item()
+        print(f"special {what}: the card's float32 table, rows 0-{sub - 1} "
+              f"re-encoded on the CPU: largest error {err:.3e} (tol "
+              f"{tol:g})", flush=True)
+        require(err <= tol, f"special {what}: the card's table disagrees "
+                f"with the plain path")
+    plain_new = special_eval.encode_new_items(m, content,
+                                              cfg.item_emb_batch_size, images)
+    err = (plain_new - card_new.cpu()).abs().max().item()
+    plain = (special_eval.eval_cold(m, table, sc, hc, cfg.max_seq_len,
+                                    cfg.eval_batch_size, per_user=True),
+             special_eval.eval_new(m, table, plain_new, sn, hn,
+                                   cfg.max_seq_len, cfg.eval_batch_size,
+                                   per_user=True))
+    print(f"special {what}: CPU plain path {time.perf_counter() - t0:.1f} s; "
+          f"the new items' embeddings, largest error {err:.3e} (tol "
+          f"{tol:g})", flush=True)
+    require(err <= tol, f"special {what}: the new items' embeddings "
+            f"disagree with the plain path")
+    for split, (hk, nk, hits_k, _), (hp, np_, hits_p, _) in zip(
+            ("cold", "new"), card, plain):
+        n = len(hits_p)
+        print(f"special {what}: {split} float32 HR@10 {hk:.6f} nDCG@10 "
+              f"{nk:.6f} on the card, {hp:.6f} {np_:.6f} on the CPU, "
+              f"{int((hits_k != hits_p).sum())} of {n} users' hits differ",
+              flush=True)
+        require(abs(round(hk * n) - round(hp * n)) <= 2
+                and abs(nk - np_) <= 2 / n,
+                f"special {what}: the {split} evaluation disagrees with "
+                f"the plain path")
+
+
+def special_path(dev, card: str, kept: dict) -> dict:
+    """Cold and new-item evaluation (ROADMAP A5) of the runner's trained
+    in-batch CE models at the flagship widths, in their directories
+    (runner_path's kept), the counters set to 0: text MoRec (BERT-small +
+    SASRec D 512, L 20) through Trainer.test() in test mode on the saved
+    epoch-1.pt, its RS_NEW new titles appended to TEXT/news.tsv, which no
+    behaviour holds; vision MoRec (Swin-T + SASRec D 2048, L 10) through
+    the CLI (--mode test on the best checkpoint), its RSV_NEW new images in
+    a second MKV store (--new_image_store) listed in their own manifest
+    (--new_items). Every kernel of the evaluation launched inside it (and
+    Swin's band-path forward ones for vision); users/s of each evaluation
+    and items/s of the new-item encode; each evaluation held against a CPU
+    copy (special_on_cpu). Returns the launches inside the two special
+    evaluations."""
+    launched, trainers = dict.fromkeys(WRAPPERS, 0), []
+    here = os.getcwd()
+    rng = np.random.default_rng(SEED + 50)
+    try:
+        os.chdir(kept["text"])
+        with open("TEXT/news.tsv", "a") as f:
+            f.writelines(f"i{ITEM_NUM + k}\t"
+                         + " ".join(f"w{w}" for w in rng.integers(
+                             1000, VOCAB, size=int(rng.integers(4, 20))))
+                         + "\tabstract\n" for k in range(1, RS_NEW + 1))
+        special_files("TEXT", rng, RS_USERS, RS_NEW, L + 1,
+                      lambda k: f"i{ITEM_NUM + k}")
+        te = text_trainer(dev, mode="test", load_ckpt_name="epoch-1.pt",
+                          cold_behaviors="cold.tsv", new_behaviors="new.tsv")
+        require(runner.get_checkpoint(te.model_dir, "epoch-1.pt"),
+                "special: the text part's epoch-1.pt is gone")
+        reset_counts()
+        with special_watch(launched, trainers):
+            te.test()
+        require(trainers == [te], "text: Trainer.test() ran no special eval")
+        text_launched = dict(launched)
+        report_special("text MoRec", card, te)
+        require_launched(text_launched, RUNNER_EVAL_KERNELS,
+                         "special text evaluation")
+        special_on_cpu(dev, te, "text MoRec", TABLE_TOL)
+        del te
+        torch.cuda.empty_cache()
+
+        os.chdir(kept["vision"])
+        keys = range(RV_ITEMS + 1, RV_ITEMS + RSV_NEW + 1)
+        write_mkv("VISION/new.mkv", (
+            (str(k).encode(), rng.integers(0, 256, (RV_SIDE, RV_SIDE, 3),
+                                           dtype=np.uint8)) for k in keys))
+        with open("VISION/all_images.tsv", "w") as f:
+            f.writelines(f"v{k}\tx\n" for k in range(1, keys[-1] + 1))
+        special_files("VISION", rng, RSV_USERS, RSV_NEW, V_L + 1,
+                      lambda k: f"v{RV_ITEMS + k}")
+        flags = {**vision_runner_flags(), "mode": "test",
+                 "load_ckpt_name": "latest", "cold_behaviors": "cold.tsv",
+                 "new_behaviors": "new.tsv", "new_items": "all_images.tsv",
+                 "new_image_store": "new.mkv"}
+        argv = [a for k, v in flags.items() for a in (f"--{k}", str(v))]
+        require(runner.latest_checkpoint(parse_args(argv).model_dir()),
+                "special: the vision part saved no checkpoint")
+        with special_watch(launched, trainers):
+            run.main(argv)
+        require(len(trainers) == 2, "vision: the CLI ran no special eval")
+        tv = trainers[-1]
+        vision_launched = {n: launched[n] - text_launched[n]
+                           for n in launched}
+        report_special("vision MoRec (CLI)", card, tv)
+        require_launched(vision_launched,
+                         VISION_ENCODE_KERNELS + RUNNER_EVAL_KERNELS,
+                         "special vision evaluation")
+        special_on_cpu(dev, tv, "vision MoRec", V_TABLE_TOL, RS_SUB)
+    finally:
+        os.chdir(here)
+        for d in kept.values():
+            shutil.rmtree(d, ignore_errors=True)
+    print(f"special launches {launched}", flush=True)
     return launched
 
 
@@ -4515,6 +4893,9 @@ def main() -> int:
         grad_check(dev, model, content, batches[0])
     del model
     torch.cuda.empty_cache()
+    with phase("accumulation"):
+        accumulated = accumulation_path(dev, card, content, batches, cap)
+    torch.cuda.empty_cache()
     with phase("bce"):
         bce = bce_path(dev, card, content, batches)
     torch.cuda.empty_cache()
@@ -4586,10 +4967,14 @@ def main() -> int:
     with phase("data-parallel"):
         parallel = dp_path(dev, card, content, batches, cap)
     torch.cuda.empty_cache()
+    kept = {}
     with phase("runner"):
-        ran = runner_path(dev, card)
+        ran = runner_path(dev, card, kept)
+    torch.cuda.empty_cache()
+    with phase("special"):
+        special = special_path(dev, card, kept)
 
-    # launches: every main path's count, each taken from 0; the seventeen
+    # launches: every main path's count, each taken from 0; the nineteen
     # keys after it say which path launched how many (2E: the two-stage
     # caches, text and vision; 2T / 2V: the two-stage steps; FT / FV: the
     # fusion steps)
@@ -4603,7 +4988,8 @@ def main() -> int:
              "launches_windows_train": vwindows,
              "launches_vision_dropout": vdropped,
              "launches_pallas_train": pallas, "launches_dp": parallel,
-             "launches_runner": ran}
+             "launches_runner": ran, "launches_accumulation": accumulated,
+             "launches_special": special}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": CSRC + SOURCES[n][0],
          "replaces": PALLAS + SOURCES[n][1],

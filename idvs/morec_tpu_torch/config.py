@@ -77,7 +77,7 @@ class Config:
     fine_tune_l2_weight: float = 0.0
     drop_rate: float = 0.1
     neg_num: int = 1                # DSSM negatives per positive
-    accumulation_step: int = 1      # gradient accumulation (reference declared, unused)
+    accumulation_step: int = 1      # gradient accumulation (train/state.py accumulate)
     seed: int = 12345
 
     # ---- model ----

@@ -131,8 +131,11 @@
 //   Where three planes do not fit (T 64 at dh 256), v is copied into q's
 //   plane after the scores. The backward copies the next tile's four
 //   planes once this tile is done. A tile takes at most 12 (forward) or 16
-//   (backward) (Dp + 8) bytes a token, which fits every (T, dh) of the
-//   tests' grid that the scalar float32 bodies these replaced took.
+//   (backward) (Dp + 8) bytes a token. Where the backward's four planes do
+//   not fit so (dh of 417 and more at T 16-33), it pads dh to 8 columns
+//   only, its rows 4 or 0 floats further apart, unswizzled (mha_mma.cuh
+//   kBwdLayouts): every (T, dh) that the scalar float32 bodies these
+//   replaced took launches, the widest heads with bank conflicts.
 #include "mha_mma.cuh"
 #include "reduce.cuh"
 

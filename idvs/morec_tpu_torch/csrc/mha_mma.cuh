@@ -660,8 +660,9 @@ __global__ void __launch_bounds__(32 * (RG > 4 ? RG : 4),
 // How a float32 launch is cut (choose_f32, the one place it is decided);
 // sizes in floats unless named bytes.
 struct F32Blocking {
-  int Tp, Dp;         // T rounded up to 16 (row groups), dh to 16 (k-steps)
-  int ld;             // row stride of a plane: Dp + 8, 8 mod 16 floats
+  int Tp, Dp;         // T rounded up to 16 (row groups), dh to 16 or 8 (k-steps)
+  int ld;             // row stride of a plane: Dp + 8, 8 mod 16 floats (or
+                      // kBwdLayouts' fallbacks: Dp + 4 or Dp)
   int RG, KS, warps;  // row groups of 16 query rows, splits of each, warps
   int planes;         // forward: 3 (q, k, v), or 2 (v into q's after the scores)
   int plane;          // floats of one [T][ld] plane (rows past T not kept)
@@ -671,6 +672,7 @@ struct F32Blocking {
   int staged;         // backward: staged_planes(RG, ctx)
   int region;         // backward: floats of v's plane, where ds and pd go
   int acc_smem;       // backward: the dbias sums in a shared (Tp, Tp) plane
+  int sw;             // backward: the q, k, dout and v planes' column swizzle
   size_t smem;        // dynamic shared memory of a block, bytes
 };
 
@@ -684,8 +686,8 @@ constexpr int kSwizzle = 8;    // the backward's planes: column bit 3 flipped
 // row groups, else (and in the ctx edition) in a shared (Tp, Tp) plane.
 // With two blocks an SM up to four row groups (mha_bwd_tf32_kernel's
 // launch bounds: 128 registers a thread), these let three of the window
-// core's blocks onto an SM at Swin-T's T = 49, and every (T, dh) the scalar
-// bodies took at the tests' widths still fits.
+// core's blocks onto an SM at Swin-T's T = 49; with kBwdLayouts every
+// (T, dh) the scalar bodies took still fits.
 __host__ __device__ constexpr int staged_planes(int RG, bool ctx) {
   return RG > 4 || ctx ? 1 : 2;
 }
@@ -699,45 +701,66 @@ __host__ __device__ constexpr bool acc_in_smem(int RG, bool dbias, bool ctx) {
 // q, k and v (two planes where three do not fit); the backward q, k, dout
 // and v, then the staged ds and pd (staged_planes) in v's plane, grown to
 // hold them, its dbias plane (acc_in_smem) and the token offsets.
+// The backward's planes are laid out the first way of kBwdLayouts that
+// fits: dh padded to 16 columns, rows 8 mod 16 floats apart and swizzled
+// (every main path), or, for the widest heads at up to kPackedRG row
+// groups (T <= 48) outside the window core, dh padded to 8 only, rows 4 or
+// 0 floats further apart and not swizzled (bank conflicts, but every
+// (T, dh) whose four (T, dh + 1) planes and two (T, T + 1) planes fit in a
+// block launches: the widest such heads are at T 16-33). The swizzle is a
+// template argument of the kernel, so the main paths' code stays as it
+// was; the unswizzled bodies are built in fused_mha_f32_packed.cu, beside
+// the others.
 // edition: kFwd, kBwd or kBwdDbias; ctx: the window core's edition.
+struct F32Layout {
+  int round, pad, sw;   // dh rounded up to `round`, `pad` floats more a row
+};
+constexpr F32Layout kBwdLayouts[] = {{16, 8, kSwizzle}, {8, 4, 0}, {8, 0, 0}};
+constexpr int kPackedRG = 3;
+
 F32Blocking choose_f32(int T, int dh, int edition, bool ctx = false) {
   F32Blocking k;
   k.Tp = (T + 15) / 16 * 16;
-  k.Dp = (dh + 15) / 16 * 16;
-  k.ld = k.Dp + 8;
   k.RG = k.Tp / 16;
-  k.plane = T * k.ld;
   k.ldt = k.Tp + 8;
   k.srows = (T + 7) / 8 * 8;
   k.planes = k.vsw = k.staged = k.region = 0;
   k.acc_smem = acc_in_smem(k.RG, edition == kBwdDbias, ctx);
-  const int want =
-      k.RG < kF32Warps && k.Dp >= 128 ? std::min(kF32Warps / k.RG, k.Dp / 32)
-                                      : 1;
-  for (int ks : {want, 1}) {
-    k.KS = ks;
-    k.warps = k.RG * ks;
-    // [KS][RG][Tp / 8 tiles][32 lanes][4] partial scores (and dp)
-    const size_t red = ks > 1 ? sizeof(float) * (edition == kFwd ? 1 : 2) *
-                                    ks * k.RG * 16 * k.Tp
-                              : 0;
-    if (edition == kFwd) {
-      k.planes = sizeof(float) * 3 * k.plane + red <= kMaxSmem ? 3 : 2;
-      k.vsw = k.planes == 3 ? 8 : 0;
-      k.smem = sizeof(float) * k.planes * k.plane + red;
+  const int layouts = edition == kFwd || ctx || k.RG > kPackedRG ? 1 : 3;
+  for (int li = 0; li < layouts; ++li) {
+    const F32Layout lay = kBwdLayouts[li];
+    k.Dp = (dh + lay.round - 1) / lay.round * lay.round;
+    k.ld = k.Dp + lay.pad;
+    k.sw = lay.sw;
+    k.plane = T * k.ld;
+    const int want = k.RG < kF32Warps && k.Dp >= 128
+                         ? std::min(kF32Warps / k.RG, k.Dp / 32)
+                         : 1;
+    for (int ks : {want, 1}) {
+      k.KS = ks;
+      k.warps = k.RG * ks;
+      // [KS][RG][Tp / 8 tiles][32 lanes][4] partial scores (and dp)
+      const size_t red = ks > 1 ? sizeof(float) * (edition == kFwd ? 1 : 2) *
+                                      ks * k.RG * 16 * k.Tp
+                                : 0;
+      if (edition == kFwd) {
+        k.planes = sizeof(float) * 3 * k.plane + red <= kMaxSmem ? 3 : 2;
+        k.vsw = k.planes == 3 ? 8 : 0;
+        k.smem = sizeof(float) * k.planes * k.plane + red;
+        if (k.smem <= kMaxSmem) return k;
+        continue;
+      }
+      const size_t rest = red + sizeof(int) * k.Tp +
+                          (k.acc_smem ? sizeof(float) * k.Tp * k.Tp : 0);
+      k.staged = staged_planes(k.RG, ctx);
+      // ds's plane keeps the srows rows the transposed products read; dq's
+      // reads of its rows up to Tp run into pd's plane (they reach only dq
+      // rows past T, which are never stored), and one plane keeps Tp rows
+      k.region = std::max(k.plane, k.staged == 2 ? 2 * k.srows * k.ldt
+                                                : k.Tp * k.ldt);
+      k.smem = sizeof(float) * (3 * k.plane + k.region) + rest;
       if (k.smem <= kMaxSmem) return k;
-      continue;
     }
-    const size_t rest = red + sizeof(int) * k.Tp +
-                        (k.acc_smem ? sizeof(float) * k.Tp * k.Tp : 0);
-    k.staged = staged_planes(k.RG, ctx);
-    // ds's plane keeps the srows rows the transposed products read; dq's
-    // reads of its rows up to Tp run into pd's plane (they reach only dq
-    // rows past T, which are never stored), and one plane keeps Tp rows
-    k.region = std::max(k.plane, k.staged == 2 ? 2 * k.srows * k.ldt
-                                              : k.Tp * k.ldt);
-    k.smem = sizeof(float) * (3 * k.plane + k.region) + rest;
-    if (k.smem <= kMaxSmem) return k;
   }
   return k;   // too large: the entry points refuse it
 }
@@ -1027,7 +1050,7 @@ __device__ __forceinline__ void product_store_f32(
 // sm.off[t] of qkv, dqkv and ctx. With one staged plane, next() copies the
 // next tile's q and k once the barrier before pd's staging has ended their
 // reads.
-template <int RG, bool kDbias, bool kCtx, typename Next>
+template <int RG, bool kDbias, bool kCtx, int kSw, typename Next>
 __device__ __forceinline__ void bwd_tile_tf32(
     const F32Smem& sm, float (&acc)[2 * RG][4], const float* __restrict__ bias,
     float* __restrict__ dqkv, float* __restrict__ ctx, int b, int h,
@@ -1043,7 +1066,7 @@ __device__ __forceinline__ void bwd_tile_tf32(
   const uint32_t plane = static_cast<uint32_t>(b * g.nh + h) *
                          static_cast<uint32_t>(g.T * g.T);
   float s[2 * RG][4], dp[2 * RG][4];
-  scores_tf32<RG>(sm.Q, sm.K, k.ld, kSwizzle, g.T, rg, c0, c1, live, s);
+  scores_tf32<RG>(sm.Q, sm.K, k.ld, kSw, g.T, rg, c0, c1, live, s);
   if (k.KS > 1) {
     write_partial<RG>(s, sm.red, rg, ks);
     __syncthreads();
@@ -1053,9 +1076,9 @@ __device__ __forceinline__ void bwd_tile_tf32(
   // ctx = p v: the window core takes no dropout (idvs_win_attn_bwd passes
   // none), and p's padded query rows reach only rows that are never stored
   if constexpr (kCtx)
-    product_store_f32<RG>(RegFrags<RG>{s}, sm.V, k.ld, kSwizzle, g.T, live,
+    product_store_f32<RG>(RegFrags<RG>{s}, sm.V, k.ld, kSw, g.T, live,
                           rg, c0, c1, ctx + h * g.dh, H, row0, sm.off, g.dh);
-  scores_tf32<RG>(sm.O, sm.V, k.ld, kSwizzle, g.T, rg, c0, c1, live, dp);
+  scores_tf32<RG>(sm.O, sm.V, k.ld, kSw, g.T, rg, c0, c1, live, dp);
   if (k.KS > 1) {
     float* red_dp = sm.red + k.KS * k.RG * 16 * k.Tp;
     write_partial<RG>(dp, red_dp, rg, ks);
@@ -1134,10 +1157,10 @@ __device__ __forceinline__ void bwd_tile_tf32(
   const size_t rs = 3 * static_cast<size_t>(H);
   float* base = dqkv + h * g.dh;
   product_store_f32<RG>(RowFrags{P_ds, k.ldt, 16 * rg}, sm.K, k.ld,
-                        kSwizzle, g.T, live, rg, c0, c1, base, rs, row0,
+                        kSw, g.T, live, rg, c0, c1, base, rs, row0,
                         sm.off, g.dh);   // dq
   product_store_f32<RG>(PlaneFrags{P_ds, k.ldt, 16 * rg}, sm.Q, k.ld,
-                        kSwizzle, g.T, live, rg, c0, c1, base + H, rs, row0,
+                        kSw, g.T, live, rg, c0, c1, base + H, rs, row0,
                         sm.off, g.dh);   // dk
   if constexpr (kOnePlane) {
     __syncthreads();   // ds, q and k read
@@ -1146,7 +1169,7 @@ __device__ __forceinline__ void bwd_tile_tf32(
     __syncthreads();
   }
   product_store_f32<RG>(PlaneFrags{P_pd, k.ldt, 16 * rg}, sm.O, k.ld,
-                        kSwizzle, g.T, live, rg, c0, c1, base + 2 * H, rs,
+                        kSw, g.T, live, rg, c0, c1, base + 2 * H, rs,
                         row0, sm.off, g.dh);   // dv
 }
 
@@ -1154,7 +1177,7 @@ __device__ __forceinline__ void bwd_tile_tf32(
 // tile's four planes are copied once this tile is done, or, with one
 // staged plane, its q and k once this tile's dk is done (a copy group of
 // their own) and its dout and v once this tile is done.
-template <int RG, bool kDbias, bool kCtx = false>
+template <int RG, bool kDbias, bool kCtx = false, int kSw = kSwizzle>
 __global__ void __launch_bounds__(32 * kF32Warps, RG <= 4 ? 2 : 1)
     mha_bwd_tf32_kernel(const float* __restrict__ qkv,
                         const float* __restrict__ bias,
@@ -1200,7 +1223,7 @@ __global__ void __launch_bounds__(32 * kF32Warps, RG <= 4 ? 2 : 1)
 #pragma unroll
     for (int p = 0; p < 4; ++p)
       if (p >= p0 && p < p1)
-        copy_plane(src[p], p == 2 ? H : rs, row0, sm.off, dst[p], kSwizzle,
+        copy_plane(src[p], p == 2 ? H : rs, row0, sm.off, dst[p], kSw,
                    g.T, g.dh, k.Dp, k.ld, vec);
     cp_async_commit();
   };
@@ -1209,7 +1232,7 @@ __global__ void __launch_bounds__(32 * kF32Warps, RG <= 4 ? 2 : 1)
     const int nxt = it + step;
     cp_async_wait<0>();
     __syncthreads();   // this tile's planes
-    bwd_tile_tf32<RG, kDbias, kCtx>(
+    bwd_tile_tf32<RG, kDbias, kCtx, kSw>(
         sm, acc, bias, dqkv, ctx, row_of(it), head_of(it),
         map.base(row_of(it), g.T), g, k, drop, [&] {
           if (nxt < end) copy(nxt, 0, 2);
@@ -1304,22 +1327,36 @@ cudaError_t resident(K kernel, const Plan& k, int* slots) {
 }
 
 // The backward body of a blocking's dtype: bf16 (Blocking) or float32
-// (F32Blocking)
-template <int R, bool kDbias, bool kCtx>
+// (F32Blocking), whose operand planes take the column swizzle kSw (0 only
+// in the layouts kBwdLayouts falls back to, which fused_mha_f32_packed.cu
+// instantiates)
+template <int R, bool kDbias, bool kCtx, int kSw>
 auto bwd_body(const Blocking&) {
   return mha_bwd_mma_kernel<R, kDbias, kCtx>;
 }
-template <int R, bool kDbias, bool kCtx>
+template <int R, bool kDbias, bool kCtx, int kSw>
 auto bwd_body(const F32Blocking&) {
-  return mha_bwd_tf32_kernel<R, kDbias, kCtx>;
+  return mha_bwd_tf32_kernel<R, kDbias, kCtx, kSw>;
+}
+
+// Whether a body of R row groups exists with the swizzle kSw: the
+// unswizzled one only up to kPackedRG row groups, outside the window core
+template <int R, bool kCtx, int kSw>
+constexpr bool has_body() {
+  return kSw == kSwizzle || (R <= kPackedRG && !kCtx);
 }
 
 // The blocks of k's dbias edition the SMs hold at once, after opting the
 // kernel into its shared memory
-template <bool kCtx, typename Plan>
+template <bool kCtx, int kSw = kSwizzle, typename Plan>
 cudaError_t dbias_slots(const Plan& k, int* slots) {
   return with_rg(k.RG, [&](auto rg) {
-    return resident(bwd_body<decltype(rg)::value, true, kCtx>(k), k, slots);
+    constexpr int R = decltype(rg)::value;
+    if constexpr (!has_body<R, kCtx, kSw>()) {
+      return cudaErrorInvalidValue;
+    } else {
+      return resident(bwd_body<R, true, kCtx, kSw>(k), k, slots);
+    }
   });
 }
 
@@ -1327,25 +1364,29 @@ cudaError_t dbias_slots(const Plan& k, int* slots) {
 // dbias edition, block (chunk, p, head) each, else a persistent grid over
 // the tiles; ctx is written in the kCtx edition (dbias only), tokens found
 // through map.
-template <bool kCtx, typename Plan, typename T>
+template <bool kCtx, int kSw = kSwizzle, typename Plan, typename T>
 cudaError_t launch_bwd(const T* qkv, const float* bias, const T* dout,
                        T* dqkv, T* ctx, float* part, int B, int chunks,
                        const Geometry& g, const Plan& k, Drop drop,
                        const TokenMap& map, cudaStream_t stream) {
   return with_rg(k.RG, [&](auto rg) {
     constexpr int R = decltype(rg)::value;
-    auto kernel = bwd_body<R, true, kCtx>(k);
-    if constexpr (!kCtx)
-      if (chunks == 0) kernel = bwd_body<R, false, false>(k);
-    int slots = 0;
-    cudaError_t err = resident(kernel, k, &slots);
-    if (err != cudaSuccess) return err;
-    const int grid = chunks > 0 ? chunks * g.P * g.nh
-                                : std::min(B * g.nh, slots);
-    kernel<<<grid, 32 * k.warps, k.smem, stream>>>(qkv, bias, dout, dqkv,
-                                                   ctx, part, B, chunks, g,
-                                                   k, drop, map);
-    return cudaGetLastError();
+    if constexpr (!has_body<R, kCtx, kSw>()) {
+      return cudaErrorInvalidValue;
+    } else {
+      auto kernel = bwd_body<R, true, kCtx, kSw>(k);
+      if constexpr (!kCtx)
+        if (chunks == 0) kernel = bwd_body<R, false, false, kSw>(k);
+      int slots = 0;
+      cudaError_t err = resident(kernel, k, &slots);
+      if (err != cudaSuccess) return err;
+      const int grid = chunks > 0 ? chunks * g.P * g.nh
+                                  : std::min(B * g.nh, slots);
+      kernel<<<grid, 32 * k.warps, k.smem, stream>>>(qkv, bias, dout, dqkv,
+                                                     ctx, part, B, chunks, g,
+                                                     k, drop, map);
+      return cudaGetLastError();
+    }
   });
 }
 
@@ -1357,13 +1398,13 @@ bool valid(int B, const Geometry& g, size_t smem) {
 // fused_mha's backward in the dtype's body at its blocking k, edition kBwd
 // (chunks = 0) or kBwdDbias (writing part), after checking that the
 // geometry and k fit.
-template <typename T, typename Plan>
+template <typename T, int kSw = kSwizzle, typename Plan>
 int fused_mha_backward(const void* qkv, const float* bias, const void* dout,
                        void* dqkv, float* part, int B, int chunks,
                        const Geometry& g, const Plan& k, Drop drop,
                        cudaStream_t stream) {
   if (!valid(B, g, k.smem)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_bwd<false>(
+  return static_cast<int>(launch_bwd<false, kSw>(
       static_cast<const T*>(qkv), bias, static_cast<const T*>(dout),
       static_cast<T*>(dqkv), static_cast<T*>(nullptr), part, B, chunks, g,
       k, drop, TokenMap{}, stream));
@@ -1400,13 +1441,33 @@ int dbias_chunks(int B, int P, int nh, int slots) {
 
 // The chunks of fused_mha's dbias edition in the dtype's body at its
 // blocking k (dbias_chunks), or a negative CUDA error
-template <typename Plan>
+template <int kSw = kSwizzle, typename Plan>
 int fused_mha_dbias_chunks(int B, int P, int nh, const Plan& k) {
   if (k.smem > kMaxSmem) return -static_cast<int>(cudaErrorInvalidValue);
   int slots = 0;
-  const cudaError_t err = dbias_slots<false>(k, &slots);
+  const cudaError_t err = dbias_slots<false, kSw>(k, &slots);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return dbias_chunks(B, P, nh, slots);
+}
+
+// fused_mha's float32 backward with the operand swizzle kSw, on the
+// arguments of idvs_fused_mha_bwd_f32 (fused_mha_f32.cu): kSwizzle there,
+// 0 in fused_mha_f32_packed.cu
+template <int kSw>
+int fused_mha_backward_f32(const void* qkv, const void* bias,
+                           const void* dout, void* dqkv, void* part, int B,
+                           int T_, int nh, int dh, int mode, int P,
+                           int chunks, long long bias_sp, long long bias_sh,
+                           float scale, unsigned drop_key,
+                           unsigned drop_thresh, float drop_scale,
+                           void* stream) {
+  const Geometry g{T_, nh, dh, mode, P, bias_sp, bias_sh, scale};
+  return fused_mha_backward<float, kSw>(
+      qkv, static_cast<const float*>(bias), dout, dqkv,
+      static_cast<float*>(part), B, chunks, g,
+      choose_f32(T_, dh, chunks > 0 ? kBwdDbias : kBwd),
+      Drop{drop_key, drop_thresh, drop_scale},
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -44,6 +44,17 @@ def pad_user_sequences(u2seq: Dict[int, List[int]], pad_to: int
     return seqs, lens
 
 
+def pad_histories(hist: Dict[int, np.ndarray], width: int) -> np.ndarray:
+    """(N, width) int64 matrix of the users' histories in uid order, each
+    cut to ``width`` and right-padded with 0 (JAX train/runner.py
+    ``_pad_histories``)."""
+    out = np.zeros((len(hist), width), dtype=np.int64)
+    for row, uid in enumerate(sorted(hist.keys())):
+        h = hist[uid]
+        out[row, :len(h)] = h[:width]
+    return out
+
+
 def log_mask_from_lens(lens: np.ndarray, max_seq_len: int) -> np.ndarray:
     """log_mask (N, L): [0]*(L+1-seq_len) + [1]*(seq_len-1), total length L.
 

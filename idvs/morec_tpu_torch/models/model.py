@@ -136,11 +136,12 @@ class RecModel(nn.Module):
 
     def item_embs(self, item_ids: torch.Tensor,
                   content: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Item tower: ids (N,) (+ content: token rows (N, W), images
         (N, H, W, 3), or two-stage the cached encoder outputs (N,
-        word_embedding_dim)) -> (N, D)."""
+        word_embedding_dim)) -> (N, D). pad_mask (N,): the image slots of
+        the padding item, by default those of id 0."""
         if self.item_tower == "id":
             emb = self.id_embedding(item_ids)
             if self.user_tower == "dssm":
@@ -162,7 +163,8 @@ class RecModel(nn.Module):
             # images: id 0 is the padding item, whose image is zero in
             # normalised space, which uint8 content cannot say
             modal = self.encoder(content, generator,
-                                 pad_mask=(item_ids == 0))
+                                 pad_mask=(item_ids == 0 if pad_mask is None
+                                           else pad_mask))
         else:
             modal = self.encoder(content, generator)
         if fused:

@@ -10,7 +10,9 @@ Reference semantics (data_utils/utils.py:107-114, run.py:130-145):
 The payload is one ``torch.save`` of a dict: ``model`` (the model's
 state_dict), ``optimizer`` (the AdamW state_dict), ``generator`` (the host
 generator every dropout seed is drawn from, ``train/state.py``), ``step``,
-``epoch``, ``scaler_state`` (empty: bf16 needs no GradScaler) and ``extra``.
+``grad_mean`` and ``micro_step`` (a gradient-accumulation window in
+progress), ``epoch``, ``scaler_state`` (empty: bf16 needs no GradScaler)
+and ``extra``.
 No sampler state is stored: the batchers are keyed by (seed, epoch), so a
 resumed epoch N regenerates the same batches. The layout is the port's
 own; the JAX package's ``.ckpt`` files and the reference's
@@ -43,6 +45,8 @@ def save_checkpoint(model_dir: str, epoch: int, state: TrainState,
             "optimizer": state.optimizer.state_dict(),
             "generator": state.generator.get_state(),
             "step": int(state.step),
+            "grad_mean": state.grad_mean,
+            "micro_step": int(state.micro_step),
             "epoch": int(epoch),
             "scaler_state": {},
             "extra": dict(extra or {}),
@@ -68,15 +72,18 @@ def _write(path: str, model_dir: str, payload: Dict) -> None:
 
 
 def load_checkpoint(path: str, state: TrainState):
-    """Restores the model, optimizer, generator and step of ``state`` in
-    place from ``path`` (read with ``weights_only=True``, tensors onto the
-    model's device); returns (state, payload)."""
+    """Restores the model, optimizer, generator, step and accumulation
+    window of ``state`` in place from ``path`` (read with
+    ``weights_only=True``, tensors onto the model's device); returns
+    (state, payload)."""
     device = next(state.model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.generator.set_state(payload["generator"].cpu())
     state.step = int(payload["step"])
+    state.grad_mean = payload["grad_mean"]
+    state.micro_step = int(payload["micro_step"])
     return state, payload
 
 

@@ -21,16 +21,22 @@ rank evaluates every user, and rank 0 alone logs and writes checkpoints.
 The host builds the next batch (ids, dedup packing, images) on a worker
 thread while the device runs the current step (``Prefetcher``).
 
-Cold/new-item eval and gradient accumulation raise
-``NotImplementedError`` naming their ROADMAP item; DSSM over a two-stage
-tower, which is no reference variant and which the JAX runner's DSSM data
-cannot feed (it builds no cache), raises too.
+Test mode evaluates the test split and, with ``cold_behaviors``, the cold
+and new-item users (``run_special_eval``, train/special_eval.py; JAX
+runner.py:582-667); ``accumulation_step`` k > 1 updates once every k
+micro-steps on their mean gradient (train/state.py ``accumulate``, the
+JAX runner's optax.MultiSteps). Raising ``NotImplementedError`` with the
+reason: DSSM over a two-stage tower, which is no reference variant and
+which the JAX runner's DSSM data cannot feed (it builds no cache); DSSM
+with a cold file (the JAX special eval scores SASRec users); new items of
+a two-stage tower (its cache holds none; the JAX runner fails there too).
 ``steps_per_dispatch`` runs that many single steps and reads their losses
 together (the JAX package's one-dispatch scan makes the same updates).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -41,7 +47,7 @@ import torch
 
 from ..config import Config
 from ..data.loader import (BCETrainBatcher, DSSMTrainBatcher, EvalBatches,
-                           TrainBatcher, pad_user_sequences)
+                           TrainBatcher, pad_histories, pad_user_sequences)
 from ..data.preprocess import (BehaviorData, build_doc_matrix,
                                read_behaviors, read_behaviors_pairs,
                                read_image_manifest, read_items_text,
@@ -54,6 +60,8 @@ from ..utils.logging import (para_and_log, print_metrics, report_time_eval,
 from .checkpoint import (epoch_from_name, get_checkpoint, latest_checkpoint,
                          load_checkpoint, save_checkpoint)
 from .evaluate import compute_item_embeddings, eval_mode, evaluate
+from .special_eval import (encode_new_items, eval_cold, eval_new,
+                           read_behaviors_special)
 from .state import count_params, make_train_state, param_labels
 from .step import dedup_pack, make_train_step
 
@@ -67,21 +75,10 @@ def check_supported(cfg: Config) -> None:
          and cfg.stage == "two_stage",
          "user_tower='dssm' with stage='two_stage' (no reference variant; "
          "the JAX runner's DSSM data builds no two-stage cache)"),
-        (cfg.accumulation_step > 1,
-         "accumulation_step > 1 (ROADMAP A1, gradient accumulation)"),
     ]
     bad = [what for cond, what in later if cond]
     if bad:
         raise NotImplementedError("not ported: " + "; ".join(bad))
-
-
-def _pad_histories(hist_dict: Dict[int, np.ndarray], width: int) -> np.ndarray:
-    n = len(hist_dict)
-    out = np.zeros((n, width), dtype=np.int64)
-    for row, uid in enumerate(sorted(hist_dict.keys())):
-        h = hist_dict[uid]
-        out[row, :len(h)] = h[:width]
-    return out
 
 
 class _DSSMEvalBatches:
@@ -166,6 +163,7 @@ class Trainer:
         self.model_dir = cfg.model_dir(self.n_shards)
         self.valid_results: Dict[int, dict] = {}   # epoch -> run_eval's
         self.last_eval: Optional[dict] = None
+        self.special_results: Dict[str, dict] = {}   # run_special_eval's
         self.train_stats = {"seconds": 0.0, "samples": 0, "steps": 0}
 
     # ----------------------------------------------------------------- data
@@ -251,10 +249,10 @@ class Trainer:
         H = cfg.max_seq_len + 2
         ebs = cfg.eval_batch_size * self.n_shards
         self.eval_valid = _DSSMEvalBatches(
-            pd.valid_pairs, _pad_histories(pd.users_history_for_valid, H),
+            pd.valid_pairs, pad_histories(pd.users_history_for_valid, H),
             ebs)
         self.eval_test = _DSSMEvalBatches(
-            pd.test_pairs, _pad_histories(pd.users_history_for_test, H), ebs)
+            pd.test_pairs, pad_histories(pd.users_history_for_test, H), ebs)
 
     def _encode_catalog(self, bundle, content_for, item_num: int
                         ) -> torch.Tensor:
@@ -364,7 +362,7 @@ class Trainer:
         seqs, lens = pad_user_sequences(users_eval, cfg.seq_len_total)
         return EvalBatches(seqs, lens, cfg.max_seq_len,
                            cfg.eval_batch_size * self.n_shards,
-                           _pad_histories(histories, hist_width),
+                           pad_histories(histories, hist_width),
                            num_shards=1)
 
     # ---------------------------------------------------------------- model
@@ -579,12 +577,16 @@ class Trainer:
 
     def test(self):
         """Standalone checkpoint evaluation on the test split (reference
-        run_test.py:26-187). Without a checkpoint of that name, the model
-        as built is evaluated, as in the JAX package."""
+        run_test.py:26-187), then, with ``cfg.cold_behaviors``, the cold and
+        new-item evaluation (``run_special_eval``; a new-item file alone is
+        ignored, as in the JAX package). Returns the test split's (HR@10,
+        nDCG@10). Without a checkpoint of that name, the model as built is
+        evaluated, as in the JAX package."""
         cfg = self.cfg
-        if cfg.cold_behaviors or cfg.new_behaviors:
+        if cfg.cold_behaviors and cfg.user_tower == "dssm":
             raise NotImplementedError(
-                "cold/new-item evaluation is not ported (ROADMAP A5)")
+                "cold/new-item evaluation scores SASRec users (the JAX "
+                "package's special_eval); DSSM has no such evaluation")
         if cfg.load_ckpt_name == "latest":
             ckpt_path = latest_checkpoint(self.model_dir)
         else:
@@ -595,7 +597,110 @@ class Trainer:
         else:
             self.log.warning(f"no checkpoint {cfg.load_ckpt_name} in "
                              f"{self.model_dir}: testing the model as built")
-        return self.run_eval("test")
+        result = self.run_eval("test")
+        if cfg.cold_behaviors:
+            self.run_special_eval()
+        return result
+
+    def _before_catalog(self, base: str) -> tuple:
+        """(content by id, id by name) of the "before" catalog that new
+        items are looked up in: ``cfg.new_items`` or the catalog file (JAX
+        runner.py:608-621)."""
+        cfg = self.cfg
+        path = os.path.join(base, cfg.new_items or cfg.news)
+        if cfg.use_modal and cfg.modality == "text" and cfg.stage == "end2end":
+            dic, n2i, _ = read_items_tokenized(path, cfg, self._tokenizer())
+        elif cfg.use_modal and cfg.modality == "vision":
+            dic, n2i, _ = read_image_manifest(path)
+        else:
+            dic, n2i, _ = read_items_text(path)
+        return dic, n2i
+
+    def _new_item_content(self, base: str, new_content: dict) -> np.ndarray:
+        """The new items' content, row 0 the padding item's: token rows
+        (``build_doc_matrix``), or the images of ``cfg.new_image_store`` (or
+        the catalog's store) through the trainer's transform, a zero image
+        first (JAX runner.py:641-662)."""
+        cfg = self.cfg
+        if cfg.modality == "text":
+            return build_doc_matrix(new_content, cfg)
+        keys = [new_content[i] for i in sorted(new_content)]
+        transform = self.vision_pipe.transform
+        if cfg.new_image_store:
+            from ..data.imagestore import open_store
+            path = os.path.join(base, cfg.new_image_store)
+            # the store's images are views of its mapping: transformed
+            # (copied) before it closes
+            with contextlib.closing(open_store(path)) as store:
+                imgs = transform([store.get(k) for k in keys])
+        else:
+            imgs = transform([self.vision_pipe.store.get(k) for k in keys])
+        return np.concatenate([np.zeros((1,) + imgs.shape[1:], imgs.dtype),
+                               imgs])
+
+    def run_special_eval(self) -> tuple:
+        """Cold-start and new-item evaluation (JAX runner.py:598-667; the
+        reference's special.py, imported by inbatch_sasrec_e2e_vision/
+        run_test.py:12): the cold users over the catalog's table, then,
+        with a modal tower and ``cfg.new_behaviors``, the new users, each
+        new item encoded by the item tower (``encode_new_items``) and
+        appended to the catalog for its users. Returns ((HR@10, nDCG@10) of
+        the cold users, that of the new users or None); ``special_results``
+        keeps each one's per-user values, users and users/s, and the new
+        items' encode items/s."""
+        cfg = self.cfg
+        base = os.path.join(cfg.root_data_dir, cfg.dataset)
+        dic, before_n2i = self._before_catalog(base)
+        new_path = (os.path.join(base, cfg.new_behaviors)
+                    if cfg.new_behaviors else None)
+        sc, hc, sn, hn, new_content = read_behaviors_special(
+            os.path.join(base, cfg.cold_behaviors), new_path,
+            self.bd.item_name_to_id, dic, before_n2i, cfg.use_modal)
+        content_fn = (self.vision_pipe.images_for
+                      if self.vision_pipe is not None else None)
+        table = compute_item_embeddings(
+            self.model, self.item_num, self.item_content, cfg.embedding_dim,
+            cfg.item_emb_batch_size, content_fn=content_fn)
+
+        def timed(what, fn):
+            _sync(self.device)
+            t0 = time.perf_counter()
+            hit, ndcg, hits, ndcgs = fn()
+            seconds = time.perf_counter() - t0
+            self.special_results[what] = {
+                "hit": hit, "ndcg": ndcg, "hits": hits, "ndcgs": ndcgs,
+                "users": len(hits), "seconds": seconds,
+                "users_per_s": len(hits) / max(seconds, 1e-9)}
+            print_metrics([hit, ndcg], self.log, what)
+            return hit, ndcg
+
+        self.special_results = {}
+        cold = timed("cold", lambda: eval_cold(
+            self.model, table, sc, hc, cfg.max_seq_len, cfg.eval_batch_size,
+            per_user=True))
+        if sn is None:
+            return cold, None
+        if cfg.stage == "two_stage":
+            raise NotImplementedError(
+                "new-item evaluation of a two-stage tower: its head reads "
+                "the frozen encoder's cache, which holds no new item (the "
+                "JAX runner fails there too, after the cold users)")
+        content = self._new_item_content(base, new_content)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        new_embs = encode_new_items(self.model, content,
+                                    cfg.item_emb_batch_size,
+                                    images=cfg.modality == "vision")
+        _sync(self.device)
+        encode_s = time.perf_counter() - t0
+        new = timed("new", lambda: eval_new(
+            self.model, table, new_embs, sn, hn, cfg.max_seq_len,
+            cfg.eval_batch_size, per_user=True))
+        self.special_results["new"].update(
+            items=len(new_content), encode_s=encode_s,
+            items_per_s=len(new_content) / max(encode_s, 1e-9),
+            embeddings=new_embs)
+        return cold, new
 
 
 def load_encoder(cfg: Config, device) -> tuple:

@@ -94,11 +94,44 @@ def make_optimizer(cfg, model: nn.Module,
 @dataclasses.dataclass
 class TrainState:
     """The model (f32 masters, in training mode), its optimizer, the host
-    generator every dropout seed is drawn from, and the step count."""
+    generator every dropout seed is drawn from, and the step count (of
+    micro-steps under gradient accumulation). With ``accumulation_step``
+    k > 1, ``grad_mean`` holds the running mean of this window's gradients
+    by parameter name and ``micro_step`` the micro-steps taken in it, 0 to
+    k - 1 (optax.MultiSteps' acc_grads and mini_step)."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     step: int = 0
+    grad_mean: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
+    micro_step: int = 0
+
+
+def accumulate(state: TrainState, k: int) -> bool:
+    """Takes this micro-step's gradients (the parameters' ``grad``; frozen
+    parameters have none) into ``state.grad_mean`` as optax.MultiSteps
+    does, mean += (grad - mean) / (n + 1) with n the micro-steps before
+    it. On the k-th it puts the mean into ``grad``, empties the window and
+    returns True (the optimizer steps); else it clears ``grad`` and
+    returns False."""
+    n = state.micro_step
+    mean = state.grad_mean
+    for name, p in state.model.named_parameters():
+        g = p.grad
+        if g is None:
+            continue
+        if n == 0:
+            mean[name] = g
+        else:
+            mean[name].add_((g - mean[name]).div_(n + 1))
+        p.grad = None
+    state.micro_step = (n + 1) % k
+    if state.micro_step:
+        return False
+    for name, p in state.model.named_parameters():
+        p.grad = mean.pop(name, None)
+    return True
 
 
 def make_train_state(model: nn.Module, cfg,

@@ -23,7 +23,11 @@ One in-batch CE step, as the JAX ``single_step`` (:155-245, :264-272):
    padding slots (id 0) the tower sees as zero images;
 3. the SASRec tower runs on ``embs[:, :-1]``, the in-batch debiased CE
    scores every position against the batch's items;
-4. backward, then the AdamW update of ``state.optimizer``.
+4. backward, then the AdamW update of ``state.optimizer``; with
+   ``cfg.accumulation_step`` k > 1 (optax.MultiSteps in the JAX runner,
+   runner.py:366-370), the update of every k-th micro-step, on the mean of
+   the k micro-steps' gradients (``state.accumulate``); the parameters do
+   not change in between, and the window carries over an epoch's end.
 
 The loss is the composition of ``ops/losses.py`` or, with
 ``cfg.use_pallas``, the kernel edition (``ops/cuda/inbatch_ce.py``, JAX
@@ -45,8 +49,9 @@ options of the in-batch CE only, as in the JAX package.
 
 Under a process group (``parallel/mesh.py`` ``init_distributed``) the step
 is data-parallel (JAX step.py:274-291): each rank runs its local batch,
-the gradients are averaged over the ranks after ``backward`` (``pmean``)
-and the returned loss is the ranks' mean. With ``cfg.gather_negatives``
+the gradients are averaged over the ranks after ``backward`` (``pmean``,
+every micro-step, as the JAX step averages before ``tx.update``) and the
+returned loss is the ranks' mean. With ``cfg.gather_negatives``
 the candidates of the CE are every rank's items (the gathered composition,
 or the gathered kernel edition under ``use_pallas``); on one process, as
 on the JAX package's one-device mesh, the flag changes nothing.
@@ -84,7 +89,7 @@ from ..ops import dropout
 from ..ops.cuda.inbatch_ce import fused_inbatch_ce, fused_inbatch_ce_gathered
 from ..ops.losses import bce_dssm_loss, bce_sasrec_loss, inbatch_debiased_ce
 from ..parallel import mesh
-from .state import TrainState
+from .state import TrainState, accumulate
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -148,6 +153,7 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
     pg = mesh.group()
     rank = mesh.process_index()
     gather = pg is not None and getattr(cfg, "gather_negatives", False)
+    accum = getattr(cfg, "accumulation_step", 1)
 
     def loss_of(uv, embs, ids, lm, lp):
         if pallas and gather:
@@ -240,7 +246,8 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
         if pg is not None:
             mesh.mean_([p.grad for p in model.parameters()
                         if p.grad is not None] + [loss.reshape(1)], pg)
-        state.optimizer.step()
+        if accum == 1 or accumulate(state, accum):
+            state.optimizer.step()
         state.step += 1
         return loss
 

@@ -12,7 +12,8 @@ write their losses, gradients and parameters back. Tolerances as
 tests/test_torch_train.py: each loss within 1e-5 relative; the first step's
 averaged gradients within rtol 2e-4 / atol 2e-5; the parameters after
 three steps within 3 * lr, AdamW's bound on three moves. The two ranks end
-with equal parameters.
+with equal parameters. IDRec with ``accumulation_step`` 3 over the same
+batches against the JAX step under optax.MultiSteps: one update.
 """
 
 import itertools
@@ -106,6 +107,20 @@ def _rank_main(rank: int, tmp: str) -> None:
             "losses": losses, "grads": grads,
             "params": {n: p.detach().clone()
                        for n, p in model.named_parameters()}}
+    # IDRec with one accumulation window over the three batches: the
+    # gradients averaged over the ranks every micro-step, one update
+    cfg = Config(**CFG, item_tower="id", accumulation_step=STEPS)
+    model = make_model(cfg, ITEMS, device="cpu")
+    model.load_state_dict(inputs["id"])
+    state = make_train_state(model, cfg)
+    step = make_train_step(cfg, log_pop=inputs["log_pop"])
+    losses, params = [], []
+    for ids, lm in inputs["batches"]:
+        losses.append(step(state, {"ids": ids[rows],
+                                   "log_mask": lm[rows]}).item())
+        params.append({n: p.detach().clone()
+                       for n, p in model.named_parameters()})
+    out["accumulation"] = {"losses": losses, "params": params}
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     assert "jax" not in sys.modules
     torch.distributed.destroy_process_group()
@@ -144,10 +159,11 @@ def _jax_setup(item_tower, content, batch):
     return jm, jax.tree.map(np.asarray, params)
 
 
-def _jax_run(cfg, jm, params, content, log_pop, batches):
+def _jax_run(cfg, jm, params, content, log_pop, batches, k: int = 1):
     """The JAX sharded step on 2 CPU devices: losses, the first step's
-    averaged gradients (kept by an optax stage in front of AdamW) and the
-    final parameters, as port state dicts."""
+    averaged gradients (kept by an optax stage in front of AdamW; None
+    with k > 1, the optimizer then under optax.MultiSteps of k, as the JAX
+    runner wraps it) and the final parameters, as port state dicts."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -164,6 +180,8 @@ def _jax_run(cfg, jm, params, content, log_pop, batches):
         lambda p: jax.tree.map(jnp.zeros_like, p),
         lambda g, s, p=None: (g, g))
     tx = optax.chain(keep, jstate.make_optimizer(cfg, labels))
+    if k > 1:
+        tx = optax.MultiSteps(tx, k)
     mesh = make_mesh(jax.devices("cpu")[:WORLD])
     p = replicate(mesh, params)
     state = jstate.TrainState(step=jnp.zeros((), jnp.int32), params=p,
@@ -180,7 +198,7 @@ def _jax_run(cfg, jm, params, content, log_pop, batches):
             "ids": jnp.asarray(ids, jnp.int32),
             "log_mask": jnp.asarray(lm)}))
         losses.append(float(loss))
-        if grads is None:
+        if grads is None and k == 1:
             grads = convert.from_flax(jax.tree.map(np.asarray,
                                                    state.opt_state[0]))
     return losses, grads, convert.from_flax(jax.tree.map(np.asarray,
@@ -239,6 +257,33 @@ def test_data_parallel_step_matches_jax_sharded(runs, item_tower, gather,
         np.testing.assert_allclose(p.numpy(), final[n].numpy(), rtol=0,
                                    atol=bound, err_msg=n)
         assert torch.equal(p, ranks[1][name]["params"][n]), n
+
+
+def test_data_parallel_accumulation_matches_multisteps(runs):
+    """IDRec, accumulation_step 3 over the three batches on 2 ranks, the
+    ranks' gradients averaged every micro-step (as the JAX step averages
+    before its optimizer): the losses against the JAX sharded step under
+    optax.MultiSteps, the parameters unchanged after micro-steps 1 and 2,
+    the one update within 3 * lr of JAX's, both ranks equal."""
+    content, log_pop, batches, setups, ranks = runs
+    jm, params = setups["id"]
+    cfg = _jax_config("id", False, False)
+    losses, _, final = _jax_run(cfg, jm, params, content, log_pop, batches,
+                                k=STEPS)
+    got = ranks[0]["accumulation"]
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+    assert ranks[1]["accumulation"]["losses"] == got["losses"]
+    from idvs.morec_tpu_torch import convert
+
+    start = convert.from_flax(params)
+    for before in got["params"][:-1]:
+        for n, p in before.items():
+            assert torch.equal(p, start[n]), n
+    for n, p in got["params"][-1].items():
+        assert not torch.equal(p, start[n]), n
+        np.testing.assert_allclose(p.numpy(), final[n].numpy(), rtol=0,
+                                   atol=3 * LR, err_msg=n)
+        assert torch.equal(p, ranks[1]["accumulation"]["params"][-1][n]), n
 
 
 if __name__ == "__main__":

@@ -22,7 +22,8 @@ from idvs.morec_tpu.models.text_tower import TextTower as JaxTextTower
 from idvs.morec_tpu.train.evaluate import (
     compute_item_embeddings as jax_item_embeddings, evaluate as jax_evaluate)
 from idvs.morec_tpu_torch import convert
-from idvs.morec_tpu_torch.data.loader import EvalBatches, pad_user_sequences
+from idvs.morec_tpu_torch.data.loader import (EvalBatches, pad_histories,
+                                              pad_user_sequences)
 from idvs.morec_tpu_torch.data.preprocess import (read_behaviors,
                                                   read_items_text)
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
@@ -31,7 +32,6 @@ from idvs.morec_tpu_torch.models.text_tower import TextTower
 from idvs.morec_tpu_torch.ops.metrics import masked_catalog_scores
 from idvs.morec_tpu_torch.train.evaluate import (compute_item_embeddings,
                                                  eval_mode, evaluate)
-from idvs.morec_tpu_torch.train.runner import _pad_histories
 
 from tests.test_train_integration import synth_dataset
 
@@ -48,7 +48,7 @@ def _data(tmp_path):
     dic, n2i, i2n = read_items_text(root + "TINY/news.tsv")
     bd = read_behaviors(root + "TINY/behaviors.tsv", dic, n2i, i2n, L, 3)
     seqs, lens = pad_user_sequences(bd.users_valid, L + 1)
-    hist = _pad_histories(bd.users_history_for_valid, L + 2)
+    hist = pad_histories(bd.users_history_for_valid, L + 2)
     batches = EvalBatches(seqs, lens, L, EVAL_B, hist)
     assert batches.n % EVAL_B               # padding users in the last batch
     rng = np.random.default_rng(0)

@@ -11,7 +11,8 @@ bits on two runs, with its sum in registers (T <= 64) and in shared memory
 (T > 64). A shape whose tiles do not fit a block's shared memory raises
 and launches nothing; in float32 every (T, dh) the scalar bodies the
 tensor-core ones replaced launched still launches (forward:
-_scalar_fwd_fits; backward: SCALAR_BWD_SHAPES). Every test needs an NVIDIA
+_scalar_fwd_fits; backward: SCALAR_BWD_SHAPES, with heads of odd widths
+at T 16-33 whose planes fit only with dh padded to 8 columns). Every test needs an NVIDIA
 GPU and skips without one. On the card (no jax there, so without the
 repo's conftest):
 
@@ -76,11 +77,23 @@ def _scalar_fwd_fits(T, dh):
 # The (T, dh) of the grid that the scalar float32 backward launched: it held
 # q, k, v and dout at (dh + 1) floats a row and two (T, T + 1) planes in one
 # block's shared memory (its dbias edition one (T, T) plane more).
+# Beside the grid, heads of odd widths at T 16-33 whose four planes fit
+# only with dh padded to 8 columns (mha_mma.cuh kBwdLayouts: rows 4 floats
+# apart (33, 417), (17, 841), or 0 (16, 897), (19, 753)), and two that fit
+# the main paths' layout.
+ODD_BWD_SHAPES = [(33, 417), (24, 433), (16, 508), (17, 841), (16, 897),
+                  (19, 753)]
+
+
+def _scalar_bwd_fits(T, dh, dbias=False):
+    return 4 * (4 * T * (dh + 1) + 2 * T * (T + 1)
+                + (T * T if dbias else 0)) <= SMEM
+
+
 SCALAR_BWD_SHAPES = [(T, dh) for T in TS for dh in DHS
-                     if 4 * (4 * T * (dh + 1) + 2 * T * (T + 1)) <= SMEM]
+                     if _scalar_bwd_fits(T, dh)] + ODD_BWD_SHAPES
 SCALAR_DBIAS_SHAPES = [(T, dh) for T, dh in SCALAR_BWD_SHAPES
-                       if 4 * (4 * T * (dh + 1) + 2 * T * (T + 1) + T * T)
-                       <= SMEM]
+                       if _scalar_bwd_fits(T, dh, True)]
 
 
 def _grads(fn, qkv, dout, *more):
@@ -171,10 +184,57 @@ def test_backward_tiles(dtype, T, dh):
 @pytest.mark.parametrize("edition", [BWD, DBIAS])
 def test_float32_backward_launches_where_the_scalar_body_did(edition):
     """Every (T, dh) of the grid that the scalar float32 backward (and its
-    dbias edition) launched fits the tensor-core body."""
+    dbias edition) launched fits the tensor-core body, and so does every
+    (T, dh) of T 1-128 and dh 1-1024 whose scalar layout fitted."""
     shapes = SCALAR_BWD_SHAPES if edition == BWD else SCALAR_DBIAS_SHAPES
     assert {(30, 64), (30, 256), (10, 1024), (49, 32)} <= set(shapes)
+    assert edition == DBIAS or {(33, 417), (16, 897)} <= set(shapes)
     assert [s for s in shapes if not _fits(*s, edition, F32)] == []
+    every = [(T, dh) for T in range(1, 129) for dh in range(1, 1025)
+             if _scalar_bwd_fits(T, dh, edition == DBIAS)
+             and not _fits(T, dh, edition, F32)]
+    assert every == []
+
+
+@pytest.mark.parametrize("T,dh", ODD_BWD_SHAPES)
+@pytest.mark.parametrize("edition", [BWD, DBIAS])
+def test_float32_backward_odd_heads(edition, T, dh):
+    """The float32 backward at the odd-width heads: the key mask (row 0 all
+    masked) and a bias shared by the heads under dropout 0.1, or the dbias
+    edition with a bias per head, through mha_bwd_tf32_kernel against
+    autograd of the plain version."""
+    if edition == DBIAS and (T, dh) not in SCALAR_DBIAS_SHAPES:
+        pytest.skip("the scalar dbias edition did not take this shape")
+    B, nh = 2, 2
+    rng = np.random.default_rng(3000 * T + dh)
+    qkv = _rand(rng, B, T, 3 * nh * dh, dtype=F32)
+    dout = _rand(rng, B, T, nh * dh, dtype=F32)
+    kernel = fused_mha_bwd if edition == BWD else fused_mha_bwd_dbias
+    before = kernel.launches
+    if edition == BWD:
+        mask = _key_mask(rng, B, T)
+        shared = _rand(rng, 1, 1, T, T, scale=0.5, dtype=F32)
+        calls = (dict(mask=mask),
+                 dict(bias=shared, drop_rate=0.1, seed=T + dh))
+        for kw in calls:
+            out_k, got = _grads(lambda q: fused_mha(q, n_heads=nh, **kw),
+                                qkv, dout)
+            out_p, want = _grads(
+                lambda q: fused_mha_plain(q, n_heads=nh, **kw), qkv, dout)
+            _assert_grads_close((out_k, *got), (out_p, *want),
+                                DTYPE_GRAD_TOL[F32])
+    else:
+        calls = (0,)
+        _, bias, _ = _dbias_inputs(rng, B, 1, nh, nh, T, 8, F32)
+        kern = lambda q, b: fused_mha(q, bias=b, n_heads=nh, drop_rate=0.1,
+                                      seed=7)
+        out_k, got = _grads(kern, qkv, dout, bias)
+        out_p, want = _grads(lambda q, b: fused_mha_plain(
+            q, bias=b, n_heads=nh, drop_rate=0.1, seed=7), qkv, dout, bias)
+        _assert_grads_close((out_k, *got), (out_p, *want),
+                            DTYPE_GRAD_TOL[F32])
+    assert kernel.launches == before + len(calls)
+    assert BWD_BODIES[F32] in kernel.bodies
 
 
 @pytest.mark.parametrize("T", [10, 17, 49])

@@ -11,7 +11,7 @@ train/state.py's frozen group) on the CPU, against the JAX package's
   through ``train`` with ``load_ckpt_name``;
 - checkpoint names, early stop, the frozen group (counted as the JAX
   runner counts), steps_per_dispatch, the vision path over an MKV store,
-  and what is not ported.
+  and what is not ported (and what now is: accumulation, cold items).
 """
 
 import os
@@ -346,22 +346,26 @@ def test_what_is_not_ported(tmp_path, monkeypatch):
     root = synth_dataset(tmp_path)
     for kw in (dict(stage="two_stage"), dict(item_tower="modal_id_add"),
                dict(accumulation_step=2)):
-        if "accumulation_step" not in kw:
-            # two-stage and fusion are ported (ROADMAP A4)
-            Trainer(_cfg(Config, root, **kw), quiet_log(), quiet_log(),
-                    device="cpu")
-            continue
-        with pytest.raises(NotImplementedError, match="A1"):
-            Trainer(_cfg(Config, root, **kw), quiet_log(), quiet_log(),
-                    device="cpu")
+        # two-stage and fusion (ROADMAP A4) and gradient accumulation (A1)
+        # are ported
+        Trainer(_cfg(Config, root, **kw), quiet_log(), quiet_log(),
+                device="cpu")
     with pytest.raises(NotImplementedError, match="tokenizer"):
         load_encoder(Config(item_tower="modal"), "cpu")
     with pytest.raises(ValueError, match="tokenizer"):
         Trainer(_cfg(Config, root, item_tower="modal"), quiet_log(),
                 quiet_log(), device="cpu").load_data()
-    tr = _port(root, mode="test", cold_behaviors="cold.tsv")
-    with pytest.raises(NotImplementedError, match="A5"):
-        tr.test()
+    # cold-item evaluation is ported (ROADMAP A5): an IDRec test reads the
+    # cold file and ignores a new-item file, as the JAX runner does
+    with open(root + "TINY/behaviors.tsv") as f:
+        cold = [" ".join(ln.split(" ")[:5]) for ln in f.read().split("\n")[:5]]
+    with open(root + "TINY/cold.tsv", "w") as f:
+        f.write("\n".join(cold) + "\n")
+    tr = _port(root, mode="test", cold_behaviors="cold.tsv",
+               new_behaviors="missing.tsv")
+    tr.test()
+    assert list(tr.special_results) == ["cold"]
+    assert tr.special_results["cold"]["users"] == 5
     if not torch.cuda.is_available():
         # the CLI runs on the card: no GPU, no run
         with pytest.raises(RuntimeError, match="no CUDA device"):

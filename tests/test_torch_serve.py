@@ -165,7 +165,9 @@ def test_port_runs_the_slice_without_jax():
     step (IDRec) and serves a DSSM ``recommend_users`` call; builds a
     two-stage catalog cache through the runner's frozen text tower and
     takes one BCE step of the fused two-stage head over it, and one BCE
-    step of the fusion end2end tower over BERT; the CLI itself
+    step of the fusion end2end tower over BERT; runs a cold and a new-item
+    evaluation (train/special_eval.py) and two micro-steps of gradient
+    accumulation; the CLI itself
     refuses to run without a GPU (the test process itself has jax loaded
     by conftest, hence the subprocess)."""
     code = textwrap.dedent("""
@@ -372,6 +374,29 @@ def test_port_runs_the_slice_without_jax():
         loss = make_train_step(fcfg, item_content=content)(fstate, {
             k: torch.from_numpy(v) for k, v in bce.items()})
         assert torch.isfinite(loss) and fstate.step == 1
+        # cold and new-item evaluation of the text model, then two
+        # micro-steps of an accumulation window of 2 on the fusion tower
+        from idvs.morec_tpu_torch.train import special_eval
+        seqs = {0: [1, 2, 3], 1: [4, 5, 6, 7], 2: [8, 9, 1]}
+        hist = {u: np.asarray(q[:-1]) for u, q in seqs.items()}
+        table = Retriever.encode_catalog(model, 40, content, 32,
+                                         batch_size=16)
+        hit, ndcg = special_eval.eval_cold(model, table, seqs, hist, 6, 2)
+        new_embs = special_eval.encode_new_items(model, content[:3], 2)
+        new = {u: q[:-1] + [1 + u % 2] for u, q in seqs.items()}
+        hit_n, ndcg_n = special_eval.eval_new(model, table, new_embs, new,
+                                              hist, 6, 2)
+        assert 0 <= ndcg <= hit <= 1 and 0 <= ndcg_n <= hit_n <= 1
+        fcfg.accumulation_step = 2
+        fstate = make_train_state(fmodel, fcfg, param_labels(fmodel))
+        fstep = make_train_step(fcfg, item_content=content)
+        w = fmodel.user_encoder.ln_in.weight
+        w0 = w.detach().clone()
+        for micro in (1, 2):
+            loss = fstep(fstate, {k: torch.from_numpy(v)
+                                  for k, v in bce.items()})
+            assert torch.isfinite(loss) and fstate.step == micro
+            assert torch.equal(w, w0) == (micro == 1)
         if not torch.cuda.is_available():
             try:
                 run.main(flags)
