@@ -12,8 +12,9 @@ depth, SASRec at D = 2048), serving and training; the use_pallas train
 step (the in-batch CE kernels) of text MoRec, IDRec and vision MoRec; the
 data-parallel step with gather_negatives; BCE with sampled negatives and
 the DSSM two-tower (text MoRec, a 600_001-user table); the two-stage
-cached-embedding towers and ID+modality fusion (text and vision). Phases,
-each fatal on failure:
+cached-embedding towers and ID+modality fusion (text and vision); the
+other vision encoders (ResNet-50 with its BatchNorm, ViT-MAE-B/16,
+BEiT-B/16, CLIP-B/32) under SASRec. Phases, each fatal on failure:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: build (or load) the kernel library;
@@ -264,7 +265,30 @@ each fatal on failure:
     same evaluation in float32 on the card and on a CPU copy through the
     plain versions (the card's table, 8 of its vision rows re-encoded on
     the CPU): the new items' embeddings within TABLE_TOL / V_TABLE_TOL,
-    HR@10 as hit counts within two users.
+    HR@10 as hit counts within two users;
+26. resnet (after phase 25): ResNet-50 MoRec as the three
+    train_resnet50.py launchers configure it (224 x 224 images, D 512,
+    the Config's SASRec, bf16, dropout 0.1, lr 1e-4, l2 0.01), the
+    counters set to 0: a catalog encode of 2 048 images (images/s),
+    recommend p50 at B = 1 and 64, the train step at 16 users on Zipf ids
+    with dedup (p50, samples/s, images/s, peak memory; every running
+    average moved and finite) and the reckoning of the launchers' 64 users
+    from its memory an image; then the three launchers through the CLI
+    (in-batch CE and BCE at 16 users a step, DSSM at 64) on the runner's
+    MKV store, one epoch and a --mode test reload each (the reload's valid
+    evaluation bit-equal, every SASRec kernel launched); last a float32
+    step on 2 users against a CPU copy: the loss and the 106 running
+    averages within 1e-5, the head's and SASRec's gradients as phase 12
+    holds them, the body's reported (Z_BODY);
+27. vit: ViT-MAE-B/16, BEiT-B/16 and CLIP-B/32 at their default widths
+    under the same SASRec, the counters set to 0: each one's catalog
+    encode (images/s) and bf16 train steps at 16 users; every launch of
+    fused_mlp, fused_mlp_res, the MLP backward and the wg route; then
+    their MLP kernels against the plain versions at each one's shapes
+    (the encode chunk's fused_mlp_res, BEiT's fused_mlp, the training
+    forward with save_h and its backward; gelu and quick_gelu), beside
+    the two products through torch.matmul, with rows 5-6's tolerances;
+    last CLIP's float32 step against a CPU copy (quick_gelu's backward).
 
 Prints each phase's seconds and a JSON line of per-kernel results (launches
 on the main paths, in all and by path: text serving, training, BCE and
@@ -273,7 +297,8 @@ steps (2T, 2V), the fusion text and vision steps (FT, FV), vision
 serving, the "windows" sub-catalog, vision
 training, the "windows" train step, the vision dropout step, the
 use_pallas steps, the data-parallel steps, the runner, the accumulated
-micro-steps, the cold and new-item evaluations; error
+micro-steps, the cold and new-item evaluations, the ResNet-50 and the ViT
+paths; error
 and time against the plain version, the least time the card could take for
 the same work (float32 rows that launched gemm.cu, whose products run as
 3xTF32, at that rate, 165 TFLOP/s), the time of the one PyTorch call that
@@ -337,7 +362,8 @@ from idvs.morec_tpu_torch.models.model import make_model
 from idvs.morec_tpu_torch.models.swin import (SwinBlock, SwinConfig,
                                               SwinModel, _shift_mask)
 from idvs.morec_tpu_torch.models.text_tower import TextTower
-from idvs.morec_tpu_torch.models.vision_tower import VisionTower
+from idvs.morec_tpu_torch.models.vision_tower import (VisionTower,
+                                                      build_vision_tower)
 from idvs.morec_tpu_torch.ops.cuda import lib
 from idvs.morec_tpu_torch.ops.cuda.attention import (
     BWD_BODIES, FWD_BODIES, dbias_chunks, fused_mha, fused_mha_bwd,
@@ -559,6 +585,26 @@ V_SELECTION_TOL = 1e-5
 # erff against the CPU's erf) under the classifier and SASRec at D = 2048.
 V_STEP_LOSS_TOL = 1e-4
 V_STEP_GRAD_TOL = 2e-3
+# The other encoders' float32 step, card vs CPU: the loss (relative) and
+# the BatchNorm running averages after it (0.1 of float32 batch statistics
+# over the step's images, sums of up to 6.7 M values in other orders,
+# relative to max(1, |value|)) within the CPU parity tests' 1e-5; the
+# gradients as the vision check holds them. Through ResNet-50's 53
+# BatchNorms cuDNN's float32 convolutions and the CPU's differ at
+# SASRec's input about 13 times as much as through CLIP (6.4e-5 against
+# 4.9e-6 at its FFN's pre-activations on an H100), so V_KINK
+# times that covers about 3 % of the units over the check's 40 rows: the
+# ResNet check leaves out up to Z_KINK_SHARE of them.
+Z_LOSS_TOL = Z_STATS_TOL = 1e-5
+Z_KINK_SHARE = 5e-2
+# Z_BODY: the ResNet body's gradients (its convolutions and BatchNorms; the
+# fc head and SASRec are held) are printed, not held: the float32 backward
+# of a drawn ResNet-50 through batch statistics is ill-conditioned, the
+# CPU's own float32 gradients of this step lie up to 19 % (median 2.6 %)
+# of a tensor's scale from the CPU's float64 ones in layer4 (the same
+# step run both ways on the CPU), where the loss and the running averages
+# agree to 2e-7 and 3e-6. The CPU parity tests hold the body's gradients
+# against JAX's in float64.
 # SASRec's FFN is a ReLU: where a pre-activation lies within the two paths'
 # rounding distance of 0, each path may take a different branch, and that
 # unit's w_1 column and b_1 entry then differ by one row's contribution (a
@@ -3444,12 +3490,14 @@ def relu_inputs(record: list):
         sasrec.fused_mlp_resln = inner
 
 
-def kink_units(card: list, plain: list, blocks: int) -> tuple:
+def kink_units(card: list, plain: list, blocks: int,
+               share: float = V_KINK_SHARE) -> tuple:
     """The ReLU units at the kink (see V_KINK) of a model's `blocks` SASRec
     blocks, from the FFN inputs that relu_inputs recorded on each side (in
     block order, `blocks` of them a step; a unit at the kink in any step
-    counts): {name of a w_1 weight or bias: bool mask over its output
-    units}, and a line that says how many there are."""
+    counts), at most `share` of a block's: {name of a w_1 weight or bias:
+    bool mask over its output units}, and a line that says how many there
+    are."""
     require(len(card) == len(plain) and len(card) % blocks == 0
             and len(card) > 0,
             f"{len(card)} and {len(plain)} SASRec FFNs recorded, not a "
@@ -3464,7 +3512,7 @@ def kink_units(card: list, plain: list, blocks: int) -> tuple:
         flips[b] += ((hk > 0) != (hp > 0)).sum().item()
     kinks, notes = {}, []
     for b in range(blocks):
-        require(units[b].float().mean().item() <= V_KINK_SHARE,
+        require(units[b].float().mean().item() <= share,
                 f"SASRec block {b}: {int(units[b].sum())} of "
                 f"{units[b].numel()} ReLU units within {margins[b]:.2e} of "
                 f"the kink")
@@ -4808,6 +4856,417 @@ def special_path(dev, card: str, kept: dict) -> dict:
     return launched
 
 
+# -- the other vision encoders (ROADMAP A7): ResNet-50 and three ViTs --------
+# variants/*/train_resnet50.py (in-batch CE, BCE, DSSM): 224 x 224 images,
+# embedding_dim 512, the Config's SASRec (2 blocks of 2 heads, L 20),
+# dropout 0.1, lr and fine_tune_lr 1e-4, l2 0.01 in both groups; bf16
+Z_D, Z_L = 512, 20
+Z_LAUNCHER = dict(lr=1e-4, fine_tune_lr=1e-4, l2_weight=0.01,
+                  fine_tune_l2_weight=0.01, drop_rate=DROP)
+Z_ENCODE_CHUNKS = 4         # catalog encode: chunks of ENCODE_BATCH images
+Z_REQUESTS = (1, 64)
+Z_CHECK_USERS = 2           # users of the float32 step against the CPU
+# users a ResNet-50 train step: the launchers' 64 (1 344 slots) do not fit
+# one card without encoder chunks, which BatchNorm rules out (the phase
+# prints the reckoning); Zipf ids with dedup as bench.py's vision traffic
+R50_USERS, R50_FIXED, R50_TIMED = 16, 2, 5
+# the runner part: the three launchers through the CLI on the vision
+# runner's data, one epoch each; CE and BCE at R50_USERS users a step
+# (without dedup, as the launchers), DSSM at the launchers' 64 (2 images a
+# user)
+R50_RUNNER = {"": dict(batch_size=R50_USERS),
+              "BCE": dict(loss="bce", batch_size=R50_USERS),
+              "DSSM": dict(loss="bce", user_tower="dssm", neg_num=1,
+                           dnn_layers=0, batch_size=64)}
+# ViT-MAE-B/16, BEiT-B/16 and CLIP-B/32 at their default widths under the
+# same SASRec: (tokens an image in training, the MLP's activation)
+VITS = {"vit_mae": (1 + 49, "gelu"), "beit": (197, "gelu"),
+        "clip": (50, "quick_gelu")}
+VIT_USERS, VIT_FIXED, VIT_TIMED = 16, 2, 3
+# the SASRec kernels of a train step and of an encode or request
+Z_TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
+                   "fused_proj_resln_bwd", "fused_mlp_resln_res",
+                   "fused_mlp_resln_bwd")
+Z_SERVE_KERNELS = ("fused_mha", "fused_proj_resln", "fused_mlp_resln")
+# the ViTs' MLP on the way: fused_mlp (training, and BEiT's encode),
+# fused_mlp_res (MAE's and CLIP's encode), the backward's wg route at
+# C = 768 (premlp_bwd_gdh)
+VIT_KERNELS = ("fused_mlp", "fused_mlp_bwd", "premlp_bwd_gdh")
+
+
+def zoo_config(name: str, compute_dtype: str = "bfloat16", **kw) -> Config:
+    return Config(item_tower="modal", user_tower="sasrec", stage="end2end",
+                  modality="vision", cv_model_load=name, embedding_dim=Z_D,
+                  max_seq_len=Z_L, loss="inbatch_ce",
+                  compute_dtype=compute_dtype, **Z_LAUNCHER, **kw)
+
+
+def zoo_model(dev, cfg):
+    """The encoder of cfg.cv_model_load at its default geometry
+    (build_vision_tower) under SASRec; weights from the seed."""
+    tower = build_vision_tower(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    return make_model(cfg, V_ITEMS_FULL, tower, device=dev, generator=gen)
+
+
+def zoo_batches(rng, n: int, users: int) -> tuple:
+    """n host batches of `users` users as bench.py draws the vision
+    traffic (Zipf(1.2) ids, its log mask) at L = Z_L, and the dedup cap
+    that holds each one's unique items (rounded up to V_CAP_QUANTUM)."""
+    out = [(np.minimum(rng.zipf(ZIPF_A, size=(users, Z_L + 1)),
+                       V_ITEMS_FULL).astype(np.int64),
+            bench_log_mask(rng, users, Z_L)) for _ in range(n)]
+    most = max(len(np.unique(ids)) for ids, _ in out)
+    return out, -(-most // V_CAP_QUANTUM) * V_CAP_QUANTUM
+
+
+def zoo_encode(model, card: str, content_fn, what: str) -> torch.Tensor:
+    """A catalog of Z_ENCODE_CHUNKS chunks (after one warm chunk): the
+    table, finite, and its items/s."""
+    items = Z_ENCODE_CHUNKS * ENCODE_BATCH
+    Retriever.encode_catalog(model, ENCODE_BATCH - 1, None, Z_D,
+                             batch_size=ENCODE_BATCH, content_fn=content_fn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = Retriever.encode_catalog(model, items - 1, None, Z_D,
+                                     batch_size=ENCODE_BATCH,
+                                     content_fn=content_fn)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(tuple(table.shape) == (items, Z_D)
+            and bool(torch.isfinite(table).all()),
+            f"{what}: catalog table {tuple(table.shape)} not finite")
+    print(f"{what} catalog encode: {items} images (224 x 224, bf16, chunks "
+          f"of {ENCODE_BATCH}) in {seconds:.3f} s, {items / seconds:.1f} "
+          f"images/s [{card}]", flush=True)
+    return table
+
+
+def zoo_train(dev, card: str, cfg, pool, users: int, fixed: int, timed: int,
+              what: str) -> tuple:
+    """`fixed` steps on one batch, then `timed` steps on distinct batches,
+    each packed and copied inside its timed step: the losses (finite;
+    their gradients are held in zoo_check), p50, samples/s, images/s, peak
+    device memory. Returns (model, images a step, peak bytes, bytes before
+    the first step)."""
+    batches, cap = zoo_batches(np.random.default_rng(SEED + 32),
+                               timed + 1, users)
+    cfg = dataclasses.replace(cfg, dedup_cap=cap)
+    model = zoo_model(dev, cfg)
+    state = make_train_state(model, cfg, param_labels(model), seed=SEED)
+    step = make_train_step(cfg, log_pop=log_popularity(dev))
+    first = vision_device_batch(*batches[0], cap, pool, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(state, first).item() for _ in range(fixed)]
+    walls = []
+    for ids, lm in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(state, vision_device_batch(ids, lm, cap, pool,
+                                                      dev)).item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses), f"{what}: a loss is not "
+            f"finite: {losses}")
+    require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            f"{what}: a parameter is not finite after training")
+    p50 = statistics.median(walls)
+    print(f"{what} train step: B={users} L={Z_L} D={Z_D} bf16, dropout "
+          f"{DROP}, Zipf ids, dedup cap {cap} images: {fixed} steps on one "
+          f"batch, loss {losses[0]:.5f} -> {losses[fixed - 1]:.5f}; then "
+          f"{timed} distinct batches: p50 {p50:.3f} ms (min {min(walls):.3f}, "
+          f"max {max(walls):.3f}), {users / p50 * 1e3:.2f} samples/s, "
+          f"{cap / p50 * 1e3:.1f} images/s through the tower, peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB [{card}]", flush=True)
+    return model, cap, peak, base
+
+
+def resnet_serve(dev, card: str, content_fn) -> None:
+    """ResNet-50 MoRec's catalog encode and recommend p50 at B = 1 and
+    64."""
+    model = zoo_model(dev, zoo_config("resnet50"))
+    table = zoo_encode(model, card, content_fn, "resnet50")
+    rng = np.random.default_rng(SEED + 33)
+    requests = {B: vision_histories(rng, B, table.shape[0] - 1)
+                for B in Z_REQUESTS}
+    engine = Retriever(model, table, max_seq_len=Z_L,
+                       batch_sizes=Z_REQUESTS)
+    for B, h in requests.items():
+        ids, vals = engine.recommend(h, top_k=TOP_K)
+        require(ids.shape == (B, TOP_K) and np.isfinite(vals).all(),
+                f"resnet50 recommend B={B}: {ids.shape}")
+        check_results(ids, h, Z_L)
+        walls = []
+        for _ in range(25):
+            t0 = time.perf_counter()
+            engine.recommend(h, top_k=TOP_K)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"resnet50 recommend B={B} top_k={TOP_K} L={Z_L} D={Z_D}: p50 "
+              f"{statistics.median(walls[5:]):.3f} ms over 20 requests "
+              f"[{card}]", flush=True)
+
+
+def running_stats(model) -> dict:
+    return {n: b.detach().clone() for n, b in model.named_buffers()
+            if n.endswith((".mean", ".var"))}
+
+
+def zoo_check(dev, card: str, name: str, pool) -> None:
+    """One float32 step in training mode on Z_CHECK_USERS users (dropout
+    drawn from the same seed on both sides) on the card and through the
+    plain path on a CPU copy of the model: the loss and, for a ResNet,
+    every BatchNorm running average after the step within the CPU parity
+    tests' 1e-5, and every gradient by the vision gradient check's rule
+    and tolerance (for a ResNet: the SASRec kink share up to Z_KINK_SHARE,
+    the body's gradients reported, Z_BODY)."""
+    ids, lm = zoo_batches(np.random.default_rng(SEED + 34), 1,
+                          Z_CHECK_USERS)[0][0]
+    cap = -(-len(np.unique(ids)) // 4) * 4
+    cfg = zoo_config(name, "float32", dedup_cap=cap)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        model = zoo_model(dev, cfg).to(where)
+        state = make_train_state(model, cfg, param_labels(model), seed=SEED)
+        step = make_train_step(cfg, log_pop=log_popularity(where))
+        relu_in = []
+        t0 = time.perf_counter()
+        with relu_inputs(relu_in):
+            loss = step(state, vision_device_batch(ids, lm, cap, pool,
+                                                   where)).item()
+        runs.append((loss, time.perf_counter() - t0, {
+            n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            relu_in, {n: b.cpu() for n, b in running_stats(model).items()}))
+    (lk, sk, gk, hk, bk), (lp, sp, gp, hp, bp) = runs
+    loss_err = abs(lk - lp) / abs(lp)
+    top = max(g.abs().max().item() for g in gp.values())
+    kinks, kink_note = kink_units(hk, hp, BLOCKS,
+                                  Z_KINK_SHARE if bp else V_KINK_SHARE)
+    worst, worst_name = (-1.0, 0.0, 0.0), None
+    body, body_name = -1.0, ""
+    for n, want in gp.items():
+        scale = max(want.abs().max().item(), GRAD_FLOOR * top)
+        diff = (gk[n] - want).abs()
+        if n in kinks:
+            diff = diff[..., ~kinks[n]]
+        if bp and n.startswith("encoder.net.") and ".fc." not in n:
+            # a ResNet's body: reported, not held (Z_BODY)
+            body, body_name = max((body, body_name),
+                                  (diff.max().item() / scale, n))
+        elif diff.max().item() / scale >= worst[0]:
+            worst, worst_name = (diff.max().item() / scale,
+                                 diff.max().item(), scale), n
+    stats_err = max([((bk[n] - b).abs() / b.abs().clamp_min(1.0)).max()
+                     .item() for n, b in bp.items()] or [0.0])
+    print(f"{name} float32 step on {Z_CHECK_USERS} users ({cap} images), "
+          f"card {sk:.2f} s vs CPU plain path {sp:.2f} s: loss {lk:.7f} vs "
+          f"{lp:.7f}, rel err {loss_err:.3e} (tol {Z_LOSS_TOL:g}); "
+          f"largest gradient error {worst[1]:.3e} on a scale of "
+          f"{worst[2]:.3e} in {worst_name} (tol {V_STEP_GRAD_TOL:g}); "
+          f"{len(bp)} running averages, largest error {stats_err:.3e} (tol "
+          f"{Z_STATS_TOL:g}); {kink_note}"
+          + (f"; the ResNet body's gradients (not held, Z_BODY): largest "
+             f"error {body:.3e} of the scale in {body_name}" if bp else "")
+          + f" [{card}]", flush=True)
+    require(math.isfinite(loss_err) and loss_err <= Z_LOSS_TOL,
+            f"{name}: the float32 loss disagrees with the CPU")
+    require(worst[0] <= V_STEP_GRAD_TOL, f"{name}: the gradient of "
+            f"{worst_name} disagrees with the CPU")
+    require(stats_err <= Z_STATS_TOL, f"{name}: a running average "
+            f"disagrees with the CPU")
+
+
+def resnet_runner(dev, card: str) -> dict:
+    """The three train_resnet50.py launchers through the CLI (run.main) on
+    the vision runner's data (an MKV store of RV_ITEMS images), one epoch
+    each, then --mode test on the saved epoch: the reload's valid
+    evaluation is the run's in every bit, the running means moved; every
+    SASRec kernel of training and evaluation launched (DSSM has no SASRec:
+    none). Returns the three parts' launches."""
+    here = os.getcwd()
+    tmp = tempfile.mkdtemp(prefix="smoke_resnet_")
+    launched = []
+    try:
+        os.chdir(tmp)
+        vision_runner_data(np.random.default_rng(SEED + 21))
+        for variant, kw in R50_RUNNER.items():
+            what = f"resnet50 {variant or 'CE'}"
+            flags = {**vision_runner_flags(), **Z_LAUNCHER, **kw,
+                     "cv_model_load": "resnet50", "embedding_dim": Z_D,
+                     "max_seq_len": Z_L, "dedup_items": False,
+                     "encoder_chunk": 0, "epoch": 1,
+                     "label_screen": what.replace(" ", "_")}
+            argv = [f"--{k}={v}" for k, v in flags.items()]
+            with RunnerWatch() as watch:
+                best, best_epoch = run.main(argv)
+                require(best_epoch == 1, f"runner {what} saved no "
+                        f"checkpoint")
+                hit, ndcg = run.main(argv + ["--mode=test",
+                                             "--load_ckpt_name=epoch-1.pt"])
+                tr, te = watch.trainers
+                te.run_eval("valid")
+            same_eval(te.last_eval, tr.valid_results[1], f"runner {what}")
+            print(f"runner {what}: {tr.item_num} items, B "
+                  f"{flags['batch_size']}, ResNet-50 bf16: valid HR@10 "
+                  f"{best:.6f}; test reload HR@10 {hit:.6f} nDCG@10 "
+                  f"{ndcg:.6f} [{card}]", flush=True)
+            report_runner(what, card, tr, watch, tr.valid_results[1])
+            means = [b for n, b in running_stats(tr.model).items()
+                     if n.endswith(".mean")]
+            require(all(bool(b.any()) for b in means),
+                    f"runner {what}: a running mean never moved")
+            train, evals = watch.launches()
+            if variant != "DSSM":
+                require_launched(train, Z_TRAIN_KERNELS, f"runner {what} "
+                                 f"training")
+                require_launched(evals, Z_SERVE_KERNELS, f"runner {what} "
+                                 f"evaluation")
+            launched.append(counts())
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return add_counts(*launched)
+
+
+def resnet_path(dev, card: str, pool: np.ndarray) -> dict:
+    """Phase "resnet": ResNet-50 MoRec at full width, the counters set to 0
+    first: the catalog encode and recommend, the bf16 train step (the
+    running averages moved and finite), the reckoning of the launchers'
+    batch, the runner's three launchers; then a float32 step against the
+    CPU. Returns the launches of the main path."""
+    content_fn = pool_content(torch.from_numpy(pool).to(dev))
+    reset_counts()
+    resnet_serve(dev, card, content_fn)
+    served = counts()
+    require_launched(served, Z_SERVE_KERNELS, "resnet50 serving")
+    torch.cuda.empty_cache()
+    cfg = zoo_config("resnet50")
+    model, images, peak, base = zoo_train(dev, card, cfg, pool, R50_USERS,
+                                          R50_FIXED, R50_TIMED, "resnet50")
+    stats = running_stats(model)
+    moved = sum(not torch.equal(b, torch.zeros_like(b)
+                                if n.endswith(".mean") else
+                                torch.ones_like(b))
+                for n, b in stats.items())
+    require(all(bool(torch.isfinite(b).all()) for b in stats.values())
+            and moved == len(stats), f"resnet50: {len(stats) - moved} of "
+            f"{len(stats)} running averages never moved or not finite")
+    # the launchers' batch: 64 users x (L + 1) slots, without dedup as they
+    # run, and with dedup on this traffic
+    slots = 64 * (Z_L + 1)
+    _, cap64 = zoo_batches(np.random.default_rng(SEED + 35), 4, 64)
+    per = (peak - base) / images
+    print(f"resnet50 memory: {(peak - base) / 2 ** 30:.2f} GiB of "
+          f"activations for {images} images, {per / 2 ** 20:.1f} MiB an "
+          f"image; the launchers' B 64 would hold {slots} images "
+          f"({slots * per / 2 ** 30:.1f} GiB) without dedup and {cap64} "
+          f"with it ({cap64 * per / 2 ** 30:.1f} GiB), beside "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f} "
+          f"GiB on the card: the smoke trains {R50_USERS} users a step "
+          f"[{card}]", flush=True)
+    trained = counts()
+    require_launched({n: trained[n] - served[n] for n in trained},
+                     Z_TRAIN_KERNELS, "resnet50 training")
+    del model
+    torch.cuda.empty_cache()
+    ran = resnet_runner(dev, card)
+    launched = add_counts(trained, ran)
+    torch.cuda.empty_cache()
+    zoo_check(dev, card, "resnet50", pool)
+    return launched
+
+
+def vit_kernel_cases(dev, images: dict) -> tuple:
+    """kernel_phase and gradient_cases tuples of the ViTs' MLP at each
+    encoder's shapes, bfloat16: the training forward (fused_mlp, save_h)
+    and its backward at the train step's images, and the encode's edition
+    (fused_mlp_res; BEiT's fused_mlp) for a chunk of ENCODE_BATCH images;
+    C 768, F 3072, each encoder's activation."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 36)
+    g = lambda *s, scale=1.0, dt=torch.float32: (torch.randn(
+        *s, generator=gen, device=dev) * scale).to(dt)
+    C, Fw, dt = 768, 3072, torch.bfloat16
+    fwd, bwd = [], []
+    for name, (tokens, act) in VITS.items():
+        mlp = [g(C, Fw, scale=C ** -0.5), g(Fw, scale=0.1),
+               g(Fw, C, scale=Fw ** -0.5), g(C, scale=0.1)]
+        ln = [1.0 + g(C, scale=0.1), g(C, scale=0.1)]
+        enc = 197 if name == "beit" else tokens
+        M = ENCODE_BATCH * enc
+        x = g(M, C, dt=dt)
+        label = f"{name} encode M={M} C={C} F={Fw} {act} bf16"
+        yard = (lambda x=x, mlp=mlp: mlp_products(x, mlp[0].to(dt),
+                                                  mlp[2].to(dt)))
+        if name == "beit":
+            fwd.append(("fused_mlp", label, dt,
+                        lambda x=x, mlp=mlp, ln=ln, act=act: fused_mlp(
+                            x, *mlp, ln=ln, eps=1e-12, act=act),
+                        lambda x=x, mlp=mlp, ln=ln, act=act: fused_mlp_plain(
+                            x, *mlp, ln=ln, eps=1e-12, act=act),
+                        mlp_work(M, C, Fw, 2), None, yard))
+        else:
+            fwd.append(("fused_mlp_res", f"unit {label}", dt,
+                        lambda x=x, mlp=mlp, ln=ln, act=act: fused_mlp_res(
+                            x, None, *mlp, ln=ln, eps=1e-6, act=act),
+                        lambda x=x, mlp=mlp, ln=ln, act=act:
+                            fused_mlp_res_plain(x, None, *mlp, ln=ln,
+                                                eps=1e-6, act=act),
+                        mlp_work(M, C, Fw, 2), None, yard))
+        M = images[name] * tokens
+        x = g(M, C, dt=dt)
+        label = f"{name} train M={M} C={C} F={Fw} {act} bf16"
+        fwd.append(("fused_mlp", f"save_h {label}", dt,
+                    lambda x=x, mlp=mlp, ln=ln, act=act: fused_mlp(
+                        x, *mlp, ln=ln, eps=1e-6, act=act, save_h=True),
+                    lambda x=x, mlp=mlp, ln=ln, act=act: fused_mlp_plain(
+                        x, *mlp, ln=ln, eps=1e-6, act=act, save_h=True),
+                    mlp_work(M, C, Fw, 2, saved=True), None,
+                    lambda x=x, mlp=mlp: mlp_products(x, mlp[0].to(dt),
+                                                      mlp[2].to(dt))))
+        bwd.append((None, "fused_mlp_bwd", f"save_h {label}", dt,
+                    [x] + mlp + ln, g(M, C, dt=dt),
+                    lambda *a, act=act: fused_mlp(
+                        *a[:5], ln=a[5:], eps=1e-6, act=act, save_h=True),
+                    lambda *a, act=act: fused_mlp_plain(
+                        *a[:5], ln=a[5:], eps=1e-6, act=act, save_h=True),
+                    premlp_bwd_work(M, C, Fw, 2), None))
+    return fwd, bwd
+
+
+def vit_path(dev, card: str, pool: np.ndarray) -> tuple:
+    """Phase "vit": ViT-MAE-B/16, BEiT-B/16 and CLIP-B/32 at their default
+    widths under SASRec, the counters set to 0 first: each one's catalog
+    encode and bf16 train steps; then their MLP kernels against the plain
+    versions at each one's shapes (forward, training forward, backward),
+    and CLIP's float32 step against the CPU (quick_gelu's backward).
+    Returns (the main path's launches, the kernel results)."""
+    content_fn = pool_content(torch.from_numpy(pool).to(dev))
+    images = {}
+    reset_counts()
+    for name in VITS:
+        model = zoo_model(dev, zoo_config(name))
+        zoo_encode(model, card, content_fn, name)
+        del model
+        torch.cuda.empty_cache()
+        model, images[name], _, _ = zoo_train(
+            dev, card, zoo_config(name), pool, VIT_USERS, VIT_FIXED,
+            VIT_TIMED, name)
+        del model
+        torch.cuda.empty_cache()
+    launched = counts()
+    print(f"vit launches {launched}", flush=True)
+    require_launched(launched, VIT_KERNELS + ("fused_mlp_res",)
+                     + Z_TRAIN_KERNELS, "vit")
+    fwd, bwd = vit_kernel_cases(dev, images)
+    kernels = kernel_phase(dev, card, fwd, reps=FEW_REPS)
+    merge(kernels, gradient_cases(bwd, card, reps=VB_REPS))
+    del fwd, bwd
+    torch.cuda.empty_cache()
+    zoo_check(dev, card, "clip", pool)
+    return launched, kernels
+
+
 def merge(kernels: dict, more: dict) -> None:
     """Adds a phase's per-kernel results: a kernel seen before keeps its
     headline times and takes the worse error."""
@@ -4973,11 +5432,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("special"):
         special = special_path(dev, card, kept)
+    torch.cuda.empty_cache()
+    with phase("resnet"):
+        resnet = resnet_path(dev, card, pool)
+    torch.cuda.empty_cache()
+    with phase("vit"):
+        vit, vit_kernels = vit_path(dev, card, pool)
+    merge(kernels, vit_kernels)
 
-    # launches: every main path's count, each taken from 0; the nineteen
-    # keys after it say which path launched how many (2E: the two-stage
-    # caches, text and vision; 2T / 2V: the two-stage steps; FT / FV: the
-    # fusion steps)
+    # launches: every main path's count, each taken from 0; the
+    # twenty-one keys after it say which path launched how many (2E: the
+    # two-stage caches, text and vision; 2T / 2V: the two-stage steps; FT /
+    # FV: the fusion steps)
     paths = {"launches_serve": served, "launches_train": trained,
              "launches_bce": bce, "launches_dssm": dssm,
              "launches_2E": add_counts(cached_text, cached_vision),
@@ -4989,7 +5455,8 @@ def main() -> int:
              "launches_vision_dropout": vdropped,
              "launches_pallas_train": pallas, "launches_dp": parallel,
              "launches_runner": ran, "launches_accumulation": accumulated,
-             "launches_special": special}
+             "launches_special": special, "launches_resnet": resnet,
+             "launches_vit": vit}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": CSRC + SOURCES[n][0],
          "replaces": PALLAS + SOURCES[n][1],

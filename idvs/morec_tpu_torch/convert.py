@@ -8,7 +8,12 @@ Flax tree and keeps the Flax layouts (``models/layers.py``):
   ``embedding`` (an Embed) becomes ``weight``, array unchanged; ``bias``
   stays ``bias``, and so does any other leaf (a bare parameter such as
   Swin's ``relative_position_bias_table``). The patch projection's
-  (p, p, C, D) ``kernel`` is a ``weight`` like a Dense's.
+  (p, p, C, D) ``kernel`` and a ResNet convolution's (kh, kw, in, out)
+  ``kernel`` are a ``weight`` like a Dense's, in the Flax HWIO layout,
+  and a BatchNorm's ``scale`` is its ``weight``;
+- the ``batch_stats`` collection (a ResNet's BatchNorm running averages,
+  ``mean`` and ``var``) goes into the BatchNorm buffers of those names
+  beside the parameters.
 
 So any Flax ``RecModel.init`` tree of the ported towers loads with
 ``model.load_state_dict(from_flax(variables))`` (``load_flax``: a JAX
@@ -33,11 +38,12 @@ import torch
 from torch import nn
 
 from .models.layers import Dense, Embed, LayerNorm
+from .models.resnet import BatchNorm, Conv
 from .models.swin import PatchProject
 
 _TO_TORCH = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 _WEIGHT_LEAF = {Dense: "kernel", LayerNorm: "scale", Embed: "embedding",
-                PatchProject: "kernel"}
+                PatchProject: "kernel", Conv: "kernel", BatchNorm: "scale"}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -56,19 +62,30 @@ def flax_name(path: Iterable[str]) -> str:
     return ".".join(mods + [_TO_TORCH.get(leaf, leaf)])
 
 
+def frozen_names(paths: Iterable[tuple]) -> Set[str]:
+    """The port's parameter names of Flax param paths (a JAX
+    ``*_frozen_paths`` set, or the port's copies in ``models/``)."""
+    return {flax_name(p) for p in paths}
+
+
 def from_flax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
-    """Flax variables (``{"params": ...}`` or the params tree itself, leaves
-    as numpy or jax arrays) -> a state_dict for the port's model."""
-    params = variables.get("params", variables)
+    """Flax variables (``{"params": ..., "batch_stats": ...}`` or the
+    params tree itself, leaves as numpy or jax arrays) -> a state_dict for
+    the port's model."""
+    collections = "params" in variables or "batch_stats" in variables
+    params = variables.get("params", {}) if collections else variables
     out = OrderedDict()
     for path, value in _flatten(params):
         out[flax_name(path)] = torch.from_numpy(np.array(value, copy=True))
+    for path, value in _flatten(variables.get("batch_stats", {})):
+        out[".".join(path)] = torch.from_numpy(np.array(value, copy=True))
     return out
 
 
 def load_flax(model: nn.Module, variables: Mapping) -> None:
     """Loads Flax variables (e.g. a JAX ``Trainer``'s ``state.params``) into
-    ``model`` in place, every parameter, onto the model's device."""
+    ``model`` in place, every parameter and BatchNorm running average, onto
+    the model's device."""
     model.load_state_dict(from_flax(variables))
 
 
@@ -114,18 +131,21 @@ def bert_frozen_names(num_layers: int, freeze_before: int,
 
 def to_flax(model: nn.Module) -> dict:
     """The inverse of ``from_flax``: ``{"params": nested numpy tree}`` from
-    ``model``'s state_dict."""
+    ``model``'s state_dict, plus ``"batch_stats"`` when the model holds
+    BatchNorm running averages."""
     leaf_of = {}
     for name, module in model.named_modules():
         for cls, flax_leaf in _WEIGHT_LEAF.items():
             if isinstance(module, cls):
                 leaf_of[f"{name}.weight" if name else "weight"] = flax_leaf
-    params: dict = {}
+    buffers = {name for name, _ in model.named_buffers()}
+    out: dict = {"params": {}}
     for key, value in model.state_dict().items():
         *mods, leaf = key.split(".")
         leaf = leaf_of.get(key, leaf)
-        node = params
+        node = out.setdefault("batch_stats" if key in buffers else "params",
+                              {})
         for m in mods:
             node = node.setdefault(m, {})
         node[leaf] = value.detach().cpu().numpy()
-    return {"params": params}
+    return out

@@ -306,6 +306,52 @@ class DropPath(nn.Module):
         return (x * s.reshape((-1,) + (1,) * (x.dim() - 1))).to(x.dtype)
 
 
+def pre_ln_mlp(x: torch.Tensor, ln: LayerNorm, fc1: Dense, fc2: Dense, *,
+               act: str = "gelu", residual: bool = False,
+               save_h: bool = True) -> torch.Tensor:
+    """The pre-LN ViT MLP sub-block, fc2(act(fc1(ln(x)))) (JAX
+    models/layers.py ``pre_ln_mlp``): the caller owns the three leaves, so
+    their names are the Flax tree's (``<ln_name>.weight`` / ``.bias``,
+    ``<fc1>.weight`` / ``.bias``, ``<fc2>.weight`` / ``.bias``). It runs
+    ``ops/cuda/mlp.py``'s kernels: with ``residual`` x + mlp(ln(x)) through
+    ``fused_mlp_res``' unit edition (the JAX callers take it on their
+    deterministic path only), else ``fused_mlp``, storing h for the backward
+    with ``save_h``, and the caller adds the residual. act: "gelu" (exact),
+    "relu" or "quick_gelu"."""
+    from ..ops.cuda.mlp import fused_mlp, fused_mlp_res
+    ops = (fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+    lnp = (ln.weight, ln.bias)
+    if residual:
+        return fused_mlp_res(x, None, *ops, ln=lnp, eps=ln.eps, act=act)
+    return fused_mlp(x, *ops, ln=lnp, eps=ln.eps, act=act, save_h=save_h)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              n_heads: int, *, scaled: bool = False,
+              bias: Optional[torch.Tensor] = None,
+              drop: Optional["Dropout"] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Plain multi-head attention of the ViT encoders, as the JAX modules
+    write it: (B, T, H) q, k, v; float32 logits (the products accumulate
+    in float32 whatever the dtype), divided by sqrt(head dim) unless q comes
+    ``scaled`` (CLIP scales q before the product), plus the float32
+    ``bias`` (heads, T, T) if given; a float32 softmax cast back to v's
+    dtype, dropout of the probabilities, then P . V in v's dtype -> (B, T,
+    H)."""
+    B, T, H = q.shape
+    dh = H // n_heads
+    split = lambda t: t.reshape(B, T, n_heads, dh).transpose(1, 2)
+    logits = split(q).float() @ split(k).float().transpose(-1, -2)
+    if not scaled:
+        logits = logits / (dh ** 0.5)
+    if bias is not None:
+        logits = logits + bias.float()
+    p = torch.softmax(logits, dim=-1).to(v.dtype)
+    if drop is not None:
+        p = drop(p, generator)
+    return (p @ split(v)).transpose(1, 2).reshape(B, T, H)
+
+
 def normal_(std: float) -> "Init":
     """N(0, std^2) (flax ``nn.initializers.normal``)."""
     def init(w: torch.Tensor, generator: torch.Generator) -> None:

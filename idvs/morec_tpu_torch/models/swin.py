@@ -249,16 +249,18 @@ class PatchProject(nn.Module):
     """Non-overlapping patch embedding as space-to-depth and one matmul
     over the (p, p, C, D) convolution kernel (the Flax HWIO layout, whose
     row-major (ph, pw, c) order is the space-to-depth order): the same
-    linear map as the stride-p convolution."""
+    linear map as the stride-p convolution. ``bias=False``: CLIP's
+    bias-less patch convolution."""
 
     def __init__(self, patch: int, in_channels: int, features: int,
-                 device=None):
+                 bias: bool = True, device=None):
         super().__init__()
         device = on_device(device)
         self.patch = patch
         self.weight = nn.Parameter(torch.empty(patch, patch, in_channels,
                                                features, device=device))
-        self.bias = nn.Parameter(torch.empty(features, device=device))
+        self.bias = (nn.Parameter(torch.empty(features, device=device))
+                     if bias else None)
 
     def reset_parameters(self, generator) -> None:
         # flax lecun_normal on (p, p, C, D): fan_in = p * p * C
@@ -267,15 +269,16 @@ class PatchProject(nn.Module):
         lecun_normal_(flat, generator)
         with torch.no_grad():
             self.weight.copy_(flat.reshape(self.weight.shape))
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.patch
         B, H, W, C = x.shape
         x = x.reshape(B, H // p, p, W // p, p, C)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, H // p, W // p, p * p * C)
-        w2 = self.weight.to(x.dtype).reshape(p * p * C, -1)
-        return x @ w2 + self.bias.to(x.dtype)
+        y = x @ self.weight.to(x.dtype).reshape(p * p * C, -1)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 class PatchMerging(nn.Module):
@@ -346,3 +349,46 @@ class SwinModel(nn.Module):
                  else layer(x))
         # HF pooler: AdaptiveAvgPool1d(1); the mean in float32 as XLA's
         return self.layernorm(x).float().mean(dim=1).to(x.dtype)
+
+
+def swin_param_order(cfg: SwinConfig) -> list:
+    """[(HF name, Flax path)] in HF SwinModel's ``named_parameters()``
+    order (JAX swin.py ``swin_torch_param_order``)."""
+    order = [("embeddings.patch_embeddings.projection.weight",
+              ("patch_projection", "kernel")),
+             ("embeddings.patch_embeddings.projection.bias",
+              ("patch_projection", "bias")),
+             ("embeddings.norm.weight", ("patch_norm", "scale")),
+             ("embeddings.norm.bias", ("patch_norm", "bias"))]
+    dense = lambda t, f, hf, port: [(f"{t}{hf}.weight", (f, port, "kernel")),
+                                    (f"{t}{hf}.bias", (f, port, "bias"))]
+    norm = lambda t, f, hf, port: [(f"{t}{hf}.weight", (f, port, "scale")),
+                                   (f"{t}{hf}.bias", (f, port, "bias"))]
+    for s, depth in enumerate(cfg.depths):
+        for b in range(depth):
+            t, f = f"encoder.layers.{s}.blocks.{b}.", f"stage_{s}_block_{b}"
+            order += norm(t, f, "layernorm_before", "layernorm_before")
+            order.append((t + "attention.self.relative_position_bias_table",
+                          (f, "relative_position_bias_table")))
+            for hf in ("query", "key", "value"):
+                order += dense(t, f, "attention.self." + hf, hf)
+            order += dense(t, f, "attention.output.dense", "attention_output")
+            order += norm(t, f, "layernorm_after", "layernorm_after")
+            order += dense(t, f, "intermediate.dense", "intermediate")
+            order += dense(t, f, "output.dense", "output")
+        if s < len(cfg.depths) - 1:
+            t, f = f"encoder.layers.{s}.downsample.", f"stage_{s}_downsample"
+            order.append((t + "reduction.weight", (f, "reduction", "kernel")))
+            order += norm(t, f, "norm", "norm")
+    return order + [("layernorm.weight", ("layernorm", "scale")),
+                    ("layernorm.bias", ("layernorm", "bias"))]
+
+
+def swin_frozen_paths(cfg: SwinConfig, freeze_before: int,
+                      prefix: tuple = ()) -> set:
+    """Flax paths of the parameters with index < freeze_before in HF's
+    order (the reference freezes by index over
+    SwinForImageClassification's parameters, the classifier last and never
+    frozen: inbatch_sasrec_e2e_vision/run.py:58-60, 125-129)."""
+    return {prefix + fpath for idx, (_, fpath)
+            in enumerate(swin_param_order(cfg)) if idx < freeze_before}

@@ -11,9 +11,12 @@ averages the gradients over the group (JAX's ``pmean``).
 
 Only what the data-parallel train step and the runner need is here: the
 group, the row split, the rank and world size, rank 0's gate for logging
-and checkpoints (``is_coordinator``), and an all-gather whose gradient is
-the reduce-scatter (the ``gather_negatives`` candidates). ZeRO-1, SyncBN,
-sharded evaluation and multi-host batch assembly are not ported.
+and checkpoints (``is_coordinator``), an all-gather whose gradient is the
+reduce-scatter (the ``gather_negatives`` candidates), and a mean over the
+group whose gradient is the mean of the ranks' gradients (``all_mean``:
+the ResNet towers' SyncBN statistics, JAX's ``pmean`` inside
+``value_and_grad``). ZeRO-1, sharded evaluation and multi-host batch
+assembly are not ported.
 """
 
 from __future__ import annotations
@@ -107,6 +110,34 @@ def _gather(x, pg):
                       + tuple(x.shape[1:]))
     _all_gather_tensor(out, x.contiguous(), group=pg)
     return out
+
+
+class _AllMean(torch.autograd.Function):
+    """The group's mean (JAX's ``pmean``); its transpose is the mean of the
+    ranks' cotangents, as JAX transposes ``pmean`` under ``shard_map``."""
+
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return _mean(x, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mean(g, ctx.pg), None
+
+
+def _mean(x, pg):
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=pg)
+    return out / dist.get_world_size(pg)
+
+
+def all_mean(x: torch.Tensor, pg) -> torch.Tensor:
+    """x's mean over the group's ranks (one all-reduce), differentiable in
+    x."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllMean.apply(x, pg)
+    return _mean(x, pg)
 
 
 def mean_(tensors: Iterable[torch.Tensor], pg) -> None:

@@ -5,9 +5,10 @@ The JAX package's flag surface (idvs/morec_tpu/run.py; ``config.py``
 the variant axes --loss/--user_tower/--stage/--modality). It runs on the
 card and raises when no GPU is visible; on the CPU, drive
 ``train.runner.Trainer(cfg, device="cpu")`` or ``run(cfg, device="cpu")``.
-IDRec and the Swin vision towers (end2end, ID+modality fusion and
-two-stage) run from the command line; a text tower needs a tokenizer and
-BERT weights (``train/runner.py`` ``load_encoder``).
+IDRec and every vision tower (ResNet-18 ... 152, Swin-T / B, BEiT-B/16,
+CLIP-B/32, ViT-MAE-B/16; end2end, ID+modality fusion and two-stage) run
+from the command line; a text tower needs a tokenizer and BERT weights
+(``train/runner.py`` ``load_encoder``).
 """
 
 from .config import parse_args

@@ -16,7 +16,10 @@ metrics.py:60-107):
   (dataset.py:68-94, metrics.py:33-46).
 
 Both run under ``eval_mode``, so the result is the same whatever mode the
-model is in. The host builds the next user batch on a worker thread while
+model is in: a ResNet's BatchNorm normalises with its running averages, and
+ViT-MAE masks each chunk's patches with a generator seeded as the JAX
+encode seeds its ``masking`` key (evaluate.py:59), so two encodes of a
+catalog agree. The host builds the next user batch on a worker thread while
 the device scores the current one (``data/vision_loader.py``
 ``Prefetcher``), in order, so prefetching changes no result.
 """

@@ -132,8 +132,9 @@ class Trainer:
     names, feature width) for a modal item tower -- the module built on the
     trainer's device (``TextTower``, ``VisionTower``; for a two-stage tower
     built with ``project=False``), the state_dict of its pretrained ``net``
-    to load over the drawn weights, the names ``param_labels`` freezes
-    (``convert.bert_frozen_names``; end2end only).
+    (a ResNet's BatchNorm buffers included) to load over the drawn weights,
+    the names ``param_labels`` freezes (``convert.bert_frozen_names``, or
+    ``convert.frozen_names`` of ``vision_frozen_paths``; end2end only).
     tokenizer: the text items' tokenizer (``data/preprocess.py``
     ``read_items_tokenized``), for a text modal tower.
     """
@@ -704,26 +705,28 @@ class Trainer:
 
 
 def load_encoder(cfg: Config, device) -> tuple:
-    """The encoder bundle the CLI builds for a modal item tower: the Swin
-    tower of ``cfg.cv_model_load`` from its config (``project=False`` for
+    """The encoder bundle the CLI builds for a modal item tower: the vision
+    tower of ``cfg.cv_model_load`` from its config (ResNet-18 ... 152,
+    Swin-T / B, BEiT-B/16, CLIP-B/32, ViT-MAE-B/16; ``project=False`` for
     the two-stage stage), weights drawn by ``build_model`` (two-stage: by
-    ``_encode_catalog``). A text tower needs a tokenizer and pretrained
-    BERT files, which the repository does not hold: build the tower and
-    call ``Trainer(cfg, encoder_bundle=..., tokenizer=...)``."""
+    ``_encode_catalog``), and end2end the names of the parameters frozen by
+    the reference's index (``freeze_paras_before``,
+    ``vision_frozen_paths``; a two-stage tower is frozen whole). A text
+    tower needs a tokenizer and pretrained BERT files, which the repository
+    does not hold: build the tower and call ``Trainer(cfg,
+    encoder_bundle=..., tokenizer=...)``."""
     if cfg.modality == "text":
         raise NotImplementedError(
             "a text tower through the CLI needs a tokenizer and pretrained "
             "BERT weights, which are not in the repository; build a "
             "TextTower (models/text_tower.py) and run Trainer(cfg, "
             "encoder_bundle=(tower, None, frozen, width), tokenizer=...)")
-    if cfg.freeze_paras_before > 0 and cfg.stage == "end2end":
-        # a two-stage tower is frozen whole: its outputs are cached
-        raise NotImplementedError(
-            "freezing a vision tower by the reference's parameter index is "
-            "not ported (ROADMAP A7, the other encoders)")
-    from ..models.vision_tower import build_vision_tower
+    from ..convert import frozen_names
+    from ..models.vision_tower import build_vision_tower, vision_frozen_paths
     tower = build_vision_tower(cfg, device=device)
-    return tower, None, set(), tower.classifier.weight.shape[0]
+    frozen = (frozen_names(vision_frozen_paths(cfg))
+              if cfg.stage == "end2end" else set())
+    return tower, None, frozen, cfg.embedding_dim
 
 
 def run(cfg: Config, device=None):

@@ -11,10 +11,16 @@ betas (0.9, 0.999), eps 1e-8, decoupled weight decay.
 
 Frozen parameters (the encoder's first ``freeze_paras_before`` parameters in
 the reference's ``named_parameters()`` order, ``convert.py``
-``bert_frozen_names``) carry FROZEN_LABEL: ``make_train_state`` sets their
-``requires_grad`` to False and no optimizer group holds them, so they get
-no update and no weight decay (the JAX package's ``optax.set_to_zero``
+``bert_frozen_names``, and for a vision tower ``models/vision_tower.py``
+``vision_frozen_paths``) carry FROZEN_LABEL: ``make_train_state`` sets
+their ``requires_grad`` to False and no optimizer group holds them, so they
+get no update and no weight decay (the JAX package's ``optax.set_to_zero``
 group; torch never decays a parameter without a gradient).
+
+Buffers are no parameters: a ResNet's BatchNorm running averages (Flax's
+``batch_stats`` collection) are in no optimizer group and not in
+``count_params``, which counts what the JAX runner counts, the ``params``
+collection (runner.py:346-351); the forward updates them in training mode.
 """
 
 from __future__ import annotations

@@ -70,7 +70,11 @@ scan and its saved-attention policy are not carried over).
 ``cfg.remat_encoder`` checkpoints the whole encode as one chunk. A chunk's
 dropout and DropPath seeds come from a generator seeded with one value
 drawn from the step's generator before the chunk runs, so the
-recomputation draws the very same masks.
+recomputation draws the very same masks. A tower with BatchNorm (the
+ResNets) takes neither: its running averages update once a step, inside
+the forward, which a recomputation would repeat, and statistics over
+chunks would not be the batch's (the JAX step encodes in one piece
+whenever ``batch_stats`` is mutable, step.py:87-93).
 
 Several steps per dispatch raise ``NotImplementedError`` (the runner's
 ``steps_per_dispatch`` runs single steps back to back).
@@ -85,6 +89,7 @@ import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from ..models.resnet import BatchNorm
 from ..ops import dropout
 from ..ops.cuda.inbatch_ce import fused_inbatch_ce, fused_inbatch_ce_gathered
 from ..ops.losses import bce_dssm_loss, bce_sasrec_loss, inbatch_debiased_ce
@@ -170,6 +175,7 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
         params = {k: p.to(dt) if p.dtype == torch.float32 else p
                   for k, p in model.named_parameters()}
 
+        batch_norm = any(isinstance(m, BatchNorm) for m in model.modules())
         towers = {name: {k: v for k, v in params.items()
                          if k.split(".", 1)[0] in mods}
                   for name, mods in model.TOWERS.items()}
@@ -195,6 +201,8 @@ def make_train_step(cfg, *, item_content: Optional[torch.Tensor] = None,
             if content is None:
                 content = item_content[item_ids]
             n = item_ids.shape[0]
+            if batch_norm:
+                return tower("item_embs", item_ids, content, gen)
             if chunk and n % chunk == 0:
                 return torch.cat([
                     encode_remat(item_ids[i:i + chunk], content[i:i + chunk])

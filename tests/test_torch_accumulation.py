@@ -39,10 +39,16 @@ from idvs.morec_tpu_torch.train.step import make_train_step
 
 from tests.test_torch_config_data import _tokenizer
 from tests.test_torch_runner import (BERT, _cfg, _port, _run_epoch,
-                                     _same_weights, _text_bundle)
+                                     _same_weights, _text_bundle,
+                                     jit_jax_init)
 from tests.test_train_integration import quiet_log, synth_dataset
 
 LOSS_RTOL, MEAN_TOL, LR = 1e-5, 1e-4, 1e-3
+
+
+@pytest.fixture(autouse=True)
+def _jitted_jax_init(monkeypatch):
+    jit_jax_init(monkeypatch)
 
 
 def _jax_trainer(root, item_tower, **kw):

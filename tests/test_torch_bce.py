@@ -49,6 +49,7 @@ from idvs.morec_tpu_torch.train.state import make_train_state, param_labels
 from idvs.morec_tpu_torch.train.step import dedup_pack, make_train_step
 
 from tests.test_torch_train import _keep_grads, _state_dict
+from tests.test_torch_runner import jit_jax_init
 from tests.test_train_integration import quiet_log, synth_dataset
 
 ITEMS, B, L, D, T, STEPS = 30, 4, 6, 32, 8, 3
@@ -57,6 +58,11 @@ BERT = dict(vocab_size=97, hidden_size=32, num_hidden_layers=1,
             num_attention_heads=2, intermediate_size=64,
             max_position_embeddings=16, hidden_dropout_prob=0.0,
             attention_probs_dropout_prob=0.0)
+
+
+@pytest.fixture(autouse=True)
+def _jitted_jax_init(monkeypatch):
+    jit_jax_init(monkeypatch)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])

@@ -56,6 +56,26 @@ BASE = dict(dataset="TINY", news="news.tsv", behaviors="behaviors.tsv",
             fine_tune_lr=5e-4, eval_batch_size=32, num_words_title=T)
 
 
+def jit_jax_init(monkeypatch):
+    """Makes the JAX runner's ``model.init`` (an eager call in its
+    ``build_model``) a jitted one: the same tree, compiled once instead of
+    run op by op, which took most of a JAX ``Trainer``'s set-up time."""
+    from idvs.morec_tpu.train import runner as jrunner
+    make = jrunner.make_model
+
+    def jitted(*args, **kwargs):
+        model = make(*args, **kwargs)
+        object.__setattr__(model, "init", jax.jit(model.init))
+        return model
+
+    monkeypatch.setattr(jrunner, "make_model", jitted)
+
+
+@pytest.fixture(autouse=True)
+def _jitted_jax_init(monkeypatch):
+    jit_jax_init(monkeypatch)
+
+
 def _cfg(cls, root, **kw):
     return cls(root_data_dir=root, **{**BASE, **kw})
 

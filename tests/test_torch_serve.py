@@ -167,7 +167,10 @@ def test_port_runs_the_slice_without_jax():
     takes one BCE step of the fused two-stage head over it, and one BCE
     step of the fusion end2end tower over BERT; runs a cold and a new-item
     evaluation (train/special_eval.py) and two micro-steps of gradient
-    accumulation; the CLI itself
+    accumulation; builds every other vision encoder's tower from each CLI
+    name and runs a tiny ResNet-18, ViT-MAE, BEiT and CLIP tower through an
+    encode, a request and a train step (``transformers`` blocked too); the
+    CLI itself
     refuses to run without a GPU (the test process itself has jax loaded
     by conftest, hence the subprocess)."""
     code = textwrap.dedent("""
@@ -177,7 +180,8 @@ def test_port_runs_the_slice_without_jax():
         class NoJax(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path, target=None):
                 top = name.split(".")[0]
-                if (top in ("jax", "jaxlib", "flax", "optax")
+                if (top in ("jax", "jaxlib", "flax", "optax",
+                            "transformers")
                         or name == "idvs.morec_tpu"
                         or name.startswith("idvs.morec_tpu.")):
                     raise ImportError(f"{name} is blocked in this test")
@@ -397,6 +401,65 @@ def test_port_runs_the_slice_without_jax():
                                   for k, v in bce.items()})
             assert torch.isfinite(loss) and fstate.step == micro
             assert torch.equal(w, w0) == (micro == 1)
+        # the other vision encoders: every CLI name's bundle built at its
+        # default geometry (on the meta device; resnet34 two-stage), then a
+        # tiny ResNet-18,
+        # ViT-MAE, BEiT and CLIP tower each encodes a catalog, serves a
+        # request and takes one train step (BatchNorm's running averages
+        # move; MAE masks from the step's generator)
+        from idvs.morec_tpu_torch.models import beit, clip_vit, vit_mae
+        from idvs.morec_tpu_torch.models.resnet import ResNet
+        from idvs.morec_tpu_torch.train.runner import load_encoder
+        for name in ("resnet18", "resnet34", "resnet50", "resnet101",
+                     "resnet152", "vit_mae", "mae", "beit_base",
+                     "clip_vit"):
+            stage = "two_stage" if name.endswith("4") else "end2end"
+            zcfg = Config(item_tower="modal", modality="vision",
+                          cv_model_load=name, stage=stage,
+                          freeze_paras_before=4)
+            tower, _, frozen, _ = load_encoder(zcfg, "meta")
+            assert tower.project == (stage == "end2end")
+            assert len(frozen) == (4 if stage == "end2end" else 0)
+        vit = dict(image_size=32, patch_size=8, hidden_size=32,
+                   num_hidden_layers=1, num_attention_heads=2,
+                   intermediate_size=64)
+        nets = {"resnet": (ResNet("resnet18", 32, device="cpu"), 32),
+                "mae": (vit_mae.ViTMAEModel(vit_mae.ViTMAEConfig(**vit),
+                                            device="cpu"), 32),
+                "swin": (beit.BeitModel(beit.BeitConfig(**vit),
+                                        device="cpu"), 32)}
+        zoo = [(kind, *nets[kind]) for kind in nets] + [(
+            "swin", clip_vit.CLIPVisionModel(
+                clip_vit.CLIPVisionConfig(**vit), device="cpu"), 32)]
+        cfg.__dict__.update(loss="inbatch_ce", encoder_chunk=8,
+                            drop_rate=0.0, accumulation_step=1)
+        for kind, net, width in zoo:
+            zmodel = make_model(cfg, 40, VisionTower(
+                net, kind, 32, width, device="cpu"), device="cpu",
+                generator=torch.Generator().manual_seed(5))
+            # the ResNet on 16 x 16 images: every stage at a quarter of
+            # the work
+            zpool = pool[:, :16, :16] if kind == "resnet" else pool
+            ztable = Retriever.encode_catalog(
+                zmodel, 40, None, 32, batch_size=16,
+                content_fn=lambda ids: zpool[ids % 8])
+            assert torch.isfinite(ztable).all()
+            ids, _ = Retriever(zmodel, ztable, max_seq_len=6).recommend(
+                [[1, 2, 3]], top_k=5)
+            assert 0 not in ids
+            zstate = make_train_state(zmodel, cfg, param_labels(zmodel))
+            stats = [b.clone() for b in zmodel.buffers()
+                     if b.dtype.is_floating_point]
+            loss = make_train_step(cfg, log_pop=torch.zeros(41))(zstate, {
+                "ids": torch.from_numpy(ids_train),
+                "log_mask": torch.ones(4, 6),
+                "uniq_ids": torch.from_numpy(uniq),
+                "inverse": torch.from_numpy(inv),
+                "uniq_content": torch.from_numpy(zpool[uniq % 8])})
+            assert torch.isfinite(loss) and zstate.step == 1
+            moved = [not torch.equal(a, b) for a, b in zip(stats, [
+                b for b in zmodel.buffers() if b.dtype.is_floating_point])]
+            assert all(moved) and bool(moved) == (kind == "resnet")
         if not torch.cuda.is_available():
             try:
                 run.main(flags)

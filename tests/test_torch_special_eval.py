@@ -3,9 +3,10 @@
 
 - ``read_behaviors_special``: the same files give the same sequences,
   histories, new ids and new content;
-- ``eval_cold`` and ``eval_new`` on the same weights (Flax init, perturbed,
-  through ``convert.load_flax``) and the same tables, for the ID, text
-  (BERT 1 layer, width 32), ID+text fusion (``modal_id_add``) and vision
+- ``eval_cold`` and ``eval_new`` on the same weights (the port's draw,
+  perturbed, as the Flax tree of ``convert.to_flax``) and the same tables,
+  for the ID, text (BERT 1 layer, width 32), ID+text fusion
+  (``modal_id_add``) and vision
   (Swin 2 stages, width 16) towers, one catalog table for both: the new
   items' embeddings within 2e-5 (the port encodes them in chunks), HR@10
   and nDCG@10 within 1e-6, and the same per-user hits and nDCGs. The
@@ -57,7 +58,7 @@ from idvs.morec_tpu_torch.train.runner import Trainer
 
 from tests.test_torch_config_data import _tokenizer
 from tests.test_torch_runner import BERT as RUNNER_BERT
-from tests.test_torch_runner import _cfg, _port, _text_bundle
+from tests.test_torch_runner import _cfg, _port, _text_bundle, jit_jax_init
 from tests.test_train_integration import quiet_log, synth_dataset
 
 ITEMS, NEW, L, D, T, EVAL_B = 40, 7, 6, 16, 8, 8
@@ -71,6 +72,11 @@ SWIN = dict(image_size=32, patch_size=4, embed_dim=16, depths=(2, 2),
 TOWERS = {"id": ("id", None), "text": ("modal", "text"),
           "text_add": ("modal_id_add", "text"),
           "vision": ("modal", "vision")}
+
+
+@pytest.fixture(autouse=True)
+def _jitted_jax_init(monkeypatch):
+    jit_jax_init(monkeypatch)
 
 
 def test_read_behaviors_special_matches_jax(tmp_path):
@@ -132,13 +138,13 @@ def _models(tower, rng, content):
         tenc = VisionTower(SwinModel(sc, device="cpu"), "swin", D,
                            sc.num_features, device="cpu")
     jm = jax_make_model(cfg, item_num=ITEMS, encoder=jenc)
-    ids = jnp.asarray(rng.integers(1, ITEMS + 1, (2, L + 1)), jnp.int32)
-    v = jax.jit(jm.init)(
-        jax.random.PRNGKey(0), ids,
-        None if modality is None else jnp.asarray(
-            content[np.asarray(ids).ravel()]), jnp.ones((2, L)))
-    params = {"params": _perturbed(v["params"], rng)}
-    tm = make_model(cfg, ITEMS, tenc, device="cpu")
+    # the port's draw as the Flax tree (no Flax init to compile); the ids
+    # an init would read are drawn all the same, so the data that follows
+    # stays
+    rng.integers(1, ITEMS + 1, (2, L + 1))
+    tm = make_model(cfg, ITEMS, tenc, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    params = {"params": _perturbed(convert.to_flax(tm)["params"], rng)}
     convert.load_flax(tm, params)
     # device arrays: the jitted Swin indexes its bias tables with them
     return jm, jax.tree.map(jnp.asarray, params), tm
@@ -211,8 +217,9 @@ def test_special_eval_matches_jax(tower):
     # image (C13), so its tower takes ids 0..NEW here, which a pure image
     # tower reads only as that mask
     jids = np.arange(NEW + 1) if modality == "vision" else np.zeros(NEW + 1)
-    jnew = jm.apply(params, jnp.asarray(jids, jnp.int32),
-                    jnp.asarray(new_content), True, method="item_embs")
+    jnew = jax.jit(lambda p, i, c: jm.apply(p, i, c, True,
+                                             method="item_embs"))(
+        params, jnp.asarray(jids, jnp.int32), jnp.asarray(new_content))
     new_embs = special_eval.encode_new_items(tm, new_content, 3,
                                              images=modality == "vision")
     np.testing.assert_allclose(new_embs.numpy(), np.asarray(jnew), atol=TOL,

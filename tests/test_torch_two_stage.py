@@ -60,6 +60,7 @@ from tests.test_torch_config_data import _tokenizer
 from tests.test_torch_fusion import (_numpy, _same_tree, bce_batches,
                                      steps_against_jax)
 from tests.test_torch_train import _keep_grads, _state_dict
+from tests.test_torch_runner import jit_jax_init
 from tests.test_train_integration import quiet_log, synth_dataset
 
 TOL = 2e-5
@@ -74,6 +75,11 @@ SWIN = dict(image_size=32, patch_size=4, embed_dim=16, depths=(2, 2),
 # the heads: item tower, dnn_layers, mo_dnn_layers
 HEADS = {"modal": ("modal", 2, 0), "modal_dnn0": ("modal", 0, 0),
          "add": ("modal_id_add", 2, 2), "cat": ("modal_id_cat", 0, 2)}
+
+
+@pytest.fixture(autouse=True)
+def _jitted_jax_init(monkeypatch):
+    jit_jax_init(monkeypatch)
 
 
 def test_text_tower_without_projection_matches_flax():

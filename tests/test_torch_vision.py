@@ -128,8 +128,9 @@ def test_vision_tower_compute_dtype_and_refusals():
         out = tt.eval()(torch.zeros(2, 32, 32, 3, dtype=torch.uint8))
     assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
     net = SwinModel(SwinConfig(**SWIN), device="cpu")
-    with pytest.raises(NotImplementedError):
-        VisionTower(net, "resnet", D, 64, device="cpu")
+    # ResNet and MAE are ported kinds; an unknown kind is refused
+    with pytest.raises(ValueError, match="kind"):
+        VisionTower(net, "vit", D, 64, device="cpu")
     # project=False (the two-stage cache's tower) is ported: the
     # classifier's output before the GELU
     raw = VisionTower(net, "swin", D, 64, project=False, device="cpu")
@@ -160,9 +161,28 @@ def test_build_vision_tower_default_geometries(name, features, depths):
 
 @pytest.mark.parametrize("name", ["resnet50", "mae", "beit_base", "clip_vit"])
 def test_build_vision_tower_names_the_later_slice(name):
-    cfg = PortConfig(cv_model_load=name, embedding_dim=64)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_vision_tower(cfg)
+    """The encoders of the later slice are ported: each name builds the JAX
+    package's default geometry (models/vision_tower.py:81-189) and kind,
+    and bf16 compute reaches the tower."""
+    from idvs.morec_tpu.models import beit, clip_vit, vit_mae
+    cfg = PortConfig(cv_model_load=name, embedding_dim=64,
+                     compute_dtype="bfloat16")
+    tower = build_vision_tower(cfg, device="meta")
+    assert tower.compute_dtype == torch.bfloat16
+    if name == "resnet50":
+        assert tower.kind == "resnet" and tower.net.arch == "resnet50"
+        assert tuple(tower.net.fc.weight.shape) == (2048, 64)
+        return
+    want = {"mae": vit_mae.ViTMAEConfig(), "beit_base": beit.BeitConfig(),
+            "clip_vit": clip_vit.CLIPVisionConfig()}[name]
+    assert tower.kind == ("mae" if name == "mae" else "swin")
+    got = tower.net.cfg
+    for field in ("image_size", "patch_size", "hidden_size",
+                  "num_hidden_layers", "num_attention_heads",
+                  "intermediate_size", "layer_norm_eps"):
+        assert getattr(got, field) == getattr(want, field), field
+    head = tower.cv_proj if name == "mae" else tower.classifier
+    assert tuple(head.weight.shape) == (768, 64)
 
 
 @pytest.mark.parametrize("build", [
