@@ -14,7 +14,8 @@ data-parallel step with gather_negatives; BCE with sampled negatives and
 the DSSM two-tower (text MoRec, a 600_001-user table); the two-stage
 cached-embedding towers and ID+modality fusion (text and vision); the
 other vision encoders (ResNet-50 with its BatchNorm, ViT-MAE-B/16,
-BEiT-B/16, CLIP-B/32) under SASRec. Phases, each fatal on failure:
+BEiT-B/16, CLIP-B/32) under SASRec; the text encoder zoo (OPT-125M and
+DeBERTa-base item towers). Phases, each fatal on failure:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: build (or load) the kernel library;
@@ -288,7 +289,28 @@ BEiT-B/16, CLIP-B/32) under SASRec. Phases, each fatal on failure:
     (the encode chunk's fused_mlp_res, BEiT's fused_mlp, the training
     forward with save_h and its backward; gelu and quick_gelu), beside
     the two products through torch.matmul, with rows 5-6's tolerances;
-    last CLIP's float32 step against a CPU copy (quick_gelu's backward).
+    last CLIP's float32 step against a CPU copy (quick_gelu's backward);
+28. text_zoo (last): the text encoder zoo, OPT-125M and DeBERTa-base at
+    their published geometries (a directory holding each one's
+    config.json alone, read by runner.load_encoder; weights drawn from the
+    seed) under the flagship's SASRec: rows 5-6 at the towers' editions
+    (OPT's encode chunk through fused_mlp_res unit ReLU, the training FFN
+    through fused_mlp with save_h, OPT's with its LayerNorm and ReLU,
+    DeBERTa's without, GELU; C 768, F 3072, bf16 and float32) and their
+    backward against the plain versions (a ReLU's plain version takes the
+    kernel's branch at the kink, premlp_at_kink), the backward's wg route
+    against its products route, scatter_add_rows into the 50 272-row
+    table; the counters set to 0 before each path: OPT-125M's float32
+    catalog encode (100 001 items if a probe says 30 s suffice, else
+    16 385) and recommend at B = 1, 8, 64, a 2 048-item sub-catalog
+    against a CPU copy; its bf16 train step on the training phase's
+    batches (20 steps on one, 10 timed) and a float32 step on 4 users
+    against a CPU copy whose ReLU FFNs take the card's branch where their
+    own h lies within rounding of 0 (opt_ffn_branches); DeBERTa-base's
+    encode of 16 385 items, 10 train steps and its float32 check. The
+    float32 rows' bounds are at 3xTF32's rate. Its rows join the kernels
+    line under their edition's name ("fused_mlp (opt train)"), each with
+    its path's launches.
 
 Prints each phase's seconds and a JSON line of per-kernel results (launches
 on the main paths, in all and by path: text serving, training, BCE and
@@ -298,7 +320,8 @@ serving, the "windows" sub-catalog, vision
 training, the "windows" train step, the vision dropout step, the
 use_pallas steps, the data-parallel steps, the runner, the accumulated
 micro-steps, the cold and new-item evaluations, the ResNet-50 and the ViT
-paths; error
+paths, OPT-125M's serving and training, DeBERTa-base's encode and
+training; error
 and time against the plain version, the least time the card could take for
 the same work (float32 rows that launched gemm.cu, whose products run as
 3xTF32, at that rate, 165 TFLOP/s), the time of the one PyTorch call that
@@ -356,6 +379,7 @@ from idvs.morec_tpu_torch.bench_tail import (bwd_yardstick, proj_products,
                                              tail_products)
 from idvs.morec_tpu_torch.measure import bound_of, cuda_ms
 from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
+from idvs.morec_tpu_torch.models import opt as opt_mod
 from idvs.morec_tpu_torch.models import sasrec
 from idvs.morec_tpu_torch.models.layers import init_parameters
 from idvs.morec_tpu_torch.models.model import make_model
@@ -393,7 +417,9 @@ from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
                                                fused_proj_resln_res,
                                                premlp_bwd_gdh,
                                                premlp_bwd_gdh_plain,
+                                               premlp_bwd_h,
                                                premlp_bwd_plan,
+                                               premlp_kink_census,
                                                PREMLP_BWD_ROUTES,
                                                RESLN_BWD_ROUTES, relu_kink,
                                                resln_bwd_plan)
@@ -956,7 +982,8 @@ def tail_cases(g, dev, dt, M, C, Fw, eps, act, who):
          mlp_work(M, C, Fw, it), None, lambda: tail_products(x, w1, w2))]
 
 
-def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
+def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS,
+                 f32_tf32x3: bool = False) -> dict:
     """Holds each case's kernel against its plain version and times both
     (and the library call, where there is one). A case may carry an eighth
     element, a factory of the yardstick: a function running the same
@@ -965,10 +992,14 @@ def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS) -> dict:
     float32 serving rows of DEVICE_ROWS also print device time (the
     profiler's sum over the call's kernels) beside the library call's or
     the yardstick's, and the share of the bound that device time reaches:
-    at a request's shapes the event time is mostly the host's."""
+    at a request's shapes the event time is mostly the host's.
+    f32_tf32x3: every float32 case's bound at 3xTF32's rate, the card's
+    float32 products on the tensor cores (gemm.cu's), whatever body the
+    kernel runs; else only where the call launched gemm.cu (gemm_ran)."""
     results = {}
     for name, label, dt, run_kernel, run_plain, work, library, *more in cases:
         got, tf32x3 = gemm_ran(run_kernel, dt)
+        tf32x3 = tf32x3 or (f32_tf32x3 and dt == torch.float32)
         want = run_plain()
         torch.cuda.synchronize()
         require(got.shape == want.shape and got.dtype == want.dtype == dt,
@@ -5267,6 +5298,547 @@ def vit_path(dev, card: str, pool: np.ndarray) -> tuple:
     return launched, kernels
 
 
+# The text encoder zoo (ROADMAP A7b): OPT-125M and DeBERTa-base at their
+# published geometries (the keys of their published config.json: hidden
+# 768, 12 layers of 12 heads, FFN 3072, vocab 50 272 / 50 265), weights
+# drawn from the seed, built through runner.load_encoder from a model
+# directory that holds that config.json alone, under the flagship's SASRec
+# (D 512, L 20): serving in float32, training the flagship's bf16 step on
+# its traffic (B 128, Zipf ids, dedup). A title of TITLE_LEN tokens drawn
+# over each tower's vocabulary.
+TZ_CONFIGS = {
+    "opt-125m": dict(model_type="opt", vocab_size=50272, hidden_size=768,
+                     num_hidden_layers=12, num_attention_heads=12,
+                     ffn_dim=3072, max_position_embeddings=2048,
+                     do_layer_norm_before=True, word_embed_proj_dim=768,
+                     dropout=0.1, attention_dropout=0.0,
+                     activation_function="relu", pad_token_id=1),
+    "deberta-base": dict(model_type="deberta", vocab_size=50265,
+                         hidden_size=768, num_hidden_layers=12,
+                         num_attention_heads=12, intermediate_size=3072,
+                         max_position_embeddings=512,
+                         max_relative_positions=-1, relative_attention=True,
+                         pos_att_type="c2p|p2c", position_biased_input=False,
+                         type_vocab_size=0, layer_norm_eps=1e-7,
+                         hidden_dropout_prob=0.1,
+                         attention_probs_dropout_prob=0.1, pad_token_id=0)}
+TZ_C, TZ_F = 768, 3072
+TZ_ENCODE_LIMIT_S = 30.0    # the full catalog only if it encodes this fast
+TZ_PROBE_CHUNKS = 2
+TZ_ITEMS_CUT = V_ITEMS_CUT
+TZ_SUB_ITEMS = SUB_ITEMS    # sub-catalog held against the plain path
+TZ_OPT_FIXED, TZ_OPT_TIMED = FIXED_STEPS, TIMED_STEPS
+TZ_DEBERTA_STEPS = 10
+TZ_CHECK_USERS = 4          # users of each float32 gradient check
+# the towers' kernels: the OPT encode's FFN (fused_mlp_res, unit), the
+# training FFN of both (fused_mlp with save_h; its backward, on the wg
+# route in bf16), the word tables' gradient; SASRec's kernels beside them
+TZ_OPT_ENCODE_KERNELS = ("fused_mlp_res",)
+TZ_TRAIN_KERNELS = ("fused_mlp", "fused_mlp_bwd", "premlp_bwd_gdh",
+                    "scatter_add_rows") + TRAIN_KERNELS
+TZ_DEBERTA_ENCODE_KERNELS = ("fused_mlp",)
+
+
+def text_zoo_dir(root: str) -> str:
+    """A pretrained_models_dir holding each tower's config.json alone."""
+    for name, conf in TZ_CONFIGS.items():
+        os.makedirs(os.path.join(root, name))
+        with open(os.path.join(root, name, "config.json"), "w") as f:
+            json.dump(conf, f)
+    return root
+
+
+def text_zoo_config(root: str, name: str, **train) -> Config:
+    return model_config(modality="text", bert_model_load=name,
+                        pretrained_models_dir=root,
+                        num_words_title=TITLE_LEN, **train)
+
+
+def text_zoo_model(dev, cfg, seed: int):
+    """The tower of cfg.bert_model_load through runner.load_encoder (no
+    weights there: drawn from the seed with the rest) under SASRec."""
+    tower, state, frozen, width = runner.load_encoder(cfg, dev)
+    require(state is None and width == TZ_C and len(frozen) == 0,
+            f"{cfg.bert_model_load}: bundle {width} wide, frozen "
+            f"{len(frozen)}, weights {state is not None}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return make_model(cfg, ITEM_NUM, tower, device=dev, generator=gen)
+
+
+def text_zoo_kernel_cases(dev, titles: int) -> tuple:
+    """kernel_phase and gradient_cases tuples of rows 5-6 at the towers'
+    editions, C 768, F 3072, bf16 and float32: OPT's encode chunk
+    (fused_mlp_res unit, ReLU, ENCODE_BATCH titles), the training FFN of
+    OPT (fused_mlp with its LayerNorm, ReLU, save_h) and of DeBERTa
+    (fused_mlp without one, exact GELU, save_h) at `titles` titles; each
+    group named for the kernels line. A float32 ReLU backward's plain
+    version takes the kernel's branch at the kink (premlp_at_kink)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    g = lambda *s, scale=1.0, dt=torch.float32: (torch.randn(
+        *s, generator=gen, device=dev) * scale).to(dt)
+    C, Fw = TZ_C, TZ_F
+    fwd = {"opt encode": [], "opt train": [], "deberta train": []}
+    bwd = {"opt train": [], "deberta train": []}
+    for dt in (torch.bfloat16, torch.float32):
+        tag, it = tag_of(dt), size_of(dt)
+        mlp = [g(C, Fw, scale=C ** -0.5), g(Fw, scale=0.1),
+               g(Fw, C, scale=Fw ** -0.5), g(C, scale=0.1)]
+        ln = [1.0 + g(C, scale=0.1), g(C, scale=0.1)]
+        M = ENCODE_BATCH * TITLE_LEN
+        x = g(M, C, dt=dt)
+        fwd["opt encode"].append((
+            "fused_mlp_res", f"OPT encode unit M={M} C={C} F={Fw} relu {tag}",
+            dt, lambda x=x, mlp=mlp, ln=ln: fused_mlp_res(
+                x, None, *mlp, ln=ln, eps=1e-5, act="relu"),
+            lambda x=x, mlp=mlp, ln=ln: fused_mlp_res_plain(
+                x, None, *mlp, ln=ln, eps=1e-5, act="relu"),
+            mlp_work(M, C, Fw, it), None,
+            lambda x=x, mlp=mlp, dt=dt: mlp_products(x, mlp[0].to(dt),
+                                                     mlp[2].to(dt))))
+        M = titles * TITLE_LEN
+        for who, lnw, act in (("opt train", ln, "relu"),
+                              ("deberta train", None, "gelu")):
+            x = g(M, C, dt=dt)
+            label = (f"{'OPT' if who[0] == 'o' else 'DeBERTa'} train save_h "
+                     f"{'LN' if lnw else 'no LN'} M={M} C={C} F={Fw} {act} "
+                     f"{tag}")
+            kw = dict(ln=lnw, eps=1e-5, act=act, save_h=True)
+            fwd[who].append((
+                "fused_mlp", label, dt,
+                lambda x=x, mlp=mlp, kw=kw: fused_mlp(x, *mlp, **kw),
+                lambda x=x, mlp=mlp, kw=kw: fused_mlp_plain(x, *mlp, **kw),
+                mlp_work(M, C, Fw, it, saved=True), None,
+                lambda x=x, mlp=mlp, dt=dt: mlp_products(
+                    x, mlp[0].to(dt), mlp[2].to(dt))))
+            kink = None
+            if act == "relu":
+                kink = lambda *a: premlp_at_kink(*a, save_h=True)
+            bwd[who].append((
+                None, "fused_mlp_bwd", label, dt, [x] + mlp + (lnw or []),
+                g(M, C, dt=dt),
+                lambda *a, act=act: fused_mlp(*a[:5], ln=a[5:] or None,
+                                              eps=1e-5, act=act, save_h=True),
+                lambda *a, act=act: fused_mlp_plain(
+                    *a[:5], ln=a[5:] or None, eps=1e-5, act=act,
+                    save_h=True),
+                premlp_bwd_work(M, C, Fw, it), None, None, None, kink))
+    fwd["opt encode"].reverse()     # the headline: the served float32
+    return fwd, bwd
+
+
+def premlp_at_kink(x, w1, b1, w2, b2, *ln, save_h: bool):
+    """The ReLU pre-LN MLP's plain version that the kernel is held to
+    (relu_at_kink's rule for rows 5-6): fused_mlp_plain with ReLU's branch
+    taken from the h of the card's backward (premlp_bwd_h) where the plain
+    h lies within rounding of 0 (relu_kink: float32's sums, and in bf16
+    the roundings of the normalised x, which two LayerNorms may round
+    apart), and a line that says at how many pre-activations, how many of
+    them on the other side; premlp_kink_census raises past its caps."""
+    lnp = ln or None
+    with torch.no_grad():
+        h_k = premlp_bwd_h(x, w1, b1, w2, b2, ln=lnp, eps=1e-5, act="relu",
+                           save_h=save_h)
+    n, marked, flips = premlp_kink_census(x, w1, b1, h_k, ln=lnp, eps=1e-5)
+    return (lambda *a: fused_mlp_plain(*a[:5], ln=a[5:] or None, eps=1e-5,
+                                       act="relu", save_h=save_h,
+                                       kink_from=h_k),
+            f"ReLU's branch from the kernel's h at {marked} of {n} "
+            f"pre-activations within rounding of 0, {flips} of them on the "
+            f"other side")
+
+
+def text_zoo_routes(dev, card: str, titles: int) -> None:
+    """The training FFN's backward of OPT (LN, ReLU, save_h) and DeBERTa
+    (no LN, GELU, save_h) at `titles` titles, bf16, through the route
+    premlp_bwd_plan picks (wg at C = 768) and through the products route,
+    each alone (PREMLP_BWD_ROUTES), CUDA-event and device time, their
+    gradients against each other at GRAD_TOL."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
+                                          device=dev) * scale
+    bf, C, Fw = torch.bfloat16, TZ_C, TZ_F
+    M = titles * TITLE_LEN
+    k = premlp_bwd_plan(C, M, bf)
+    require(k["route"] == "wg", f"premlp_bwd_plan takes {k['route']} at "
+            f"C={C} M={M}")
+    for who, ln, act in (("OPT", True, "relu"), ("DeBERTa", False, "gelu")):
+        x2, dout = g(M, C).to(bf), g(M, C).to(bf)
+        w1, b1 = g(C, Fw, scale=C ** -0.5).to(bf), g(Fw, scale=0.1).to(bf)
+        w2, b2 = g(Fw, C, scale=Fw ** -0.5).to(bf), g(C, scale=0.1).to(bf)
+        lnp = [1.0 + g(C, scale=0.1), g(C, scale=0.1)] if ln else None
+        h = premlp_bwd_h(x2, w1, b1, w2, b2, ln=lnp, eps=1e-5, act=act,
+                         save_h=True)
+        ops = (x2, dout, None, w1, b1, w2, lnp or [None, None], h, 1e-5,
+               act, False, lib.DTYPE_CODES[bf])
+        routes = (k["route"], "products")
+        got = {r: PREMLP_BWD_ROUTES[r](*ops) for r in routes}
+        torch.cuda.synchronize()
+        where = (f"{who} train save_h {'LN' if ln else 'no LN'} M={M} C={C} "
+                 f"F={Fw} {act} bf16")
+        worst = _worst_err([t for t in got[k["route"]] if t is not None],
+                           [t for t in got["products"] if t is not None],
+                           f"premlp_bwd routes {where}")
+        del got
+        times = {}
+        for r in routes:
+            fn = lambda r=r: PREMLP_BWD_ROUTES[r](*ops)
+            times[r] = (cuda_ms(fn, reps=VB_REPS), device_ms(
+                fn, VB_REPS, expect=(k["kernels"][0],)
+                if r == k["route"] else ())[0])
+        print(f"premlp_bwd routes [{where}]: " + ", ".join(
+            f"{r} {ms:.4f} ms ({dev_ms:.4f} ms device)"
+            for r, (ms, dev_ms) in times.items())
+            + f"; {k['route']} against products max_abs_err {worst[1]:.3e} "
+            f"on a scale of {worst[2]:.3g}, bound "
+            f"{bound_text(premlp_bwd_work(M, C, Fw, 2), bf, False)} "
+            f"[{card}]", flush=True)
+        require(worst[0] <= GRAD_TOL[bf], f"premlp_bwd routes {where}: "
+                f"error {worst[1]} above {GRAD_TOL[bf]} x {worst[2]}")
+        del x2, dout, ops, h
+
+
+def text_zoo_scatter(dev, card: str, titles: int) -> dict:
+    """scatter_add_rows into OPT-125M's 50 272 x 768 word table from a
+    train step's tokens (`titles` titles of TITLE_LEN, Zipf ids), bf16 and
+    float32, against its plain version, beside index_add_. Returns the
+    kernels line's row."""
+    rng = np.random.default_rng(SEED + 42)
+    V = TZ_CONFIGS["opt-125m"]["vocab_size"]
+    M, results = titles * TITLE_LEN, {}
+    for dt in (torch.bfloat16, torch.float32):
+        ids = torch.from_numpy(np.minimum(rng.zipf(ZIPF_A, M), V) - 1
+                               ).to(dev)
+        dx = torch.from_numpy(rng.standard_normal((M, TZ_C)).astype(
+            np.float32)).to(dev, dt)
+        got = scatter_add_rows(ids, dx, V)
+        want = scatter_add_rows_plain(ids, dx, V)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype == dt,
+                f"scatter_add_rows V={V}: {got.shape}/{got.dtype}")
+        err, scale = _rel_err(got, want)
+        del got, want
+        ms = cuda_ms(lambda: scatter_add_rows(ids, dx, V))
+        plain_ms = cuda_ms(lambda: scatter_add_rows_plain(ids, dx, V))
+        table = torch.zeros(V, TZ_C, dtype=dt, device=dev)
+        library_ms = cuda_ms(lambda: table.index_add_(0, ids, dx))
+        del table
+        work = scatter_work(M, TZ_C, V, size_of(dt))
+        bound_ms, bound_by = bound_of(work, dt)
+        tol = SCATTER_TOL[dt]
+        print(f"kernel scatter_add_rows [OPT word table M={M} V={V} "
+              f"D={TZ_C} Zipf ids {tag_of(dt)}]: max_abs_err {err:.3e} on a "
+              f"scale of {scale:.3g} (tol {tol:g} of the scale), kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library call "
+              f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} [{card}]", flush=True)
+        require(math.isfinite(err) and err <= tol * scale,
+                f"scatter_add_rows V={V}: error {err} above {tol} x {scale}")
+        _record(results, "scatter_add_rows", err, ms, plain_ms, work, dt,
+                library_ms)
+    return results["scatter_add_rows"]
+
+
+def text_catalog(rng, item_num: int, vocab: int, pad: int) -> np.ndarray:
+    """catalog's packed title rows over a tower's vocabulary (ids from 3,
+    its pad id on the padding)."""
+    lens = rng.integers(5, TITLE_LEN + 1, size=item_num + 1)
+    att = (np.arange(TITLE_LEN)[None, :] < lens[:, None]).astype(np.int64)
+    att[0] = 0
+    ids = np.where(att == 1, rng.integers(3, vocab, size=att.shape), pad)
+    return np.concatenate([ids, att], axis=1)
+
+
+def text_zoo_encode(model, card: str, content, what: str,
+                    items=None) -> tuple:
+    """The catalog encode (float32, chunks of ENCODE_BATCH), the launch
+    counters set to 0 just before it: `items` items, or when None the full
+    catalog if a probe of TZ_PROBE_CHUNKS chunks says it takes at most
+    TZ_ENCODE_LIMIT_S, else TZ_ITEMS_CUT. Returns (table, items, the
+    encode's launches)."""
+    n, note = items, ""
+    if n is None:
+        probe = TZ_PROBE_CHUNKS * ENCODE_BATCH
+        for _ in range(2):      # the first call warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Retriever.encode_catalog(model, probe - 1, content[:probe], D,
+                                     batch_size=ENCODE_BATCH)
+            torch.cuda.synchronize()
+        guess = (time.perf_counter() - t0) * (ITEM_NUM + 1) / probe
+        n = ITEM_NUM if guess <= TZ_ENCODE_LIMIT_S else TZ_ITEMS_CUT
+        note = (f" (the probe's estimate for {ITEM_NUM + 1}: {guess:.1f} "
+                f"s)")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    table = Retriever.encode_catalog(model, n, content[:n + 1], D,
+                                     batch_size=ENCODE_BATCH)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = counts()
+    require(tuple(table.shape) == (n + 1, D)
+            and bool(torch.isfinite(table).all()),
+            f"{what}: table {tuple(table.shape)} not finite")
+    print(f"{what} catalog encode: {n + 1} items{note}, float32, chunks "
+          f"of {ENCODE_BATCH} titles of {TITLE_LEN} tokens, in "
+          f"{seconds:.3f} s, {(n + 1) / seconds:.1f} items/s, launches "
+          f"{ {k: v for k, v in launched.items() if v} } [{card}]",
+          flush=True)
+    return table, n, launched
+
+
+def text_zoo_serve(dev, card: str, root: str, content) -> dict:
+    """OPT-125M serving, the counters set to 0 just before the catalog
+    encode: the encode, recommend at REQUEST_BATCHES (p50), every kernel of
+    the path launched,
+    no padding or history id served; then a TZ_SUB_ITEMS sub-catalog
+    against the plain path on a CPU copy (sub_catalog_check's rule).
+    Returns the path's launches."""
+    rng = np.random.default_rng(SEED + 43)
+    model = text_zoo_model(dev, text_zoo_config(root, "opt-125m"),
+                           SEED + 44)
+    table, n, encoded = text_zoo_encode(model, card, content, "opt-125m")
+    requests = {B: histories(rng, B, n) for B in REQUEST_BATCHES}
+    engine = Retriever(model, table, max_seq_len=L,
+                       batch_sizes=REQUEST_BATCHES)
+    results = {B: engine.recommend(h, top_k=TOP_K)
+               for B, h in requests.items()}
+    launched = counts()
+    print(f"opt-125m serving launches after encode {encoded}, after "
+          f"recommend {launched}", flush=True)
+    require_launched(encoded, TZ_OPT_ENCODE_KERNELS, "opt-125m encode")
+    require_launched({w: launched[w] - encoded[w] for w in launched},
+                     SERVE_KERNELS, "opt-125m recommend")
+    for B, (ids, vals) in results.items():
+        require(ids.shape == (B, TOP_K) and np.isfinite(vals).all(),
+                f"opt-125m recommend B={B}: {ids.shape}")
+        check_results(ids, requests[B])
+    for B, h in requests.items():
+        walls = []
+        for _ in range(25):
+            t0 = time.perf_counter()
+            engine.recommend(h, top_k=TOP_K)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"opt-125m recommend B={B} top_k={TOP_K}: p50 "
+              f"{statistics.median(walls[5:]):.3f} ms over 20 requests "
+              f"[{card}]", flush=True)
+    del engine, table
+    torch.cuda.empty_cache()
+    sub = TZ_SUB_ITEMS - 1
+    hist = histories(rng, 64, sub)
+    table_k = Retriever.encode_catalog(model, sub, content[:sub + 1], D,
+                                       batch_size=ENCODE_BATCH)
+    ids_k, vals_k = Retriever(model, table_k, max_seq_len=L,
+                              batch_sizes=(64,)).recommend(hist, TOP_K)
+    cpu_model = copy.deepcopy(model).cpu()
+    t0 = time.perf_counter()
+    table_p = Retriever.encode_catalog(cpu_model, sub,
+                                       content[:sub + 1].cpu(), D,
+                                       batch_size=ENCODE_BATCH)
+    ids_p, vals_p = Retriever(cpu_model, table_p, max_seq_len=L,
+                              batch_sizes=(64,)).recommend(hist, TOP_K)
+    table_err = (table_k.cpu() - table_p).abs().max().item()
+    scale = np.maximum(1.0, np.abs(vals_p))
+    score_err = float((np.abs(vals_k - vals_p) / scale).max())
+    mismatch = np.argwhere(ids_k != ids_p)
+    print(f"opt-125m sub-catalog {TZ_SUB_ITEMS} items: table max_abs_err "
+          f"{table_err:.3e} (tol {TABLE_TOL:g}), score rel err "
+          f"{score_err:.3e} (tol {SCORE_TOL:g}), {len(mismatch)} of "
+          f"{ids_k.size} ids differ; plain CPU path took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    require(table_err <= TABLE_TOL, "opt-125m sub-catalog table disagrees")
+    require(score_err <= SCORE_TOL, "opt-125m sub-catalog scores disagree")
+    check_ties(mismatch, vals_p, scale, SCORE_TOL)
+    check_results(ids_k, hist)
+    return launched
+
+
+def text_zoo_train(dev, card: str, cfg, content, batches, cap: int,
+                   fixed: int, timed: int, what: str) -> tuple:
+    """The flagship's bf16 step with the tower of cfg: `fixed` steps on
+    batches[0] (the loss must fall: the mean of the last half below the
+    first half's), then `timed` steps on the next batches (p50, samples/s),
+    peak memory, every parameter finite. Returns (model, launches), the
+    counters set to 0 just before the first step."""
+    model = text_zoo_model(dev, cfg, SEED + 45)
+    state = make_train_state(model, cfg, param_labels(model), seed=SEED)
+    step = make_train_step(cfg, item_content=content,
+                           log_pop=log_popularity(dev))
+    first = device_batch(*batches[0], cap, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, losses = [], []
+    for i in range(fixed + timed):
+        b = first if i < fixed else batches[1 + i - fixed]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = b if i < fixed else device_batch(*b, cap, dev)
+        losses.append(step(state, batch).item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launched = counts()
+    half = fixed // 2
+    head = statistics.mean(losses[:half])
+    tail = statistics.mean(losses[half:fixed])
+    p50 = statistics.median(walls[fixed:] if timed else walls[1:])
+    print(f"{what} train step B={TRAIN_B} L={L} bf16, dropout {DROP}, dedup "
+          f"cap {cap} ({cap * TITLE_LEN} tokens): {fixed} steps on one "
+          f"batch, loss mean of the first {half} {head:.5f}, of the last "
+          f"{fixed - half} {tail:.5f}; p50 {p50:.3f} ms over "
+          f"{timed or fixed - 1} {'distinct batches' if timed else 'steps'}"
+          f" (min {min(walls[1:]):.3f}, max {max(walls[1:]):.3f}), "
+          f"{TRAIN_B / p50 * 1e3:.1f} samples/s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]",
+          flush=True)
+    print(f"{what} training launches {launched}", flush=True)
+    require(all(math.isfinite(x) for x in losses), f"{what}: a loss is not "
+            f"finite: {losses}")
+    require(tail < head, f"{what}: the loss did not fall on a fixed batch")
+    require_launched(launched, TZ_TRAIN_KERNELS, f"{what} training")
+    require(all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            f"{what}: a parameter is not finite after training")
+    return model, launched
+
+
+@contextlib.contextmanager
+def opt_ffn_branches(card_h: list, census: list):
+    """OPT's FFN in a float32 check, one spy for both sides of
+    card_and_plain (the card's step runs first). On the card it appends to
+    card_h, call by call, the h whose sign takes ReLU's branch in the
+    card's backward (premlp_bwd_h). On the CPU the FFN of the same call
+    runs as its plain version with that branch where its own h lies
+    within float32's rounding of 0 (kink_from), its own elsewhere; it
+    appends premlp_kink_census's counts, which raises past its caps."""
+    inner = opt_mod.pre_ln_mlp
+
+    def spy(x, ln, fc1, fc2, *, act="gelu", residual=False, save_h=True):
+        ops = (fc1.weight, fc1.bias, fc2.weight, fc2.bias)
+        kw = dict(ln=(ln.weight, ln.bias), eps=ln.eps)
+        if x.device.type != "cpu":
+            with torch.no_grad():
+                card_h.append(premlp_bwd_h(
+                    x, *ops, act=act, save_h=save_h and not residual,
+                    **kw).cpu())
+            return inner(x, ln, fc1, fc2, act=act, residual=residual,
+                         save_h=save_h)
+        h_card = card_h[len(census)]
+        census.append(premlp_kink_census(x, *ops[:2], h_card, **kw))
+        if residual:
+            return fused_mlp_res_plain(x, None, *ops, act=act,
+                                       kink_from=h_card, **kw)
+        return fused_mlp_plain(x, *ops, act=act, save_h=save_h,
+                               kink_from=h_card, **kw)
+
+    opt_mod.pre_ln_mlp = spy
+    try:
+        yield
+    finally:
+        opt_mod.pre_ln_mlp = inner
+
+
+def text_zoo_check(dev, model, cfg, content, batch, what: str,
+                   relu_ffn: bool) -> None:
+    """One float32 step of cfg's model without dropout (eval mode) on
+    TZ_CHECK_USERS users, on the card and through the plain path on a CPU
+    copy (card_and_plain, same_step's rule; SASRec's ReLU units at the kink
+    left out); with relu_ffn, OPT's FFN on the CPU takes the card's ReLU
+    branch at its kink (opt_ffn_branches)."""
+    ids, lm = batch[0][:TZ_CHECK_USERS], batch[1][:TZ_CHECK_USERS]
+    cap = -(-len(np.unique(ids)) // 8) * 8
+    cfg = dataclasses.replace(cfg, compute_dtype="float32", dedup_cap=cap)
+    card_h, census = [], []
+    with (opt_ffn_branches(card_h, census) if relu_ffn
+          else contextlib.nullcontext()):
+        runs = card_and_plain(dev, model, cfg, content,
+                              lambda where: device_batch(ids, lm, cap, where))
+    same_step(runs, f"{what} gradient check: f32 step on {TZ_CHECK_USERS} "
+                    f"users ({cap} titles)")
+    if relu_ffn:
+        require(len(census) == len(card_h) > 0,
+                f"{what}: {len(card_h)} FFN calls on the card, "
+                f"{len(census)} on the CPU")
+        n, marked, flips = (sum(c[i] for c in census) for i in range(3))
+        print(f"{what} gradient check: the CPU took the card's ReLU branch "
+              f"in its {len(census)} FFN calls at {marked} of {n} "
+              f"pre-activations within float32's rounding of 0, {flips} of "
+              f"them on the other side", flush=True)
+
+
+TZ_TRAIN = dict(loss="inbatch_ce", compute_dtype="bfloat16", lr=LR,
+                l2_weight=0.0, fine_tune_lr=FT_LR, fine_tune_l2_weight=0.0)
+# the kernels line's rows of this phase: (edition group) -> the path whose
+# launches they count
+TZ_ROW_PATHS = {"opt encode": "launches_opt_serve",
+                "opt train": "launches_opt_train",
+                "deberta train": "launches_deberta_train"}
+
+
+def text_zoo_path(dev, card: str, batches, cap: int) -> tuple:
+    """Phase "text_zoo": rows 4-6 at the towers' editions and shapes
+    against their plain versions (and the wg route against the products
+    route), OPT-125M's serving and training, its float32 check, then
+    DeBERTa-base's encode, training and float32 check; each path driven
+    with the counters set to 0 just before it and read just after.
+    Returns ({path: launches}, {row name: kernels line row})."""
+    rng = np.random.default_rng(SEED + 47)
+    root = text_zoo_dir(tempfile.mkdtemp(prefix="smoke_text_zoo_"))
+    rows, paths = {}, {}
+    try:
+        fwd, bwd = text_zoo_kernel_cases(dev, cap)
+        for group, cases in fwd.items():
+            for n, r in kernel_phase(dev, card, cases, reps=FEW_REPS,
+                                     f32_tf32x3=True).items():
+                rows[f"{n} ({group})"] = dict(r, wrapper=n, group=group)
+        for group, cases in bwd.items():
+            for n, r in gradient_cases(cases, card, reps=VB_REPS).items():
+                rows[f"{n} ({group})"] = dict(r, wrapper=n, group=group)
+        del fwd, bwd
+        torch.cuda.empty_cache()
+        text_zoo_routes(dev, card, cap)
+        rows["scatter_add_rows (opt train)"] = dict(
+            text_zoo_scatter(dev, card, cap), wrapper="scatter_add_rows",
+            group="opt train")
+        torch.cuda.empty_cache()
+        opt = TZ_CONFIGS["opt-125m"]
+        content = torch.from_numpy(text_catalog(
+            rng, ITEM_NUM, opt["vocab_size"], opt["pad_token_id"])).to(dev)
+        paths["launches_opt_serve"] = text_zoo_serve(dev, card, root,
+                                                     content)
+        torch.cuda.empty_cache()
+        cfg = text_zoo_config(root, "opt-125m", dedup_cap=cap, **TZ_TRAIN)
+        model, paths["launches_opt_train"] = text_zoo_train(
+            dev, card, cfg, content, batches, cap, TZ_OPT_FIXED,
+            TZ_OPT_TIMED, "opt-125m")
+        text_zoo_check(dev, model, cfg, content, batches[0], "opt-125m",
+                       relu_ffn=True)
+        del model, content
+        torch.cuda.empty_cache()
+        deb = TZ_CONFIGS["deberta-base"]
+        content = torch.from_numpy(text_catalog(
+            rng, ITEM_NUM, deb["vocab_size"], deb["pad_token_id"])).to(dev)
+        model = text_zoo_model(dev, text_zoo_config(root, "deberta-base"),
+                               SEED + 48)
+        paths["launches_deberta_encode"] = text_zoo_encode(
+            model, card, content, "deberta-base", items=TZ_ITEMS_CUT)[2]
+        require_launched(paths["launches_deberta_encode"],
+                         TZ_DEBERTA_ENCODE_KERNELS, "deberta-base encode")
+        del model
+        torch.cuda.empty_cache()
+        cfg = text_zoo_config(root, "deberta-base", dedup_cap=cap,
+                              **TZ_TRAIN)
+        model, paths["launches_deberta_train"] = text_zoo_train(
+            dev, card, cfg, content, batches, cap, TZ_DEBERTA_STEPS, 0,
+            "deberta-base")
+        text_zoo_check(dev, model, cfg, content, batches[0],
+                       "deberta-base", relu_ffn=False)
+        del model, content
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name, r in rows.items():
+        r["launches"] = paths[TZ_ROW_PATHS[r.pop("group")]][r["wrapper"]]
+    return paths, rows
+
+
 def merge(kernels: dict, more: dict) -> None:
     """Adds a phase's per-kernel results: a kernel seen before keeps its
     headline times and takes the worse error."""
@@ -5439,9 +6011,12 @@ def main() -> int:
     with phase("vit"):
         vit, vit_kernels = vit_path(dev, card, pool)
     merge(kernels, vit_kernels)
+    torch.cuda.empty_cache()
+    with phase("text_zoo"):
+        text_zoo, zoo_rows = text_zoo_path(dev, card, batches, cap)
 
     # launches: every main path's count, each taken from 0; the
-    # twenty-one keys after it say which path launched how many (2E: the
+    # twenty-five keys after it say which path launched how many (2E: the
     # two-stage caches, text and vision; 2T / 2V: the two-stage steps; FT /
     # FV: the fusion steps)
     paths = {"launches_serve": served, "launches_train": trained,
@@ -5456,7 +6031,7 @@ def main() -> int:
              "launches_pallas_train": pallas, "launches_dp": parallel,
              "launches_runner": ran, "launches_accumulation": accumulated,
              "launches_special": special, "launches_resnet": resnet,
-             "launches_vit": vit}
+             "launches_vit": vit, **text_zoo}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": CSRC + SOURCES[n][0],
          "replaces": PALLAS + SOURCES[n][1],
@@ -5464,7 +6039,11 @@ def main() -> int:
          **{k: c[n] for k, c in paths.items()},
          **kernels[n], **({"bodies": sorted(WRAPPERS[n].bodies)}
             if hasattr(WRAPPERS[n], "bodies") else {})}
-        for n in WRAPPERS]}
+        for n in WRAPPERS] + [
+        # the text zoo's editions (phase 28), each with its path's launches
+        {"name": n, "route": "cuda", "source": CSRC + SOURCES[w][0],
+         "replaces": PALLAS + SOURCES[w][1], **r}
+        for n, r in zoo_rows.items() for w in (r.pop("wrapper"),)]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

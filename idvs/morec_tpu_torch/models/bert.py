@@ -41,6 +41,50 @@ class BertConfig:
     position_offset: int = 0   # RoBERTa: pad_token_id + 1
     is_roberta: bool = False
 
+    @classmethod
+    def from_dict(cls, hf: dict) -> "BertConfig":
+        """From HF's ``config.json`` as a dict (JAX bert.py ``from_hf``): a
+        BERT or RoBERTa config (RoBERTa's positions start at pad_token_id +
+        1), or a DistilBERT one (``dim``, ``n_layers``, ``n_heads``,
+        ``hidden_dim``; no token-type table). A key it lacks takes the
+        default here."""
+        if hf.get("model_type") == "distilbert":
+            return cls(vocab_size=hf.get("vocab_size", cls.vocab_size),
+                       hidden_size=hf.get("dim", cls.hidden_size),
+                       num_hidden_layers=hf.get("n_layers", 6),
+                       num_attention_heads=hf.get("n_heads",
+                                                  cls.num_attention_heads),
+                       intermediate_size=hf.get("hidden_dim",
+                                                cls.intermediate_size),
+                       max_position_embeddings=hf.get(
+                           "max_position_embeddings",
+                           cls.max_position_embeddings),
+                       type_vocab_size=0, layer_norm_eps=1e-12,
+                       hidden_dropout_prob=hf.get("dropout", 0.1),
+                       attention_probs_dropout_prob=hf.get(
+                           "attention_dropout", 0.1),
+                       pad_token_id=hf.get("pad_token_id", 0))
+        roberta = hf.get("model_type") == "roberta"
+        pad = hf.get("pad_token_id", 1 if roberta else 0)
+        return cls(
+            vocab_size=hf.get("vocab_size", cls.vocab_size),
+            hidden_size=hf.get("hidden_size", cls.hidden_size),
+            num_hidden_layers=hf.get("num_hidden_layers",
+                                     cls.num_hidden_layers),
+            num_attention_heads=hf.get("num_attention_heads",
+                                       cls.num_attention_heads),
+            intermediate_size=hf.get("intermediate_size",
+                                     cls.intermediate_size),
+            max_position_embeddings=hf.get("max_position_embeddings",
+                                           cls.max_position_embeddings),
+            type_vocab_size=hf.get("type_vocab_size", cls.type_vocab_size),
+            layer_norm_eps=hf.get("layer_norm_eps", cls.layer_norm_eps),
+            hidden_dropout_prob=hf.get("hidden_dropout_prob", 0.1),
+            attention_probs_dropout_prob=hf.get(
+                "attention_probs_dropout_prob", 0.1),
+            pad_token_id=pad, position_offset=pad + 1 if roberta else 0,
+            is_roberta=roberta)
+
 
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig, device=None):

@@ -89,11 +89,52 @@ def relu_kink(h, x, w1, b1) -> torch.Tensor:
     of ReLU's kink, where two float32 sums in different orders may fall on
     either side of 0: |h| <= sqrt(K) 2^-24 (|x| |w1| + |b1|), the
     probabilistic rounding bound of a K-term float32 sum (Higham and Mary,
-    2019). A bool mask shaped as h."""
+    2019); for a bfloat16 x also 2^-8 sqrt(x^2 w1^2), the same bound of
+    one unit roundoff of each of x's elements with independent signs,
+    where two LayerNorms may round x to neighbouring values. A bool mask
+    shaped as h."""
     K = x.shape[-1]
-    bound = K ** 0.5 * 2.0 ** -24 * (x.float().abs() @ w1.float().abs()
-                                     + b1.float().abs())
+    xf, wf = x.float(), w1.float()
+    bound = K ** 0.5 * 2.0 ** -24 * (xf.abs() @ wf.abs() + b1.float().abs())
+    if x.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * (xf.square() @ wf.square()).sqrt()
     return h.abs() <= bound
+
+
+# A check that takes a kernel's ReLU branch at the kink holds it to caps:
+# relu_kink marks at most KINK_SHARE of the pre-activations (bf16's band,
+# 2^-8 of h's spread, marks about 0.3 % of a normal h; float32's well
+# under 1e-4), and of the marked at most KINK_FLIPS (and 4 more, where few
+# are marked) lie on the other side: two sums of one value differ by far
+# less than the band, while a branch decided at random there would put
+# half of it on the other side.
+KINK_SHARE = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
+KINK_FLIPS = 0.1
+
+
+def premlp_kink_census(x, w1, b1, kink_from, *, ln, eps) -> tuple:
+    """(pre-activations, marked, flips) of the pre-LN MLP's h = LN(x) w1 +
+    b1 in x's dtype, the plain versions' h: how many relu_kink marks, and
+    how many of those kink_from's sign puts on the other side of 0.
+    Raises ValueError past KINK_SHARE or KINK_FLIPS."""
+    dt = x.dtype
+    with torch.no_grad():
+        x2 = x.reshape(-1, w1.shape[0])
+        xn = x2 if ln is None else layer_norm(x2, ln[0], ln[1], eps)
+        w1d, b1d = w1.to(dt), b1.to(dt)
+        h = xn.float() @ w1d.float() + b1d.float()
+        at_kink = relu_kink(h, xn, w1d, b1d)
+        other = (kink_from.reshape(h.shape) > 0) != (h > 0)
+        n, marked = h.numel(), int(at_kink.sum())
+        flips = int((at_kink & other).sum())
+    if marked > KINK_SHARE[dt] * n:
+        raise ValueError(f"ReLU's kink: {marked} of {n} pre-activations "
+                         f"marked, over KINK_SHARE's {KINK_SHARE[dt]:g}")
+    if flips > KINK_FLIPS * marked + 4:
+        raise ValueError(f"ReLU's kink: {flips} of the {marked} marked "
+                         f"pre-activations on the other side, over "
+                         f"KINK_FLIPS' {KINK_FLIPS:g}")
+    return n, marked, flips
 
 
 def fused_mlp_resln_plain(x, w1, b1, w2, b2, *, ln, eps, act="gelu",
@@ -741,17 +782,28 @@ def premlp_plan(C: int, dtype: torch.dtype) -> dict:
                 smem=4 * ((C + FC) * (rows + 4) + 2 * KB * C))
 
 
-def _pre_mlp(x2, w1, b1, w2, b2, ln, eps, act, save_h=False):
+def _pre_mlp(x2, w1, b1, w2, b2, ln, eps, act, save_h=False,
+             kink_from=None):
     """float32 dense2(cast(act(dense1(cast(LN(x)))))) of (M, C) rows. With
     save_h the value is the same (the forward's activation reads the float32
     h) and the gradient is the one of the edition that stores cast(h): its
     backward takes act and act' at the stored h (JAX ops/pallas/mlp.py
-    :124-127, :173-177)."""
+    :124-127, :173-177). kink_from (act "relu"): an (M, F) h whose sign
+    decides ReLU's branch at the pre-activations within rounding of the
+    kink (``relu_kink``), as ``fused_mlp_resln_plain`` takes it."""
     dt = x2.dtype
     xn = x2 if ln is None else layer_norm(x2, ln[0], ln[1], eps)
     h = xn.float() @ w1.to(dt).float() + b1.to(dt).float()
-    g = _act(h, act).to(dt).float()
     w2f = w2.to(dt).float()
+    if kink_from is not None:
+        if act != "relu":
+            raise ValueError(f"kink_from takes act 'relu', got {act!r}")
+        h0 = h.detach()
+        at_kink = relu_kink(h0, xn.detach(), w1.detach().to(dt),
+                            b1.detach().to(dt))
+        keep = torch.where(at_kink, kink_from.reshape(h.shape) > 0, h0 > 0)
+        return (h * keep).to(dt).float() @ w2f + b2.to(dt).float()
+    g = _act(h, act).to(dt).float()
     if save_h:
         y = _Dense2SavedH.apply(g.detach(),
                                 _act(h.to(dt).float(), act).to(dt).float(),
@@ -777,19 +829,20 @@ class _Dense2SavedH(torch.autograd.Function):
 
 
 def fused_mlp_plain(x, w1, b1, w2, b2, *, ln=None, eps=1e-5, act="gelu",
-                    save_h=False):
-    """The kernel's function in plain PyTorch, same rounding points."""
+                    save_h=False, kink_from=None):
+    """The kernel's function in plain PyTorch, same rounding points;
+    kink_from as ``_pre_mlp`` takes it (``premlp_bwd_h``)."""
     y = _pre_mlp(x.reshape(-1, x.shape[-1]), w1, b1, w2, b2, ln, eps, act,
-                 save_h)
+                 save_h, kink_from)
     return y.to(x.dtype).reshape(x.shape)
 
 
 def fused_mlp_res_plain(x, scale, w1, b1, w2, b2, *, ln, eps=1e-5,
-                        act="gelu"):
+                        act="gelu", kink_from=None):
     """x + scale * mlp(LN(x)) in plain PyTorch; scale None is the unit
     edition."""
     x2 = x.reshape(-1, x.shape[-1])
-    y = _pre_mlp(x2, w1, b1, w2, b2, ln, eps, act)
+    y = _pre_mlp(x2, w1, b1, w2, b2, ln, eps, act, kink_from=kink_from)
     if scale is not None:
         y = scale.float().reshape(-1, 1) * y
     return (x2.float() + y).to(x.dtype).reshape(x.shape)
@@ -1023,6 +1076,31 @@ def _premlp_ln_rows(x2, dout, s, lnf, eps, code):
         ptr(None if s is None else dy), M, C, float(eps), code,
         lib.stream_handle(x2)), "premlp_ln_rows")
     return xn, stats, dy
+
+
+def premlp_bwd_h(x, w1, b1, w2, b2, *, ln, eps, act, save_h):
+    """The h, (M, F) in x's dtype, whose sign takes ReLU's branch in the
+    backward of ``fused_mlp`` / ``fused_mlp_res`` on the card: with save_h
+    the h the forward stores (csrc/premlp.cu), else the products route's
+    recomputation (the LayerNorm's row pass, then x w1 + b1 through
+    gemm.cu, in float32). A check of a ReLU gradient passes it to the
+    plain version as kink_from. Card tensors only."""
+    C, F = w1.shape
+    x2 = x.reshape(-1, C).contiguous()
+    code = lib.dtype_code(x2)
+    w1c, b1c, w2c, b2c = (t.detach().to(x2.dtype).contiguous()
+                          for t in (w1, b1, w2, b2))
+    lnf = ([t.detach().float().contiguous() for t in ln] if ln is not None
+           else [None, None])
+    x2 = x2.detach()
+    if save_h:
+        h = torch.empty(x2.shape[0], F, dtype=x2.dtype, device=x2.device)
+        _premlp_fwd("fused_mlp", x2, None, (w1c, b1c, w2c, b2c), lnf, eps,
+                    act, 0, code, h)
+        return h
+    xn, _, _ = _premlp_ln_rows(x2, x2, None, lnf, eps, code)
+    return gemm(xn, w1c, x2.shape[0], F, C, (C, 1), (F, 1), code,
+                bias=b1c, out_f32=True).to(x2.dtype)
 
 
 def _premlp_ln_bwd(x2, dxn, lnf, stats, dout, res, code):

@@ -133,8 +133,9 @@ class Trainer:
     trainer's device (``TextTower``, ``VisionTower``; for a two-stage tower
     built with ``project=False``), the state_dict of its pretrained ``net``
     (a ResNet's BatchNorm buffers included) to load over the drawn weights,
-    the names ``param_labels`` freezes (``convert.bert_frozen_names``, or
-    ``convert.frozen_names`` of ``vision_frozen_paths``; end2end only).
+    the names ``param_labels`` freezes (``convert``'s ``*_frozen_names``
+    of the text families, or ``convert.frozen_names`` of
+    ``vision_frozen_paths``; end2end only): ``load_encoder``'s.
     tokenizer: the text items' tokenizer (``data/preprocess.py``
     ``read_items_tokenized``), for a text modal tower.
     """
@@ -705,22 +706,22 @@ class Trainer:
 
 
 def load_encoder(cfg: Config, device) -> tuple:
-    """The encoder bundle the CLI builds for a modal item tower: the vision
-    tower of ``cfg.cv_model_load`` from its config (ResNet-18 ... 152,
-    Swin-T / B, BEiT-B/16, CLIP-B/32, ViT-MAE-B/16; ``project=False`` for
-    the two-stage stage), weights drawn by ``build_model`` (two-stage: by
-    ``_encode_catalog``), and end2end the names of the parameters frozen by
-    the reference's index (``freeze_paras_before``,
-    ``vision_frozen_paths``; a two-stage tower is frozen whole). A text
-    tower needs a tokenizer and pretrained BERT files, which the repository
-    does not hold: build the tower and call ``Trainer(cfg,
-    encoder_bundle=..., tokenizer=...)``."""
+    """The encoder bundle the CLI builds for a modal item tower (JAX
+    encoders_zoo.py:47-56). Text: ``build_text_tower``'s, the tower of the
+    HF model directory ``cfg.pretrained_models_dir/cfg.bert_model_load``
+    (OPT, DeBERTa, DistilBERT, BERT or RoBERTa from its ``config.json``;
+    its converted weights, or None where the directory holds none; the
+    names frozen by the reference's index, ``freeze_paras_before``); the
+    items' tokenizer stays the caller's (``Trainer(..., tokenizer=...)``).
+    Vision: the tower of ``cfg.cv_model_load`` from its config (ResNet-18
+    ... 152, Swin-T / B, BEiT-B/16, CLIP-B/32, ViT-MAE-B/16), weights drawn
+    by ``build_model`` (two-stage: by ``_encode_catalog``), and end2end the
+    names frozen by the reference's index (``vision_frozen_paths``). A
+    two-stage tower has ``project=False`` and is frozen whole (its
+    ``_encode_catalog`` reads no frozen names)."""
     if cfg.modality == "text":
-        raise NotImplementedError(
-            "a text tower through the CLI needs a tokenizer and pretrained "
-            "BERT weights, which are not in the repository; build a "
-            "TextTower (models/text_tower.py) and run Trainer(cfg, "
-            "encoder_bundle=(tower, None, frozen, width), tokenizer=...)")
+        from ..models.text_tower import build_text_tower
+        return build_text_tower(cfg, device=device)
     from ..convert import frozen_names
     from ..models.vision_tower import build_vision_tower, vision_frozen_paths
     tower = build_vision_tower(cfg, device=device)

@@ -35,7 +35,10 @@ from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
                                                fused_proj_resln,
                                                fused_proj_resln_bwd,
                                                fused_proj_resln_plain,
-                                               fused_proj_resln_res)
+                                               fused_proj_resln_res,
+                                               premlp_bwd_h, premlp_bwd_plan,
+                                               premlp_kink_census,
+                                               PREMLP_BWD_ROUTES)
 from idvs.morec_tpu_torch.ops import dropout
 from idvs.morec_tpu_torch.ops.cuda import lib
 from idvs.morec_tpu_torch.ops.losses import (candidate_colmask,
@@ -346,6 +349,27 @@ def test_scatter_add_rows(dtype):
     assert (got - want.float()).abs().max().item() <= tol * scale
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V", [50272, 50265])      # OPT-125M, DeBERTa-base
+def test_scatter_add_rows_text_zoo_tables(V, dtype):
+    """The word tables of the OPT and DeBERTa towers (D 768) under a train
+    step's tokens (768 titles of 30), Zipf ids: against the plain version
+    as test_scatter_add_rows holds it."""
+    rng = np.random.default_rng(16)
+    D, M = 768, 768 * 30
+    ids = torch.from_numpy(np.minimum(rng.zipf(1.2, M), V) - 1).cuda()
+    dx = _rand(rng, M, D, dtype=dtype)
+    before = scatter_add_rows.launches
+    got = scatter_add_rows(ids, dx, V)
+    assert scatter_add_rows.launches == before + 1
+    want = scatter_add_rows_plain(ids, dx, V)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (V, D) and got.dtype == dtype
+    scale = max(1.0, want.float().abs().max().item())
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
 def _mlp_args(C=128, F=256, dtype=torch.float32):
     z = lambda *s: torch.zeros(*s, device="cuda")
     return (z(4, C).to(dtype), z(C, F), z(F), z(F, C), z(C)), \
@@ -413,6 +437,68 @@ def test_refuses_what_the_kernels_do_not_take(case):
 def _attn_weights(rng, C, dtype):
     return (_rand(rng, C, 3 * C, scale=C ** -0.5), _rand(rng, 3 * C, scale=0.1),
             _rand(rng, C, C, scale=C ** -0.5), _rand(rng, C, scale=0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edition,M,act", [
+    ("res_unit", 512 * 30, "relu"),        # OPT-125M's encode chunk
+    ("save_h", 768 * 30 + 7, "relu"),      # OPT-125M's training, LN
+    ("no_ln", 768 * 30 + 7, "gelu")])      # DeBERTa-base's, no LN
+def test_text_zoo_mlp_editions(edition, M, act, dtype):
+    """Rows 5-6 at the text towers' editions, C 768, F 3072: the forward
+    against the plain version; the backward against autograd of the plain
+    version through the route premlp_bwd_plan picks (wg in bf16, products
+    in float32), a ReLU's plain version taking the kernel's branch at the
+    kink (premlp_bwd_h, relu_kink: in bf16 also the roundings of xn, where
+    the kernel's LayerNorm and the plain one may round apart), the marked
+    share and the flips among them under premlp_kink_census' caps; in
+    bf16 the wg and the products routes called alone, their gradients
+    against each other."""
+    rng = np.random.default_rng(15)
+    C, F = 768, 3072
+    x = _rand(rng, M, C, dtype=dtype)
+    w1, b1 = _rand(rng, C, F, scale=C ** -0.5), _rand(rng, F, scale=0.1)
+    w2, b2 = _rand(rng, F, C, scale=F ** -0.5), _rand(rng, C, scale=0.1)
+    g, bt = 1.0 + _rand(rng, C, scale=0.1), _rand(rng, C, scale=0.1)
+    dout = _rand(rng, M, C, dtype=dtype)
+    ln = (g, bt) if edition != "no_ln" else None
+    save_h = edition != "res_unit"
+    inputs = [x, w1, b1, w2, b2] + list(ln or ())
+    kw = dict(eps=1e-5, act=act)
+    if edition == "res_unit":
+        kern = lambda *a: fused_mlp_res(a[0], None, *a[1:5], ln=a[5:], **kw)
+        plain = lambda *a, k=None: fused_mlp_res_plain(
+            a[0], None, *a[1:5], ln=a[5:], kink_from=k, **kw)
+        fwd, bwd = fused_mlp_res, fused_mlp_res_bwd
+    else:
+        kern = lambda *a: fused_mlp(*a[:5], ln=a[5:] or None, save_h=True,
+                                    **kw)
+        plain = lambda *a, k=None: fused_mlp_plain(
+            *a[:5], ln=a[5:] or None, save_h=True, kink_from=k, **kw)
+        fwd, bwd = fused_mlp, fused_mlp_bwd
+    before = (fwd.launches, bwd.launches)
+    out_k, got = _grads(kern, inputs, dout)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    kink = (premlp_bwd_h(x, w1, b1, w2, b2, ln=ln, eps=1e-5, act=act,
+                         save_h=save_h) if act == "relu" else None)
+    if kink is not None:    # raises past KINK_SHARE or KINK_FLIPS
+        premlp_kink_census(x, w1, b1, kink, ln=ln, eps=1e-5)
+    out_p, want = _grads(lambda *a: plain(*a, k=kink), inputs, dout)
+    _assert_close(out_k, out_p)
+    _assert_grads_close(got, want, dtype)
+    plan = premlp_bwd_plan(C, M, dtype)
+    assert plan["route"] == ("wg" if dtype == torch.bfloat16
+                             else "products")
+    if dtype == torch.float32:
+        return
+    h = (premlp_bwd_h(x, w1, b1, w2, b2, ln=ln, eps=1e-5, act=act,
+                      save_h=True) if save_h else None)
+    lnf = [t.float() for t in ln] if ln else [None, None]
+    ops = (x, dout, None, w1.to(dtype), b1.to(dtype), w2.to(dtype), lnf, h,
+           1e-5, act, edition == "res_unit", lib.dtype_code(x))
+    routes = [PREMLP_BWD_ROUTES[r](*ops) for r in ("wg", "products")]
+    _assert_grads_close([t for t in routes[0] if t is not None],
+                        [t for t in routes[1] if t is not None], dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

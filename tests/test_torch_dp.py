@@ -184,9 +184,11 @@ def _jax_run(cfg, jm, params, content, log_pop, batches, k: int = 1):
         tx = optax.MultiSteps(tx, k)
     mesh = make_mesh(jax.devices("cpu")[:WORLD])
     p = replicate(mesh, params)
-    state = jstate.TrainState(step=jnp.zeros((), jnp.int32), params=p,
-                              opt_state=tx.init(p["params"]),
-                              dropout_rng=jax.random.PRNGKey(1))
+    # the whole state replicated as the step returns it: the second step
+    # then reuses the first one's compilation
+    state = replicate(mesh, jstate.TrainState(
+        step=jnp.zeros((), jnp.int32), params=p,
+        opt_state=tx.init(p["params"]), dropout_rng=jax.random.PRNGKey(1)))
     step = jax_train_step(jm, cfg, tx, mesh,
                           item_content=(jnp.asarray(content, jnp.int32)
                                         if cfg.item_tower == "modal"

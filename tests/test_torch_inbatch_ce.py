@@ -61,9 +61,11 @@ def _batch(seed, B, L, D, items=50, inner_zeros=False):
 
 
 def _jax_grads(fn, args):
+    """fn's value and gradients in the users and the candidates, one jitted
+    program (an interpret-mode kernel runs op by op otherwise)."""
     a = [jnp.asarray(x) for x in args]
-    val, (gu, ge) = jax.value_and_grad(
-        lambda u, e: fn(u, e, *a[2:]), argnums=(0, 1))(a[0], a[1])
+    val, (gu, ge) = jax.jit(jax.value_and_grad(
+        lambda u, e: fn(u, e, *a[2:]), argnums=(0, 1)))(a[0], a[1])
     return float(val), np.asarray(gu), np.asarray(ge)
 
 
@@ -137,7 +139,7 @@ def test_gathered_candidates_over_four_ranks_match_jax():
                 in_specs=(P("data"),) * 5, out_specs=P(), check_vma=False)
             return per(u, e, jnp.asarray(ids), jnp.asarray(lm),
                        jnp.asarray(lp))
-        val, (gu, ge) = jax.value_and_grad(f, argnums=(0, 1))(
+        val, (gu, ge) = jax.jit(jax.value_and_grad(f, argnums=(0, 1)))(
             jnp.asarray(uv), jnp.asarray(embs))
         return float(val), np.asarray(gu), np.asarray(ge)
 

@@ -169,8 +169,10 @@ def test_port_runs_the_slice_without_jax():
     evaluation (train/special_eval.py) and two micro-steps of gradient
     accumulation; builds every other vision encoder's tower from each CLI
     name and runs a tiny ResNet-18, ViT-MAE, BEiT and CLIP tower through an
-    encode, a request and a train step (``transformers`` blocked too); the
-    CLI itself
+    encode, a request and a train step (``transformers`` blocked too);
+    builds an OPT and a DeBERTa tower through ``build_text_tower`` from a
+    directory holding config.json alone (``safetensors`` blocked too), each
+    encoding a catalog and taking one train step; the CLI itself
     refuses to run without a GPU (the test process itself has jax loaded
     by conftest, hence the subprocess)."""
     code = textwrap.dedent("""
@@ -181,7 +183,7 @@ def test_port_runs_the_slice_without_jax():
             def find_spec(self, name, path, target=None):
                 top = name.split(".")[0]
                 if (top in ("jax", "jaxlib", "flax", "optax",
-                            "transformers")
+                            "transformers", "safetensors")
                         or name == "idvs.morec_tpu"
                         or name.startswith("idvs.morec_tpu.")):
                     raise ImportError(f"{name} is blocked in this test")
@@ -460,6 +462,53 @@ def test_port_runs_the_slice_without_jax():
             moved = [not torch.equal(a, b) for a, b in zip(stats, [
                 b for b in zmodel.buffers() if b.dtype.is_floating_point])]
             assert all(moved) and bool(moved) == (kind == "resnet")
+        # the text zoo: an OPT and a DeBERTa tower built by
+        # build_text_tower from a directory that holds config.json alone
+        # (no weights: none converted), each encodes the catalog and takes
+        # one train step with dropout
+        import json
+        from idvs.morec_tpu_torch.models.text_tower import build_text_tower
+        pm = tempfile.mkdtemp()
+        tiny = dict(vocab_size=97, hidden_size=32, num_hidden_layers=1,
+                    num_attention_heads=2, max_position_embeddings=16)
+        zoo_dirs = {
+            "opt-tiny": dict(tiny, model_type="opt", ffn_dim=64,
+                             word_embed_proj_dim=32,
+                             do_layer_norm_before=True),
+            "deberta-tiny": dict(tiny, model_type="deberta",
+                                 intermediate_size=64,
+                                 relative_attention=True,
+                                 pos_att_type="c2p|p2c",
+                                 position_biased_input=False)}
+        tids = rng.integers(1, 41, size=(4, 7))
+        tu, ti = dedup_pack(tids, 32)
+        for name, conf in zoo_dirs.items():
+            os.makedirs(os.path.join(pm, name))
+            with open(os.path.join(pm, name, "config.json"), "w") as f:
+                json.dump(conf, f)
+            tcfg = Config(item_tower="modal", modality="text",
+                          bert_model_load=name, pretrained_models_dir=pm,
+                          num_words_title=8, embedding_dim=32,
+                          num_attention_heads=2, transformer_block=1,
+                          max_seq_len=6, loss="inbatch_ce",
+                          compute_dtype="float32", lr=1e-3,
+                          fine_tune_lr=5e-4, freeze_paras_before=2)
+            ttower, tsd, tfrozen, twidth = build_text_tower(tcfg,
+                                                            device="cpu")
+            assert tsd is None and twidth == 32 and len(tfrozen) == 2
+            tmodel = make_model(tcfg, 40, ttower, device="cpu",
+                                generator=torch.Generator().manual_seed(6))
+            ttable = Retriever.encode_catalog(tmodel, 40, content, 32,
+                                              batch_size=16)
+            assert torch.isfinite(ttable).all()
+            tst = make_train_state(tmodel, tcfg,
+                                   param_labels(tmodel, frozen=tfrozen))
+            loss = make_train_step(tcfg, item_content=content,
+                                   log_pop=torch.zeros(41))(tst, {
+                "ids": torch.from_numpy(tids), "log_mask": torch.ones(4, 6),
+                "uniq_ids": torch.from_numpy(tu),
+                "inverse": torch.from_numpy(ti)})
+            assert torch.isfinite(loss) and tst.step == 1
         if not torch.cuda.is_available():
             try:
                 run.main(flags)

@@ -114,9 +114,11 @@ def _setup(item_tower, dedup):
 def _jax_run(cfg, content, log_pop, batches, jm, params, tx):
     mesh = make_mesh(jax.devices("cpu")[:1])
     p = replicate(mesh, params)
-    state = jstate.TrainState(step=jnp.zeros((), jnp.int32), params=p,
-                              opt_state=tx.init(p["params"]),
-                              dropout_rng=jax.random.PRNGKey(1))
+    # the whole state replicated as the step returns it: the later steps
+    # reuse the first one's compilation
+    state = replicate(mesh, jstate.TrainState(
+        step=jnp.zeros((), jnp.int32), params=p,
+        opt_state=tx.init(p["params"]), dropout_rng=jax.random.PRNGKey(1)))
     step = jax_train_step(jm, cfg, tx, mesh,
                           item_content=(jnp.asarray(content, jnp.int32)
                                         if cfg.item_tower == "modal"

@@ -121,9 +121,11 @@ def _torch_model(params, cfg, **tower):
 def _jax_run(cfg, log_pop, batches, jm, params, tx):
     mesh = make_mesh(jax.devices("cpu")[:1])
     p = replicate(mesh, params)
-    state = jstate.TrainState(step=jnp.zeros((), jnp.int32), params=p,
-                              opt_state=tx.init(p["params"]),
-                              dropout_rng=jax.random.PRNGKey(1))
+    # the whole state replicated as the step returns it: the later steps
+    # reuse the first one's compilation
+    state = replicate(mesh, jstate.TrainState(
+        step=jnp.zeros((), jnp.int32), params=p,
+        opt_state=tx.init(p["params"]), dropout_rng=jax.random.PRNGKey(1)))
     step = jax_train_step(jm, cfg, tx, mesh, log_pop=jnp.asarray(log_pop))
     states, losses = [], []
     for raw in batches:
