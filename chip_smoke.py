@@ -73,9 +73,11 @@ DeBERTa-base item towers). Phases, each fatal on failure:
 8. vision kernels: the windowed attention (band layout with one bias and
    with a bias per window, window layout) and the pre-LN MLP (with and
    without its LayerNorm, with the residual, unit and scaled) against their
-   plain versions at each Swin-T stage's shapes for one encode chunk (in
-   bfloat16 beside the yardstick: the same products through torch.matmul,
-   bench_swin's), and the post-LN tails and the attention at SASRec's D =
+   plain versions at each Swin-T stage's shapes for one encode chunk
+   (beside the yardstick: the same products through torch.matmul,
+   bench_swin's, in the row's dtype; the float32 rows with one bias or the
+   unit residual also with device time beside the yardstick's, their
+   bounds at 3xTF32's rate), and the post-LN tails and the attention at SASRec's D =
    2048 for request batches of 64 and of 1 (M = 640 and 10), in bfloat16
    and float32, with times and the share of each kernel's bound reached
    (each tail beside its products through torch.matmul in its dtype; the
@@ -89,7 +91,13 @@ DeBERTa-base item towers). Phases, each fatal on failure:
    result holds the padding id or a history id, and in float32 the
    sub-catalog's table and scores agree between the two kernel selections
    and with the plain path on a CPU copy of the model; images/s, encode
-   seconds, recommend p50 per batch;
+   seconds, recommend p50 per batch. Every float32 part of the vision
+   phases (both sub-catalogs, the gradient checks of phases 12 and 18, the
+   two-stage sub-cache of phase 22) and the text zoo's float32 encodes
+   must have run the window attention and the pre-LN MLP through their
+   float32 bodies on the tensor cores and no other (F32_FWD_BODIES:
+   win_attn_tf32_kernel, premlp_tf32_kernel, 3xTF32), read from the
+   wrappers' bodies;
 10. vision backward kernels: the backward of the windowed attention (band
     with one bias and with a bias per window, window layout: dx, dbias and
     the four weights' gradients) and of the pre-LN MLP (residual unit and
@@ -324,7 +332,8 @@ paths, OPT-125M's serving and training, DeBERTa-base's encode and
 training; error
 and time against the plain version, the least time the card could take for
 the same work (float32 rows that launched gemm.cu, whose products run as
-3xTF32, at that rate, 165 TFLOP/s), the time of the one PyTorch call that
+3xTF32, and the vision and ViT phases' and the text zoo's float32 rows,
+at that rate, 165 TFLOP/s), the time of the one PyTorch call that
 computes the same function where there is one, and for the tails and
 gemm the device kernels their launches in this run took, "bodies", as
 their plans name them), the nvidia-smi line, and last
@@ -394,7 +403,7 @@ from idvs.morec_tpu_torch.ops.cuda.attention import (
     fused_mha_bwd_dbias,
     fused_mha_plain, fused_mha_proj, fused_mha_proj_band,
     fused_mha_proj_band_bwd, fused_mha_proj_band_plain, fused_mha_proj_bwd,
-    fused_mha_proj_plain, sum_partials, window_partition)
+    fused_mha_proj_plain, sum_partials, WIN_BODIES, window_partition)
 from idvs.morec_tpu_torch.ops.cuda.embed_scatter import (
     scatter_add_rows, scatter_add_rows_plain)
 from idvs.morec_tpu_torch.ops.cuda.gemm import (BODIES as GEMM_BODIES, gemm,
@@ -402,7 +411,8 @@ from idvs.morec_tpu_torch.ops.cuda.gemm import (BODIES as GEMM_BODIES, gemm,
 from idvs.morec_tpu_torch.ops.cuda.inbatch_ce import (fused_ce,
                                                       fused_inbatch_ce,
                                                       fused_inbatch_ce_bwd)
-from idvs.morec_tpu_torch.ops.cuda.mlp import (fused_mlp, fused_mlp_bwd,
+from idvs.morec_tpu_torch.ops.cuda.mlp import (PRE_BODIES, fused_mlp,
+                                               fused_mlp_bwd,
                                                fused_mlp_plain,
                                                fused_mlp_res,
                                                fused_mlp_res_bwd,
@@ -717,9 +727,20 @@ SERVE_BODIES = {"fused_mha": (FWD_BODIES[torch.float32],),
                                      "post_ln_rows_kernel"),
                 "fused_mlp_resln": (GEMM_BODIES[torch.float32],
                                     "post_ln_rows_kernel")}
+# the float32 forward bodies on the tensor cores (3xTF32) that the float32
+# text-zoo encode, the float32 vision sub-catalogs and sub-cache and the
+# float32 vision gradient checks must launch, by wrapper
+F32_FWD_BODIES = {"fused_mlp": PRE_BODIES[torch.float32],
+                  "fused_mlp_res": PRE_BODIES[torch.float32],
+                  "fused_mha_proj": WIN_BODIES[torch.float32],
+                  "fused_mha_proj_band": WIN_BODIES[torch.float32]}
 # float32 kernel rows printed with device time beside the library call's
-# or the yardstick's (the serving paths' float32 kernels)
+# or the yardstick's (the serving paths' float32 kernels), and those of
+# YARD_DEVICE_ROWS that carry a yardstick (the Swin-T stage rows with one
+# bias or the unit residual, OPT's encode chunk: torch.matmul of the same
+# products in float32 with TF32 off)
 DEVICE_ROWS = ("fused_mha", "fused_mlp_resln")
+YARD_DEVICE_ROWS = ("fused_mha_proj_band", "fused_mlp_res")
 TRAIN_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_proj_resln_res",
                  "fused_proj_resln_bwd", "fused_mlp_resln_res",
                  "fused_mlp_resln_bwd", "scatter_add_rows", "gemm")
@@ -775,6 +796,24 @@ def require_bwd_body(names, what: str) -> None:
         print(f"{what}: {n} bodies {seen}", flush=True)
         require(BWD_BODIES[torch.float32] in seen,
                 f"{what}: {n} launched no {BWD_BODIES[torch.float32]}")
+
+
+def clear_f32_bodies() -> None:
+    """Empties the bodies of the wrappers of F32_FWD_BODIES, before a
+    float32 part whose kernels require_f32_bodies then checks."""
+    for n in F32_FWD_BODIES:
+        WRAPPERS[n].bodies = set()
+
+
+def require_f32_bodies(names, what: str) -> None:
+    """Fails unless each wrapper of `names` launched its float32 body on
+    the tensor cores (F32_FWD_BODIES) in `what`, and no other; prints
+    their bodies."""
+    for n in names:
+        seen = sorted(WRAPPERS[n].bodies)
+        print(f"{what}: {n} bodies {seen}", flush=True)
+        require(seen == [F32_FWD_BODIES[n]],
+                f"{what}: {n} launched {seen}, not {F32_FWD_BODIES[n]}")
 
 
 def card_info() -> str:
@@ -989,7 +1028,8 @@ def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS,
     element, a factory of the yardstick: a function running the same
     products through torch.matmul, timed and printed beside the kernel
     (never a library column: no one call computes the function). The
-    float32 serving rows of DEVICE_ROWS also print device time (the
+    float32 rows of DEVICE_ROWS (and of YARD_DEVICE_ROWS with a yardstick)
+    also print device time (the
     profiler's sum over the call's kernels) beside the library call's or
     the yardstick's, and the share of the bound that device time reaches:
     at a request's shapes the event time is mostly the host's.
@@ -1018,7 +1058,8 @@ def kernel_phase(dev, card: str, cases, reps: int = KERNEL_REPS,
         if products is not None:
             lib_text += (f", the same products through torch.matmul "
                          f"{cuda_ms(products, reps):.4f} ms")
-        if dt == torch.float32 and name in DEVICE_ROWS:
+        if dt == torch.float32 and (name in DEVICE_ROWS or (
+                name in YARD_DEVICE_ROWS and products is not None)):
             lib_text += device_text(run_kernel, library or products,
                                     bound_ms, reps)
         del products
@@ -2447,8 +2488,11 @@ def two_stage_vision(dev, card: str) -> tuple:
     ids = rng.choice(np.arange(1, TV_ITEMS + 1), TV_CHECK_ROWS, replace=False)
     images = pool[torch.from_numpy(ids % POOL).to(dev)]
     tower.compute_dtype = None
+    clear_f32_bodies()
     with torch.no_grad(), eval_mode(tower):
         f32 = tower(images)
+        require_f32_bodies(VISION_ENCODE_KERNELS,
+                           "the two_stage float32 vision sub-cache")
         cpu = copy.deepcopy(tower).cpu()
         want = cpu(images.cpu())
     err = (f32.cpu() - want).abs().max().item()
@@ -2755,10 +2799,10 @@ def vision_kernel_cases(dev):
                     side, side, WINDOW, WINDOW // 2)).to(dev)
                 biases.append((f"P={nW}", rel + mask[:, None]))
             where = f"N={V_CHUNK} {side}x{side} C={C} nh={nh} {tag}"
-            # bf16: the yardstick, the same products through torch.matmul
+            # the yardstick, the same products through torch.matmul in
+            # the case's dtype (float32 with TF32 off)
             yard = (lambda x=x, ws=ws, nh=nh, dt=dt: attention_products(
-                window_partition(x, WINDOW), ws[0].to(dt), ws[2].to(dt), nh)
-            ) if dt == torch.bfloat16 else None
+                window_partition(x, WINDOW), ws[0].to(dt), ws[2].to(dt), nh))
             for ptag, bias in biases:
                 cases.append((
                     "fused_mha_proj_band", f"{ptag} {where}", dt,
@@ -2788,8 +2832,7 @@ def vision_kernel_cases(dev):
             scale = (keep.float() / 0.9).repeat_interleave(side * side)
             shape = f"M={M} C={C} F={Fw} gelu {tag}"
             yard = (lambda x=x2, mlp=mlp, dt=dt: mlp_products(
-                x, mlp[0].to(dt), mlp[2].to(dt))
-            ) if dt == torch.bfloat16 else None
+                x, mlp[0].to(dt), mlp[2].to(dt)))
             for stag, sc in (("unit", None), ("scaled", scale)):
                 cases.append((
                     "fused_mlp_res", f"{stag} {shape}", dt,
@@ -3445,11 +3488,17 @@ def vision_grad_check(dev, card: str, pool: np.ndarray,
         state = make_train_state(model, cfg, param_labels(model), seed=SEED)
         step = make_train_step(cfg, log_pop=log_popularity(where))
         reset_counts()
+        clear_f32_bodies()
         relu_in = []
         t0 = time.perf_counter()
         with relu_inputs(relu_in):
             loss = step(state, vision_device_batch(ids, lm, cap, pool,
                                                    where)).item()
+        if where.type == "cuda":
+            require_f32_bodies(
+                ("fused_mlp",) if swin_drop else VISION_ENCODE_KERNELS
+                if kernels == "band" else VISION_WINDOWS_KERNELS,
+                f"the float32 vision gradient check, {kernels}")
         runs[run] = (loss, time.perf_counter() - t0, {
             n: p.grad.detach().cpu() for n, p in model.named_parameters()},
             relu_in)
@@ -3704,9 +3753,12 @@ def vision_serve_path(dev, card: str) -> tuple:
     # the other kernel selection, float32, through the same entry point
     windows = build_vision_model(dev, V_SUB_ITEMS - 1, "windows", None)
     windows.load_state_dict(model.state_dict())
+    clear_f32_bodies()
     table_w, _ = timed_encode(windows, V_SUB_ITEMS - 1, content_fn,
                               V_SUB_ITEMS)
     final = counts()
+    require_f32_bodies(VISION_WINDOWS_KERNELS,
+                       "the float32 'windows' sub-catalog")
 
     print(f"vision launches after encode {after_encode}, after recommend "
           f"{after_recommend}, after the 'windows' sub-catalog {final}",
@@ -3762,7 +3814,9 @@ def vision_sub_catalog_check(dev, model, content_fn, table_w, hist) -> None:
     n = V_SUB_ITEMS - 1
     f32 = copy.deepcopy(model)
     f32.encoder.compute_dtype = None
+    clear_f32_bodies()
     table_k, _ = timed_encode(f32, n, content_fn, V_SUB_ITEMS)
+    require_f32_bodies(VISION_ENCODE_KERNELS, "the float32 'band' sub-catalog")
     sel_err = (table_k - table_w).abs().max().item()
     serve = lambda m, t: Retriever(m, t, max_seq_len=V_L,
                                    batch_sizes=(64,)).recommend(hist, TOP_K)
@@ -5290,7 +5344,7 @@ def vit_path(dev, card: str, pool: np.ndarray) -> tuple:
     require_launched(launched, VIT_KERNELS + ("fused_mlp_res",)
                      + Z_TRAIN_KERNELS, "vit")
     fwd, bwd = vit_kernel_cases(dev, images)
-    kernels = kernel_phase(dev, card, fwd, reps=FEW_REPS)
+    kernels = kernel_phase(dev, card, fwd, reps=FEW_REPS, f32_tf32x3=True)
     merge(kernels, gradient_cases(bwd, card, reps=VB_REPS))
     del fwd, bwd
     torch.cuda.empty_cache()
@@ -5570,12 +5624,15 @@ def text_zoo_encode(model, card: str, content, what: str,
                 f"s)")
     torch.cuda.synchronize()
     reset_counts()
+    clear_f32_bodies()
     t0 = time.perf_counter()
     table = Retriever.encode_catalog(model, n, content[:n + 1], D,
                                      batch_size=ENCODE_BATCH)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launched = counts()
+    require_f32_bodies([w for w in ("fused_mlp", "fused_mlp_res")
+                        if launched[w]], f"the {what} float32 encode")
     require(tuple(table.shape) == (n + 1, D)
             and bool(torch.isfinite(table).all()),
             f"{what}: table {tuple(table.shape)} not finite")
@@ -5952,7 +6009,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("vision kernels"):
         vision = kernel_phase(dev, card, vision_kernel_cases(dev),
-                              reps=FEW_REPS)
+                              reps=FEW_REPS, f32_tf32x3=True)
     merge(kernels, vision)
     torch.cuda.empty_cache()
     with phase("vision serving"):

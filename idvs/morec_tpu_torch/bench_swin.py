@@ -4,17 +4,20 @@ core csrc/win_attn_bwd.cu among gemm.cu's products) at the four Swin-T
 stages on one GPU, and reports what the compiler made of them.
 
     python -m idvs.morec_tpu_torch.bench_swin [--reps N] [--report]
-        [--rows fwd,bwd,mlp] [--dtype bf16|f32]
+        [--rows fwd,bwd,mlp,opt] [--dtype bf16|f32]
 
-Rows, bf16, 512 images a stage (an encode chunk, ``item_emb_batch_size``):
-``fused_mlp`` with its LayerNorm and ``fused_mlp_res`` (unit), F = 4C, GELU;
-``fused_mha_proj_band`` with one bias (P = 1) and ``fused_mha_proj`` on the
-partitioned windows with a bias per window (P = nW), T = 49, heads of 32.
-Each as CUDA-event time around the Python call (median of --reps) and as
-device time a call (torch.profiler: every kernel the call launched, by
-name), beside the least time the card could take (``measure.bound_of``:
-operations at the bf16 rate, or bytes) and the yardstick: the same
-products through torch.matmul on bf16 operands (the MLP's two; the
+Rows, bf16 or (``--dtype f32``) float32, 512 images a stage (an encode
+chunk, ``item_emb_batch_size``): ``fused_mlp`` with its LayerNorm and
+``fused_mlp_res`` (unit), F = 4C, GELU; ``fused_mha_proj_band`` with one
+bias (P = 1) and ``fused_mha_proj`` on the partitioned windows with a bias
+per window (P = nW), T = 49, heads of 32. Row ``opt``: ``fused_mlp_res``
+(unit, ReLU) at OPT-125M's encode chunk, 512 titles of 30 tokens, C 768,
+F 3072. Each as CUDA-event time around the Python call (median of --reps)
+and as device time a call (torch.profiler: every kernel the call
+launched, by name), beside the least time the card could take
+(``measure.bound_of``: operations at the bf16 rate or, in float32, at
+3xTF32's, or bytes) and the yardstick: the same products through
+torch.matmul in the row's dtype (float32 with TF32 off; the MLP's two; the
 attention's qkv projection, the batched scores and P . V, the output
 projection), which the port never calls for these.
 
@@ -41,8 +44,9 @@ stage 3 from PR 17 on, "products" at stage 3 before).
 library's flags and -Xptxas -v and prints each kernel's registers, spills
 and static shared memory and its HMMA instructions (bench_gemm's report);
 the bf16 plans' dynamic shared memory is in each row (``plan_smem``).
---rows keeps the forward, backward and MLP backward rows named; --dtype
-sets the backward rows' dtype (the others are bf16).
+--rows keeps the forward, backward, MLP backward and OPT rows named;
+--dtype sets the forward, backward and OPT rows' dtype (the MLP backward
+rows are bf16).
 
 Prints one JSON object a line, then the card's name and power limit. The
 package is imported from sys.path, so ``PYTHONPATH=<checkout> python
@@ -121,15 +125,15 @@ def mlp_bwd_products(x2, dy, w1, w2):
 
 def mlp_products(x2, w1, w2):
     """A function that runs the MLP's two products through torch.matmul on
-    bf16 operands (x w1, then g w2 with g an (M, F) bf16 tensor)."""
+    operands of x2's dtype (x w1, then g w2 with g an (M, F) tensor)."""
     g = torch.matmul(x2, w1)
     return lambda: (torch.matmul(x2, w1), torch.matmul(g, w2))
 
 
 def attention_products(xw, wqkv, wo, nh):
     """A function that runs the windowed attention's products through
-    torch.matmul on bf16 operands: x wqkv, the (T, T) scores and P . V of
-    every window and head, ctx wo."""
+    torch.matmul on operands of xw's dtype: x wqkv, the (T, T) scores and
+    P . V of every window and head, ctx wo."""
     B, T, C = xw.shape
     x2 = xw.reshape(-1, C)
     qkv = torch.matmul(x2, wqkv).reshape(B, T, 3, nh, C // nh)
@@ -141,50 +145,82 @@ def attention_products(xw, wqkv, wo, nh):
                     torch.matmul(p, v), torch.matmul(ctx, wo))
 
 
-def swin_rows(g, images=IMAGES):
+def _plan_smem(plan, *args, dt):
+    """A plan's shared-memory bytes for dtype dt, or None where the tree
+    has no such plan (an older checkout's: no plan, or bf16's alone)."""
+    if plan is None:
+        return None
+    try:
+        return plan(*args, dt)["smem"]
+    except (TypeError, KeyError):
+        return plan(*args)["smem"] if dt == BF16 else None
+
+
+def swin_rows(g, images=IMAGES, dt=BF16):
     """(row, stage, label, call, work, plan smem or None, products factory)
-    for each bf16 forward row at each Swin-T stage; g(*shape, scale=) draws
-    a float tensor on the card."""
+    for each forward row at each Swin-T stage in dtype dt; g(*shape,
+    scale=) draws a float tensor on the card."""
     from idvs.morec_tpu_torch.ops.cuda import attention, mlp
     plan_mlp = getattr(mlp, "premlp_plan", None)
     plan_win = getattr(attention, "win_attn_plan", None)
-    T = WINDOW * WINDOW
+    T, it = WINDOW * WINDOW, torch.finfo(dt).bits // 8
     for stage, (C, nh, side) in enumerate(SWIN_T):
         nW = (side // WINDOW) ** 2
         M, F, windows = images * side * side, 4 * C, images * nW
-        x = g(images, side, side, C).to(BF16)
+        x = g(images, side, side, C).to(dt)
         x2 = x.reshape(M, C)
         w1, b1 = g(C, F, scale=C ** -0.5), g(F, scale=0.1)
         w2, b2 = g(F, C, scale=F ** -0.5), g(C, scale=0.1)
         ln = (1.0 + g(C, scale=0.1), g(C, scale=0.1))
-        mlp_smem = plan_mlp and plan_mlp(C, BF16)["smem"]
+        mlp_smem = _plan_smem(plan_mlp, C, dt=dt)
         yield ("fused_mlp", stage, f"LN M={M} C={C} F={F} gelu",
                lambda: fused_mlp(x2, w1, b1, w2, b2, ln=ln),
-               mlp_work(M, C, F), mlp_smem,
-               lambda: mlp_products(x2, w1.to(BF16), w2.to(BF16)))
+               mlp_work(M, C, F, it), mlp_smem,
+               lambda: mlp_products(x2, w1.to(dt), w2.to(dt)))
         yield ("fused_mlp_res", stage, f"unit M={M} C={C} F={F} gelu",
                lambda: fused_mlp_res(x2, None, w1, b1, w2, b2, ln=ln),
-               mlp_work(M, C, F), mlp_smem,
-               lambda: mlp_products(x2, w1.to(BF16), w2.to(BF16)))
+               mlp_work(M, C, F, it), mlp_smem,
+               lambda: mlp_products(x2, w1.to(dt), w2.to(dt)))
         ws = (g(C, 3 * C, scale=C ** -0.5), g(3 * C, scale=0.1),
               g(C, C, scale=C ** -0.5), g(C, scale=0.1))
         rel = g(1, nh, T, T, scale=0.5)
-        win_smem = plan_win and plan_win(T, C, nh)["smem"]
+        win_smem = _plan_smem(plan_win, T, C, nh, dt=dt)
         yield ("fused_mha_proj_band", stage,
                f"P=1 N={images} {side}x{side} C={C} nh={nh}",
                lambda: fused_mha_proj_band(x, rel, *ws, n_heads=nh,
                                            window=WINDOW),
-               win_attn_work(windows, T, C, nh, 1), win_smem,
+               win_attn_work(windows, T, C, nh, 1, it), win_smem,
                lambda: attention_products(window_partition(x, WINDOW),
-                                          ws[0].to(BF16), ws[2].to(BF16), nh))
+                                          ws[0].to(dt), ws[2].to(dt), nh))
         wins = window_partition(x, WINDOW)
         bias = rel.repeat(nW, 1, 1, 1)
         yield ("fused_mha_proj", stage,
                f"P={nW} B={windows} T={T} C={C} nh={nh}",
                lambda: fused_mha_proj(wins, bias, *ws, n_heads=nh),
-               win_attn_work(windows, T, C, nh, nW), win_smem,
-               lambda: attention_products(wins, ws[0].to(BF16),
-                                          ws[2].to(BF16), nh))
+               win_attn_work(windows, T, C, nh, nW, it), win_smem,
+               lambda: attention_products(wins, ws[0].to(dt),
+                                          ws[2].to(dt), nh))
+
+
+# OPT-125M's encode chunk: 512 titles of 30 tokens, C 768, F 3072
+OPT_M, OPT_C, OPT_F = 512 * 30, 768, 3072
+
+
+def opt_rows(g, dt=BF16):
+    """The ``opt`` row: fused_mlp_res unit ReLU at OPT's encode chunk, as
+    swin_rows gives its rows."""
+    from idvs.morec_tpu_torch.ops.cuda import mlp
+    M, C, F = OPT_M, OPT_C, OPT_F
+    x2 = g(M, C).to(dt)
+    w1, b1 = g(C, F, scale=C ** -0.5), g(F, scale=0.1)
+    w2, b2 = g(F, C, scale=F ** -0.5), g(C, scale=0.1)
+    ln = (1.0 + g(C, scale=0.1), g(C, scale=0.1))
+    yield ("fused_mlp_res", "opt", f"unit M={M} C={C} F={F} relu",
+           lambda: fused_mlp_res(x2, None, w1, b1, w2, b2, ln=ln,
+                                 act="relu"),
+           mlp_work(M, C, F, torch.finfo(dt).bits // 8),
+           _plan_smem(getattr(mlp, "premlp_plan", None), C, dt=dt),
+           lambda: mlp_products(x2, w1.to(dt), w2.to(dt)))
 
 
 def swin_bwd_rows(g, images=BWD_IMAGES, dt=BF16):
@@ -320,9 +356,9 @@ def main():
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--report", action="store_true")
     parser.add_argument("--rows", default="fwd,bwd,mlp",
-                        help="comma-separated: fwd, bwd, mlp")
+                        help="comma-separated: fwd, bwd, mlp, opt")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16",
-                        help="the backward rows' dtype")
+                        help="the forward, backward and opt rows' dtype")
     args = parser.parse_args()
     rows = set(args.rows.split(","))
     bwd_dt = BF16 if args.dtype == "bf16" else torch.float32
@@ -336,12 +372,16 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     g = lambda *s, scale=1.0: torch.randn(*s, generator=gen,
                                           device="cuda") * scale
+    fwd = [swin_rows(g, dt=bwd_dt)] if "fwd" in rows else []
+    if "opt" in rows:
+        fwd.insert(0, opt_rows(g, dt=bwd_dt))
     for name, stage, label, call, work, smem, products in (
-            swin_rows(g) if "fwd" in rows else ()):
+            r for part in fwd for r in part):
         ms = cuda_ms(call, args.reps)
         dev_ms, kernels = device_ms(call, args.reps)
-        bound, by = bound_of(work, BF16)
+        bound, by = bound_of(work, bwd_dt, tf32x3=True)
         row = {"kernel": name, "stage": stage, "case": label,
+               "dtype": args.dtype,
                "ms": round(ms, 4), "device_ms": round(dev_ms, 4),
                "bound_ms": round(bound, 4), "bound_by": by,
                "bound_share": dev_ms and round(bound / dev_ms, 4),
@@ -350,7 +390,8 @@ def main():
                "kernels": {k[:80]: round(v, 4) for k, v in kernels.items()}}
         fn = products()
         row["matmul_ms"] = round(cuda_ms(fn, args.reps), 4)
-        del fn
+        row["matmul_device_ms"] = round(device_ms(fn, args.reps)[0], 4)
+        del fn, call, products
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
     for name, stage, label, call, work in (

@@ -2,7 +2,10 @@
 // cp.async copies into shared memory, ldmatrix loads of bf16 fragments (and
 // of float fragments, two b16 halves a float), the mma.sync m16n8k16 bf16
 // product and the m16n8k8 tf32 product with float32 accumulation, the
-// split of a float into two tf32 terms and the 3xTF32 step built on both.
+// split of a float into two tf32 terms (in five operations, or three with
+// the small term unrounded), the 3xTF32 step built on both, and a slice of
+// 3xTF32 products from float tiles in shared memory (tf32_slice: premlp.cu's
+// and win_attn.cu's float32 bodies).
 //
 // Fragment layout of one m16n8k16 product (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), with g = lane / 4 and q = lane % 4:
@@ -120,6 +123,83 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_tf32(d, ab, bb0, bb1);
 #pragma unroll
   for (int e = 0; e < 4; ++e) c[e] += d[e];
+}
+
+// d = a . b with zero sums: mma_tf32 into sums that need no zeroing first
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// split_tf32 in three operations: big = tf32_rna(x), small = x - big
+// exact and left unrounded, the tensor cores reading its upper 19 bits
+// (its truncation errs by at most 2^-21 of x, random in sign: the small
+// term's own rounding, a part of x the dropped small.small term already
+// is)
+__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& big,
+                                                uint32_t& small) {
+  big = tf32_rna(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// acc[i][j] += the 3xTF32 product of MT m16 tiles of A and NJ n8 tiles of
+// B over NK 8-deep k-steps (a slice), the slice's products summed into
+// zeroed sums and those added to acc by float adds (gemm.cu's header: the
+// tensor cores' accumulation is no float sum). A: float rows, a[(16 i +
+// r) * lda + k] for row r of tile i; B: float rows of k, b[k * ldb + 8 j +
+// n]. Within a k-step, fragment column q is k 2q and column q + 4 is
+// 2q + 1 for A and B alike, so an A row read is one float2. Each float is
+// split once here: A's for the NJ tiles, B's for the MT tiles. With lda
+// 8 mod 32 floats and ldb 4 mod 16 the reads are free of bank conflicts.
+template <int MT, int NJ, int NK>
+__device__ __forceinline__ void tf32_slice(float (&acc)[MT][NJ][4],
+                                           const float* a, int lda,
+                                           const float* b, int ldb) {
+  const int l = threadIdx.x & 31, g = l >> 2, q = l & 3;
+  uint32_t ab[NK][MT][4], as[NK][MT][4];
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float* r = a + (16 * i + g) * lda + 8 * kk + 2 * q;
+      const float2 lo = *reinterpret_cast<const float2*>(r);
+      const float2 hi = *reinterpret_cast<const float2*>(r + 8 * lda);
+      split_tf32_fast(lo.x, ab[kk][i][0], as[kk][i][0]);
+      split_tf32_fast(hi.x, ab[kk][i][1], as[kk][i][1]);
+      split_tf32_fast(lo.y, ab[kk][i][2], as[kk][i][2]);
+      split_tf32_fast(hi.y, ab[kk][i][3], as[kk][i][3]);
+    }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    uint32_t bb[NK][2], bs[NK][2];
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const float* c = b + (8 * kk + 2 * q) * ldb + 8 * j + g;
+      split_tf32_fast(c[0], bb[kk][0], bs[kk][0]);
+      split_tf32_fast(c[ldb], bb[kk][1], bs[kk][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      float d[4];
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        if (kk == 0)
+          mma_tf32_zero(d, as[0][i], bb[0][0], bb[0][1]);
+        else
+          mma_tf32(d, as[kk][i], bb[kk][0], bb[kk][1]);
+        mma_tf32(d, ab[kk][i], bs[kk][0], bs[kk][1]);
+        mma_tf32(d, ab[kk][i], bb[kk][0], bb[kk][1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];
+    }
+  }
 }
 
 // two floats rounded to bf16 (to nearest even), lo in the low half

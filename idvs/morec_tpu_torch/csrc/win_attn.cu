@@ -21,8 +21,8 @@
 // Bound on the H100: per window 8*T*C*C flops of projections against
 // 4*T*T*C of attention, so at Swin's widths the projections are 95 % or
 // more of the work: bound by operations in bf16 (0.12-0.18 ms a Swin-T
-// stage for 512 images at 989 TFLOP/s, by bytes at stage 0) and by the
-// float FMA rate in float32 (no TF32, for parity). Two launches: the
+// stage for 512 images at 989 TFLOP/s, by bytes at stage 0) and in float32
+// at 3xTF32's 165 TFLOP/s (0.74-0.90 ms a stage). Two launches: the
 // window kernel writes each head's context into a scratch in x's layout,
 // and the output projection, which sums over all heads, is a plain
 // row-major product of that scratch through gemm.cu (idvs_gemm, with its
@@ -57,27 +57,37 @@
 // Persistent blocks with the next tile's copies in flight during the
 // attention were slower.
 //
-// float32 (win_attn_kernel): the first launch gives a block G windows (one
-// at T = 49) and HG heads (3 or 4): it streams the windows' rows of x and
-// the head group's q, k, v columns of Wqkv through shared memory in
-// 16-deep slices into a 4 x 12 register tile per thread (tile.cuh), parks
-// the cast q, k, v of its heads in shared memory (a head group's is 80 KB
-// at C = 768), runs the (T, T) scores, the float softmax and p . v there
-// (4 x 4 register tiles: at C = 96 the attention is a fifth of the
-// operations), and writes its heads' context into the scratch.
+// float32 (win_attn_tf32_kernel), on the tensor cores as 3xTF32 (mma.cuh:
+// each operand split into big + small tf32 terms, three m16n8k8 products a
+// step; the scalar body it replaces ran the projections on the FMA units
+// in 4 x 12 register tiles and lost to the plain version at stages 2 and 3,
+// PERF.md). bf16's structure: the same plan function (win_attn_plan with
+// the dtype; G windows, HG heads, Tp, Dp, a 32 x 48 projection tile a warp,
+// at most 8 warps, the host checks it), the same row and column maps. The
+// projection streams x's rows and Wqkv's head-group columns as floats in
+// 16-deep slices (two k-steps) through a ring of 3 cp.async stages, its
+// products summed a slice at a time into zeroed sums that float adds take
+// to the accumulators (mma.cuh tf32_slice: each warp splits a Wqkv value
+// once for its two m16 tiles and an x value once for its six n8 tiles);
+// q, k and v stay floats in shared memory, [G Tp][3 HG Dp + 8] (8 mod 32
+// floats a row, so the fragments' float2 reads hit distinct banks). The
+// attention takes bf16's (window, head, 16 query rows) items: the scores
+// against 64-key blocks as 3xTF32 tiles (q's and k's values split as they
+// are read), the float softmax with expf, online over the key blocks, and
+// P . V with the probabilities, as they lie in the score accumulators, as
+// the A operand (fused_mha's float32 forward's fragment order), the context
+// stored at the tokens' own rows. Every geometry the scalar body placed is
+// placed (tests/test_torch_f32_plans.py), heads of 4 to 128 columns with
+// them.
+#include "common.cuh"
 #include "mma.cuh"
-#include "tile.cuh"
 #include "win_map.cuh"
 
 namespace idvs {
 namespace {
 
-constexpr int kKB = 16;            // depth of a K slice in win_attn_kernel
-constexpr int kMaxThreads = 512;   // of a win_attn_kernel block
-
 struct WinGeom {
   int windows, T, C, nh, dh;
-  int G, HG;                       // windows and heads per block
   int P;                           // bias period: window r takes bias[r % P]
   long long bias_sp, bias_sh;      // bias strides of the period and the head
   int band;                        // 1: (N, Hp, Wp, C) map; 0: (B, T, C)
@@ -90,186 +100,6 @@ __device__ __forceinline__ int token_row(const WinGeom& g, int widx, int t) {
   if (widx >= g.windows) return -1;
   return static_cast<int>(TokenMap{g.band, g.w, g.nwc, g.nwr}.row(widx, t,
                                                                    g.T));
-}
-
-__host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
-
-// shared-memory bytes of a win_attn_kernel block
-inline size_t win_smem(const WinGeom& g) {
-  const int R4 = round4(g.G * g.T), NC = 3 * g.HG * g.dh;
-  return sizeof(float) * (static_cast<size_t>(R4) + 2 * kKB * (R4 + 4) +
-                          2 * kKB * NC + static_cast<size_t>(R4) * (NC + 1) +
-                          static_cast<size_t>(g.G) * g.HG * g.T * (g.T + 1));
-}
-
-// The one place that chooses a block's share: G windows for a row tile of
-// at least 45 tokens (TY = ceil(G * T / 4) >= 12), and the largest group of
-// at most 4 heads that divides nh, is at least 32 columns wide (TX >= 8) and
-// fits the block's threads and shared memory. False: no such blocking.
-inline bool choose_blocking(WinGeom& g) {
-  g.G = (45 + g.T - 1) / g.T;
-  const int TY = round4(g.G * g.T) / 4;
-  for (g.HG = 4; g.HG >= 1; --g.HG) {
-    const int TX = g.HG * g.dh / 4;
-    if (g.nh % g.HG == 0 && TX >= 8 && TX * TY <= kMaxThreads &&
-        win_smem(g) <= kMaxSmem)
-      return true;
-  }
-  return false;
-}
-
-// grid (window groups, head groups); block TX * TY threads with
-// TX = HG * dh / 4 and TY = ceil(G * T / 4)
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-    win_attn_kernel(const T* __restrict__ x, const float* __restrict__ bias,
-                    const T* __restrict__ wqkv, const T* __restrict__ bqkv,
-                    T* __restrict__ ctx, WinGeom g) {
-  extern __shared__ float4 smem4[];
-  const int R = g.G * g.T, R4 = round4(R), lda = R4 + 4;
-  const int HD = g.HG * g.dh, NC = 3 * HD, ldq = NC + 1, lds = g.T + 1;
-  int* row_of = reinterpret_cast<int*>(smem4);          // [R4]
-  float* At = reinterpret_cast<float*>(smem4) + R4;     // 2 x [kKB][lda]
-  float* Bs = At + 2 * kKB * lda;                       // 2 x [kKB][NC]
-  float* Q = Bs + 2 * kKB * NC;                         // [R4][ldq] q|k|v
-  float* S = Q + R4 * ldq;                              // [G*HG*T][lds]
-  const int TX = HD / 4;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int win0 = blockIdx.x * g.G, h0 = blockIdx.y * g.HG;
-
-  for (int r = threadIdx.x; r < R4; r += blockDim.x)
-    row_of[r] = r < R ? token_row(g, win0 + r / g.T, r % g.T) : -1;
-  __syncthreads();
-
-  // q, k, v of the block's heads: (R4, C) x (C, NC), columns gathered from
-  // the three ranges of Wqkv
-  float acc[4][12] = {};
-  tile::ASlice<T, kKB, 2> a;
-  tile::WSlice<T, kKB, 4> b;
-  a.init(row_of, R4, g.C, lda);
-  b.init(3 * g.C, NC, HD, g.C, h0 * g.dh);
-  const int slices = g.C / kKB;
-  a.load(x, 0);
-  b.load(wqkv, 3 * g.C, 0);
-  for (int s = 0; s < slices; ++s) {
-    float* at = At + (s & 1) * kKB * lda;
-    float* bs = Bs + (s & 1) * kKB * NC;
-    a.store(at, lda);
-    b.store(bs);
-    __syncthreads();
-    if (s + 1 < slices) {      // next slice in flight during the FMAs
-      a.load(x, (s + 1) * kKB);
-      b.load(wqkv, 3 * g.C, (s + 1) * kKB);
-    }
-    tile::fma_tile<3, kKB>(acc, at, lda, bs, NC, 4 * ty, 4 * tx, 4 * TX);
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = 4 * tx + 4 * TX * j + c;
-      const float bv =
-          to_f32(bqkv[(col / HD) * g.C + h0 * g.dh + col % HD]);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        Q[(4 * ty + r) * ldq + col] = round_to<T>(acc[r][4 * j + c] + bv);
-    }
-  }
-  __syncthreads();
-
-  // scores of every (window, head) of the block, a 4 x 4 tile of (query,
-  // key) pairs a thread: 8 shared-memory loads feed 16 FMAs. The rows of a
-  // ragged edge tile (T = 49 is no multiple of 4) are clamped for the loads
-  // and left out of the stores
-  const int planes = g.G * g.HG, nt = (g.T + 3) / 4;
-  for (int tile = threadIdx.x; tile < planes * nt * nt; tile += blockDim.x) {
-    const int gh = tile / (nt * nt), rem = tile % (nt * nt);
-    const int i0 = 4 * (rem / nt), j0 = 4 * (rem % nt);
-    const int gw = gh / g.HG, hl = gh % g.HG, widx = win0 + gw;
-    const float *q[4], *k[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      q[r] = Q + (gw * g.T + min(i0 + r, g.T - 1)) * ldq + hl * g.dh;
-      k[r] = Q + (gw * g.T + min(j0 + r, g.T - 1)) * ldq + HD + hl * g.dh;
-    }
-    float s[4][4] = {};
-    for (int d = 0; d < g.dh; ++d) {
-      const float qv[4] = {q[0][d], q[1][d], q[2][d], q[3][d]};
-      const float kv[4] = {k[0][d], k[1][d], k[2][d], k[3][d]};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-    }
-    const bool live = widx < g.windows;
-    const float* brow =
-        bias + (live ? (widx % g.P) * g.bias_sp + (h0 + hl) * g.bias_sh : 0);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      if (i0 + r >= g.T) continue;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (j0 + c >= g.T) continue;
-        S[(gh * g.T + i0 + r) * lds + j0 + c] =
-            live ? s[r][c] * g.scale + brow[(i0 + r) * g.T + j0 + c] : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-
-  // float softmax over each row, one warp a row; the probabilities are
-  // cast. A block need not be whole warps (TX * TY threads): the last,
-  // partial warp sits out, the shuffles need all 32 lanes
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int row = warp < warps ? warp : planes * g.T; row < planes * g.T;
-       row += warps) {
-    float* si = S + row * lds;
-    float m = -INFINITY;
-    for (int j = lane; j < g.T; j += 32) m = fmaxf(m, si[j]);
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(~0u, m, o));
-    float sum = 0.f;
-    for (int j = lane; j < g.T; j += 32) {
-      const float e = expf(si[j] - m);
-      si[j] = e;
-      sum += e;
-    }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(~0u, sum, o);
-    for (int j = lane; j < g.T; j += 32) si[j] = round_to<T>(si[j] / sum);
-  }
-  __syncthreads();
-
-  // ctx = p . v into the scratch, at the tokens' own rows: a 4 x 4 tile
-  // of (query, feature) pairs a thread
-  const int nd = g.dh / 4;
-  for (int tile = threadIdx.x; tile < planes * nt * nd; tile += blockDim.x) {
-    const int gh = tile / (nt * nd), rem = tile % (nt * nd);
-    const int i0 = 4 * (rem / nd), d0 = 4 * (rem % nd);
-    const int gw = gh / g.HG, hl = gh % g.HG;
-    const float* p[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      p[r] = S + (gh * g.T + min(i0 + r, g.T - 1)) * lds;
-    const float* v = Q + gw * g.T * ldq + 2 * HD + hl * g.dh + d0;
-    float o[4][4] = {};
-    for (int j = 0; j < g.T; ++j) {
-      const float pv[4] = {p[0][j], p[1][j], p[2][j], p[3][j]};
-      const float* vj = v + j * ldq;
-      const float vv[4] = {vj[0], vj[1], vj[2], vj[3]};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) o[r][c] = fmaf(pv[r], vv[c], o[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = i0 + r < g.T ? row_of[gw * g.T + i0 + r] : -1;
-      if (row < 0) continue;
-      tile::store4(ctx + static_cast<size_t>(row) * g.C + (h0 + hl) * g.dh +
-                       d0,
-                   make_float4(o[r][0], o[r][1], o[r][2], o[r][3]));
-    }
-  }
 }
 
 // ---- bf16: mma.sync on the tensor cores -----------------------------------
@@ -296,17 +126,6 @@ inline long long mma_smem(const MmaPlan& k) {
   const long long ldq = 3LL * k.HG * k.Dp + 8, PR = kWarpRows * k.WM;
   return 4 * (k.passes * PR + ldq - 8) + 2 * R * ldq +
          2 * kStages * (PR * kLdA + kSliceK * ldq);
-}
-
-// the plan is the one win_attn_plan builds for this geometry
-inline bool plan_fits(const WinGeom& g, const MmaPlan& k) {
-  return k.G >= 1 && k.HG >= 1 && g.nh % k.HG == 0 &&
-         k.Tp == (g.T + 15) / 16 * 16 && k.Dp == (g.dh + 15) / 16 * 16 &&
-         k.WN * 16 == k.HG * k.Dp && k.WM >= 1 &&
-         k.WM * k.WN <= kMmaWarps &&
-         k.passes == (k.G * k.Tp + kWarpRows * k.WM - 1) /
-                         (kWarpRows * k.WM) &&
-         k.smem == mma_smem(k) && k.smem <= static_cast<long long>(kMaxSmem);
 }
 
 __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
@@ -597,18 +416,329 @@ __global__ void __launch_bounds__(32 * kMmaWarps)
   }
 }
 
+// ---- float32: 3xTF32 on the tensor cores -----------------------------------
+//
+// bf16's blocking and loops with float tiles: the projection's slices are
+// 16 floats deep (two k-steps) with their products summed into zeroed sums
+// (mma.cuh tf32_slice), q, k and v stay floats in shared memory ([G Tp][3
+// HG Dp + 8], padded columns exact zeros), and the scores, the softmax
+// (expf) and P . V run as 3xTF32 tiles, each operand split once as it is
+// read into its fragment.
+
+constexpr int kF32Slice = 16;                 // depth of a K slice
+constexpr int kF32LdA = kF32Slice + 8;        // x rows of a slice, floats
+constexpr int kF32Stages = 3;                 // of the projection's ring
+constexpr int kF32Warps = 8;                  // at most, a block
+
+inline long long tf32_smem(const MmaPlan& k) {
+  const long long R = static_cast<long long>(k.G) * k.Tp;
+  const long long Np = 3LL * k.HG * k.Dp, PR = kWarpRows * k.WM;
+  return 4 * (k.passes * PR + Np) + 4 * R * (Np + 8) +
+         4 * kF32Stages * (PR * kF32LdA + kF32Slice * (Np + 4));
+}
+
+// the plan is the one win_attn_plan builds for this geometry and dtype
+inline bool plan_fits(const WinGeom& g, const MmaPlan& k, bool f32) {
+  return k.G >= 1 && k.HG >= 1 && g.nh % k.HG == 0 &&
+         k.Tp == (g.T + 15) / 16 * 16 && k.Dp == (g.dh + 15) / 16 * 16 &&
+         k.WN * 16 == k.HG * k.Dp && k.WM >= 1 &&
+         k.WM * k.WN <= (f32 ? kF32Warps : kMmaWarps) &&
+         k.passes == (k.G * k.Tp + kWarpRows * k.WM - 1) /
+                         (kWarpRows * k.WM) &&
+         k.smem == (f32 ? tf32_smem(k) : mma_smem(k)) &&
+         k.smem <= static_cast<long long>(kMaxSmem);
+}
+
+// d = the 3xTF32 product of one k-step into zeroed sums (small terms first)
+__device__ __forceinline__ void tf32_step(float (&d)[4],
+                                          const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4], float b0,
+                                          float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32_fast(b0, bb0, bs0);
+  split_tf32_fast(b1, bb1, bs1);
+  mma_tf32_zero(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+__device__ __forceinline__ void split4(const float (&a)[4], uint32_t (&ab)[4],
+                                       uint32_t (&as)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32_fast(a[e], ab[e], as[e]);
+}
+
+// block_scores in float: the scores of 16 query rows (row group rg) against
+// key block kb, fragment element (n, e) query 16 rg + lane / 4 + 8 (e / 2),
+// key 64 kb + 8 n + 2 (lane % 4) + e % 2; scaled and biased, -inf past T.
+// qs and ks are a head's [Tp][ldq] float q and k columns (Dp wide); within
+// a k-step, fragment column q is the head's column 2q and q + 4 is 2q + 1
+// for q and k alike (mma.cuh tf32_slice), one float2 a row.
+__device__ __forceinline__ void block_scores_tf32(
+    const float* qs, const float* ks, int ldq, int rg, int kb, int Dp,
+    const WinGeom& g, const float* const (&bi)[2], float (&s)[8][4]) {
+  const int l = threadIdx.x & 31, gq = l >> 2, q = l & 3, key0 = kKeys * kb;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  const float* qa = qs + (16 * rg + gq) * ldq + 2 * q;
+  const float* kr = ks + (key0 + gq) * ldq + 2 * q;
+  for (int kk = 0; kk < Dp / 8; ++kk) {
+    const float2 lo = *reinterpret_cast<const float2*>(qa + 8 * kk);
+    const float2 hi = *reinterpret_cast<const float2*>(qa + 8 * ldq + 8 * kk);
+    const float a[4] = {lo.x, hi.x, lo.y, hi.y};
+    uint32_t ab[4], as[4];
+    split4(a, ab, as);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (key0 + 8 * n < g.T) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(kr + 8 * n * ldq + 8 * kk);
+        float d[4];
+        tf32_step(d, ab, as, kv.x, kv.y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += d[e];
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = key0 + 8 * n + 2 * q + (e & 1);
+      s[n][e] = j < g.T ? s[n][e] * g.scale + __ldg(bi[e >> 1] + j)
+                        : -INFINITY;
+    }
+}
+
+// the scores in place to p = exp(s - m) / l
+__device__ __forceinline__ void probs_tf32(float (&s)[8][4],
+                                           const float (&m)[2],
+                                           const float (&inv)[2]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[n][e] = expf(s[n][e] - m[e >> 1]) * inv[e >> 1];
+}
+
+// o += P . V over key block kb for the output columns [64 dc, 64 dc + 64)
+// of the head (those below Dp): the probabilities p, as they lie, are the
+// A fragments of the 8-key k-steps (tile n's c0, c1 row g's keys 2q and
+// 2q + 1, c2, c3 row g + 8's), B reads v's rows 2q and 2q + 1 of the
+// step at one column; vs is the head's [Tp][ldq] v columns
+__device__ __forceinline__ void prob_times_v_tf32(const float (&p)[8][4],
+                                                  const float* vs, int ldq,
+                                                  int kb, int dc, int Dp,
+                                                  int T, float (&o)[8][4]) {
+  const int l = threadIdx.x & 31, gq = l >> 2, q = l & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int key = kKeys * kb + 8 * n;
+    if (key >= T) continue;       // probabilities zero there
+    const float a[4] = {p[n][0], p[n][2], p[n][1], p[n][3]};
+    uint32_t ab[4], as[4];
+    split4(a, ab, as);
+    const float* vr = vs + (key + 2 * q) * ldq + 64 * dc + gq;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (64 * dc + 8 * t < Dp) {
+        float d[4];
+        tf32_step(d, ab, as, vr[8 * t], vr[ldq + 8 * t]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[t][e] += d[e];
+      }
+    }
+  }
+}
+
+// grid (window groups, head groups); block 32 WM WN threads
+__global__ void __launch_bounds__(32 * kF32Warps, 2)
+    win_attn_tf32_kernel(const float* __restrict__ x,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ wqkv,
+                         const float* __restrict__ bqkv,
+                         float* __restrict__ ctx, WinGeom g, MmaPlan k) {
+  extern __shared__ __align__(16) unsigned char win_smem_tf32[];
+  const int R = k.G * k.Tp, HD = k.HG * k.Dp, Np = 3 * HD;
+  const int ldq = Np + 8, ldw = Np + 4;
+  const int PR = kWarpRows * k.WM, stage = PR * kF32LdA + kF32Slice * ldw;
+  int* row_of = reinterpret_cast<int*>(win_smem_tf32);        // [passes PR]
+  int* col_of = row_of + k.passes * PR;                       // [Np]
+  float* Q = reinterpret_cast<float*>(col_of + Np);           // [R][ldq]
+  float* ring = Q + R * ldq;   // kF32Stages x (x rows [PR][kF32LdA], W)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5, wm = warp / k.WN, wn = warp % k.WN;
+  const int gq = lane >> 2, q = lane & 3;
+  const int win0 = blockIdx.x * k.G, h0 = blockIdx.y * k.HG;
+  for (int r = threadIdx.x; r < k.passes * PR; r += blockDim.x)
+    row_of[r] = r < R && r % k.Tp < g.T
+                    ? token_row(g, win0 + r / k.Tp, r % k.Tp)
+                    : -1;
+  // column c of the block's q | k | v is Wqkv's column col_of[c] + h0 dh,
+  // or -1 in a head's padding (dh is a multiple of 4: a 16-byte piece is
+  // all real or all padding)
+  for (int c = threadIdx.x; c < Np; c += blockDim.x) {
+    const int d = c % k.Dp;
+    col_of[c] = d < g.dh ? c / HD * g.C + c / k.Dp % k.HG * g.dh + d : -1;
+  }
+  __syncthreads();
+  const float* wq = wqkv + h0 * g.dh;
+  const float* bq = bqkv + h0 * g.dh;
+
+  // K slice t of pass rows [prow0, prow0 + PR) into slot t % kF32Stages:
+  // x's rows (zeros for padded tokens and windows past the last) and the
+  // head group's q, k, v columns of Wqkv (zeros in the heads' padding)
+  const int nk = g.C / kF32Slice;
+  auto issue = [&](int prow0, int t) {
+    if (t >= nk) return;
+    const int k0 = t * kF32Slice;
+    float* As = ring + (t % kF32Stages) * stage;
+    float* Ws = As + PR * kF32LdA;
+    for (int c = threadIdx.x; c < PR * (kF32Slice / 4); c += blockDim.x) {
+      const int r = c / (kF32Slice / 4), kc = c % (kF32Slice / 4) * 4;
+      const int ro = row_of[prow0 + r];
+      cp_async16_zfill(As + r * kF32LdA + kc,
+                       ro >= 0 ? x + static_cast<size_t>(ro) * g.C + k0 + kc
+                               : x,
+                       ro >= 0 ? 16 : 0);
+    }
+    for (int c = threadIdx.x; c < kF32Slice * (Np / 4); c += blockDim.x) {
+      const int kr = c / (Np / 4), col = c % (Np / 4) * 4;
+      const int from = col_of[col];
+      cp_async16_zfill(
+          Ws + kr * ldw + col,
+          from >= 0 ? wq + static_cast<size_t>(k0 + kr) * 3 * g.C + from
+                    : wqkv,
+          from >= 0 ? 16 : 0);
+    }
+  };
+
+  // qkv = x Wqkv + b of the block's rows, pass by pass: each warp a 32 x 48
+  // tile, its two m16 tiles sharing each split of Wqkv
+  for (int pass = 0; pass < k.passes; ++pass) {
+    const int prow0 = pass * PR;
+    float acc[2][6][4] = {};
+#pragma unroll
+    for (int t = 0; t < kF32Stages - 1; ++t) {
+      issue(prow0, t);
+      cp_async_commit();
+    }
+    for (int t = 0; t < nk; ++t) {
+      // slice t has landed; every warp is done with the slot slice
+      // t + kF32Stages - 1 takes
+      cp_async_wait<kF32Stages - 2>();
+      __syncthreads();
+      issue(prow0, t + kF32Stages - 1);
+      cp_async_commit();
+      const float* As = ring + (t % kF32Stages) * stage;
+      tf32_slice<2, 6, kF32Slice / 8>(acc, As + kWarpRows * wm * kF32LdA,
+                                      kF32LdA,
+                                      As + PR * kF32LdA + kWarpCols * wn,
+                                      ldw);
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // every warp is done with the ring
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = prow0 + kWarpRows * wm + 16 * i + gq + 8 * hh;
+          if (r >= R) continue;
+          const int col = kWarpCols * wn + 8 * j + 2 * q, from = col_of[col];
+          float v0 = 0.f, v1 = 0.f;   // exact zeros in the padded columns
+          if (from >= 0) {
+            v0 = acc[i][j][2 * hh] + bq[from];
+            v1 = acc[i][j][2 * hh + 1] + bq[from + 1];
+          }
+          *reinterpret_cast<float2*>(Q + r * ldq + col) = make_float2(v0, v1);
+        }
+  }
+  __syncthreads();
+
+  // attention: a warp takes (window, head, 16 query rows) items, as bf16
+  const int RG = k.Tp / 16, nkb = (k.Tp + kKeys - 1) / kKeys;
+  const int ndc = (k.Dp + 63) / 64, items = k.G * k.HG * RG;
+  for (int it = warp; it < items; it += warps) {
+    const int rg = it % RG, hl = it / RG % k.HG, gw = it / (RG * k.HG);
+    const int widx = win0 + gw;
+    if (widx >= g.windows) continue;
+    const float* qs = Q + gw * k.Tp * ldq + hl * k.Dp;
+    const float* ks = qs + HD;
+    const float* vs = qs + 2 * HD;
+    // padded query rows take row T - 1's bias: finite, never stored
+    const float* brow =
+        bias + (widx % g.P) * g.bias_sp + (h0 + hl) * g.bias_sh;
+    const int i0 = 16 * rg + gq;
+    const float* const bi[2] = {brow + min(i0, g.T - 1) * g.T,
+                                brow + min(i0 + 8, g.T - 1) * g.T};
+    float s[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int kb = 0; kb < nkb; ++kb) {
+      block_scores_tf32(qs, ks, ldq, rg, kb, k.Dp, g, bi, s);
+      float mb[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mb[e >> 1] = fmaxf(mb[e >> 1], s[n][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mb[r] = fmaxf(mb[r], __shfl_xor_sync(~0u, mb[r], 1));
+        mb[r] = fmaxf(mb[r], __shfl_xor_sync(~0u, mb[r], 2));
+        const float mn = fmaxf(m[r], mb[r]);   // every block has a live key
+        l[r] *= expf(m[r] - mn);
+        m[r] = mn;
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[e >> 1] += expf(s[n][e] - m[e >> 1]);
+    }
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(~0u, l[r], 1);
+      l[r] += __shfl_xor_sync(~0u, l[r], 2);
+      inv[r] = 1.f / l[r];
+    }
+    if (nkb == 1) probs_tf32(s, m, inv);
+    for (int dc = 0; dc < ndc; ++dc) {
+      float o[8][4] = {};
+      for (int kb = 0; kb < nkb; ++kb) {
+        if (nkb > 1) {
+          block_scores_tf32(qs, ks, ldq, rg, kb, k.Dp, g, bi, s);
+          probs_tf32(s, m, inv);
+        }
+        prob_times_v_tf32(s, vs, ldq, kb, dc, k.Dp, g.T, o);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = i0 + 8 * hh;
+        if (i >= g.T) continue;
+        float* dst = ctx + static_cast<size_t>(row_of[gw * k.Tp + i]) * g.C +
+                     (h0 + hl) * g.dh;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int d = 64 * dc + 8 * n + 2 * q;
+          if (d < g.dh)
+            *reinterpret_cast<float2*>(dst + d) =
+                make_float2(o[n][2 * hh], o[n][2 * hh + 1]);
+        }
+      }
+    }
+  }
+}
+
 cudaError_t attention_f32(const void* x, const float* bias, const void* wqkv,
                           const void* bqkv, void* ctx, const WinGeom& g,
-                          cudaStream_t s) {
-  const size_t smem = win_smem(g);
-  auto kernel = win_attn_kernel<float>;
-  cudaError_t err = allow_smem(kernel, smem);
+                          const MmaPlan& k, cudaStream_t s) {
+  auto kernel = win_attn_tf32_kernel;
+  cudaError_t err = allow_smem(kernel, static_cast<size_t>(k.smem));
   if (err != cudaSuccess) return err;
-  const int threads = g.HG * g.dh / 4 * (round4(g.G * g.T) / 4);
-  const dim3 grid((g.windows + g.G - 1) / g.G, g.nh / g.HG);
-  kernel<<<grid, threads, smem, s>>>(
+  const dim3 grid((g.windows + k.G - 1) / k.G, g.nh / k.HG);
+  kernel<<<grid, 32 * k.WM * k.WN, k.smem, s>>>(
       static_cast<const float*>(x), bias, static_cast<const float*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<float*>(ctx), g);
+      static_cast<const float*>(bqkv), static_cast<float*>(ctx), g, k);
   return cudaGetLastError();
 }
 
@@ -643,10 +773,9 @@ extern "C" int idvs_gemm(const void* A, const void* B, void* out,
 // maps). wqkv (C, 3C), bqkv (3C,), wo (C, C), bo (C,) in the compute dtype,
 // (in, out) layouts, 16-byte aligned. bias: float, element (p, h, i, j) at
 // p*bias_sp + h*bias_sh + i*T + j; window r takes p = r % P. dh is a
-// multiple of 4 and C of 16. bf16 takes the block plan G ... smem of
-// win_attn_plan (checked by plan_fits); float32 ignores it and chooses its
-// own (choose_blocking). Returns cudaErrorInvalidValue for a geometry the
-// dtype's body cannot place.
+// multiple of 4 and C of 16. G ... smem: the block plan win_attn_plan builds
+// for the geometry and the dtype (checked by plan_fits). Returns
+// cudaErrorInvalidValue for a plan that is not that one.
 extern "C" int idvs_win_attn_fwd(const void* x, const void* bias,
                                  const void* wqkv, const void* bqkv,
                                  const void* wo, const void* bo, void* ctx,
@@ -658,26 +787,21 @@ extern "C" int idvs_win_attn_fwd(const void* x, const void* bias,
                                  int passes, long long smem, int dtype,
                                  void* stream) {
   using namespace idvs;
-  if (windows < 1 || T < 1 || nh < 1 || C % nh || C % kKB || P < 1 ||
+  if (windows < 1 || T < 1 || nh < 1 || C % nh || C % 16 || P < 1 ||
       (C / nh) % 4 ||
       (band && (w * w != T || nwc < 1 || nwr < 1 ||
                 windows % (nwc * nwr))))
     return static_cast<int>(cudaErrorInvalidValue);
-  WinGeom g{windows, T, C, nh, C / nh, 0, 0, P, bias_sp, bias_sh,
+  WinGeom g{windows, T, C, nh, C / nh, P, bias_sp, bias_sh,
             band, w, nwc, nwr, scale};
   const float* bf = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == kF32) {
-    if (!choose_blocking(g)) return static_cast<int>(cudaErrorInvalidValue);
-    err = attention_f32(x, bf, wqkv, bqkv, ctx, g, s);
-  } else if (dtype == kBF16) {
-    const MmaPlan k{G, HG, t_pad, dh_pad, warps_m, warps_n, passes, smem};
-    if (!plan_fits(g, k)) return static_cast<int>(cudaErrorInvalidValue);
-    err = attention_bf16(x, bf, wqkv, bqkv, ctx, g, k, s);
-  } else {
+  const MmaPlan k{G, HG, t_pad, dh_pad, warps_m, warps_n, passes, smem};
+  if ((dtype != kF32 && dtype != kBF16) || !plan_fits(g, k, dtype == kF32))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const cudaError_t err =
+      dtype == kF32 ? attention_f32(x, bf, wqkv, bqkv, ctx, g, k, s)
+                    : attention_bf16(x, bf, wqkv, bqkv, ctx, g, k, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // out = cast(ctx Wo + bo): row-major (M, C) x (C, C), one K slice
   const int M = windows * T;

@@ -275,12 +275,14 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
 # both; the window layout reads window r from (B, T, C), the band layout
 # reads a window's tokens from the (N, Hp, Wp, C) map and writes them back
 # there, so the window partition and its reverse never exist. The work is
-# 95 % projections: bf16 runs them and the attention on the tensor cores
-# with the block plan of ``win_attn_plan``, float32 on the float FMA units;
-# the output projection is gemm.cu's product (3xTF32 in float32); the .cu
-# header has the
-# design. The backward (``csrc/win_attn_bwd.cu`` and the products of
-# ``csrc/gemm.cu``) saves nothing but x, the bias and the weights: it
+# 95 % projections: both dtypes run them and the attention on the tensor
+# cores (bf16 as such, float32 as 3xTF32) with the block plan of
+# ``win_attn_plan`` for the dtype; the output projection is gemm.cu's
+# product (3xTF32 in float32); the .cu header has the design.
+# ``fused_mha_proj.bodies`` and ``fused_mha_proj_band.bodies`` name the
+# forward's window kernel (``WIN_BODIES``). The backward
+# (``csrc/win_attn_bwd.cu`` and the products of ``csrc/gemm.cu``) saves
+# nothing but x, the bias and the weights: it
 # recomputes qkv and the probabilities and returns the gradients of x, of
 # the four weights and of the bias, the latter summed over the windows that
 # share a bias row, in a fixed order. Its products are row-wise, so they run
@@ -294,26 +296,47 @@ def fused_mha(qkv: torch.Tensor, mask: torch.Tensor = None, *, n_heads: int,
 
 LINEAR_WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 CUDA_INVALID_VALUE = 1     # cudaErrorInvalidValue
-# csrc/win_attn.cu's bf16 body: a warp's projection tile (rows, columns),
-# the K slice's depth and the ring's stages; at most 8 warps are planned
-_WARP_ROWS, _WARP_COLS, _SLICE_K, _STAGES, _WARPS = 32, 48, 32, 3, 8
+# csrc/win_attn.cu's bodies: a warp's projection tile (rows, columns) and
+# at most 8 warps a block are planned; bf16 streams 32-deep K slices of
+# bf16 through 3 stages, float32 16-deep slices of floats through 3
+_WARP_ROWS, _WARP_COLS, _WARPS = 32, 48, 8
+_SLICE_K = {torch.bfloat16: 32, torch.float32: 16}
+_STAGES = 3
+# the device kernel of each dtype's body, for the wrappers' ``bodies``
+WIN_BODIES = {torch.float32: "win_attn_tf32_kernel",
+              torch.bfloat16: "win_attn_mma_kernel"}
 
 
 def _up16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def win_attn_plan(T: int, C: int, n_heads: int):
-    """The block plan of the bf16 window kernel (csrc/win_attn.cu
-    win_attn_mma_kernel), which the launch passes to it: G windows and a
-    group of HG heads a block, T and dh padded to t_pad and dh_pad
-    (multiples of 16), warps_m x warps_n warps each owning a 32 x 48 tile of
-    the qkv projection (warps_n = 3 HG dh_pad / 48), in ``passes`` of 32
-    warps_m rows over the G t_pad rows, and the shared-memory bytes. Of the
-    plans that fit, the one that reads the fewest bytes from L2 (x's rows
-    once a head group, Wqkv's columns once a pass) for each (window, head),
-    then the one with the fewest padded rows, then the fewest windows a
-    block. None when no head group fits (dh above 128)."""
+def _win_smem(dtype, G, HG, Tp, Dp, WM, passes) -> int:
+    """Shared-memory bytes of a window block (csrc/win_attn.cu mma_smem and
+    tf32_smem): the row and column maps (int), the block's q | k | v ([G
+    Tp][3 HG Dp + 8]) and the ring's stages of x rows ([32 WM][slice + 8])
+    and Wqkv columns ([slice][3 HG Dp + 8], float32 + 4)."""
+    R, Np, PR, K = G * Tp, 3 * HG * Dp, _WARP_ROWS * WM, _SLICE_K[dtype]
+    if dtype == torch.float32:
+        return (4 * (passes * PR + Np) + 4 * R * (Np + 8)
+                + 4 * _STAGES * (PR * (K + 8) + K * (Np + 4)))
+    return (4 * (passes * PR + Np) + 2 * R * (Np + 8)
+            + 2 * _STAGES * (PR * (K + 8) + K * (Np + 8)))
+
+
+def win_attn_plan(T: int, C: int, n_heads: int,
+                  dtype: torch.dtype = torch.bfloat16):
+    """The block plan of the window kernel of `dtype` (csrc/win_attn.cu
+    win_attn_mma_kernel, win_attn_tf32_kernel), which the launch passes to
+    it: G windows and a group of HG heads a block, T and dh padded to t_pad
+    and dh_pad (multiples of 16), warps_m x warps_n warps each owning a 32
+    x 48 tile of the qkv projection (warps_n = 3 HG dh_pad / 48), in
+    ``passes`` of 32 warps_m rows over the G t_pad rows, and the
+    shared-memory bytes. Of the plans that fit, the one that reads the
+    fewest bytes from L2 (x's rows once a head group, Wqkv's columns once a
+    pass) for each (window, head), then the one with the fewest padded
+    rows, then the fewest windows a block. None when no head group fits
+    (dh above 128)."""
     dh = C // n_heads
     Tp, Dp = _up16(T), _up16(dh)
     best = None
@@ -326,8 +349,7 @@ def win_attn_plan(T: int, C: int, n_heads: int):
         for G in range(1, 9):
             R = G * Tp
             passes = -(-R // PR)
-            smem = (4 * (passes * PR + Np) + 2 * R * (Np + 8)
-                    + 2 * _STAGES * (PR * (_SLICE_K + 8) + _SLICE_K * (Np + 8)))
+            smem = _win_smem(dtype, G, HG, Tp, Dp, WM, passes)
             if smem > lib.MAX_SMEM:
                 break
             key = ((R * C + passes * C * Np) / (G * HG), passes * PR - R, G)
@@ -456,33 +478,27 @@ def fused_mha_proj_padded(x: torch.Tensor, bias: torch.Tensor,
 def _no_blocking(name, T, C, n_heads):
     return ValueError(
         f"{name} kernel: no blocking for T={T}, C={C}, n_heads={n_heads}: "
-        f"it takes heads of a multiple of 4 columns and (float32) a head "
-        f"group of 32 or more columns that fits a block's threads and "
-        f"shared memory, or (bf16) heads of at most 128 columns")
+        f"it takes heads of a multiple of 4 columns, at most 128, whose "
+        f"window fits a block's shared memory")
 
 
 def _windowed_fwd(name, x, table, ops, n_heads, windows, T, band, code):
     """Launches the kernel pair of csrc/win_attn.cu on contiguous x in the
     window layout (band None) or the band layout (band = (w, nwc, nwr))."""
     C = x.shape[-1]
-    plan = (win_attn_plan(T, C, n_heads) if x.dtype == torch.bfloat16
-            else None)
-    if x.dtype == torch.bfloat16 and plan is None:
+    plan = win_attn_plan(T, C, n_heads, x.dtype)
+    if plan is None:
         raise _no_blocking(name, T, C, n_heads)
     ctx, out = torch.empty_like(x), torch.empty_like(x)
     w, nwc, nwr = band if band is not None else (0, 0, 0)
-    k = [0] * 8 if plan is None else [
-        plan[n] for n in ("G", "HG", "t_pad", "dh_pad", "warps_m", "warps_n",
-                          "passes", "smem")]
+    k = [plan[n] for n in ("G", "HG", "t_pad", "dh_pad", "warps_m",
+                           "warps_n", "passes", "smem")]
     err = lib.library().idvs_win_attn_fwd(
         x.data_ptr(), table.data_ptr(), *(t.data_ptr() for t in ops),
         ctx.data_ptr(), out.data_ptr(), windows, T, C, n_heads,
         table.shape[0], table.stride(0), table.stride(1),
         int(band is not None), w, nwc, nwr,
         1.0 / math.sqrt(C // n_heads), *k, code, lib.stream_handle(x))
-    if err == CUDA_INVALID_VALUE:
-        # float32 chooses its own blocking (choose_blocking in the .cu)
-        raise _no_blocking(name, T, C, n_heads)
     lib.check(err, name)
     return out
 
@@ -635,6 +651,7 @@ def fused_mha_proj(x: torch.Tensor, bias: torch.Tensor, wqkv: torch.Tensor,
     out = _launch_windowed("fused_mha_proj", x, bias, wqkv, bqkv, wo, bo,
                            n_heads, B, T, None)
     fused_mha_proj.launches += 1
+    fused_mha_proj.bodies.add(WIN_BODIES[x.dtype])
     return out
 
 
@@ -669,6 +686,7 @@ def fused_mha_proj_band(x: torch.Tensor, bias: torch.Tensor,
     out = _launch_windowed("fused_mha_proj_band", x, bias, wqkv, bqkv, wo,
                            bo, n_heads, N * nwr * nwc, w * w, (w, nwc, nwr))
     fused_mha_proj_band.launches += 1
+    fused_mha_proj_band.bodies.add(WIN_BODIES[x.dtype])
     return out
 
 
@@ -679,8 +697,10 @@ fused_mha_bwd.bodies = set()
 fused_mha_bwd_dbias.launches = 0
 fused_mha_bwd_dbias.bodies = set()
 fused_mha_proj.launches = 0
+fused_mha_proj.bodies = set()
 fused_mha_proj_bwd.launches = 0
 fused_mha_proj_bwd.bodies = set()
 fused_mha_proj_band.launches = 0
+fused_mha_proj_band.bodies = set()
 fused_mha_proj_band_bwd.launches = 0
 fused_mha_proj_band_bwd.bodies = set()

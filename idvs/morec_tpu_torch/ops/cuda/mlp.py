@@ -730,12 +730,15 @@ def fused_mlp_resln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 # LayerNorm's row passes and gemm.cu's three products; or "products"
 # (float32), gemm.cu's five products with the activation on load and its
 # derivative as an epilogue around the LayerNorm's row passes. Every sum
-# over rows is added in a fixed order. bf16 runs on the tensor cores; in
-# float32 the forward runs on the float FMA units and the backward's
-# products on the tensor cores as 3xTF32 (gemm.cu); the .cu headers have
-# the design. ``fused_mlp_bwd.launches`` and ``fused_mlp_res_bwd.launches``
-# count the backward's launches, their ``bodies`` the device kernels its
-# plans named; ``premlp_bwd_gdh.launches`` the wg kernel's.
+# over rows is added in a fixed order. Everything runs on the tensor cores:
+# bf16 as such, float32 as 3xTF32 (the forward's premlp_tf32_kernel, the
+# backward's products in gemm.cu), each in its own block plan
+# (``premlp_plan`` by dtype); the .cu headers have the design.
+# ``fused_mlp.launches`` and ``fused_mlp_res.launches`` count the forward's
+# launches, their ``bodies`` its device kernel (``PRE_BODIES``);
+# ``fused_mlp_bwd.launches`` and ``fused_mlp_res_bwd.launches`` the
+# backward's, their ``bodies`` the device kernels its plans named;
+# ``premlp_bwd_gdh.launches`` the wg kernel's.
 
 PRE_ACTS = {"gelu": 0, "relu": 1, "quick_gelu": 2}
 # The bf16 body (premlp_mma_kernel) by C: (F chunk, row warps, column warps,
@@ -751,21 +754,42 @@ _PRE_MMA = {32: (32, 8, 1, 3), 64: (64, 8, 1, 3), 96: (96, 8, 1, 3),
             128: (64, 8, 1, 3), 192: (96, 4, 2, 3), 256: (128, 4, 2, 3),
             384: (192, 4, 4, 3), 512: (256, 4, 4, 3), 768: (384, 2, 8, 3),
             1024: (256, 2, 8, 2)}
-# The float32 body (premlp_kernel) by C: (TX, NG, NG1, KB) of tile.cuh
-_PRE_FMA = {32: (8, 1, 1, 16), 64: (16, 1, 1, 16), 96: (8, 3, 3, 16),
-            128: (32, 1, 1, 16), 192: (16, 3, 3, 16), 256: (32, 2, 2, 16),
-            384: (32, 3, 3, 16), 512: (32, 4, 2, 16), 768: (32, 6, 3, 8),
-            1024: (32, 8, 2, 4)}
-# C the kernel is instantiated for -> the chunk F must be a multiple of: the
-# float32 body's (4 TX NG1), which the bf16 body's divides
-PRE_F_CHUNK = {C: 4 * TX * NG1 for C, (TX, _, NG1, _) in _PRE_FMA.items()}
+# The float32 body (premlp_tf32_kernel) by C: (F chunk, row warps, column
+# warps, m16 tiles a warp, depths of a W1 and of a W2 slice, stages of the
+# weight ring). Eight warps, one block an SM: each warp holds MT = 2 row
+# tiles, so each weight value it splits feeds two tiles' products, and the
+# (rows, C) output's float accumulators, at most 128 a thread (C = 1024),
+# fit its registers beside the chunk's h (at most 48); 128 rows a block up
+# to C = 192, 64 at 256 and 384, 32 from 512 on, where the (rows, C + 8)
+# float tile of xn fills half of the shared memory. Chunks as wide as the
+# registers allow: every warp splits each of x's values for all of its
+# chunk columns, so a wider chunk makes dense1 cheaper (PERF.md). At C =
+# 768 W2's slices are 8 deep, so that its slice and W1's 16-deep one take
+# the same room and three stages fit; at 1024 two stages of 8-deep
+# slices.
+_PRE_TF32 = {32: (32, 4, 2, 2, 16, 16, 3), 64: (64, 4, 2, 2, 16, 16, 3),
+             96: (96, 4, 2, 2, 16, 16, 3), 128: (64, 4, 2, 2, 16, 16, 3),
+             192: (96, 4, 2, 2, 16, 16, 3), 256: (128, 2, 4, 2, 16, 16, 3),
+             384: (192, 2, 4, 2, 16, 16, 3), 512: (256, 1, 8, 2, 16, 16, 3),
+             768: (384, 1, 8, 2, 16, 8, 3), 1024: (128, 1, 8, 2, 8, 8, 2)}
+# C the kernel is instantiated for -> the chunk F must be a multiple of in
+# either dtype; both bodies' chunks divide it, and it takes every F the
+# kernel has taken since its first float32 body
+PRE_F_CHUNK = {32: 32, 64: 64, 96: 96, 128: 128, 192: 192, 256: 256,
+               384: 384, 512: 256, 768: 384, 1024: 256}
+# the device kernel of each dtype's body, for the wrappers' ``bodies``
+PRE_BODIES = {torch.float32: "premlp_tf32_kernel",
+              torch.bfloat16: "premlp_mma_kernel"}
 
 
 def premlp_plan(C: int, dtype: torch.dtype) -> dict:
-    """The block plan of csrc/premlp.cu at width C, which the launch passes
-    to the kernel (the kernel refuses any other): rows a block, the F chunk,
-    threads and shared-memory bytes; for bf16 also the warps' layout, the
-    ring's stages and the accumulators a thread holds."""
+    """The block plan of csrc/premlp.cu's body for `dtype` at width C,
+    which the launch passes to the kernel (the kernel refuses any other):
+    rows a block, the F chunk, threads and shared-memory bytes; also the
+    warps' layout, the ring's stages and the output's and h's float
+    accumulators a thread holds, and for float32 the m16 tiles a warp and
+    the weight slices' depth. F must be a multiple of PRE_F_CHUNK[C],
+    which each dtype's chunk divides."""
     if dtype == torch.bfloat16:
         FC, RW, WN, S = _PRE_MMA[C]
         rows = 16 * RW
@@ -776,10 +800,14 @@ def premlp_plan(C: int, dtype: torch.dtype) -> dict:
                     row_warps=RW, col_warps=WN, stages=S,
                     acc_floats=rows * C // (32 * RW * WN),
                     h_floats=16 * FC // WN // 32)
-    TX, _, _, KB = _PRE_FMA[C]
-    rows, FC = 4 * (256 // TX), PRE_F_CHUNK[C]
-    return dict(rows=rows, f_chunk=FC, threads=256,
-                smem=4 * ((C + FC) * (rows + 4) + 2 * KB * C))
+    FC, RW, WN, MT, K1, K2, S = _PRE_TF32[C]
+    rows, threads = 16 * MT * RW, 32 * RW * WN
+    slot = max(K1 * (FC + 4), K2 * (C + 4))
+    smem = 4 * (rows * (C + 8) + rows * (FC + 8) + S * slot)
+    return dict(rows=rows, f_chunk=FC, threads=threads, smem=smem,
+                row_warps=RW, col_warps=WN, m_tiles=MT, slice1=K1,
+                slice2=K2, stages=S, acc_floats=rows * C // threads,
+                h_floats=rows * FC // threads)
 
 
 def _pre_mlp(x2, w1, b1, w2, b2, ln, eps, act, save_h=False,
@@ -1312,6 +1340,7 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     out = _launch_premlp("fused_mlp", x, None, w1, b1, w2, b2, ln, eps, act,
                          0, save_h)
     fused_mlp.launches += 1
+    fused_mlp.bodies.add(PRE_BODIES[x.dtype])
     return out
 
 
@@ -1331,6 +1360,7 @@ def fused_mlp_res(x: torch.Tensor, scale, w1: torch.Tensor,
     out = _launch_premlp("fused_mlp_res", x, scale, w1, b1, w2, b2, ln, eps,
                          act, 1 if scale is None else 2)
     fused_mlp_res.launches += 1
+    fused_mlp_res.bodies.add(PRE_BODIES[x.dtype])
     return out
 
 
@@ -1348,5 +1378,5 @@ fused_mlp_resln_bwd.launches = 0
 # the device kernels each wrapper launched, by its plans' "kernels"
 for _wrapper in (fused_proj_resln, fused_proj_resln_res, fused_proj_resln_bwd,
                  fused_mlp_resln, fused_mlp_resln_res, fused_mlp_resln_bwd,
-                 fused_mlp_bwd, fused_mlp_res_bwd):
+                 fused_mlp, fused_mlp_res, fused_mlp_bwd, fused_mlp_res_bwd):
     _wrapper.bodies = set()

@@ -644,8 +644,8 @@ def test_refuses_what_the_vision_kernels_do_not_take(case):
             z(1, 7, 7, 160), z(1, 5, 49, 49), *attn(160), n_heads=5,
             window=7)),
         "band_heads": (ValueError, lambda: fused_mha_proj_band(
-            z(1, 7, 7, 32), z(1, 8, 49, 49), *attn(32), n_heads=8,
-            window=7)),                    # 4 heads of 4: under 32 columns
+            z(1, 7, 7, 256), z(1, 1, 49, 49), *attn(256), n_heads=1,
+            window=7)),                    # a head of 256: above 128 columns
         "band_window": (ValueError, lambda: fused_mha_proj_band(
             z(1, 10, 7, 96), z(1, 3, 49, 49), *attn(96), n_heads=3,
             window=7)),
@@ -660,11 +660,11 @@ def test_refuses_what_the_vision_kernels_do_not_take(case):
             z(4, 96), None, *mlp(96, 384), ln=None)),
         "mlp_scale_rows": (ValueError, lambda: fused_mlp_res(
             z(4, 96), z(3), *mlp(96, 384), **ln(96))),
-        # 121-token windows of one 32-column head: the forward places them,
-        # the backward's six tiles (237 KB) do not fit a block's shared
+        # 256-token windows of one 32-column head: the forward places them,
+        # the backward core's planes (394 KB) do not fit a block's shared
         # memory, so the backward raises and counts nothing
         "windows_bwd_tiles": (ValueError, lambda: fused_mha_proj(
-            grad(2, 121, 32), z(1, 1, 121, 121), *attn(32), n_heads=1
+            grad(2, 256, 32), z(1, 1, 256, 256), *attn(32), n_heads=1
         ).sum().backward()),
     }
     exc, call = calls[case]
