@@ -15,7 +15,8 @@ the DSSM two-tower (text MoRec, a 600_001-user table); the two-stage
 cached-embedding towers and ID+modality fusion (text and vision); the
 other vision encoders (ResNet-50 with its BatchNorm, ViT-MAE-B/16,
 BEiT-B/16, CLIP-B/32) under SASRec; the text encoder zoo (OPT-125M and
-DeBERTa-base item towers). Phases, each fatal on failure:
+DeBERTa-base item towers); pretrained vision checkpoints and a variants/
+launcher file run through grid_launch. Phases, each fatal on failure:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: build (or load) the kernel library;
@@ -298,7 +299,7 @@ DeBERTa-base item towers). Phases, each fatal on failure:
     forward with save_h and its backward; gelu and quick_gelu), beside
     the two products through torch.matmul, with rows 5-6's tolerances;
     last CLIP's float32 step against a CPU copy (quick_gelu's backward);
-28. text_zoo (last): the text encoder zoo, OPT-125M and DeBERTa-base at
+28. text_zoo (after 27): the text encoder zoo, OPT-125M and DeBERTa-base at
     their published geometries (a directory holding each one's
     config.json alone, read by runner.load_encoder; weights drawn from the
     seed) under the flagship's SASRec: rows 5-6 at the towers' editions
@@ -318,7 +319,22 @@ DeBERTa-base item towers). Phases, each fatal on failure:
     encode of 16 385 items, 10 train steps and its float32 check. The
     float32 rows' bounds are at 3xTF32's rate. Its rows join the kernels
     line under their edition's name ("fused_mlp (opt train)"), each with
-    its path's launches.
+    its path's launches;
+29. vision_ckpt (last): pretrained vision checkpoints and the reference's
+    launcher, the counters set to 0: a Swin-T drawn from the seed written
+    in HF's layout (the published config.json of
+    microsoft/swin-tiny-patch4-window7-224, pytorch_model.bin by
+    torch.save) and a ResNet-50 as a torchvision .pth (running averages,
+    num_batches_tracked and a 1000-class fc), read back through
+    runner.load_encoder to the drawn tensors bit for bit; the tower
+    loaded from the directory encodes a chunk of 512 images of 224 x 224
+    (bf16, rows 6-7) to the bits of the tower it came from; then
+    grid_launch runs variants/inbatch_sasrec_e2e_vision/train_swin_tiny.py
+    (read_variant, never imported) through the port's CLI with the runner
+    phase's generated data, the checkpoint directory, one epoch, 8 users a
+    step and freeze_paras_before 100: the 100 frozen parameters keep the
+    checkpoint's bits, every other one of the encoder moves, and every
+    kernel of the vision step and evaluation launched.
 
 Prints each phase's seconds and a JSON line of per-kernel results (launches
 on the main paths, in all and by path: text serving, training, BCE and
@@ -329,7 +345,7 @@ training, the "windows" train step, the vision dropout step, the
 use_pallas steps, the data-parallel steps, the runner, the accumulated
 micro-steps, the cold and new-item evaluations, the ResNet-50 and the ViT
 paths, OPT-125M's serving and training, DeBERTa-base's encode and
-training; error
+training, the vision checkpoints and launcher phase; error
 and time against the plain version, the least time the card could take for
 the same work (float32 rows that launched gemm.cu, whose products run as
 3xTF32, and the vision and ViT phases' and the text zoo's float32 rows,
@@ -377,6 +393,8 @@ import torch
 import torch.nn.functional as F
 
 from idvs.morec_tpu_torch import quickstart, run
+from idvs.morec_tpu_torch.convert import to_checkpoint
+from idvs.morec_tpu_torch.launcher import grid_launch, read_variant
 from idvs.morec_tpu_torch.config import Config, parse_args
 from idvs.morec_tpu_torch.data.imagestore import write_mkv
 from idvs.morec_tpu_torch.data.loader import sample_negatives
@@ -391,9 +409,11 @@ from idvs.morec_tpu_torch.models.bert import BertConfig, BertModel
 from idvs.morec_tpu_torch.models import opt as opt_mod
 from idvs.morec_tpu_torch.models import sasrec
 from idvs.morec_tpu_torch.models.layers import init_parameters
+from idvs.morec_tpu_torch.models.resnet import ResNet, resnet_param_order
 from idvs.morec_tpu_torch.models.model import make_model
 from idvs.morec_tpu_torch.models.swin import (SwinBlock, SwinConfig,
-                                              SwinModel, _shift_mask)
+                                              SwinModel, _shift_mask,
+                                              swin_param_order)
 from idvs.morec_tpu_torch.models.text_tower import TextTower
 from idvs.morec_tpu_torch.models.vision_tower import (VisionTower,
                                                       build_vision_tower)
@@ -4989,7 +5009,7 @@ def zoo_config(name: str, compute_dtype: str = "bfloat16", **kw) -> Config:
 def zoo_model(dev, cfg):
     """The encoder of cfg.cv_model_load at its default geometry
     (build_vision_tower) under SASRec; weights from the seed."""
-    tower = build_vision_tower(cfg, device=dev)
+    tower = build_vision_tower(cfg, device=dev)[0]
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
     return make_model(cfg, V_ITEMS_FULL, tower, device=dev, generator=gen)
 
@@ -5896,6 +5916,183 @@ def text_zoo_path(dev, card: str, batches, cap: int) -> tuple:
     return paths, rows
 
 
+# vision_ckpt (phase 29): Swin-T's published config.json
+# (microsoft/swin-tiny-patch4-window7-224) as HF writes it, the parameters
+# the reference's index freezes (the patch embedding, stages 0 and 1, the
+# first blocks of stage 2), the launcher file run through grid_launch, its
+# users a step (its 64 would encode 1 344 images a step: no dedup there)
+VC_SWIN_T = dict(model_type="swin", architectures=[
+    "SwinForImageClassification"], image_size=224, patch_size=4,
+    num_channels=3, embed_dim=96, depths=[2, 2, 6, 2],
+    num_heads=[3, 6, 12, 24], window_size=7, mlp_ratio=4.0, qkv_bias=True,
+    hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+    drop_path_rate=0.1, hidden_act="gelu", use_absolute_embeddings=False,
+    patch_norm=True, layer_norm_eps=1e-5, initializer_range=0.02,
+    encoder_stride=32)
+VC_FREEZE = 100
+VC_VARIANT = "variants/inbatch_sasrec_e2e_vision/train_swin_tiny.py"
+VC_TRAIN_B = 8
+
+
+def torchvision_resnet(net, rng) -> dict:
+    """A torchvision ResNet's state_dict from the port's ResNet
+    (convert.to_checkpoint), with each BatchNorm's num_batches_tracked and
+    a 1000-class fc drawn from rng (the converter leaves both out)."""
+    out = to_checkpoint(net, resnet_param_order(net.arch))
+    for name in [k for k in out if k.endswith(".running_var")]:
+        out[name[:-len("running_var")] + "num_batches_tracked"] = (
+            torch.tensor(1000))
+    width = net.fc.weight.shape[0]
+    out["fc.weight"] = torch.from_numpy(rng.standard_normal(
+        (1000, width)).astype(np.float32))
+    out["fc.bias"] = torch.zeros(1000)
+    return out
+
+
+def same_net_state(state: dict, net, what: str) -> None:
+    """The converted checkpoint is the net's state_dict bit for bit, but
+    the keys the net draws on load (a ResNet's fc)."""
+    drawn = tuple(getattr(net, "drawn_on_load", ()))
+    want = {k: v for k, v in net.state_dict().items()
+            if not k.startswith(drawn)}
+    require(set(state) == set(want), f"{what}: the converted checkpoint "
+            f"holds {len(state)} tensors, the net {len(want)}")
+    bad = [k for k, v in want.items()
+           if not torch.equal(state[k], v.detach().cpu())]
+    require(not bad, f"{what}: {len(bad)} tensors differ after the round "
+            f"trip, e.g. {bad[:3]}")
+
+
+def vision_ckpt_path(dev, card: str, pool: np.ndarray) -> dict:
+    """Phase 29: pretrained vision checkpoints and the launcher on the
+    card, in a temporary directory, the counters set to 0 first. A Swin-T
+    drawn from the seed is written in HF's layout (VC_SWIN_T's config.json,
+    pytorch_model.bin by torch.save) and a ResNet-50 (running averages
+    drawn too) as a torchvision .pth; runner.load_encoder reads both back
+    to the drawn tensors bit for bit, and the tower loaded from the
+    directory encodes a chunk of the pool's 224 x 224 images (bf16) to the
+    bits of the tower it came from. Then grid_launch runs
+    train_swin_tiny.py (read_variant, not imported) through the port's CLI
+    with the runner phase's generated data, the checkpoint directory,
+    epoch 1, VC_TRAIN_B users a step and freeze_paras_before VC_FREEZE:
+    every frozen parameter keeps the checkpoint's bits, every other one of
+    the encoder moves, and every kernel of the vision step and evaluation
+    launched."""
+    here, variant = os.getcwd(), os.path.abspath(VC_VARIANT)
+    tmp = tempfile.mkdtemp()
+    os.chdir(tmp)
+    try:
+        reset_counts()
+        models = os.path.join(tmp, "pretrained")
+        os.makedirs(os.path.join(models, "swin_tiny"))
+        with open(os.path.join(models, "swin_tiny", "config.json"),
+                  "w") as f:
+            json.dump(VC_SWIN_T, f)
+        cfg = Config(item_tower="modal", modality="vision",
+                     cv_model_load="swin_tiny", pretrained_models_dir=models,
+                     embedding_dim=V_D, compute_dtype="bfloat16",
+                     freeze_paras_before=VC_FREEZE)
+        src, state, _, width = runner.load_encoder(cfg, dev)
+        require(state is None and width == 768
+                and src.net.cfg == SwinConfig(),
+                "config.json alone: Swin-T's geometry, weights drawn")
+        init_parameters(src, torch.Generator(device=dev).manual_seed(
+            SEED + 29))
+        rnet = ResNet("resnet50", V_D, device=dev)
+        init_parameters(rnet, torch.Generator(device=dev).manual_seed(
+            SEED + 30))
+        rng = np.random.default_rng(SEED + 29)
+        with torch.no_grad():
+            for name, b in rnet.named_buffers():
+                b.copy_(torch.from_numpy(rng.uniform(
+                    0.5, 1.5, b.shape) if name.endswith(".var") else
+                    rng.normal(0.0, 0.5, b.shape)).float())
+        t0 = time.perf_counter()
+        swin_bin = os.path.join(models, "swin_tiny", "pytorch_model.bin")
+        torch.save(to_checkpoint(src.net, swin_param_order(src.net.cfg)),
+                   swin_bin)
+        torch.save(torchvision_resnet(rnet, rng),
+                   os.path.join(models, "resnet50.pth"))
+        written = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tower, state, frozen, width = runner.load_encoder(cfg, dev)
+        rcfg = copy.copy(cfg)
+        rcfg.cv_model_load = "resnet50"
+        _, rstate, rfrozen, rwidth = runner.load_encoder(rcfg, dev)
+        read = time.perf_counter() - t0
+        require(width == 768 and len(frozen) == VC_FREEZE
+                and rwidth == V_D and len(rfrozen) == VC_FREEZE,
+                "the bundles' widths and frozen sets")
+        same_net_state(state, src.net, "Swin-T from pytorch_model.bin")
+        same_net_state(rstate, rnet, "ResNet-50 from resnet50.pth")
+        init_parameters(tower, torch.Generator(device=dev).manual_seed(
+            SEED + 31))
+        runner.load_net_state(tower.net, state)
+        tower.classifier.load_state_dict(src.classifier.state_dict())
+        images = torch.from_numpy(pool[:V_CHUNK]).to(dev)
+        before = counts()
+        with torch.no_grad(), eval_mode(src), eval_mode(tower):
+            want, got = src(images), tower(images)
+        torch.cuda.synchronize()
+        require(got.dtype == torch.bfloat16 and torch.equal(got, want)
+                and bool(torch.isfinite(got).all()),
+                "the tower loaded from the checkpoint encodes apart from "
+                "the one it came from")
+        encoded = {n: c - before[n] for n, c in counts().items()}
+        require_launched(encoded, VISION_ENCODE_KERNELS,
+                         "vision_ckpt encode")
+        print(f"vision_ckpt: Swin-T in HF's layout "
+              f"({os.path.getsize(swin_bin) / 2 ** 20:.1f} MiB) and "
+              f"ResNet-50 as a torchvision .pth written in {written:.2f} s, "
+              f"read back through load_encoder in {read:.2f} s, every "
+              f"tensor bit-equal; a chunk of {V_CHUNK} images encoded by "
+              f"the loaded tower bit-equal (bf16) [{card}]", flush=True)
+        del src, tower, rnet, images, want, got
+        torch.cuda.empty_cache()
+
+        base, grid, zipped = read_variant(variant)
+        require(base["cv_model_load"] == "swin_tiny" and zipped is None,
+                f"{VC_VARIANT}: unexpected dicts")
+        vision_runner_data(np.random.default_rng(SEED + 21))
+        base.update(root_data_dir="./", dataset="VISION", news="images.tsv",
+                    behaviors="behaviors.tsv", image_store="images.mkv",
+                    pretrained_models_dir=models, epoch=1,
+                    freeze_paras_before=VC_FREEZE)
+        grid.update(batch_size=[VC_TRAIN_B])
+        t0 = time.perf_counter()
+        with RunnerWatch() as watch:
+            (flags, (best, best_epoch)), = grid_launch(base, grid,
+                                                       zipped=zipped)
+        seconds = time.perf_counter() - t0
+        tr, = watch.trainers
+        net = tr.model.encoder.net
+        names = {"encoder.net." + k for k, _ in net.named_parameters()}
+        require(frozen <= names and len(frozen) == VC_FREEZE,
+                "the frozen set names the encoder's parameters")
+        kept = {"encoder.net." + k for k, p in net.named_parameters()
+                if torch.equal(p.detach().cpu(), state[k])}
+        require(kept == frozen, f"the frozen parameters keep the "
+                f"checkpoint's bits and no other does: {len(frozen - kept)} "
+                f"frozen moved, {len(kept - frozen)} others did not")
+        moved = len(names) - len(kept)
+        train, evals = watch.launches()
+        require_launched(train, VISION_TRAIN_KERNELS, "vision_ckpt training")
+        require_launched(evals, VISION_ENCODE_KERNELS + RUNNER_EVAL_KERNELS,
+                         "vision_ckpt evaluation")
+        print(f"vision_ckpt: grid_launch over {VC_VARIANT} "
+              f"(label_screen {flags['label_screen']}): Swin-T from the "
+              f"checkpoint, SASRec D {flags['embedding_dim']}, "
+              f"{tr.batcher.n} samples, B {VC_TRAIN_B}, bf16, one epoch in "
+              f"{seconds:.1f} s; valid HR@10 {best:.6f} at epoch "
+              f"{best_epoch}; {VC_FREEZE} frozen parameters bit-unchanged, "
+              f"the other {moved} of the encoder moved [{card}]",
+              flush=True)
+        return counts()
+    finally:
+        os.chdir(here)
+        shutil.rmtree(tmp)
+
+
 def merge(kernels: dict, more: dict) -> None:
     """Adds a phase's per-kernel results: a kernel seen before keeps its
     headline times and takes the worse error."""
@@ -6071,9 +6268,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase("text_zoo"):
         text_zoo, zoo_rows = text_zoo_path(dev, card, batches, cap)
+    torch.cuda.empty_cache()
+    with phase("vision_ckpt"):
+        vision_ckpt = vision_ckpt_path(dev, card, pool)
 
     # launches: every main path's count, each taken from 0; the
-    # twenty-five keys after it say which path launched how many (2E: the
+    # twenty-six keys after it say which path launched how many (2E: the
     # two-stage caches, text and vision; 2T / 2V: the two-stage steps; FT /
     # FV: the fusion steps)
     paths = {"launches_serve": served, "launches_train": trained,
@@ -6088,7 +6288,8 @@ def main() -> int:
              "launches_pallas_train": pallas, "launches_dp": parallel,
              "launches_runner": ran, "launches_accumulation": accumulated,
              "launches_special": special, "launches_resnet": resnet,
-             "launches_vit": vit, **text_zoo}
+             "launches_vit": vit, "launches_vision_ckpt": vision_ckpt,
+             **text_zoo}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": CSRC + SOURCES[n][0],
          "replaces": PALLAS + SOURCES[n][1],

@@ -34,6 +34,17 @@ DeBERTa's ``in_proj`` rows repacked from [head][qkv][dh] to
 [qkv][head][dh]; a name may carry the task model's prefix (``bert.``,
 ``roberta.``, ``distilbert.``, ``model.``, ``deberta.``).
 
+Vision checkpoints (JAX twins: swin.py:488-512, beit.py:174-196,
+clip_vit.py:147-166, vit_mae.py:187-210, resnet.py:126-169):
+``convert_{swin,beit,clip,vit_mae}_state_dict`` turn an HF model
+directory's tensors, and ``convert_resnet_state_dict`` a torchvision
+``.pth``, into the port's state_dict of ``VisionTower.net`` by the same
+walk over the family's order (``swin_param_order``, ``resnet_param_order``
+...); a convolution's (out, in, kh, kw) weight becomes the Flax (kh, kw,
+in, out); a ResNet's BatchNorm running averages become the buffers
+``mean`` and ``var``. ``to_checkpoint`` is the inverse: a net's
+state_dict under the checkpoint's names and layouts.
+
 The reference freezes a text encoder's parameters by their index in HF's
 ``named_parameters()`` order (run.py:73-75); ``*_frozen_names`` give the
 port's names of those with index < ``freeze_paras_before`` (JAX twins:
@@ -52,11 +63,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.beit import BeitConfig, beit_param_order
+from .models.clip_vit import CLIPVisionConfig, clip_param_order
 from .models.deberta import deberta_param_order
 from .models.layers import Dense, Embed, LayerNorm
 from .models.opt import opt_param_order
-from .models.resnet import BatchNorm, Conv
-from .models.swin import PatchProject
+from .models.resnet import BatchNorm, Conv, resnet_param_order
+from .models.swin import PatchProject, SwinConfig, swin_param_order
+from .models.vit_mae import ViTMAEConfig, vit_mae_param_order
 
 _TO_TORCH = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 _WEIGHT_LEAF = {Dense: "kernel", LayerNorm: "scale", Embed: "embedding",
@@ -264,9 +278,12 @@ def _to_numpy(v) -> np.ndarray:
 
 def _convert(state_dict: Mapping, order: Order, prefixes: Tuple[str, ...],
              repack=None) -> "OrderedDict[str, torch.Tensor]":
-    """HF tensors (numpy or torch) -> the port's float32 state_dict of the
-    language model, through ``order``'s Flax paths; repack(path, array)
-    rearranges a tensor before the transpose."""
+    """HF or torchvision tensors (numpy or torch) -> the port's float32
+    state_dict of the net, through ``order``'s Flax paths; repack(path,
+    array) rearranges a tensor before the transpose. A Linear's (out, in)
+    weight is transposed to (in, out), a convolution's (out, in, kh, kw)
+    to the Flax (kh, kw, in, out) (``.T`` would swap kh and kw, which a
+    square kernel takes without an error)."""
     out = OrderedDict()
     for hf, path in order:
         if path is None:
@@ -279,7 +296,7 @@ def _convert(state_dict: Mapping, order: Order, prefixes: Tuple[str, ...],
         if repack is not None:
             v = repack(path, v)
         if path[-1] in _LINEAR_LEAVES:
-            v = v.T
+            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
         out[flax_name(path)] = torch.from_numpy(
             np.ascontiguousarray(v, np.float32))
     return out
@@ -320,6 +337,81 @@ def convert_deberta_state_dict(state_dict: Mapping, num_layers: int,
                 .transpose(1, 0, 2, 3).reshape(H3, H))
     return _convert(state_dict, deberta_param_order(num_layers),
                     ("deberta.",), repack)
+
+
+def convert_swin_state_dict(state_dict: Mapping, cfg: SwinConfig
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """HF SwinModel (or SwinForImageClassification's ``swin.``) -> the
+    port's ``SwinModel`` (JAX swin.py ``convert_swin_state_dict``)."""
+    return _convert(state_dict, swin_param_order(cfg), ("swin.",))
+
+
+def convert_beit_state_dict(state_dict: Mapping, cfg: BeitConfig
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """HF BeitModel (or a task model's ``beit.``) -> the port's
+    ``BeitModel`` (JAX beit.py ``convert_beit_state_dict``)."""
+    return _convert(state_dict, beit_param_order(cfg), ("beit.",))
+
+
+def convert_clip_state_dict(state_dict: Mapping, cfg: CLIPVisionConfig
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """HF CLIPVisionModel, or a whole CLIPModel (its ``text_model.*`` and
+    projections left), -> the port's ``CLIPVisionModel``: both name the
+    tower's tensors ``vision_model.*`` (JAX clip_vit.py
+    ``convert_clip_state_dict``)."""
+    return _convert(state_dict, clip_param_order(cfg), ())
+
+
+def convert_vit_mae_state_dict(state_dict: Mapping, cfg: ViTMAEConfig
+                               ) -> "OrderedDict[str, torch.Tensor]":
+    """HF ViTMAEModel (or ViTMAEForPreTraining's ``vit.``, its decoder
+    left) -> the port's ``ViTMAEModel`` (JAX vit_mae.py
+    ``convert_vit_mae_state_dict``)."""
+    return _convert(state_dict, vit_mae_param_order(cfg), ("vit.",))
+
+
+def convert_resnet_state_dict(state_dict: Mapping, arch: str
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    """A torchvision ResNet's state_dict -> the port's ``ResNet`` state_dict
+    (JAX resnet.py ``convert_resnet_state_dict``): the parameters and each
+    BatchNorm's running averages as the buffers ``mean`` and ``var``. Left
+    out: ``num_batches_tracked``, which Flax's BatchNorm does not keep, and
+    the 1000-class ``fc``, which the tower replaces by a Dense to
+    embedding_dim (reference run.py:42-46; JAX vision_tower.py:103 pops
+    it): it keeps its drawn value (``ResNet.drawn_on_load``)."""
+    order = [(tv, path) for tv, path in resnet_param_order(arch)
+             if path[0] != "fc"]
+    stats = [(tv[:-len("weight")] + "running_" + s, path[:-1] + (s,))
+             for tv, path in order if path[-1] == "scale"
+             for s in ("mean", "var")]
+    return _convert(state_dict, order + stats, ())
+
+
+def to_checkpoint(net: nn.Module, order: Order
+                  ) -> "OrderedDict[str, torch.Tensor]":
+    """The inverse of the converters: ``net``'s state_dict under the
+    checkpoint's names of ``order`` (HF's or torchvision's
+    ``named_parameters()`` order, as ``swin_param_order`` gives it) and in
+    its layouts, a Linear's weight (out, in) and a convolution's (out, in,
+    kh, kw), on the CPU; a BatchNorm's running averages under
+    torchvision's ``running_mean`` and ``running_var``. An entry the net
+    does not build (a path of None) is left out."""
+    sd = net.state_dict()
+    out = OrderedDict()
+    for name, path in order:
+        key = None if path is None else flax_name(path)
+        if key not in sd:
+            continue
+        v = sd[key].detach()
+        if path[-1] in _LINEAR_LEAVES:
+            v = v.permute(3, 2, 0, 1) if v.dim() == 4 else v.t()
+        out[name] = v.contiguous().cpu()
+        stats = ".".join(path[:-1])
+        if path[-1] == "scale" and stats + ".mean" in sd:
+            for s in ("mean", "var"):
+                out[name[:-len("weight")] + "running_" + s] = (
+                    sd[f"{stats}.{s}"].detach().cpu())
+    return out
 
 
 def to_flax(model: nn.Module) -> dict:

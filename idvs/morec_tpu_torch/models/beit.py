@@ -21,9 +21,34 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import (Dense, LayerNorm, attention, lecun_normal_, on_device,
-                     pre_ln_mlp)
+from .layers import (Dense, LayerNorm, attention, hf_config, lecun_normal_,
+                     on_device, pre_ln_mlp)
 from .swin import PatchProject
+
+# HF BeitConfig's defaults of the keys read (transformers 4.57): note
+# use_relative_position_bias False, where BEiT-B's fine-tuned config says
+# true
+HF_BEIT = dict(image_size=224, patch_size=16, num_channels=3,
+               hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+               intermediate_size=3072, layer_norm_eps=1e-12,
+               use_relative_position_bias=False, layer_scale_init_value=0.1,
+               use_mean_pooling=True, use_shared_relative_position_bias=False,
+               use_absolute_position_embeddings=False, use_mask_token=False,
+               hidden_act="gelu", hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0)
+# what HF's modeling_beit.py builds from keys this model does not follow:
+# one relative position bias shared by the layers, absolute positions, a
+# mask token (a parameter, which shifts the freezing index), the CLS
+# token's LayerNorm for a pooler, no layer scale, another activation,
+# dropout. HF's drop_path_rate (0.1 in BEiT-B's config) is not followed
+# either and is not refused: it acts in training only, and refusing it
+# would refuse every published BEiT (C15)
+HF_BEIT_BUILT = dict(use_shared_relative_position_bias=False,
+                     use_absolute_position_embeddings=False,
+                     use_mask_token=False, use_mean_pooling=True,
+                     layer_scale_init_value=lambda v: v > 0,
+                     hidden_act="gelu", hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +65,12 @@ class BeitConfig:
     use_relative_position_bias: bool = True
     layer_scale_init_value: float = 0.1
     use_mean_pooling: bool = True
+
+    @classmethod
+    def from_dict(cls, hf: dict) -> "BeitConfig":
+        """From HF's ``config.json`` as a dict (JAX beit.py ``from_hf``), a
+        key it lacks at HF BeitConfig's default."""
+        return hf_config(cls, hf, HF_BEIT, HF_BEIT_BUILT)
 
     @property
     def grid(self) -> int:

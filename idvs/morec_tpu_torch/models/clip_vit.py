@@ -19,9 +19,18 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from .layers import (Dense, Embed, LayerNorm, attention, lecun_normal_,
-                     normal_, on_device, pre_ln_mlp)
+from .layers import (Dense, Embed, LayerNorm, attention, hf_config,
+                     lecun_normal_, normal_, on_device, pre_ln_mlp)
 from .swin import PatchProject
+
+# HF CLIPVisionConfig's defaults of the keys read (transformers 4.57)
+HF_CLIP = dict(image_size=224, patch_size=32, num_channels=3,
+               hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+               intermediate_size=3072, layer_norm_eps=1e-5,
+               hidden_act="quick_gelu", attention_dropout=0.0)
+# what HF's modeling_clip.py builds from keys this model does not follow:
+# another activation, dropout of the attention probabilities
+HF_CLIP_BUILT = dict(hidden_act="quick_gelu", attention_dropout=0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +44,15 @@ class CLIPVisionConfig:
     num_attention_heads: int = 12
     intermediate_size: int = 3072
     layer_norm_eps: float = 1e-5
+
+    @classmethod
+    def from_dict(cls, hf: dict) -> "CLIPVisionConfig":
+        """From HF's ``config.json`` as a dict (JAX clip_vit.py
+        ``from_hf``): a ``CLIPModel``'s ``vision_config`` or a
+        ``CLIPVisionModel``'s own keys, a key it lacks at HF
+        CLIPVisionConfig's default."""
+        return hf_config(cls, hf.get("vision_config", hf), HF_CLIP,
+                         HF_CLIP_BUILT)
 
     @property
     def num_positions(self) -> int:

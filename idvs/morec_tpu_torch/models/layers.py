@@ -25,6 +25,7 @@ function.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional
 
@@ -370,3 +371,25 @@ def init_parameters(module: nn.Module,
         reset = getattr(m, "reset_parameters", None)
         if reset is not None:
             reset(generator)
+
+
+def hf_config(cls, hf: dict, defaults: dict, built: dict):
+    """The dataclass ``cls`` from an HF ``config.json`` read as a dict, the
+    twin of the JAX package's ``from_hf`` over ``AutoConfig``: each field
+    from its key, and a key the file lacks takes HF's class default
+    (``defaults``, which holds every key read), as ``AutoConfig`` fills
+    it. ``built`` names the keys the model (as the JAX package's) does not
+    follow, each with the value it builds or a test of the value: another
+    value would make HF build a model this one is not, so it is refused,
+    naming the key (ROADMAP C15)."""
+    get = lambda k: hf.get(k, defaults[k])
+    bad = [f"{k}={get(k)!r}" for k, ok in built.items()
+           if not (ok(get(k)) if callable(ok) else get(k) == ok)]
+    if bad:
+        raise NotImplementedError(
+            f"{cls.__name__}: {', '.join(bad)}: HF builds another model "
+            f"there, which neither this package nor the JAX package builds "
+            f"(ROADMAP C15)")
+    fields = (f.name for f in dataclasses.fields(cls))
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in ((k, get(k)) for k in fields)})

@@ -189,6 +189,11 @@ class ResNet(nn.Module):
     BatchNorm's statistics are the process group's when one is up (the
     JAX runner passes ``axis_name='data'`` on more than one device)."""
 
+    # the parameters a torchvision checkpoint does not give: the fc, a
+    # Dense to out_dim in place of the 1000-class head, keeps its drawn
+    # value (``convert.convert_resnet_state_dict``)
+    drawn_on_load = ("fc.",)
+
     def __init__(self, arch: str = "resnet50", out_dim: int = 512,
                  device=None):
         super().__init__()

@@ -61,9 +61,20 @@ from ..ops.cuda.attention import (fused_mha, fused_mha_proj,
                                   window_reverse)
 from ..ops.cuda.mlp import fused_mlp, fused_mlp_res
 from .layers import (Dense, DropPath, Dropout, LayerNorm, drop_call,
-                     lecun_normal_, normal_, on_device)
+                     hf_config, lecun_normal_, normal_, on_device)
 
 KERNELS = ("band", "windows")
+# HF SwinConfig's defaults of the keys read (transformers 4.57)
+HF_SWIN = dict(image_size=224, patch_size=4, num_channels=3, embed_dim=96,
+               depths=[2, 2, 6, 2], num_heads=[3, 6, 12, 24], window_size=7,
+               mlp_ratio=4.0, layer_norm_eps=1e-5, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0, drop_path_rate=0.1,
+               use_absolute_embeddings=False, qkv_bias=True,
+               hidden_act="gelu")
+# what HF's modeling_swin.py builds from keys the block does not follow
+# (absolute positions are refused by SwinModel too, C7)
+HF_SWIN_BUILT = dict(use_absolute_embeddings=False, qkv_bias=True,
+                     hidden_act="gelu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +93,12 @@ class SwinConfig:
     attention_probs_dropout_prob: float = 0.0
     drop_path_rate: float = 0.1
     use_absolute_embeddings: bool = False
+
+    @classmethod
+    def from_dict(cls, hf: dict) -> "SwinConfig":
+        """From HF's ``config.json`` as a dict (JAX swin.py ``from_hf``),
+        a key it lacks at HF SwinConfig's default."""
+        return hf_config(cls, hf, HF_SWIN, HF_SWIN_BUILT)
 
     @classmethod
     def swin_base(cls) -> "SwinConfig":

@@ -29,11 +29,21 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import (Dense, Dropout, LayerNorm, attention, lecun_normal_,
-                     normal_, on_device, pre_ln_mlp)
+from .layers import (Dense, Dropout, LayerNorm, attention, hf_config,
+                     lecun_normal_, normal_, on_device, pre_ln_mlp)
 from .swin import PatchProject
 
 EVAL_MASK_SEED = 0
+# HF ViTMAEConfig's defaults of the keys read (transformers 4.57)
+HF_VIT_MAE = dict(image_size=224, patch_size=16, num_channels=3,
+                  hidden_size=768, num_hidden_layers=12,
+                  num_attention_heads=12, intermediate_size=3072,
+                  layer_norm_eps=1e-12, hidden_dropout_prob=0.0,
+                  attention_probs_dropout_prob=0.0, mask_ratio=0.75,
+                  qkv_bias=True, hidden_act="gelu")
+# what HF's modeling_vit_mae.py builds from keys this model does not
+# follow: bias-free q, k and v, another activation
+HF_VIT_MAE_BUILT = dict(qkv_bias=True, hidden_act="gelu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +60,12 @@ class ViTMAEConfig:
     hidden_dropout_prob: float = 0.0
     attention_probs_dropout_prob: float = 0.0
     mask_ratio: float = 0.75
+
+    @classmethod
+    def from_dict(cls, hf: dict) -> "ViTMAEConfig":
+        """From HF's ``config.json`` as a dict (JAX vit_mae.py
+        ``from_hf``), a key it lacks at HF ViTMAEConfig's default."""
+        return hf_config(cls, hf, HF_VIT_MAE, HF_VIT_MAE_BUILT)
 
     @property
     def num_patches(self) -> int:

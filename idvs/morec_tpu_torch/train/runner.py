@@ -132,7 +132,8 @@ class Trainer:
     names, feature width) for a modal item tower -- the module built on the
     trainer's device (``TextTower``, ``VisionTower``; for a two-stage tower
     built with ``project=False``), the state_dict of its pretrained ``net``
-    (a ResNet's BatchNorm buffers included) to load over the drawn weights,
+    (a ResNet's BatchNorm buffers included) to load over the drawn weights
+    (``load_net_state``),
     the names ``param_labels`` freezes (``convert``'s ``*_frozen_names``
     of the text families, or ``convert.frozen_names`` of
     ``vision_frozen_paths``; end2end only): ``load_encoder``'s.
@@ -275,7 +276,7 @@ class Trainer:
         init_parameters(module, torch.Generator(
             device=self.device).manual_seed(self.cfg.seed))
         if net_state is not None:
-            module.net.load_state_dict(net_state)
+            load_net_state(module.net, net_state)
         chunk = self.cfg.item_emb_batch_size
         total = item_num + 1
         cache = None
@@ -389,7 +390,7 @@ class Trainer:
         labels = None
         if end2end:
             if bundle[1] is not None:
-                self.model.encoder.net.load_state_dict(bundle[1])
+                load_net_state(self.model.encoder.net, bundle[1])
             labels = param_labels(self.model, frozen=bundle[2])
         n = count_params(self.model, labels)
         self.n_total, self.n_trainable = n["total"], n["trainable"]
@@ -713,21 +714,36 @@ def load_encoder(cfg: Config, device) -> tuple:
     its converted weights, or None where the directory holds none; the
     names frozen by the reference's index, ``freeze_paras_before``); the
     items' tokenizer stays the caller's (``Trainer(..., tokenizer=...)``).
-    Vision: the tower of ``cfg.cv_model_load`` from its config (ResNet-18
-    ... 152, Swin-T / B, BEiT-B/16, CLIP-B/32, ViT-MAE-B/16), weights drawn
-    by ``build_model`` (two-stage: by ``_encode_catalog``), and end2end the
-    names frozen by the reference's index (``vision_frozen_paths``). A
+    Vision: ``build_vision_tower``'s, the tower of ``cfg.cv_model_load``
+    (ResNet-18 ... 152 from a torchvision ``.pth``; Swin, BEiT, CLIP or
+    ViT-MAE from an HF model directory under ``pretrained_models_dir``;
+    else the named default geometry), the checkpoint's converted weights
+    or None (drawn by ``build_model``, two-stage by ``_encode_catalog``),
+    end2end the names frozen by the reference's index
+    (``vision_frozen_paths``), and the JAX package's feature width. A
     two-stage tower has ``project=False`` and is frozen whole (its
     ``_encode_catalog`` reads no frozen names)."""
     if cfg.modality == "text":
         from ..models.text_tower import build_text_tower
         return build_text_tower(cfg, device=device)
-    from ..convert import frozen_names
-    from ..models.vision_tower import build_vision_tower, vision_frozen_paths
-    tower = build_vision_tower(cfg, device=device)
-    frozen = (frozen_names(vision_frozen_paths(cfg))
-              if cfg.stage == "end2end" else set())
-    return tower, None, frozen, cfg.embedding_dim
+    from ..models.vision_tower import build_vision_tower
+    tower, state, frozen, width = build_vision_tower(cfg, device=device)
+    return (tower, state, frozen if cfg.stage == "end2end" else set(),
+            width)
+
+
+def load_net_state(net: torch.nn.Module, state) -> None:
+    """Loads a converted checkpoint over a drawn net, as the JAX runner
+    merges the converted tree over the drawn one (train/runner.py:139-144,
+    :336-345): a parameter the converter leaves out keeps its drawn value,
+    and only those (``net.drawn_on_load``: a ResNet's fc); any other
+    missing or unexpected key raises."""
+    missing, unexpected = net.load_state_dict(state, strict=False)
+    drawn = tuple(getattr(net, "drawn_on_load", ()))
+    missing = [k for k in missing if not k.startswith(drawn)]
+    if missing or unexpected:
+        raise KeyError(f"the checkpoint does not fit the net: missing "
+                       f"{missing}, unexpected {unexpected}")
 
 
 def run(cfg: Config, device=None):

@@ -1097,3 +1097,60 @@ def test_idrec_runner_launches_the_kernels(tmp_path, monkeypatch):
     assert te.run_eval("valid") == (best, tr.valid_results[1]["ndcg"])
     np.testing.assert_array_equal(te.last_eval["hits"],
                                   tr.valid_results[1]["hits"])
+
+
+@pytest.mark.parametrize("name", ["swin_tiny", "resnet50"])
+def test_pretrained_round_trip_on_the_card(tmp_path, name):
+    """A tower drawn on the card and written as its checkpoint (Swin-T's
+    published geometry in HF's layout, config.json and pytorch_model.bin;
+    ResNet-50 as a torchvision .pth) comes back through load_encoder bit
+    for bit, and the Swin-T loaded from it encodes 64 images (bf16, the
+    fused_mha_proj_band and fused_mlp_res kernels) to the bits of the tower
+    it came from."""
+    import json
+
+    from idvs.morec_tpu_torch.config import Config
+    from idvs.morec_tpu_torch.convert import to_checkpoint
+    from idvs.morec_tpu_torch.models.layers import init_parameters
+    from idvs.morec_tpu_torch.models.resnet import resnet_param_order
+    from idvs.morec_tpu_torch.models.swin import swin_param_order
+    from idvs.morec_tpu_torch.train.evaluate import eval_mode
+    from idvs.morec_tpu_torch.train.runner import (load_encoder,
+                                                   load_net_state)
+
+    (tmp_path / "swin_tiny").mkdir()
+    (tmp_path / "swin_tiny" / "config.json").write_text(json.dumps(dict(
+        model_type="swin", image_size=224, patch_size=4, embed_dim=96,
+        depths=[2, 2, 6, 2], num_heads=[3, 6, 12, 24], window_size=7)))
+    cfg = Config(item_tower="modal", modality="vision", cv_model_load=name,
+                 pretrained_models_dir=str(tmp_path), embedding_dim=64,
+                 compute_dtype="bfloat16", freeze_paras_before=20)
+    src = load_encoder(cfg, None)[0]
+    init_parameters(src, torch.Generator(device="cuda").manual_seed(0))
+    if name == "swin_tiny":
+        torch.save(to_checkpoint(src.net, swin_param_order(src.net.cfg)),
+                   str(tmp_path / "swin_tiny" / "pytorch_model.bin"))
+    else:
+        torch.save(to_checkpoint(src.net, resnet_param_order("resnet50")),
+                   str(tmp_path / "resnet50.pth"))
+    tower, state, frozen, _ = load_encoder(cfg, None)
+    assert len(frozen) == 20
+    init_parameters(tower, torch.Generator(device="cuda").manual_seed(1))
+    load_net_state(tower.net, state)
+    for k, v in src.net.state_dict().items():
+        if not k.startswith("fc."):
+            assert torch.equal(tower.net.state_dict()[k], v), k
+    if name == "resnet50":
+        return
+    tower.classifier.load_state_dict(src.classifier.state_dict())
+    images = torch.randint(0, 256, (64, 224, 224, 3), dtype=torch.uint8,
+                           device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(2))
+    launched = fused_mha_proj_band.launches, fused_mlp_res.launches
+    with torch.no_grad(), eval_mode(src), eval_mode(tower):
+        want, got = src(images), tower(images)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert fused_mha_proj_band.launches > launched[0]
+    assert fused_mlp_res.launches > launched[1]

@@ -172,7 +172,11 @@ def test_port_runs_the_slice_without_jax():
     encode, a request and a train step (``transformers`` blocked too);
     builds an OPT and a DeBERTa tower through ``build_text_tower`` from a
     directory holding config.json alone (``safetensors`` blocked too), each
-    encoding a catalog and taking one train step; the CLI itself
+    encoding a catalog and taking one train step; reads a Swin directory in
+    HF's layout and a torchvision ResNet-18 ``.pth`` back through
+    ``load_encoder``; reads a ``variants/`` file with ``read_variant`` and
+    runs one point of it through ``grid_launch(..., device="cpu")`` over a
+    tiny image store and that Swin directory; the CLI itself
     refuses to run without a GPU (the test process itself has jax loaded
     by conftest, hence the subprocess)."""
     code = textwrap.dedent("""
@@ -509,6 +513,73 @@ def test_port_runs_the_slice_without_jax():
                 "uniq_ids": torch.from_numpy(tu),
                 "inverse": torch.from_numpy(ti)})
             assert torch.isfinite(loss) and tst.step == 1
+        # pretrained vision checkpoints through load_encoder: a Swin
+        # directory in HF's layout (config.json, pytorch_model.bin) and a
+        # torchvision ResNet-18 .pth, each written from a drawn net under
+        # HF's or torchvision's names, come back as that net's weights
+        from idvs.morec_tpu_torch.convert import to_checkpoint
+        from idvs.morec_tpu_torch.launcher import grid_launch, read_variant
+        from idvs.morec_tpu_torch.models.layers import init_parameters
+        from idvs.morec_tpu_torch.models.resnet import resnet_param_order
+        from idvs.morec_tpu_torch.models.swin import swin_param_order
+        from idvs.morec_tpu_torch.train.runner import load_net_state
+
+        tiny_swin = dict(model_type="swin", image_size=32, patch_size=4,
+                         embed_dim=16, depths=[2, 2], num_heads=[2, 4],
+                         window_size=4, drop_path_rate=0.0)
+        ck = tempfile.mkdtemp()
+        os.makedirs(os.path.join(ck, "swin_tiny"))
+        with open(os.path.join(ck, "swin_tiny", "config.json"), "w") as f:
+            json.dump(tiny_swin, f)
+        vcfg = Config(item_tower="modal", modality="vision",
+                      cv_model_load="swin_tiny", pretrained_models_dir=ck,
+                      embedding_dim=32, freeze_paras_before=3)
+        src = load_encoder(vcfg, "cpu")[0]
+        init_parameters(src, torch.Generator().manual_seed(7))
+        torch.save(to_checkpoint(src.net, swin_param_order(src.net.cfg)),
+                   os.path.join(ck, "swin_tiny", "pytorch_model.bin"))
+        rnet = ResNet("resnet18", 32, device="cpu")
+        init_parameters(rnet, torch.Generator().manual_seed(8))
+        torch.save(to_checkpoint(rnet, resnet_param_order("resnet18")),
+                   os.path.join(ck, "resnet18.pth"))
+        for net, name in ((src.net, "swin_tiny"), (rnet, "resnet18")):
+            vcfg.cv_model_load = name
+            tower, vstate, vfrozen, _ = load_encoder(vcfg, "cpu")
+            assert len(vfrozen) == 3
+            init_parameters(tower, torch.Generator().manual_seed(9))
+            load_net_state(tower.net, vstate)
+            for k, v in net.state_dict().items():
+                if not k.startswith("fc."):
+                    assert torch.equal(tower.net.state_dict()[k], v), k
+        # a variants/ file read without importing it (it imports the JAX
+        # launcher) and one point of it run through grid_launch on the CPU,
+        # its data swapped for a tiny image store and its Swin-T for the
+        # tiny directory above
+        from idvs.morec_tpu_torch.data.imagestore import write_mkv
+        repo = os.path.dirname(os.path.dirname(os.path.dirname(
+            idvs.morec_tpu_torch.__file__)))
+        vbase, vgrid, vzip = read_variant(os.path.join(
+            repo, "variants", "inbatch_sasrec_e2e_vision",
+            "train_swin_tiny.py"))
+        assert vbase["cv_model_load"] == "swin_tiny" and vzip is None
+        os.makedirs("VIS")
+        with open("VIS/images.tsv", "w") as f:
+            f.writelines(f"v{k}\\tx\\n" for k in range(1, 25))
+        with open("VIS/behaviors.tsv", "w") as f:
+            for u in range(24):
+                items = 1 + (u % 3) * 8 + rng.choice(8, size=6,
+                                                     replace=False)
+                f.write(f"u{u}\\t" + " ".join(f"v{k}" for k in items) + "\\n")
+        write_mkv("VIS/imgs.mkv", [(str(k).encode(), rng.integers(
+            0, 256, (40, 40, 3), dtype=np.uint8)) for k in range(1, 25)])
+        vbase.update(root_data_dir="./", dataset="VIS", news="images.tsv",
+                     behaviors="behaviors.tsv", image_store="imgs.mkv",
+                     pretrained_models_dir=ck, image_resize=32, epoch=1,
+                     max_seq_len=6, freeze_paras_before=3)
+        vgrid.update(batch_size=[8], embedding_dim=[32])
+        (point, result), = grid_launch(vbase, vgrid, device="cpu")
+        assert point["label_screen"] == "modal_8_32_0.0001_0.1_0.01_0.0001"
+        assert 0.0 <= result[0] <= 1.0 and result[1] == 1
         if not torch.cuda.is_available():
             try:
                 run.main(flags)

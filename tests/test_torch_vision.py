@@ -148,7 +148,8 @@ def test_vision_tower_compute_dtype_and_refusals():
 def test_build_vision_tower_default_geometries(name, features, depths):
     cfg = PortConfig(cv_model_load=name, embedding_dim=64,
                      compute_dtype="bfloat16", stage="end2end")
-    tower = build_vision_tower(cfg, device="meta")
+    tower, state, frozen, width = build_vision_tower(cfg, device="meta")
+    assert state is None and frozen == set() and width == features
     assert tower.net.cfg.depths == depths
     assert tuple(tower.classifier.weight.shape) == (features, 64)
     assert tower.compute_dtype == torch.bfloat16
@@ -167,8 +168,9 @@ def test_build_vision_tower_names_the_later_slice(name):
     from idvs.morec_tpu.models import beit, clip_vit, vit_mae
     cfg = PortConfig(cv_model_load=name, embedding_dim=64,
                      compute_dtype="bfloat16")
-    tower = build_vision_tower(cfg, device="meta")
-    assert tower.compute_dtype == torch.bfloat16
+    tower, state, _, width = build_vision_tower(cfg, device="meta")
+    assert tower.compute_dtype == torch.bfloat16 and state is None
+    assert width == (64 if name == "resnet50" else 768)
     if name == "resnet50":
         assert tower.kind == "resnet" and tower.net.arch == "resnet50"
         assert tuple(tower.net.fc.weight.shape) == (2048, 64)

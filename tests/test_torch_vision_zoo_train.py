@@ -279,7 +279,11 @@ def test_frozen_names_match_jax(name, jax_paths, jax_cfg):
         tower, state, frozen, width = runner.load_encoder(cfg, "meta")
         want = convert.frozen_names(jax_paths(jax_cfg, n,
                                               prefix=("encoder", "net")))
-        assert frozen == want and state is None and width == D
+        assert frozen == want and state is None
+        # the JAX bundle's feature width: the net's pooled width, a
+        # ResNet's embedding_dim
+        assert width == (D if isinstance(jax_cfg, str) else getattr(
+            jax_cfg, "num_features", None) or jax_cfg.hidden_size)
         names = {"encoder." + k for k, _ in tower.named_parameters()}
         assert frozen <= names
         if n == 10_000:
